@@ -19,7 +19,30 @@ Phases, each of which fails the run:
    scale); RTF = audio seconds per second of device time; one forward under
    torch.profiler gives the device time by kernel and the device's idle
    share between the forward's first and last device event;
-5. each kernel's time and its plain version's at the main path's shapes.
+5. each kernel's time and its plain version's at the main path's shapes;
+6. QuartzNet15x5 CTC training at 16 rows x 15 s (``bench_train.py --model
+   quartznet``: SpecAugment 2+2 masks, dither, dropout 0.1, bf16 compute with
+   float32 parameters, AdamW lr 1e-4, random noise audio from numpy seed 0,
+   one fixed text padded to 64 labels): one ``Trainer.fit`` step must make
+   exactly 1 log-mel, 1 ``ctc_alpha`` and 1 ``ctc_beta`` launch (and no
+   separable repeat: training runs PyTorch convolutions, as the JAX package
+   trains through XLA); then ``TRAIN_WARMUP`` warm-up steps and
+   ``TRAIN_TIMED`` steps timed with CUDA events (step ms, audio seconds per
+   second, peak memory), one step under torch.profiler, every loss finite and
+   the loss of the last step below ``1 - LOSS_FALL`` times the first; one
+   train-mode forward with dropout and augmentation off, bf16 on the card
+   against the port's float32 CPU path on rows 0-1, within
+   ``TRAIN_LOSS_BOUND``;
+7. the CTC kernel pair at the training shape against its plain version and
+   against ``F.ctc_loss`` forward + backward (``library_ms``, timed here only:
+   the port never calls it).
+
+Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
+of its bytes (each input read once, each output written once) over 3.35
+TB/s and its operations of each type over the published peak for that type
+(989 TFLOP/s bf16 tensor, 67 TFLOP/s float32), for an H100 SXM at 700 W.
+The log-mel's operations are an FFT-based STFT's, the least the function
+needs, not the dense DFT product the kernel computes.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -37,6 +60,16 @@ import numpy as np
 VOCAB = list("abcdefghijklmnopqrstuvwxyz '")
 BATCH, SECONDS, SAMPLE_RATE = 64, 15.0, 16000
 LOGIT_BOUND = 0.1  # max|bf16 card - f32 CPU| / max|f32 CPU| over valid frames
+TRAIN_BATCH, TRAIN_SECONDS, TRAIN_TEXT = 16, 15.0, "the quick brown fox jumps over the lazy dog"
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+# the last of the 1 + TRAIN_WARMUP + TRAIN_TIMED = 14 losses must be below (1 - LOSS_FALL) x the first; on the
+# port's float32 CPU path, the same configuration at 4 x 3 s and 2 x 6 s ended at 0.38 and 0.25 of the first loss
+LOSS_FALL = 0.25
+# |bf16 card - f32 CPU| / |f32 CPU| of the train-mode loss on rows 0-1: bf16 activations through 54 conv
+# layers with batch statistics; the serving logits deviate by 0.004 of their scale, the loss sums 751 frames
+TRAIN_LOSS_BOUND = 0.05
+HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
+BF16_FLOP_PER_MS, F32_FLOP_PER_MS = 989e9, 67e9  # dense tensor-core bf16, float32 outside the tensor cores
 
 
 def emit(obj) -> None:
@@ -87,9 +120,23 @@ def paired_ms(kernel, plain, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+#: device-time categories of a profile, by the first pattern a kernel's name contains
+PROFILE_CATEGORIES = (
+    ("ctc_recursion", ("ctc_alpha_kernel", "ctc_beta_kernel")),
+    ("log_mel", ("log_mel_kernel",)),
+    ("separable_repeat", ("separable_repeat_kernel",)),
+    ("depthwise_conv", ("conv_depthwise",)),
+    ("gemm_and_dense_conv", ("gemm", "nvjet", "cutlass", "cudnn", "xmma", "implicit_convolve")),
+    ("optimizer", ("multi_tensor", "foreach", "adam")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies_and_casts", ("Memcpy", "Memset", "copy", "CatArray")),
+)
+
+
 def device_profile(fn) -> dict:
     """Device activity of one call of ``fn`` under torch.profiler: busy and idle
-    time between its first and last device event, and the top kernels by time."""
+    time between its first and last device event, the top kernels by time, and
+    the time per category of ``PROFILE_CATEGORIES`` (the rest is "elementwise_and_other")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -107,18 +154,69 @@ def device_profile(fn) -> dict:
         total, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    categories: dict = {}
+    for name, (total, _) in by_name.items():
+        category = next((c for c, patterns in PROFILE_CATEGORIES if any(p in name for p in patterns)),
+                        "elementwise_and_other")
+        categories[category] = categories.get(category, 0.0) + total / 1e3
     return {
         "device_events": len(events),
         "span_ms": span_us / 1e3,
         "busy_ms": busy_us / 1e3,
         "idle_share": max(0.0, 1.0 - busy_us / span_us),
         "top": [{"name": n[:80], "ms": t / 1e3, "calls": c} for n, (t, c) in top],
+        "categories_ms": dict(sorted(categories.items(), key=lambda kv: -kv[1])),
     }
+
+
+def bound(n_bytes: float, bf16_flop: float = 0.0, f32_flop: float = 0.0) -> dict:
+    """The least time for the work: the largest of bytes / memory rate and operations / peak rate of
+    their type (the tensor cores and the float32 pipes run at the same time, so their times do not add)."""
+    by_bytes = n_bytes / HBM_BYTES_PER_MS
+    by_ops = max(bf16_flop / BF16_FLOP_PER_MS, f32_flop / F32_FLOP_PER_MS)
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def log_mel_bound(batch: int, samples: int, n_fft=512, hop=160, n_mels=64) -> dict:
+    """Audio in, log-mel out, DFT basis and filterbank in. The operations are those of an FFT-based
+    STFT per frame, not the dense (n_fft x 2*n_freqs) DFT product the kernel and the TPU kernel
+    compute: the window, a real FFT at 2.5 n_fft log2 n_fft, the power, the mel product over the
+    filterbank's non-zeros, and the guarded log."""
+    from thunder_tpu_torch.ops.stft import mel_filterbank
+
+    n_freqs, frames = n_fft // 2 + 1, batch * (samples // hop + 1)
+    nonzeros = int(np.count_nonzero(mel_filterbank(n_freqs, n_mels, SAMPLE_RATE)))
+    n_bytes = 4 * (batch * samples + frames * n_mels + n_fft * 2 * n_freqs + n_freqs * n_mels)
+    per_frame = n_fft + 2.5 * n_fft * np.log2(n_fft) + 3 * n_freqs + 2 * nonzeros + 2 * n_mels
+    return bound(n_bytes, f32_flop=frames * per_frame)
+
+
+def separable_bound(batch, t_in, t_out, c_in, c_out, k) -> dict:
+    """bf16 input, taps and weights in, bf16 output out, f32 bias; depthwise in f32, pointwise on bf16 tensor cores."""
+    n_bytes = 2 * (batch * t_in * c_in + k * c_in + c_in * c_out + batch * t_out * c_out) + 4 * c_out
+    return {"bytes": n_bytes, "f32_flop": 2.0 * batch * t_out * c_in * k, "bf16_flop": 2.0 * batch * t_out * c_in * c_out}
+
+
+def ctc_bound(t: int, b: int, s: int) -> dict:
+    """Forward: lp in, alpha out; backward: lp and alpha in, dlp out (float32), plus the (B, S)
+    skip mask and the (B,) lengths, log-likelihoods and cotangents. About 40 float32 operations
+    per state and frame over both directions (3 + 4 exp, 2 log, the maxima and sums)."""
+    plane = 4 * t * b * s
+    return bound(5 * plane + 2 * b * s + 16 * b, f32_flop=40.0 * t * b * s)
 
 
 def gpu_line() -> str:
     cmd = ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+class Failed(Exception):
+    """A phase failed; the run prints why and exits 1."""
+
+
+def check(ok: bool, message: str) -> None:
+    if not ok:
+        raise Failed(message)
 
 
 def main() -> int:
@@ -127,6 +225,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device", file=sys.stderr)
         return 1
+    try:
+        return run()
+    except Failed as failure:
+        print(f"chip_smoke: {failure}", file=sys.stderr)
+        return 1
+
+
+def run() -> int:
+    import torch
 
     from thunder_tpu_torch.audio import FilterbankFeatures
     from thunder_tpu_torch.engine import InferenceEngine
@@ -154,9 +261,7 @@ def main() -> int:
     for r in checks:
         emit({"kernel_check": r})
     bad = [r["name"] for r in checks if not r["ok"]]
-    if bad:
-        print(f"chip_smoke: kernel checks failed: {bad}", file=sys.stderr)
-        return 1
+    check(not bad, f"kernel checks failed: {bad}")
 
     # ---- main path: QuartzNet15x5 greedy serving at B=64 x 15 s
     tt = BatchTextTransformer(VOCAB)
@@ -181,19 +286,15 @@ def main() -> int:
     texts = engine.predict(audio, lengths)
     launches = {"log_mel": fused_log_mel.launches, "separable_repeat": fused_separable_repeat.launches}
     emit({"phase": "launches_per_forward", **launches})
-    if launches != {"log_mel": 1, "separable_repeat": 77}:
-        print(f"chip_smoke: expected 1 log-mel and 77 separable launches, got {launches}", file=sys.stderr)
-        return 1
-    if len(texts) != BATCH or not all(isinstance(t, str) and set(t) <= set(VOCAB) for t in texts):
-        print(f"chip_smoke: transcripts outside the vocabulary: {texts[:4]}", file=sys.stderr)
-        return 1
+    check(launches == {"log_mel": 1, "separable_repeat": 77}, f"expected 1 log-mel and 77 separable launches, got {launches}")
+    check(len(texts) == BATCH and all(isinstance(t, str) and set(t) <= set(VOCAB) for t in texts),
+          f"transcripts outside the vocabulary: {texts[:4]}")
 
     audio_d = torch.as_tensor(audio, device="cuda")
     lengths_d = torch.as_tensor(lengths, device="cuda")
     logits, preds, out_lengths = engine.infer(audio_d, lengths_d)
-    if not bool(torch.isfinite(logits).all()) or logits.shape != (BATCH, 751, len(VOCAB) + 1):
-        print(f"chip_smoke: logits not finite or of shape {tuple(logits.shape)}", file=sys.stderr)
-        return 1
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (BATCH, 751, len(VOCAB) + 1),
+          f"logits not finite or of shape {tuple(logits.shape)}")
 
     iters = 10
     forward_ms = cuda_ms(lambda: engine.infer(audio_d, lengths_d), iters)
@@ -211,30 +312,25 @@ def main() -> int:
     t0 = time.perf_counter()
     ref_logits, ref_lengths = InferenceEngine(module.to("cpu"))(audio[:2], lengths[:2])
     cpu_seconds = time.perf_counter() - t0
-    if not torch.equal(ref_lengths, out_lengths[:2].cpu()):
-        print(f"chip_smoke: lengths differ from the CPU path: {ref_lengths} vs {out_lengths[:2]}", file=sys.stderr)
-        return 1
+    check(torch.equal(ref_lengths, out_lengths[:2].cpu()), f"lengths differ from the CPU path: {ref_lengths} vs {out_lengths[:2]}")
     got = logits[:2].float().cpu()
     valid = torch.arange(got.shape[1])[None, :] < ref_lengths[:, None]
     rel = ((got - ref_logits).abs()[valid].max() / ref_logits.abs()[valid].max()).item()
     agree = (got.argmax(-1) == ref_logits.argmax(-1))[valid].float().mean().item()
     emit({"phase": "vs_cpu_f32", "rows": 2, "max_rel_dev": rel, "bound": LOGIT_BOUND, "argmax_agreement": agree,
           "cpu_seconds": cpu_seconds})
-    if not rel < LOGIT_BOUND:
-        print(f"chip_smoke: bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}", file=sys.stderr)
-        return 1
+    check(rel < LOGIT_BOUND, f"bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
 
     # ---- each kernel against its plain version at the main path's shapes
     kernels = []
     k_ms, p_ms = paired_ms(lambda: fused_log_mel(audio_d), lambda: log_mel_reference(audio_d), 20)
     err = (fused_log_mel(audio_d) - log_mel_reference(audio_d)).abs().max().item()
     log_mel_tol = KERNEL_CHECKS["frontend_log_mel"][1]
-    if not err <= log_mel_tol:
-        print(f"chip_smoke: log-mel at the main path's shape off by {err} > {log_mel_tol}", file=sys.stderr)
-        return 1
+    check(err <= log_mel_tol, f"log-mel at the main path's shape off by {err} > {log_mel_tol}")
     kernels.append({"name": "log_mel", "route": "cuda", "source": "thunder_tpu_torch/csrc/log_mel.cu",
                     "replaces": "thunder_tpu/kernels/frontend_pallas.py:105", "launches": launches["log_mel"],
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms})
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **log_mel_bound(BATCH, samples),
+                    "library_ms": None, "library": "none (no single PyTorch call computes the log-mel)"})
 
     feats, feat_lengths = engine.frontend(audio_d, lengths_d)
     shapes = {}
@@ -247,6 +343,7 @@ def main() -> int:
             c_in = rp.pw.shape[1]
             t_in = -(-t_in // rp.stride)
     total_k = total_p = max_err = max_ulp = 0.0
+    work = {"bytes": 0.0, "f32_flop": 0.0, "bf16_flop": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for (t, c, co, k, s, d), (rp, count) in shapes.items():
         x = torch.randn((BATCH, t, c), device="cuda", generator=gen).to(torch.bfloat16)
@@ -258,24 +355,159 @@ def main() -> int:
         e_abs = (got.float() - want.float()).abs().max().item()
         e_ulp = ulp_bf16_error(got, want)
         km, pm = paired_ms(lambda: fused_separable_repeat(*args, **kw), lambda: separable_repeat_reference(*args, **kw), 10)
+        shape_work = separable_bound(BATCH, t, t_out, c, co, k)
         emit({"separable_shape": {"t_in": t, "c_in": c, "c_out": co, "k": k, "stride": s, "dilation": d,
-                                  "count": count, "ms": km, "plain_ms": pm, "max_abs_err": e_abs, "ulp": e_ulp}})
+                                  "count": count, "ms": km, "plain_ms": pm, "max_abs_err": e_abs, "ulp": e_ulp,
+                                  **bound(shape_work["bytes"], shape_work["bf16_flop"], shape_work["f32_flop"])}})
         total_k, total_p = total_k + count * km, total_p + count * pm
         max_err, max_ulp = max(max_err, e_abs), max(max_ulp, e_ulp)
-        if e_ulp > 8.0:
-            print(f"chip_smoke: separable repeat at {(t, c, co, k, s, d)} off by {e_ulp} bf16 ULP", file=sys.stderr)
-            return 1
+        for key in work:
+            work[key] += count * shape_work[key]
+        check(e_ulp <= 8.0, f"separable repeat at {(t, c, co, k, s, d)} off by {e_ulp} bf16 ULP")
     kernels.append({"name": "separable_repeat", "route": "cuda", "source": "thunder_tpu_torch/csrc/separable_repeat.cu",
                     "replaces": "thunder_tpu/kernels/separable_conv.py:56",
                     "also_replaces": "thunder_tpu/kernels/repeat_tm.py:162",
                     "launches": launches["separable_repeat"], "max_abs_err": max_err, "max_ulp": max_ulp,
-                    "ms": total_k, "plain_ms": total_p, "ms_is": "sum over the 77 launches of one forward"})
+                    "ms": total_k, "plain_ms": total_p, "ms_is": "sum over the 77 launches of one forward",
+                    **bound(work["bytes"], work["bf16_flop"], work["f32_flop"]), "library_ms": None,
+                    "library": "none (no single PyTorch call computes a separable repeat)"})
+
+    # ---- QuartzNet15x5 training, then the CTC kernel pair at its shape
+    kernels.append(training_phase(card, KERNEL_CHECKS["ctc_recursion"][1]))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def training_phase(card: str, ctc_tol: float) -> dict:
+    """Train QuartzNet15x5 at TRAIN_BATCH x TRAIN_SECONDS on the card (phases 6 and 7 of the
+    module docstring); returns the CTC kernel pair's entry of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.kernels.ctc import alpha_reference, beta_reference, ctc_alpha, ctc_beta, ll_from_alpha
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.ops.ctc import extended_emissions
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import Trainer, TrainStep, _encode_targets
+
+    tt = BatchTextTransformer(VOCAB)
+    bf16 = torch.bfloat16
+
+    def create(device, dtype, train_config: bool) -> CTCModule:
+        """The same weights (generator seed 0) in either configuration."""
+        frontend = FilterbankFeatures(num_time_masks=2, num_freq_masks=2) if train_config else FilterbankFeatures(dither=0.0)
+        encoder = QuartznetEncoder(repeat_blocks=3, dropout=0.1 if train_config else 0.0, dtype=dtype)
+        return CTCModule.create(torch.Generator().manual_seed(0), frontend, encoder, Conv1dDecoder(29, dtype=dtype), tt,
+                                device=device)
+
+    samples = int(TRAIN_SECONDS * SAMPLE_RATE)
+    audio = (np.random.default_rng(0).standard_normal((TRAIN_BATCH, samples)) * 0.1).astype(np.float32)
+    lengths = np.full((TRAIN_BATCH,), samples, dtype=np.int32)
+    texts = [TRAIN_TEXT] * TRAIN_BATCH
+    targets, target_lengths = _encode_targets(tt, texts)
+    check(targets.shape == (TRAIN_BATCH, 64), f"targets of shape {targets.shape}, expected ({TRAIN_BATCH}, 64)")
+
+    # one step through the user's entry point: exactly one launch of each kernel of the path
+    module = create("cuda", bf16, True)
+    Trainer(seed=0, device="cuda").fit(module, [(audio, lengths, texts)])  # builds and warms up
+    reset_launch_counts()
+    trainer = Trainer(seed=0, log_every=1, device="cuda")
+    trainer.fit(module, [(audio, lengths, texts)])
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    emit({"phase": "train_launches_per_step", **counts})
+    check(counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1},
+          f"one train step must launch 1 log-mel, 1 ctc_alpha and 1 ctc_beta, got {counts}")
+    check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"Trainer.fit loss {trainer.logs[0]}")
+
+    # warm-up and timed steps on one fixed batch, with one optimizer and one generator
+    batch = (torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda"),
+             torch.as_tensor(targets, device="cuda"), torch.as_tensor(target_lengths, device="cuda"))
+    model = module.model
+    step = TrainStep(model, adamw(model.parameters(), learning_rate=1e-4), module.blank_idx)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    losses = [step(*batch, generator) for _ in range(1 + TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_TIMED):
+        losses.append(step(*batch, generator))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    step_ms = start.elapsed_time(end) / TRAIN_TIMED
+    losses = [loss.item() for loss in losses]
+    emit({"phase": "training", "batch": TRAIN_BATCH, "seconds": TRAIN_SECONDS, "step_ms": step_ms,
+          "step_ms_host_clock": host_ms, "audio_s_per_s": TRAIN_BATCH * TRAIN_SECONDS / (step_ms / 1e3),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses, "card": card})
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < (1 - LOSS_FALL) * losses[0],
+          f"loss did not fall by {LOSS_FALL:.0%} over {len(losses)} steps: {losses[0]} -> {losses[-1]}")
+    emit({"phase": "train_profile", **device_profile(lambda: step(*batch, generator))})
+
+    # bf16 on the card against float32 on the CPU: one train-mode forward, dropout and augmentation off
+    with torch.no_grad():
+        card_loss, _ = create("cuda", bf16, False).loss(audio[:2], lengths[:2], targets[:2], target_lengths[:2],
+                                                        train=True)
+        t0 = time.perf_counter()
+        cpu_loss, _ = create("cpu", torch.float32, False).loss(audio[:2], lengths[:2], targets[:2],
+                                                               target_lengths[:2], train=True)
+    rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    emit({"phase": "train_vs_cpu_f32", "rows": 2, "card_loss": card_loss.item(), "cpu_loss": cpu_loss.item(),
+          "rel_dev": rel, "bound": TRAIN_LOSS_BOUND, "cpu_seconds": time.perf_counter() - t0})
+    check(rel < TRAIN_LOSS_BOUND, f"bf16 card loss vs f32 CPU loss off by {rel} >= {TRAIN_LOSS_BOUND}")
+
+    # the CTC pair at the training shape: kernel, plain version and F.ctc_loss on the same inputs
+    logits = torch.randn((TRAIN_BATCH, 751, len(VOCAB) + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+    log_probs = torch.log_softmax(logits, dim=-1)
+    lens = torch.full((TRAIN_BATCH,), 751, dtype=torch.int32, device="cuda")
+    lp_z, skip_ok = extended_emissions(log_probs, batch[2], blank=0)
+    tl = batch[3]
+    ghat = 1.0 / tl.float()
+
+    def kernel_pair():
+        alpha = ctc_alpha(lp_z, skip_ok, lens, tl)
+        return alpha, ctc_beta(lp_z, alpha, skip_ok, lens, tl, ll_from_alpha(alpha, lens, tl), ghat)
+
+    def plain_pair():
+        alpha = alpha_reference(lp_z, skip_ok, lens, tl)
+        return alpha, beta_reference(lp_z, alpha, skip_ok, lens, tl, ll_from_alpha(alpha, lens, tl), ghat)
+
+    lp_t = log_probs.detach().transpose(0, 1).contiguous().requires_grad_(True)
+
+    def library():
+        loss = F.ctc_loss(lp_t, batch[2], lens, tl, blank=0, reduction="sum", zero_infinity=True)
+        return torch.autograd.grad(loss, lp_t)
+
+    (a_k, d_k), (a_p, d_p) = kernel_pair(), plain_pair()
+    ll_k, ll_p = ll_from_alpha(a_k, lens, tl), ll_from_alpha(a_p, lens, tl)
+    loss_delta = ((ll_k - ll_p) / tl).abs().sum().item()
+    grad_rel = ((d_k - d_p).abs().max() / d_p.abs().max()).item()
+    err = max((ll_k - ll_p).abs().max().item(), (d_k - d_p).abs().max().item())
+    k_ms, p_ms = paired_ms(kernel_pair, plain_pair, 3)
+    lib_ms = cuda_ms(library, 20)
+    emit({"phase": "ctc_training_shape", "T": 751, "B": TRAIN_BATCH, "S": int(lp_z.shape[2]),
+          "kernel_ms": k_ms, "alpha_ms": cuda_ms(lambda: ctc_alpha(lp_z, skip_ok, lens, tl), 20),
+          "plain_ms": p_ms, "library_ms": lib_ms, "loss_delta": loss_delta, "grad_rel_delta": grad_rel})
+    check(max(loss_delta, grad_rel) <= ctc_tol,
+          f"CTC pair at the training shape off by {max(loss_delta, grad_rel)} > {ctc_tol}")
+    return {"name": "ctc_recursion", "route": "cuda", "source": "thunder_tpu_torch/csrc/ctc_recursion.cu",
+            "replaces": "thunder_tpu/kernels/ctc_pallas.py:264", "launches": counts["ctc_alpha"] + counts["ctc_beta"],
+            "launches_is": "ctc_alpha + ctc_beta in one train step", "max_abs_err": err, "ms": k_ms,
+            "ms_is": f"ctc_alpha + ctc_beta at T=751, B={TRAIN_BATCH}, S={lp_z.shape[2]}", "plain_ms": p_ms,
+            **ctc_bound(751, TRAIN_BATCH, int(lp_z.shape[2])), "library_ms": lib_ms,
+            "library": "F.ctc_loss forward + backward, reduction sum, zero_infinity"}
 
 
 if __name__ == "__main__":

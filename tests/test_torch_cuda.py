@@ -1,8 +1,11 @@
 """The port's CUDA kernels on the card (marker ``cuda``; skipped without a CUDA device).
 
 Each kernel is held against its plain PyTorch version on the same device, with
-the check names and tolerances of ``thunder_tpu_torch.kernels.selftest``, and
-a small QuartzNet runs through the engine on the card and on the CPU.
+the check names and tolerances of ``thunder_tpu_torch.kernels.selftest``; a
+small QuartzNet runs through the engine on the card and on the CPU; the CTC
+kernel pair is held to its plain loops on the edge case and at the training
+shape; and one ``Trainer.fit`` step on the card launches each kernel of the
+training path once.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -82,3 +85,59 @@ def test_log_mel_other_configs_on_card(cuda, time, win, n_mels):
     want = log_mel_reference(audio, win_length=win, n_mels=n_mels)
     assert got.shape == want.shape == (3, time // 160 + 1, n_mels)
     assert (got - want).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("case", ["edge", "training_shape"])
+def test_ctc_kernels_match_plain_versions_on_card(cuda, case):
+    """Forward (alpha, ll) and gradient of the kernel pair against the plain loops on the card."""
+    from thunder_tpu_torch.kernels.ctc import alpha_reference, beta_reference, ctc_alpha, ctc_beta, ll_from_alpha
+    from thunder_tpu_torch.kernels.selftest import ctc_edge_case, ctc_training_case
+    from thunder_tpu_torch.ops.ctc import extended_emissions
+
+    if case == "edge":
+        logits, targets, lens, tl = ctc_edge_case("cuda")
+    else:  # QuartzNet15x5 training: T = 751, V = 29, targets padded to 64 labels (S = 129)
+        logits, targets, lens, tl = ctc_training_case(12, 16, 751, 29, 64, "cuda")
+    lp_z, skip_ok = extended_emissions(torch.log_softmax(logits, dim=-1), targets, blank=0)
+    alpha = ctc_alpha(lp_z, skip_ok, lens, tl)
+    want_alpha = alpha_reference(lp_z, skip_ok, lens, tl)
+    ll, want_ll = ll_from_alpha(alpha, lens, tl), ll_from_alpha(want_alpha, lens, tl)
+    torch.testing.assert_close(ll, want_ll, rtol=1e-6, atol=0)
+    ghat = torch.where(ll < -1e29, 0.0, 1.0 / tl.clamp_min(1).float())  # zero_infinity
+    dlp = ctc_beta(lp_z, alpha, skip_ok, lens, tl, ll, ghat)
+    want = beta_reference(lp_z, want_alpha, skip_ok, lens, tl, want_ll, ghat)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dlp).all())
+    torch.testing.assert_close(dlp, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    if case == "edge":
+        assert (ll < -1e29).tolist() == [False] * 5 + [True]
+        assert bool((dlp[:, 5] == 0).all())
+
+
+def test_one_train_step_on_card_launches_each_kernel_once(cuda):
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    tokens = list("abcdefghijklmnopqrstuvwxyz '")
+    module = CTCModule.create(
+        torch.Generator().manual_seed(0),
+        FilterbankFeatures(num_time_masks=2, num_freq_masks=2),
+        QuartznetEncoder(repeat=2, filters=(256,), kernel_sizes=(33,), dropout=0.1, dtype=torch.bfloat16),
+        Conv1dDecoder(29, dtype=torch.bfloat16),
+        BatchTextTransformer(tokens),
+        device="cuda",
+    )
+    audio = (np.random.default_rng(0).standard_normal((2, 32000)) * 0.1).astype(np.float32)
+    loader = [(audio, np.array([32000, 20000], np.int32), ["hello world", "the cat"])]
+    reset_launch_counts()
+    trainer = Trainer(device="cuda", fast_dev_run=True)
+    trained = trainer.fit(module, loader)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    assert counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1}
+    assert np.isfinite(trainer.logs[0]["loss/train_loss"])
+    assert trained.device.type == "cuda"

@@ -64,6 +64,7 @@ def pair():
         QuartznetEncoder(**SMALL),
         Conv1dDecoder(len(TOKENS) + 1),
         BatchTextTransformer(TOKENS),
+        device="cpu",
     )
     port.model.load_state_dict(from_flax_variables(jax.tree_util.tree_map(np.asarray, jax_module.variables)))
     return jax_module, port
@@ -155,7 +156,8 @@ def test_engine_rejects_other_encoders_and_f32_on_cuda(pair, monkeypatch):
         def forward(self, x, lengths, train=False):
             return x, lengths
 
-    other = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), Other(), Conv1dDecoder(3))
+    other = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), Other(), Conv1dDecoder(3),
+                             device="cpu")
     with pytest.raises(NotImplementedError):
         InferenceEngine(other)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

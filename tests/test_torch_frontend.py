@@ -64,8 +64,14 @@ def test_filterbank_zero_length_row():
 
 
 def test_filterbank_train_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Train mode is ported now (``tests/test_torch_training.py`` holds it to JAX);
+    what stays refused is drawing its randomness from anything but an explicit generator."""
+    with pytest.raises(ValueError, match="generator"):
         FilterbankFeatures()(torch.zeros(1, 1600), torch.tensor([1600]), train=True)
+    with pytest.raises(ValueError, match="generator"):
+        FilterbankFeatures(dither=0.0, num_time_masks=1)(torch.zeros(1, 1600), torch.tensor([1600]), train=True)
+    with pytest.raises(ValueError, match="no backward"):
+        fused_log_mel(torch.zeros(1, 1600, requires_grad=True))
 
 
 def test_fused_log_mel_refuses_what_it_cannot_run():

@@ -54,14 +54,14 @@ def test_kernel_modules_import_without_nvcc_or_triton():
 
 def test_sources_are_in_the_package():
     names = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
-    assert names == {"log_mel.cu", "separable_repeat.cu"}
+    assert names == {"log_mel.cu", "separable_repeat.cu", "ctc_recursion.cu"}
     assert _build.library_path().parent == _build.BUILD_DIR
-    for src in _build.CSRC_DIR.glob("*.cu"):
-        text = src.read_text()
+    sources = {src.name: src.read_text() for src in _build.CSRC_DIR.glob("*.cu")}
+    for text in sources.values():
         assert "Replaces: thunder_tpu/kernels/" in text and "bounds it on this card" in text
-        for entry in _build.SIGNATURES:
-            if entry.removeprefix("thunder_") + ".cu" == src.name:
-                assert f'extern "C" int {entry}(' in text
+    # every entry point the loader binds is defined in exactly one source
+    for entry in _build.SIGNATURES:
+        assert sum(f'extern "C" int {entry}(' in text for text in sources.values()) == 1, entry
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
@@ -74,7 +74,8 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     enc = dict(filters=(64,), kernel_sizes=(5,), repeat=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CTCModule.create(torch.Generator(), FilterbankFeatures(), QuartznetEncoder(**enc), Conv1dDecoder(3), device="cuda")
-    module = CTCModule.create(torch.Generator(), FilterbankFeatures(), QuartznetEncoder(**enc), Conv1dDecoder(3))
+    module = CTCModule.create(torch.Generator(), FilterbankFeatures(), QuartznetEncoder(**enc), Conv1dDecoder(3),
+                              device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(module, device="cuda")
 

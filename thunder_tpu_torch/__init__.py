@@ -5,7 +5,7 @@ the numerical reference. Layout, names and contracts are kept:
 
 - channels-last ``(batch, time, channels)`` activations and WIO conv weights;
 - ``(tensor, lengths)`` pairs with zero-beyond-length masks;
-- the hot kernels of the serving path are hand-written for ``sm_90a``
+- the hot kernels of the serving and training paths are hand-written for ``sm_90a``
   (``thunder_tpu_torch/csrc``); each wrapper runs its plain PyTorch version
   only for tensors that live on the CPU.
 
@@ -22,6 +22,7 @@ _LAZY = {
     "QuartznetEncoder": "thunder_tpu_torch.models",
     "Conv1dDecoder": "thunder_tpu_torch.models",
     "BatchTextTransformer": "thunder_tpu_torch.text",
+    "Trainer": "thunder_tpu_torch.training.trainer",
 }
 
 

@@ -1,9 +1,14 @@
 """The QuartzNet/Citrinet mel frontend as a parameter-free ``nn.Module``.
 
-Port of the eval path of ``thunder_tpu/audio/frontend.py::FilterbankFeatures``:
-preemphasis -> power spectrum -> mel -> log (one launch of the fused log-mel
-kernel on the card) -> masked per-feature normalization over the valid
-frames. Output is channels-last ``(batch, frames, nfilt)`` float32.
+Port of ``thunder_tpu/audio/frontend.py::FilterbankFeatures``: dither (train
+only) -> preemphasis -> power spectrum -> mel -> log (one launch of the fused
+log-mel kernel on the card) -> masked per-feature normalization over the
+valid frames -> SpecCutout or SpecAugment (train only). Output is
+channels-last ``(batch, frames, nfilt)`` float32.
+
+Train mode draws the dither noise and the masks' uniforms from the
+``generator`` it is given, on the audio's device. The log-mel kernel has no
+backward, so nothing upstream of the features takes a gradient.
 """
 
 from __future__ import annotations
@@ -15,9 +20,16 @@ from torch import nn
 
 from thunder_tpu_torch.kernels.frontend import fused_log_mel
 from thunder_tpu_torch.ops.masking import lengths_to_mask, normalize_tensor
+from thunder_tpu_torch.ops.specaugment import spec_augment, spec_cutout
 from thunder_tpu_torch.ops.stft import next_pow2, power_spectrum_lengths
 
 __all__ = ["FilterbankFeatures"]
+
+
+def _required(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("FilterbankFeatures(train=True) draws from an explicit torch.Generator; pass generator=")
+    return generator
 
 
 class FilterbankFeatures(nn.Module):
@@ -31,9 +43,17 @@ class FilterbankFeatures(nn.Module):
         n_fft: Optional[int] = None,
         preemph: float = 0.97,
         nfilt: int = 64,
+        dither: float = 1e-5,
+        num_cutout_masks: int = 0,
+        num_time_masks: int = 0,
+        num_freq_masks: int = 0,
+        mask_time_width: int = 50,
+        mask_freq_width: int = 20,
         div_guard: float = 1e-5,
     ):
         super().__init__()
+        if num_cutout_masks > 0 and (num_freq_masks + num_time_masks > 0):
+            raise ValueError("Cutout and SpecAugment can't be used at the same time.")
         if n_window_size <= 0 or n_window_stride <= 0:
             raise ValueError(
                 "FilterbankFeatures got an invalid value for either n_window_size "
@@ -45,6 +65,12 @@ class FilterbankFeatures(nn.Module):
         self.n_fft = n_fft
         self.preemph = preemph
         self.nfilt = nfilt
+        self.dither = dither
+        self.num_cutout_masks = num_cutout_masks
+        self.num_time_masks = num_time_masks
+        self.num_freq_masks = num_freq_masks
+        self.mask_time_width = mask_time_width
+        self.mask_freq_width = mask_freq_width
         self.div_guard = div_guard
 
     @property
@@ -54,14 +80,14 @@ class FilterbankFeatures(nn.Module):
     def output_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
         return power_spectrum_lengths(lengths, self.n_window_stride)
 
-    def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False):
-        if train:
-            raise NotImplementedError(
-                "FilterbankFeatures(train=True): dither and SpecAugment wait for ROADMAP item A6 (module.py + specaugment)"
-            )
+    def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = audio.float()
+        if train and self.dither > 0:
+            x = x + self.dither * torch.randn(x.shape, generator=_required(generator), device=x.device)
         out_lengths = self.output_lengths(lengths)
         mel = fused_log_mel(
-            audio.float().contiguous(),
+            x.contiguous(),
             sample_rate=self.sample_rate,
             n_fft=self.fft_size,
             hop_length=self.n_window_stride,
@@ -70,4 +96,13 @@ class FilterbankFeatures(nn.Module):
             preemph=self.preemph,
         )
         mask = lengths_to_mask(out_lengths, mel.shape[1])[:, :, None]
-        return normalize_tensor(mel, mask, div_guard=self.div_guard, axis=1), out_lengths
+        feats = normalize_tensor(mel, mask, div_guard=self.div_guard, axis=1)
+        if train and self.num_cutout_masks > 0:
+            draws = torch.rand(4 * self.num_cutout_masks, generator=_required(generator), device=feats.device)
+            feats = spec_cutout(feats, draws, self.num_cutout_masks, self.mask_time_width, self.mask_freq_width)
+        n_augment = self.num_time_masks + self.num_freq_masks
+        if train and n_augment > 0:
+            draws = torch.rand(2 * n_augment, generator=_required(generator), device=feats.device)
+            feats = spec_augment(feats, draws, self.num_time_masks, self.num_freq_masks, self.mask_time_width,
+                                 self.mask_freq_width)
+        return feats, out_lengths

@@ -34,6 +34,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "thunder_log_mel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "thunder_separable_repeat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "thunder_ctc_alpha": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "thunder_ctc_beta": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -57,22 +59,23 @@ def _sources():
     return sources
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra_flags]).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libthunder_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library of the same hash exists; return its path."""
-    out = library_path()
+def build(extra_flags: tuple[str, ...] = ()) -> Path:
+    """Compile the sources (with ``extra_flags`` after ``NVCC_FLAGS``) unless a
+    library of the same hash exists; return its path."""
+    out = library_path(extra_flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, _sources())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -81,12 +84,18 @@ def build() -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def load(extra_flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
+    """The loaded kernel library, built on first call.
+
+    ``extra_flags`` builds the library with those nvcc flags added and loads it
+    in place of the current one, so that every wrapper launches from it until
+    the next such call; ``()`` returns to the default build. Only measurements
+    (``ctc_fast_math``) pass it.
+    """
     global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if _lib is None or extra_flags is not None:
+            lib = ctypes.CDLL(str(build(extra_flags or ())))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -8,7 +8,9 @@ mel projection and ``log(x + 2**-24)`` in one pass, so neither the frame
 tensor nor the power spectrum is written to device memory.
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
-(:func:`log_mel_reference`) only for a CPU tensor.
+(:func:`log_mel_reference`) only for a CPU tensor. Neither has a backward,
+as the TPU kernel has none: audio that requires a gradient raises, so that a
+gradient is never cut silently.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ def fused_log_mel(
     """``(batch, time)`` float32 audio -> ``(batch, time // hop + 1, n_mels)`` float32 log-mel."""
     if audio.ndim != 2 or audio.dtype != torch.float32:
         raise ValueError(f"fused_log_mel takes (batch, time) float32 audio, got {tuple(audio.shape)} {audio.dtype}")
+    if audio.requires_grad:
+        raise ValueError("fused_log_mel has no backward; pass audio that does not require a gradient")
     if audio.device.type == "cpu":
         return log_mel_reference(audio, sample_rate, n_fft, hop_length, win_length, n_mels, preemph)
     if audio.device.type != "cuda":

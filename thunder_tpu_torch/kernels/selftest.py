@@ -3,7 +3,12 @@
 Port of ``thunder_tpu/kernels/selftest.py`` for the kernels this package has,
 with its check names and tolerances: ``frontend_log_mel`` (2e-3 absolute,
 log-mel units), ``separable_conv`` and ``repeat_tm`` (8 bf16 ULP at the
-reference's maximum magnitude). ``separable_conv_stem`` and
+reference's maximum magnitude), ``ctc_recursion`` (0.01: absolute loss delta
+or gradient delta relative to the largest gradient, against the plain time
+loop). ``ctc_edge`` holds the CTC kernels to the JAX package's CPU limits on
+its edge case (a repeated label, an empty target, T = 61) plus one impossible
+alignment, which must give ``+inf`` on both routes and an exactly zero
+gradient. ``separable_conv_stem`` and
 ``separable_conv_tail`` add QuartzNet's strided stem and dilated tail, which
 the TPU kernels did not take; ``repeat_tm`` runs ragged lengths and fails
 unless every row beyond a length is exactly zero.
@@ -19,13 +24,13 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from thunder_tpu_torch.kernels.ctc import ctc_ll, ctc_ll_reference, extended_emissions, scores_from_ll
 from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
 from thunder_tpu_torch.kernels.separable_conv import (
     fused_separable_repeat,
     output_length,
     separable_repeat_reference,
 )
-from thunder_tpu_torch.ops.masking import lengths_to_mask
 
 __all__ = ["run_selftests", "KERNEL_CHECKS", "ulp_bf16_error", "exact_float32"]
 
@@ -86,13 +91,78 @@ def _separable_check(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False):
         if got.shape != (b, output_length(t, k, stride, dilation), co):
             return {"max_err": float("inf"), "max_abs_err": float("inf"), "error": f"shape {tuple(got.shape)}"}
         result = {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
-        beyond = ~lengths_to_mask(case["out_lengths"], got.shape[1])
+        beyond = torch.arange(got.shape[1], device=got.device)[None, :] >= case["out_lengths"][:, None]
         if bool((got[beyond] != 0).any()):
             result["max_err"] = float("inf")
             result["error"] = "nonzero output beyond out_lengths"
         return result
 
     return check
+
+
+def ctc_training_case(seed, b, t, v, l, device):
+    """The ``ctc_recursion`` inputs of the JAX selftest: logits, target lengths, targets, logit lengths."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((b, t, v)).astype(np.float32)
+    tl = rng.integers(10, l + 1, (b,))
+    targets = rng.integers(1, v, (b, l))
+    lens = rng.integers(t // 2, t + 1, (b,))
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+    return as_t(logits, torch.float32), as_t(targets, torch.int32), as_t(lens, torch.int32), as_t(tl, torch.int32)
+
+
+def ctc_edge_case(device):
+    """``tests/test_ctc_pallas.py``'s case (B = 5, T = 61, V = 12, L = 9: a
+    repeated label, an empty target, lengths 2 and 19) plus a sixth row, row 4
+    again with 9 frames for its 9 labels and one repeat: an impossible alignment."""
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((5, 61, 12)).astype(np.float32)
+    targets = rng.integers(1, 12, (5, 9))
+    targets[0, 1] = targets[0, 0]
+    logits = np.concatenate([logits, logits[4:]])
+    targets = np.concatenate([targets, targets[4:]])
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+    return (as_t(logits, torch.float32), as_t(targets, torch.int32), as_t([61, 40, 30, 2, 19, 9], torch.int32),
+            as_t([9, 5, 0, 1, 9, 9], torch.int32))
+
+
+def _ctc_value_and_grad(recursion, logits, targets, lens, tl, mean=False):
+    """Per-sample losses, and the gradient of ``sum(zero_inf(loss) / max(tl, 1))``
+    (or of its mean over the batch, as ``tests/test_ctc_pallas.py`` takes it) in the logits."""
+    x = logits.detach().clone().requires_grad_(True)
+    lp_z, skip_ok = extended_emissions(torch.log_softmax(x, dim=-1), targets, blank=0)
+    losses = scores_from_ll(recursion(lp_z, skip_ok, lens, tl))
+    total = (torch.where(torch.isinf(losses), 0.0, losses) / tl.clamp_min(1)).sum()
+    total = total / len(tl) if mean else total
+    (grad,) = torch.autograd.grad(total, x)
+    return losses.detach(), total.detach(), grad
+
+
+def _check_ctc_recursion(device) -> dict:
+    case = ctc_training_case(11, 16, 751, 29, 43, device)
+    losses0, total0, g0 = _ctc_value_and_grad(ctc_ll_reference, *case)
+    losses1, total1, g1 = _ctc_value_and_grad(ctc_ll, *case)
+    dl = (total0 - total1).abs().item()
+    dg_abs = (g0 - g1).abs().max().item()
+    dg = dg_abs / max(g0.abs().max().item(), 1e-9)
+    return {"max_err": max(dl, dg), "max_abs_err": max(dl, dg_abs), "loss_delta": dl, "grad_rel_delta": dg}
+
+
+def _check_ctc_edge(device) -> dict:
+    case = ctc_edge_case(device)
+    losses0, _, g0 = _ctc_value_and_grad(ctc_ll_reference, *case, mean=True)
+    losses1, _, g1 = _ctc_value_and_grad(ctc_ll, *case, mean=True)
+    inf0, inf1 = torch.isinf(losses0), torch.isinf(losses1)
+    result = {"impossible": int(inf0.sum().item())}
+    finite = ~inf0
+    rel = ((losses1[finite] - losses0[finite]).abs() / losses0[finite].abs()).max().item()
+    dg = (g0 - g1).abs().max().item()
+    result.update(max_err=max(rel, dg), max_abs_err=max((losses1[finite] - losses0[finite]).abs().max().item(), dg))
+    if not torch.equal(inf0, inf1) or int(inf0.sum()) != 1 or not bool(inf0[-1]):
+        result.update(max_err=float("inf"), error=f"inf-ness differs: plain {inf0.tolist()}, kernel {inf1.tolist()}")
+    elif bool((g1[inf1] != 0).any()) or not bool((g1[~inf1].abs().amax(dim=(1, 2)) > 0).all()):
+        result.update(max_err=float("inf"), error="gradient of the impossible row not exactly 0, or of a possible row 0")
+    return result
 
 
 KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
@@ -103,6 +173,11 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "separable_conv_stem": (_separable_check(13, 4, 768, 64, 256, 33, stride=2), 8.0),
     "separable_conv_tail": (_separable_check(14, 4, 384, 512, 512, 87, dilation=2), 8.0),
     "repeat_tm": (_separable_check(2, 16, 384, 256, 256, 33, ragged=True), 8.0),  # ragged lengths, exact-zero mask
+    # CTC: max(abs loss delta, grad delta / max|grad|) at B=16, T=751, V=29, L=43, the JAX check's limit;
+    # the edge case: max(rel loss delta, abs grad delta), the JAX package's gradient atol, inf on a
+    # structural fault
+    "ctc_recursion": (_check_ctc_recursion, 0.01),
+    "ctc_edge": (_check_ctc_edge, 1e-5),
 }
 
 

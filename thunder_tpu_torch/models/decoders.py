@@ -2,7 +2,9 @@
 
 Port of ``thunder_tpu/models/decoders.py::Conv1dDecoder``. Its input width is
 taken from the encoder when the model is assembled (``CTCModel``), as flax
-infers it on first call. Output: ``(batch, time, num_classes)``.
+infers it on first call. ``dtype`` is the compute type: input, kernel and
+bias are cast to it, as flax's ``nn.Conv(dtype=...)`` casts them. Output:
+``(batch, time, num_classes)`` in ``dtype``.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ __all__ = ["Conv1dDecoder"]
 
 
 class Conv1dDecoder(nn.Module):
-    def __init__(self, num_classes: int, in_features: Optional[int] = None):
+    def __init__(self, num_classes: int, in_features: Optional[int] = None, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
+        self.dtype = dtype
         self.in_features = None
         if in_features is not None:
             self.build(in_features)
@@ -30,4 +33,4 @@ class Conv1dDecoder(nn.Module):
         self.bias = nn.Parameter(torch.zeros(self.num_classes))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return torch.matmul(x, self.kernel[0]) + self.bias
+        return torch.matmul(x.to(self.dtype), self.kernel[0].to(self.dtype)) + self.bias.to(self.dtype)

@@ -5,7 +5,9 @@ Port of ``thunder_tpu/models/quartznet.py``:
 - stem: feat_in -> 256, k=33, stride 2, separable, no residual;
 - body: per-(filters, kernel) residual separable blocks x repeat_blocks,
   then a k=87 dilation-2 512-channel block and a 1x1 1024-channel block;
-- QuartzNet5x5 = repeat_blocks=1, QuartzNet15x5 = repeat_blocks=3.
+- QuartzNet5x5 = repeat_blocks=1, QuartzNet15x5 = repeat_blocks=3;
+- ``dropout`` after each activated repeat and each block in train mode,
+  ``dtype`` the compute type (parameters stay float32).
 
 Layout ``(batch, frames, channels)``; returns ``(encoded, lengths)``.
 """
@@ -33,6 +35,8 @@ class QuartznetEncoder(nn.Module):
         kernel_sizes: Sequence[int] = (33, 39, 51, 63, 75),
         repeat_blocks: int = 1,
         repeat: int = 5,
+        dropout: float = 0.0,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.feat_in = feat_in
@@ -40,6 +44,8 @@ class QuartznetEncoder(nn.Module):
         self.kernel_sizes = tuple(kernel_sizes)
         self.repeat_blocks = repeat_blocks
         self.repeat = repeat
+        self.dropout = dropout
+        self.dtype = dtype
         blocks = [dict(features=256, repeat=1, kernel_size=33, stride=2, residual=False, separable=True)]
         for f, k in zip(self.filters, self.kernel_sizes):
             blocks += [dict(features=f, repeat=repeat, kernel_size=k, separable=True)] * repeat_blocks
@@ -48,10 +54,10 @@ class QuartznetEncoder(nn.Module):
         in_features = feat_in
         self.num_blocks = len(blocks)
         for i, cfg in enumerate(blocks):
-            self.add_module(f"block{i}", EncoderBlock(in_features, **cfg))
+            self.add_module(f"block{i}", EncoderBlock(in_features, **cfg, dropout=dropout, dtype=dtype))
             in_features = cfg["features"]
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
         for i in range(self.num_blocks):
-            x, lengths = getattr(self, f"block{i}")(x, lengths, train=train)
+            x, lengths = getattr(self, f"block{i}")(x, lengths, train=train, generator=generator)
         return x, lengths

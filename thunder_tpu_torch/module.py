@@ -1,10 +1,13 @@
-"""CTCModule: the user-facing model container (greedy serving path).
+"""CTCModule: the user-facing model container.
 
-Port of ``CTCModel``, ``CTCModule.create``/``forward``/``predict`` and
-``pad_to_bucket`` from ``thunder_tpu/module.py``. The compute graph is one
-``nn.Module`` (``CTCModel`` = audio_transform -> encoder -> decoder) on an
-explicit device; audio is padded to a bucket multiple on the host, and
-variable lengths travel as ``(tensor, lengths)`` pairs.
+Port of ``CTCModel``, ``CTCModule.create``/``forward``/``predict``/``loss``/
+``with_variables`` and ``pad_to_bucket`` from ``thunder_tpu/module.py``. The
+compute graph is one ``nn.Module`` (``CTCModel`` = audio_transform -> encoder
+-> decoder) on an explicit device, the card unless the caller asks for the
+CPU; audio is padded to a bucket multiple on the host, and variable lengths
+travel as ``(tensor, lengths)`` pairs. The module's weights (parameters and
+batch-norm running statistics) are its model's ``state_dict``, the
+counterpart of the flax ``variables``.
 
 A ``cuda`` device that is not available raises: nothing here moves work to
 the CPU on its own.
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, replace
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +25,7 @@ from torch import nn
 
 from thunder_tpu_torch.data.collate import bucket_length
 from thunder_tpu_torch.models.layers import init_parameters
-from thunder_tpu_torch.ops.ctc import collapse_ctc, greedy_decode
+from thunder_tpu_torch.ops.ctc import calculate_ctc, collapse_ctc, greedy_decode
 from thunder_tpu_torch.text.transform import BatchTextTransformer
 
 __all__ = ["CTCModel", "CTCModule", "pad_to_bucket", "require_device"]
@@ -70,7 +73,11 @@ def decode_greedy(text_transform: BatchTextTransformer, preds: torch.Tensor, out
 
 
 class CTCModel(nn.Module):
-    """audio ``(B, T)`` -> logits ``(B, frames, vocab)``."""
+    """audio ``(B, T)`` -> logits ``(B, frames, vocab)``.
+
+    ``train=True`` runs the frontend's dither and augmentation, batch
+    statistics and dropout, drawing every random number from ``generator``.
+    """
 
     def __init__(self, audio_transform: nn.Module, encoder: nn.Module, decoder: nn.Module):
         super().__init__()
@@ -80,9 +87,10 @@ class CTCModel(nn.Module):
         if decoder.in_features is None:
             decoder.build(encoder.final_dimension)
 
-    def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False):
-        feats, feat_lengths = self.audio_transform(audio, lengths, train=train)
-        encoded, out_lengths = self.encoder(feats, feat_lengths, train=train)
+    def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        feats, feat_lengths = self.audio_transform(audio, lengths, train=train, generator=generator)
+        encoded, out_lengths = self.encoder(feats, feat_lengths, train=train, generator=generator)
         return self.decoder(encoded, train=train), out_lengths
 
 
@@ -103,7 +111,7 @@ class CTCModule:
         encoder: nn.Module,
         decoder: nn.Module,
         text_transform: Optional[BatchTextTransformer] = None,
-        device="cpu",
+        device="cuda",
     ) -> "CTCModule":
         """Assemble the model, draw its parameters from ``generator`` (a CPU
         generator, so the draw does not depend on the device) and move it to
@@ -118,6 +126,12 @@ class CTCModule:
         device = require_device(device)
         return replace(self, model=copy.deepcopy(self.model).to(device), device=device)
 
+    def with_state(self, state: Dict[str, torch.Tensor]) -> "CTCModule":
+        """A copy of this module whose model holds ``state`` (a ``state_dict``)."""
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(state)
+        return replace(self, model=model)
+
     @property
     def blank_idx(self) -> int:
         return self.text_transform.vocab.blank_idx if self.text_transform else 0
@@ -128,6 +142,21 @@ class CTCModule:
         return self.model(to_device(audio, torch.float32, self.device), to_device(lengths, torch.int32, self.device))
 
     __call__ = forward
+
+    def loss(self, audio, audio_lengths, targets, target_lengths, *, train: bool = False,
+             generator: Optional[torch.Generator] = None):
+        """``calculate_ctc`` of the model's logits: ``(loss, (logits, logit_lengths))``.
+
+        ``train=True`` moves the batch-norm running statistics in place.
+        Gradients are recorded as the caller's autograd mode says.
+        """
+        logits, out_lengths = self.model(
+            to_device(audio, torch.float32, self.device), to_device(audio_lengths, torch.int32, self.device),
+            train=train, generator=generator,
+        )
+        loss = calculate_ctc(logits, to_device(targets, torch.int32, self.device), out_lengths,
+                             to_device(target_lengths, torch.int32, self.device), self.blank_idx)
+        return loss, (logits, out_lengths)
 
     def predict(self, audio, lengths=None) -> List[str]:
         """Audio batch (or one clip) -> greedy CTC transcriptions."""
