@@ -35,7 +35,20 @@ Phases, each of which fails the run:
    ``TRAIN_LOSS_BOUND``;
 7. the CTC kernel pair at the training shape against its plain version and
    against ``F.ctc_loss`` forward + backward (``library_ms``, timed here only:
-   the port never calls it).
+   the port never calls it);
+8. wav2vec2-base greedy serving (``scripts/bench_w2v2.py``'s configuration:
+   ``Wav2Vec2Preprocess(mask_input=True)``, 7-conv extractor, 12 post-LN
+   layers of hidden 768 and 12 heads, ``LinearDecoder`` over 31 characters and
+   the blank) through ``CTCModule.create`` and ``InferenceEngine.predict`` at
+   16 rows x 15 s of speech-like audio (T = 749 frames), random weights
+   (seed 0): one forward must make exactly 12 attention and 25 add +
+   LayerNorm launches and no other kernel launch; rows 0-1 are held against
+   the port's float32 CPU path (``LOGIT_BOUND``), with the argmax agreement
+   printed; RTF from CUDA events and one profiled forward; then both kernels
+   at the shapes of that forward (layer 0's own qkv and its first add +
+   LayerNorm's inputs, captured by hooks) against their plain versions and a
+   PyTorch call (the split into heads + ``F.scaled_dot_product_attention``
+   with the key mask; ``F.layer_norm`` of the float32 sum), timed here only.
 
 Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
 of its bytes (each input read once, each output written once) over 3.35
@@ -62,6 +75,8 @@ BATCH, SECONDS, SAMPLE_RATE = 64, 15.0, 16000
 LOGIT_BOUND = 0.1  # max|bf16 card - f32 CPU| / max|f32 CPU| over valid frames
 TRAIN_BATCH, TRAIN_SECONDS, TRAIN_TEXT = 16, 15.0, "the quick brown fox jumps over the lazy dog"
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+W2V_VOCAB = list("abcdefghijklmnopqrstuvwxyz '.,?")
+W2V_BATCH, W2V_SECONDS = 16, 15.0
 # the last of the 1 + TRAIN_WARMUP + TRAIN_TIMED = 14 losses must be below (1 - LOSS_FALL) x the first; on the
 # port's float32 CPU path, the same configuration at 4 x 3 s and 2 x 6 s ended at 0.38 and 0.25 of the first loss
 LOSS_FALL = 0.25
@@ -123,6 +138,8 @@ def paired_ms(kernel, plain, iters: int) -> tuple[float, float]:
 #: device-time categories of a profile, by the first pattern a kernel's name contains
 PROFILE_CATEGORIES = (
     ("ctc_recursion", ("ctc_alpha_kernel", "ctc_beta_kernel")),
+    ("attention", ("mha_from_qkv_kernel",)),
+    ("add_layer_norm", ("add_ln_kernel",)),
     ("log_mel", ("log_mel_kernel",)),
     ("separable_repeat", ("separable_repeat_kernel",)),
     ("depthwise_conv", ("conv_depthwise",)),
@@ -203,6 +220,17 @@ def ctc_bound(t: int, b: int, s: int) -> dict:
     per state and frame over both directions (3 + 4 exp, 2 log, the maxima and sums)."""
     plane = 4 * t * b * s
     return bound(5 * plane + 2 * b * s + 16 * b, f32_flop=40.0 * t * b * s)
+
+
+def attention_bound(batch: int, t: int, heads: int) -> dict:
+    """qkv in and the output out (bf16, plus the int32 lengths); q k^T and P V on the bf16 tensor cores."""
+    h = heads * 64
+    return bound(2 * batch * t * 4 * h + 4 * batch, bf16_flop=4.0 * batch * heads * t * t * 64)
+
+
+def add_ln_bound(rows: int, d: int) -> dict:
+    """x and y in, the output out (bf16), scale and bias in (float32); about 8 float32 operations a value."""
+    return bound(3 * 2 * rows * d + 2 * 4 * d, f32_flop=8.0 * rows * d)
 
 
 def gpu_line() -> str:
@@ -375,6 +403,9 @@ def run() -> int:
     # ---- QuartzNet15x5 training, then the CTC kernel pair at its shape
     kernels.append(training_phase(card, KERNEL_CHECKS["ctc_recursion"][1]))
 
+    # ---- wav2vec2-base serving, then its two kernels at the forward's shapes
+    kernels.extend(wav2vec2_phase(card, KERNEL_CHECKS["attn_onepanel"][1], KERNEL_CHECKS["add_ln"][1]))
+
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -424,7 +455,8 @@ def training_phase(card: str, ctc_tol: float) -> dict:
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     emit({"phase": "train_launches_per_step", **counts})
-    check(counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1},
+    check(counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1,
+                     "mha_from_qkv": 0, "add_layer_norm": 0},
           f"one train step must launch 1 log-mel, 1 ctc_alpha and 1 ctc_beta, got {counts}")
     check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"Trainer.fit loss {trainer.logs[0]}")
 
@@ -508,6 +540,136 @@ def training_phase(card: str, ctc_tol: float) -> dict:
             "ms_is": f"ctc_alpha + ctc_beta at T=751, B={TRAIN_BATCH}, S={lp_z.shape[2]}", "plain_ms": p_ms,
             **ctc_bound(751, TRAIN_BATCH, int(lp_z.shape[2])), "library_ms": lib_ms,
             "library": "F.ctc_loss forward + backward, reduction sum, zero_infinity"}
+
+
+def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
+    """Serve wav2vec2-base at W2V_BATCH x W2V_SECONDS on the card (phase 8 of the module
+    docstring); returns the attention and add + LayerNorm entries of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+    from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    tt = BatchTextTransformer(W2V_VOCAB)
+    t0 = time.perf_counter()
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(tt.num_tokens), tt,
+                              device="cuda")
+    engine = InferenceEngine(module)
+    create_s = time.perf_counter() - t0
+    cfg = module.model.encoder.config
+    rng = np.random.default_rng(1)
+    samples = int(W2V_SECONDS * SAMPLE_RATE)
+    base = speech_like(samples, rng)
+    audio = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(W2V_BATCH)])
+    lengths = np.full((W2V_BATCH,), samples, dtype=np.int32)
+    engine.warmup([W2V_BATCH], [W2V_SECONDS])
+
+    reset_launch_counts()
+    texts = engine.predict(audio, lengths)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    emit({"phase": "w2v2_launches_per_forward", **counts})
+    layers = cfg.num_hidden_layers
+    want = {"fused_log_mel": 0, "fused_separable_repeat": 0, "ctc_alpha": 0, "ctc_beta": 0,
+            "mha_from_qkv": layers, "add_layer_norm": 2 * layers + 1}
+    check(counts == want, f"one wav2vec2 forward must launch {want}, got {counts}")
+    check(len(texts) == W2V_BATCH and all(isinstance(t, str) and set(t) <= set(W2V_VOCAB) for t in texts),
+          f"transcripts outside the vocabulary: {texts[:4]}")
+
+    audio_d = torch.as_tensor(audio, device="cuda")
+    lengths_d = torch.as_tensor(lengths, device="cuda")
+    logits, preds, out_lengths = engine.infer(audio_d, lengths_d)
+    frames = int(out_lengths[0])
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (W2V_BATCH, frames, tt.num_tokens),
+          f"logits not finite or of shape {tuple(logits.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    forward_ms = cuda_ms(lambda: engine.infer(audio_d, lengths_d), 5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    engine.predict(audio, lengths)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "w2v2_serving", "batch": W2V_BATCH, "seconds": W2V_SECONDS, "frames": frames,
+          "forward_ms": forward_ms, "rtf": W2V_BATCH * W2V_SECONDS / (forward_ms / 1e3),
+          "predict_ms_host_clock": predict_ms, "peak_mem_gb": peak_gb, "create_s": create_s, "card": card})
+    emit({"phase": "w2v2_profile", **device_profile(lambda: engine.infer(audio_d, lengths_d))})
+
+    # rows 0-1 through the port's float32 CPU path (plain versions, exact gelu, unfused attention)
+    t0 = time.perf_counter()
+    ref_logits, ref_lengths = InferenceEngine(module.to("cpu"))(audio[:2], lengths[:2])
+    cpu_seconds = time.perf_counter() - t0
+    check(torch.equal(ref_lengths, out_lengths[:2].cpu()), f"lengths differ from the CPU path: {ref_lengths}")
+    got = logits[:2].float().cpu()
+    valid = torch.arange(got.shape[1])[None, :] < ref_lengths[:, None]
+    rel = ((got - ref_logits).abs()[valid].max() / ref_logits.abs()[valid].max()).item()
+    agree = (got.argmax(-1) == ref_logits.argmax(-1))[valid].float().mean().item()
+    emit({"phase": "w2v2_vs_cpu_f32", "rows": 2, "max_rel_dev": rel, "bound": LOGIT_BOUND, "argmax_agreement": agree,
+          "cpu_seconds": cpu_seconds})
+    check(rel < LOGIT_BOUND, f"wav2vec2 bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
+
+    # both kernels on the inputs the forward gives them: layer 0's packed qkv and its first add + LayerNorm
+    captured = {}
+
+    def keep(name, value) -> None:  # a forward hook that returns None leaves the output as it is
+        captured[name] = value
+
+    layer0 = engine._encoder.layer0
+    hooks = [layer0.attention.qkv_proj.register_forward_hook(lambda m, args, out: keep("qkv", out)),
+             layer0.layer_norm.register_forward_hook(lambda m, args, out: keep("add_ln", args))]
+    engine.infer(audio_d, lengths_d)
+    for hook in hooks:
+        hook.remove()
+    qkv, heads, h = captured["qkv"], cfg.num_attention_heads, cfg.hidden_size
+    lens = out_lengths.to(torch.int32)
+    mask = (torch.arange(frames, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+
+    def attention_library():
+        q, k, v = (a.reshape(W2V_BATCH, frames, heads, 64).transpose(1, 2) for a in qkv.split(h, dim=-1))
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return out.transpose(1, 2).reshape(W2V_BATCH, frames, h)
+
+    got, want = mha_from_qkv(qkv, lens, heads), mha_from_qkv_reference(qkv, lens, heads)
+    a_err, a_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
+    a_ms, a_plain = paired_ms(lambda: mha_from_qkv(qkv, lens, heads),
+                              lambda: mha_from_qkv_reference(qkv, lens, heads), 10)
+    a_lib = cuda_ms(attention_library, 10)
+    lib_ulp = ulp_bf16_error(attention_library(), want)
+    emit({"phase": "w2v2_attention_shape", "B": W2V_BATCH, "T": frames, "heads": heads, "ms": a_ms, "plain_ms": a_plain,
+          "library_ms": a_lib, "ulp": a_ulp, "library_ulp_vs_plain": lib_ulp})
+    check(a_ulp <= attn_tol, f"attention at the forward's shape off by {a_ulp} bf16 ULP > {attn_tol}")
+
+    x, y = (t.contiguous() for t in captured["add_ln"][:2])
+    ln = layer0.layer_norm
+    rows = x.numel() // h
+    got, want = add_layer_norm(x, y, ln.scale, ln.bias), add_layer_norm_reference(x, y, ln.scale, ln.bias)
+    n_err, n_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
+    n_ms, n_plain = paired_ms(lambda: add_layer_norm(x, y, ln.scale, ln.bias),
+                              lambda: add_layer_norm_reference(x, y, ln.scale, ln.bias), 50)
+    n_lib = cuda_ms(lambda: F.layer_norm(x.float() + y.float(), (h,), ln.scale, ln.bias, ln.epsilon).to(x.dtype), 50)
+    emit({"phase": "w2v2_add_ln_shape", "rows": rows, "D": h, "ms": n_ms, "plain_ms": n_plain, "library_ms": n_lib,
+          "ulp": n_ulp})
+    check(n_ulp <= add_ln_tol, f"add + LayerNorm at the forward's shape off by {n_ulp} bf16 ULP > {add_ln_tol}")
+    return [
+        {"name": "mha_from_qkv", "route": "cuda", "source": "thunder_tpu_torch/csrc/mha_from_qkv.cu",
+         "replaces": "thunder_tpu/kernels/attn_onepanel.py:85", "launches": counts["mha_from_qkv"],
+         "max_abs_err": a_err, "max_ulp": a_ulp, "ms": a_ms, "plain_ms": a_plain,
+         "ms_is": f"one launch at B={W2V_BATCH}, T={frames}, {heads} heads of 64 (layer 0's qkv)",
+         **attention_bound(W2V_BATCH, frames, heads), "library_ms": a_lib,
+         "library": "split into (B, heads, T, 64) + F.scaled_dot_product_attention with the key mask + merge"},
+        {"name": "add_layer_norm", "route": "cuda", "source": "thunder_tpu_torch/csrc/add_ln.cu",
+         "replaces": "thunder_tpu/kernels/add_ln.py:41", "launches": counts["add_layer_norm"],
+         "max_abs_err": n_err, "max_ulp": n_ulp, "ms": n_ms, "plain_ms": n_plain,
+         "ms_is": f"one launch at {rows} rows x {h} (layer 0's first add + LayerNorm)",
+         **add_ln_bound(rows, h), "library_ms": n_lib, "library": "F.layer_norm(x.float() + y.float()).to(bf16)"},
+    ]
 
 
 if __name__ == "__main__":

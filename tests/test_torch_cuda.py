@@ -2,10 +2,13 @@
 
 Each kernel is held against its plain PyTorch version on the same device, with
 the check names and tolerances of ``thunder_tpu_torch.kernels.selftest``; a
-small QuartzNet runs through the engine on the card and on the CPU; the CTC
-kernel pair is held to its plain loops on the edge case and at the training
-shape; and one ``Trainer.fit`` step on the card launches each kernel of the
-training path once.
+small QuartzNet and a small wav2vec2 run through the engine on the card and
+on the CPU, with the launch counts of one forward; the attention and add +
+LayerNorm kernels are held to their plain versions at the wav2vec2-base
+serving shape (16 x 15 s: T = 749, 12 heads), with ragged rows and a row of
+length 0; the CTC kernel pair is held to its plain loops on the edge case and
+at the training shape; and one ``Trainer.fit`` step on the card launches each
+kernel of the training path once.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -60,6 +63,93 @@ def test_small_quartznet_on_card_matches_cpu(cuda):
     valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
     dev = (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max()
     assert dev < 0.1  # bf16 on the card against float32 on the CPU
+
+
+def test_small_wav2vec2_on_card_matches_cpu(cuda):
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+
+    config = Wav2Vec2Config(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                            conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+                            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(config), LinearDecoder(32), device="cuda")
+    audio = (np.random.default_rng(0).standard_normal((3, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000, 400], np.int32)
+    reset_launch_counts()
+    got, got_lens = InferenceEngine(module)(audio, lengths)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    assert counts == {"fused_log_mel": 0, "fused_separable_repeat": 0, "ctc_alpha": 0, "ctc_beta": 0,
+                      "mha_from_qkv": 2, "add_layer_norm": 5}
+    want, want_lens = InferenceEngine(module.to("cpu"))(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    dev = (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max()
+    assert dev < 0.1  # bf16 on the card against float32 on the CPU
+
+
+def test_attention_kernel_at_wav2vec2_serving_shape(cuda):
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+    from thunder_tpu_torch.kernels.selftest import attention_case, ulp_bf16_error
+
+    lengths = [749] * 12 + [700, 333, 1, 0]  # full rows, ragged rows and a row of length 0
+    qkv, lens = attention_case(21, 16, 749, 12, lengths, "cuda")
+    got, want = mha_from_qkv(qkv, lens, 12), mha_from_qkv_reference(qkv, lens, 12)
+    torch.cuda.synchronize()
+    assert got.shape == (16, 749, 768) and bool(torch.isfinite(got).all())
+    for row in range(16):
+        assert ulp_bf16_error(got[row], want[row]) <= 4.0, (row, lengths[row])
+
+
+@pytest.mark.parametrize("b,t,heads", [(1, 1, 1), (3, 33, 3), (2, 65, 5), (2, 200, 12), (1, 1664, 2)])
+def test_attention_kernel_edge_shapes(cuda, b, t, heads):
+    """T of 1, T off the 32-row tile and the 64-key chunk, odd head counts, and the longest T the panel fits."""
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+    from thunder_tpu_torch.kernels.selftest import attention_case, ulp_bf16_error
+
+    lengths = [t] + [max(t - 7 * i, 0) for i in range(1, b)]
+    qkv, lens = attention_case(24, b, t, heads, lengths, "cuda")
+    got, want = mha_from_qkv(qkv, lens, heads), mha_from_qkv_reference(qkv, lens, heads)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert ulp_bf16_error(got, want) <= 4.0
+
+
+def test_attention_kernel_rejects_too_long_a_panel(cuda):
+    from thunder_tpu_torch.kernels.attention import MAX_FRAMES, mha_from_qkv
+    from thunder_tpu_torch.kernels.selftest import attention_case
+
+    qkv, lens = attention_case(25, 1, MAX_FRAMES + 1, 1, [MAX_FRAMES + 1], "cuda")
+    with pytest.raises(ValueError, match="frames"):
+        mha_from_qkv(qkv, lens, 1)
+
+
+@pytest.mark.parametrize("rows,d", [(1, 8), (33, 2048), (5, 1024)])
+def test_add_ln_kernel_edge_widths(cuda, rows, d):
+    from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
+    from thunder_tpu_torch.kernels.selftest import add_ln_case, ulp_bf16_error
+
+    x, y, scale, bias = add_ln_case(26, (rows,), d, "cuda")
+    got, want = add_layer_norm(x, y, scale, bias), add_layer_norm_reference(x, y, scale, bias)
+    torch.cuda.synchronize()
+    assert ulp_bf16_error(got, want) <= 2.0
+
+
+def test_add_ln_kernel_at_wav2vec2_serving_shape(cuda):
+    from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
+    from thunder_tpu_torch.kernels.selftest import add_ln_case, ulp_bf16_error
+
+    x, y, scale, bias = add_ln_case(22, (16, 749), 768, "cuda")
+    got, want = add_layer_norm(x, y, scale, bias), add_layer_norm_reference(x, y, scale, bias)
+    torch.cuda.synchronize()
+    assert ulp_bf16_error(got, want) <= 2.0
+    # any multiple of 8 features, and an odd number of rows
+    x, y, scale, bias = add_ln_case(23, (7,), 1032, "cuda")
+    assert ulp_bf16_error(add_layer_norm(x, y, scale, bias), add_layer_norm_reference(x, y, scale, bias)) <= 2.0
 
 
 @pytest.mark.parametrize(
@@ -138,6 +228,7 @@ def test_one_train_step_on_card_launches_each_kernel_once(cuda):
     trained = trainer.fit(module, loader)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-    assert counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1}
+    assert counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1,
+                      "mha_from_qkv": 0, "add_layer_norm": 0}
     assert np.isfinite(trainer.logs[0]["loss/train_loss"])
     assert trained.device.type == "cuda"

@@ -1,3 +1,3 @@
 """Audio frontends."""
 
-from thunder_tpu_torch.audio.frontend import FilterbankFeatures  # noqa: F401
+from thunder_tpu_torch.audio.frontend import FilterbankFeatures, Wav2Vec2Preprocess  # noqa: F401

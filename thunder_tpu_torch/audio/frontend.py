@@ -1,6 +1,10 @@
-"""The QuartzNet/Citrinet mel frontend as a parameter-free ``nn.Module``.
+"""The audio frontends as parameter-free ``nn.Module``s.
 
-Port of ``thunder_tpu/audio/frontend.py::FilterbankFeatures``: dither (train
+``Wav2Vec2Preprocess`` is the waveform normalization of the wav2vec2 family
+(port of ``thunder_tpu/audio/frontend.py::Wav2Vec2Preprocess``).
+
+``FilterbankFeatures``, the QuartzNet/Citrinet mel frontend, ports
+``thunder_tpu/audio/frontend.py::FilterbankFeatures``: dither (train
 only) -> preemphasis -> power spectrum -> mel -> log (one launch of the fused
 log-mel kernel on the card) -> masked per-feature normalization over the
 valid frames -> SpecCutout or SpecAugment (train only). Output is
@@ -23,7 +27,7 @@ from thunder_tpu_torch.ops.masking import lengths_to_mask, normalize_tensor
 from thunder_tpu_torch.ops.specaugment import spec_augment, spec_cutout
 from thunder_tpu_torch.ops.stft import next_pow2, power_spectrum_lengths
 
-__all__ = ["FilterbankFeatures"]
+__all__ = ["FilterbankFeatures", "Wav2Vec2Preprocess"]
 
 
 def _required(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -106,3 +110,34 @@ class FilterbankFeatures(nn.Module):
             feats = spec_augment(feats, draws, self.num_time_masks, self.num_freq_masks, self.mask_time_width,
                                  self.mask_freq_width)
         return feats, out_lengths
+
+
+class Wav2Vec2Preprocess(nn.Module):
+    """Zero-mean, unit-variance waveform over each row's valid samples (HF-compatible).
+
+    - ``mask_input=True``: population std, ``(x - mean) / (std + div_guard)``;
+    - ``mask_input=False``: sample std (ddof 1), ``(x - mean) / sqrt(var +
+      div_guard)``. The N/(N-1) factor moves wav2vec2-base logits by about
+      5e-3 at 1 s of audio, enough to flip near-tie argmaxes.
+
+    Both take their statistics over the valid samples only and zero the rest,
+    so a clip's output does not depend on its padding. ``train`` and
+    ``generator`` are accepted for ``CTCModel`` and change nothing.
+    """
+
+    def __init__(self, div_guard: float = 1e-7, mask_input: bool = False):
+        super().__init__()
+        self.div_guard = div_guard
+        self.mask_input = mask_input
+
+    def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        mask = lengths_to_mask(lengths, audio.shape[-1])
+        if self.mask_input:
+            return normalize_tensor(audio, mask, div_guard=self.div_guard, axis=-1), lengths
+        maskf = mask.to(audio.dtype)
+        x = audio * maskf
+        n = maskf.sum(dim=-1, keepdim=True)
+        mean = x.sum(dim=-1, keepdim=True) / n
+        var = ((x - mean) * maskf).square().sum(dim=-1, keepdim=True) / (n - 1.0).clamp_min(1.0)
+        return (x - mean) / torch.sqrt(var + self.div_guard) * maskf, lengths

@@ -1,6 +1,7 @@
-"""Greedy-CTC inference engine for QuartzNet: the serving hot path.
+"""Greedy-CTC inference engine: the serving hot path.
 
-Port of the QuartzNet path of ``thunder_tpu/engine.py::InferenceEngine``:
+Port of ``thunder_tpu/engine.py::InferenceEngine`` for QuartzNet and
+wav2vec2 (float mode). The QuartzNet path:
 
 - batch norm folded into the pointwise weights and a float32 bias at build
   time (eval-mode running statistics);
@@ -12,6 +13,14 @@ Port of the QuartzNet path of ``thunder_tpu/engine.py::InferenceEngine``:
   the mask folded into the same elementwise pass (masks cached per length of
   time within a forward);
 - the log-mel frontend is one launch of the fused log-mel kernel.
+
+The wav2vec2 path (after the JAX engine's wav2vec2 branch): the waveform
+normalization in float32, then a copy of the encoder whose weights are
+pre-cast once to the compute dtype (the masked instance norm's stay float32;
+see ``models.wav2vec2.serving_copy``), whose layers run the attention and add
++ LayerNorm kernels, then the decoder as a product with float32 accumulation
+and a float32 bias. Its int8 modes and the dense positional-conv fold are not
+ported.
 
 Compute is bfloat16 on the card (as the JAX engine computes in bf16 on its
 accelerator) and float32 on the CPU, where every kernel wrapper runs its
@@ -27,8 +36,10 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat
+from thunder_tpu_torch.models.decoders import Conv1dDecoder, LinearDecoder
 from thunder_tpu_torch.models.layers import BN_EPS
 from thunder_tpu_torch.models.quartznet import QuartznetEncoder
+from thunder_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, serving_copy
 from thunder_tpu_torch.module import CTCModule, decode_greedy, host_batch, pad_to_bucket, require_device, to_device
 from thunder_tpu_torch.ops.conv import conv_output_length, get_same_padding
 from thunder_tpu_torch.ops.ctc import greedy_decode
@@ -62,8 +73,18 @@ class _BlockPlan:
     res: Optional[_RepeatPlan]
 
 
+def _decoder_weights(decoder) -> tuple[torch.Tensor, torch.Tensor]:
+    """The head's ``(C, V)`` kernel and ``(V,)`` bias."""
+    if isinstance(decoder, Conv1dDecoder):
+        return decoder.kernel.detach()[0], decoder.bias.detach()
+    if isinstance(decoder, LinearDecoder):
+        return decoder.dense.kernel.detach(), decoder.dense.bias.detach()
+    raise NotImplementedError(f"InferenceEngine serves Conv1dDecoder and LinearDecoder heads, "
+                              f"got {type(decoder).__name__}")
+
+
 class InferenceEngine:
-    """Greedy-CTC inference over a ``CTCModule``'s weights with BN folded."""
+    """Greedy-CTC inference over a ``CTCModule``'s weights (QuartzNet with BN folded, or wav2vec2)."""
 
     def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None):
         self.device = require_device(device if device is not None else module.device)
@@ -72,14 +93,19 @@ class InferenceEngine:
         if on_cuda and self.dtype != torch.bfloat16:
             raise ValueError("on the card the engine computes in bfloat16 (the kernels' type)")
         encoder = module.model.encoder
-        if not isinstance(encoder, QuartznetEncoder):
-            raise NotImplementedError(f"InferenceEngine serves QuartzNet only for now, got {type(encoder).__name__}")
         self.module = module
         self.frontend = module.model.audio_transform.to(self.device)
-        self._plan = self._build_plan(encoder)
-        decoder = module.model.decoder
-        self._dec_kernel = decoder.kernel.detach()[0].to(self.device, self.dtype)  # (C, V)
-        self._dec_bias = decoder.bias.detach().to(self.device, torch.float32)
+        if isinstance(encoder, Wav2Vec2Encoder):
+            self._encoder = serving_copy(encoder, self.dtype).to(self.device)
+            self._forward = self._forward_wav2vec2
+        elif isinstance(encoder, QuartznetEncoder):
+            self._plan = self._build_plan(encoder)
+            self._forward = self._forward_quartznet
+        else:
+            raise NotImplementedError(f"InferenceEngine serves QuartzNet and wav2vec2, got {type(encoder).__name__}")
+        kernel, bias = _decoder_weights(module.model.decoder)
+        self._dec_kernel = kernel.to(self.device, self.dtype)  # (C, V)
+        self._dec_bias = bias.to(self.device, torch.float32)
 
     # ------------------------------------------------------------------
     # planning
@@ -133,7 +159,12 @@ class InferenceEngine:
             mask_cache[t] = lengths_to_mask(new_lengths, t).to(self.dtype)[:, :, None]
         return y * mask_cache[t], new_lengths
 
-    def _forward(self, audio: torch.Tensor, lengths: torch.Tensor):
+    def _decode(self, x: torch.Tensor):
+        """Encoder output -> float32 logits (compute-dtype product, float32 accumulation and bias) and argmax."""
+        logits = torch.matmul(x.float(), self._dec_kernel.float()) + self._dec_bias
+        return logits, greedy_decode(logits)
+
+    def _forward_quartznet(self, audio: torch.Tensor, lengths: torch.Tensor):
         feats, out_lengths = self.frontend(audio, lengths)
         x = feats.to(self.dtype)
         mask_cache: Dict[int, torch.Tensor] = {}
@@ -145,8 +176,12 @@ class InferenceEngine:
                 res, _ = self._apply_repeat(block.res, inp, inp_lengths, mask_cache)
                 x = x + res
             x = torch.relu(x)
-        logits = torch.matmul(x.float(), self._dec_kernel.float()) + self._dec_bias
-        return logits, greedy_decode(logits), out_lengths
+        return (*self._decode(x), out_lengths)
+
+    def _forward_wav2vec2(self, audio: torch.Tensor, lengths: torch.Tensor):
+        feats, feat_lengths = self.frontend(audio, lengths)
+        h, out_lengths = self._encoder(feats, feat_lengths)
+        return (*self._decode(h), out_lengths)
 
     @torch.inference_mode()
     def infer(self, audio, lengths):

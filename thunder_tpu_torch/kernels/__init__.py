@@ -4,6 +4,8 @@ The kernels are built from ``thunder_tpu_torch/csrc`` on first launch (see
 ``_build``); importing these modules needs neither ``nvcc`` nor a GPU.
 """
 
+from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference  # noqa: F401
+from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference  # noqa: F401
 from thunder_tpu_torch.kernels.ctc import ctc_alpha, ctc_beta, ctc_ll, ctc_ll_reference  # noqa: F401
 from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference  # noqa: F401
 from thunder_tpu_torch.kernels.separable_conv import (  # noqa: F401
@@ -12,7 +14,7 @@ from thunder_tpu_torch.kernels.separable_conv import (  # noqa: F401
 )
 
 #: every kernel wrapper; each carries a ``launches`` count of its kernel launches
-KERNEL_WRAPPERS = (fused_log_mel, fused_separable_repeat, ctc_alpha, ctc_beta)
+KERNEL_WRAPPERS = (fused_log_mel, fused_separable_repeat, ctc_alpha, ctc_beta, mha_from_qkv, add_layer_norm)
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``thunder_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, on first use,
-and loaded with ``ctypes``. The library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and a stale build is never loaded.
+Every ``thunder_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+for ``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, on first use, and loaded with
+``ctypes``. The library's name carries a hash of the sources and flags, so
+an edited source is rebuilt and a stale build is never loaded.
 The build directory is ``thunder_tpu_torch/build/`` (listed in
 ``.gitignore``).
 
@@ -26,16 +27,19 @@ __all__ = ["load", "check", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signature of every entry point: name -> argtypes (all return int)
 SIGNATURES = {
     "thunder_log_mel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "thunder_separable_repeat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "thunder_ctc_alpha": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thunder_ctc_beta": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],
+    "thunder_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -69,18 +73,39 @@ def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
 
 def build(extra_flags: tuple[str, ...] = ()) -> Path:
     """Compile the sources (with ``extra_flags`` after ``NVCC_FLAGS``) unless a
-    library of the same hash exists; return its path."""
+    library of the same hash exists; return its path. One ``nvcc -c`` runs for
+    each source, all at once, then one ``nvcc -shared`` links the objects."""
     out = library_path(extra_flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    sources = _sources()
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objects)
+        ]
+        failed = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err[-4000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, *extra_flags, "-shared", "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

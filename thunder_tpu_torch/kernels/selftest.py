@@ -11,7 +11,13 @@ alignment, which must give ``+inf`` on both routes and an exactly zero
 gradient. ``separable_conv_stem`` and
 ``separable_conv_tail`` add QuartzNet's strided stem and dilated tail, which
 the TPU kernels did not take; ``repeat_tm`` runs ragged lengths and fails
-unless every row beyond a length is exactly zero.
+unless every row beyond a length is exactly zero. ``attn_onepanel``
+(B = 2, T = 256, 4 heads), ``attn_onepanel_1536`` (B = 2, T = 1536, 12
+heads) and ``add_ln`` (8 x 768 rows x 768) keep the JAX names and limits (4,
+4 and 2 bf16 ULP); ``attn_onepanel_749`` adds the wav2vec2-base serving
+length at 15 s (T = 749, not a multiple of 128) with ragged lengths and a
+row of length 0. The attention checks compare every query row, padded ones
+included.
 
 Both sides run on the same device and the same inputs; the float32 reference
 runs without TF32 (:func:`exact_float32` is set first).
@@ -24,6 +30,8 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
+from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
 from thunder_tpu_torch.kernels.ctc import ctc_ll, ctc_ll_reference, extended_emissions, scores_from_ll
 from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
 from thunder_tpu_torch.kernels.separable_conv import (
@@ -165,6 +173,44 @@ def _check_ctc_edge(device) -> dict:
     return result
 
 
+def attention_case(seed, b, t, heads, lengths, device):
+    """A random bf16 packed qkv ``(b, t, 3 * heads * 64)`` and int32 ``lengths``."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, t, 3 * heads * 64)).astype(np.float32)
+    return (torch.as_tensor(qkv, device=device).to(torch.bfloat16),
+            torch.as_tensor(np.asarray(lengths, np.int32), device=device))
+
+
+def _attention_check(seed, b, t, heads, lengths):
+    def check(device) -> dict:
+        qkv, lens = attention_case(seed, b, t, heads, lengths, device)
+        got = mha_from_qkv(qkv, lens, heads)
+        want = mha_from_qkv_reference(qkv, lens, heads)
+        result = {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        if not bool(torch.isfinite(got).all()):
+            result.update(max_err=float("inf"), error="non-finite output")
+        return result
+
+    return check
+
+
+def add_ln_case(seed, rows_shape, d, device):
+    """The ``add_ln`` inputs of the JAX selftest: a residual stream of std 3, a branch of std 1, random affine."""
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)  # noqa: E731
+    x = bf(rng.standard_normal((*rows_shape, d)) * 3.0)
+    y = bf(rng.standard_normal((*rows_shape, d)))
+    scale = torch.as_tensor(rng.standard_normal(d).astype(np.float32) + 1.0, device=device)
+    bias = torch.as_tensor(rng.standard_normal(d).astype(np.float32), device=device)
+    return x, y, scale, bias
+
+
+def _check_add_ln(device) -> dict:
+    case = add_ln_case(5, (8, 768), 768, device)
+    got, want = add_layer_norm(*case), add_layer_norm_reference(*case)
+    return {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
+
+
 KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # name -> (check fn, tolerance); units: absolute log-mel for the frontend,
     # bf16 ULPs at the reference's max magnitude for the separable repeat
@@ -178,6 +224,11 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # structural fault
     "ctc_recursion": (_check_ctc_recursion, 0.01),
     "ctc_edge": (_check_ctc_edge, 1e-5),
+    # attention and add + LayerNorm: bf16 ULPs at the plain version's max magnitude
+    "attn_onepanel": (_attention_check(4, 2, 256, 4, [256, 199]), 4.0),
+    "attn_onepanel_1536": (_attention_check(6, 2, 1536, 12, [1536, 1479]), 4.0),
+    "attn_onepanel_749": (_attention_check(7, 4, 749, 12, [749, 512, 37, 0]), 4.0),
+    "add_ln": (_check_add_ln, 2.0),
 }
 
 

@@ -11,9 +11,12 @@ follow the flax modules so that weights map one to one (see ``bridge.py``):
   statistics, eps 1e-3.
 
 Parameters are allocated at construction and drawn by :func:`init_parameters`
-from an explicit ``torch.Generator``. Parameters stay float32; each module's
-``dtype`` is its compute type, cast at flax's cast points (conv input and
-kernel, batch norm's folded fast path in bfloat16), with no autocast.
+from an explicit ``torch.Generator``, with the initializer flax gives each
+kernel: xavier uniform for the conv encoders' kernels, lecun normal for
+``Dense`` and the wav2vec2 modules (a module says so with ``kernel_init``).
+Parameters stay float32; each module's ``dtype`` is its compute type, cast
+at flax's cast points (conv input and kernel, batch norm's folded fast path
+in bfloat16), with no autocast.
 
 ``train=True`` takes masked batch statistics (updating the running
 statistics in place) and applies dropout with masks drawn from the
@@ -32,7 +35,7 @@ from thunder_tpu_torch.ops.conv import conv1d, conv_output_length, get_same_padd
 from thunder_tpu_torch.ops.masking import apply_mask, lengths_to_mask
 
 __all__ = [
-    "BN_EPS", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "EncoderBlock", "init_parameters", "dropout",
+    "BN_EPS", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "EncoderBlock", "Dense", "init_parameters", "dropout",
     "apply_dropout",
 ]
 
@@ -56,21 +59,40 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     return apply_dropout(x, keep, rate)
 
 
+def _fans(w: torch.Tensor) -> tuple[int, int]:
+    """flax's fans of a kernel whose last two axes are (in, out)."""
+    receptive = math.prod(w.shape[:-2])
+    return w.shape[-2] * receptive, w.shape[-1] * receptive
+
+
 def _xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
     """flax's ``variance_scaling(1.0, "fan_avg", "uniform")`` for a WIO kernel."""
-    receptive = math.prod(w.shape[:-2])
-    fan_in, fan_out = w.shape[-2] * receptive, w.shape[-1] * receptive
+    fan_in, fan_out = _fans(w)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         w.copy_((torch.rand(w.shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * limit)
 
 
+def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: ``variance_scaling(1.0, "fan_in", "truncated_normal")``, a
+    normal cut at 2 standard deviations and rescaled to variance ``1 / fan_in``."""
+    fan_in, _ = _fans(w)
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        w.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+
+
+_KERNEL_INITS = {"xavier_uniform": _xavier_uniform_, "lecun_normal": _lecun_normal_}
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Draw every conv kernel (xavier uniform) in registration order; zero biases,
-    unit BN scales and identity running statistics."""
+    """Draw every kernel in registration order (each with its module's
+    ``kernel_init``, xavier uniform by default); zero biases, unit BN scales and
+    identity running statistics. Norm layers keep the ones and zeros they are
+    built with."""
     for m in module.modules():
         if hasattr(m, "kernel"):
-            _xavier_uniform_(m.kernel, generator)
+            _KERNEL_INITS[getattr(m, "kernel_init", "xavier_uniform")](m.kernel, generator)
             if getattr(m, "bias", None) is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, TorchBatchNorm):
@@ -78,6 +100,28 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
             m.mean.zero_()
             m.var.fill_(1.0)
+
+
+class Dense(nn.Module):
+    """flax's ``nn.Dense``: ``x @ kernel + bias`` over the last axis, kernel ``(in, out)``.
+
+    Input, kernel and bias are cast to ``dtype`` (flax's ``promote_dtype``);
+    the product runs over a flattened ``(rows, in)`` view with the bias in
+    the GEMM's epilogue.
+    """
+
+    kernel_init = "lecun_normal"
+
+    def __init__(self, in_features: int, features: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x2 = x.reshape(-1, x.shape[-1]).to(self.dtype)
+        y = torch.addmm(self.bias.to(self.dtype), x2, self.kernel.to(self.dtype))
+        return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 class TorchBatchNorm(nn.Module):

@@ -91,7 +91,7 @@ class CTCModel(nn.Module):
                 generator: Optional[torch.Generator] = None):
         feats, feat_lengths = self.audio_transform(audio, lengths, train=train, generator=generator)
         encoded, out_lengths = self.encoder(feats, feat_lengths, train=train, generator=generator)
-        return self.decoder(encoded, train=train), out_lengths
+        return self.decoder(encoded, train=train, generator=generator), out_lengths
 
 
 @dataclass
