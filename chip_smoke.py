@@ -48,7 +48,21 @@ Phases, each of which fails the run:
    at the shapes of that forward (layer 0's own qkv and its first add +
    LayerNorm's inputs, captured by hooks) against their plain versions and a
    PyTorch call (the split into heads + ``F.scaled_dot_product_attention``
-   with the key mask; ``F.layer_norm`` of the float32 sum), timed here only.
+   with the key mask; ``F.layer_norm`` of the float32 sum), timed here only;
+9. beam serving on the QuartzNet15x5 engine of phase 4, same 64 x 15 s batch:
+   one ``InferenceEngine.predict(audio, beam_width=16, beam_backend="device")``
+   must make exactly 1 log-mel, 77 separable-repeat, 1 ``beam_scan`` and 1
+   ``beam_backtrace`` launch, and its transcripts must equal the same predict
+   through the plain versions on the card, for all 64 rows; the beam decode
+   is timed with CUDA events on the forward's own logits (the whole
+   ``beam_search_device`` call, the scan and the backtrace apart, each beside
+   its plain version), and the whole predict on the host clock; on peaked
+   logits (``scripts/bench_beam_device.py::peaked_logits``: 70 % blank
+   frames, peak 6, numpy seed 0) rows 0-1 must equal the port's numpy host
+   search, and on the served logits the share of rows 0-1 that agree with it
+   is printed; ``predict_long`` on a 60 s speech-like clip with the device
+   beam must make one launch of each beam kernel per window and give the
+   text of the same windows through the plain versions.
 
 Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
 of its bytes (each input read once, each output written once) over 3.35
@@ -63,6 +77,7 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -140,6 +155,7 @@ PROFILE_CATEGORIES = (
     ("ctc_recursion", ("ctc_alpha_kernel", "ctc_beta_kernel")),
     ("attention", ("mha_from_qkv_kernel",)),
     ("add_layer_norm", ("add_ln_kernel",)),
+    ("beam_search", ("beam_scan_kernel", "beam_backtrace_kernel")),
     ("log_mel", ("log_mel_kernel",)),
     ("separable_repeat", ("separable_repeat_kernel",)),
     ("depthwise_conv", ("conv_depthwise",)),
@@ -231,6 +247,45 @@ def attention_bound(batch: int, t: int, heads: int) -> dict:
 def add_ln_bound(rows: int, d: int) -> dict:
     """x and y in, the output out (bf16), scale and bias in (float32); about 8 float32 operations a value."""
     return bound(3 * 2 * rows * d + 2 * 4 * d, f32_flop=8.0 * rows * d)
+
+
+def beam_scan_bound(batch: int, t: int, v: int, width: int) -> dict:
+    """logp (B, T, V) float32 in (K = V: the candidates are logp itself), parents and exts (B, T, W)
+    int32 out, the lengths and the five (B, W) state arrays in, six out. The float32 operations per
+    row and frame: about 6 for each logaddexp (3 W of them) and 3 for each of the W*V extend rows."""
+    n_bytes = 4 * batch * t * v + 8 * batch * t * width + 4 * batch * (1 + 11 * width)
+    return bound(n_bytes, f32_flop=batch * t * (18.0 * width + 3.0 * width * v))
+
+
+def beam_backtrace_bound(batch: int, t: int, n_out: int) -> dict:
+    """What the walk needs: one parent and one ext read per path and frame, the start slot read, the
+    token written per path and frame and the origin written."""
+    return bound(4 * batch * n_out * (3 * t + 2))
+
+
+@contextlib.contextmanager
+def plain_beam():
+    """Route the device beam search through the plain versions of both kernels, on the same device."""
+    import thunder_tpu_torch.ops.ctc_beam_device as device_beam
+    from thunder_tpu_torch.kernels.beam import beam_backtrace_reference, beam_scan_reference
+
+    saved = device_beam.beam_scan, device_beam.beam_backtrace
+    device_beam.beam_scan, device_beam.beam_backtrace = beam_scan_reference, beam_backtrace_reference
+    try:
+        yield
+    finally:
+        device_beam.beam_scan, device_beam.beam_backtrace = saved
+
+
+def peaked_logits(rng, batch, t, v, blank, blank_frac=0.7, peak=6.0):
+    """``scripts/bench_beam_device.py::peaked_logits``: normal logits, one token per frame raised by
+    ``peak``, the blank on ``blank_frac`` of the frames."""
+    logits = rng.normal(0, 1.0, (batch, t, v)).astype(np.float32)
+    which = rng.random((batch, t)) < blank_frac
+    idx = np.where(which, blank, rng.integers(0, v, (batch, t)))
+    for b in range(batch):
+        logits[b, np.arange(t), idx[b]] += peak
+    return logits
 
 
 def gpu_line() -> str:
@@ -406,6 +461,9 @@ def run() -> int:
     # ---- wav2vec2-base serving, then its two kernels at the forward's shapes
     kernels.extend(wav2vec2_phase(card, KERNEL_CHECKS["attn_onepanel"][1], KERNEL_CHECKS["add_ln"][1]))
 
+    # ---- beam serving on the phase-4 engine, then its two kernels at the forward's shapes
+    kernels.extend(beam_phase(card, engine, audio, lengths, KERNEL_CHECKS["beam_device"][1]))
+
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -456,7 +514,7 @@ def training_phase(card: str, ctc_tol: float) -> dict:
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     emit({"phase": "train_launches_per_step", **counts})
     check(counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1,
-                     "mha_from_qkv": 0, "add_layer_norm": 0},
+                     "mha_from_qkv": 0, "add_layer_norm": 0, "beam_scan": 0, "beam_backtrace": 0},
           f"one train step must launch 1 log-mel, 1 ctc_alpha and 1 ctc_beta, got {counts}")
     check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"Trainer.fit loss {trainer.logs[0]}")
 
@@ -580,7 +638,7 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
     emit({"phase": "w2v2_launches_per_forward", **counts})
     layers = cfg.num_hidden_layers
     want = {"fused_log_mel": 0, "fused_separable_repeat": 0, "ctc_alpha": 0, "ctc_beta": 0,
-            "mha_from_qkv": layers, "add_layer_norm": 2 * layers + 1}
+            "mha_from_qkv": layers, "add_layer_norm": 2 * layers + 1, "beam_scan": 0, "beam_backtrace": 0}
     check(counts == want, f"one wav2vec2 forward must launch {want}, got {counts}")
     check(len(texts) == W2V_BATCH and all(isinstance(t, str) and set(t) <= set(W2V_VOCAB) for t in texts),
           f"transcripts outside the vocabulary: {texts[:4]}")
@@ -669,6 +727,133 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
          "max_abs_err": n_err, "max_ulp": n_ulp, "ms": n_ms, "plain_ms": n_plain,
          "ms_is": f"one launch at {rows} rows x {h} (layer 0's first add + LayerNorm)",
          **add_ln_bound(rows, h), "library_ms": n_lib, "library": "F.layer_norm(x.float() + y.float()).to(bf16)"},
+    ]
+
+
+def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_tol: float) -> list:
+    """Beam serving on the phase-4 engine (phase 9 of the module docstring); returns the scan's and
+    the backtrace's entries of the kernels line."""
+    import torch
+
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.kernels.beam import (
+        beam_backtrace,
+        beam_backtrace_reference,
+        beam_scan,
+        beam_scan_reference,
+    )
+    from thunder_tpu_torch.ops.ctc_beam import beam_search_decode
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
+
+    width = 16
+    tt = engine.module.text_transform
+    blank = engine.module.blank_idx
+    beam = dict(beam_width=width, beam_backend="device")
+    engine.predict(audio, lengths, **beam)  # builds nothing new; warms the beam path
+
+    reset_launch_counts()
+    texts = engine.predict(audio, lengths, **beam)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    emit({"phase": "beam_launches_per_predict", **counts})
+    want = {"fused_log_mel": 1, "fused_separable_repeat": 77, "ctc_alpha": 0, "ctc_beta": 0, "mha_from_qkv": 0,
+            "add_layer_norm": 0, "beam_scan": 1, "beam_backtrace": 1}
+    check(counts == want, f"one beam predict must launch {want}, got {counts}")
+    check(len(texts) == BATCH and all(isinstance(t, str) and set(t) <= set(VOCAB) for t in texts),
+          f"beam transcripts outside the vocabulary: {texts[:4]}")
+    with plain_beam():
+        plain_texts = engine.predict(audio, lengths, **beam)
+    agree = sum(a == b for a, b in zip(texts, plain_texts))
+    emit({"phase": "beam_vs_plain", "rows": BATCH, "equal_rows": agree})
+    check(agree == BATCH, f"beam transcripts differ from the plain versions' on {BATCH - agree} of {BATCH} rows")
+
+    # host clock of the whole predict, greedy and beam
+    timings = {}
+    for name, kw in (("greedy", {}), ("beam", beam)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict(audio, lengths, **kw)
+        timings[f"predict_{name}_ms_host_clock"] = (time.perf_counter() - t0) * 1e3
+
+    # the decode alone, on the forward's own logits
+    audio_d, lengths_d = torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda")
+    logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+    batch, frames, vocab = logits.shape
+    decode = lambda: beam_search_device(logits, out_lengths, blank=blank, beam_width=width)  # noqa: E731
+    decode_ms = cuda_ms(decode, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    decode_host_ms = (time.perf_counter() - t0) * 1e3
+    with plain_beam():
+        decode_plain_ms = cuda_ms(decode, 1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    kw = dict(blank=blank, beam_width=width, k_tokens=50)
+    scan = lambda: beam_scan(logp, out_lengths, -12.0, **kw)  # noqa: E731
+    scan_plain = lambda: beam_scan_reference(logp, out_lengths, -12.0, **kw)  # noqa: E731
+    (p1, e1, t1, s1), (p0, e0, t0_, s0) = scan(), scan_plain()
+    slots0 = torch.argsort(-t1, dim=1, stable=True)[:, :1].to(torch.int32)
+    walk = lambda: beam_backtrace(p1, e1, slots0)  # noqa: E731
+    walk_plain = lambda: beam_backtrace_reference(p1, e1, slots0)  # noqa: E731
+    (k1, o1), (k0, o0) = walk(), walk_plain()
+    finite = torch.isfinite(t0_)
+    scan_err = (t1[finite] - t0_[finite]).abs().max().item()
+    exact = (torch.equal(p1, p0) and torch.equal(e1, e0) and torch.equal(finite, torch.isfinite(t1))
+             and all(torch.equal(a, b) for a, b in zip(s1[2:], s0[2:])) and torch.equal(k1, k0) and torch.equal(o1, o0))
+    check(exact and scan_err <= total_tol,
+          f"beam kernels at the forward's logits differ from the plain versions (exact {exact}, total {scan_err})")
+    p_a, k_a = cuda_ms(scan_plain, 1), cuda_ms(scan, 10)
+    k_b, p_b = cuda_ms(scan, 10), cuda_ms(scan_plain, 1)
+    scan_ms, scan_plain_ms = (k_a + k_b) / 2, (p_a + p_b) / 2
+    walk_ms, walk_plain_ms = paired_ms(walk, walk_plain, 10)
+    emit({"phase": "beam_decode", "B": batch, "T": frames, "V": vocab, "W": width, "decode_ms": decode_ms,
+          "decode_ms_host_clock": decode_host_ms, "decode_plain_ms": decode_plain_ms, "scan_ms": scan_ms,
+          "scan_plain_ms": scan_plain_ms, "backtrace_ms": walk_ms, "backtrace_plain_ms": walk_plain_ms,
+          "forward_ms": cuda_ms(lambda: engine.infer(audio_d, lengths_d), 5), **timings, "card": card})
+    emit({"phase": "beam_profile", **device_profile(lambda: engine.predict(audio, lengths, **beam))})
+
+    # against the numpy host search: exact on peaked logits, the share that agrees on the served ones
+    peaked = peaked_logits(np.random.default_rng(0), BATCH, frames, vocab, blank)
+    t0 = time.perf_counter()
+    host = beam_search_decode(peaked[:2], blank=blank, beam_width=width, max_tokens_per_step=None)
+    host_s = time.perf_counter() - t0
+    card_rows = beam_search_device(torch.as_tensor(peaked, device="cuda"), blank=blank, beam_width=width,
+                                   max_tokens_per_step=None)[:2]
+    peaked_equal = [h.tolist() == d.tolist() for h, d in zip(host, card_rows)]
+    served = logits[:2].float().cpu().numpy()
+    served_host = beam_search_decode(served, out_lengths[:2].cpu().numpy(), blank=blank, beam_width=width)
+    served_card = beam_search_device(logits[:2], out_lengths[:2], blank=blank, beam_width=width)
+    served_share = sum(h.tolist() == d.tolist() for h, d in zip(served_host, served_card)) / 2
+    emit({"phase": "beam_vs_host", "peaked_rows_equal": peaked_equal, "served_rows_agree_share": served_share,
+          "host_seconds_two_rows": host_s})
+    check(all(peaked_equal), f"device beam differs from the host search on peaked rows 0-1: {peaked_equal}")
+
+    # long audio: one launch of each beam kernel per window, the same text as the plain versions
+    clip = speech_like(60 * SAMPLE_RATE, np.random.default_rng(2))
+    chunk, overlap = 20 * SAMPLE_RATE, 2 * SAMPLE_RATE
+    windows = len(range(0, max(clip.shape[0] - overlap, 1), chunk - overlap))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    long_text = engine.predict_long(clip, beam_width=width, beam_backend="device")
+    long_ms = (time.perf_counter() - t0) * 1e3
+    long_counts = (beam_scan.launches, beam_backtrace.launches)
+    with plain_beam():
+        long_plain = engine.predict_long(clip, beam_width=width, beam_backend="device")
+    emit({"phase": "beam_predict_long", "seconds": 60, "windows": windows, "beam_launches": long_counts,
+          "ms_host_clock": long_ms, "chars": len(long_text), "equal_to_plain": long_text == long_plain})
+    check(long_counts == (windows, windows), f"predict_long over {windows} windows launched {long_counts}")
+    check(long_text == long_plain and set(long_text) <= set(VOCAB), "predict_long's text differs from the plain versions'")
+    source, pallas = "thunder_tpu_torch/csrc/beam_search.cu", "thunder_tpu/kernels/beam_pallas.py"
+    shape = f"B={batch}, T={frames}, V=K={vocab}, W={width}"
+    return [
+        {"name": "beam_scan", "route": "cuda", "source": source, "replaces": f"{pallas}:214",
+         "launches": counts["beam_scan"], "max_abs_err": scan_err, "ms": scan_ms, "plain_ms": scan_plain_ms,
+         "ms_is": f"one launch at the forward's logits, {shape}", **beam_scan_bound(batch, frames, vocab, width),
+         "library_ms": None, "library": "none (no single PyTorch call computes a prefix beam search)"},
+        {"name": "beam_backtrace", "route": "cuda", "source": source, "replaces": f"{pallas}:374",
+         "launches": counts["beam_backtrace"], "max_abs_err": 0.0, "ms": walk_ms, "plain_ms": walk_plain_ms,
+         "ms_is": f"one launch, one path a row, {shape}", **beam_backtrace_bound(batch, frames, 1),
+         "library_ms": None, "library": "none (no single PyTorch call walks beam pointers)"},
     ]
 
 

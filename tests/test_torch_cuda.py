@@ -8,7 +8,9 @@ LayerNorm kernels are held to their plain versions at the wav2vec2-base
 serving shape (16 x 15 s: T = 749, 12 heads), with ragged rows and a row of
 length 0; the CTC kernel pair is held to its plain loops on the edge case and
 at the training shape; and one ``Trainer.fit`` step on the card launches each
-kernel of the training path once.
+kernel of the training path once. The beam scan and backtrace kernels are
+held to their plain versions at small shapes (besides their checks at the
+serving shapes), and a beam ``predict`` on the card makes one launch of each.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -84,7 +86,7 @@ def test_small_wav2vec2_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     assert counts == {"fused_log_mel": 0, "fused_separable_repeat": 0, "ctc_alpha": 0, "ctc_beta": 0,
-                      "mha_from_qkv": 2, "add_layer_norm": 5}
+                      "mha_from_qkv": 2, "add_layer_norm": 5, "beam_scan": 0, "beam_backtrace": 0}
     want, want_lens = InferenceEngine(module.to("cpu"))(audio, lengths)
     assert torch.equal(got_lens.cpu(), want_lens)
     valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
@@ -229,6 +231,83 @@ def test_one_train_step_on_card_launches_each_kernel_once(cuda):
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     assert counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1,
-                      "mha_from_qkv": 0, "add_layer_norm": 0}
+                      "mha_from_qkv": 0, "add_layer_norm": 0, "beam_scan": 0, "beam_backtrace": 0}
     assert np.isfinite(trainer.logs[0]["loss/train_loss"])
     assert trained.device.type == "cuda"
+
+
+@pytest.mark.parametrize(
+    "b,t,v,width,k,floor,carried",
+    [(3, 29, 9, 8, 9, -12.0, False), (3, 23, 40, 6, 7, -10.0, False), (2, 21, 9, 1, 9, -12.0, False),
+     (2, 12, 8, 6, 8, -2.0, False), (2, 19, 9, 5, 9, -12.0, True), (5, 64, 29, 40, 29, -12.0, False)],
+)
+def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width, k, floor, carried):
+    """K = V and K < V, a beam of one, frames the floor empties (flat frames), a carried state, W above a warp."""
+    from thunder_tpu_torch.kernels.beam import (
+        beam_backtrace,
+        beam_backtrace_reference,
+        beam_scan,
+        beam_scan_reference,
+    )
+
+    rng = np.random.default_rng(31)
+    logits = torch.as_tensor(rng.normal(0, 2, (b, t, v)).astype(np.float32), device="cuda")
+    logits[:, 2:4] = 0.0  # flat frames: -log(V) for every token
+    logp = torch.log_softmax(logits, dim=-1)
+    lengths = torch.as_tensor([t] + [max(t - 9 * i, 0) for i in range(1, b)], dtype=torch.int32, device="cuda")
+    kw = dict(blank=v - 1, beam_width=width, k_tokens=k)
+    init = None
+    if carried:
+        _, _, _, init = beam_scan_reference(torch.log_softmax(logits[:, :7] * 1.5, -1), lengths.clamp(max=7), floor, **kw)
+    got, want = beam_scan(logp, lengths, floor, init_state=init, **kw), beam_scan_reference(logp, lengths, floor,
+                                                                                         init_state=init, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("parents", "exts"), got[:2], want[:2]):
+        assert torch.equal(x, y), name
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=2e-3)
+    for x, y in zip(got[3][2:], want[3][2:]):
+        assert torch.equal(x, y)
+    slots0 = torch.argsort(-want[2], dim=1, stable=True)[:, : min(3, width)].to(torch.int32)
+    toks, origin = beam_backtrace(want[0], want[1], slots0)
+    toks0, origin0 = beam_backtrace_reference(want[0], want[1], slots0)
+    torch.cuda.synchronize()
+    assert torch.equal(toks, toks0) and torch.equal(origin, origin0)
+
+
+def test_beam_predict_on_card_goes_through_both_kernels(cuda):
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_backtrace_reference, beam_scan, beam_scan_reference
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    tokens = list("abcdefghijklmnopqrstuvwxyz '")
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(),
+                              QuartznetEncoder(repeat=2, filters=(256,), kernel_sizes=(33,)), Conv1dDecoder(29),
+                              BatchTextTransformer(tokens), device="cuda")
+    engine = InferenceEngine(module)
+    audio = (np.random.default_rng(0).standard_normal((3, 32000)) * 0.2).astype(np.float32)
+    lengths = np.array([32000, 20000, 400], np.int32)
+    reset_launch_counts()
+    texts = engine.predict(audio, lengths, beam_width=8, beam_backend="device")
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    assert counts["beam_scan"] == 1 and counts["beam_backtrace"] == 1 and counts["fused_log_mel"] == 1
+    # the same logits through the plain versions on the card
+    logits, _, out_lengths = engine.infer(audio, lengths)
+    parents, exts, total, _ = beam_scan_reference(torch.log_softmax(logits.float(), -1), out_lengths, -12.0,
+                                                  blank=module.blank_idx, beam_width=8, k_tokens=50)
+    slots0 = torch.argsort(-total, dim=1, stable=True)[:, :1].to(torch.int32)
+    toks, _ = beam_backtrace_reference(parents, exts, slots0)
+    want = [module.text_transform.decode_prediction(row[row >= 0][None].cpu().numpy(), remove_repeated=False)[0]
+            for row in toks[:, 0]]
+    assert texts == want
+    # predict_long: one scan and one backtrace per window (4 windows of 1.5 s, 1 s apart, over 4 s)
+    reset_launch_counts()
+    text = engine.predict_long(np.tile(audio[0], 2), chunk_seconds=1.5, overlap_seconds=0.5, beam_width=8,
+                               beam_backend="device")
+    torch.cuda.synchronize()
+    assert isinstance(text, str) and set(text) <= set(tokens)
+    assert (beam_scan.launches, beam_backtrace.launches) == (4, 4)

@@ -54,7 +54,8 @@ def test_kernel_modules_import_without_nvcc_or_triton():
 
 def test_sources_are_in_the_package():
     names = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
-    assert names == {"log_mel.cu", "separable_repeat.cu", "ctc_recursion.cu", "mha_from_qkv.cu", "add_ln.cu"}
+    assert names == {"log_mel.cu", "separable_repeat.cu", "ctc_recursion.cu", "mha_from_qkv.cu", "add_ln.cu",
+                     "beam_search.cu"}
     assert _build.library_path().parent == _build.BUILD_DIR
     sources = {src.name: src.read_text() for src in _build.CSRC_DIR.glob("*.cu")}
     for text in sources.values():

@@ -1,4 +1,4 @@
-"""Greedy-CTC inference engine: the serving hot path.
+"""CTC inference engine: the serving hot path.
 
 Port of ``thunder_tpu/engine.py::InferenceEngine`` for QuartzNet and
 wav2vec2 (float mode). The QuartzNet path:
@@ -22,6 +22,12 @@ see ``models.wav2vec2.serving_copy``), whose layers run the attention and add
 and a float32 bias. Its int8 modes and the dense positional-conv fold are not
 ported.
 
+Decoding is greedy by default; ``predict(beam_width=...)`` runs the prefix
+beam search on the host (numpy) or, with ``beam_backend="device"``, on the
+forward's logits where they lie, through the beam scan and backtrace
+kernels; ``predict_long`` decodes long audio in overlapped chunks, greedy or
+as one continuous beam search.
+
 Compute is bfloat16 on the card (as the JAX engine computes in bf16 on its
 accelerator) and float32 on the CPU, where every kernel wrapper runs its
 plain version. Asking for float32 on the card raises.
@@ -40,7 +46,15 @@ from thunder_tpu_torch.models.decoders import Conv1dDecoder, LinearDecoder
 from thunder_tpu_torch.models.layers import BN_EPS
 from thunder_tpu_torch.models.quartznet import QuartznetEncoder
 from thunder_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, serving_copy
-from thunder_tpu_torch.module import CTCModule, decode_greedy, host_batch, pad_to_bucket, require_device, to_device
+from thunder_tpu_torch.module import (
+    _BEAM_UNSET,
+    CTCModule,
+    long_transcribe,
+    pad_to_bucket,
+    require_device,
+    to_device,
+    transcribe,
+)
 from thunder_tpu_torch.ops.conv import conv_output_length, get_same_padding
 from thunder_tpu_torch.ops.ctc import greedy_decode
 from thunder_tpu_torch.ops.masking import lengths_to_mask
@@ -84,7 +98,7 @@ def _decoder_weights(decoder) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class InferenceEngine:
-    """Greedy-CTC inference over a ``CTCModule``'s weights (QuartzNet with BN folded, or wav2vec2)."""
+    """CTC inference over a ``CTCModule``'s weights (QuartzNet with BN folded, or wav2vec2)."""
 
     def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None):
         self.device = require_device(device if device is not None else module.device)
@@ -209,11 +223,24 @@ class InferenceEngine:
                 n += 1
         return n
 
-    def predict(self, audio, lengths=None) -> List[str]:
-        """Greedy decode of an audio batch (or one clip) into strings."""
-        tt = self.module.text_transform
-        if tt is None:
-            raise ValueError("predict requires a text_transform")
-        audio, lengths = host_batch(audio, lengths, self.module.pad_multiple)
-        _, preds, out_lengths = self.infer(audio, lengths)
-        return decode_greedy(tt, preds, out_lengths)
+    def predict(self, audio, lengths=None, beam_width: Optional[int] = None, prune_logp: float = _BEAM_UNSET, lm=None,
+                lm_weight: float = _BEAM_UNSET, nbest: Optional[int] = None, beam_backend: Optional[str] = None,
+                **beam_kwargs) -> List[str]:
+        """Greedy decode of an audio batch (or one clip) by default; ``beam_width``
+        switches to CTC prefix beam search over the logits, ``beam_backend="host"``
+        (default, the numpy search, in-search LM fusion) or ``"device"`` (the beam
+        kernels on the forward's logits, which stay on the device; an ``lm`` ranks
+        the surviving beam on the host). With ``nbest=k``, returns per sample the
+        top-k ``(text, log_prob)`` pairs instead of one string."""
+        return transcribe(self.module, self, audio, lengths, beam_width, prune_logp, lm, lm_weight, nbest, beam_backend,
+                          beam_kwargs)
+
+    def predict_long(self, audio, chunk_seconds: float = 20.0, overlap_seconds: float = 2.0, sample_rate: int = 16000,
+                     beam_width: Optional[int] = None, **beam_kwargs) -> str:
+        """Chunked long-audio transcription on the engine's forward; ``beam_width``
+        beam-decodes the chunks' trimmed frame windows as one continuous search
+        (see :func:`thunder_tpu_torch.module.chunked_transcribe`)."""
+        if self.module.text_transform is None:
+            raise ValueError("predict_long requires a text_transform")
+        return long_transcribe(self.module, self, self.predict, audio, chunk_seconds, overlap_seconds, sample_rate,
+                               beam_width, beam_kwargs)

@@ -40,6 +40,8 @@ SIGNATURES = {
     "thunder_ctc_beta": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],
     "thunder_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P],
+    "thunder_beam_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

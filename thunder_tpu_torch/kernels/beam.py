@@ -1,0 +1,275 @@
+"""CTC prefix beam search: the frame scan and the pointer-walk backtrace, as CUDA kernels and plain PyTorch.
+
+Port of ``thunder_tpu/kernels/beam_pallas.py`` (``beam_scan_pallas``,
+``beam_backtrace_pallas``), with the JAX wrappers' boundary:
+
+- :func:`beam_scan`: ``logp (B, T, V)`` float32, lengths, the prune floor,
+  ``blank``, ``beam_width`` (W), ``k_tokens`` and an optional carried
+  ``init_state = (pb, pnb, h1, h2, last)``, each ``(B, W)``, go in;
+  ``(parents, exts, total, state)`` come out: the per-frame pointers
+  ``(B, T, W)`` int32, the final per-beam log-probability ``total (B, W)``
+  and the final state. The hashes are uint32 values held in int32 bits, as
+  in the TPU kernel.
+- :func:`beam_backtrace`: ``(parents, exts, slots0 (B, n_out))`` in,
+  ``(toks (B, n_out, T), origin (B, n_out))`` out.
+
+When ``K = min(k_tokens, V) < V``, the candidates are pre-pruned outside the
+kernel, as one XLA ``top_k`` does for the TPU kernel: a stable descending
+sort (value descending, ties to the lower id, ``lax.top_k``'s order) of which
+the first K are kept. When ``K >= V`` the ids are ``0..V-1`` and nothing is
+sorted.
+
+Each wrapper launches its kernel (``csrc/beam_search.cu``) for CUDA tensors
+and runs its plain version (:func:`beam_scan_reference`,
+:func:`beam_backtrace_reference`) only for CPU tensors. The plain scan is
+the batched counterpart of the TPU kernel: a loop over frames of ``(B, W)``
+and ``(B, W*K)`` tensor ops, with the top-W as a stable sort, and the hashes
+in int64 masked to 32 bits (the products are split so that no int64 product
+overflows).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from thunder_tpu_torch.kernels import _build
+
+__all__ = [
+    "MAX_CANDIDATES",
+    "beam_scan",
+    "beam_scan_reference",
+    "beam_backtrace",
+    "beam_backtrace_reference",
+    "candidates",
+    "fresh_state",
+    "scan_shared_bytes",
+]
+
+#: the largest per-frame candidate block W*K, as the JAX package's device search allows
+MAX_CANDIDATES = 8192
+#: shared memory a block may use on sm_90 (``csrc/beam_search.cu``: ``MAX_SMEM``)
+MAX_SHARED_BYTES = 232448
+
+M1, M2 = 1000003, 2654435761
+H_SEED = 1
+DEAD_H1 = 0xFFFFFFFF
+_MASK = 0xFFFFFFFF
+_NEG = float("-inf")
+
+State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def scan_shared_bytes(beam_width: int, k: int) -> int:
+    """Shared memory of one scan block: W + W*K candidate totals, K candidates and their ids, 17 W-vectors."""
+    return 4 * (beam_width + beam_width * k + 2 * k + 17 * beam_width)
+
+
+def fresh_state(batch: int, beam_width: int, device) -> State:
+    """The fresh search: slot 0 holds the empty prefix, the others are dead sentinels."""
+    w = torch.arange(beam_width, device=device)
+    pb = torch.where(w == 0, 0.0, _NEG).to(torch.float32).expand(batch, -1).contiguous()
+    pnb = torch.full((batch, beam_width), _NEG, dtype=torch.float32, device=device)
+    h1 = torch.where(w == 0, H_SEED, -1).to(torch.int32).expand(batch, -1).contiguous()  # -1: 0xFFFFFFFF
+    h2 = torch.where(w == 0, H_SEED, w).to(torch.int32).expand(batch, -1).contiguous()
+    last = torch.full((batch, beam_width), -1, dtype=torch.int32, device=device)
+    return pb, pnb, h1, h2, last
+
+
+def candidates(logp: torch.Tensor, k_tokens: int):
+    """``(K, topv, topi)``: the top-K log-probs ``(B, T, K)`` and int32 ids by a stable descending
+    sort when ``K < V``, else ``(V, None, None)`` (every token, ids ``0..V-1``)."""
+    vocab = logp.shape[-1]
+    k = min(int(k_tokens), vocab)
+    if k >= vocab:
+        return vocab, None, None
+    vals, ids = torch.sort(logp, dim=-1, descending=True, stable=True)
+    return k, vals[..., :k].contiguous(), ids[..., :k].to(torch.int32).contiguous()
+
+
+def _check_scan(logp, lengths, blank, beam_width, k_tokens, init_state):
+    if logp.ndim != 3 or logp.dtype != torch.float32:
+        raise ValueError(f"the beam scan takes float32 logp (B, T, V), got {tuple(logp.shape)} {logp.dtype}")
+    batch, _, vocab = logp.shape
+    if lengths.shape != (batch,):
+        raise ValueError(f"lengths must be ({batch},), got {tuple(lengths.shape)}")
+    if not 0 <= blank < vocab:
+        raise ValueError(f"blank {blank} outside the vocabulary of {vocab}")
+    if beam_width < 1 or k_tokens < 1:
+        raise ValueError(f"beam_width and k_tokens must be positive, got {beam_width}, {k_tokens}")
+    k = min(int(k_tokens), vocab)
+    if beam_width * k > MAX_CANDIDATES:
+        raise ValueError(f"the beam scan requires beam_width*K <= {MAX_CANDIDATES} (got K={k}, W={beam_width})")
+    if init_state is not None and (len(init_state) != 5 or any(a.shape != (batch, beam_width) for a in init_state)):
+        raise ValueError(f"init_state must be five ({batch}, {beam_width}) arrays")
+
+
+def _u32(h: torch.Tensor) -> torch.Tensor:
+    return h.long() & _MASK
+
+
+def _i32(h: torch.Tensor) -> torch.Tensor:
+    return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
+
+
+def _mul_mod32(h: torch.Tensor, m: int) -> torch.Tensor:
+    """``h * m mod 2**32`` for int64 ``h`` in ``[0, 2**32)``, with no int64 product above 2**48."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _MASK
+
+
+def beam_scan_reference(logp, lengths, floor, *, blank: int, beam_width: int, k_tokens: int,
+                        init_state: Optional[State] = None):
+    """Plain version of :func:`beam_scan`: a loop over frames, batched over rows."""
+    _check_scan(logp, lengths, blank, beam_width, k_tokens, init_state)
+    batch, frames, vocab = logp.shape
+    dev, W = logp.device, beam_width
+    K, topv, topi = candidates(logp, k_tokens)
+    if topv is None:
+        topv, topi = logp, torch.arange(vocab, device=dev).expand(batch, frames, vocab)
+    floor = float(np.float32(floor))
+    state = fresh_state(batch, W, dev) if init_state is None else init_state
+    pb, pnb = (a.to(dev, torch.float32) for a in state[:2])
+    h1, h2 = (_u32(a.to(dev)) for a in state[2:4])
+    last = state[4].to(dev, torch.int64)
+    lens = lengths.to(dev, torch.int64)
+    arange_w = torch.arange(W, device=dev)[None, :]
+    parents = torch.empty((batch, frames, W), dtype=torch.int32, device=dev)
+    exts = torch.empty((batch, frames, W), dtype=torch.int32, device=dev)
+    for t in range(frames):
+        cv, ci = topv[:, t], topi[:, t].long()  # (B, K)
+        p_blank = logp[:, t, blank][:, None]
+        total = torch.logaddexp(pb, pnb)
+        # stay rows: the blank path and the repeated-last path (last among the kept candidates)
+        stay_pb = torch.where(p_blank >= floor, total + p_blank, _NEG)
+        is_last = last[:, :, None] == ci[:, None, :]  # (B, W, K)
+        p_last = torch.where(is_last, cv[:, None, :], _NEG).amax(-1)
+        last_in = (is_last & (cv >= floor)[:, None, :]).any(-1) & (last >= 0)
+        stay_pnb = torch.where(last_in, pnb + p_last, _NEG)
+        # extend rows (B, W*K) in parent*K + slot order
+        ok = ((cv >= floor) & (ci != blank))[:, None, :]
+        base = torch.where(ci[:, None, :] == last[:, :, None], pb[:, :, None], total[:, :, None])
+        ext = torch.where(ok, base + cv[:, None, :], _NEG).reshape(batch, W * K)
+        vv = (ci + 2)[:, None, :]
+        eh1 = ((_mul_mod32(h1, M1)[:, :, None] + vv) & _MASK).reshape(batch, W * K)
+        eh2 = ((_mul_mod32(h2, M2)[:, :, None] + vv) & _MASK).reshape(batch, W * K)
+        # merge: the masked max of the extend rows that hold a stay row's prefix is absorbed into it
+        match = (eh1[:, :, None] == h1[:, None, :]) & (eh2[:, :, None] == h2[:, None, :])  # (B, W*K, W)
+        stay_pnb = torch.logaddexp(stay_pnb, torch.where(match, ext[:, :, None], _NEG).amax(1))
+        ext = torch.where(match.any(2), _NEG, ext)
+        cand = torch.cat([torch.logaddexp(stay_pb, stay_pnb), ext], 1)
+        m_pnb = torch.cat([stay_pnb, ext], 1)
+        # top-W, ties to the lower index; once every candidate is -inf the TPU kernel picks index 0
+        vals, order = torch.sort(cand, dim=1, descending=True, stable=True)
+        live = arange_w < torch.isfinite(cand).sum(1, keepdim=True)
+        idx = torch.where(live, order[:, :W], 0)
+        best = torch.where(live, vals[:, :W], _NEG)
+        stay = idx < W
+        e = (idx - W).clamp_min(0)
+        par = torch.where(stay, idx, e // K)
+        tok = torch.where(stay, -1, ci.gather(1, e % K))
+        dead = ~torch.isfinite(best)
+        g_h1, g_h2 = h1.gather(1, par), h2.gather(1, par)
+        n_pb = torch.where(dead | ~stay, _NEG, stay_pb.gather(1, par))
+        n_pnb = torch.where(dead, _NEG, m_pnb.gather(1, idx))
+        n_h1 = torch.where(dead, DEAD_H1, torch.where(stay, g_h1, (_mul_mod32(g_h1, M1) + tok + 2) & _MASK))
+        n_h2 = torch.where(dead, arange_w, torch.where(stay, g_h2, (_mul_mod32(g_h2, M2) + tok + 2) & _MASK))
+        n_last = torch.where(dead, -1, torch.where(stay, last.gather(1, par), tok))
+        # commit, a no-op past the row's length or when every candidate is -inf
+        valid = ((t < lens) & torch.isfinite(best[:, 0]))[:, None]
+        pb, pnb = torch.where(valid, n_pb, pb), torch.where(valid, n_pnb, pnb)
+        h1, h2 = torch.where(valid, n_h1, h1), torch.where(valid, n_h2, h2)
+        last = torch.where(valid, n_last, last)
+        parents[:, t] = torch.where(valid, par, arange_w)
+        exts[:, t] = torch.where(valid, tok, -1)
+    return parents, exts, torch.logaddexp(pb, pnb), (pb, pnb, _i32(h1), _i32(h2), last.to(torch.int32))
+
+
+def beam_scan(logp, lengths, floor, *, blank: int, beam_width: int, k_tokens: int,
+              init_state: Optional[State] = None):
+    """``(parents, exts, total, state)`` of the frame scan: the kernel on the card, the plain version on the CPU."""
+    _check_scan(logp, lengths, blank, beam_width, k_tokens, init_state)
+    if logp.device.type == "cpu":
+        return beam_scan_reference(logp, lengths, floor, blank=blank, beam_width=beam_width, k_tokens=k_tokens,
+                                   init_state=init_state)
+    if logp.device.type != "cuda":
+        raise ValueError(f"the beam scan runs on cuda or cpu tensors, got {logp.device}")
+    batch, frames, vocab = logp.shape
+    dev, W = logp.device, beam_width
+    if batch < 1:
+        raise ValueError("the beam scan needs at least one row")
+    K, topv, topi = candidates(logp, k_tokens)
+    smem = scan_shared_bytes(W, K)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"beam_width {W} with K={K} needs {smem} bytes of shared memory, over {MAX_SHARED_BYTES}")
+    state = fresh_state(batch, W, dev) if init_state is None else init_state
+    pb0, pnb0 = (a.to(dev, torch.float32).contiguous() for a in state[:2])
+    h10, h20, last0 = (a.to(dev, torch.int32).contiguous() for a in state[2:])
+    logp = logp.contiguous()
+    lens = lengths.to(dev, torch.int32).contiguous()
+    parents = torch.empty((batch, frames, W), dtype=torch.int32, device=dev)
+    exts = torch.empty_like(parents)
+    total, pb, pnb = (torch.empty((batch, W), dtype=torch.float32, device=dev) for _ in range(3))
+    h1, h2, last = (torch.empty((batch, W), dtype=torch.int32, device=dev) for _ in range(3))
+    status = _build.load().thunder_beam_scan(
+        logp.data_ptr(), 0 if topv is None else topv.data_ptr(), 0 if topi is None else topi.data_ptr(),
+        lens.data_ptr(), float(np.float32(floor)), pb0.data_ptr(), pnb0.data_ptr(), h10.data_ptr(), h20.data_ptr(),
+        last0.data_ptr(), parents.data_ptr(), exts.data_ptr(), total.data_ptr(), pb.data_ptr(), pnb.data_ptr(),
+        h1.data_ptr(), h2.data_ptr(), last.data_ptr(), batch, frames, vocab, K, W, int(blank),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "thunder_beam_scan")
+    beam_scan.launches += 1
+    return parents, exts, total, (pb, pnb, h1, h2, last)
+
+
+def _check_backtrace(parents, exts, slots0):
+    if parents.ndim != 3 or exts.shape != parents.shape:
+        raise ValueError(f"parents and exts must be one (B, T, W) shape, got {tuple(parents.shape)}, {tuple(exts.shape)}")
+    if slots0.ndim != 2 or slots0.shape[0] != parents.shape[0]:
+        raise ValueError(f"slots0 must be (B, n_out), got {tuple(slots0.shape)}")
+
+
+def beam_backtrace_reference(parents, exts, slots0):
+    """Plain version of :func:`beam_backtrace`: the sequential walk, newest frame first."""
+    _check_backtrace(parents, exts, slots0)
+    batch, frames, W = parents.shape
+    slot = slots0.long()
+    toks = torch.empty((batch, slot.shape[1], frames), dtype=torch.int32, device=parents.device)
+    for t in range(frames - 1, -1, -1):
+        inside = (slot >= 0) & (slot < W)
+        s = slot.clamp(0, W - 1)
+        toks[:, :, t] = torch.where(inside, exts[:, t].long().gather(1, s), -1)
+        slot = torch.where(inside, parents[:, t].long().gather(1, s), 0)
+    return toks, slot.to(torch.int32)
+
+
+def beam_backtrace(parents, exts, slots0):
+    """``(toks (B, n_out, T), origin (B, n_out))``: the kernel on the card, the plain walk on the CPU."""
+    _check_backtrace(parents, exts, slots0)
+    if parents.device.type == "cpu":
+        return beam_backtrace_reference(parents, exts, slots0)
+    if parents.device.type != "cuda":
+        raise ValueError(f"the beam backtrace runs on cuda or cpu tensors, got {parents.device}")
+    batch, frames, W = parents.shape
+    n_out = slots0.shape[1]
+    if batch < 1 or n_out < 1:
+        raise ValueError("the beam backtrace needs at least one row and one output slot")
+    dev = parents.device
+    parents, exts = parents.to(torch.int32).contiguous(), exts.to(dev, torch.int32).contiguous()
+    slots0 = slots0.to(dev, torch.int32).contiguous()
+    toks = torch.empty((batch, n_out, frames), dtype=torch.int32, device=dev)
+    origin = torch.empty((batch, n_out), dtype=torch.int32, device=dev)
+    status = _build.load().thunder_beam_backtrace(
+        parents.data_ptr(), exts.data_ptr(), slots0.data_ptr(), toks.data_ptr(), origin.data_ptr(),
+        batch, frames, W, n_out, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "thunder_beam_backtrace")
+    beam_backtrace.launches += 1
+    return toks, origin
+
+
+beam_scan.launches = 0
+beam_backtrace.launches = 0

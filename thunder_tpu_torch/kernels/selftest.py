@@ -17,7 +17,19 @@ heads) and ``add_ln`` (8 x 768 rows x 768) keep the JAX names and limits (4,
 4 and 2 bf16 ULP); ``attn_onepanel_749`` adds the wav2vec2-base serving
 length at 15 s (T = 749, not a multiple of 128) with ragged lengths and a
 row of length 0. The attention checks compare every query row, padded ones
-included.
+included. ``beam_device`` keeps the JAX check's name and shape (B = 64,
+T = 751, V = 29, beam 16, standard normal logits with +2 on blank 0, lengths
+``linspace(T // 2, T, B)``) and, like it, demands exact agreement: the
+kernels' pointers, exts, integer state and best hypotheses must equal the
+plain versions'; its number is then the largest difference of the float
+state and ``total`` (limit 2e-3, the JAX package's score tolerance against
+its host search; both routes compute the same float32 operations, so it is
+0 when the card's ``expf``/``log1pf`` round as PyTorch's do).
+``beam_device_topk`` runs the ``K < V`` pre-prune at the Citrinet serving
+shape (B = 64, T = 188, V = 1025, K = 50, beam 16), and ``beam_stream``
+holds four windows that tile the ``beam_device`` utterance, each one scan
+from the carried state, to the whole utterance at once: the same state and
+the same best prefixes.
 
 Both sides run on the same device and the same inputs; the float32 reference
 runs without TF32 (:func:`exact_float32` is set first).
@@ -32,6 +44,7 @@ import torch
 
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
 from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_backtrace_reference, beam_scan, beam_scan_reference
 from thunder_tpu_torch.kernels.ctc import ctc_ll, ctc_ll_reference, extended_emissions, scores_from_ll
 from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
 from thunder_tpu_torch.kernels.separable_conv import (
@@ -211,6 +224,69 @@ def _check_add_ln(device) -> dict:
     return {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
 
 
+def beam_case(seed, b, t, v, device):
+    """The ``beam_device`` inputs of the JAX selftest: logits with +2 on blank 0, lengths ``linspace(t // 2, t, b)``."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((b, t, v)).astype(np.float32)
+    logits[:, :, 0] += 2.0
+    lengths = np.linspace(t // 2, t, b).astype(np.int32)
+    return torch.as_tensor(logits, device=device), torch.as_tensor(lengths, device=device)
+
+
+def _hypotheses(toks: torch.Tensor) -> list:
+    return [row[row >= 0].tolist() for row in toks[:, 0].cpu()]
+
+
+def _float_diff(got, want) -> float:
+    """max |got - want| over finite entries; inf where the finite entries differ."""
+    finite = torch.isfinite(want)
+    if not torch.equal(finite, torch.isfinite(got)):
+        return float("inf")
+    return (got[finite] - want[finite]).abs().max().item() if bool(finite.any()) else 0.0
+
+
+def _beam_check(seed, b, t, v, width, k):
+    def check(device) -> dict:
+        logits, lengths = beam_case(seed, b, t, v, device)
+        logp = torch.log_softmax(logits, dim=-1)
+        kw = dict(blank=0, beam_width=width, k_tokens=k)
+        runs = []
+        for scan, backtrace in ((beam_scan, beam_backtrace), (beam_scan_reference, beam_backtrace_reference)):
+            parents, exts, total, state = scan(logp, lengths, -12.0, **kw)
+            slots0 = torch.argsort(-total, dim=1, stable=True)[:, :1].to(torch.int32)
+            toks, origin = backtrace(parents, exts, slots0)
+            runs.append((parents, exts, total, state, toks, origin))
+        (p1, e1, t1, s1, k1, o1), (p0, e0, t0, s0, k0, o0) = runs
+        err = max(_float_diff(t1, t0), _float_diff(s1[0], s0[0]), _float_diff(s1[1], s0[1]))
+        result = {"max_err": err, "max_abs_err": err, "hypotheses": b}
+        exact = (torch.equal(p1, p0) and torch.equal(e1, e0) and all(torch.equal(x, y) for x, y in zip(s1[2:], s0[2:]))
+                 and torch.equal(k1, k0) and torch.equal(o1, o0) and _hypotheses(k1) == _hypotheses(k0))
+        if not exact:
+            result.update(max_err=float("inf"), error="pointers, exts, integer state or hypotheses differ")
+        return result
+
+    return check
+
+
+def _check_beam_stream(device) -> dict:
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device_stream
+
+    logits, lengths = beam_case(3, 64, 751, 29, device)
+    kw = dict(blank=0, beam_width=16, max_tokens_per_step=None)
+    whole = beam_search_device_stream(logits, lengths, **kw)
+    state = None
+    for lo, hi in ((0, 188), (188, 376), (376, 563), (563, 751)):
+        state = beam_search_device_stream(logits[:, lo:hi].contiguous(), (lengths - lo).clamp(0, hi - lo), state=state,
+                                          **kw)
+    err = max(_float_diff(a, b) for a, b in zip(state.arrays[:2], whole.arrays[:2]))
+    result = {"max_err": err, "max_abs_err": err}
+    same = (all(torch.equal(a, b) for a, b in zip(state.arrays[2:], whole.arrays[2:]))
+            and [p.tolist() for p in state.best()] == [p.tolist() for p in whole.best()])
+    if not same:
+        result.update(max_err=float("inf"), error="integer state or best prefixes differ from the whole utterance")
+    return result
+
+
 KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # name -> (check fn, tolerance); units: absolute log-mel for the frontend,
     # bf16 ULPs at the reference's max magnitude for the separable repeat
@@ -229,6 +305,11 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_onepanel_1536": (_attention_check(6, 2, 1536, 12, [1536, 1479]), 4.0),
     "attn_onepanel_749": (_attention_check(7, 4, 749, 12, [749, 512, 37, 0]), 4.0),
     "add_ln": (_check_add_ln, 2.0),
+    # beam search: exact pointers, exts, integer state and hypotheses (else inf), then the float
+    # state's and total's largest difference, within the JAX package's score tolerance
+    "beam_device": (_beam_check(3, 64, 751, 29, 16, 29), 2e-3),
+    "beam_device_topk": (_beam_check(4, 64, 188, 1025, 16, 50), 2e-3),
+    "beam_stream": (_check_beam_stream, 2e-3),
 }
 
 

@@ -1,7 +1,10 @@
 """CTCModule: the user-facing model container.
 
-Port of ``CTCModel``, ``CTCModule.create``/``forward``/``predict``/``loss``/
-``with_variables`` and ``pad_to_bucket`` from ``thunder_tpu/module.py``. The
+Port of ``CTCModel``, ``CTCModule.create``/``forward``/``predict``/
+``predict_long``/``loss``/``with_variables``, ``pad_to_bucket``, the beam
+decoding tail (``check_beam_args``, ``check_device_beam_kwargs``,
+``run_beam_decode``) and the long-audio chunking (``trim_chunk_ids``,
+``chunked_transcribe``) from ``thunder_tpu/module.py``. The
 compute graph is one ``nn.Module`` (``CTCModel`` = audio_transform -> encoder
 -> decoder) on an explicit device, the card unless the caller asks for the
 CPU; audio is padded to a bucket multiple on the host, and variable lengths
@@ -28,7 +31,11 @@ from thunder_tpu_torch.models.layers import init_parameters
 from thunder_tpu_torch.ops.ctc import calculate_ctc, collapse_ctc, greedy_decode
 from thunder_tpu_torch.text.transform import BatchTextTransformer
 
-__all__ = ["CTCModel", "CTCModule", "pad_to_bucket", "require_device"]
+__all__ = ["CTCModel", "CTCModule", "pad_to_bucket", "require_device", "chunked_transcribe", "run_beam_decode"]
+
+#: sentinel distinguishing "caller passed a value" from the documented default,
+#: so beam-only kwargs raise without beam_width instead of silently running greedy
+_BEAM_UNSET = object()
 
 
 def require_device(device) -> torch.device:
@@ -70,6 +77,185 @@ def decode_greedy(text_transform: BatchTextTransformer, preds: torch.Tensor, out
     collapsed = collapse_ctc(preds.cpu().numpy(), out_lengths.cpu().numpy())
     # repeats already collapsed on ids; decode must not re-collapse
     return [text_transform.decode_prediction(c[None], remove_repeated=False)[0] for c in collapsed]
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def check_beam_args(beam_width, beam_kwargs, prune_logp=_BEAM_UNSET, lm=None, lm_weight=_BEAM_UNSET):
+    """Raise TypeError when beam-search-only arguments arrive without beam_width.
+
+    Shared by ``CTCModule.predict``/``predict_long`` and the engine's
+    equivalents so short and long audio behave identically.
+    """
+    if beam_width:
+        return
+    stray = sorted(beam_kwargs or ())
+    if prune_logp is not _BEAM_UNSET:
+        stray.append("prune_logp")
+    if lm is not None:
+        stray.append("lm")
+    if lm_weight is not _BEAM_UNSET:
+        stray.append("lm_weight")
+    if stray:
+        raise TypeError(f"beam-search arguments without beam_width: {sorted(stray)}")
+
+
+def check_device_beam_kwargs(backend, lm, beam_kwargs, allowed=("max_tokens_per_step",)):
+    """Validate a device-backend beam configuration: the stray-kwarg whitelist
+    and the unknown-backend check, shared by ``predict``/``run_beam_decode``
+    and ``chunked_transcribe``/``predict_long``.
+
+    ``lm`` with the device backend ranks every surviving beam on the host
+    (:func:`thunder_tpu_torch.ops.ctc_beam_device.lm_prefix_score`); unlike
+    the host backend's in-search shallow fusion, it does not influence which
+    beams survive pruning.
+    """
+    if backend == "device":
+        stray = sorted(set(beam_kwargs or ()) - set(allowed))
+        if stray:
+            raise ValueError(f"beam_backend='device' does not support: {stray}")
+    elif backend not in (None, "host"):
+        raise ValueError(f"unknown beam_backend: {backend!r} (use 'host' or 'device')")
+
+
+def run_beam_decode(logits, out_lengths, *, blank: int, text_transform, beam_width: int, nbest: Optional[int],
+                    prune_logp: float, lm, lm_weight: float, backend: Optional[str] = None,
+                    beam_kwargs: Optional[dict] = None):
+    """Shared beam-decode tail for :meth:`CTCModule.predict` and the serving
+    engine's ``predict``: logits -> transcriptions (or, with ``nbest``,
+    ranked ``(text, log_prob)`` pairs per sample).
+
+    ``backend`` selects where the search runs:
+
+    - ``"host"`` (default): the numpy search of
+      :mod:`thunder_tpu_torch.ops.ctc_beam`, with in-search LM shallow fusion;
+    - ``"device"``: :func:`thunder_tpu_torch.ops.ctc_beam_device.beam_search_device`
+      on the logits where they lie (the beam kernels on the card); with
+      ``lm``, the full surviving beam is LM-ranked on the host.
+    """
+    kw = dict(beam_kwargs or {})
+    check_device_beam_kwargs(backend, lm, kw)
+    if backend == "device":
+        from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
+
+        hyps = beam_search_device(logits, out_lengths, blank=blank, beam_width=beam_width, prune_logp=prune_logp,
+                                  nbest=nbest, lm=lm, lm_weight=lm_weight, **kw)
+    else:
+        from thunder_tpu_torch.ops.ctc_beam import beam_search_decode, beam_search_nbest
+
+        host_logits, host_lengths = _numpy(logits).astype(np.float32), _numpy(out_lengths)
+        common = dict(blank=blank, beam_width=beam_width, prune_logp=prune_logp, lm=lm, lm_weight=lm_weight, **kw)
+        if nbest is not None:
+            hyps = beam_search_nbest(host_logits, host_lengths, nbest=nbest, **common)
+        else:
+            hyps = beam_search_decode(host_logits, host_lengths, **common)
+    tt = text_transform
+    if nbest is not None:
+        return [
+            [(tt.decode_prediction(ids[None], remove_repeated=False)[0] if len(ids) else "", score)
+             for ids, score in sample]
+            for sample in hyps
+        ]
+    return [tt.decode_prediction(h[None], remove_repeated=False)[0] if len(h) else "" for h in hyps]
+
+
+def trim_chunk_ids(ids, seg_len: int, overlap: int, is_first: bool, is_last: bool):
+    """Drop half the overlap's frames from interior chunk boundaries (ids or a logits window)."""
+    fps = ids.shape[0] / max(seg_len, 1)
+    trim = int(overlap / 2 * fps)
+    lo = 0 if is_first else trim
+    hi = ids.shape[0] - trim if (not is_last and trim > 0) else ids.shape[0]
+    return ids[lo:hi]
+
+
+def chunked_transcribe(infer_fn, text_transform, audio, chunk_seconds: float = 20.0, overlap_seconds: float = 2.0,
+                       sample_rate: int = 16000, short_path=None, logits_fn=None, blank_idx: Optional[int] = None,
+                       beam_width: Optional[int] = None, beam_kwargs: Optional[dict] = None):
+    """Overlapped-chunk decoding of long audio.
+
+    ``infer_fn(padded_audio, lengths) -> (pred_ids, out_lengths)``; interior
+    chunk boundaries drop half the overlap's frames on each side, the id
+    streams are stitched and collapsed once (greedy).
+
+    With ``beam_width`` (requires ``logits_fn(padded, lengths) -> (logits,
+    out_lengths)`` and ``blank_idx``), the trimmed frame windows are decoded
+    as ONE continuous prefix beam search, each window seeded with the
+    previous window's surviving beams (:func:`thunder_tpu_torch.ops.ctc_beam.beam_search_stream`),
+    equal to the unchunked decode whenever the windows' log-probs tile the
+    full utterance's. ``beam_kwargs["beam_backend"]="device"`` runs the same
+    continuous search where the logits lie
+    (:func:`thunder_tpu_torch.ops.ctc_beam_device.beam_search_device_stream`):
+    each window is sliced, trimmed and padded to a 64-frame bucket on the
+    device, the carried state stays there, and an ``lm`` ranks the carried
+    beam on the host at the end.
+    """
+    audio = np.asarray(audio, dtype=np.float32).reshape(-1)
+    chunk = int(chunk_seconds * sample_rate)
+    overlap = int(overlap_seconds * sample_rate)
+    if overlap >= chunk:
+        raise ValueError(
+            f"overlap_seconds ({overlap_seconds}) must be smaller than "
+            f"chunk_seconds ({chunk_seconds}) — the chunk grid would drop audio"
+        )
+    if audio.shape[0] <= chunk and short_path is not None:
+        return short_path(audio)
+    step = chunk - overlap
+    starts = list(range(0, max(audio.shape[0] - overlap, 1), step))
+    use_beam = bool(beam_width)
+    if use_beam and (logits_fn is None or blank_idx is None):
+        raise ValueError("beam_width requires logits_fn and blank_idx")
+    kw = dict(beam_kwargs or {})
+    backend = kw.pop("beam_backend", None)
+    check_device_beam_kwargs(backend, kw.get("lm"), kw, allowed=("prune_logp", "max_tokens_per_step", "lm", "lm_weight"))
+    # device stream: the LM never enters the device search; it ranks the carried beam at the end
+    device_lm = kw.pop("lm", None) if backend == "device" else None
+    device_lm_weight = kw.pop("lm_weight", 0.5) if backend == "device" else 0.0
+    pieces = []
+    beam_state = None
+    for idx, start in enumerate(starts):
+        seg = audio[start: start + chunk]
+        seg_len = seg.shape[0]
+        padded = np.zeros((1, chunk), dtype=np.float32)
+        padded[0, :seg_len] = seg
+        first, last = idx == 0, idx == len(starts) - 1
+        seg_lengths = np.asarray([seg_len], dtype=np.int32)
+        if use_beam and backend == "device":
+            from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device_stream
+
+            logits, out_lengths = logits_fn(padded, seg_lengths)
+            # slice, trim and pad on the device: the logits never cross to the host
+            win = logits[0, : int(out_lengths[0])]
+            win = trim_chunk_ids(win, seg_len, overlap, is_first=first, is_last=last)
+            n_win = win.shape[0]
+            bucket = max(64, -(-n_win // 64) * 64)
+            if bucket != n_win:
+                win = torch.nn.functional.pad(win, (0, 0, 0, bucket - n_win))
+            beam_state = beam_search_device_stream(win[None], lengths=[n_win], blank=blank_idx, beam_width=beam_width,
+                                                   state=beam_state, **kw)
+        elif use_beam:
+            from thunder_tpu_torch.ops.ctc_beam import beam_search_stream, log_softmax
+
+            logits, out_lengths = logits_fn(padded, seg_lengths)
+            win = _numpy(logits).astype(np.float32)[0, : int(out_lengths[0])]
+            win = trim_chunk_ids(win, seg_len, overlap, is_first=first, is_last=last)
+            beam_state = beam_search_stream(log_softmax(win), blank_idx, beam_width=beam_width, state=beam_state, **kw)
+        else:
+            preds, out_lengths = infer_fn(padded, seg_lengths)
+            ids = _numpy(preds)[0, : int(out_lengths[0])]
+            pieces.append(trim_chunk_ids(ids, seg_len, overlap, is_first=first, is_last=last))
+    if use_beam and backend == "device":
+        bests = beam_state.best_ranked(device_lm, device_lm_weight, final=True) if beam_state is not None else []
+        best = bests[0] if bests else np.zeros((0,), np.int32)
+        return text_transform.decode_prediction(best[None].astype(np.int64), remove_repeated=False)[0]
+    if use_beam:
+        # the carried search's best prefix is already collapsed; 0.5 is beam_search_stream's
+        # lm_weight default, the weight the windows were searched with
+        best = beam_state.best_final(kw.get("lm"), kw.get("lm_weight", 0.5))
+        return text_transform.decode_prediction(best[None].astype(np.int64), remove_repeated=False)[0]
+    joined = np.concatenate(pieces)
+    return text_transform.decode_prediction(joined[None])[0]
 
 
 class CTCModel(nn.Module):
@@ -158,10 +344,69 @@ class CTCModule:
                              to_device(target_lengths, torch.int32, self.device), self.blank_idx)
         return loss, (logits, out_lengths)
 
-    def predict(self, audio, lengths=None) -> List[str]:
-        """Audio batch (or one clip) -> greedy CTC transcriptions."""
+    def predict(self, audio, lengths=None, beam_width: Optional[int] = None, prune_logp: float = _BEAM_UNSET, lm=None,
+                lm_weight: float = _BEAM_UNSET, nbest: Optional[int] = None, beam_backend: Optional[str] = None,
+                **beam_kwargs) -> List[str]:
+        """Audio batch (or one clip) -> transcriptions.
+
+        Greedy CTC decode by default; ``beam_width`` switches to prefix beam
+        search over the logits, on ``beam_backend="host"`` (default, the numpy
+        search with in-search LM fusion) or ``"device"`` (the beam kernels on
+        the logits where they lie; an ``lm`` ranks the surviving beam on the
+        host). With ``nbest=k``, returns per sample the top-k ``(text,
+        log_prob)`` pairs instead of one string.
+        """
+        return transcribe(self, self.forward, audio, lengths, beam_width, prune_logp, lm, lm_weight, nbest,
+                          beam_backend, beam_kwargs)
+
+    def predict_long(self, audio, chunk_seconds: float = 20.0, overlap_seconds: float = 2.0, sample_rate: int = 16000,
+                     beam_width: Optional[int] = None, **beam_kwargs) -> str:
+        """Transcribe arbitrarily long audio by overlapped chunking (:func:`chunked_transcribe`)."""
         if self.text_transform is None:
-            raise ValueError("predict requires a text_transform")
-        audio, lengths = host_batch(audio, lengths, self.pad_multiple)
-        logits, out_lengths = self.forward(audio, lengths)
-        return decode_greedy(self.text_transform, greedy_decode(logits), out_lengths)
+            raise ValueError("predict_long requires a text_transform")
+        return long_transcribe(self, self.forward, self.predict, audio, chunk_seconds, overlap_seconds, sample_rate,
+                               beam_width, beam_kwargs)
+
+
+def transcribe(module: CTCModule, forward, audio, lengths, beam_width, prune_logp, lm, lm_weight, nbest, beam_backend,
+               beam_kwargs) -> List[str]:
+    """``predict`` of a module or an engine: ``forward(padded, lengths) -> (logits, out_lengths)`` on the device,
+    then the greedy decode or :func:`run_beam_decode`."""
+    if module.text_transform is None:
+        raise ValueError("predict requires a text_transform")
+    if nbest is not None and not beam_width:
+        raise TypeError("beam-search arguments without beam_width: ['nbest']")
+    if beam_backend is not None and not beam_width:
+        raise TypeError("beam-search arguments without beam_width: ['beam_backend']")
+    check_beam_args(beam_width, beam_kwargs, prune_logp=prune_logp, lm=lm, lm_weight=lm_weight)
+    audio, lengths = host_batch(audio, lengths, module.pad_multiple)
+    logits, out_lengths = forward(audio, lengths)
+    if beam_width:
+        return run_beam_decode(
+            logits, out_lengths, blank=module.blank_idx, text_transform=module.text_transform, beam_width=beam_width,
+            nbest=nbest, prune_logp=-12.0 if prune_logp is _BEAM_UNSET else prune_logp, lm=lm,
+            lm_weight=0.5 if lm_weight is _BEAM_UNSET else lm_weight, backend=beam_backend, beam_kwargs=beam_kwargs,
+        )
+    return decode_greedy(module.text_transform, greedy_decode(logits), out_lengths)
+
+
+def long_transcribe(module: CTCModule, forward, predict, audio, chunk_seconds, overlap_seconds, sample_rate,
+                    beam_width, beam_kwargs) -> str:
+    """``predict_long`` of a module or an engine: ``forward(padded, lengths) -> (logits, out_lengths)``
+    on the device, ``predict`` for audio of one chunk or less."""
+    check_beam_args(beam_width, beam_kwargs)
+    if "nbest" in beam_kwargs:
+        raise TypeError(
+            "nbest is not supported by predict_long (the chunked beam "
+            "yields one continuous search; use predict for n-best)"
+        )
+
+    def infer(padded, lengths):
+        logits, out_lengths = forward(padded, lengths)
+        return greedy_decode(logits), out_lengths
+
+    return chunked_transcribe(
+        infer, module.text_transform, audio, chunk_seconds=chunk_seconds, overlap_seconds=overlap_seconds,
+        sample_rate=sample_rate, short_path=lambda a: predict(a, beam_width=beam_width, **beam_kwargs)[0],
+        logits_fn=forward, blank_idx=module.blank_idx, beam_width=beam_width, beam_kwargs=beam_kwargs or None,
+    )
