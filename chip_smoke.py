@@ -62,14 +62,48 @@ Phases, each of which fails the run:
    search, and on the served logits the share of rows 0-1 that agree with it
    is printed; ``predict_long`` on a 60 s speech-like clip with the device
    beam must make one launch of each beam kernel per window and give the
-   text of the same windows through the plain versions.
+   text of the same windows through the plain versions;
+10. wav2vec2-base CTC training at 8 rows x 15 s (``bench_train.py --model
+    wav2vec2``: ``Wav2Vec2Preprocess(mask_input=False)``, the feature
+    extractor frozen, attention, hidden and feature-projection dropout 0.1,
+    bf16 compute with float32 parameters, AdamW lr 1e-4, random noise audio
+    from numpy seed 0, T = 749 frames, one fixed text padded to 64 labels),
+    full width and depth: one ``Trainer.fit`` step must make exactly 12
+    ``mha_train`` forward launches and 24 backward (the dq and the dk/dv
+    kernel of each layer), 25 add + dropout + LayerNorm forward launches and
+    50 backward (the backward and the sum of its partial ``dscale``/``dbias``
+    rows), 1 ``ctc_alpha`` and 1 ``ctc_beta``, and no other kernel launch;
+    then ``W2V_TRAIN_WARMUP`` warm-up steps and ``W2V_TRAIN_TIMED`` steps
+    timed with CUDA events (step ms, audio seconds per second, peak memory),
+    one step under torch.profiler, every loss finite and the last below ``1 -
+    W2V_LOSS_FALL`` times the first; one train-mode forward with every
+    dropout rate 0, bf16 on the card against the port's float32 CPU path on
+    rows 0-1, within ``W2V_TRAIN_LOSS_BOUND``; two steps with the extractor
+    trained too (``--no-freeze``) at 2 rows x 15 s: finite losses, and every
+    extractor parameter receives a gradient;
+11. the training kernels at that step's own shapes (layer 0's packed qkv and
+    the cotangent of its attention output, its first add + LayerNorm's inputs
+    and cotangent, captured by hooks; each cotangent times the power of two
+    that brings its largest magnitude to 1, since a mean CTC loss's are about
+    1e-7): forward and backward against the plain versions (8 bf16 ULP, dq, dk
+    and dv each at their own magnitude; 1 % for ``dscale``/``dbias``; zeros in
+    place of a gradient must fail the same comparison), their times, the plain
+    versions' and a PyTorch call's, forward + backward (the split into heads +
+    ``F.scaled_dot_product_attention`` with the key mask and ``dropout_p=0.1``;
+    ``F.dropout`` + ``F.layer_norm`` of the float32 sum), timed here only; and
+    ``dropout_keep_mask`` at the add + LayerNorm's shape against its plain
+    version (equal) and ``torch.rand`` (timed only). The train step never
+    launches ``dropout_keep_mask``: its ``launches`` is 0 and the count of
+    that one call stands under ``own_call_launches``.
 
 Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
 of its bytes (each input read once, each output written once) over 3.35
 TB/s and its operations of each type over the published peak for that type
 (989 TFLOP/s bf16 tensor, 67 TFLOP/s float32), for an H100 SXM at 700 W.
 The log-mel's operations are an FFT-based STFT's, the least the function
-needs, not the dense DFT product the kernel computes.
+needs, not the dense DFT product the kernel computes. The training attention's
+are 4 T^2 64 forward and 10 T^2 64 backward a head and row (five products, the
+least the function needs, whatever the kernels recompute).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -98,6 +132,15 @@ LOSS_FALL = 0.25
 # |bf16 card - f32 CPU| / |f32 CPU| of the train-mode loss on rows 0-1: bf16 activations through 54 conv
 # layers with batch statistics; the serving logits deviate by 0.004 of their scale, the loss sums 751 frames
 TRAIN_LOSS_BOUND = 0.05
+W2V_TRAIN_BATCH, W2V_TRAIN_WARMUP, W2V_TRAIN_TIMED = 8, 2, 5
+# the last of the 1 + W2V_TRAIN_WARMUP + W2V_TRAIN_TIMED = 8 losses must be below (1 - W2V_LOSS_FALL) x the first;
+# on the port's float32 CPU path the same configuration (frozen extractor, dropout 0.1, lr 1e-4) at a small
+# size (4 x 3 s, hidden 128, 2 layers; 2 x 6 s, hidden 256, 4 layers) ended its 8th step at 0.59 and 0.40 of the first
+W2V_LOSS_FALL = 0.15
+# |bf16 card - f32 CPU| / |f32 CPU| of the train-mode loss with every dropout rate 0 on rows 0-1: the serving
+# logits of the same model deviate by about 0.01 of their scale, and the loss averages 749 frames
+W2V_TRAIN_LOSS_BOUND = 0.05
+TRAIN_KERNEL_ULP = 8.0  # the training kernels against their plain versions, bf16 ULP (dscale, dbias: 1 %)
 HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
 BF16_FLOP_PER_MS, F32_FLOP_PER_MS = 989e9, 67e9  # dense tensor-core bf16, float32 outside the tensor cores
 
@@ -153,12 +196,16 @@ def paired_ms(kernel, plain, iters: int) -> tuple[float, float]:
 #: device-time categories of a profile, by the first pattern a kernel's name contains
 PROFILE_CATEGORIES = (
     ("ctc_recursion", ("ctc_alpha_kernel", "ctc_beta_kernel")),
-    ("attention", ("mha_from_qkv_kernel",)),
+    ("attention_train", ("mha_forward_kernel<true>", "mha_forward_kernel<(bool)1>", "mha_train_dq_kernel",
+                         "mha_train_dkv_kernel")),
+    ("attention", ("mha_forward_kernel",)),
+    ("add_layer_norm_train", ("add_ln_train_",)),
     ("add_layer_norm", ("add_ln_kernel",)),
     ("beam_search", ("beam_scan_kernel", "beam_backtrace_kernel")),
     ("log_mel", ("log_mel_kernel",)),
     ("separable_repeat", ("separable_repeat_kernel",)),
     ("depthwise_conv", ("conv_depthwise",)),
+    ("conv_backward", ("dgrad", "wgrad")),
     ("gemm_and_dense_conv", ("gemm", "nvjet", "cutlass", "cudnn", "xmma", "implicit_convolve")),
     ("optimizer", ("multi_tensor", "foreach", "adam")),
     ("reductions", ("reduce_kernel",)),
@@ -200,6 +247,15 @@ def device_profile(fn) -> dict:
         "top": [{"name": n[:80], "ms": t / 1e3, "calls": c} for n, (t, c) in top],
         "categories_ms": dict(sorted(categories.items(), key=lambda kv: -kv[1])),
     }
+
+
+def to_unit_scale(cotangent):
+    """``cotangent`` times the power of two that brings its largest magnitude into [1, 2): exact in bf16.
+    The cotangents of a mean CTC loss are about 1e-7, far below the floor of ``ulp_bf16_error``'s
+    magnitude, where a gradient of zeros would pass; a backward is linear in its cotangent, so the
+    scaled one exercises the same kernels on the same data."""
+    top = cotangent.float().abs().max().item()
+    return cotangent * 2.0 ** -np.floor(np.log2(top)) if top > 0 else cotangent
 
 
 def bound(n_bytes: float, bf16_flop: float = 0.0, f32_flop: float = 0.0) -> dict:
@@ -247,6 +303,37 @@ def attention_bound(batch: int, t: int, heads: int) -> dict:
 def add_ln_bound(rows: int, d: int) -> dict:
     """x and y in, the output out (bf16), scale and bias in (float32); about 8 float32 operations a value."""
     return bound(3 * 2 * rows * d + 2 * 4 * d, f32_flop=8.0 * rows * d)
+
+
+def attention_train_bounds(batch: int, t: int, heads: int) -> tuple[dict, dict]:
+    """Forward: qkv in, the output out, two products. Backward: qkv, o and do in, dqkv out, five products
+    (dP, dS K, dS^T q, Pd^T dO' and the scores), whatever the kernels recompute."""
+    h = heads * 64
+    pairs = batch * heads * float(t) * t * 64
+    return (bound(2 * batch * t * 4 * h + 4 * batch, bf16_flop=4.0 * pairs),
+            bound(2 * batch * t * 8 * h + 4 * batch, bf16_flop=10.0 * pairs))
+
+
+def add_ln_train_bounds(rows: int, d: int) -> tuple[dict, dict]:
+    """Forward: x and y in, the output out (3 bf16 passes). Backward: x, y and do in, dx and dy out (5 passes);
+    the float32 parameters and their gradients; about 10 and 25 float32 operations a value."""
+    return (bound(3 * 2 * rows * d + 2 * 4 * d, f32_flop=10.0 * rows * d),
+            bound(5 * 2 * rows * d + 3 * 4 * d, f32_flop=25.0 * rows * d))
+
+
+def sum_bounds(*bounds: dict) -> dict:
+    """The bound of functions that run one after the other: their times add; bound by what binds the largest."""
+    return {"bound_ms": sum(b["bound_ms"] for b in bounds), "bound_by": max(bounds, key=lambda b: b["bound_ms"])["bound_by"]}
+
+
+def expected_counts(**launched: int) -> dict:
+    """The launch count of every kernel wrapper: 0 but for those named."""
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS
+
+    counts = {w.__name__: 0 for w in KERNEL_WRAPPERS}
+    unknown = set(launched) - set(counts)
+    check(not unknown, f"no kernel wrapper named {sorted(unknown)}")
+    return {**counts, **launched}
 
 
 def beam_scan_bound(batch: int, t: int, v: int, width: int) -> dict:
@@ -463,6 +550,10 @@ def run() -> int:
 
     # ---- beam serving on the phase-4 engine, then its two kernels at the forward's shapes
     kernels.extend(beam_phase(card, engine, audio, lengths, KERNEL_CHECKS["beam_device"][1]))
+    del engine, module, logits
+
+    # ---- wav2vec2-base training, then its kernels at the step's shapes
+    kernels.extend(wav2vec2_training_phase(card))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -513,8 +604,7 @@ def training_phase(card: str, ctc_tol: float) -> dict:
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     emit({"phase": "train_launches_per_step", **counts})
-    check(counts == {"fused_log_mel": 1, "fused_separable_repeat": 0, "ctc_alpha": 1, "ctc_beta": 1,
-                     "mha_from_qkv": 0, "add_layer_norm": 0, "beam_scan": 0, "beam_backtrace": 0},
+    check(counts == expected_counts(fused_log_mel=1, ctc_alpha=1, ctc_beta=1),
           f"one train step must launch 1 log-mel, 1 ctc_alpha and 1 ctc_beta, got {counts}")
     check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"Trainer.fit loss {trainer.logs[0]}")
 
@@ -637,8 +727,7 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     emit({"phase": "w2v2_launches_per_forward", **counts})
     layers = cfg.num_hidden_layers
-    want = {"fused_log_mel": 0, "fused_separable_repeat": 0, "ctc_alpha": 0, "ctc_beta": 0,
-            "mha_from_qkv": layers, "add_layer_norm": 2 * layers + 1, "beam_scan": 0, "beam_backtrace": 0}
+    want = expected_counts(mha_from_qkv=layers, add_layer_norm=2 * layers + 1)
     check(counts == want, f"one wav2vec2 forward must launch {want}, got {counts}")
     check(len(texts) == W2V_BATCH and all(isinstance(t, str) and set(t) <= set(W2V_VOCAB) for t in texts),
           f"transcripts outside the vocabulary: {texts[:4]}")
@@ -730,6 +819,298 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
     ]
 
 
+def wav2vec2_training_phase(card: str) -> list:
+    """Train wav2vec2-base at W2V_TRAIN_BATCH x W2V_SECONDS on the card (phases 10 and 11 of the module
+    docstring); returns the entries of the training attention, the add + dropout + LayerNorm and the
+    keep-mask kernels of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.kernels.add_ln_train import (
+        add_ln_train_backward,
+        add_ln_train_backward_reference,
+        add_ln_train_forward,
+        add_ln_train_forward_reference,
+        dropout_keep_mask,
+        dropout_keep_mask_reference,
+    )
+    from thunder_tpu_torch.kernels.attention_train import (
+        mha_train_backward,
+        mha_train_backward_reference,
+        mha_train_forward,
+        mha_train_forward_reference,
+    )
+    from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import Trainer, TrainStep, _encode_targets
+
+    tt = BatchTextTransformer(VOCAB)
+    bf16 = torch.bfloat16
+    rate = 0.1
+
+    def create(device, dtype, dropout: float, freeze: bool = True) -> CTCModule:
+        """The same weights (generator seed 0) whatever the device, dtype and dropout rates."""
+        cfg = Wav2Vec2Config(hidden_dropout=dropout, attention_dropout=dropout, feat_proj_dropout=dropout)
+        encoder = Wav2Vec2Encoder(cfg, dtype=dtype, freeze_feature_extractor=freeze)
+        return CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False), encoder,
+                                LinearDecoder(tt.num_tokens, dtype=dtype), tt, device=device)
+
+    b = W2V_TRAIN_BATCH
+    samples = int(W2V_SECONDS * SAMPLE_RATE)
+    audio = (np.random.default_rng(0).standard_normal((b, samples)) * 0.1).astype(np.float32)
+    lengths = np.full((b,), samples, dtype=np.int32)
+    texts = [TRAIN_TEXT] * b
+    targets, target_lengths = _encode_targets(tt, texts)
+    check(targets.shape == (b, 64), f"targets of shape {targets.shape}, expected ({b}, 64)")
+
+    # ---- phase 10: one step through the user's entry point, with the launch counts of the path
+    module = create("cuda", bf16, rate)
+    cfg = module.model.encoder.config
+    layers, heads, h = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.hidden_size
+    Trainer(seed=0, device="cuda").fit(module, [(audio, lengths, texts)])  # warms up
+    reset_launch_counts()
+    trainer = Trainer(seed=0, log_every=1, device="cuda")
+    trainer.fit(module, [(audio, lengths, texts)])
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    emit({"phase": "w2v2_train_launches_per_step", **counts})
+    want = expected_counts(mha_train_forward=layers, mha_train_backward=2 * layers,
+                           add_ln_train_forward=2 * layers + 1, add_ln_train_backward=2 * (2 * layers + 1),
+                           ctc_alpha=1, ctc_beta=1)
+    check(counts == want, f"one wav2vec2 train step must launch {want}, got {counts}")
+    check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"Trainer.fit loss {trainer.logs[0]}")
+
+    # warm-up and timed steps on one fixed batch, with one optimizer and one generator
+    batch = (torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda"),
+             torch.as_tensor(targets, device="cuda"), torch.as_tensor(target_lengths, device="cuda"))
+    model = module.model
+    step = TrainStep(model, adamw(model.parameters(), learning_rate=1e-4), module.blank_idx)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    conv0 = model.encoder.feature_extractor.conv0.kernel
+    norm_before = conv0.detach().double().norm().item()
+    losses = [step(*batch, generator) for _ in range(1 + W2V_TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(W2V_TRAIN_TIMED):
+        losses.append(step(*batch, generator))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / W2V_TRAIN_TIMED
+    step_ms = start.elapsed_time(end) / W2V_TRAIN_TIMED
+    losses = [loss.item() for loss in losses]
+    frames = 749
+    emit({"phase": "w2v2_training", "batch": b, "seconds": W2V_SECONDS, "frames": frames, "step_ms": step_ms,
+          "step_ms_host_clock": host_ms, "audio_s_per_s": b * W2V_SECONDS / (step_ms / 1e3),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses, "card": card})
+    check(all(np.isfinite(losses)), f"non-finite wav2vec2 training loss: {losses}")
+    check(losses[-1] < (1 - W2V_LOSS_FALL) * losses[0],
+          f"wav2vec2 loss did not fall by {W2V_LOSS_FALL:.0%} over {len(losses)} steps: {losses[0]} -> {losses[-1]}")
+    # the frozen extractor has no gradient, and AdamW's weight decay still shrinks it by lr * wd a step
+    shrink = conv0.detach().double().norm().item() / norm_before
+    want_shrink = (1 - 1e-4 * 1e-2) ** len(losses)
+    check(abs(shrink - want_shrink) < 1e-6, f"the frozen extractor's conv0 shrank by {shrink}, expected {want_shrink}")
+    profile = device_profile(lambda: step(*batch, generator))
+    emit({"phase": "w2v2_train_profile", **profile})
+
+    # bf16 on the card against float32 on the CPU: one train-mode forward with every dropout rate 0
+    with torch.no_grad():
+        card_loss, _ = create("cuda", bf16, 0.0).loss(audio[:2], lengths[:2], targets[:2], target_lengths[:2], train=True)
+        t0 = time.perf_counter()
+        cpu_loss, _ = create("cpu", torch.float32, 0.0).loss(audio[:2], lengths[:2], targets[:2], target_lengths[:2],
+                                                             train=True)
+    rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    emit({"phase": "w2v2_train_vs_cpu_f32", "rows": 2, "card_loss": card_loss.item(), "cpu_loss": cpu_loss.item(),
+          "rel_dev": rel, "bound": W2V_TRAIN_LOSS_BOUND, "cpu_seconds": time.perf_counter() - t0})
+    check(rel < W2V_TRAIN_LOSS_BOUND, f"wav2vec2 bf16 card loss vs f32 CPU loss off by {rel} >= {W2V_TRAIN_LOSS_BOUND}")
+
+    # ---- the shapes of the step: layer 0's packed qkv, its attention output's cotangent, its first
+    # add + LayerNorm's inputs and cotangent
+    captured = {}
+
+    def grad_of(name, tensor) -> None:
+        tensor.register_hook(lambda g: captured.__setitem__(name, g.detach()))
+
+    def on_out_proj(mod, args) -> None:
+        grad_of("attn_dout", args[0])
+
+    def on_qkv(mod, args, out) -> None:
+        captured["qkv"] = out.detach()
+
+    def on_add_ln(mod, args, out) -> None:
+        captured["add_ln"] = tuple(a.detach().contiguous() for a in args[:2])
+        grad_of("add_ln_dout", out)
+
+    layer0 = model.encoder.layer0
+    hooks = [layer0.attention.qkv_proj.register_forward_hook(on_qkv),
+             layer0.attention.out_proj.register_forward_pre_hook(on_out_proj),
+             layer0.layer_norm.register_forward_hook(on_add_ln)]
+    step(*batch, generator)
+    for hook in hooks:
+        hook.remove()
+    torch.cuda.synchronize()
+
+    # ---- the extractor trained too, two steps at 2 rows
+    unfrozen = create("cuda", bf16, rate, freeze=False)
+    small = tuple(a[:2] for a in batch)
+    probe = TrainStep(unfrozen.model, adamw(unfrozen.model.parameters(), learning_rate=1e-4), unfrozen.blank_idx,
+                      accumulate_grad_batches=3)  # no optimizer step: the gradients stay to be read
+    t0 = time.perf_counter()
+    unfrozen_losses = [probe(*small, generator).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    no_grad = [n for n, p in unfrozen.model.encoder.feature_extractor.named_parameters()
+               if p.grad is None or not bool(p.grad.abs().sum() > 0)]
+    emit({"phase": "w2v2_training_no_freeze", "batch": 2, "losses": unfrozen_losses,
+          "step_ms_host_clock": (time.perf_counter() - t0) * 1e3 / 2, "extractor_parameters_without_gradient": no_grad})
+    check(all(np.isfinite(unfrozen_losses)) and not no_grad,
+          f"unfrozen wav2vec2 training: losses {unfrozen_losses}, extractor parameters without a gradient {no_grad}")
+    del unfrozen, probe
+
+    # ---- phase 11: the attention kernels at the step's shape
+    qkv, raw_dout = captured["qkv"].contiguous(), captured["attn_dout"].contiguous()
+    dout = to_unit_scale(raw_dout)
+    check(qkv.shape == (b, frames, 3 * h) and dout.shape == (b, frames, h), f"captured qkv {tuple(qkv.shape)}")
+    lens = torch.full((b,), frames, dtype=torch.int32, device="cuda")
+    seed = torch.tensor([20260821], dtype=torch.int32, device="cuda")
+    out, stats = mha_train_forward(qkv, lens, seed, heads, rate)
+    dqkv = mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate)
+    out_p, _ = mha_train_forward_reference(qkv, lens, seed, heads, rate)
+    dqkv_p = mha_train_backward_reference(qkv, out, stats, dout, lens, seed, heads, rate)
+    # dq, dk and dv each at their own magnitude; zeros in place of a gradient must fail the same comparison
+    parts = dict(zip(("dq", "dk", "dv"), zip(dqkv.split(h, dim=-1), dqkv_p.split(h, dim=-1))))
+    a_ulp = {"fwd": ulp_bf16_error(out, out_p), **{n: ulp_bf16_error(g, w) for n, (g, w) in parts.items()}}
+    a_max = {"fwd": out_p.float().abs().max().item(), **{n: w.float().abs().max().item() for n, (_, w) in parts.items()}}
+    a_zero_ulp = {n: ulp_bf16_error(torch.zeros_like(w), w) for n, (_, w) in parts.items()}
+    check(min(a_zero_ulp.values()) > TRAIN_KERNEL_ULP,
+          f"zeros in place of dq, dk or dv would pass the comparison: {a_zero_ulp} bf16 ULP, max|want| {a_max}")
+    a_err = max((out.float() - out_p.float()).abs().max().item(), (dqkv.float() - dqkv_p.float()).abs().max().item())
+    af_ms, af_plain = paired_ms(lambda: mha_train_forward(qkv, lens, seed, heads, rate),
+                                lambda: mha_train_forward_reference(qkv, lens, seed, heads, rate), 5)
+    ab_ms, ab_plain = paired_ms(lambda: mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate),
+                                lambda: mha_train_backward_reference(qkv, out, stats, dout, lens, seed, heads, rate), 5)
+    del out_p, dqkv_p, parts
+    mask = (torch.arange(frames, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    leaf = qkv.clone().requires_grad_(True)
+
+    def attention_library(backward: bool):
+        q, k, v = (a.reshape(b, frames, heads, 64).transpose(1, 2) for a in leaf.split(h, dim=-1))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=rate).transpose(1, 2).reshape(b, frames, h)
+        return torch.autograd.grad(o, leaf, dout) if backward else o
+
+    with torch.no_grad():
+        alib_f = cuda_ms(lambda: attention_library(False), 10)
+    alib = cuda_ms(lambda: attention_library(True), 10)
+    emit({"phase": "w2v2_train_attention_shape", "B": b, "T": frames, "heads": heads, "rate": rate, "fwd_ms": af_ms,
+          "bwd_ms": ab_ms, "plain_fwd_ms": af_plain, "plain_bwd_ms": ab_plain, "library_fwd_ms": alib_f,
+          "library_fwd_bwd_ms": alib, "ulp": a_ulp, "max_abs_want": a_max, "ulp_of_zeros": a_zero_ulp,
+          "max_abs_cotangent": dout.float().abs().max().item(),
+          "max_abs_cotangent_of_the_step": raw_dout.float().abs().max().item()})
+    check(max(a_ulp.values()) <= TRAIN_KERNEL_ULP,
+          f"training attention at the step's shape off by {a_ulp} bf16 ULP > {TRAIN_KERNEL_ULP}")
+
+    # ---- the add + dropout + LayerNorm kernels at the step's shape
+    (x, y), raw_n_dout = captured["add_ln"], captured["add_ln_dout"].contiguous()
+    n_dout = to_unit_scale(raw_n_dout)
+    ln = layer0.layer_norm
+    scale, bias = ln.scale.detach(), ln.bias.detach()
+    rows = x.numel() // h
+    got = (add_ln_train_forward(x, y, scale, bias, seed, rate), *add_ln_train_backward(x, y, scale, seed, n_dout, rate))
+    plain = (add_ln_train_forward_reference(x, y, scale, bias, seed, rate),
+             *add_ln_train_backward_reference(x, y, scale, seed, n_dout, rate))
+    n_ulp = {name: ulp_bf16_error(got[i], plain[i]) for i, name in enumerate(("fwd", "dx", "dy"))}
+    n_rel = {name: ((got[i] - plain[i]).abs().max() / plain[i].abs().max().clamp_min(1e-9)).item()
+             for i, name in ((3, "dscale"), (4, "dbias"))}
+    n_err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got[:3], plain[:3]))
+    n_max = {name: plain[i].float().abs().max().item() for i, name in enumerate(("fwd", "dx", "dy", "dscale", "dbias"))}
+    n_zero_ulp = {name: ulp_bf16_error(torch.zeros_like(plain[i]), plain[i]) for i, name in ((1, "dx"), (2, "dy"))}
+    check(min(n_zero_ulp.values()) > TRAIN_KERNEL_ULP and min(n_max["dscale"], n_max["dbias"]) > 1e-3,
+          f"zeros in place of a gradient would pass the comparison: {n_zero_ulp} bf16 ULP, max|want| {n_max}")
+    nf_ms, nf_plain = paired_ms(lambda: add_ln_train_forward(x, y, scale, bias, seed, rate),
+                                lambda: add_ln_train_forward_reference(x, y, scale, bias, seed, rate), 20)
+    nb_ms, nb_plain = paired_ms(lambda: add_ln_train_backward(x, y, scale, seed, n_dout, rate),
+                                lambda: add_ln_train_backward_reference(x, y, scale, seed, n_dout, rate), 20)
+    leaves = [a.clone().requires_grad_(True) for a in (x, y, scale, bias)]
+
+    def add_ln_library(backward: bool):
+        xl, yl, sl, bl = leaves
+        o = F.layer_norm(xl.float() + F.dropout(yl, rate, training=True).float(), (h,), sl, bl, ln.epsilon).to(xl.dtype)
+        return torch.autograd.grad(o, leaves, n_dout) if backward else o
+
+    with torch.no_grad():
+        nlib_f = cuda_ms(lambda: add_ln_library(False), 20)
+    nlib = cuda_ms(lambda: add_ln_library(True), 20)
+    emit({"phase": "w2v2_train_add_ln_shape", "rows": rows, "D": h, "rate": rate, "fwd_ms": nf_ms, "bwd_ms": nb_ms,
+          "plain_fwd_ms": nf_plain, "plain_bwd_ms": nb_plain, "library_fwd_ms": nlib_f, "library_fwd_bwd_ms": nlib,
+          "ulp": n_ulp, "rel": n_rel, "max_abs_want": n_max, "ulp_of_zeros": n_zero_ulp,
+          "max_abs_cotangent": n_dout.float().abs().max().item(),
+          "max_abs_cotangent_of_the_step": raw_n_dout.float().abs().max().item()})
+    check(max(n_ulp.values()) <= TRAIN_KERNEL_ULP and max(n_rel.values()) <= 0.01,
+          f"add + dropout + LayerNorm at the step's shape off by {n_ulp} bf16 ULP, {n_rel} relative")
+
+    # ---- the keep mask at that shape: a check's helper, never launched by the step
+    reset_launch_counts()
+    keep = dropout_keep_mask(x.shape, seed, rate)
+    mask_launches = dropout_keep_mask.launches
+    keep_p = dropout_keep_mask_reference(x.shape, seed, rate)
+    kept = keep.mean().item()
+    m_ms, m_plain = paired_ms(lambda: dropout_keep_mask(x.shape, seed, rate),
+                              lambda: dropout_keep_mask_reference(x.shape, seed, rate), 20)
+    m_lib = cuda_ms(lambda: (torch.rand(x.shape, device="cuda") >= rate).float(), 20)
+    emit({"phase": "w2v2_train_keep_mask_shape", "rows": rows, "D": h, "rate": rate, "kept": kept, "ms": m_ms,
+          "plain_ms": m_plain, "library_ms": m_lib, "equal_to_plain": torch.equal(keep, keep_p)})
+    check(torch.equal(keep, keep_p) and mask_launches == 1
+          and abs(kept - (1 - rate)) < 5 * (rate * (1 - rate) / keep.numel()) ** 0.5,
+          f"dropout_keep_mask at the step's shape: equal to plain {torch.equal(keep, keep_p)}, kept {kept}")
+
+    categories = profile.get("categories_ms", {})
+    new_ms = categories.get("attention_train", 0.0) + categories.get("add_layer_norm_train", 0.0)
+    share = new_ms / profile["busy_ms"] if "busy_ms" in profile else None
+    emit({"phase": "w2v2_train_kernel_share", "attention_train_ms": categories.get("attention_train"),
+          "add_layer_norm_train_ms": categories.get("add_layer_norm_train"), "share_of_busy": share})
+    a_fwd_bound, a_bwd_bound = attention_train_bounds(b, frames, heads)
+    n_fwd_bound, n_bwd_bound = add_ln_train_bounds(rows, h)
+    pallas = "thunder_tpu/kernels/add_ln_train.py"
+    return [
+        {"name": "mha_train", "route": "cuda", "source": "thunder_tpu_torch/csrc/mha_train.cu",
+         "replaces": "thunder_tpu/kernels/attn_train.py:394",
+         "launches": counts["mha_train_forward"] + counts["mha_train_backward"],
+         "launches_is": f"{layers} forward + {2 * layers} backward (dq, then dk/dv) in one train step",
+         "max_abs_err": a_err, "max_ulp": max(a_ulp.values()), "ms": af_ms + ab_ms, "fwd_ms": af_ms, "bwd_ms": ab_ms,
+         "plain_ms": af_plain + ab_plain, "plain_fwd_ms": af_plain, "plain_bwd_ms": ab_plain,
+         "ms_is": f"forward + backward at B={b}, T={frames}, {heads} heads of 64, rate {rate} (layer 0's qkv and cotangent)",
+         **sum_bounds(a_fwd_bound, a_bwd_bound), "bound_fwd_ms": a_fwd_bound["bound_ms"],
+         "bound_bwd_ms": a_bwd_bound["bound_ms"], "library_ms": alib, "library_fwd_ms": alib_f,
+         "library": "split into (B, heads, T, 64) + F.scaled_dot_product_attention with the key mask and dropout_p, "
+                    "forward + backward"},
+        {"name": "add_ln_dropout_train", "route": "cuda", "source": "thunder_tpu_torch/csrc/add_ln_train.cu",
+         "replaces": f"{pallas}:178",
+         "launches": counts["add_ln_train_forward"] + counts["add_ln_train_backward"],
+         "launches_is": f"{2 * layers + 1} forward + {2 * (2 * layers + 1)} backward (the backward, then the sum of "
+                        "its partial dscale/dbias rows) in one train step",
+         "max_abs_err": n_err, "max_ulp": max(n_ulp.values()), "max_rel_dscale_dbias": max(n_rel.values()),
+         "ms": nf_ms + nb_ms, "fwd_ms": nf_ms, "bwd_ms": nb_ms, "plain_ms": nf_plain + nb_plain,
+         "plain_fwd_ms": nf_plain, "plain_bwd_ms": nb_plain,
+         "ms_is": f"forward + backward at {rows} rows x {h}, rate {rate} (layer 0's first add + LayerNorm)",
+         **sum_bounds(n_fwd_bound, n_bwd_bound), "bound_fwd_ms": n_fwd_bound["bound_ms"],
+         "bound_bwd_ms": n_bwd_bound["bound_ms"], "library_ms": nlib, "library_fwd_ms": nlib_f,
+         "library": "F.layer_norm(x.float() + F.dropout(y).float()).to(bf16), forward + backward"},
+        {"name": "dropout_keep_mask", "route": "cuda", "source": "thunder_tpu_torch/csrc/add_ln_train.cu",
+         "replaces": f"{pallas}:215", "launches": counts["dropout_keep_mask"], "own_call_launches": mask_launches,
+         "launches_is": "a check's helper, which no train step launches; own_call_launches is of one call at the "
+                        "step's add + LayerNorm shape",
+         "max_abs_err": (keep - keep_p).abs().max().item(), "ms": m_ms, "plain_ms": m_plain,
+         "ms_is": f"one launch at {rows} rows x {h}, rate {rate}", **bound(4 * rows * h, f32_flop=12.0 * rows * h),
+         "library_ms": m_lib, "library": "(torch.rand(shape) >= rate).float(): other bits, the same distribution"},
+    ]
+
+
 def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_tol: float) -> list:
     """Beam serving on the phase-4 engine (phase 9 of the module docstring); returns the scan's and
     the backtrace's entries of the kernels line."""
@@ -756,8 +1137,7 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     emit({"phase": "beam_launches_per_predict", **counts})
-    want = {"fused_log_mel": 1, "fused_separable_repeat": 77, "ctc_alpha": 0, "ctc_beta": 0, "mha_from_qkv": 0,
-            "add_layer_norm": 0, "beam_scan": 1, "beam_backtrace": 1}
+    want = expected_counts(fused_log_mel=1, fused_separable_repeat=77, beam_scan=1, beam_backtrace=1)
     check(counts == want, f"one beam predict must launch {want}, got {counts}")
     check(len(texts) == BATCH and all(isinstance(t, str) and set(t) <= set(VOCAB) for t in texts),
           f"beam transcripts outside the vocabulary: {texts[:4]}")

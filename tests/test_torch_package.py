@@ -55,7 +55,11 @@ def test_kernel_modules_import_without_nvcc_or_triton():
 def test_sources_are_in_the_package():
     names = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
     assert names == {"log_mel.cu", "separable_repeat.cu", "ctc_recursion.cu", "mha_from_qkv.cu", "add_ln.cu",
-                     "beam_search.cu"}
+                     "beam_search.cu", "mha_train.cu", "add_ln_train.cu"}
+    # the headers the sources share are package data too, and an edit to one rebuilds the library
+    assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"mha_forward.cuh", "dropout_hash.cuh"}
+    pyproject = (_build.CSRC_DIR.parents[1] / "pyproject.toml").read_text()
+    assert '"csrc/*.cu"' in pyproject and '"csrc/*.cuh"' in pyproject
     assert _build.library_path().parent == _build.BUILD_DIR
     sources = {src.name: src.read_text() for src in _build.CSRC_DIR.glob("*.cu")}
     for text in sources.values():

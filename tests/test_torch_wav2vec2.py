@@ -250,12 +250,15 @@ def test_unported_config_flags_raise(flag):
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="remat"):
         w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL), remat=True)
+    with pytest.raises(NotImplementedError, match="remat"):
+        w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL), remat=True, freeze_feature_extractor=True)
     encoder = w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL))
     audio, lengths = (torch.as_tensor(a) for a in _audio())
-    with pytest.raises(NotImplementedError, match="training"):
+    # train mode runs; with dropout rates above 0 it draws from an explicit generator and raises without one
+    with pytest.raises(ValueError, match="generator"):
         encoder(audio, lengths, train=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        encoder.layer0.layer_norm(torch.zeros(1, 2, 128), torch.zeros(1, 2, 128), train=True)
+    with pytest.raises(ValueError, match="generator"):
+        encoder.layer0.layer_norm(torch.zeros(1, 2, 128), torch.zeros(1, 2, 128), train=True, dropout_rate=0.1)
     with pytest.raises(NotImplementedError, match="WavLM"):
         encoder.layer0.attention(torch.zeros(1, 2, 128), torch.tensor([2]), position_bias=torch.zeros(2, 2, 2))
     with pytest.raises(ValueError, match="feat_extract_norm"):

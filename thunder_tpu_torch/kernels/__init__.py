@@ -5,6 +5,13 @@ The kernels are built from ``thunder_tpu_torch/csrc`` on first launch (see
 """
 
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference  # noqa: F401
+from thunder_tpu_torch.kernels.add_ln_train import (  # noqa: F401
+    add_ln_dropout_train,
+    add_ln_train_backward,
+    add_ln_train_forward,
+    dropout_keep_mask,
+)
+from thunder_tpu_torch.kernels.attention_train import mha_train, mha_train_backward, mha_train_forward  # noqa: F401
 from thunder_tpu_torch.kernels.beam import (  # noqa: F401
     beam_backtrace,
     beam_backtrace_reference,
@@ -21,7 +28,8 @@ from thunder_tpu_torch.kernels.separable_conv import (  # noqa: F401
 
 #: every kernel wrapper; each carries a ``launches`` count of its kernel launches
 KERNEL_WRAPPERS = (fused_log_mel, fused_separable_repeat, ctc_alpha, ctc_beta, mha_from_qkv, add_layer_norm,
-                   beam_scan, beam_backtrace)
+                   beam_scan, beam_backtrace, mha_train_forward, mha_train_backward, add_ln_train_forward,
+                   add_ln_train_backward, dropout_keep_mask)
 
 
 def reset_launch_counts() -> None:

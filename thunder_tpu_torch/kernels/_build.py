@@ -3,7 +3,8 @@
 Every ``thunder_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
 for ``sm_90a`` (all started together), and the objects are linked into one
 shared library with a plain C interface, on first use, and loaded with
-``ctypes``. The library's name carries a hash of the sources and flags, so
+``ctypes``. The library's name carries a hash of the sources, the headers
+they share (``*.cuh``) and the flags, so
 an edited source is rebuilt and a stale build is never loaded.
 The build directory is ``thunder_tpu_torch/build/`` (listed in
 ``.gitignore``).
@@ -40,6 +41,12 @@ SIGNATURES = {
     "thunder_ctc_beta": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],
     "thunder_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "thunder_add_ln_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "thunder_add_ln_train_parts": [_I],
+    "thunder_add_ln_train_bwd": [*[_P] * 11, _I, _I, _F, _F, _P],
+    "thunder_dropout_keep_mask": [_P, _P, _I, _I, _F, _P],
+    "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _F, _P],
     "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P],
     "thunder_beam_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -67,7 +74,7 @@ def _sources():
 
 def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
     digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra_flags]).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libthunder_kernels_{digest.hexdigest()[:16]}.so"

@@ -31,6 +31,21 @@ holds four windows that tile the ``beam_device`` utterance, each one scan
 from the carried state, to the whole utterance at once: the same state and
 the same best prefixes.
 
+The training kernels keep the JAX names, shapes and limits too:
+``attn_train_grad`` (B = 2, T = 768, 12 heads, lengths ``[T, T - 129]``, the
+cotangent zero on padded queries, no dropout), ``attn_train_dropout`` and
+``attn_train_dropout_1536`` (B = 2, 2 heads, rate 0.3, T = 128 and 1536) and
+``add_ln_train`` (2 x 512 rows x 768, rate 0.1), each at 8 bf16 ULP for the
+forward and the bf16 gradients, and 1 % relative (1.0 in the check's units)
+for the float32 ``dscale`` and ``dbias``. Each holds the kernels both to
+their plain versions and to a float32 reference that applies the same mask
+(the mask is the shared hash's, so it is computed, not recovered through
+probes as on the TPU), and returns ``inf`` when two runs with one seed differ
+in any bit, forward or backward, or when the kept fraction lies more than 5
+sigma from ``1 - rate``. ``attn_train_749`` adds the training length at 15 s
+with ragged lengths, a row of length 0 and rate 0.1: the uniform row must stay
+finite forward and backward.
+
 Both sides run on the same device and the same inputs; the float32 reference
 runs without TF32 (:func:`exact_float32` is set first).
 """
@@ -43,7 +58,22 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
+from thunder_tpu_torch.kernels.add_ln_train import (
+    add_ln_train_backward,
+    add_ln_train_backward_reference,
+    add_ln_train_forward,
+    add_ln_train_forward_reference,
+    dropout_keep_mask,
+    dropout_keep_mask_reference,
+)
 from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+from thunder_tpu_torch.kernels.attention_train import (
+    attention_keep_mask,
+    mha_train_backward,
+    mha_train_backward_reference,
+    mha_train_forward,
+    mha_train_forward_reference,
+)
 from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_backtrace_reference, beam_scan, beam_scan_reference
 from thunder_tpu_torch.kernels.ctc import ctc_ll, ctc_ll_reference, extended_emissions, scores_from_ll
 from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
@@ -224,6 +254,122 @@ def _check_add_ln(device) -> dict:
     return {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
 
 
+def attention_f32_reference(qkv, lengths, heads, mask=None, keep=1.0):
+    """The JAX selftest's ``_attn_train_ref``: unfused float32 attention over a float32 packed qkv,
+    with an optional dropout mask ``(B, heads, T, T)`` on the probabilities; differentiable."""
+    b, t, h3 = qkv.shape
+    h = h3 // 3
+    per_head = lambda a: a.reshape(b, t, heads, h // heads).transpose(1, 2)  # noqa: E731
+    q, k, v = (per_head(a) for a in qkv.split(h, dim=-1))
+    s = torch.matmul(q * (h // heads) ** -0.5, k.transpose(-1, -2))
+    valid = (torch.arange(t, device=qkv.device)[None, :] < lengths[:, None])[:, None, None, :]
+    p = torch.softmax(torch.where(valid, s, torch.finfo(torch.float32).min), dim=-1)
+    if mask is not None:
+        p = p * mask / keep
+    return torch.matmul(p, v).transpose(1, 2).reshape(b, t, h)
+
+
+def _kept_fraction_off(keep: torch.Tensor, rate: float) -> bool:
+    """Whether the kept fraction of a mask lies more than 5 sigma from ``1 - rate``."""
+    n = keep.numel()
+    return abs(keep.float().mean().item() - (1.0 - rate)) > 5.0 * ((1.0 - rate) * rate / n) ** 0.5
+
+
+def attention_train_case(seed, b, t, heads, lengths, device, zero_padded_cotangent=True):
+    """The JAX selftests' training inputs: a bf16 packed qkv of std 0.3, int32 lengths and a bf16 cotangent."""
+    rng = np.random.default_rng(seed)
+    h = heads * 64
+    qkv = rng.standard_normal((b, t, 3 * h)).astype(np.float32) * 0.3
+    lengths = np.asarray(lengths, np.int32)
+    ct = rng.standard_normal((b, t, h)).astype(np.float32)
+    if zero_padded_cotangent:
+        ct = ct * (np.arange(t)[None, :] < lengths[:, None])[:, :, None]
+    bf = lambda a: torch.as_tensor(a, device=device).to(torch.bfloat16)  # noqa: E731
+    return bf(qkv), torch.as_tensor(lengths, device=device), bf(ct)
+
+
+def _attention_train_check(seed, b, t, heads, lengths, rate, zero_padded_cotangent=True):
+    def check(device) -> dict:
+        qkv, lens, ct = attention_train_case(seed, b, t, heads, lengths, device, zero_padded_cotangent)
+        sd = torch.tensor([20260821], dtype=torch.int32, device=device)
+        out, stats = mha_train_forward(qkv, lens, sd, heads, rate)
+        dqkv = mha_train_backward(qkv, out, stats, ct, lens, sd, heads, rate)
+        out2, stats2 = mha_train_forward(qkv, lens, sd, heads, rate)
+        dqkv2 = mha_train_backward(qkv, out2, stats2, ct, lens, sd, heads, rate)
+        out_p, stats_p = mha_train_forward_reference(qkv, lens, sd, heads, rate)
+        # the plain backward from the kernel's own saved output and statistics: what the kernels were given
+        dqkv_p = mha_train_backward_reference(qkv, out, stats, ct, lens, sd, heads, rate)
+        mask = attention_keep_mask(sd, b, heads, t, rate) if rate > 0.0 else None
+        x = qkv.float().requires_grad_(True)
+        out_f = attention_f32_reference(x, lens, heads, None if mask is None else mask.float(), 1.0 - rate)
+        (dqkv_f,) = torch.autograd.grad(out_f, x, ct.float())
+        errs = {"fwd_vs_plain": ulp_bf16_error(out, out_p), "fwd_vs_f32": ulp_bf16_error(out, out_f.detach()),
+                "bwd_vs_plain": ulp_bf16_error(dqkv, dqkv_p), "bwd_vs_f32": ulp_bf16_error(dqkv, dqkv_f)}
+        result = {"max_err": max(errs.values()), **errs,
+                  "max_abs_err": max((out.float() - out_p.float()).abs().max().item(),
+                                     (dqkv.float() - dqkv_p.float()).abs().max().item())}
+        if not (bool(torch.isfinite(out).all()) and bool(torch.isfinite(dqkv).all())):
+            result.update(max_err=float("inf"), error="non-finite output or gradient")
+        elif not (torch.equal(out, out2) and torch.equal(stats, stats2) and torch.equal(dqkv, dqkv2)):
+            result.update(max_err=float("inf"), error="two runs with one seed differ")
+        elif mask is not None and _kept_fraction_off(mask, rate):
+            result.update(max_err=float("inf"), error=f"kept fraction {mask.float().mean().item()} at rate {rate}")
+        return result
+
+    return check
+
+
+def add_ln_train_case(seed, rows_shape, d, device):
+    """The ``add_ln_train`` inputs of the JAX selftest: a residual stream of std 2, a branch of std 1,
+    random affine, a bf16 cotangent."""
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)  # noqa: E731
+    x = bf(rng.standard_normal((*rows_shape, d)) * 2.0)
+    y = bf(rng.standard_normal((*rows_shape, d)))
+    scale = torch.as_tensor(rng.standard_normal(d).astype(np.float32) + 1.0, device=device)
+    bias = torch.as_tensor(rng.standard_normal(d).astype(np.float32), device=device)
+    ct = bf(rng.standard_normal((*rows_shape, d)))
+    return x, y, scale, bias, ct
+
+
+def add_ln_f32_reference(x, y, scale, bias, mask, rate, eps=1e-5):
+    """The JAX selftest's float32 reference of ``LayerNorm(x + dropout(y))`` given the mask; differentiable."""
+    s = x + y * mask / (1.0 - rate)
+    mu = s.mean(dim=-1, keepdim=True)
+    var = ((s * s).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return (s - mu) * (torch.rsqrt(var + eps) * scale) + bias
+
+
+def _check_add_ln_train(device) -> dict:
+    rate = 0.1
+    x, y, scale, bias, ct = add_ln_train_case(12, (2, 512), 768, device)
+    sd = torch.tensor([20260821], dtype=torch.int32, device=device)
+    run = lambda: (add_ln_train_forward(x, y, scale, bias, sd, rate),  # noqa: E731
+                   *add_ln_train_backward(x, y, scale, sd, ct, rate))
+    got, again = run(), run()
+    plain = (add_ln_train_forward_reference(x, y, scale, bias, sd, rate),
+             *add_ln_train_backward_reference(x, y, scale, sd, ct, rate))
+    mask = dropout_keep_mask(x.shape, sd, rate)
+    args = [a.float().requires_grad_(True) for a in (x, y, scale, bias)]
+    out_f = add_ln_f32_reference(*args, mask, rate)
+    f32 = (out_f.detach(), *torch.autograd.grad(out_f, args, ct.float()))
+    errs = {}
+    for ref_name, ref in (("plain", plain), ("f32", f32)):
+        for i, name in enumerate(("fwd", "dx", "dy")):
+            errs[f"{name}_vs_{ref_name}"] = ulp_bf16_error(got[i], ref[i])
+        for i, name in ((3, "dscale"), (4, "dbias")):  # float32 sums: 1 % relative is 1.0
+            rel = (got[i] - ref[i]).abs().max().item() / max(ref[i].abs().max().item(), 1e-9)
+            errs[f"{name}_vs_{ref_name}"] = rel * 100.0
+    result = {"max_err": max(errs.values()), **errs, "max_abs_err": (got[0].float() - plain[0].float()).abs().max().item()}
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        result.update(max_err=float("inf"), error="two runs with one seed differ")
+    elif not torch.equal(mask, dropout_keep_mask_reference(x.shape, sd, rate)):
+        result.update(max_err=float("inf"), error="dropout_keep_mask differs from its plain version")
+    elif _kept_fraction_off(mask, rate):
+        result.update(max_err=float("inf"), error=f"kept fraction {mask.mean().item()} at rate {rate}")
+    return result
+
+
 def beam_case(seed, b, t, v, device):
     """The ``beam_device`` inputs of the JAX selftest: logits with +2 on blank 0, lengths ``linspace(t // 2, t, b)``."""
     rng = np.random.default_rng(seed)
@@ -305,6 +451,13 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_onepanel_1536": (_attention_check(6, 2, 1536, 12, [1536, 1479]), 4.0),
     "attn_onepanel_749": (_attention_check(7, 4, 749, 12, [749, 512, 37, 0]), 4.0),
     "add_ln": (_check_add_ln, 2.0),
+    # the training kernels: bf16 ULPs against the plain version and against the float32 reference with the
+    # same mask; inf when two runs differ in a bit or the kept fraction is off (dscale, dbias: 1 % is 1.0)
+    "attn_train_grad": (_attention_train_check(8, 2, 768, 12, [768, 768 - 129], 0.0), 8.0),
+    "attn_train_dropout": (_attention_train_check(9, 2, 128, 2, [128, 128], 0.3, zero_padded_cotangent=False), 8.0),
+    "attn_train_dropout_1536": (_attention_train_check(9, 2, 1536, 2, [1536, 1536], 0.3, zero_padded_cotangent=False), 8.0),
+    "attn_train_749": (_attention_train_check(10, 4, 749, 12, [749, 512, 37, 0], 0.1), 8.0),
+    "add_ln_train": (_check_add_ln_train, 8.0),
     # beam search: exact pointers, exts, integer state and hypotheses (else inf), then the float
     # state's and total's largest difference, within the JAX package's score tolerance
     "beam_device": (_beam_check(3, 64, 751, 29, 16, 29), 2e-3),

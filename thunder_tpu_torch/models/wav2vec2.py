@@ -1,6 +1,6 @@
 """wav2vec2 encoder as ``nn.Module``s: conv feature extractor + transformer.
 
-Port of ``thunder_tpu/models/wav2vec2.py`` (float mode, eval), both variants:
+Port of ``thunder_tpu/models/wav2vec2.py`` (float mode, eval and training), both variants:
 
 - ``feat_extract_norm="group"`` + post-LayerNorm layers (wav2vec2-base);
 - ``feat_extract_norm="layer"`` + pre-LayerNorm ("stable") layers
@@ -17,18 +17,25 @@ On the bfloat16 serving path the two TPU kernels' counterparts carry every
 layer: the residual add + LayerNorm of the post-LN variant goes through
 ``kernels.add_ln.add_layer_norm`` and the attention through
 ``kernels.attention.mha_from_qkv`` at every length (each runs its CUDA kernel
-for a CUDA tensor and its plain version for a CPU tensor). float32 keeps the
-JAX module's own unfused math. The TPU-only gates of the JAX module (the
-640-frame flash threshold, ``T % 128`` and the 128-frame pad around the
-layer stack) change no valid frame and are not ported.
+for a CUDA tensor and its plain version for a CPU tensor). In bfloat16 train
+mode their training counterparts take the same places:
+``kernels.add_ln_train.add_ln_dropout_train`` (the hidden dropout of the
+residual branch inside the kernel) and ``kernels.attention_train.mha_train``
+(the attention dropout inside the kernel), each differentiable through its
+own backward kernels and seeded afresh from the call's generator. float32
+keeps the JAX module's own unfused math, with dropout masks drawn from the
+generator. The TPU-only gates of the JAX module (the 640-frame flash
+threshold, ``T % 128``, the 128-frame pad around the layer stack and the
+kill-switch environment variables) change no valid frame and are not ported.
 
-Not ported (they raise ``NotImplementedError``): training, ``remat``, SEW,
-the MMS adapters, data2vec-audio's positional conv stack, WavLM's relative
-position bias, int8 compute and ``Wav2Vec2Config.from_hf``.
+Not ported (they raise ``NotImplementedError``): ``remat``, SEW, the MMS
+adapters, data2vec-audio's positional conv stack, WavLM's relative position
+bias, int8 compute and ``Wav2Vec2Config.from_hf``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -36,8 +43,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm
+from thunder_tpu_torch.kernels.add_ln_train import add_ln_dropout_train
 from thunder_tpu_torch.kernels.attention import HEAD_DIM, mha_from_qkv
-from thunder_tpu_torch.models.layers import Dense
+from thunder_tpu_torch.kernels.attention_train import mha_train
+from thunder_tpu_torch.kernels.dropout_hash import new_seed
+from thunder_tpu_torch.models.layers import Dense, dropout
 from thunder_tpu_torch.ops.conv import conv1d
 from thunder_tpu_torch.ops.masking import lengths_to_mask
 
@@ -82,10 +92,10 @@ def gelu(x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
 
 
 class Wav2Vec2Config:
-    """The fields of the JAX package's ``Wav2Vec2Config`` that the port's eval path reads (defaults = base).
+    """The fields of the JAX package's ``Wav2Vec2Config`` that the port reads (defaults = base;
+    the dropout rates are HF's defaults and act in train mode only).
 
-    The dropout rates come with training. The flags of the variants the port
-    does not run yet (``sew_style``, ``add_adapter``, ``adapter_attn_dim``,
+    The flags of the variants the port does not run yet (``sew_style``, ``add_adapter``, ``adapter_attn_dim``,
     ``pos_conv_stack``, ``rel_pos_buckets``) are kept so that
     :class:`Wav2Vec2Encoder` can refuse them.
     """
@@ -105,6 +115,9 @@ class Wav2Vec2Config:
         num_conv_pos_embeddings: int = 128,
         num_conv_pos_embedding_groups: int = 16,
         layer_norm_eps: float = 1e-5,
+        hidden_dropout: float = 0.1,
+        attention_dropout: float = 0.1,
+        feat_proj_dropout: float = 0.1,
         feat_proj_layer_norm: bool = True,
         pos_conv_stack: bool = False,
         rel_pos_buckets: int = 0,
@@ -127,6 +140,9 @@ class Wav2Vec2Config:
         self.num_conv_pos_embeddings = num_conv_pos_embeddings
         self.num_conv_pos_embedding_groups = num_conv_pos_embedding_groups
         self.layer_norm_eps = layer_norm_eps
+        self.hidden_dropout = hidden_dropout
+        self.attention_dropout = attention_dropout
+        self.feat_proj_dropout = feat_proj_dropout
         #: HuBERT can drop the feature-projection LayerNorm
         self.feat_proj_layer_norm = feat_proj_layer_norm
         self.pos_conv_stack = pos_conv_stack
@@ -166,11 +182,14 @@ class LayerNorm(nn.Module):
 
 
 class _AddLayerNorm(nn.Module):
-    """``LayerNorm(x + y)`` with ``nn.LayerNorm``'s parameters.
+    """``LayerNorm(x + dropout(y))`` with ``nn.LayerNorm``'s parameters.
 
-    bfloat16 runs the fused add + LayerNorm (``kernels.add_ln``: the kernel on
-    the card, its plain version on the CPU), which adds in float32; float32
-    runs the JAX module's unfused math, which adds in the compute dtype.
+    bfloat16 runs the fused kernels (the kernel on the card, its plain version
+    on the CPU), which add in float32: in eval mode ``kernels.add_ln``, in
+    train mode ``kernels.add_ln_train`` with the dropout inside the kernel
+    under a fresh seed from ``generator`` (rate 0 draws none). float32 applies
+    dropout to ``y`` in train mode and then runs the JAX module's unfused math,
+    which adds in the compute dtype.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5, dtype=torch.float32):
@@ -180,9 +199,13 @@ class _AddLayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, train: bool = False, dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.dtype == torch.bfloat16 and train:
+            seed = new_seed(generator, x.device, dropout_rate)
+            return add_ln_dropout_train(x, y, self.scale, self.bias, seed, dropout_rate, self.epsilon)
         if train:
-            raise NotImplementedError("_AddLayerNorm(train=True): wav2vec2 training is not ported yet")
+            y = dropout(y, dropout_rate, generator)
         if self.dtype == torch.bfloat16:
             return add_layer_norm(x.contiguous(), y.contiguous(), self.scale.float(), self.bias.float(), self.epsilon)
         return _layer_norm_f32((x + y).float(), self.scale, self.bias, self.epsilon).to(self.dtype)
@@ -277,10 +300,14 @@ class _FeatureExtractor(nn.Module):
 class _Attention(nn.Module):
     """Self-attention with a fused ``qkv_proj`` (one ``(h, 3h)`` GEMM) and ``out_proj``.
 
-    bfloat16 with dh = 64 runs ``kernels.attention.mha_from_qkv`` on the packed
-    GEMM output at every length; every other case runs the JAX module's unfused
-    path, with the scores in the compute dtype, the key mask at that dtype's
-    minimum, and the softmax in float32.
+    bfloat16 with dh = 64 runs the attention kernels on the packed GEMM output
+    at every length: ``kernels.attention.mha_from_qkv`` in eval mode,
+    ``kernels.attention_train.mha_train`` in train mode, with
+    ``attention_dropout`` inside the kernel under a fresh seed from
+    ``generator``. Every other case runs the JAX module's unfused path: the
+    scores in the compute dtype (float32 in train mode), the key mask at that
+    dtype's minimum, the softmax in float32, and in train mode dropout on the
+    probabilities.
     """
 
     def __init__(self, config: Wav2Vec2Config, dtype=torch.float32):
@@ -291,7 +318,8 @@ class _Attention(nn.Module):
         self.qkv_proj = Dense(h, 3 * h, dtype=dtype)
         self.out_proj = Dense(h, h, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor, position_bias: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, position_bias: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
         if position_bias is not None:
             raise NotImplementedError("WavLM's relative position bias is not ported yet")
         cfg = self.config
@@ -300,21 +328,29 @@ class _Attention(nn.Module):
         dh = h // heads
         qkv = self.qkv_proj(x)
         if self.dtype == torch.bfloat16 and dh == HEAD_DIM:
-            return self.out_proj(mha_from_qkv(qkv, lengths.to(torch.int32), heads))
+            if not train:
+                return self.out_proj(mha_from_qkv(qkv, lengths.to(torch.int32), heads))
+            rate = cfg.attention_dropout
+            return self.out_proj(mha_train(qkv, lengths.to(torch.int32), new_seed(generator, x.device, rate), heads, rate))
         q, k, v = qkv.split(h, dim=-1)
         q = q * dh**-0.5  # HF scales the query projection
         per_head = lambda a: a.reshape(b, t, heads, dh)  # noqa: E731
-        scores = torch.einsum("bqhd,bkhd->bhqk", per_head(q), per_head(k))
+        score_t = torch.float32 if train else self.dtype
+        scores = torch.einsum("bqhd,bkhd->bhqk", per_head(q).to(score_t), per_head(k).to(score_t))
         key_mask = lengths_to_mask(lengths, t)[:, None, None, :]
         scores = torch.where(key_mask, scores, torch.finfo(scores.dtype).min)
         probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+        if train:
+            probs = dropout(probs, cfg.attention_dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, per_head(v)).reshape(b, t, h)
         return self.out_proj(out)
 
 
 class _EncoderLayer(nn.Module):
     """One transformer layer: post-LN (``LayerNorm(x + attn(x))``, then ``LayerNorm(x + ffn(x))``,
-    both fused add + LayerNorm) or, with ``do_stable_layer_norm``, pre-LN with plain LayerNorms."""
+    both fused add + LayerNorm) or, with ``do_stable_layer_norm``, pre-LN with plain LayerNorms.
+    In train mode ``hidden_dropout`` acts on both residual branches: inside the add + LayerNorm
+    for post-LN, around each branch for pre-LN."""
 
     def __init__(self, config: Wav2Vec2Config, dtype=torch.float32):
         super().__init__()
@@ -331,22 +367,34 @@ class _EncoderLayer(nn.Module):
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         return self.output_dense(gelu(self.intermediate_dense(x), self.dtype))
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.config.hidden_dropout if train else 0.0
+        attend = lambda a: self.attention(a, lengths, train=train, generator=generator)  # noqa: E731
         if self.config.do_stable_layer_norm:
-            x = x + self.attention(self.layer_norm(x), lengths)
-            return x + self._ffn(self.final_layer_norm(x))
-        x = self.layer_norm(x, self.attention(x, lengths))
-        return self.final_layer_norm(x, self._ffn(x))
+            x = x + dropout(attend(self.layer_norm(x)), rate, generator)
+            return x + dropout(self._ffn(self.final_layer_norm(x)), rate, generator)
+        x = self.layer_norm(x, attend(x), train=train, dropout_rate=rate, generator=generator)
+        return self.final_layer_norm(x, self._ffn(x), train=train, dropout_rate=rate, generator=generator)
 
 
 class Wav2Vec2Encoder(nn.Module):
     """Waveform ``(batch, samples)`` -> hidden states ``(batch, frames, hidden)``, with lengths.
 
     Drop-in encoder for ``CTCModel`` (the conv encoders' ``(x, lengths, train)``
-    contract). Eval only: ``train=True`` raises until wav2vec2 training is ported.
+    contract). ``train=True`` applies ``feat_proj_dropout`` after the feature
+    projection, ``hidden_dropout`` after the positional embedding's LayerNorm
+    and in every layer, and ``attention_dropout`` in every attention, each
+    drawn from ``generator``.
+
+    ``freeze_feature_extractor`` stops gradients at the conv feature
+    extractor's output (HF's ``freeze_feature_encoder()``): the extractor then
+    runs without recording a graph, so none of its activations is kept for the
+    backward, and its parameters receive no gradient.
     """
 
-    def __init__(self, config: Optional[Wav2Vec2Config] = None, dtype=torch.float32, remat: bool = False):
+    def __init__(self, config: Optional[Wav2Vec2Config] = None, dtype=torch.float32, remat: bool = False,
+                 freeze_feature_extractor: bool = False):
         super().__init__()
         config = config or Wav2Vec2Config()
         unported = {
@@ -362,6 +410,7 @@ class Wav2Vec2Encoder(nn.Module):
                 raise NotImplementedError(f"Wav2Vec2Encoder: {flag}={value!r} is not ported to thunder_tpu_torch yet")
         self.config = config
         self.dtype = dtype
+        self.freeze_feature_extractor = freeze_feature_extractor
         h, eps, k = config.hidden_size, config.layer_norm_eps, config.num_conv_pos_embeddings
         self.feature_extractor = _FeatureExtractor(config, dtype=dtype)
         if config.feat_proj_layer_norm:
@@ -377,15 +426,16 @@ class Wav2Vec2Encoder(nn.Module):
         return self.config.hidden_size
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
-        if train:
-            raise NotImplementedError("Wav2Vec2Encoder(train=True): wav2vec2 training is not ported yet")
         cfg = self.config
-        feats = self.feature_extractor(x, lengths)
+        with torch.no_grad() if self.freeze_feature_extractor else contextlib.nullcontext():
+            feats = self.feature_extractor(x, lengths)
         out_lengths = feat_extract_output_lengths(lengths.to(torch.int32), cfg.conv_kernel, cfg.conv_stride)
         h = feats
         if cfg.feat_proj_layer_norm:
             h = self.fp_layer_norm(h)
         h = self.fp_projection(h)
+        if train:
+            h = dropout(h, cfg.feat_proj_dropout, generator)
         # padding is masked out of attention and zeroed before the transformer
         h = torch.where(lengths_to_mask(out_lengths, h.shape[1])[:, :, None], h, 0.0)
         pos = self.pos_conv(h)
@@ -395,9 +445,11 @@ class Wav2Vec2Encoder(nn.Module):
         if cfg.do_stable_layer_norm:
             h = h + pos
         else:
-            h = self.enc_layer_norm(h, pos)
+            h = self.enc_layer_norm(h, pos, train=train)
+        if train:  # HF's encoder-level dropout, after the positional embedding (and its LayerNorm)
+            h = dropout(h, cfg.hidden_dropout, generator)
         for i in range(cfg.num_hidden_layers):
-            h = getattr(self, f"layer{i}")(h, out_lengths)
+            h = getattr(self, f"layer{i}")(h, out_lengths, train=train, generator=generator)
         if cfg.do_stable_layer_norm:
             h = self.enc_layer_norm(h)
         return h, out_lengths

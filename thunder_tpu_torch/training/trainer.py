@@ -5,7 +5,9 @@ Port of the single-device path of ``thunder_tpu/training/trainer.py``:
 - :class:`TrainStep` is ``_train_step_body`` / ``make_train_step``: the
   model's train-mode forward, ``calculate_ctc``, the backward, gradient
   clipping by value and then by global norm (optax's order and formulas), and
-  the optimizer step, once every ``accumulate_grad_batches`` calls (optax's
+  the optimizer step (parameters without a gradient, such as a frozen feature
+  extractor's, step with a zero gradient, so weight decay reaches them as it
+  does in optax), once every ``accumulate_grad_batches`` calls (optax's
   ``MultiSteps``: the mean of the micro-batch gradients);
 - :func:`eval_step` is ``make_eval_step``;
 - :class:`Trainer` keeps the JAX ``Trainer``'s knobs that the slice needs
@@ -79,6 +81,12 @@ class TrainStep:
         (loss / self.accumulate).backward()
         self.calls += 1
         if self.calls % self.accumulate == 0:
+            # a parameter the loss does not reach (a frozen feature extractor) gets a zero gradient, as
+            # JAX's stop_gradient gives it: optax's adamw still applies its decoupled weight decay to such
+            # a parameter, and torch.optim.AdamW skips one whose gradient is None
+            for p in self.model.parameters():
+                if p.requires_grad and p.grad is None:
+                    p.grad = torch.zeros_like(p)
             grads = [p.grad for p in self.model.parameters() if p.grad is not None]
             if self.gradient_clip_value is not None:
                 for g in grads:
