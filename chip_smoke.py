@@ -44,11 +44,18 @@ Phases, each of which fails the run:
    (seed 0): one forward must make exactly 12 attention and 25 add +
    LayerNorm launches and no other kernel launch; rows 0-1 are held against
    the port's float32 CPU path (``LOGIT_BOUND``), with the argmax agreement
-   printed; RTF from CUDA events and one profiled forward; then both kernels
-   at the shapes of that forward (layer 0's own qkv and its first add +
-   LayerNorm's inputs, captured by hooks) against their plain versions and a
-   PyTorch call (the split into heads + ``F.scaled_dot_product_attention``
-   with the key mask; ``F.layer_norm`` of the float32 sum), timed here only;
+   printed; RTF from CUDA events and one profiled forward; one 40 s
+   speech-like clip through ``predict`` (T = 1999 frames, past the 1664 that
+   the first attention kernel's score panel held) must make the same 12 + 25
+   launches and give the transcript of the same predict through the plain
+   versions (logits within ``LOGIT_BOUND`` of theirs, argmax agreement
+   printed); then both kernels at the shapes of that forward (layer 0's own
+   qkv and its first add + LayerNorm's inputs, captured by hooks) against
+   their plain versions and a PyTorch call (the split into heads +
+   ``F.scaled_dot_product_attention`` with the key mask; ``F.layer_norm`` of
+   the float32 sum), timed here only; the attention kernel and its PyTorch
+   call are timed ``SPREAD_REPEATS`` times in turns (minimum, median and
+   maximum printed; the median goes to the kernels line);
 9. beam serving on the QuartzNet15x5 engine of phase 4, same 64 x 15 s batch:
    one ``InferenceEngine.predict(audio, beam_width=16, beam_backend="device")``
    must make exactly 1 log-mel, 77 separable-repeat, 1 ``beam_scan`` and 1
@@ -90,7 +97,9 @@ Phases, each of which fails the run:
     place of a gradient must fail the same comparison), their times, the plain
     versions' and a PyTorch call's, forward + backward (the split into heads +
     ``F.scaled_dot_product_attention`` with the key mask and ``dropout_p=0.1``;
-    ``F.dropout`` + ``F.layer_norm`` of the float32 sum), timed here only; and
+    ``F.dropout`` + ``F.layer_norm`` of the float32 sum), timed here only (the
+    attention's forward, backward, and its PyTorch call's forward and forward +
+    backward ``SPREAD_REPEATS`` times in turns, as in phase 8); and
     ``dropout_keep_mask`` at the add + LayerNorm's shape against its plain
     version (equal) and ``torch.rand`` (timed only). The train step never
     launches ``dropout_keep_mask``: its ``launches`` is 0 and the count of
@@ -126,6 +135,7 @@ TRAIN_BATCH, TRAIN_SECONDS, TRAIN_TEXT = 16, 15.0, "the quick brown fox jumps ov
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 W2V_VOCAB = list("abcdefghijklmnopqrstuvwxyz '.,?")
 W2V_BATCH, W2V_SECONDS = 16, 15.0
+LONG_CLIP_SECONDS = 40  # wav2vec2 serving past the 1664 frames (33.3 s) that the first attention kernel held
 # the last of the 1 + TRAIN_WARMUP + TRAIN_TIMED = 14 losses must be below (1 - LOSS_FALL) x the first; on the
 # port's float32 CPU path, the same configuration at 4 x 3 s and 2 x 6 s ended at 0.38 and 0.25 of the first loss
 LOSS_FALL = 0.25
@@ -191,6 +201,19 @@ def paired_ms(kernel, plain, iters: int) -> tuple[float, float]:
     """Kernel and plain times taken in turns (plain, kernel, kernel, plain)."""
     p1, k1, k2, p2 = cuda_ms(plain, iters), cuda_ms(kernel, iters), cuda_ms(kernel, iters), cuda_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+SPREAD_REPEATS = 5
+
+
+def spread_ms(fns: dict, iters: int, repeats: int = SPREAD_REPEATS) -> dict:
+    """Each of ``fns`` timed ``repeats`` times by :func:`cuda_ms`, in turns (all of them once, then again):
+    ``{name: {"min", "median", "max", "runs"}}`` in milliseconds."""
+    runs = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            runs[name].append(cuda_ms(fn, iters))
+    return {name: {"min": min(r), "median": float(np.median(r)), "max": max(r), "runs": r} for name, r in runs.items()}
 
 
 #: device-time categories of a profile, by the first pattern a kernel's name contains
@@ -362,6 +385,21 @@ def plain_beam():
         yield
     finally:
         device_beam.beam_scan, device_beam.beam_backtrace = saved
+
+
+@contextlib.contextmanager
+def plain_wav2vec2():
+    """Route wav2vec2's serving attention and add + LayerNorm through their plain versions, on the same device."""
+    import thunder_tpu_torch.models.wav2vec2 as w2v
+    from thunder_tpu_torch.kernels.add_ln import add_layer_norm_reference
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv_reference
+
+    saved = w2v.mha_from_qkv, w2v.add_layer_norm
+    w2v.mha_from_qkv, w2v.add_layer_norm = mha_from_qkv_reference, add_layer_norm_reference
+    try:
+        yield
+    finally:
+        w2v.mha_from_qkv, w2v.add_layer_norm = saved
 
 
 def peaked_logits(rng, batch, t, v, blank, blank_frac=0.7, peak=6.0):
@@ -762,6 +800,31 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
           "cpu_seconds": cpu_seconds})
     check(rel < LOGIT_BOUND, f"wav2vec2 bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
 
+    # one 40 s clip through predict: T = 1999 frames, past the 1664 that the first attention kernel held
+    clip = speech_like(LONG_CLIP_SECONDS * SAMPLE_RATE, np.random.default_rng(3))
+    clip_args = (clip[None], np.array([clip.shape[0]], np.int32))
+    clip_logits, _, clip_lengths = engine.infer(*clip_args)
+    with plain_wav2vec2():
+        plain_logits, _, _ = engine.infer(*clip_args)
+    clip_rel = ((clip_logits - plain_logits).abs().max() / plain_logits.abs().max()).item()
+    clip_agree = (clip_logits.argmax(-1) == plain_logits.argmax(-1)).float().mean().item()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    clip_text = engine.predict(clip)[0]
+    torch.cuda.synchronize()
+    clip_ms = (time.perf_counter() - t0) * 1e3
+    clip_counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    with plain_wav2vec2():
+        clip_plain = engine.predict(clip)[0]
+    emit({"phase": "w2v2_predict_40s", "seconds": LONG_CLIP_SECONDS, "frames": int(clip_lengths[0]),
+          "launches": {k: v for k, v in clip_counts.items() if v}, "ms_host_clock": clip_ms, "chars": len(clip_text),
+          "equal_to_plain": clip_text == clip_plain, "logits_max_rel_dev_vs_plain": clip_rel,
+          "argmax_agreement_vs_plain": clip_agree})
+    check(int(clip_lengths[0]) == 1999, f"a 40 s clip gave {int(clip_lengths[0])} frames, expected 1999")
+    check(clip_counts == want, f"the 40 s predict must launch {want}, got {clip_counts}")
+    check(clip_text == clip_plain and set(clip_text) <= set(W2V_VOCAB) and clip_rel < LOGIT_BOUND,
+          f"the 40 s predict differs from the plain versions': text equal {clip_text == clip_plain}, logits {clip_rel}")
+
     # both kernels on the inputs the forward gives them: layer 0's packed qkv and its first add + LayerNorm
     captured = {}
 
@@ -785,12 +848,12 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
 
     got, want = mha_from_qkv(qkv, lens, heads), mha_from_qkv_reference(qkv, lens, heads)
     a_err, a_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
-    a_ms, a_plain = paired_ms(lambda: mha_from_qkv(qkv, lens, heads),
-                              lambda: mha_from_qkv_reference(qkv, lens, heads), 10)
-    a_lib = cuda_ms(attention_library, 10)
+    _, a_plain = paired_ms(lambda: mha_from_qkv(qkv, lens, heads), lambda: mha_from_qkv_reference(qkv, lens, heads), 10)
+    a_spread = spread_ms({"kernel": lambda: mha_from_qkv(qkv, lens, heads), "library": attention_library}, 20)
+    a_ms, a_lib = a_spread["kernel"]["median"], a_spread["library"]["median"]
     lib_ulp = ulp_bf16_error(attention_library(), want)
     emit({"phase": "w2v2_attention_shape", "B": W2V_BATCH, "T": frames, "heads": heads, "ms": a_ms, "plain_ms": a_plain,
-          "library_ms": a_lib, "ulp": a_ulp, "library_ulp_vs_plain": lib_ulp})
+          "library_ms": a_lib, "spread_ms": a_spread, "ulp": a_ulp, "library_ulp_vs_plain": lib_ulp})
     check(a_ulp <= attn_tol, f"attention at the forward's shape off by {a_ulp} bf16 ULP > {attn_tol}")
 
     x, y = (t.contiguous() for t in captured["add_ln"][:2])
@@ -808,8 +871,11 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
         {"name": "mha_from_qkv", "route": "cuda", "source": "thunder_tpu_torch/csrc/mha_from_qkv.cu",
          "replaces": "thunder_tpu/kernels/attn_onepanel.py:85", "launches": counts["mha_from_qkv"],
          "max_abs_err": a_err, "max_ulp": a_ulp, "ms": a_ms, "plain_ms": a_plain,
-         "ms_is": f"one launch at B={W2V_BATCH}, T={frames}, {heads} heads of 64 (layer 0's qkv)",
+         "ms_is": f"one launch at B={W2V_BATCH}, T={frames}, {heads} heads of 64 (layer 0's qkv); median of "
+                  f"{SPREAD_REPEATS} timings taken in turns with the library call's",
+         "ms_min_max": [a_spread["kernel"]["min"], a_spread["kernel"]["max"]],
          **attention_bound(W2V_BATCH, frames, heads), "library_ms": a_lib,
+         "library_ms_min_max": [a_spread["library"]["min"], a_spread["library"]["max"]],
          "library": "split into (B, heads, T, 64) + F.scaled_dot_product_attention with the key mask + merge"},
         {"name": "add_layer_norm", "route": "cuda", "source": "thunder_tpu_torch/csrc/add_ln.cu",
          "replaces": "thunder_tpu/kernels/add_ln.py:41", "launches": counts["add_layer_norm"],
@@ -991,10 +1057,10 @@ def wav2vec2_training_phase(card: str) -> list:
     check(min(a_zero_ulp.values()) > TRAIN_KERNEL_ULP,
           f"zeros in place of dq, dk or dv would pass the comparison: {a_zero_ulp} bf16 ULP, max|want| {a_max}")
     a_err = max((out.float() - out_p.float()).abs().max().item(), (dqkv.float() - dqkv_p.float()).abs().max().item())
-    af_ms, af_plain = paired_ms(lambda: mha_train_forward(qkv, lens, seed, heads, rate),
-                                lambda: mha_train_forward_reference(qkv, lens, seed, heads, rate), 5)
-    ab_ms, ab_plain = paired_ms(lambda: mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate),
-                                lambda: mha_train_backward_reference(qkv, out, stats, dout, lens, seed, heads, rate), 5)
+    _, af_plain = paired_ms(lambda: mha_train_forward(qkv, lens, seed, heads, rate),
+                            lambda: mha_train_forward_reference(qkv, lens, seed, heads, rate), 5)
+    _, ab_plain = paired_ms(lambda: mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate),
+                            lambda: mha_train_backward_reference(qkv, out, stats, dout, lens, seed, heads, rate), 5)
     del out_p, dqkv_p, parts
     mask = (torch.arange(frames, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     leaf = qkv.clone().requires_grad_(True)
@@ -1004,12 +1070,19 @@ def wav2vec2_training_phase(card: str) -> list:
         o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=rate).transpose(1, 2).reshape(b, frames, h)
         return torch.autograd.grad(o, leaf, dout) if backward else o
 
-    with torch.no_grad():
-        alib_f = cuda_ms(lambda: attention_library(False), 10)
-    alib = cuda_ms(lambda: attention_library(True), 10)
+    def library_forward():
+        with torch.no_grad():
+            return attention_library(False)
+
+    a_spread = spread_ms({"fwd": lambda: mha_train_forward(qkv, lens, seed, heads, rate),
+                          "bwd": lambda: mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate),
+                          "library_fwd": library_forward, "library_fwd_bwd": lambda: attention_library(True)}, 10)
+    af_ms, ab_ms = a_spread["fwd"]["median"], a_spread["bwd"]["median"]
+    alib_f, alib = a_spread["library_fwd"]["median"], a_spread["library_fwd_bwd"]["median"]
     emit({"phase": "w2v2_train_attention_shape", "B": b, "T": frames, "heads": heads, "rate": rate, "fwd_ms": af_ms,
           "bwd_ms": ab_ms, "plain_fwd_ms": af_plain, "plain_bwd_ms": ab_plain, "library_fwd_ms": alib_f,
-          "library_fwd_bwd_ms": alib, "ulp": a_ulp, "max_abs_want": a_max, "ulp_of_zeros": a_zero_ulp,
+          "library_fwd_bwd_ms": alib, "spread_ms": a_spread, "ulp": a_ulp, "max_abs_want": a_max,
+          "ulp_of_zeros": a_zero_ulp,
           "max_abs_cotangent": dout.float().abs().max().item(),
           "max_abs_cotangent_of_the_step": raw_dout.float().abs().max().item()})
     check(max(a_ulp.values()) <= TRAIN_KERNEL_ULP,
@@ -1084,9 +1157,14 @@ def wav2vec2_training_phase(card: str) -> list:
          "launches_is": f"{layers} forward + {2 * layers} backward (dq, then dk/dv) in one train step",
          "max_abs_err": a_err, "max_ulp": max(a_ulp.values()), "ms": af_ms + ab_ms, "fwd_ms": af_ms, "bwd_ms": ab_ms,
          "plain_ms": af_plain + ab_plain, "plain_fwd_ms": af_plain, "plain_bwd_ms": ab_plain,
-         "ms_is": f"forward + backward at B={b}, T={frames}, {heads} heads of 64, rate {rate} (layer 0's qkv and cotangent)",
+         "ms_is": f"forward + backward at B={b}, T={frames}, {heads} heads of 64, rate {rate} (layer 0's qkv and "
+                  f"cotangent); medians of {SPREAD_REPEATS} timings taken in turns with the library call's",
+         "fwd_ms_min_max": [a_spread["fwd"]["min"], a_spread["fwd"]["max"]],
+         "bwd_ms_min_max": [a_spread["bwd"]["min"], a_spread["bwd"]["max"]],
          **sum_bounds(a_fwd_bound, a_bwd_bound), "bound_fwd_ms": a_fwd_bound["bound_ms"],
          "bound_bwd_ms": a_bwd_bound["bound_ms"], "library_ms": alib, "library_fwd_ms": alib_f,
+         "library_ms_min_max": [a_spread["library_fwd_bwd"]["min"], a_spread["library_fwd_bwd"]["max"]],
+         "library_fwd_ms_min_max": [a_spread["library_fwd"]["min"], a_spread["library_fwd"]["max"]],
          "library": "split into (B, heads, T, 64) + F.scaled_dot_product_attention with the key mask and dropout_p, "
                     "forward + backward"},
         {"name": "add_ln_dropout_train", "route": "cuda", "source": "thunder_tpu_torch/csrc/add_ln_train.cu",

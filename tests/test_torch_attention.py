@@ -7,7 +7,8 @@ highest precision). Errors are in bf16 ULPs at the reference's largest
 magnitude (``ulp_bf16_error``):
 
 - plain attention vs the Pallas kernel, every query row: 2 ULP, and finite
-  on both sides for a row of length 0;
+  on both sides for a row of length 0; the same at T = 1792 (B = 1, 2
+  heads), past the 1664 frames that the port's first kernel held;
 - plain attention vs the float32 reference at T = 199, valid rows: 4 ULP,
   the JAX check's own limit;
 - plain add + LayerNorm vs the Pallas kernel at (8, 128, 768): 2 ULP.
@@ -25,7 +26,8 @@ import torch
 from thunder_tpu.kernels.add_ln import add_layer_norm as jax_add_layer_norm
 from thunder_tpu.kernels.attn_onepanel import mha_from_qkv as jax_mha_from_qkv
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
-from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+from thunder_tpu_torch.kernels import attention, attention_train
+from thunder_tpu_torch.kernels.attention import check_launch_shape, mha_from_qkv, mha_from_qkv_reference
 from thunder_tpu_torch.kernels.selftest import add_ln_case, attention_case, ulp_bf16_error
 
 torch.set_num_threads(2)
@@ -52,6 +54,23 @@ def test_plain_attention_matches_pallas_interpret(lengths):
         # a row of length 0 averages every key: every query of it gets the same output
         empty = got[lengths.index(0)].float()
         torch.testing.assert_close(empty, empty[:1].expand_as(empty), rtol=0, atol=0)
+
+
+def test_plain_attention_past_the_old_cap_matches_pallas_interpret():
+    qkv, lens = attention_case(26, 1, 1792, 2, [1750], "cpu")
+    got = mha_from_qkv(qkv, lens, heads=2)
+    want = _torch(jax_mha_from_qkv(_jax_bf16(qkv), jnp.asarray(lens.numpy()), heads=2, block_q=128, interpret=True))
+    assert got.shape == want.shape == (1, 1792, 128)
+    assert ulp_bf16_error(got, want) <= 2.0
+
+
+def test_wrappers_set_no_frame_cap():
+    """The kernels hold no score panel: no ``MAX_FRAMES``, only the launch's own limits."""
+    assert not hasattr(attention, "MAX_FRAMES") and not hasattr(attention_train, "MAX_FRAMES")
+    check_launch_shape("the attention kernel", 16, 1_000_000, 12)
+    for batch, t, heads in ((1, 2**31, 12), (65536, 749, 12), (1, 749, 65536), (1, 0, 12)):
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            check_launch_shape("the attention kernel", batch, t, heads)
 
 
 def test_plain_attention_matches_f32_reference_at_t199():

@@ -7,7 +7,8 @@ multiple of 128 there) and the dropout path is held to the JAX selftest's
 float32 reference ``_attn_train_ref`` given the port's own mask. Tolerances:
 
 - float32, against the Pallas forward and its ``jax.grad`` (T = 256, 4 heads,
-  lengths 256 and 199) and against ``_attn_train_ref`` (T = 199, any T): 1e-5,
+  lengths 256 and 199; and T = 1792, 2 heads, B = 1, past the 1664 frames
+  that the port's first forward kernel held) and against ``_attn_train_ref`` (T = 199, any T): 1e-5,
   the JAX package's own limit for this kernel;
 - float32 at rate 0.3 against ``_attn_train_ref(mask=, keep=)``, forward and
   gradient: 1e-5;
@@ -70,8 +71,15 @@ def _ulp(want: torch.Tensor) -> float:
 
 
 def test_rate_0_matches_the_pallas_kernel_in_interpret_mode():
-    heads = 4
-    qkv, lengths, ct = _case(0, 2, 256, heads, [256, 199])
+    _check_rate_0_against_pallas(2, 256, 4, [256, 199])
+
+
+def test_rate_0_matches_the_pallas_kernel_past_the_old_cap():
+    _check_rate_0_against_pallas(1, 1792, 2, [1750])
+
+
+def _check_rate_0_against_pallas(b, t, heads, lengths):
+    qkv, lengths, ct = _case(0, b, t, heads, lengths)
     seed = jnp.zeros((1,), jnp.int32)
     lens = jnp.asarray(lengths)
     want = jax_mha_train(jnp.asarray(qkv), lens, seed, heads=heads, interpret=True)

@@ -141,6 +141,30 @@ def test_calculate_ctc_matches_jax_on_raw_logits():
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad), atol=1e-5)
 
 
+@pytest.mark.parametrize("route", ["calculate_ctc", "autograd_function"])
+def test_targets_past_1024_extended_states_match_jax(route):
+    """A 512-label target (S = 1025: two states a thread in the kernels, where the first kernel took one and
+    raised) over 600 frames, repeats included; ``calculate_ctc``'s mean over target lengths and its gradient."""
+    rng = np.random.default_rng(7)
+    t, v, labels = 600, 29, 512
+    logits = rng.standard_normal((2, t, v)).astype(np.float32)
+    targets = rng.integers(1, v, (2, labels))
+    lens, tl = np.array([t, t - 40], np.int32), np.array([labels, labels - 21], np.int32)
+    want, want_grad = jax.value_and_grad(lambda x: jctc.calculate_ctc(
+        x, jnp.asarray(targets), jnp.asarray(lens), jnp.asarray(tl), blank=0))(jnp.asarray(logits))
+    x = torch.tensor(logits, requires_grad=True)
+    if route == "calculate_ctc":
+        got = pctc.calculate_ctc(x, torch.tensor(targets), torch.tensor(lens), torch.tensor(tl), blank=0)
+    else:
+        scores = _function_scores(torch.log_softmax(x, dim=-1), torch.tensor(lens), torch.tensor(targets),
+                                  torch.tensor(tl))
+        assert scores.shape == (2,) and bool(torch.isfinite(scores).all())
+        got = (scores / torch.tensor(tl)).mean()
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad), atol=1e-5)
+
+
 def test_kernel_wrappers_take_plain_versions_on_cpu_and_count_no_launch(case):
     lp, targets, lens, tl = case
     lp_z, skip_ok = pctc.extended_emissions(torch.tensor(lp), torch.tensor(targets), 0)

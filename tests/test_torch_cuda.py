@@ -126,13 +126,25 @@ def test_attention_kernel_edge_shapes(cuda, b, t, heads):
     assert ulp_bf16_error(got, want) <= 4.0
 
 
-def test_attention_kernel_rejects_too_long_a_panel(cuda):
-    from thunder_tpu_torch.kernels.attention import MAX_FRAMES, mha_from_qkv
-    from thunder_tpu_torch.kernels.selftest import attention_case
+@pytest.mark.parametrize("b,t,heads,lengths", [(1, 1665, 2, [1665]), (2, 1665, 12, [1665, 901]), (1, 3001, 12, [3001])])
+def test_attention_kernel_past_the_old_panel_cap(cuda, b, t, heads, lengths):
+    """Lengths past the 1664 frames that the first kernel's score panel held: 1665, and a 60 s chunk."""
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+    from thunder_tpu_torch.kernels.selftest import attention_case, ulp_bf16_error
 
-    qkv, lens = attention_case(25, 1, MAX_FRAMES + 1, 1, [MAX_FRAMES + 1], "cuda")
-    with pytest.raises(ValueError, match="frames"):
-        mha_from_qkv(qkv, lens, 1)
+    qkv, lens = attention_case(25, b, t, heads, lengths, "cuda")
+    got, want = mha_from_qkv(qkv, lens, heads), mha_from_qkv_reference(qkv, lens, heads)
+    torch.cuda.synchronize()
+    assert got.shape == (b, t, heads * 64) and bool(torch.isfinite(got).all())
+    assert ulp_bf16_error(got, want) <= 4.0
+
+
+def test_attention_kernel_rejects_what_the_launch_does_not_take(cuda):
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv
+
+    qkv = torch.zeros(65536, 1, 192, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="65535"):
+        mha_from_qkv(qkv, torch.ones(65536, dtype=torch.int32, device="cuda"), 1)
 
 
 @pytest.mark.parametrize("rows,d", [(1, 8), (33, 2048), (5, 1024)])
@@ -209,6 +221,40 @@ def test_ctc_kernels_match_plain_versions_on_card(cuda, case):
     if case == "edge":
         assert (ll < -1e29).tolist() == [False] * 5 + [True]
         assert bool((dlp[:, 5] == 0).all())
+
+
+@pytest.mark.parametrize("s_dim,t", [(801, 1000), (1025, 1200), (2049, 1200), (4097, 2300), (16385, 8700)])
+def test_ctc_kernels_past_1024_states(cuda, s_dim, t):
+    """Targets of 400 to 8192 labels: 1, 2, 4, 8 and 32 extended states a thread, against the plain loops. Over
+    thousands of frames the two routes' float32 sums drift apart by more than at T = 751: rtol 1e-5."""
+    from thunder_tpu_torch.kernels.ctc import alpha_reference, beta_reference, ctc_alpha, ctc_beta, ll_from_alpha
+    from thunder_tpu_torch.kernels.selftest import ctc_long_case
+    from thunder_tpu_torch.ops.ctc import extended_emissions
+
+    logits, targets, lens, tl = ctc_long_case(16, s_dim, "cuda", t=t)
+    lp_z, skip_ok = extended_emissions(torch.log_softmax(logits, dim=-1), targets, blank=0)
+    assert lp_z.shape == (t, 2, s_dim)
+    alpha = ctc_alpha(lp_z, skip_ok, lens, tl)
+    want_alpha = alpha_reference(lp_z, skip_ok, lens, tl)
+    ll, want_ll = ll_from_alpha(alpha, lens, tl), ll_from_alpha(want_alpha, lens, tl)
+    assert bool((want_ll > -1e29).all())  # both alignments possible
+    torch.testing.assert_close(ll, want_ll, rtol=1e-5, atol=0)
+    ghat = 1.0 / tl.float()
+    dlp = ctc_beta(lp_z, alpha, skip_ok, lens, tl, ll, ghat)
+    want = beta_reference(lp_z, want_alpha, skip_ok, lens, tl, want_ll, ghat)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dlp).all())
+    torch.testing.assert_close(dlp, want, rtol=0, atol=1e-4 * want.abs().max().item())
+
+
+def test_ctc_kernels_raise_past_the_shared_row(cuda):
+    from thunder_tpu_torch.kernels.ctc import MAX_STATES, ctc_alpha
+
+    lp_z = torch.zeros(1, 1, MAX_STATES + 1, device="cuda")
+    skip_ok = torch.zeros(1, MAX_STATES + 1, dtype=torch.bool, device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="227 KB"):
+        ctc_alpha(lp_z, skip_ok, one, one)
 
 
 def test_one_train_step_on_card_launches_each_kernel_once(cuda):
@@ -323,7 +369,8 @@ SEED = 20260821
 @pytest.mark.parametrize(
     "b,t,heads,lengths,rate",
     [(2, 1, 2, [1, 0], 0.3), (3, 31, 1, [31, 17, 0], 0.1), (2, 749, 12, [749, 0], 0.1), (1, 1536, 2, [1500], 0.3),
-     (2, 200, 3, [200, 64], 0.0), (1, 1664, 2, [1664], 0.1)],
+     (2, 200, 3, [200, 64], 0.0), (1, 1664, 2, [1664], 0.1), (1, 1665, 2, [1665], 0.1),
+     (1, 3001, 12, [3001], 0.1)],
 )
 def test_training_attention_kernels_edge_shapes(cuda, b, t, heads, lengths, rate):
     """Forward and backward against the plain versions (8 bf16 ULP), the uniform row of a length 0 finite, and
@@ -411,7 +458,6 @@ def test_training_autograd_functions_give_the_plain_backward_on_card(cuda):
 
 def test_training_wrappers_raise_on_card_for_what_the_kernels_do_not_take(cuda):
     from thunder_tpu_torch.kernels.add_ln_train import add_ln_train_forward
-    from thunder_tpu_torch.kernels.attention import MAX_FRAMES
     from thunder_tpu_torch.kernels.attention_train import mha_train_forward
 
     seed = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -420,8 +466,8 @@ def test_training_wrappers_raise_on_card_for_what_the_kernels_do_not_take(cuda):
         mha_train_forward(torch.zeros(1, 4, 192, device="cuda"), lens, seed, 1)
     with pytest.raises(ValueError, match="dh = 64"):
         mha_train_forward(torch.zeros(1, 4, 96, device="cuda", dtype=torch.bfloat16), lens, seed, 1)
-    with pytest.raises(ValueError, match="frames"):
-        mha_train_forward(torch.zeros(1, MAX_FRAMES + 1, 192, device="cuda", dtype=torch.bfloat16), lens, seed, 1)
+    with pytest.raises(ValueError, match="65535"):
+        mha_train_forward(torch.zeros(1, 4, 3 * 65536 * 64, device="cuda", dtype=torch.bfloat16), lens, seed, 65536)
     with pytest.raises(ValueError, match="seed"):
         mha_train_forward(torch.zeros(1, 4, 192, device="cuda", dtype=torch.bfloat16), lens, seed.cpu(), 1)
     x = torch.zeros(4, 12, device="cuda", dtype=torch.bfloat16)

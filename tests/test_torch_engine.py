@@ -147,22 +147,76 @@ def test_engine_warmup_and_launch_free_cpu_path(pair):
     assert (fused_log_mel.launches, fused_separable_repeat.launches) == before
 
 
+class _Half(torch.nn.Module):
+    """An encoder with no fast path in either engine: half the features, the lengths as they are."""
+
+    final_dimension = 64
+
+    def forward(self, x, lengths, train=False, generator=None):
+        return x * 0.5, lengths
+
+
+class _JaxHalf(flax.linen.Module):
+    @flax.linen.compact
+    def __call__(self, x, lengths, train=False):
+        return x * 0.5, lengths
+
+
 def test_engine_rejects_other_encoders_and_f32_on_cuda(pair, monkeypatch):
+    """Another encoder is no longer rejected: the engine serves it through the module's eval forward, as the
+    JAX engine's generic fallback does. Float32 on the card still is."""
     _, port = pair
-
-    class Other(torch.nn.Module):
-        final_dimension = 8
-
-        def forward(self, x, lengths, train=False):
-            return x, lengths
-
-    other = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), Other(), Conv1dDecoder(3),
+    other = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), _Half(), Conv1dDecoder(3),
                              device="cpu")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(other)
+    audio, lengths = _audio()
+    got, got_lens = InferenceEngine(other)(audio, lengths)
+    want, want_lens = other.forward(audio, lengths)
+    assert torch.equal(got, want) and torch.equal(got_lens, want_lens)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="bfloat16"):
         InferenceEngine(port, compute_dtype=torch.float32, device="cuda")
+
+
+def test_generic_encoder_engine_matches_jax_engine():
+    """The generic fallback in both packages on the same weights: logits and transcripts."""
+    tt = JaxText(tokens=TOKENS)
+    jax_module = JaxModule.create(jax.random.PRNGKey(3), audio_transform=JaxFilterbank(), encoder=_JaxHalf(),
+                                  decoder=JaxDecoder(num_classes=tt.num_tokens), text_transform=tt, sample_len=4000)
+    port = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), _Half(),
+                            Conv1dDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
+    port.model.load_state_dict(from_flax_variables(jax.tree_util.tree_map(np.asarray, jax_module.variables)))
+    audio, lengths = _audio(5)
+    jax_engine = JaxEngine(jax_module, compute_dtype=jnp.float32, use_pallas=False)
+    engine = InferenceEngine(port)
+    _assert_logits_close(*engine(audio, lengths), *jax_engine(audio, lengths))
+    assert engine.predict(audio, lengths) == jax_engine.predict(audio, lengths)
+
+
+def test_engine_pad_multiple_matches_jax(pair):
+    """``pad_multiple`` is the engine's own, as in the JAX engine: 12000 samples go to the forward as 15000."""
+    jax_module, port = pair
+    audio = (np.random.default_rng(5).standard_normal(12000) * 0.2).astype(np.float32)
+    jax_engine = JaxEngine(jax_module, compute_dtype=jnp.float32, use_pallas=False, pad_multiple=5000)
+    engine = InferenceEngine(port, pad_multiple=5000)
+    seen = {"jax": [], "port": []}
+    jax_infer, port_infer = jax_engine._infer, engine.infer
+    jax_engine._infer = lambda a, n: (seen["jax"].append(a.shape[-1]), jax_infer(a, n))[1]
+    engine.infer = lambda a, n: (seen["port"].append(np.asarray(a).shape[-1]), port_infer(a, n))[1]
+    assert engine.predict(audio) == jax_engine.predict(audio)
+    assert seen == {"jax": [15000], "port": [15000]}
+    assert InferenceEngine(port).pad_multiple == port.pad_multiple == 16000
+
+
+def test_engine_greedy_predict_decodes_the_forwards_own_ids(pair, monkeypatch):
+    """The engine's forward takes the argmax once; ``predict`` decodes those ids, as the JAX engine does."""
+    import thunder_tpu_torch.module as module_mod
+
+    jax_module, port = pair
+    audio, lengths = _audio(6)
+    engine = InferenceEngine(port)
+    monkeypatch.setattr(module_mod, "greedy_decode", lambda *_: pytest.fail("the argmax was taken again"))
+    want = JaxEngine(jax_module, compute_dtype=jnp.float32, use_pallas=False).predict(audio, lengths)
+    assert engine.predict(audio, lengths) == want
 
 
 def test_batch_norm_and_its_fold_match_jax():

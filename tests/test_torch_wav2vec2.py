@@ -188,6 +188,35 @@ def test_predict_matches_jax(slice_pair):
     assert InferenceEngine(port).predict(clip) == jax_engine.predict(clip)
 
 
+def test_encoder_only_module_and_engine_match_jax():
+    """``decoder=None`` (an encoder-only checkpoint): the module returns the encoder's output and the engine
+    serves it as float32 logits, as the JAX package's ``CTCModel`` and its engine's ``dec_params is None``
+    branch do."""
+    jax_module = JaxModule.create(
+        jax.random.PRNGKey(2),
+        audio_transform=JaxPreprocess(mask_input=True),
+        encoder=jax_w2v.Wav2Vec2Encoder(jax_w2v.Wav2Vec2Config(**SMALL), mask_input=True),
+        decoder=None,
+        sample_len=4000,
+    )
+    port = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                            w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL)), None, device="cpu")
+    assert port.model.decoder is None
+    port.model.load_state_dict(from_flax_variables(_numpy(jax_module.variables)))
+    audio, lengths = _audio(6)
+    want, want_lens = jax_module.forward(audio, lengths)
+    got, got_lens = port.forward(audio, lengths)
+    assert got.shape == np.asarray(want).shape and got.shape[-1] == SMALL["hidden_size"]
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+    engine_want, _ = JaxEngine(jax_module, compute_dtype=jnp.float32)(audio, lengths)
+    engine_got, engine_lens = InferenceEngine(port)(audio, lengths)
+    assert engine_got.dtype == torch.float32
+    np.testing.assert_array_equal(engine_lens.numpy(), np.asarray(want_lens))
+    for i, n in enumerate(np.asarray(want_lens)):
+        np.testing.assert_allclose(got[i, :n].numpy(), np.asarray(want)[i, :n], atol=1e-4, rtol=0)
+        np.testing.assert_allclose(engine_got[i, :n].numpy(), np.asarray(engine_want)[i, :n], atol=1e-4, rtol=0)
+
+
 def test_bf16_engine_matches_jax_bf16_engine(slice_pair, monkeypatch):
     """bfloat16 on the CPU: both kernels' plain versions and the polynomial gelu, against JAX's bf16 engine."""
     from thunder_tpu_torch.kernels import add_ln, attention

@@ -1,8 +1,10 @@
-// The attention forward from the packed QKV projection, shared by the serving
-// kernel (mha_from_qkv.cu, TRAIN = false) and the training forward
-// (mha_train.cu, TRAIN = true), plus the tile helpers the training backward
-// uses: bf16 in and out, float32 scores, row sums and accumulation.
+// The attention forward from the packed QKV projection for Hopper (sm_90a),
+// shared by the serving kernel (mha_from_qkv.cu, TRAIN = false) and the
+// training forward (mha_train.cu, TRAIN = true): bf16 in and out, float32
+// scores, row sums and accumulation.
 //
+// Replaces: thunder_tpu/kernels/attn_onepanel.py::mha_from_qkv and the forward
+// of thunder_tpu/kernels/attn_train.py::mha_train (the Pallas TPU kernels).
 // For a packed qkv (B, T, 3H), head h, query t and key j (dh = 64, H = heads * 64):
 //   q      = bf16( qkv[b, t, h*64 : h*64+64] * bf16(0.125) )           (0.125 = dh^-0.5, exact)
 //   s[j]   = sum_d q[d] * qkv[b, j, H + h*64 + d]  (f32)  + (j < len[b] ? 0 : -FLT_MAX)
@@ -15,230 +17,386 @@
 // / (z * (1 - rate)) with z still the sum of the undropped exponentials, and m
 // and z of every row are written for the backward as (2, B, heads, T) float32.
 //
-// Design (simple first; wgmma, TMA, a streaming softmax and warp specialisation
-// are later work):
-// - one block of 4 warps per (query tile of QT = 32 rows, head, batch row);
-// - the q tile, pre-scaled, sits in shared memory; keys go by chunks of 64
-//   (zero beyond T) through one shared K/V buffer;
-// - S = q k^T for the whole key panel goes to shared memory as f32
-//   (32 x round_up(T, 64) floats: 99 KB at T = 749, 197 KB at T = 1536);
-// - each warp takes 8 rows of the softmax: the masked row max, then exp(s - m)
-//   summed in f32 and written as bf16 IN PLACE over the row's own f32 scores
-//   (column j's two bytes lie inside floats already read), so no second panel;
-// - P V accumulates in wmma fragments over the same key chunks; the epilogue
-//   stages O through shared memory, divides by the row sums and stores bf16
-//   with 16-byte writes.
+// What bounds it on this card: operations. 4 T^2 64 bf16 FLOP a head and row
+// against 2 T 3 64 bytes in and 2 T 64 out: about 250 operations a byte at
+// T = 749, so the tensor cores bound it, not memory.
+//
+// Design, for the tensor cores' rate at any T:
+// - one block per (128 queries, head, batch row): two consumer warpgroups of 64
+//   query rows each and one producer warp;
+// - the producer's lane 0 copies the q tiles and then the keys' and values'
+//   64 x 64 tiles with TMA (cp.async.bulk.tensor over a 3D tensor map of qkv,
+//   (B, T, 3H), 128-byte swizzle), into a ring of STAGES stages with a "full"
+//   and an "empty" mbarrier each; rows past T arrive as zeros and a box never
+//   crosses into the next batch row;
+// - each consumer warpgroup scales its q tile by 0.125 in shared memory, then
+//   for each key tile: S = q k^T with wgmma (q and K both K-major), the mask,
+//   a streaming softmax (running row max and sum in registers; the output
+//   accumulator is rescaled by exp(m_old - m_new) when the max grows), p =
+//   exp(s - m) rounded to bf16 in registers, which is the A fragment of
+//   O += P V (wgmma with A from registers and V as the MN-major B operand
+//   through the descriptor's transpose bit), and releases the stage;
+// - shared memory does not depend on T: the q tiles and STAGES K/V tiles,
+//   about 65 KB, so two blocks share an SM;
+// - past a length of at least 1 the keys add exactly 0 (exp(-FLT_MAX - m) is
+//   0 in f32), so key tiles wholly past the length are skipped; a row of
+//   length 0 visits every key;
+// - the epilogue divides once by the row sum and stages the bf16 tile through
+//   the q tile's shared memory for 16-byte stores.
+// The probabilities are rounded with the running max, not the final one, so
+// each p may differ from the plain version's by one bf16 rounding before the
+// f32 rescale; the output is a weighted mean of them, within the checks'
+// bf16 ULPs (kernels/selftest.py).
 
 #pragma once
 
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "dropout_hash.cuh"
 
-namespace {
+namespace mha_fwd {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int DH = 64;        // head width
-constexpr int QT = 32;        // query rows per block
-constexpr int KC = 64;        // keys per staged K or V chunk
-constexpr int THREADS = 128;  // 4 warps: a 2 x 2 grid of 16 x 32 warp tiles over QT x 64
-constexpr int LDQ = DH + 8;   // bf16 row stride of the q tile and the K/V chunk
-constexpr int LDO = DH + 4;   // f32 row stride of the staged output tile
-constexpr float NEG = -FLT_MAX;  // finfo(float32).min, the additive key mask
+constexpr int DH = 64;                          // head width
+constexpr int BM = 64;                          // query rows of a consumer warpgroup
+constexpr int CONSUMERS = 2;                    // consumer warpgroups: 128 query rows a block
+constexpr int BN = 64;                          // keys of a K or V tile
+constexpr int STAGES = 3;                       // K/V ring depth
+constexpr int THREADS = 128 * CONSUMERS + 32;   // plus the producer warp
+constexpr int TILE_BYTES = 64 * DH * 2;         // a 64 x 64 bf16 tile: 128-byte rows, 8 KB
+constexpr int Q_OFF = 0;
+constexpr int K_OFF = Q_OFF + CONSUMERS * TILE_BYTES;
+constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;                  // full[STAGES], empty[STAGES], q
+constexpr int SMEM_BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + room to align the base to 1024 bytes
+constexpr float NEG = -FLT_MAX;                 // finfo(float32).min, the additive key mask
 
-static_assert(QT == 2 * 16 && DH == 2 * 32 && THREADS == 4 * 32, "warp tiling");
-static_assert(QT * LDO * sizeof(float) <= KC * LDQ * sizeof(bf16), "the output tile reuses the K/V buffer");
+static_assert(BM == 64 && BN == 64 && DH == 64, "one TMA box and one wgmma shape (m64n64k16) for every tile");
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 
-// f32 row stride of the score panel: every key chunk, plus 4 floats against bank conflicts
-__host__ __device__ inline int score_ld(int t) { return round_up(t, KC) + 4; }
-
-inline size_t forward_smem_bytes(int t) {
-  return (size_t)QT * score_ld(t) * sizeof(float)  // S, then P (bf16) in place
-         + (size_t)QT * LDQ * sizeof(bf16)         // q tile
-         + (size_t)KC * LDQ * sizeof(bf16)         // K or V chunk, then the output tile
-         + (size_t)QT * sizeof(float);             // row sums
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
-// rows [r0, r0 + n_rows) of one head's 64 columns starting at `col`, zero beyond T;
-// scale 0.125 multiplies the values and rounds them to bf16 again (the q tile), scale 1 copies
-__device__ inline void load_rows(bf16* dst, const bf16* base, size_t row_stride, int col, int r0, int n_rows, int t,
-                                 bool scale_q) {
-  for (int i = threadIdx.x; i < n_rows * (DH / 8); i += THREADS) {
-    const int r = i / (DH / 8);
-    const int c = (i % (DH / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t) v = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * row_stride + col + c);
-    if (scale_q) {
-      bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * 0.125f);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = v;
-  }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ inline float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar) : "memory");
 }
 
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"(bar), "r"(parity)
+                 : "memory");
+  } while (!done);
 }
 
-// C (QT x 64 f32 at row stride ldc) = A (QT x 64 bf16, row-major at LDQ) . B^T, B (64 x 64 bf16, row-major at
-// LDQ: B^T as a col-major operand): q k^T with A = q tile, B = K chunk; dO V^T with A = dO tile, B = V chunk
-__device__ inline void tile_abt(float* c, int ldc, const bf16* a, const bf16* b, int wr, int wc) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < DH; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + wr * LDQ + kk, LDQ);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + (wc + 16 * j) * LDQ + kk, LDQ);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) wmma::store_matrix_sync(c + (size_t)wr * ldc + wc + 16 * j, acc[j], ldc, wmma::mem_row_major);
+// a 64-row box of the tensor map at (column c0, row c1, batch row c2) into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
+__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }
+
+// wgmma's shared-memory matrix descriptor for a tile in TMA's 128-byte swizzle: start address, leading and stride
+// byte offsets in 16-byte units, layout type 1 (128B)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// keeps the compiler from moving reads or writes of an accumulator across the asynchronous wgmma
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define MHA_D32                                                                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),      \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),       \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define MHA_D32_LIST                                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64 f32) (+)= A (64 x 16, K-major in shared memory) . B (16 x 64, K-major: B^T stored row by row)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MHA_D32_LIST ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : MHA_D32
+               : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16 in registers) . B (16 x 64, MN-major in shared memory: the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MHA_D32_LIST
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+               : MHA_D32
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+#undef MHA_D32
+#undef MHA_D32_LIST
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Accumulator layout of a warpgroup's m64n64 tile: thread (warp w, lane l) holds rows 16 w + l / 4 (entries
+// i % 4 < 2) and that row + 8 (i % 4 >= 2), columns 8 (i / 4) + 2 (l % 4) + (i % 2). Entries 8k..8k+7 of S are,
+// packed in pairs, the A fragment of keys 16k..16k+15 for P V.
 template <bool TRAIN>
-__global__ void __launch_bounds__(THREADS)
-    mha_forward_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths, bf16* __restrict__ out,
-                       float* __restrict__ stats, const int* __restrict__ seed, float rate, int t, int heads) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = score_ld(t);
-  const int t_pad = round_up(t, KC);
-  float* S = reinterpret_cast<float*>(smem);             // [QT][ld] f32
-  bf16* P = reinterpret_cast<bf16*>(smem);               // [QT][2 * ld] bf16, in place over S
-  bf16* Qs = reinterpret_cast<bf16*>(S + (size_t)QT * ld);  // [QT][LDQ]
-  bf16* KV = Qs + QT * LDQ;                              // [KC][LDQ]
-  float* rowsum = reinterpret_cast<float*>(KV + KC * LDQ);  // [QT]
+__global__ void __launch_bounds__(THREADS, 2)
+    mha_forward_kernel(const __grid_constant__ CUtensorMap qkv_map, const int* __restrict__ lengths,
+                       bf16* __restrict__ out, float* __restrict__ stats, const int* __restrict__ seed, float rate,
+                       int t, int heads) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full = base + BAR_OFF;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t qbar = empty + 8 * STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int q0 = blockIdx.x * QT;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * (BM * CONSUMERS);
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int h = heads * DH;
-  const size_t row_stride = 3 * (size_t)h;
-  const bf16* base = qkv + (size_t)b * t * row_stride;
-  const int len = lengths[b];
+  const int valid = min(max(lengths[b], 0), t);
+  const int n_tiles = ((valid > 0 ? valid : t) + BN - 1) / BN;  // past a length >= 1 the keys add exactly 0
 
-  // ---- the q tile, multiplied by bf16(dh^-0.5) = 0.125 (exact)
-  load_rows(Qs, base, row_stride, head * DH, q0, QT, t, true);
-
-  // ---- S = q k^T over the whole key panel
-  const int wr = (warp / 2) * 16;  // warp tile rows
-  const int wc = (warp % 2) * 32;  // warp tile columns within a chunk (keys for S, dh for O)
-  for (int k0 = 0; k0 < t_pad; k0 += KC) {
-    load_rows(KV, base, row_stride, h + head * DH, k0, KC, t, false);
-    __syncthreads();
-    tile_abt(S + k0, ld, Qs, KV, wr, wc);
-    __syncthreads();  // the next chunk overwrites KV
-  }
-
-  // ---- softmax, a warp per row: masked max, then exp(s - m) as bf16 in place, f32 row sum
-  const bool drop = TRAIN && rate > 0.f;
-  for (int r = warp; r < QT; r += THREADS / 32) {
-    const float* srow = S + (size_t)r * ld;
-    bf16* prow = P + (size_t)r * 2 * ld;
-    float m = -INFINITY;
-    for (int j = lane; j < t; j += 32) m = fmaxf(m, srow[j] + (j < len ? 0.f : NEG));
-    m = warp_max(m);
-    uint32_t key = 0u;
-    if (drop) key = thunder_dropout::row_key((uint32_t)seed[0], (uint32_t)(b * heads + head), (uint32_t)(q0 + r));
-    float z = 0.f;
-    for (int j0 = 0; j0 < t_pad; j0 += 32) {
-      const int j = j0 + lane;
-      const float p = j < t ? expf(srow[j] + (j < len ? 0.f : NEG) - m) : 0.f;
-      __syncwarp();  // every lane has read floats j0..j0+31 before bf16 j0..j0+31 (floats j0/2..) are written
-      const bool kept = !drop || thunder_dropout::keep(key, (uint32_t)j, rate);
-      prow[j] = __float2bfloat16(kept ? p : 0.f);
-      z += p;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * CONSUMERS);
     }
-    z = warp_sum(z);
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * CONSUMERS) {  // the producer warp: lane 0 issues every copy
     if (lane == 0) {
-      rowsum[r] = z;
-      if (TRAIN && q0 + r < t) {
-        const size_t at = ((size_t)b * heads + head) * t + q0 + r;
-        stats[at] = m;
-        stats[(size_t)gridDim.z * heads * t + at] = z;
+      mbar_expect_tx(qbar, CONSUMERS * TILE_BYTES);
+      for (int c = 0; c < CONSUMERS; ++c) tma_load(base + Q_OFF + c * TILE_BYTES, &qkv_map, qbar, head * DH, q0 + c * BM, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty + 8 * s, ((it / STAGES) - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * TILE_BYTES);
+        tma_load(base + K_OFF + s * TILE_BYTES, &qkv_map, full + 8 * s, h + head * DH, it * BN, b);
+        tma_load(base + V_OFF + s * TILE_BYTES, &qkv_map, full + 8 * s, 2 * h + head * DH, it * BN, b);
       }
     }
-  }
-  __syncthreads();
-
-  // ---- O = P V over the same key chunks
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[2];
-  wmma::fill_fragment(o[0], 0.f);
-  wmma::fill_fragment(o[1], 0.f);
-  for (int k0 = 0; k0 < t_pad; k0 += KC) {
-    load_rows(KV, base, row_stride, 2 * h + head * DH, k0, KC, t, false);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, P + (size_t)wr * 2 * ld + k0 + kk, 2 * ld);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, KV + kk * LDQ + wc + 16 * j, LDQ);
-        wmma::mma_sync(o[j], fa, fb, o[j]);
-      }
-    }
-    __syncthreads();  // the next chunk (or the output tile) overwrites KV
+    return;
   }
 
-  // ---- epilogue: O / z (training with dropout: / (z * (1 - rate))) as bf16, 8 values (16 bytes) a thread
-  float* Os = reinterpret_cast<float*>(KV);  // [QT][LDO]
-#pragma unroll
-  for (int j = 0; j < 2; ++j) wmma::store_matrix_sync(Os + wr * LDO + wc + 16 * j, o[j], LDO, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < QT * (DH / 8); i += THREADS) {
-    const int r = i / (DH / 8);
-    const int c = (i % (DH / 8)) * 8;
-    if (q0 + r >= t) continue;
-    const float z = drop ? rowsum[r] * (1.f - rate) : rowsum[r];
-    uint4 v;
+  // ---- a consumer warpgroup: 64 query rows
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
+  const int row0 = 16 * (warp % 4) + lane / 4;  // this thread's rows row0 and row0 + 8 of the warpgroup's 64
+  const int col0 = 2 * (lane % 4);              // and columns col0, col0 + 1 of each group of 8
+  const uint32_t q_tile = base + Q_OFF + wg * TILE_BYTES;
+  bf16* q_smem = reinterpret_cast<bf16*>(smem + Q_OFF + wg * TILE_BYTES);
+
+  // the q tile times bf16(dh^-0.5) = 0.125 (exact), in place: an elementwise map commutes with the swizzle
+  mbar_wait(qbar, 0);
+  for (int i = tid; i < BM * DH / 8; i += 128) {
+    uint4 v = reinterpret_cast<uint4*>(q_smem)[i];
     bf16* e = reinterpret_cast<bf16*>(&v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(Os[r * LDO + c + j] / z);
-    *reinterpret_cast<uint4*>(out + ((size_t)b * t + q0 + r) * h + head * DH + c) = v;
+    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * 0.125f);
+    reinterpret_cast<uint4*>(q_smem)[i] = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the generic writes, visible to wgmma
+  named_sync(1 + wg);
+
+  const bool drop = TRAIN && rate > 0.f;
+  const int grow0 = q0 + wg * BM + row0;
+  uint32_t key[2] = {0u, 0u};
+  if (drop) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      key[r] = thunder_dropout::row_key((uint32_t)seed[0], (uint32_t)(b * heads + head), (uint32_t)(grow0 + 8 * r));
+  }
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float z[2] = {0.f, 0.f};  // this thread's share of the row sums
+  const uint64_t q_desc = desc_sw128(q_tile, 16, 1024);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+
+    // S = q k^T: four k-steps of 16 along dh, 32 bytes apart inside the swizzled 128-byte rows
+    float sc[32] = {};
+    const uint64_t k_desc = desc_sw128(base + K_OFF + s * TILE_BYTES, 16, 1024);
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait();
+    pin(sc);
+
+    // the key mask, keys past T excluded, the running max
+    const int k0 = it * BN;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = k0 + 8 * (i / 4) + col0 + (i % 2);
+      const float v = j < t ? sc[i] + (j < valid ? 0.f : NEG) : -INFINITY;
+      sc[i] = v;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
+    }
+    float scale[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);  // finite: key 0 < T lies in the first tile
+      scale[r] = expf(m[r] - m_new);           // 0 on the first tile
+      m[r] = m_new;
+      z[r] *= scale[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= scale[(i >> 1) & 1];
+
+    // p = exp(s - m) summed in f32 before dropout, then rounded to bf16 as P V's A fragments
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      float p0 = expf(sc[i] - m[r]);
+      float p1 = expf(sc[i + 1] - m[r]);
+      z[r] += p0;
+      z[r] += p1;
+      if (drop) {
+        const int j = k0 + 8 * (i / 4) + col0;
+        if (!thunder_dropout::keep(key[r], (uint32_t)j, rate)) p0 = 0.f;
+        if (!thunder_dropout::keep(key[r], (uint32_t)(j + 1), rate)) p1 = 0.f;
+      }
+      pa[i / 2] = pack_bf16(p0, p1);
+    }
+
+    // O += P V: four k-steps of 16 keys, 16 rows of 128 bytes (2048 bytes) apart
+    const uint64_t v_desc = desc_sw128(base + V_OFF + s * TILE_BYTES, 16, 1024);
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3], v_desc + 128 * kk);
+    wgmma_commit();
+    wgmma_wait();
+    pin(o);
+    mbar_arrive(empty + 8 * s);  // this stage's K and V are read
+  }
+
+  // ---- epilogue: the row sums, the statistics, O / z (with dropout / (z * (1 - rate))) as bf16
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    z[r] += __shfl_xor_sync(0xffffffffu, z[r], 1);
+    z[r] += __shfl_xor_sync(0xffffffffu, z[r], 2);
+    den[r] = drop ? z[r] * (1.f - rate) : z[r];
+    if (TRAIN && lane % 4 == 0 && grow0 + 8 * r < t) {
+      const size_t at = ((size_t)b * heads + head) * t + grow0 + 8 * r;
+      stats[at] = m[r];
+      stats[(size_t)gridDim.z * heads * t + at] = z[r];
+    }
+  }
+  named_sync(1 + wg);  // every warp of the warpgroup is done with its q tile
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {  // into the q tile's shared memory, 16-byte chunks swizzled as TMA's
+    const int r = (i >> 1) & 1;
+    const int row = row0 + 8 * r;
+    const int chunk = (i / 4) ^ (row % 8);
+    *reinterpret_cast<uint32_t*>(q_smem + row * DH + chunk * 8 + col0) = pack_bf16(o[i] / den[r], o[i + 1] / den[r]);
+  }
+  named_sync(1 + wg);
+  bf16* dst = out + (size_t)b * t * h + head * DH;
+  for (int i = tid; i < BM * DH / 8; i += 128) {
+    const int row = i / 8;
+    const int c = i % 8;
+    const int grow = q0 + wg * BM + row;
+    if (grow < t)
+      *reinterpret_cast<uint4*>(dst + (size_t)grow * h + c * 8) =
+          *reinterpret_cast<const uint4*>(q_smem + row * DH + (c ^ (row % 8)) * 8);
   }
 }
 
-// Launch the forward over (batch, t, heads); returns cudaGetLastError().
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the library links no libcuda); null if absent
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Launch the forward over (batch, t, heads): a tensor map of qkv encoded for this call, one block per 128
+// queries, head and batch row. Returns a cudaError_t.
 template <bool TRAIN>
-inline int launch_mha_forward(const void* qkv, const int* lengths, void* out, float* stats, const int* seed, float rate,
-                              int batch, int t, int heads, void* stream) {
+inline int launch(const void* qkv, const int* lengths, void* out, float* stats, const int* seed, float rate, int batch,
+                  int t, int heads, void* stream) {
   if (batch < 1 || batch > 65535 || t < 1 || heads < 1 || heads > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = forward_smem_bytes(t);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t width = 3ull * heads * DH;
+  const cuuint64_t dims[3] = {width, (cuuint64_t)t, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {width * sizeof(bf16), width * sizeof(bf16) * t};
+  const cuuint32_t box[3] = {DH, 64, 1};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  CUtensorMap map;
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims, strides, box, element_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(mha_forward_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(mha_forward_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t + QT - 1) / QT, heads, batch);
-  mha_forward_kernel<TRAIN><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), lengths, static_cast<bf16*>(out), stats, seed, rate, t, heads);
+  const dim3 grid((t + BM * CONSUMERS - 1) / (BM * CONSUMERS), heads, batch);
+  mha_forward_kernel<TRAIN><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      map, lengths, static_cast<bf16*>(out), stats, seed, rate, t, heads);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace mha_fwd

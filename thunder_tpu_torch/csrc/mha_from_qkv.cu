@@ -12,15 +12,14 @@
 //
 // What bounds it on this card: operations. 4 * T^2 * 64 bf16 FLOP per (row,
 // head) against 2 * T * 3 * 64 bytes of qkv in and T * 64 * 2 out: at T = 749
-// about 250 operations a byte, so the tensor cores bound it, not memory. In this
-// first version the staging is the real limit: nvcuda::wmma (mma.sync) fragments
-// read through shared memory, K and V chunks loaded by all threads between two
-// barriers with no overlap, and 4 warps a block, far from wgmma's rate.
+// about 250 operations a byte, so the tensor cores bound it, not memory.
 //
 // The kernel is mha_forward_kernel<false> of mha_forward.cuh, which the training
-// forward (mha_train.cu) shares; its design is described there.
+// forward (mha_train.cu) shares; its design (a streaming softmax over TMA-fed
+// key tiles, wgmma for both products) is described there.
 // The TPU kernel's head-pair lane packing (for Mosaic's 128-lane blocks) and
-// its T % 128 requirement are not carried over: T is any length up to 1664.
+// its T % 128 requirement are not carried over: T is any length, since shared
+// memory does not depend on it.
 
 #include "mha_forward.cuh"
 
@@ -28,5 +27,5 @@
 // out: (batch, t, heads * 64) bf16. Returns cudaGetLastError().
 extern "C" int thunder_mha_from_qkv(const void* qkv, const int* lengths, void* out, int batch, int t, int heads,
                                     void* stream) {
-  return launch_mha_forward<false>(qkv, lengths, out, nullptr, nullptr, 0.f, batch, t, heads, stream);
+  return mha_fwd::launch<false>(qkv, lengths, out, nullptr, nullptr, 0.f, batch, t, heads, stream);
 }

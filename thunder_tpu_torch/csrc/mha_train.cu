@@ -4,7 +4,8 @@
 //
 // Replaces: thunder_tpu/kernels/attn_train.py::mha_train (the Pallas TPU kernels
 // _fwd_kernel and _bwd_kernel, and _dropout_keep_masks).
-// Forward: mha_forward_kernel<true> of mha_forward.cuh: the serving kernel's
+// Forward: mha_forward_kernel<true> of mha_forward.cuh (streaming softmax,
+// wgmma, TMA): the serving kernel's
 // math; the rounded probabilities that the mask drops are zeroed, the output is
 // divided by z * (1 - rate) with z the sum of the undropped exponentials, and
 // each row's m and z go out as (2, B, heads, T) float32. The TPU kernel saves no
@@ -40,9 +41,66 @@
 //   the same tiles: no transpose in memory).
 // Both take m and z from the forward, so neither holds a key panel: any T.
 
+#include <cfloat>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include "dropout_hash.cuh"
 #include "mha_forward.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+constexpr int DH = 64;        // head width
+constexpr int QT = 32;        // query rows per block
+constexpr int KC = 64;        // keys per staged K or V chunk
+constexpr int THREADS = 128;  // 4 warps: a 2 x 2 grid of 16 x 32 warp tiles over QT x 64
+constexpr int LDQ = DH + 8;   // bf16 row stride of the q tile and the K/V chunk
+constexpr float NEG = -FLT_MAX;  // finfo(float32).min, the additive key mask
+
+static_assert(QT == 2 * 16 && DH == 2 * 32 && THREADS == 4 * 32, "warp tiling");
+
+// rows [r0, r0 + n_rows) of one head's 64 columns starting at `col`, zero beyond T;
+// scale 0.125 multiplies the values and rounds them to bf16 again (the q tile), scale 1 copies
+__device__ inline void load_rows(bf16* dst, const bf16* base, size_t row_stride, int col, int r0, int n_rows, int t,
+                                 bool scale_q) {
+  for (int i = threadIdx.x; i < n_rows * (DH / 8); i += THREADS) {
+    const int r = i / (DH / 8);
+    const int c = (i % (DH / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < t) v = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * row_stride + col + c);
+    if (scale_q) {
+      bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * 0.125f);
+    }
+    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = v;
+  }
+}
+
+// C (QT x 64 f32 at row stride ldc) = A (QT x 64 bf16, row-major at LDQ) . B^T, B (64 x 64 bf16, row-major at
+// LDQ: B^T as a col-major operand): q k^T with A = q tile, B = K chunk; dO V^T with A = dO tile, B = V chunk
+__device__ inline void tile_abt(float* c, int ldc, const bf16* a, const bf16* b, int wr, int wc) {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+#pragma unroll
+  for (int kk = 0; kk < DH; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+    wmma::load_matrix_sync(fa, a + wr * LDQ + kk, LDQ);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fb, b + (wc + 16 * j) * LDQ + kk, LDQ);
+      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) wmma::store_matrix_sync(c + (size_t)wr * ldc + wc + 16 * j, acc[j], ldc, wmma::mem_row_major);
+}
 
 constexpr int LDS = KC + 4;  // f32 row stride of the S and dP tiles
 
@@ -300,7 +358,7 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int thunder_mha_train_fwd(const void* qkv, const int* lengths, const int* seed, void* out, float* stats,
                                      int batch, int t, int heads, float rate, void* stream) {
   if (!(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
-  return launch_mha_forward<true>(qkv, lengths, out, stats, seed, rate, batch, t, heads, stream);
+  return mha_fwd::launch<true>(qkv, lengths, out, stats, seed, rate, batch, t, heads, stream);
 }
 
 // o, dout: (batch, t, heads * 64) bf16; stats from the forward; delta: (batch, heads, t) f32 scratch;

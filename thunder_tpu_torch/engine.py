@@ -22,15 +22,22 @@ see ``models.wav2vec2.serving_copy``), whose layers run the attention and add
 and a float32 bias. Its int8 modes and the dense positional-conv fold are not
 ported.
 
-Decoding is greedy by default; ``predict(beam_width=...)`` runs the prefix
-beam search on the host (numpy) or, with ``beam_backend="device"``, on the
-forward's logits where they lie, through the beam scan and backtrace
-kernels; ``predict_long`` decodes long audio in overlapped chunks, greedy or
-as one continuous beam search.
+Any other encoder is served through the module's eval forward (the JAX
+engine's generic fallback): its dtype, no BN folding, no kernels of its own.
+A module without a decoder (an encoder-only checkpoint) serves the encoder's
+output as float32 logits.
+
+Decoding is greedy by default, on the argmax ids the forward computed;
+``predict(beam_width=...)`` runs the prefix beam search on the host (numpy)
+or, with ``beam_backend="device"``, on the forward's logits where they lie,
+through the beam scan and backtrace kernels; ``predict_long`` decodes long
+audio in overlapped chunks, greedy or as one continuous beam search.
 
 Compute is bfloat16 on the card (as the JAX engine computes in bf16 on its
 accelerator) and float32 on the CPU, where every kernel wrapper runs its
-plain version. Asking for float32 on the card raises.
+plain version. Asking for float32 on the card raises. Audio is padded to a
+multiple of ``pad_multiple`` samples (16000 by default), as the JAX engine
+pads it.
 """
 
 from __future__ import annotations
@@ -87,8 +94,10 @@ class _BlockPlan:
     res: Optional[_RepeatPlan]
 
 
-def _decoder_weights(decoder) -> tuple[torch.Tensor, torch.Tensor]:
-    """The head's ``(C, V)`` kernel and ``(V,)`` bias."""
+def _decoder_weights(decoder) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The head's ``(C, V)`` kernel and ``(V,)`` bias; ``(None, None)`` without a head."""
+    if decoder is None:
+        return None, None
     if isinstance(decoder, Conv1dDecoder):
         return decoder.kernel.detach()[0], decoder.bias.detach()
     if isinstance(decoder, LinearDecoder):
@@ -98,9 +107,11 @@ def _decoder_weights(decoder) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class InferenceEngine:
-    """CTC inference over a ``CTCModule``'s weights (QuartzNet with BN folded, or wav2vec2)."""
+    """CTC inference over a ``CTCModule``'s weights (QuartzNet with BN folded, wav2vec2, or any other
+    encoder through the module's eval forward)."""
 
-    def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None):
+    def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None,
+                 pad_multiple: int = 16000):
         self.device = require_device(device if device is not None else module.device)
         on_cuda = self.device.type == "cuda"
         self.dtype = compute_dtype or (torch.bfloat16 if on_cuda else torch.float32)
@@ -108,6 +119,7 @@ class InferenceEngine:
             raise ValueError("on the card the engine computes in bfloat16 (the kernels' type)")
         encoder = module.model.encoder
         self.module = module
+        self.pad_multiple = pad_multiple
         self.frontend = module.model.audio_transform.to(self.device)
         if isinstance(encoder, Wav2Vec2Encoder):
             self._encoder = serving_copy(encoder, self.dtype).to(self.device)
@@ -116,10 +128,12 @@ class InferenceEngine:
             self._plan = self._build_plan(encoder)
             self._forward = self._forward_quartznet
         else:
-            raise NotImplementedError(f"InferenceEngine serves QuartzNet and wav2vec2, got {type(encoder).__name__}")
+            self._model = module.to(self.device).model if self.device != module.device else module.model
+            self._forward = self._forward_module
+            return
         kernel, bias = _decoder_weights(module.model.decoder)
-        self._dec_kernel = kernel.to(self.device, self.dtype)  # (C, V)
-        self._dec_bias = bias.to(self.device, torch.float32)
+        self._dec_kernel = None if kernel is None else kernel.to(self.device, self.dtype)  # (C, V)
+        self._dec_bias = None if bias is None else bias.to(self.device, torch.float32)
 
     # ------------------------------------------------------------------
     # planning
@@ -174,8 +188,12 @@ class InferenceEngine:
         return y * mask_cache[t], new_lengths
 
     def _decode(self, x: torch.Tensor):
-        """Encoder output -> float32 logits (compute-dtype product, float32 accumulation and bias) and argmax."""
-        logits = torch.matmul(x.float(), self._dec_kernel.float()) + self._dec_bias
+        """Encoder output -> float32 logits (compute-dtype product, float32 accumulation and bias; without a
+        decoder the encoder output itself) and argmax."""
+        if self._dec_kernel is None:
+            logits = x.float()
+        else:
+            logits = torch.matmul(x.float(), self._dec_kernel.float()) + self._dec_bias
         return logits, greedy_decode(logits)
 
     def _forward_quartznet(self, audio: torch.Tensor, lengths: torch.Tensor):
@@ -197,6 +215,10 @@ class InferenceEngine:
         h, out_lengths = self._encoder(feats, feat_lengths)
         return (*self._decode(h), out_lengths)
 
+    def _forward_module(self, audio: torch.Tensor, lengths: torch.Tensor):
+        logits, out_lengths = self._model(audio, lengths)
+        return logits, greedy_decode(logits), out_lengths
+
     @torch.inference_mode()
     def infer(self, audio, lengths):
         """Padded audio ``(B, T)`` and lengths -> ``(logits, preds, out_lengths)`` on the device."""
@@ -216,7 +238,7 @@ class InferenceEngine:
         n = 0
         for b in batch_sizes:
             for s in durations_s:
-                samples = pad_to_bucket(int(s * sample_rate), self.module.pad_multiple)
+                samples = pad_to_bucket(int(s * sample_rate), self.pad_multiple)
                 audio = np.zeros((b, samples), dtype=np.float32)
                 lengths = np.full((b,), samples, dtype=np.int32)
                 self.infer(audio, lengths)[1].cpu()
@@ -232,8 +254,8 @@ class InferenceEngine:
         kernels on the forward's logits, which stay on the device; an ``lm`` ranks
         the surviving beam on the host). With ``nbest=k``, returns per sample the
         top-k ``(text, log_prob)`` pairs instead of one string."""
-        return transcribe(self.module, self, audio, lengths, beam_width, prune_logp, lm, lm_weight, nbest, beam_backend,
-                          beam_kwargs)
+        return transcribe(self.module, self.infer, self.pad_multiple, audio, lengths, beam_width, prune_logp, lm,
+                          lm_weight, nbest, beam_backend, beam_kwargs)
 
     def predict_long(self, audio, chunk_seconds: float = 20.0, overlap_seconds: float = 2.0, sample_rate: int = 16000,
                      beam_width: Optional[int] = None, **beam_kwargs) -> str:
@@ -242,5 +264,5 @@ class InferenceEngine:
         (see :func:`thunder_tpu_torch.module.chunked_transcribe`)."""
         if self.module.text_transform is None:
             raise ValueError("predict_long requires a text_transform")
-        return long_transcribe(self.module, self, self.predict, audio, chunk_seconds, overlap_seconds, sample_rate,
-                               beam_width, beam_kwargs)
+        return long_transcribe(self.module, self.infer, self.predict, audio, chunk_seconds, overlap_seconds,
+                               sample_rate, beam_width, beam_kwargs)

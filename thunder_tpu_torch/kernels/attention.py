@@ -12,14 +12,18 @@ with no split, pad or transpose. Semantics, kept from the TPU kernel:
   ``finfo(float32).min`` (not −inf), so a row of length 0 averages every key
   uniformly and stays finite, and padded query rows attend the valid keys
   like any other row;
-- the softmax is exact over the whole key panel: row max, ``exp(s - m)``,
-  float32 row sum; the probabilities are rounded to the activation dtype
-  before P·V, which accumulates in float32; the division by the row sum is
-  applied to the output.
+- the softmax is over every key: row max, ``exp(s - m)``, float32 row sum;
+  the probabilities are rounded to the activation dtype before P·V, which
+  accumulates in float32; the division by the row sum is applied to the
+  output. The kernel streams the keys in tiles with a running max, so each
+  probability is rounded against the max so far and rescaled in float32
+  (within the checks' bf16 ULPs of this plain version).
 
 The TPU kernel's head-pair lane packing and its ``T % 128`` requirement were
-Mosaic's 128-lane blocks; here T is any length from 1 to ``MAX_FRAMES`` and
-the head count is free.
+Mosaic's 128-lane blocks; here the head count is free and T is any length:
+the kernel's shared memory does not depend on it. The limits are the
+launch's: ``T < 2**31`` (the tensor map's coordinates), batch and heads at
+most 65535 (the grid).
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`mha_from_qkv_reference`) only for a CPU tensor.
@@ -31,11 +35,9 @@ import torch
 
 from thunder_tpu_torch.kernels import _build
 
-__all__ = ["mha_from_qkv", "mha_from_qkv_reference", "HEAD_DIM", "MAX_FRAMES"]
+__all__ = ["mha_from_qkv", "mha_from_qkv_reference", "HEAD_DIM", "check_launch_shape"]
 
 HEAD_DIM = 64
-#: the kernel keeps a 32-row float32 score panel over every key in shared memory (227 KB a block)
-MAX_FRAMES = 1664
 
 
 def mha_from_qkv_reference(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.Tensor:
@@ -63,13 +65,20 @@ def _check(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> None:
         raise ValueError(f"lengths {tuple(lengths.shape)} do not fit a batch of {qkv.shape[0]}")
 
 
+def check_launch_shape(name: str, batch: int, t: int, heads: int) -> None:
+    """Raise unless the attention kernels' launch takes the shape: ``T < 2**31``, batch and heads <= 65535."""
+    if not (1 <= t < 2**31 and 1 <= batch <= 65535 and 1 <= heads <= 65535):
+        raise ValueError(f"{name} takes 1 <= T < 2**31 frames and batch and heads of at most 65535, got "
+                         f"batch={batch}, T={t}, heads={heads}")
+
+
 def mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.Tensor:
     """Multi-head attention over a packed ``[q | k | v]`` tensor.
 
     Args:
         qkv: ``(B, T, 3H)``, the fused projection's output; on the card
-            bfloat16, contiguous, with ``dh = H / heads = 64`` and ``1 <= T <=
-            MAX_FRAMES``.
+            bfloat16, contiguous, with ``dh = H / heads = 64``; any ``T`` the
+            launch takes (:func:`check_launch_shape`).
         lengths: ``(B,)`` valid keys of each row (a prefix); int32 on the card.
         heads: number of heads.
 
@@ -86,8 +95,7 @@ def mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.
         raise ValueError("the attention kernel takes a bfloat16 qkv and int32 lengths")
     if h3 // 3 // heads != HEAD_DIM:
         raise ValueError(f"the attention kernel takes dh = {HEAD_DIM}, got {h3 // 3 // heads}")
-    if not 1 <= t <= MAX_FRAMES:
-        raise ValueError(f"the attention kernel takes 1 to {MAX_FRAMES} frames, got {t}")
+    check_launch_shape("the attention kernel", batch, t, heads)
     for name, x in (("qkv", qkv), ("lengths", lengths)):
         if x.device != qkv.device or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {qkv.device}")

@@ -7,8 +7,8 @@ serving kernel). Semantics kept from the TPU kernels, per head of ``dh = 64``:
 
 - forward: the serving kernel's math (``kernels/attention.py``: q scaled by
   ``bf16(dh**-0.5)``, float32 scores, the additive ``finfo(float32).min`` key
-  mask, exact softmax, probabilities rounded to the activation dtype before
-  P·V); the rounded probabilities that the dropout mask drops are zeroed and
+  mask, a softmax over every key streamed with a running max, probabilities
+  rounded to the activation dtype before P·V); the rounded probabilities that the dropout mask drops are zeroed and
   the output is divided by ``z * (1 - rate)``, with ``z`` the row sum of the
   *undropped* exponentials. Padded query rows attend the valid keys like any
   row, and a row of length 0 averages every key and stays finite;
@@ -28,9 +28,9 @@ regenerates it. Unlike the TPU kernel, the forward saves each row's ``m`` and
 ``z`` (``stats``, ``(2, B, heads, T)`` float32), so that the backward streams
 the keys with no second softmax pass and holds no key panel. The TPU kernel's
 head-pair lane packing, ``T % 128`` and 1536-frame cap were Mosaic's: here the
-head count is free and T runs from 1 to ``MAX_FRAMES``, forward and backward
-(the cap is the forward's score panel in shared memory; the backward needs the
-forward's ``stats``, so its wrapper keeps the same cap).
+head count is free and T is any length, forward and backward (no kernel's
+shared memory depends on it), within the launch's limits
+(``kernels.attention.check_launch_shape``).
 
 :func:`mha_train` is differentiable in ``qkv`` through :class:`MHATrain`. Each
 wrapper runs its kernels for CUDA tensors and its plain version only for CPU
@@ -42,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from thunder_tpu_torch.kernels import _build, dropout_hash
-from thunder_tpu_torch.kernels.attention import HEAD_DIM, MAX_FRAMES
+from thunder_tpu_torch.kernels.attention import HEAD_DIM, check_launch_shape
 
 __all__ = [
     "mha_train",
@@ -145,11 +145,10 @@ def _device_args(qkv, heads, bf16_tensors, other_tensors):
     """Check a CUDA launch's tensors: shapes the kernels take, all contiguous, aligned, on one device."""
     if qkv.device.type != "cuda":
         raise ValueError(f"mha_train runs on cuda or cpu tensors, got {qkv.device}")
-    _, t, h3 = qkv.shape
+    batch, t, h3 = qkv.shape
     if h3 // 3 // heads != HEAD_DIM:
         raise ValueError(f"the training attention kernels take dh = {HEAD_DIM}, got {h3 // 3 // heads}")
-    if not 1 <= t <= MAX_FRAMES:
-        raise ValueError(f"the training attention kernels take 1 to {MAX_FRAMES} frames, got {t}")
+    check_launch_shape("the training attention kernels", batch, t, heads)
     if other_tensors["lengths"].dtype != torch.int32:
         raise ValueError("the training attention kernels take int32 lengths")
     for name, x in bf16_tensors.items():
@@ -231,7 +230,7 @@ def mha_train(qkv: torch.Tensor, lengths: torch.Tensor, seed: torch.Tensor, head
 
     Args:
         qkv: ``(B, T, 3H)``, the fused projection's output; on the card
-            bfloat16 with ``dh = H / heads = 64`` and ``1 <= T <= MAX_FRAMES``.
+            bfloat16 with ``dh = H / heads = 64``; any ``T`` the launch takes.
         lengths: ``(B,)`` valid keys of each row (a prefix); int32 on the card.
         seed: int32 ``(1,)`` on ``qkv``'s device, fresh for each layer and step;
             not read at ``dropout_rate == 0``.

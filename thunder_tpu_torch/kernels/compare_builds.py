@@ -1,0 +1,172 @@
+"""Time this checkout's kernels against another checkout's on one card, in turns.
+
+    python3 -m thunder_tpu_torch.kernels.compare_builds --other DIR
+
+``DIR`` is the root of another checkout of this repository (for example the
+parent commit, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists). Each side runs in its own process with its own build,
+in the order other, this, this, other, so that drift in the card's clocks
+falls on both. Each process times, with CUDA events:
+
+- the serving attention at wav2vec2-base's 16 × 15 s shape (B = 16, T = 749,
+  12 heads) and at 8 × 15 s, and the training attention's forward and
+  backward at 8 × 15 s (rate 0.1), on random bf16 inputs from one seed;
+- the CTC kernel pair (``ctc_alpha`` + ``ctc_beta``) at QuartzNet's training
+  shape (T = 751, B = 16, S = 129);
+- one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``)
+  and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW),
+  and one QuartzNet15x5 greedy forward at 64 × 15 s and training step at
+  16 × 15 s (SpecAugment, dropout 0.1, bf16, AdamW), as ``chip_smoke.py`` runs
+  them, on noise audio from numpy seed 0.
+
+Every number is a mean over its iterations in milliseconds; the last line is
+one JSON object with both sides' four runs. Only the API both checkouts share
+is used.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def _cuda_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def measure() -> dict:
+    """The timings of the checkout that ``thunder_tpu_torch`` imports from."""
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures, Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv
+    from thunder_tpu_torch.kernels.attention_train import mha_train_backward, mha_train_forward
+    from thunder_tpu_torch.kernels.ctc import ctc_alpha, ctc_beta, ll_from_alpha
+    from thunder_tpu_torch.models import Conv1dDecoder, LinearDecoder, QuartznetEncoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.ops.ctc import extended_emissions
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import TrainStep, _encode_targets
+
+    _build.load()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(Path(sys.modules["thunder_tpu_torch"].__file__).parents[1])}
+
+    qkv = torch.randn((16, 749, 3 * 768), device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.full((16,), 749, dtype=torch.int32, device="cuda")
+    out["attention_serving_ms"] = _cuda_ms(lambda: mha_from_qkv(qkv, lens, 12), 50)
+    qkv8, lens8 = (qkv[:8] * 0.3).contiguous(), lens[:8]
+    out["attention_serving_b8_ms"] = _cuda_ms(lambda: mha_from_qkv(qkv8, lens8, 12), 50)
+    seed = torch.tensor([20260821], dtype=torch.int32, device="cuda")
+    o, stats = mha_train_forward(qkv8, lens8, seed, 12, 0.1)
+    dout = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    out["attention_train_fwd_ms"] = _cuda_ms(lambda: mha_train_forward(qkv8, lens8, seed, 12, 0.1), 50)
+    out["attention_train_bwd_ms"] = _cuda_ms(
+        lambda: mha_train_backward(qkv8, o, stats, dout, lens8, seed, 12, 0.1), 20)
+
+    logits = torch.randn((16, 751, 29), device="cuda", generator=gen)
+    targets = torch.randint(1, 29, (16, 64), device="cuda", generator=gen, dtype=torch.int32)
+    tl = torch.randint(10, 65, (16,), device="cuda", generator=gen, dtype=torch.int32)
+    ctc_lens = torch.full((16,), 751, dtype=torch.int32, device="cuda")
+    lp_z, skip_ok = extended_emissions(torch.log_softmax(logits, dim=-1), targets, blank=0)
+    alpha = ctc_alpha(lp_z, skip_ok, ctc_lens, tl)
+    ll, ghat = ll_from_alpha(alpha, ctc_lens, tl), 1.0 / tl.float()
+    out["ctc_pair_ms"] = _cuda_ms(lambda: (ctc_alpha(lp_z, skip_ok, ctc_lens, tl),
+                                           ctc_beta(lp_z, alpha, skip_ok, ctc_lens, tl, ll, ghat)), 50)
+
+    rng = np.random.default_rng(0)
+    vocab = list("abcdefghijklmnopqrstuvwxyz '.,?")
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(len(vocab) + 1),
+                              BatchTextTransformer(vocab), device="cuda")
+    engine = InferenceEngine(module)
+    audio = torch.as_tensor((rng.standard_normal((16, 240000)) * 0.1).astype(np.float32), device="cuda")
+    audio_lens = torch.full((16,), 240000, dtype=torch.int32, device="cuda")
+    out["w2v2_forward_ms"] = _cuda_ms(lambda: engine.infer(audio, audio_lens), 5)
+    del engine, module
+
+    tt = BatchTextTransformer(vocab)
+    cfg = Wav2Vec2Config(hidden_dropout=0.1, attention_dropout=0.1, feat_proj_dropout=0.1)
+    train = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False),
+                             Wav2Vec2Encoder(cfg, dtype=torch.bfloat16, freeze_feature_extractor=True),
+                             LinearDecoder(tt.num_tokens, dtype=torch.bfloat16), tt, device="cuda")
+    tgt, tgt_lens = _encode_targets(tt, ["the quick brown fox jumps over the lazy dog"] * 8)
+    batch = (audio[:8], audio_lens[:8], torch.as_tensor(tgt, device="cuda"), torch.as_tensor(tgt_lens, device="cuda"))
+    step = TrainStep(train.model, adamw(train.model.parameters(), learning_rate=1e-4), train.blank_idx)
+    step_gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(2):
+        step(*batch, step_gen)
+    out["w2v2_train_step_ms"] = _cuda_ms(lambda: step(*batch, step_gen), 5)
+    del step, train
+
+    chars = BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '"))
+    qn = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(repeat_blocks=3),
+                          Conv1dDecoder(29), chars, device="cuda")
+    qn_engine = InferenceEngine(qn)
+    qn_audio = torch.as_tensor((rng.standard_normal((64, 240000)) * 0.1).astype(np.float32), device="cuda")
+    qn_lens = torch.full((64,), 240000, dtype=torch.int32, device="cuda")
+    out["quartznet_forward_ms"] = _cuda_ms(lambda: qn_engine.infer(qn_audio, qn_lens), 5)
+    del qn_engine, qn
+    augmenting = FilterbankFeatures(num_time_masks=2, num_freq_masks=2)
+    qn_train = CTCModule.create(torch.Generator().manual_seed(0), augmenting,
+                                QuartznetEncoder(repeat_blocks=3, dropout=0.1, dtype=torch.bfloat16),
+                                Conv1dDecoder(29, dtype=torch.bfloat16), chars, device="cuda")
+    tgt, tgt_lens = _encode_targets(chars, ["the quick brown fox jumps over the lazy dog"] * 16)
+    batch = (qn_audio[:16], qn_lens[:16], torch.as_tensor(tgt, device="cuda"), torch.as_tensor(tgt_lens, device="cuda"))
+    step = TrainStep(qn_train.model, adamw(qn_train.model.parameters(), learning_rate=1e-4), qn_train.blank_idx)
+    for _ in range(2):
+        step(*batch, step_gen)
+    out["quartznet_train_step_ms"] = _cuda_ms(lambda: step(*batch, step_gen), 5)
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.measure:
+        print(json.dumps(measure()), flush=True)
+        return 0
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    other = Path(args.other).resolve()
+    runs = {"other": [], "this": []}
+    for side in ("other", "this", "this", "other"):
+        root = other if side == "other" else ROOT
+        env = {**os.environ, "PYTHONPATH": str(root)}
+        proc = subprocess.run([sys.executable, __file__, "--other", str(other), "--measure"], cwd=root, env=env,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"side": side, **result}), flush=True)
+        runs[side].append(result)
+    print(json.dumps({"card": card, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

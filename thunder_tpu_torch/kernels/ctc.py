@@ -34,6 +34,7 @@ from thunder_tpu_torch.kernels import _build
 
 __all__ = [
     "NEG",
+    "MAX_STATES",
     "extended_emissions",
     "scores_from_ll",
     "CTCRecursion",
@@ -47,6 +48,8 @@ __all__ = [
 ]
 
 NEG = -1e30
+#: the kernels keep two float32 rows of S + 2 states in a block's shared memory (227 KB on Hopper)
+MAX_STATES = 227 * 1024 // 8 - 2
 
 
 def _lse3(a, b, c):
@@ -164,8 +167,10 @@ def _device_args(lp_z, *tensors):
     """Check that a CUDA launch gets contiguous tensors on one device; int32 lengths."""
     if lp_z.device.type != "cuda":
         raise ValueError(f"the CTC recursion runs on cuda or cpu tensors, got {lp_z.device}")
-    if lp_z.shape[2] > 1024:
-        raise ValueError(f"the CTC kernels take at most 1024 extended states, got {lp_z.shape[2]}")
+    if lp_z.shape[2] > MAX_STATES:
+        raise ValueError(f"the CTC kernels take at most {MAX_STATES} extended states (a target of "
+                         f"{(MAX_STATES - 1) // 2} labels): their double-buffered row of states must fit in a block's "
+                         f"227 KB of shared memory; got {lp_z.shape[2]}")
     out = []
     for t in (lp_z, *tensors):
         if t.device != lp_z.device or not t.is_contiguous():

@@ -8,7 +8,10 @@ or gradient delta relative to the largest gradient, against the plain time
 loop). ``ctc_edge`` holds the CTC kernels to the JAX package's CPU limits on
 its edge case (a repeated label, an empty target, T = 61) plus one impossible
 alignment, which must give ``+inf`` on both routes and an exactly zero
-gradient. ``separable_conv_stem`` and
+gradient. ``ctc_long_target`` holds the pair to the plain loop with
+``ctc_recursion``'s measure and limit past one state a thread: B = 2, T =
+1200, S = 1025 and 2049 (targets of 512 and 1024 labels, and 37 fewer on the
+second row, 1200 and 1100 frames). ``separable_conv_stem`` and
 ``separable_conv_tail`` add QuartzNet's strided stem and dilated tail, which
 the TPU kernels did not take; ``repeat_tm`` runs ragged lengths and fails
 unless every row beyond a length is exactly zero. ``attn_onepanel``
@@ -16,8 +19,9 @@ unless every row beyond a length is exactly zero. ``attn_onepanel``
 heads) and ``add_ln`` (8 x 768 rows x 768) keep the JAX names and limits (4,
 4 and 2 bf16 ULP); ``attn_onepanel_749`` adds the wav2vec2-base serving
 length at 15 s (T = 749, not a multiple of 128) with ragged lengths and a
-row of length 0. The attention checks compare every query row, padded ones
-included. ``beam_device`` keeps the JAX check's name and shape (B = 64,
+row of length 0; ``attn_long_3001`` a 60 s chunk (B = 1, T = 3001, 12 heads),
+past the 1664 frames that the first kernel's score panel held. The attention
+checks compare every query row, padded ones included. ``beam_device`` keeps the JAX check's name and shape (B = 64,
 T = 751, V = 29, beam 16, standard normal logits with +2 on blank 0, lengths
 ``linspace(T // 2, T, B)``) and, like it, demands exact agreement: the
 kernels' pointers, exts, integer state and best hypotheses must equal the
@@ -44,7 +48,8 @@ probes as on the TPU), and returns ``inf`` when two runs with one seed differ
 in any bit, forward or backward, or when the kept fraction lies more than 5
 sigma from ``1 - rate``. ``attn_train_749`` adds the training length at 15 s
 with ragged lengths, a row of length 0 and rate 0.1: the uniform row must stay
-finite forward and backward.
+finite forward and backward; ``attn_train_long_2048`` a batch of about 41 s
+(B = 2, T = 2048, 12 heads, lengths ``[2048, 1900]``, rate 0.1).
 
 Both sides run on the same device and the same inputs; the float32 reference
 runs without TF32 (:func:`exact_float32` is set first).
@@ -197,6 +202,36 @@ def _check_ctc_recursion(device) -> dict:
     dg_abs = (g0 - g1).abs().max().item()
     dg = dg_abs / max(g0.abs().max().item(), 1e-9)
     return {"max_err": max(dl, dg), "max_abs_err": max(dl, dg_abs), "loss_delta": dl, "grad_rel_delta": dg}
+
+
+def ctc_long_case(seed, s_dim, device, t=1200):
+    """B = 2, V = 29: targets of ``(s_dim - 1) / 2`` random labels (repeats included) and 37 fewer, over
+    ``t`` and ``t - 100`` frames (every alignment possible when ``t`` leaves room for the repeats)."""
+    rng = np.random.default_rng(seed)
+    b, v, labels = 2, 29, (s_dim - 1) // 2
+    logits = rng.standard_normal((b, t, v)).astype(np.float32)
+    targets = rng.integers(1, v, (b, labels))
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+    return (as_t(logits, torch.float32), as_t(targets, torch.int32), as_t([t, t - 100], torch.int32),
+            as_t([labels, labels - 37], torch.int32))
+
+
+def _check_ctc_long_target(device) -> dict:
+    """``ctc_recursion``'s measure at S = 1025 and 2049 extended states, two and four states a thread."""
+    result = {"max_err": 0.0, "max_abs_err": 0.0}
+    for s_dim in (1025, 2049):
+        case = ctc_long_case(15, s_dim, device)
+        losses0, total0, g0 = _ctc_value_and_grad(ctc_ll_reference, *case)
+        losses1, total1, g1 = _ctc_value_and_grad(ctc_ll, *case)
+        dl = (total0 - total1).abs().item()
+        dg_abs = (g0 - g1).abs().max().item()
+        dg = dg_abs / max(g0.abs().max().item(), 1e-9)
+        result[f"loss_delta_{s_dim}"], result[f"grad_rel_delta_{s_dim}"] = dl, dg
+        result["max_err"] = max(result["max_err"], dl, dg)
+        result["max_abs_err"] = max(result["max_abs_err"], dl, dg_abs)
+        if not (bool(torch.isfinite(losses0).all()) and bool(torch.isfinite(losses1).all())):
+            result.update(max_err=float("inf"), error=f"an impossible alignment at S = {s_dim}: {losses0}, {losses1}")
+    return result
 
 
 def _check_ctc_edge(device) -> dict:
@@ -446,10 +481,12 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # structural fault
     "ctc_recursion": (_check_ctc_recursion, 0.01),
     "ctc_edge": (_check_ctc_edge, 1e-5),
+    "ctc_long_target": (_check_ctc_long_target, 0.01),
     # attention and add + LayerNorm: bf16 ULPs at the plain version's max magnitude
     "attn_onepanel": (_attention_check(4, 2, 256, 4, [256, 199]), 4.0),
     "attn_onepanel_1536": (_attention_check(6, 2, 1536, 12, [1536, 1479]), 4.0),
     "attn_onepanel_749": (_attention_check(7, 4, 749, 12, [749, 512, 37, 0]), 4.0),
+    "attn_long_3001": (_attention_check(16, 1, 3001, 12, [3001]), 4.0),
     "add_ln": (_check_add_ln, 2.0),
     # the training kernels: bf16 ULPs against the plain version and against the float32 reference with the
     # same mask; inf when two runs differ in a bit or the kept fraction is off (dscale, dbias: 1 % is 1.0)
@@ -457,6 +494,7 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_train_dropout": (_attention_train_check(9, 2, 128, 2, [128, 128], 0.3, zero_padded_cotangent=False), 8.0),
     "attn_train_dropout_1536": (_attention_train_check(9, 2, 1536, 2, [1536, 1536], 0.3, zero_padded_cotangent=False), 8.0),
     "attn_train_749": (_attention_train_check(10, 4, 749, 12, [749, 512, 37, 0], 0.1), 8.0),
+    "attn_train_long_2048": (_attention_train_check(17, 2, 2048, 12, [2048, 1900], 0.1), 8.0),
     "add_ln_train": (_check_add_ln_train, 8.0),
     # beam search: exact pointers, exts, integer state and hypotheses (else inf), then the float
     # state's and total's largest difference, within the JAX package's score tolerance

@@ -259,24 +259,27 @@ def chunked_transcribe(infer_fn, text_transform, audio, chunk_seconds: float = 2
 
 
 class CTCModel(nn.Module):
-    """audio ``(B, T)`` -> logits ``(B, frames, vocab)``.
+    """audio ``(B, T)`` -> logits ``(B, frames, vocab)``; with ``decoder=None`` (an encoder-only checkpoint)
+    the encoder's output ``(B, frames, C)``.
 
     ``train=True`` runs the frontend's dither and augmentation, batch
     statistics and dropout, drawing every random number from ``generator``.
     """
 
-    def __init__(self, audio_transform: nn.Module, encoder: nn.Module, decoder: nn.Module):
+    def __init__(self, audio_transform: nn.Module, encoder: nn.Module, decoder: Optional[nn.Module]):
         super().__init__()
         self.audio_transform = audio_transform
         self.encoder = encoder
         self.decoder = decoder
-        if decoder.in_features is None:
+        if decoder is not None and decoder.in_features is None:
             decoder.build(encoder.final_dimension)
 
     def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         feats, feat_lengths = self.audio_transform(audio, lengths, train=train, generator=generator)
         encoded, out_lengths = self.encoder(feats, feat_lengths, train=train, generator=generator)
+        if self.decoder is None:
+            return encoded, out_lengths
         return self.decoder(encoded, train=train, generator=generator), out_lengths
 
 
@@ -295,7 +298,7 @@ class CTCModule:
         generator: torch.Generator,
         audio_transform: nn.Module,
         encoder: nn.Module,
-        decoder: nn.Module,
+        decoder: Optional[nn.Module],
         text_transform: Optional[BatchTextTransformer] = None,
         device="cuda",
     ) -> "CTCModule":
@@ -329,6 +332,12 @@ class CTCModule:
 
     __call__ = forward
 
+    @torch.inference_mode()
+    def infer(self, audio, lengths) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Padded audio batch -> ``(logits, argmax ids, logit_lengths)`` on the module's device."""
+        logits, out_lengths = self.forward(audio, lengths)
+        return logits, greedy_decode(logits), out_lengths
+
     def loss(self, audio, audio_lengths, targets, target_lengths, *, train: bool = False,
              generator: Optional[torch.Generator] = None):
         """``calculate_ctc`` of the model's logits: ``(loss, (logits, logit_lengths))``.
@@ -356,22 +365,23 @@ class CTCModule:
         host). With ``nbest=k``, returns per sample the top-k ``(text,
         log_prob)`` pairs instead of one string.
         """
-        return transcribe(self, self.forward, audio, lengths, beam_width, prune_logp, lm, lm_weight, nbest,
-                          beam_backend, beam_kwargs)
+        return transcribe(self, self.infer, self.pad_multiple, audio, lengths, beam_width, prune_logp, lm, lm_weight,
+                          nbest, beam_backend, beam_kwargs)
 
     def predict_long(self, audio, chunk_seconds: float = 20.0, overlap_seconds: float = 2.0, sample_rate: int = 16000,
                      beam_width: Optional[int] = None, **beam_kwargs) -> str:
         """Transcribe arbitrarily long audio by overlapped chunking (:func:`chunked_transcribe`)."""
         if self.text_transform is None:
             raise ValueError("predict_long requires a text_transform")
-        return long_transcribe(self, self.forward, self.predict, audio, chunk_seconds, overlap_seconds, sample_rate,
+        return long_transcribe(self, self.infer, self.predict, audio, chunk_seconds, overlap_seconds, sample_rate,
                                beam_width, beam_kwargs)
 
 
-def transcribe(module: CTCModule, forward, audio, lengths, beam_width, prune_logp, lm, lm_weight, nbest, beam_backend,
-               beam_kwargs) -> List[str]:
-    """``predict`` of a module or an engine: ``forward(padded, lengths) -> (logits, out_lengths)`` on the device,
-    then the greedy decode or :func:`run_beam_decode`."""
+def transcribe(module: CTCModule, infer, pad_multiple: int, audio, lengths, beam_width, prune_logp, lm, lm_weight,
+               nbest, beam_backend, beam_kwargs) -> List[str]:
+    """``predict`` of a module or an engine: the audio padded to a multiple of ``pad_multiple`` samples,
+    ``infer(padded, lengths) -> (logits, argmax ids, out_lengths)`` on the device, then the greedy decode of
+    those ids or :func:`run_beam_decode` of the logits."""
     if module.text_transform is None:
         raise ValueError("predict requires a text_transform")
     if nbest is not None and not beam_width:
@@ -379,21 +389,21 @@ def transcribe(module: CTCModule, forward, audio, lengths, beam_width, prune_log
     if beam_backend is not None and not beam_width:
         raise TypeError("beam-search arguments without beam_width: ['beam_backend']")
     check_beam_args(beam_width, beam_kwargs, prune_logp=prune_logp, lm=lm, lm_weight=lm_weight)
-    audio, lengths = host_batch(audio, lengths, module.pad_multiple)
-    logits, out_lengths = forward(audio, lengths)
+    audio, lengths = host_batch(audio, lengths, pad_multiple)
+    logits, preds, out_lengths = infer(audio, lengths)
     if beam_width:
         return run_beam_decode(
             logits, out_lengths, blank=module.blank_idx, text_transform=module.text_transform, beam_width=beam_width,
             nbest=nbest, prune_logp=-12.0 if prune_logp is _BEAM_UNSET else prune_logp, lm=lm,
             lm_weight=0.5 if lm_weight is _BEAM_UNSET else lm_weight, backend=beam_backend, beam_kwargs=beam_kwargs,
         )
-    return decode_greedy(module.text_transform, greedy_decode(logits), out_lengths)
+    return decode_greedy(module.text_transform, preds, out_lengths)
 
 
-def long_transcribe(module: CTCModule, forward, predict, audio, chunk_seconds, overlap_seconds, sample_rate,
+def long_transcribe(module: CTCModule, infer, predict, audio, chunk_seconds, overlap_seconds, sample_rate,
                     beam_width, beam_kwargs) -> str:
-    """``predict_long`` of a module or an engine: ``forward(padded, lengths) -> (logits, out_lengths)``
-    on the device, ``predict`` for audio of one chunk or less."""
+    """``predict_long`` of a module or an engine: ``infer(padded, lengths) -> (logits, argmax ids,
+    out_lengths)`` on the device, ``predict`` for audio of one chunk or less."""
     check_beam_args(beam_width, beam_kwargs)
     if "nbest" in beam_kwargs:
         raise TypeError(
@@ -401,12 +411,16 @@ def long_transcribe(module: CTCModule, forward, predict, audio, chunk_seconds, o
             "yields one continuous search; use predict for n-best)"
         )
 
-    def infer(padded, lengths):
-        logits, out_lengths = forward(padded, lengths)
-        return greedy_decode(logits), out_lengths
+    def ids(padded, lengths):
+        _, preds, out_lengths = infer(padded, lengths)
+        return preds, out_lengths
+
+    def logits(padded, lengths):
+        out, _, out_lengths = infer(padded, lengths)
+        return out, out_lengths
 
     return chunked_transcribe(
-        infer, module.text_transform, audio, chunk_seconds=chunk_seconds, overlap_seconds=overlap_seconds,
+        ids, module.text_transform, audio, chunk_seconds=chunk_seconds, overlap_seconds=overlap_seconds,
         sample_rate=sample_rate, short_path=lambda a: predict(a, beam_width=beam_width, **beam_kwargs)[0],
-        logits_fn=forward, blank_idx=module.blank_idx, beam_width=beam_width, beam_kwargs=beam_kwargs or None,
+        logits_fn=logits, blank_idx=module.blank_idx, beam_width=beam_width, beam_kwargs=beam_kwargs or None,
     )
