@@ -19,7 +19,12 @@ Phases, each of which fails the run:
    scale); RTF = audio seconds per second of device time; one forward under
    torch.profiler gives the device time by kernel and the device's idle
    share between the forward's first and last device event;
-5. each kernel's time and its plain version's at the main path's shapes;
+5. each kernel's time and its plain version's at the main path's shapes; for
+   the separable repeat, at each of its eight shapes, also a chain of PyTorch
+   calls for the same function (bf16 ``F.conv1d(groups=C)`` + ``torch.matmul``
+   + bias, ReLU and mask: timed only, its sum is the kernels line's
+   ``library_ms``) and the kernel's launch plan (shared memory a block, ring
+   stages, resident blocks per SM);
 6. QuartzNet15x5 CTC training at 16 rows x 15 s (``bench_train.py --model
    quartznet``: SpecAugment 2+2 masks, dither, dropout 0.1, bf16 compute with
    float32 parameters, AdamW lr 1e-4, random noise audio from numpy seed 0,
@@ -309,6 +314,24 @@ def separable_bound(batch, t_in, t_out, c_in, c_out, k) -> dict:
     return {"bytes": n_bytes, "f32_flop": 2.0 * batch * t_out * c_in * k, "bf16_flop": 2.0 * batch * t_out * c_in * c_out}
 
 
+def separable_chain(x, out_lengths, dw, pw, bias, kernel_size, stride=1, dilation=1, relu=True):
+    """The separable repeat as a chain of PyTorch library calls in bf16, the yardstick for its kernel (timed
+    here only; the port never calls it): ``F.conv1d(groups=C)`` + ``torch.matmul`` + bias, ReLU and the mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.ops.conv import get_same_padding
+
+    pad = get_same_padding(kernel_size, stride, dilation)
+    y = F.conv1d(x.transpose(1, 2), dw.t().unsqueeze(1), stride=stride, padding=pad, dilation=dilation,
+                 groups=x.shape[-1])
+    z = torch.matmul(y.transpose(1, 2), pw) + bias
+    if relu:
+        z = torch.relu(z)
+    mask = torch.arange(z.shape[1], device=z.device)[None, :, None] < out_lengths[:, None, None]
+    return torch.where(mask, z, 0.0).to(x.dtype)
+
+
 def ctc_bound(t: int, b: int, s: int) -> dict:
     """Forward: lp in, alpha out; backward: lp and alpha in, dlp out (float32), plus the (B, S)
     skip mask and the (B,) lengths, log-likelihoods and cotangents. About 40 float32 operations
@@ -448,7 +471,11 @@ def run() -> int:
     from thunder_tpu_torch.kernels import _build, reset_launch_counts
     from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
     from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, exact_float32, run_selftests, ulp_bf16_error
-    from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat, separable_repeat_reference
+    from thunder_tpu_torch.kernels.separable_conv import (
+        fused_separable_repeat,
+        separable_plan,
+        separable_repeat_reference,
+    )
     from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
     from thunder_tpu_torch.module import CTCModule
     from thunder_tpu_torch.text import BatchTextTransformer
@@ -550,7 +577,7 @@ def run() -> int:
                 shapes.setdefault(key, [rp, 0])[1] += 1
             c_in = rp.pw.shape[1]
             t_in = -(-t_in // rp.stride)
-    total_k = total_p = max_err = max_ulp = 0.0
+    total_k = total_p = total_chain = max_err = max_ulp = 0.0
     work = {"bytes": 0.0, "f32_flop": 0.0, "bf16_flop": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(1)
     for (t, c, co, k, s, d), (rp, count) in shapes.items():
@@ -563,11 +590,13 @@ def run() -> int:
         e_abs = (got.float() - want.float()).abs().max().item()
         e_ulp = ulp_bf16_error(got, want)
         km, pm = paired_ms(lambda: fused_separable_repeat(*args, **kw), lambda: separable_repeat_reference(*args, **kw), 10)
+        _, chain_ms = paired_ms(lambda: fused_separable_repeat(*args, **kw), lambda: separable_chain(*args, **kw), 10)
         shape_work = separable_bound(BATCH, t, t_out, c, co, k)
         emit({"separable_shape": {"t_in": t, "c_in": c, "c_out": co, "k": k, "stride": s, "dilation": d,
-                                  "count": count, "ms": km, "plain_ms": pm, "max_abs_err": e_abs, "ulp": e_ulp,
+                                  "count": count, "ms": km, "plain_ms": pm, "chain_ms": chain_ms,
+                                  "max_abs_err": e_abs, "ulp": e_ulp, "plan": separable_plan(c, k, s, d),
                                   **bound(shape_work["bytes"], shape_work["bf16_flop"], shape_work["f32_flop"])}})
-        total_k, total_p = total_k + count * km, total_p + count * pm
+        total_k, total_p, total_chain = total_k + count * km, total_p + count * pm, total_chain + count * chain_ms
         max_err, max_ulp = max(max_err, e_abs), max(max_ulp, e_ulp)
         for key in work:
             work[key] += count * shape_work[key]
@@ -577,8 +606,9 @@ def run() -> int:
                     "also_replaces": "thunder_tpu/kernels/repeat_tm.py:162",
                     "launches": launches["separable_repeat"], "max_abs_err": max_err, "max_ulp": max_ulp,
                     "ms": total_k, "plain_ms": total_p, "ms_is": "sum over the 77 launches of one forward",
-                    **bound(work["bytes"], work["bf16_flop"], work["f32_flop"]), "library_ms": None,
-                    "library": "none (no single PyTorch call computes a separable repeat)"})
+                    **bound(work["bytes"], work["bf16_flop"], work["f32_flop"]), "library_ms": total_chain,
+                    "library": "a chain, not one call: bf16 F.conv1d(groups=C) + torch.matmul + bias, ReLU, mask "
+                               "(sum over the 77 launches)"})
 
     # ---- QuartzNet15x5 training, then the CTC kernel pair at its shape
     kernels.append(training_phase(card, KERNEL_CHECKS["ctc_recursion"][1]))

@@ -173,7 +173,8 @@ def test_add_ln_kernel_at_wav2vec2_serving_shape(cuda):
 
 @pytest.mark.parametrize(
     "b,t,c,co,k,stride,dilation",
-    [(3, 100, 24, 40, 4, 1, 1), (2, 77, 8, 8, 87, 1, 2), (5, 129, 520, 136, 7, 2, 1), (1, 1, 64, 256, 33, 2, 1)],
+    [(3, 100, 24, 40, 4, 1, 1), (2, 77, 8, 8, 87, 1, 2), (5, 129, 520, 136, 7, 2, 1), (1, 1, 64, 256, 33, 2, 1),
+     (3, 65, 200, 264, 1, 1, 1), (2, 300, 1024, 520, 33, 1, 1), (4, 129, 72, 8, 9, 3, 1), (2, 140, 96, 64, 5, 1, 3)],
 )
 def test_separable_repeat_ragged_shapes_on_card(cuda, b, t, c, co, k, stride, dilation):
     from thunder_tpu_torch.kernels.selftest import exact_float32, _separable_check
@@ -181,6 +182,26 @@ def test_separable_repeat_ragged_shapes_on_card(cuda, b, t, c, co, k, stride, di
     exact_float32()
     result = _separable_check(5, b, t, c, co, k, stride, dilation, ragged=True)("cuda")
     assert result["max_err"] <= 8.0, result
+
+
+def test_separable_repeat_plan_and_refusal_on_card(cuda):
+    from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat, separable_plan
+
+    # QuartzNet's widths keep two blocks on an SM (one's depthwise beside the other's products)
+    for c_in, k, dilation in ((256, 39, 1), (512, 87, 1), (512, 87, 2)):
+        plan = separable_plan(c_in, k, 1, dilation)
+        assert plan["blocks_per_sm"] == 2 and plan["smem_bytes"] <= 115712, (c_in, k, plan)
+    assert separable_plan(1024, 33)["blocks_per_sm"] == 1
+    assert separable_plan(2048, 33)["smem_bytes"] == 0
+    # a width whose A tile does not fit raises, and launches nothing
+    x = torch.zeros((1, 64, 2048), dtype=torch.bfloat16, device="cuda")
+    dw = torch.zeros((33, 2048), dtype=torch.bfloat16, device="cuda")
+    pw = torch.zeros((2048, 64), dtype=torch.bfloat16, device="cuda")
+    before = fused_separable_repeat.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_separable_repeat(x, torch.full((1,), 64, dtype=torch.int32, device="cuda"), dw, pw,
+                               torch.zeros(64, device="cuda"), 33)
+    assert fused_separable_repeat.launches == before
 
 
 @pytest.mark.parametrize("time,win,n_mels", [(12345, 320, 64), (8000, 400, 80)])

@@ -57,7 +57,7 @@ def test_sources_are_in_the_package():
     assert names == {"log_mel.cu", "separable_repeat.cu", "ctc_recursion.cu", "mha_from_qkv.cu", "add_ln.cu",
                      "beam_search.cu", "mha_train.cu", "add_ln_train.cu"}
     # the headers the sources share are package data too, and an edit to one rebuilds the library
-    assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"mha_forward.cuh", "dropout_hash.cuh"}
+    assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"mha_forward.cuh", "dropout_hash.cuh", "hopper.cuh"}
     pyproject = (_build.CSRC_DIR.parents[1] / "pyproject.toml").read_text()
     assert '"csrc/*.cu"' in pyproject and '"csrc/*.cuh"' in pyproject
     assert _build.library_path().parent == _build.BUILD_DIR
@@ -67,6 +67,16 @@ def test_sources_are_in_the_package():
     # every entry point the loader binds is defined in exactly one source
     for entry in _build.SIGNATURES:
         assert sum(f'extern "C" int {entry}(' in text for text in sources.values()) == 1, entry
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    # hopper.cuh (TMA, mbarrier and wgmma helpers) is shared by the attention and the separable repeat
+    for src in _build.CSRC_DIR.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path()
+    (tmp_path / "hopper.cuh").write_text((tmp_path / "hopper.cuh").read_text() + "\n// edited\n")
+    assert _build.library_path() != before
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):

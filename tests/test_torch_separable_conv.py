@@ -6,7 +6,9 @@ mode (float32: atol 1e-4; the repeat_tm case also at bf16, where both sides
 round the depthwise sum and the output to bf16 at the same points: 8 bf16
 ULP, the on-chip tolerance), and, for the stride-2 stem and the dilation-2
 tail that the TPU kernels do not take, against ``thunder_tpu.ops.conv.conv1d``
-followed by a matmul.
+followed by a matmul. The same comparison holds the shapes at the edges of the
+card kernel's tiles: channel counts that are no multiple of 64, T_out = 1 and
+65, k = 1, a row of length 0, and C_in = 1024.
 """
 
 import jax.numpy as jnp
@@ -93,18 +95,34 @@ def test_matches_fused_repeat_tm_bf16_rounding_points():
     assert (got.float() != want)[nonzero].float().mean().item() < 0.01
 
 
-@pytest.mark.parametrize("k,stride,dilation,c,co", [(33, 2, 1, 64, 256), (87, 1, 2, 128, 128), (13, 2, 1, 8, 16)])
-def test_strided_and_dilated_match_conv1d_then_matmul(k, stride, dilation, c, co):
-    t = 190
-    x, lengths, dw, pw, scale, bias = _case(3, 2, t, c, co, k, [t, 101])
+@pytest.mark.parametrize(
+    "k,stride,dilation,c,co,t,lengths",
+    [
+        pytest.param(33, 2, 1, 64, 256, 190, (190, 101), id="33-2-1-64-256"),
+        pytest.param(87, 1, 2, 128, 128, 190, (190, 101), id="87-1-2-128-128"),
+        pytest.param(13, 2, 1, 8, 16, 190, (190, 101), id="13-2-1-8-16"),
+        # the edges of the card kernel's tiles (64 frames, 64-channel panels and weight boxes)
+        pytest.param(33, 1, 1, 200, 264, 150, (150, 0, 77), id="cin200-cout264-zero-row"),
+        pytest.param(33, 1, 1, 256, 256, 1, (1, 1), id="tout1"),
+        pytest.param(51, 1, 1, 512, 520, 65, (65, 64, 0), id="tout65-one-past-a-tile"),
+        pytest.param(1, 1, 1, 128, 136, 100, (100, 0), id="k1"),
+        pytest.param(33, 2, 1, 64, 256, 301, (301, 0, 150), id="stem-stride2-zero-row"),
+        pytest.param(87, 1, 2, 512, 512, 200, (200, 0), id="tail-dilation2-k87"),
+        pytest.param(33, 1, 1, 1024, 1024, 130, (130, 0), id="cin1024"),
+    ],
+)
+def test_strided_and_dilated_match_conv1d_then_matmul(k, stride, dilation, c, co, t, lengths):
+    x, lengths, dw, pw, scale, bias = _case(3, len(lengths), t, c, co, k, list(lengths))
     pad = get_same_padding(k, stride, dilation)
     out_lengths = (lengths + 2 * pad - dilation * (k - 1) - 1) // stride + 1
     y = jax_conv1d(jnp.asarray(x), jnp.asarray(dw)[:, None, :], stride=stride, padding=pad, dilation=dilation, groups=c)
     want = np.maximum(np.asarray(jnp.matmul(y, jnp.asarray(pw))) * scale + bias, 0.0)
     want[np.arange(want.shape[1])[None, :] >= out_lengths[:, None]] = 0.0
     got = _port(x, out_lengths, dw, pw * scale[None, :], bias, k, stride=stride, dilation=dilation)
-    assert got.shape == (2, output_length(t, k, stride, dilation), co) == want.shape
+    assert got.shape == (len(lengths), output_length(t, k, stride, dilation), co) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    beyond = np.arange(got.shape[1])[None, :] >= out_lengths[:, None]
+    assert not got.numpy()[beyond].any()  # exactly zero beyond each length, a row of length 0 included
 
 
 def test_cpu_path_counts_no_launch_and_rejects_bad_shapes():

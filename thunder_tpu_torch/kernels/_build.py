@@ -37,6 +37,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "thunder_log_mel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "thunder_separable_repeat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "thunder_separable_repeat_plan": [_I, _I, _I, _I, _P],
     "thunder_ctc_alpha": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thunder_ctc_beta": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],

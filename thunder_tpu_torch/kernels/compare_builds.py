@@ -13,6 +13,10 @@ falls on both. Each process times, with CUDA events:
   backward at 8 × 15 s (rate 0.1), on random bf16 inputs from one seed;
 - the CTC kernel pair (``ctc_alpha`` + ``ctc_beta``) at QuartzNet's training
   shape (T = 751, B = 16, S = 129);
+- the separable repeat (``fused_separable_repeat``) at each of the eight
+  shapes of QuartzNet15x5's 77 launches a 64 × 15 s forward
+  (``QUARTZNET_SEPARABLE_SHAPES``), their count-weighted sum, and three
+  shapes that take most of one phase away (``SEPARABLE_PHASE_SHAPES``);
 - one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``)
   and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW),
   and one QuartzNet15x5 greedy forward at 64 × 15 s and training step at
@@ -21,7 +25,8 @@ falls on both. Each process times, with CUDA events:
 
 Every number is a mean over its iterations in milliseconds; the last line is
 one JSON object with both sides' four runs. Only the API both checkouts share
-is used.
+is used. ``--parts`` limits each process to some of the groups
+(``attention``, ``ctc``, ``separable``, ``wav2vec2``, ``quartznet``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,19 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+PARTS = ("attention", "ctc", "separable", "wav2vec2", "quartznet")
+#: QuartzNet15x5's separable repeats in one forward at 64 x 15 s (T = 1501 log-mel frames, 751 after the stem):
+#: (t_in, C_in, C_out, k, stride, dilation) -> launches
+QUARTZNET_SEPARABLE_SHAPES = {
+    (1501, 64, 256, 33, 2, 1): 1,
+    (751, 256, 256, 33, 1, 1): 15,
+    (751, 256, 256, 39, 1, 1): 15,
+    (751, 256, 512, 51, 1, 1): 1,
+    (751, 512, 512, 51, 1, 1): 14,
+    (751, 512, 512, 63, 1, 1): 15,
+    (751, 512, 512, 75, 1, 1): 15,
+    (751, 512, 512, 87, 1, 2): 1,
+}
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -50,27 +68,86 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def measure() -> dict:
-    """The timings of the checkout that ``thunder_tpu_torch`` imports from."""
+def separable_shape_name(shape) -> str:
+    t, c, co, k, stride, dilation = shape
+    return f"{t}x{c}->{co}_k{k}_s{stride}_d{dilation}"
+
+
+#: shapes that take one phase of the separable repeat away, beside the most frequent full shape (C 512, k 63):
+#: C_out = 8 leaves the depthwise (and the span copies) with a product 64x smaller; k = 1 leaves the product (and
+#: the copies) with a depthwise 63x smaller
+SEPARABLE_PHASE_SHAPES = {
+    "full": (751, 512, 512, 63, 1, 1),
+    "depthwise_mostly": (751, 512, 8, 63, 1, 1),
+    "product_mostly": (751, 512, 512, 1, 1, 1),
+}
+
+
+def _separable_ms(shape, batch: int, iters: int, gen) -> float:
+    import torch
+
+    from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat
+
+    t, c, co, k, stride, dilation = shape
+    x = torch.randn((batch, t, c), device="cuda", generator=gen).to(torch.bfloat16)
+    dw = (torch.randn((k, c), device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
+    pw = (torch.randn((c, co), device="cuda", generator=gen) * 0.05).to(torch.bfloat16)
+    bias = torch.randn((co,), device="cuda", generator=gen)
+    out_len = torch.full((batch,), -(-t // stride), dtype=torch.int32, device="cuda")
+    return _cuda_ms(lambda: fused_separable_repeat(x, out_len, dw, pw, bias, k, stride=stride, dilation=dilation), iters)
+
+
+def measure_separable(batch: int = 64, iters: int = 10) -> dict:
+    """``fused_separable_repeat`` at each of ``QUARTZNET_SEPARABLE_SHAPES`` on random bf16 inputs (seed 0),
+    with every row at full length: ``{name: ms}``, ``sum_77_ms`` (the count-weighted sum) and ``phases``
+    (``SEPARABLE_PHASE_SHAPES``)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out, total = {}, 0.0
+    for shape, count in QUARTZNET_SEPARABLE_SHAPES.items():
+        ms = _separable_ms(shape, batch, iters, gen)
+        out[separable_shape_name(shape)] = ms
+        total += count * ms
+    out["sum_77_ms"] = total
+    out["phases"] = {name: _separable_ms(shape, batch, iters, gen) for name, shape in SEPARABLE_PHASE_SHAPES.items()}
+    return out
+
+
+def measure(parts=PARTS) -> dict:
+    """The timings of the checkout that ``thunder_tpu_torch`` imports from, for the groups in ``parts``."""
     import numpy as np
     import torch
 
-    from thunder_tpu_torch.audio import FilterbankFeatures, Wav2Vec2Preprocess
-    from thunder_tpu_torch.engine import InferenceEngine
     from thunder_tpu_torch.kernels import _build
-    from thunder_tpu_torch.kernels.attention import mha_from_qkv
-    from thunder_tpu_torch.kernels.attention_train import mha_train_backward, mha_train_forward
-    from thunder_tpu_torch.kernels.ctc import ctc_alpha, ctc_beta, ll_from_alpha
-    from thunder_tpu_torch.models import Conv1dDecoder, LinearDecoder, QuartznetEncoder, Wav2Vec2Config, Wav2Vec2Encoder
-    from thunder_tpu_torch.module import CTCModule
-    from thunder_tpu_torch.ops.ctc import extended_emissions
-    from thunder_tpu_torch.text import BatchTextTransformer
-    from thunder_tpu_torch.training.optim import adamw
-    from thunder_tpu_torch.training.trainer import TrainStep, _encode_targets
 
     _build.load()
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": str(Path(sys.modules["thunder_tpu_torch"].__file__).parents[1])}
+
+    if "separable" in parts:
+        out["separable_ms"] = measure_separable()
+    if "attention" in parts:
+        _measure_attention(out, gen)
+    if "ctc" in parts:
+        _measure_ctc(out, gen)
+    rng = np.random.default_rng(0)
+    vocab = list("abcdefghijklmnopqrstuvwxyz '.,?")
+    audio = torch.as_tensor((rng.standard_normal((16, 240000)) * 0.1).astype(np.float32), device="cuda")
+    audio_lens = torch.full((16,), 240000, dtype=torch.int32, device="cuda")
+    step_gen = torch.Generator(device="cuda").manual_seed(0)
+    if "wav2vec2" in parts:
+        _measure_wav2vec2(out, vocab, audio, audio_lens, step_gen)
+    if "quartznet" in parts:
+        _measure_quartznet(out, rng, step_gen)
+    return out
+
+
+def _measure_attention(out: dict, gen) -> None:
+    import torch
+
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv
+    from thunder_tpu_torch.kernels.attention_train import mha_train_backward, mha_train_forward
 
     qkv = torch.randn((16, 749, 3 * 768), device="cuda", generator=gen).to(torch.bfloat16)
     lens = torch.full((16,), 749, dtype=torch.int32, device="cuda")
@@ -84,6 +161,13 @@ def measure() -> dict:
     out["attention_train_bwd_ms"] = _cuda_ms(
         lambda: mha_train_backward(qkv8, o, stats, dout, lens8, seed, 12, 0.1), 20)
 
+
+def _measure_ctc(out: dict, gen) -> None:
+    import torch
+
+    from thunder_tpu_torch.kernels.ctc import ctc_alpha, ctc_beta, ll_from_alpha
+    from thunder_tpu_torch.ops.ctc import extended_emissions
+
     logits = torch.randn((16, 751, 29), device="cuda", generator=gen)
     targets = torch.randint(1, 29, (16, 64), device="cuda", generator=gen, dtype=torch.int32)
     tl = torch.randint(10, 65, (16,), device="cuda", generator=gen, dtype=torch.int32)
@@ -94,14 +178,22 @@ def measure() -> dict:
     out["ctc_pair_ms"] = _cuda_ms(lambda: (ctc_alpha(lp_z, skip_ok, ctc_lens, tl),
                                            ctc_beta(lp_z, alpha, skip_ok, ctc_lens, tl, ll, ghat)), 50)
 
-    rng = np.random.default_rng(0)
-    vocab = list("abcdefghijklmnopqrstuvwxyz '.,?")
+
+def _measure_wav2vec2(out: dict, vocab, audio, audio_lens, step_gen) -> None:
+    import torch
+
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import TrainStep, _encode_targets
+
     module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
                               Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(len(vocab) + 1),
                               BatchTextTransformer(vocab), device="cuda")
     engine = InferenceEngine(module)
-    audio = torch.as_tensor((rng.standard_normal((16, 240000)) * 0.1).astype(np.float32), device="cuda")
-    audio_lens = torch.full((16,), 240000, dtype=torch.int32, device="cuda")
     out["w2v2_forward_ms"] = _cuda_ms(lambda: engine.infer(audio, audio_lens), 5)
     del engine, module
 
@@ -113,11 +205,22 @@ def measure() -> dict:
     tgt, tgt_lens = _encode_targets(tt, ["the quick brown fox jumps over the lazy dog"] * 8)
     batch = (audio[:8], audio_lens[:8], torch.as_tensor(tgt, device="cuda"), torch.as_tensor(tgt_lens, device="cuda"))
     step = TrainStep(train.model, adamw(train.model.parameters(), learning_rate=1e-4), train.blank_idx)
-    step_gen = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(2):
         step(*batch, step_gen)
     out["w2v2_train_step_ms"] = _cuda_ms(lambda: step(*batch, step_gen), 5)
-    del step, train
+
+
+def _measure_quartznet(out: dict, rng, step_gen) -> None:
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import TrainStep, _encode_targets
 
     chars = BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '"))
     qn = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(repeat_blocks=3),
@@ -137,16 +240,20 @@ def measure() -> dict:
     for _ in range(2):
         step(*batch, step_gen)
     out["quartznet_train_step_ms"] = _cuda_ms(lambda: step(*batch, step_gen), 5)
-    return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--parts", default=",".join(PARTS), help="comma-separated groups to time (default: all)")
     parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    parts = tuple(args.parts.split(","))
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        parser.error(f"unknown parts {sorted(unknown)}; choose from {PARTS}")
     if args.measure:
-        print(json.dumps(measure()), flush=True)
+        print(json.dumps(measure(parts)), flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -156,7 +263,8 @@ def main() -> int:
     for side in ("other", "this", "this", "other"):
         root = other if side == "other" else ROOT
         env = {**os.environ, "PYTHONPATH": str(root)}
-        proc = subprocess.run([sys.executable, __file__, "--other", str(other), "--measure"], cwd=root, env=env,
+        proc = subprocess.run([sys.executable, __file__, "--other", str(other), "--parts", args.parts, "--measure"],
+                              cwd=root, env=env,
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

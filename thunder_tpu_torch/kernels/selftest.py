@@ -14,7 +14,11 @@ gradient. ``ctc_long_target`` holds the pair to the plain loop with
 second row, 1200 and 1100 frames). ``separable_conv_stem`` and
 ``separable_conv_tail`` add QuartzNet's strided stem and dilated tail, which
 the TPU kernels did not take; ``repeat_tm`` runs ragged lengths and fails
-unless every row beyond a length is exactly zero. ``attn_onepanel``
+unless every row beyond a length is exactly zero. The ``separable_edge_*``
+checks (``SEPARABLE_EDGES``) hold the kernel at the edges of its tiles: C_in
+and C_out no multiple of 64 (200 -> 264), T_out = 1 and 65, k = 1, the
+strided stem and the dilated tail with a row of length 0, and C_in = 1024,
+each to 8 bf16 ULP and exact zeros beyond every length. ``attn_onepanel``
 (B = 2, T = 256, 4 heads), ``attn_onepanel_1536`` (B = 2, T = 1536, 12
 heads) and ``add_ln`` (8 x 768 rows x 768) keep the JAX names and limits (4,
 4 and 2 bf16 ULP); ``attn_onepanel_749`` adds the wav2vec2-base serving
@@ -88,7 +92,7 @@ from thunder_tpu_torch.kernels.separable_conv import (
     separable_repeat_reference,
 )
 
-__all__ = ["run_selftests", "KERNEL_CHECKS", "ulp_bf16_error", "exact_float32"]
+__all__ = ["run_selftests", "KERNEL_CHECKS", "SEPARABLE_EDGES", "ulp_bf16_error", "exact_float32"]
 
 
 def exact_float32() -> None:
@@ -106,12 +110,17 @@ def ulp_bf16_error(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item() / ulp
 
 
-def _separable_case(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False, device="cuda"):
-    """Random bf16 inputs of one repeat, zero beyond the input lengths, BN scale folded into pw."""
+def _separable_case(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False, device="cuda", lengths=None):
+    """Random bf16 inputs of one repeat, zero beyond the input lengths, BN scale folded into pw.
+    ``lengths`` gives the input lengths; else they are ``t``, or random in ``[1, t]`` (the first ``t``)
+    with ``ragged``."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, t, c)).astype(np.float32)
-    lengths = rng.integers(1, t + 1, size=b) if ragged else np.full(b, t)
-    lengths[:1] = t
+    if lengths is not None:
+        lengths = np.asarray(lengths)
+    else:
+        lengths = rng.integers(1, t + 1, size=b) if ragged else np.full(b, t)
+        lengths[:1] = t
     x[np.arange(t)[None, :] >= lengths[:, None]] = 0.0
     dw = rng.standard_normal((k, c)).astype(np.float32) * 0.1
     scale = rng.standard_normal(co).astype(np.float32)
@@ -139,9 +148,9 @@ def _check_frontend(device) -> dict:
     return {"max_err": err, "max_abs_err": err}
 
 
-def _separable_check(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False):
+def _separable_check(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False, lengths=None):
     def check(device) -> dict:
-        case = _separable_case(seed, b, t, c, co, k, stride, dilation, ragged, device)
+        case = _separable_case(seed, b, t, c, co, k, stride, dilation, ragged, device, lengths)
         got = fused_separable_repeat(**case)
         want = separable_repeat_reference(**case)
         if got.shape != (b, output_length(t, k, stride, dilation), co):
@@ -468,6 +477,19 @@ def _check_beam_stream(device) -> dict:
     return result
 
 
+#: the separable repeat at the edges of its tiles: name -> (``_separable_check`` arguments, keywords). The kernel
+#: tiles 64 frames, 64 input channels a panel and 64 output channels a weight box; QuartzNet's shapes are all
+#: multiples of 64, these are not.
+SEPARABLE_EDGES = {
+    "separable_edge_cin200": ((20, 3, 150, 200, 264, 33), {"lengths": [150, 0, 77]}),  # C_in, C_out not 64k
+    "separable_edge_t1": ((21, 2, 1, 256, 256, 33), {}),  # T_out = 1
+    "separable_edge_t65": ((22, 3, 65, 512, 520, 51), {"lengths": [65, 64, 0]}),  # one frame past a tile
+    "separable_edge_k1": ((23, 2, 100, 128, 136, 1), {"lengths": [100, 0]}),
+    "separable_edge_stem": ((24, 3, 301, 64, 256, 33), {"stride": 2, "lengths": [301, 0, 150]}),
+    "separable_edge_tail": ((25, 2, 200, 512, 512, 87), {"dilation": 2, "lengths": [200, 0]}),
+    "separable_edge_cin1024": ((26, 2, 130, 1024, 1024, 33), {"lengths": [130, 0]}),  # one block an SM
+}
+
 KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # name -> (check fn, tolerance); units: absolute log-mel for the frontend,
     # bf16 ULPs at the reference's max magnitude for the separable repeat
@@ -476,6 +498,8 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "separable_conv_stem": (_separable_check(13, 4, 768, 64, 256, 33, stride=2), 8.0),
     "separable_conv_tail": (_separable_check(14, 4, 384, 512, 512, 87, dilation=2), 8.0),
     "repeat_tm": (_separable_check(2, 16, 384, 256, 256, 33, ragged=True), 8.0),  # ragged lengths, exact-zero mask
+    # the edges of the kernel's tiles, each with a row of length 0 where it has rows to spare
+    **{name: (_separable_check(*args, **kw), 8.0) for name, (args, kw) in SEPARABLE_EDGES.items()},
     # CTC: max(abs loss delta, grad delta / max|grad|) at B=16, T=751, V=29, L=43, the JAX check's limit;
     # the edge case: max(rel loss delta, abs grad delta), the JAX package's gradient atol, inf on a
     # structural fault

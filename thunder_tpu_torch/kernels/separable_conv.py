@@ -21,6 +21,9 @@ The wrapper runs the kernel for a CUDA tensor and the plain version
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -28,7 +31,7 @@ from thunder_tpu_torch.kernels import _build
 from thunder_tpu_torch.ops.conv import conv_output_length, get_same_padding
 from thunder_tpu_torch.ops.masking import lengths_to_mask
 
-__all__ = ["fused_separable_repeat", "separable_repeat_reference", "output_length"]
+__all__ = ["fused_separable_repeat", "separable_repeat_reference", "output_length", "separable_plan"]
 
 
 def output_length(time: int, kernel_size: int, stride: int = 1, dilation: int = 1) -> int:
@@ -68,6 +71,18 @@ def separable_repeat_reference(
     return torch.where(mask, z, 0.0).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def separable_plan(c_in: int, kernel_size: int, stride: int = 1, dilation: int = 1) -> dict:
+    """The kernel's launch plan on the current card for these widths: shared memory per block
+    (``smem_bytes``, 0 when the tile does not fit in 227 KB), weight-ring stages per warpgroup,
+    whether the first weight boxes are requested before the depthwise (``prefetch``), and the
+    resident blocks per SM (``blocks_per_sm``). Builds the kernels on first use."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().thunder_separable_repeat_plan(c_in, kernel_size, stride, dilation, out),
+                 "thunder_separable_repeat_plan")
+    return {"smem_bytes": out[0], "stages": out[1], "prefetch": bool(out[2]), "blocks_per_sm": out[3]}
+
+
 def _check(x, out_lengths, dw, pw, bias, kernel_size):
     c_in = x.shape[-1]
     if x.ndim != 3 or dw.shape != (kernel_size, c_in) or pw.ndim != 2 or pw.shape[0] != c_in:
@@ -99,7 +114,9 @@ def fused_separable_repeat(
         pw: ``(C_in, C_out)`` pointwise weights with the BN scale folded in.
         bias: ``(C_out,)`` float32 folded-BN bias.
 
-    On the card: bfloat16 ``x``/``dw``/``pw``, channel counts multiples of 8.
+    On the card: bfloat16 ``x``/``dw``/``pw``, channel counts multiples of 8,
+    and up to about 1,500 input channels (the A tile of 64 frames stays in
+    shared memory); a shape the kernel does not take raises.
 
     Returns:
         ``(batch, time_out, C_out)`` in ``x.dtype``.
@@ -116,6 +133,8 @@ def fused_separable_repeat(
     for name, t in (("x", x), ("dw", dw), ("pw", pw), ("bias", bias), ("out_lengths", out_lengths)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {x.device}")
+        if name in ("x", "dw", "pw") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads it 16 bytes at a time)")
     batch, time, c_in = x.shape
     c_out = pw.shape[1]
     if c_in % 8 or c_out % 8:
@@ -124,6 +143,11 @@ def fused_separable_repeat(
     t_out = output_length(time, kernel_size, stride, dilation)
     if batch < 1 or t_out < 1:
         raise ValueError(f"the separable repeat kernel takes a non-empty batch, got {tuple(x.shape)}")
+    if separable_plan(c_in, kernel_size, stride, dilation)["smem_bytes"] == 0:
+        raise ValueError(
+            f"the separable repeat kernel's A tile ({c_in} channels x 64 frames) and input span (k={kernel_size}, "
+            f"stride {stride}, dilation {dilation}) do not fit in one block's 227 KB of shared memory"
+        )
     out = torch.empty((batch, t_out, c_out), dtype=x.dtype, device=x.device)
     lib = _build.load()
     status = lib.thunder_separable_repeat(
