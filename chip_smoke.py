@@ -74,7 +74,8 @@ Phases, each of which fails the run:
    search, and on the served logits the share of rows 0-1 that agree with it
    is printed; ``predict_long`` on a 60 s speech-like clip with the device
    beam must make one launch of each beam kernel per window and give the
-   text of the same windows through the plain versions;
+   text of the same windows through the plain versions; the scan alone is
+   timed on the first window's logits (B = 1, one 20 s window);
 10. wav2vec2-base CTC training at 8 rows x 15 s (``bench_train.py --model
     wav2vec2``: ``Wav2Vec2Preprocess(mask_input=False)``, the feature
     extractor frozen, attention, hidden and feature-projection dropout 0.1,
@@ -1327,8 +1328,14 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
     long_counts = (beam_scan.launches, beam_backtrace.launches)
     with plain_beam():
         long_plain = engine.predict_long(clip, beam_width=width, beam_backend="device")
+    # the scan of one window alone (B = 1), on the first window's own logits
+    first = torch.as_tensor(clip[None, :chunk], device="cuda")
+    w_logits, _, w_lengths = engine.infer(first, torch.full((1,), chunk, dtype=torch.int32, device="cuda"))
+    w_logp = torch.log_softmax(w_logits.float(), dim=-1)
+    window_scan_ms = cuda_ms(lambda: beam_scan(w_logp, w_lengths, -12.0, **kw), 10)
     emit({"phase": "beam_predict_long", "seconds": 60, "windows": windows, "beam_launches": long_counts,
-          "ms_host_clock": long_ms, "chars": len(long_text), "equal_to_plain": long_text == long_plain})
+          "ms_host_clock": long_ms, "chars": len(long_text), "equal_to_plain": long_text == long_plain,
+          "scan_ms_per_window": window_scan_ms, "window_frames": w_logits.shape[1], "card": card})
     check(long_counts == (windows, windows), f"predict_long over {windows} windows launched {long_counts}")
     check(long_text == long_plain and set(long_text) <= set(VOCAB), "predict_long's text differs from the plain versions'")
     source, pallas = "thunder_tpu_torch/csrc/beam_search.cu", "thunder_tpu/kernels/beam_pallas.py"

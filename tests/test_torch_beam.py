@@ -35,7 +35,7 @@ from thunder_tpu_torch.audio import FilterbankFeatures
 from thunder_tpu_torch.bridge import from_flax_variables
 from thunder_tpu_torch.engine import InferenceEngine
 from thunder_tpu_torch.kernels import KERNEL_WRAPPERS
-from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_scan
+from thunder_tpu_torch.kernels.beam import MAX_CANDIDATES, MAX_SHARED_BYTES, beam_backtrace, beam_scan, scan_plan
 from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
 from thunder_tpu_torch.module import CTCModule
 from thunder_tpu_torch.ops import ctc_beam as host
@@ -72,6 +72,12 @@ SCAN_CASES = {
     "zero_length_row": (3, 3, 17, 7, 4, 7, -12.0, [17, 0, 9], False),
     "floor_empties_frames": (4, 2, 12, 8, 6, 8, -2.0, None, False),
     "beam_of_one": (5, 2, 21, 9, 1, 9, -12.0, [21, 8], False),
+    # integer-valued logits: equal log-probs and equal candidate totals, ordered by index alone
+    "exact_ties": (6, 3, 15, 9, 8, 9, -12.0, [15, 9, 15], False),
+    # a high floor leaves fewer finite candidates than W = 40: the dead picks are index 0
+    "dead_picks_wide_beam": (7, 2, 10, 9, 40, 9, -1.5, None, False),
+    # K < V with W*K = 800 candidates a frame (Citrinet's top-K width)
+    "k_lt_v_wide": (8, 2, 4, 300, 16, 50, -12.0, None, False),
 }
 
 
@@ -81,6 +87,8 @@ def test_plain_scan_and_backtrace_match_pallas_interpret(name):
     logits = _logits(seed, b, t, v)
     if name == "floor_empties_frames":
         logits[:, [2, 5, 6]] = 0.0  # flat frames: every log-prob is -log(8), under the floor
+    if name == "exact_ties":
+        logits = np.round(logits)
     logp = _log_softmax(logits)
     lengths = np.full(b, t, np.int32) if lengths is None else np.asarray(lengths, np.int32)
     kw = dict(blank=v - 1, beam_width=w, k_tokens=k)
@@ -99,11 +107,24 @@ def test_plain_scan_and_backtrace_match_pallas_interpret(name):
     _assert_state_equal((jt,), (tt,))
     if name == "floor_empties_frames":  # some frames were skipped: identity pointers, no emission
         assert bool(((te == -1).all(-1) & (tp == torch.arange(w)).all(-1)).any())
+    if name == "dead_picks_wide_beam":  # dead slots remain at the end
+        assert bool((ts[2] == -1).any())
     slots0 = np.argsort(-np.asarray(jt), axis=1, kind="stable")[:, : min(3, w)].astype(np.int32)
     jk, jo = beam_backtrace_pallas(jp, je, jnp.asarray(slots0))
     tk, to = beam_backtrace(tp, te, torch.as_tensor(slots0))
     np.testing.assert_array_equal(np.asarray(jk), tk.numpy())
     np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+
+
+def test_scan_plan_takes_every_width_up_to_2048_and_the_serving_shapes():
+    for w in range(1, 2049):
+        k = MAX_CANDIDATES // w
+        assert scan_plan(w, k)["smem_bytes"] <= MAX_SHARED_BYTES, (w, k)
+    assert scan_plan(16, 29) == {"threads": 480, "smem_bytes": 5464}  # QuartzNet: a thread a candidate
+    assert scan_plan(16, 50) == {"threads": 512, "smem_bytes": 8616}  # Citrinet's top-K: 26 runs on 16 warps
+    assert scan_plan(40, 29)["threads"] == 1024  # above a warp: 1200 candidates, some threads take two
+    assert scan_plan(1, 29)["threads"] == 32
+    assert scan_plan(3058, 1)["smem_bytes"] > MAX_SHARED_BYTES
 
 
 def test_wrappers_count_no_launch_on_the_cpu():

@@ -308,12 +308,18 @@ def test_one_train_step_on_card_launches_each_kernel_once(cuda):
 
 
 @pytest.mark.parametrize(
-    "b,t,v,width,k,floor,carried",
-    [(3, 29, 9, 8, 9, -12.0, False), (3, 23, 40, 6, 7, -10.0, False), (2, 21, 9, 1, 9, -12.0, False),
-     (2, 12, 8, 6, 8, -2.0, False), (2, 19, 9, 5, 9, -12.0, True), (5, 64, 29, 40, 29, -12.0, False)],
+    "b,t,v,width,k,floor,carried,ties",
+    [(3, 29, 9, 8, 9, -12.0, False, False), (3, 23, 40, 6, 7, -10.0, False, False),
+     (2, 21, 9, 1, 9, -12.0, False, False), (2, 12, 8, 6, 8, -2.0, False, False),
+     (2, 19, 9, 5, 9, -12.0, True, False), (5, 64, 29, 40, 29, -12.0, False, False),
+     (3, 15, 9, 8, 9, -12.0, False, True), (2, 10, 9, 40, 9, -1.5, False, False),
+     (2, 6, 300, 16, 50, -12.0, False, False), (2, 12, 200, 64, 128, -12.0, False, False),
+     (1, 1000, 29, 16, 29, -12.0, False, False)],
 )
-def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width, k, floor, carried):
-    """K = V and K < V, a beam of one, frames the floor empties (flat frames), a carried state, W above a warp."""
+def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width, k, floor, carried, ties):
+    """K = V and K < V, a beam of one, frames the floor empties (flat frames), a carried state, W above a warp;
+    exact ties (integer-valued logits), fewer finite candidates than W = 40 (a high floor), W*K = 800 and
+    8192, and one ``predict_long`` window (B = 1, T = 1000)."""
     from thunder_tpu_torch.kernels.beam import (
         beam_backtrace,
         beam_backtrace_reference,
@@ -322,7 +328,8 @@ def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width,
     )
 
     rng = np.random.default_rng(31)
-    logits = torch.as_tensor(rng.normal(0, 2, (b, t, v)).astype(np.float32), device="cuda")
+    logits = rng.normal(0, 2, (b, t, v)).astype(np.float32)
+    logits = torch.as_tensor(np.round(logits) if ties else logits, device="cuda")
     logits[:, 2:4] = 0.0  # flat frames: -log(V) for every token
     logp = torch.log_softmax(logits, dim=-1)
     lengths = torch.as_tensor([t] + [max(t - 9 * i, 0) for i in range(1, b)], dtype=torch.int32, device="cuda")
@@ -343,6 +350,21 @@ def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width,
     toks0, origin0 = beam_backtrace_reference(want[0], want[1], slots0)
     torch.cuda.synchronize()
     assert torch.equal(toks, toks0) and torch.equal(origin, origin0)
+
+
+def test_beam_scan_plan_matches_the_kernel_and_refuses_above_shared_memory(cuda):
+    import ctypes
+
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.kernels.beam import beam_scan, scan_plan
+
+    out = (ctypes.c_int * 2)()
+    for width, k in [(1, 1), (1, 29), (16, 29), (16, 50), (40, 29), (64, 128), (2048, 4), (3058, 1)]:
+        _build.check(_build.load().thunder_beam_scan_plan(width, k, ctypes.addressof(out)), "thunder_beam_scan_plan")
+        assert scan_plan(width, k) == {"threads": out[0], "smem_bytes": out[1]}, (width, k)
+    logp = torch.log_softmax(torch.randn((1, 4, 2), device="cuda"), -1)
+    with pytest.raises(ValueError, match="shared memory"):
+        beam_scan(logp, torch.full((1,), 4, device="cuda"), -12.0, blank=1, beam_width=3058, k_tokens=1)
 
 
 def test_beam_predict_on_card_goes_through_both_kernels(cuda):

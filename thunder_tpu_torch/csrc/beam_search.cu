@@ -28,20 +28,53 @@
 //
 // What bounds it on this card: the serial chain of T frames in each row, not bytes and
 // not operations. At the QuartzNet serving shape (B = 64, T = 751, V = K = 29, W = 16)
-// the scan reads B*T*(2K+1)*4 bytes and writes 2*B*T*W*4, about 17.5 MB, about 5 us at
-// 3.35 TB/s; a frame is some 2,000 dependent integer and float steps in one warp (16
-// rounds of a warp arg-max among them), and 751 frames run back to back. B = 64 rows fill
-// 64 of the 132 SMs with one warp each.
+// the scan reads B*T*(K+1)*4 bytes and writes 2*B*T*W*4, about 12 MB, under 4 us at
+// 3.35 TB/s, and B <= 132 rows give each row one SM: the time is T times the latency
+// of one frame through its stages. Cycles a frame at that shape, by stage (thread 0 of each
+// row, the mean over rows, kernels/beam_cycles.py; NVIDIA H100 80GB HBM3, 700 W; a barrier's
+// wait falls in the stage after it):
+//                      one warp a row (before)   this design
+//   candidate load                596                  284
+//   extend + merge             24,345                1,208
+//   stay rows                   1,666                1,209
+//   top-W                      14,571                3,647 (sort 900, select 2,747)
+//   commit                        629                  648
+//   a frame                    41,807 (21.1 us)      6,996 (3.8 us)
+// The top-W's tree of merges is now the largest stage, then the stay rows' two logaddexps
+// and the extend rows, each a chain of shared-memory loads and shuffles.
 //
-// Design: one warp per row (a block of 32 threads), the W-beam state double-buffered in
-// shared memory across all frames, the frame's K candidates staged in shared memory, the
-// W + W*K candidate totals in shared memory. The merge is one pass over the extend rows,
-// each comparing its hashes with the W stay rows and taking the masked max through an
-// integer atomicMax on order-preserving float bits. The top-W is W rounds of a warp
-// arg-max by shuffles over each lane's cached best; only the lane that owned the pick
-// rescans. A row stops at its length and fills the rest of its pointers with identity.
-// Nothing needs a barrier wider than the warp. The TPU's time-major (T, K, B) layout, the
-// batch on the 128 lanes and the TB-frame padding were Mosaic's and are not carried over.
+// Design: one block per row; a thread per candidate (C = W + W*K in runs of 32, at most
+// 512 threads for W <= 32 and 1024 above, a thread taking every blockDim-th candidate past
+// that). The W-beam state (pb, pnb, their logaddexp, h1, h2, last) is double-buffered in
+// shared memory across frames. A frame:
+//   1. extend + merge: a thread per extend row (parent p, slot k) computes its value and
+//      hashes, compares its h1 with the W stay rows' (broadcast loads with no store between
+//      them, so they pipeline) and, only where an h1 matches, both hashes: a match absorbs
+//      the row, its mass taken by an integer atomicMax on order-preserving float bits
+//      (exact, order-free). The thread whose token is the parent's last token also writes
+//      the stay row's repeated-last value: the token -> slot lookup is done by the threads
+//      that hold the slots, with no loop over K.
+//   2. stay rows and sorts: warp 0's first W lanes finish the stay rows (the blank path, the
+//      merged mass); every warp sorts its runs of 32 candidates in registers by a bitonic
+//      network of shuffles, as 64-bit keys (the value's bits made monotone above the
+//      index's complement: value descending, index ascending is one unsigned compare).
+//   3. top-W: for W <= 32 a warp keeps the best 32 of its runs, and the warps' lists merge
+//      in a tree: at distance d, warp w + d hands its best W to warp w through shared memory
+//      under a named barrier of the two warps (one id for each pair of each level, 15 at
+//      most); warp 0 ends with the picks. For W > 32 every run keeps its 32, sorted in shared
+//      memory (a key's slot swizzled by its run against bank conflicts), and a candidate's
+//      rank is the sum over runs of the run's keys above its own, by binary searches that G
+//      lanes share. The order is total, so ranks are exact. A pick that is -inf is taken as
+//      index 0, which is what the TPU kernel's kill-to--inf rounds give.
+//   4. commit: the first W threads write the new state and the pointers; the new
+//      logaddexp(pb, pnb) is the pick's own value. The next frame's K candidates and blank
+//      log-prob, requested by cp.async at the top of this frame into the other half of a
+//      double buffer, are waited for here, so no device-memory latency is on the chain.
+// Barriers a frame: three __syncthreads (after the extend rows, the picks and the commit) and
+// one named barrier for each warp that sends in the tree for W <= 32; four __syncthreads
+// above. A row stops at its length and fills the rest of its pointers with identity. The
+// TPU's time-major (T, K, B) layout, the batch on the 128 lanes and the TB-frame padding
+// were Mosaic's and are not carried over.
 //
 // The backtrace: one block per row (and per 128 output slots), which stages the row's
 // pointers in shared memory in chunks of frames, newest first; one thread per output
@@ -57,8 +90,9 @@ constexpr uint32_t M1 = 1000003u;
 constexpr uint32_t M2 = 2654435761u;
 constexpr uint32_t DEAD_H1 = 0xFFFFFFFFu;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int NO_INDEX = 0x7FFFFFFF;
-constexpr size_t MAX_SMEM = 232448;       // what a block may opt into on sm_90
+constexpr size_t MAX_SMEM = 232448;  // what a block may opt into on sm_90
+constexpr int MAX_THREADS = 1024;
+constexpr int MAX_TREE_THREADS = 512;  // W <= 32: at most 16 lists, 15 pair barriers (ids 1-15)
 constexpr size_t BACKTRACE_SMEM = 49152;  // the backtrace's frame chunks fit the default
 constexpr int BACKTRACE_THREADS = 128;
 
@@ -76,27 +110,88 @@ __device__ __forceinline__ int ordered(float f) {
 
 __device__ __forceinline__ float unordered(int i) { return __int_as_float(i >= 0 ? i : i ^ 0x7FFFFFFF); }
 
-// value descending, ties to the lower index
-__device__ __forceinline__ bool better(float v, int i, float w, int j) { return v > w || (v == w && i < j); }
+// (value descending, index ascending) as one unsigned key, larger is better: the float's bits made
+// monotone above the complement of the index. Every candidate's key is above 0, which pads a run.
+__device__ __forceinline__ uint64_t sort_key(float v, int i) {
+  const uint32_t u = __float_as_uint(v);
+  return ((uint64_t)(u & 0x80000000u ? ~u : u | 0x80000000u) << 32) | (uint32_t)(0xFFFFFFFFu - (uint32_t)i);
+}
 
-__device__ __forceinline__ void lane_best(const float* cand, int C, int lane, float& bv, int& bi) {
-  bv = -INFINITY;
-  bi = NO_INDEX;
-  for (int c = lane; c < C; c += 32) {
-    if (better(cand[c], c, bv, bi)) {
-      bv = cand[c];
-      bi = c;
+__device__ __forceinline__ float key_value(uint64_t key) {
+  const uint32_t u = (uint32_t)(key >> 32);
+  return __uint_as_float(u & 0x80000000u ? u & 0x7FFFFFFFu : ~u);
+}
+
+__device__ __forceinline__ int key_index(uint64_t key) { return (int)(0xFFFFFFFFu - (uint32_t)key); }
+
+// a sorted run's key j sits at j ^ (r & 15) of run r's 32 slots: runs searched side by side at the
+// same j then fall on different banks
+__device__ __forceinline__ int slot(int r, int j) { return r * 32 + (j ^ (r & 15)); }
+
+// how many of sorted run r's 32 keys are above `key`: binary lifting
+__device__ __forceinline__ int count_above(const uint64_t* keys, int r, uint64_t key) {
+  int n = 0;
+#pragma unroll
+  for (int step = 32; step > 0; step >>= 1) {
+    const int j = n + step - 1;
+    if (j < 32 && keys[slot(r, j)] > key) n += step;  // once n is 32, j leaves the run
+  }
+  return n;
+}
+
+// a warp's 32 keys sorted descending across the lanes (a bitonic network of shuffles)
+__device__ __forceinline__ uint64_t sort32(uint64_t key, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const uint64_t other = __shfl_xor_sync(FULL, key, j);
+      if ((other > key) == (((lane & j) == 0) == ((lane & k) == 0))) key = other;
     }
   }
+  return key;
 }
 
-// kernels/beam.py::scan_shared_bytes computes the same, to refuse a configuration above MAX_SMEM
-size_t scan_smem_bytes(int W, int K) {
-  const size_t C = (size_t)W + (size_t)W * K;
-  return 4 * (C + 2 * (size_t)K + 17 * (size_t)W);
+// the best 32 of two descending lists, descending: a against b reversed is bitonic, then a half merge
+__device__ __forceinline__ uint64_t merge32(uint64_t a, uint64_t b, int lane) {
+  const uint64_t rb = __shfl_sync(FULL, b, 31 - lane);
+  uint64_t key = a > rb ? a : rb;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const uint64_t other = __shfl_xor_sync(FULL, key, j);
+    if ((other > key) == ((lane & j) == 0)) key = other;
+  }
+  return key;
 }
 
-__global__ void __launch_bounds__(32) beam_scan_kernel(
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory"); }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Threads and shared memory of one scan block (kernels/beam.py::scan_plan computes the same):
+// C = W + W*K candidates in R = ceil(C/32) runs of 32; a thread per candidate, up to 512 for W <= 32
+// and 1024 above; 4-byte words: the candidates' 8-byte keys 2 x 32R, the picks' keys 2W, the state
+// 2 x 6W, the stay rows' pb, pnb, merged mass and repeated-last value 4W, the frame's candidates
+// double-buffered 2 x 2K and the blank's log-prob 2.
+struct ScanPlan {
+  int threads;
+  size_t smem;
+};
+
+ScanPlan scan_plan(int W, int K) {
+  const long long runs = ((long long)W + (long long)W * K + 31) / 32;
+  const long long cap = W <= 32 ? MAX_TREE_THREADS : MAX_THREADS;
+  const long long threads = runs * 32 < cap ? runs * 32 : cap;
+  return {(int)threads, 4 * (size_t)(18LL * W + 64 * runs + 4LL * K + 2)};
+}
+
+__global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_kernel(
     const float* __restrict__ logp, const float* __restrict__ topv, const int* __restrict__ topi,
     const int* __restrict__ lens, float floor_, const float* __restrict__ pb0, const float* __restrict__ pnb0,
     const int* __restrict__ h10, const int* __restrict__ h20, const int* __restrict__ last0,
@@ -105,146 +200,201 @@ __global__ void __launch_bounds__(32) beam_scan_kernel(
     int T, int V, int K, int W, int blank) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = W + W * K;
-  float* cand = reinterpret_cast<float*>(smem);  // [C] candidate totals, stay rows first
-  float* cv = cand + C;                          // [K] the frame's candidate log-probs
-  int* ci = reinterpret_cast<int*>(cv + K);      // [K] and their token ids
-  float* pbs = reinterpret_cast<float*>(ci + K);  // [2][W] state, double-buffered
-  float* pnbs = pbs + 2 * W;
-  uint32_t* h1s = reinterpret_cast<uint32_t*>(pnbs + 2 * W);
-  uint32_t* h2s = h1s + 2 * W;
-  int* lasts = reinterpret_cast<int*>(h2s + 2 * W);
-  float* tot = reinterpret_cast<float*>(lasts + 2 * W);  // [W] logaddexp(pb, pnb)
-  float* spb = tot + W;                                  // [W] stay rows' pb
-  float* spnb = spb + W;                                 // [W] stay rows' pnb
-  int* extra = reinterpret_cast<int*>(spnb + W);         // [W] merged extend mass, ordered bits
-  int* pidx = extra + W;                                 // [W] the picks
-  float* pbest = reinterpret_cast<float*>(pidx + W);
-  float* ppnb = pbest + W;
+  const int R = (C + 31) >> 5;
+  int G = 1;  // W > 32: lanes that rank one candidate, each over every G-th run, four runs at a time
+  while (G < 32 && 4 * G < R) G <<= 1;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // [32R] candidate keys, then sorted runs
+  uint64_t* picks = keys + 32 * R;                     // [W] the picks, best first
+  float* Ps = reinterpret_cast<float*>(picks + W);     // [2][W] each: the state, double-buffered
+  float* Ns = Ps + 2 * W;
+  float* Ts = Ns + 2 * W;  // logaddexp(pb, pnb)
+  uint32_t* H1s = reinterpret_cast<uint32_t*>(Ts + 2 * W);
+  uint32_t* H2s = H1s + 2 * W;
+  int* Ls = reinterpret_cast<int*>(H2s + 2 * W);
+  float* spb = reinterpret_cast<float*>(Ls + 2 * W);  // [W] stay rows' pb
+  float* spnb = spb + W;                               // [W] stay rows' pnb, merged
+  int* extra = reinterpret_cast<int*>(spnb + W);       // [W] merged extend mass, ordered bits
+  float* slast = reinterpret_cast<float*>(extra + W);  // [W] pnb + p(last), or -inf
+  float* cv = slast + W;                               // [2][K] the frame's candidate log-probs
+  int* ci = reinterpret_cast<int*>(cv + 2 * K);        // [2][K] and their token ids
+  float* pbl = reinterpret_cast<float*>(ci + 2 * K);   // [2] the blank's log-prob
 
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
   const int len = max(0, min(lens[b], T));
   const size_t row = (size_t)b * W;
-  for (int w = lane; w < W; w += 32) {
-    pbs[w] = pb0[row + w];
-    pnbs[w] = pnb0[row + w];
-    h1s[w] = (uint32_t)h10[row + w];
-    h2s[w] = (uint32_t)h20[row + w];
-    lasts[w] = last0[row + w];
+  const float* lp_row = logp + (size_t)b * T * V;
+  const float* tv_row = topv == nullptr ? nullptr : topv + (size_t)b * T * K;
+  const int* ti_row = topi == nullptr ? nullptr : topi + (size_t)b * T * K;
+  // frame t's candidates into half s of the double buffer, asynchronously
+  auto fetch = [&](int t, int s) {
+    if (tv_row != nullptr) {
+      for (int k = tid; k < K; k += nt) {
+        cp_async4(cv + s * K + k, tv_row + (size_t)t * K + k);
+        cp_async4(ci + s * K + k, ti_row + (size_t)t * K + k);
+      }
+    } else {
+      for (int k = tid; k < K; k += nt) cp_async4(cv + s * K + k, lp_row + (size_t)t * V + k);
+    }
+    if (tid == nt - 1) cp_async4(pbl + s, lp_row + (size_t)t * V + blank);
+  };
+
+  for (int w = tid; w < W; w += nt) {
+    const float p = pb0[row + w], n = pnb0[row + w];
+    Ps[w] = p;
+    Ns[w] = n;
+    Ts[w] = lae(p, n);
+    H1s[w] = (uint32_t)h10[row + w];
+    H2s[w] = (uint32_t)h20[row + w];
+    Ls[w] = last0[row + w];
+    extra[w] = ordered(-INFINITY);
+    slast[w] = -INFINITY;
   }
-  __syncwarp();
+  if (topi == nullptr) {
+    for (int k = tid; k < 2 * K; k += nt) ci[k] = k < K ? k : k - K;
+  }
+  if (len > 0) fetch(0, 0);
+  cp_async_wait_all();
+  __syncthreads();
   int* par_out = parents + (size_t)b * T * W;
   int* ext_out = exts + (size_t)b * T * W;
   int cur = 0;
+  const int p0 = tid / K, k0 = tid - p0 * K;  // this thread's first extend row, and the stride in rows
+  const int dp = nt / K, dk = nt - dp * K;
 
   for (int t = 0; t < len; ++t) {
-    const float* P = pbs + cur * W;
-    const float* N = pnbs + cur * W;
-    const uint32_t* H1 = h1s + cur * W;
-    const uint32_t* H2 = h2s + cur * W;
-    const int* L = lasts + cur * W;
-    const float* lpt = logp + ((size_t)b * T + t) * V;
-    const float pblank = lpt[blank];
-    if (topv != nullptr) {
-      const size_t o = ((size_t)b * T + t) * K;
-      for (int k = lane; k < K; k += 32) {
-        cv[k] = topv[o + k];
-        ci[k] = topi[o + k];
-      }
-    } else {
-      for (int k = lane; k < K; k += 32) {
-        cv[k] = lpt[k];
-        ci[k] = k;
-      }
-    }
-    __syncwarp();
+    const int s = t & 1;
+    if (t + 1 < len) fetch(t + 1, s ^ 1);
+    const float* P = Ps + cur * W;
+    const float* N = Ns + cur * W;
+    const float* TT = Ts + cur * W;
+    const uint32_t* H1 = H1s + cur * W;
+    const uint32_t* H2 = H2s + cur * W;
+    const int* L = Ls + cur * W;
+    const float* fv = cv + s * K;
+    const int* fi = ci + s * K;
 
-    // stay rows: the blank path and the repeated-last path
-    for (int w = lane; w < W; w += 32) {
-      const float tw = lae(P[w], N[w]);
-      tot[w] = tw;
-      spb[w] = pblank >= floor_ ? tw + pblank : -INFINITY;
-      const int lw = L[w];
-      float p_last = -INFINITY;
-      bool lin = false;
-      for (int k = 0; k < K; ++k) {
-        if (ci[k] == lw) {
-          p_last = cv[k];
-          lin = lin || cv[k] >= floor_;
-        }
-      }
-      spnb[w] = (lin && lw >= 0) ? N[w] + p_last : -INFINITY;
-      extra[w] = ordered(-INFINITY);
-    }
-    __syncwarp();
-
-    // extend rows, each merged into the stay row that holds the same prefix
-    for (int e = lane; e < W * K; e += 32) {
-      const int p = e / K;
-      const int k = e - p * K;
-      const float v = cv[k];
-      const int tok = ci[k];
-      const bool ok = v >= floor_ && tok != blank;
-      const float base = tok == L[p] ? P[p] : tot[p];
-      const float ext = ok ? base + v : -INFINITY;
+    // stage: extend + merge, a thread per extend row
+    for (int e = tid, p = p0, k = k0; e < W * K; e += nt) {
+      const float v = fv[k];
+      const int tok = fi[k];
+      const int lp = L[p];
+      const bool kept = v >= floor_;
+      const float ext = kept && tok != blank ? (tok == lp ? P[p] : TT[p]) + v : -INFINITY;
+      if (tok == lp && kept) slast[p] = N[p] + v;  // the stay row's repeated-last path (ids are unique a frame)
       const uint32_t vv = (uint32_t)(tok + 2);
       const uint32_t e1 = H1[p] * M1 + vv;
       const uint32_t e2 = H2[p] * M2 + vv;
-      bool absorbed = false;
-      for (int q = 0; q < W; ++q) {
-        if (e1 == H1[q] && e2 == H2[q]) {
-          absorbed = true;
-          atomicMax(&extra[q], ordered(ext));
+      bool absorbed = false, near = false;
+#pragma unroll 8
+      for (int q = 0; q < W; ++q) near |= e1 == H1[q];  // loads only: pipelined
+      if (near) {
+        for (int q = 0; q < W; ++q) {
+          if (e1 == H1[q] && e2 == H2[q]) {
+            absorbed = true;
+            atomicMax(&extra[q], ordered(ext));
+          }
         }
       }
-      cand[W + e] = absorbed ? -INFINITY : ext;
+      keys[W + e] = sort_key(absorbed ? -INFINITY : ext, W + e);
+      p += dp;
+      k += dk;
+      if (k >= K) {
+        k -= K;
+        ++p;
+      }
     }
-    __syncwarp();
-    for (int w = lane; w < W; w += 32) {
-      const float sp = lae(spnb[w], unordered(extra[w]));
-      spnb[w] = sp;
-      cand[w] = lae(spb[w], sp);
-    }
-    __syncwarp();
+    __syncthreads();
 
-    // top-W: W rounds of a warp arg-max; the pick is killed to -inf
-    float bv;
-    int bi;
-    lane_best(cand, C, lane, bv, bi);
-    for (int j = 0; j < W; ++j) {
-      float v = bv;
-      int i = bi;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, v, off);
-        const int oi = __shfl_xor_sync(FULL, i, off);
-        if (better(ov, oi, v, i)) {
-          v = ov;
-          i = oi;
+    // stage: stay rows, then each warp sorts its runs of 32 candidates, best first
+    const float pblank = pbl[s];
+    uint64_t best = 0;  // W <= 32: the warp's best 32, descending across the lanes
+    for (int r = warp; r < R; r += nwarps) {
+      const int c = r * 32 + lane;
+      uint64_t key = 0;
+      if (c < W) {
+        const float sp = lae(slast[c], unordered(extra[c]));
+        const float sb = pblank >= floor_ ? TT[c] + pblank : -INFINITY;
+        spb[c] = sb;
+        spnb[c] = sp;
+        key = sort_key(lae(sb, sp), c);
+      } else if (c < C) {
+        key = keys[c];
+      }
+      // stage: top-W sort
+      key = sort32(key, lane);
+      if (W <= 32) {
+        best = r == warp ? key : merge32(best, key, lane);
+      } else {
+        __syncwarp();  // every lane has read its candidate before any slot of the run is written
+        keys[slot(r, lane)] = key;
+      }
+    }
+    // stage: top-W select
+    if (W <= 32) {
+      // a tree of pairwise merges over the warps' lists: at distance d, warp w (w % 2d == d) hands its best W
+      // to warp w - d through shared memory (its own run's slots, which only it read) under a named barrier of
+      // the two warps, one id for each pair of each level (15 at most); warp 0 ends with the picks
+      const int lists = min(R, nwarps);
+      int id = 1;
+      for (int d = 1; d < lists && warp < lists; d <<= 1) {
+        const int pair = id + warp / (2 * d);
+        if (warp % (2 * d) == d) {
+          if (lane < W) keys[warp * 32 + lane] = best;
+          bar_arrive(pair);
+          break;
         }
+        if (warp + d < lists) {
+          bar_sync(pair);
+          best = merge32(best, lane < W ? keys[(warp + d) * 32 + lane] : 0, lane);
+        }
+        id += (lists + 2 * d - 1) / (2 * d);
       }
-      const float pn = i < W ? spnb[i] : cand[i];
-      if (lane == 0) {
-        pidx[j] = i;
-        pbest[j] = v;
-        ppnb[j] = pn;
+      if (warp == 0 && lane < W) picks[lane] = best;
+    } else {
+      // W > 32: each of the R runs keeps all 32; a candidate's rank is the sum over runs of the run's keys above
+      // its own. G lanes share a candidate, each searching every G-th run, four at a time, and add up by shuffles
+      __syncthreads();
+      const int S = R * 32;
+      const int per_warp = 32 / G;
+      const int g = lane & (G - 1);
+      for (int s0 = warp * per_warp; s0 < S; s0 += nwarps * per_warp) {
+        const int sv = s0 + lane / G;
+        uint64_t key = 0;
+        if (sv < S) {
+          const int pos = sv / R;
+          key = keys[slot(sv - pos * R, pos)];
+        }
+        int n = 0;
+        for (int r = g; r < R; r += 4 * G) {
+          const int n0 = count_above(keys, r, key);
+          const int n1 = r + G < R ? count_above(keys, r + G, key) : 0;
+          const int n2 = r + 2 * G < R ? count_above(keys, r + 2 * G, key) : 0;
+          const int n3 = r + 3 * G < R ? count_above(keys, r + 3 * G, key) : 0;
+          n += n0 + n1 + n2 + n3;
+        }
+        for (int o = 1; o < G; o <<= 1) n += __shfl_xor_sync(FULL, n, o);
+        if (g == 0 && key != 0 && n < W) picks[n] = key;
       }
-      __syncwarp();
-      if ((i & 31) == lane) {
-        cand[i] = -INFINITY;
-        lane_best(cand, C, lane, bv, bi);
-      }
-      __syncwarp();
     }
+    __syncthreads();
 
-    // commit, or keep the state when every candidate is -inf
-    const bool valid = isfinite(pbest[0]);
+    // stage: commit, or keep the state when every candidate is -inf
+    const bool valid = isfinite(key_value(picks[0]));
     const int nxt = cur ^ 1;
-    for (int j = lane; j < W; j += 32) {
+    for (int j = tid; j < W; j += nt) {
       int par = j, ext = -1;
+      float np = P[j], nn = N[j], ntot = TT[j];
+      uint32_t n1 = H1[j], n2 = H2[j];
+      int nl = L[j];
       if (valid) {
-        const int i = pidx[j];
-        const bool dead = !isfinite(pbest[j]);
+        const float pv = key_value(picks[j]);
+        const bool dead = !isfinite(pv);
+        const int i = dead ? 0 : key_index(picks[j]);
         const bool stay = i < W;
         int tok = -1;
         if (stay) {
@@ -252,42 +402,45 @@ __global__ void __launch_bounds__(32) beam_scan_kernel(
         } else {
           const int e = i - W;
           par = e / K;
-          tok = ci[e - par * K];
+          tok = fi[e - par * K];
         }
         ext = tok;
         const uint32_t vv = (uint32_t)(tok + 2);
-        pbs[nxt * W + j] = (dead || !stay) ? -INFINITY : spb[par];
-        pnbs[nxt * W + j] = dead ? -INFINITY : ppnb[j];
-        h1s[nxt * W + j] = dead ? DEAD_H1 : (stay ? H1[par] : H1[par] * M1 + vv);
-        h2s[nxt * W + j] = dead ? (uint32_t)j : (stay ? H2[par] : H2[par] * M2 + vv);
-        lasts[nxt * W + j] = dead ? -1 : (stay ? L[par] : tok);
-      } else {
-        pbs[nxt * W + j] = P[j];
-        pnbs[nxt * W + j] = N[j];
-        h1s[nxt * W + j] = H1[j];
-        h2s[nxt * W + j] = H2[j];
-        lasts[nxt * W + j] = L[j];
+        np = (dead || !stay) ? -INFINITY : spb[par];
+        nn = dead ? -INFINITY : (stay ? spnb[i] : pv);
+        n1 = dead ? DEAD_H1 : (stay ? H1[par] : H1[par] * M1 + vv);
+        n2 = dead ? (uint32_t)j : (stay ? H2[par] : H2[par] * M2 + vv);
+        nl = dead ? -1 : (stay ? L[par] : tok);
+        ntot = dead ? -INFINITY : pv;  // lae(np, nn): the pick's own value (lae(-inf, x) is x)
       }
+      Ps[nxt * W + j] = np;
+      Ns[nxt * W + j] = nn;
+      Ts[nxt * W + j] = ntot;
+      H1s[nxt * W + j] = n1;
+      H2s[nxt * W + j] = n2;
+      Ls[nxt * W + j] = nl;
+      extra[j] = ordered(-INFINITY);
+      slast[j] = -INFINITY;
       par_out[(size_t)t * W + j] = par;
       ext_out[(size_t)t * W + j] = ext;
     }
-    __syncwarp();
+    cp_async_wait_all();  // the next frame's candidates
+    __syncthreads();
     cur = nxt;
   }
 
   // frames past the length: identity pointers, no emission
-  for (size_t o = (size_t)len * W + lane; o < (size_t)T * W; o += 32) {
+  for (size_t o = (size_t)len * W + tid; o < (size_t)T * W; o += nt) {
     par_out[o] = (int)(o % W);
     ext_out[o] = -1;
   }
-  for (int w = lane; w < W; w += 32) {
-    const float p = pbs[cur * W + w], n = pnbs[cur * W + w];
-    pb_out[row + w] = p;
-    pnb_out[row + w] = n;
-    h1_out[row + w] = (int)h1s[cur * W + w];
-    h2_out[row + w] = (int)h2s[cur * W + w];
-    last_out[row + w] = lasts[cur * W + w];
-    total_out[row + w] = lae(p, n);
+  for (int w = tid; w < W; w += nt) {
+    pb_out[row + w] = Ps[cur * W + w];
+    pnb_out[row + w] = Ns[cur * W + w];
+    h1_out[row + w] = (int)H1s[cur * W + w];
+    h2_out[row + w] = (int)H2s[cur * W + w];
+    last_out[row + w] = Ls[cur * W + w];
+    total_out[row + w] = Ts[cur * W + w];
   }
 }
 
@@ -332,6 +485,15 @@ __global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_kernel(
 
 }  // namespace
 
+// out[0] = threads, out[1] = shared bytes of one scan block for beam width W and K candidates.
+extern "C" int thunder_beam_scan_plan(int W, int K, int* out) {
+  if (W < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  const ScanPlan plan = scan_plan(W, K);
+  out[0] = plan.threads;
+  out[1] = (int)plan.smem;
+  return 0;
+}
+
 // logp: (B, T, V) float32 log-probs; topv/topi: (B, T, K) float32/int32 candidates, or both
 // null for K == V (ids 0..V-1); lens: (B,) int32; floor_: the prune floor; pb0, pnb0 (B, W)
 // float32, h10, h20, last0 (B, W) int32: the state going in (hashes as uint32 bits);
@@ -344,14 +506,14 @@ extern "C" int thunder_beam_scan(const float* logp, const float* topv, const int
                                  void* stream) {
   if (B < 1 || T < 0 || V < 1 || K < 1 || K > V || W < 1 || blank < 0 || blank >= V) return (int)cudaErrorInvalidValue;
   if ((topv == nullptr) != (topi == nullptr) || (topv == nullptr && K != V)) return (int)cudaErrorInvalidValue;
-  const size_t smem = scan_smem_bytes(W, K);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 49152) {
+  const ScanPlan plan = scan_plan(W, K);
+  if (plan.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (plan.smem > 49152) {
     const cudaError_t err =
-        cudaFuncSetAttribute(beam_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncSetAttribute(beam_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  beam_scan_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  beam_scan_kernel<<<B, plan.threads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
       logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20, last0, parents, exts, total, pb, pnb, h1, h2, last, T, V,
       K, W, blank);
   return (int)cudaGetLastError();

@@ -48,6 +48,7 @@ SIGNATURES = {
     "thunder_dropout_keep_mask": [_P, _P, _I, _I, _F, _P],
     "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _F, _P],
+    "thunder_beam_scan_plan": [_I, _I, _P],
     "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P],
     "thunder_beam_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

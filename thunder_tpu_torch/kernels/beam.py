@@ -45,13 +45,15 @@ __all__ = [
     "beam_backtrace_reference",
     "candidates",
     "fresh_state",
-    "scan_shared_bytes",
+    "scan_plan",
 ]
 
 #: the largest per-frame candidate block W*K, as the JAX package's device search allows
 MAX_CANDIDATES = 8192
 #: shared memory a block may use on sm_90 (``csrc/beam_search.cu``: ``MAX_SMEM``)
 MAX_SHARED_BYTES = 232448
+#: threads a scan block may have (``csrc/beam_search.cu``: ``MAX_THREADS``, ``MAX_TREE_THREADS`` for W <= 32)
+MAX_THREADS, MAX_TREE_THREADS = 1024, 512
 
 M1, M2 = 1000003, 2654435761
 H_SEED = 1
@@ -62,9 +64,20 @@ _NEG = float("-inf")
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def scan_shared_bytes(beam_width: int, k: int) -> int:
-    """Shared memory of one scan block: W + W*K candidate totals, K candidates and their ids, 17 W-vectors."""
-    return 4 * (beam_width + beam_width * k + 2 * k + 17 * beam_width)
+def scan_plan(beam_width: int, k: int) -> dict:
+    """Threads and shared memory of one scan block, as ``csrc/beam_search.cu::scan_plan`` computes them.
+
+    The ``C = W + W*K`` candidates fall into ``ceil(C / 32)`` runs of 32, one warp's sort each; a thread
+    per candidate, up to 512 warps' worth for ``W <= 32`` (whose warps' lists merge in a tree of at most
+    15 named barriers) and 1024 above. Shared memory in 4-byte words: the candidates' 8-byte keys (2 x 32
+    a run), the picks' keys (2W), the state double-buffered (2 x 6 W-vectors), the stay rows' pb, pnb,
+    merged mass and repeated-last value (4W), and the frame's K candidates and ids with the blank's
+    log-prob, double-buffered for the prefetch (2 x (2K + 1)). The wrapper refuses a plan above
+    ``MAX_SHARED_BYTES``: every ``W*K <= MAX_CANDIDATES`` with ``W <= 2048`` fits.
+    """
+    runs = -(-(beam_width + beam_width * k) // 32)
+    cap = MAX_TREE_THREADS if beam_width <= 32 else MAX_THREADS
+    return {"threads": min(cap, 32 * runs), "smem_bytes": 4 * (18 * beam_width + 64 * runs + 4 * k + 2)}
 
 
 def fresh_state(batch: int, beam_width: int, device) -> State:
@@ -200,10 +213,11 @@ def beam_scan(logp, lengths, floor, *, blank: int, beam_width: int, k_tokens: in
     dev, W = logp.device, beam_width
     if batch < 1:
         raise ValueError("the beam scan needs at least one row")
-    K, topv, topi = candidates(logp, k_tokens)
-    smem = scan_shared_bytes(W, K)
+    K = min(int(k_tokens), vocab)
+    smem = scan_plan(W, K)["smem_bytes"]
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"beam_width {W} with K={K} needs {smem} bytes of shared memory, over {MAX_SHARED_BYTES}")
+    K, topv, topi = candidates(logp, k_tokens)
     state = fresh_state(batch, W, dev) if init_state is None else init_state
     pb0, pnb0 = (a.to(dev, torch.float32).contiguous() for a in state[:2])
     h10, h20, last0 = (a.to(dev, torch.int32).contiguous() for a in state[2:])

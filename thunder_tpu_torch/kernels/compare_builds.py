@@ -17,6 +17,12 @@ falls on both. Each process times, with CUDA events:
   shapes of QuartzNet15x5's 77 launches a 64 × 15 s forward
   (``QUARTZNET_SEPARABLE_SHAPES``), their count-weighted sum, and three
   shapes that take most of one phase away (``SEPARABLE_PHASE_SHAPES``);
+- the beam scan (``beam_scan``, W = 16, floor -12) at the three shapes of
+  ``BEAM_SHAPES``: QuartzNet's serving decode (64 × 751 × 29, K = V), the
+  ``beam_device_topk`` shape (64 × 188 × 1025, K = 50; the wrapper's top-K
+  sort is in the time, and is timed alone beside it) and one ``predict_long``
+  window (1 × 1000 × 29), on the ``beam_device`` inputs (numpy seed 3) with
+  every row at full length;
 - one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``)
   and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW),
   and one QuartzNet15x5 greedy forward at 64 × 15 s and training step at
@@ -26,7 +32,7 @@ falls on both. Each process times, with CUDA events:
 Every number is a mean over its iterations in milliseconds; the last line is
 one JSON object with both sides' four runs. Only the API both checkouts share
 is used. ``--parts`` limits each process to some of the groups
-(``attention``, ``ctc``, ``separable``, ``wav2vec2``, ``quartznet``).
+(``attention``, ``ctc``, ``separable``, ``beam``, ``wav2vec2``, ``quartznet``).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-PARTS = ("attention", "ctc", "separable", "wav2vec2", "quartznet")
+PARTS = ("attention", "ctc", "separable", "beam", "wav2vec2", "quartznet")
 #: QuartzNet15x5's separable repeats in one forward at 64 x 15 s (T = 1501 log-mel frames, 751 after the stem):
 #: (t_in, C_in, C_out, k, stride, dilation) -> launches
 QUARTZNET_SEPARABLE_SHAPES = {
@@ -51,6 +57,14 @@ QUARTZNET_SEPARABLE_SHAPES = {
     (751, 512, 512, 63, 1, 1): 15,
     (751, 512, 512, 75, 1, 1): 15,
     (751, 512, 512, 87, 1, 2): 1,
+}
+
+
+#: the beam scan's shapes: name -> (B, T, V, W, k_tokens)
+BEAM_SHAPES = {
+    "serving_64x751x29": (64, 751, 29, 16, 50),  # QuartzNet's decode of 64 x 15 s: K = V = 29
+    "topk_64x188x1025": (64, 188, 1025, 16, 50),  # beam_device_topk: Citrinet's vocabulary, K = 50
+    "window_1x1000x29": (1, 1000, 29, 16, 50),  # one 20 s predict_long window
 }
 
 
@@ -114,6 +128,25 @@ def measure_separable(batch: int = 64, iters: int = 10) -> dict:
     return out
 
 
+def measure_beam(iters: int = 10) -> dict:
+    """``beam_scan`` at each of ``BEAM_SHAPES`` on the ``beam_device`` inputs (seed 3), every row at full
+    length: ``{name: ms}``, and ``{name}_topk_sort_ms`` (``candidates`` alone) where K < V."""
+    import torch
+
+    from thunder_tpu_torch.kernels.beam import beam_scan, candidates
+    from thunder_tpu_torch.kernels.selftest import beam_case
+
+    out = {}
+    for name, (batch, frames, vocab, width, k) in BEAM_SHAPES.items():
+        logits, _ = beam_case(3, batch, frames, vocab, "cuda")
+        logp = torch.log_softmax(logits, dim=-1).contiguous()
+        lens = torch.full((batch,), frames, dtype=torch.int32, device="cuda")
+        out[name] = _cuda_ms(lambda: beam_scan(logp, lens, -12.0, blank=0, beam_width=width, k_tokens=k), iters)
+        if k < vocab:
+            out[f"{name}_topk_sort_ms"] = _cuda_ms(lambda: candidates(logp, k), iters)
+    return out
+
+
 def measure(parts=PARTS) -> dict:
     """The timings of the checkout that ``thunder_tpu_torch`` imports from, for the groups in ``parts``."""
     import numpy as np
@@ -127,6 +160,8 @@ def measure(parts=PARTS) -> dict:
 
     if "separable" in parts:
         out["separable_ms"] = measure_separable()
+    if "beam" in parts:
+        out["beam_scan_ms"] = measure_beam()
     if "attention" in parts:
         _measure_attention(out, gen)
     if "ctc" in parts:

@@ -37,7 +37,14 @@ its host search; both routes compute the same float32 operations, so it is
 shape (B = 64, T = 188, V = 1025, K = 50, beam 16), and ``beam_stream``
 holds four windows that tile the ``beam_device`` utterance, each one scan
 from the carried state, to the whole utterance at once: the same state and
-the same best prefixes.
+the same best prefixes. ``beam_ties_dead`` runs the ``beam_device`` shape on
+integer-valued logits (:func:`ties_dead_case`: one or two tokens a frame at
++3, half of them the blank, the rest at -2..0, every 50th frame flat,
+lengths from 0 to T) with a floor of -3, which keeps one or two tokens a
+frame and empties the flat frames: exact ties everywhere, fewer finite
+candidates than the beam over each row's first frames (dead picks, index 0)
+and skipped frames; it is exact like ``beam_device`` and fails if no slot
+ends dead.
 
 The training kernels keep the JAX names, shapes and limits too:
 ``attn_train_grad`` (B = 2, T = 768, 12 heads, lengths ``[T, T - 129]``, the
@@ -435,14 +442,31 @@ def _float_diff(got, want) -> float:
     return (got[finite] - want[finite]).abs().max().item() if bool(finite.any()) else 0.0
 
 
-def _beam_check(seed, b, t, v, width, k):
+def ties_dead_case(seed, b, t, v, device):
+    """Integer-valued logits: a token at +3 on every frame (the blank on half of them), a second one on about
+    a third, the rest at -2..0, every 50th frame flat; lengths ``linspace(0, t, b)``. Under a floor of -3 a
+    frame keeps its one or two peaks, and a flat frame (every log-prob ``-log(v)``) keeps none, so a row's
+    beams fill over its first frames and the short rows end with dead slots."""
+    rng = np.random.default_rng(seed)
+    logits = rng.integers(-2, 1, (b, t, v)).astype(np.float32)
+    rows, frames = np.meshgrid(np.arange(b), np.arange(t), indexing="ij")
+    peak = np.where(rng.random((b, t)) < 0.5, 0, rng.integers(1, v, (b, t)))
+    logits[rows, frames, peak] = 3.0
+    second = rng.random((b, t)) < 0.3
+    logits[rows[second], frames[second], rng.integers(0, v, (b, t))[second]] = 3.0
+    logits[:, ::50] = 0.0
+    lengths = np.linspace(0, t, b).astype(np.int32)
+    return torch.as_tensor(logits, device=device), torch.as_tensor(lengths, device=device)
+
+
+def _beam_check(seed, b, t, v, width, k, case=beam_case, floor=-12.0):
     def check(device) -> dict:
-        logits, lengths = beam_case(seed, b, t, v, device)
+        logits, lengths = case(seed, b, t, v, device)
         logp = torch.log_softmax(logits, dim=-1)
         kw = dict(blank=0, beam_width=width, k_tokens=k)
         runs = []
         for scan, backtrace in ((beam_scan, beam_backtrace), (beam_scan_reference, beam_backtrace_reference)):
-            parents, exts, total, state = scan(logp, lengths, -12.0, **kw)
+            parents, exts, total, state = scan(logp, lengths, floor, **kw)
             slots0 = torch.argsort(-total, dim=1, stable=True)[:, :1].to(torch.int32)
             toks, origin = backtrace(parents, exts, slots0)
             runs.append((parents, exts, total, state, toks, origin))
@@ -451,8 +475,11 @@ def _beam_check(seed, b, t, v, width, k):
         result = {"max_err": err, "max_abs_err": err, "hypotheses": b}
         exact = (torch.equal(p1, p0) and torch.equal(e1, e0) and all(torch.equal(x, y) for x, y in zip(s1[2:], s0[2:]))
                  and torch.equal(k1, k0) and torch.equal(o1, o0) and _hypotheses(k1) == _hypotheses(k0))
+        result["dead_slots"] = int((s0[2] == -1).sum().item())
         if not exact:
             result.update(max_err=float("inf"), error="pointers, exts, integer state or hypotheses differ")
+        elif case is ties_dead_case and result["dead_slots"] == 0:
+            result.update(max_err=float("inf"), error="no slot ended dead: the case does not reach the dead picks")
         return result
 
     return check
@@ -525,6 +552,7 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "beam_device": (_beam_check(3, 64, 751, 29, 16, 29), 2e-3),
     "beam_device_topk": (_beam_check(4, 64, 188, 1025, 16, 50), 2e-3),
     "beam_stream": (_check_beam_stream, 2e-3),
+    "beam_ties_dead": (_beam_check(5, 64, 751, 29, 16, 29, case=ties_dead_case, floor=-3.0), 2e-3),
 }
 
 
