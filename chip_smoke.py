@@ -104,8 +104,12 @@ Phases, each of which fails the run:
     versions' and a PyTorch call's, forward + backward (the split into heads +
     ``F.scaled_dot_product_attention`` with the key mask and ``dropout_p=0.1``;
     ``F.dropout`` + ``F.layer_norm`` of the float32 sum), timed here only (the
-    attention's forward, backward, and its PyTorch call's forward and forward +
-    backward ``SPREAD_REPEATS`` times in turns, as in phase 8); and
+    attention's forward, backward at rate 0.1 and at rate 0, and its PyTorch
+    call's forward, backward alone on a retained graph and forward + backward
+    ``SPREAD_REPEATS`` times in turns, as in phase 8; the PyTorch backward's
+    kernels by device time, which name its backend; the add + LayerNorm
+    kernels' device time a call by torch.profiler beside their back-to-back
+    time); and
     ``dropout_keep_mask`` at the add + LayerNorm's shape against its plain
     version (equal) and ``torch.rand`` (timed only). The train step never
     launches ``dropout_keep_mask``: its ``launches`` is 0 and the count of
@@ -939,6 +943,7 @@ def wav2vec2_training_phase(card: str) -> list:
         mha_train_forward,
         mha_train_forward_reference,
     )
+    from thunder_tpu_torch.kernels.compare_builds import device_ms_by_kernel
     from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
     from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
     from thunder_tpu_torch.module import CTCModule
@@ -1105,14 +1110,26 @@ def wav2vec2_training_phase(card: str) -> list:
         with torch.no_grad():
             return attention_library(False)
 
+    lib_out = attention_library(False)  # with its graph: the library's backward alone, on the same cotangent
+
+    def library_backward():
+        return torch.autograd.grad(lib_out, leaf, dout, retain_graph=True)
+
+    # which SDPA backend ran (with a key mask, not flash attention): the backward's kernels by device time
+    lib_bwd_kernels = device_ms_by_kernel(library_backward, 5)
+    out0, stats0 = mha_train_forward(qkv, lens, seed, heads, 0.0)
     a_spread = spread_ms({"fwd": lambda: mha_train_forward(qkv, lens, seed, heads, rate),
                           "bwd": lambda: mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate),
-                          "library_fwd": library_forward, "library_fwd_bwd": lambda: attention_library(True)}, 10)
-    af_ms, ab_ms = a_spread["fwd"]["median"], a_spread["bwd"]["median"]
-    alib_f, alib = a_spread["library_fwd"]["median"], a_spread["library_fwd_bwd"]["median"]
+                          "bwd_rate0": lambda: mha_train_backward(qkv, out0, stats0, dout, lens, seed, heads, 0.0),
+                          "library_fwd": library_forward, "library_bwd": library_backward,
+                          "library_fwd_bwd": lambda: attention_library(True)}, 10)
+    af_ms, ab_ms, ab0_ms = a_spread["fwd"]["median"], a_spread["bwd"]["median"], a_spread["bwd_rate0"]["median"]
+    alib_f, alib_b = a_spread["library_fwd"]["median"], a_spread["library_bwd"]["median"]
+    alib = a_spread["library_fwd_bwd"]["median"]
     emit({"phase": "w2v2_train_attention_shape", "B": b, "T": frames, "heads": heads, "rate": rate, "fwd_ms": af_ms,
-          "bwd_ms": ab_ms, "plain_fwd_ms": af_plain, "plain_bwd_ms": ab_plain, "library_fwd_ms": alib_f,
-          "library_fwd_bwd_ms": alib, "spread_ms": a_spread, "ulp": a_ulp, "max_abs_want": a_max,
+          "bwd_ms": ab_ms, "bwd_rate0_ms": ab0_ms, "plain_fwd_ms": af_plain, "plain_bwd_ms": ab_plain,
+          "library_fwd_ms": alib_f, "library_bwd_ms": alib_b, "library_fwd_bwd_ms": alib,
+          "library_bwd_kernels": lib_bwd_kernels, "spread_ms": a_spread, "ulp": a_ulp, "max_abs_want": a_max,
           "ulp_of_zeros": a_zero_ulp,
           "max_abs_cotangent": dout.float().abs().max().item(),
           "max_abs_cotangent_of_the_step": raw_dout.float().abs().max().item()})
@@ -1150,7 +1167,12 @@ def wav2vec2_training_phase(card: str) -> list:
     with torch.no_grad():
         nlib_f = cuda_ms(lambda: add_ln_library(False), 20)
     nlib = cuda_ms(lambda: add_ln_library(True), 20)
+    # the device's busy time a call, beside the back-to-back calls' time above (which the host may set)
+    n_busy = {name: sum(device_ms_by_kernel(fn, 10).values()) for name, fn in (
+        ("fwd", lambda: add_ln_train_forward(x, y, scale, bias, seed, rate)),
+        ("bwd", lambda: add_ln_train_backward(x, y, scale, seed, n_dout, rate)))}
     emit({"phase": "w2v2_train_add_ln_shape", "rows": rows, "D": h, "rate": rate, "fwd_ms": nf_ms, "bwd_ms": nb_ms,
+          "fwd_busy_ms": n_busy["fwd"], "bwd_busy_ms": n_busy["bwd"],
           "plain_fwd_ms": nf_plain, "plain_bwd_ms": nb_plain, "library_fwd_ms": nlib_f, "library_fwd_bwd_ms": nlib,
           "ulp": n_ulp, "rel": n_rel, "max_abs_want": n_max, "ulp_of_zeros": n_zero_ulp,
           "max_abs_cotangent": n_dout.float().abs().max().item(),
@@ -1191,13 +1213,17 @@ def wav2vec2_training_phase(card: str) -> list:
          "ms_is": f"forward + backward at B={b}, T={frames}, {heads} heads of 64, rate {rate} (layer 0's qkv and "
                   f"cotangent); medians of {SPREAD_REPEATS} timings taken in turns with the library call's",
          "fwd_ms_min_max": [a_spread["fwd"]["min"], a_spread["fwd"]["max"]],
-         "bwd_ms_min_max": [a_spread["bwd"]["min"], a_spread["bwd"]["max"]],
+         "bwd_ms_min_max": [a_spread["bwd"]["min"], a_spread["bwd"]["max"]], "bwd_rate0_ms": ab0_ms,
          **sum_bounds(a_fwd_bound, a_bwd_bound), "bound_fwd_ms": a_fwd_bound["bound_ms"],
          "bound_bwd_ms": a_bwd_bound["bound_ms"], "library_ms": alib, "library_fwd_ms": alib_f,
+         "library_bwd_ms": alib_b, "library_bwd_ms_min_max": [a_spread["library_bwd"]["min"],
+                                                                a_spread["library_bwd"]["max"]],
+         "library_bwd_kernels": lib_bwd_kernels,
          "library_ms_min_max": [a_spread["library_fwd_bwd"]["min"], a_spread["library_fwd_bwd"]["max"]],
          "library_fwd_ms_min_max": [a_spread["library_fwd"]["min"], a_spread["library_fwd"]["max"]],
          "library": "split into (B, heads, T, 64) + F.scaled_dot_product_attention with the key mask and dropout_p, "
-                    "forward + backward"},
+                    "forward + backward; library_bwd_ms its backward alone (autograd.grad on a retained graph, the "
+                    "same cotangent), run by library_bwd_kernels"},
         {"name": "add_ln_dropout_train", "route": "cuda", "source": "thunder_tpu_torch/csrc/add_ln_train.cu",
          "replaces": f"{pallas}:178",
          "launches": counts["add_ln_train_forward"] + counts["add_ln_train_backward"],

@@ -150,6 +150,45 @@ def test_autograd_function_calls_the_explicit_backward_on_the_saved_output():
     assert not torch.equal(grad, mha_train_backward(q, out * 1.5, stats, c, lens, SEED, heads, rate))
 
 
+def _backward_with_the_scale_folded(qkv, out, stats, dout, lengths, seed, heads, rate):
+    """``mha_train_backward_reference`` as the kernels order it: q enters the products unscaled, and q kᵀ
+    and dSᵀ q are multiplied by 0.125 in float32."""
+    dt, (b, t, h3) = qkv.dtype, qkv.shape
+    q, k, v = (a.reshape(b, t, heads, 64).transpose(1, 2).float() for a in qkv.split(h3 // 3, dim=-1))
+    do, o = (a.reshape(b, t, heads, 64).transpose(1, 2).float() for a in (dout, out))
+    valid = torch.arange(t)[None, :] < lengths[:, None]
+    mask = torch.where(valid, 0.0, torch.finfo(torch.float32).min)[:, None, None, :]
+    e = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * 0.125 + mask - stats[0][..., None])
+    inv_z = 1.0 / stats[1][..., None]
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    pd = e.to(dt).float()
+    inv_keep = torch.ones(())
+    if rate > 0.0:
+        keep = attention_keep_mask(seed, b, heads, t, rate)
+        inv_keep = 1.0 / (1.0 - torch.tensor(rate, dtype=torch.float32))
+        dp, pd = torch.where(keep, dp * inv_keep, 0.0), torch.where(keep, pd, 0.0)
+    ds = (e * (dp - delta) * inv_z).to(dt).float()
+    dq = torch.matmul(ds, k) * 0.125
+    dk = torch.matmul(ds.transpose(-1, -2), q) * 0.125
+    dv = torch.matmul(pd.transpose(-1, -2), (do * (inv_z * inv_keep)).to(dt).float())
+    return torch.cat([a.transpose(1, 2).reshape(b, t, h3 // 3) for a in (dq, dk, dv)], dim=-1).to(dt)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_scale_folded_into_the_products_gives_the_plain_backward_bit_for_bit(rate):
+    """0.125 is a power of two: bf16(q * 0.125) is exact and scales every partial sum exactly, so the
+    kernels' order (q unscaled, the scale on q kᵀ and dSᵀ q) is the plain version's bits."""
+    heads = 2
+    qkv, lengths, ct = _case(7, 3, 97, heads, [97, 50, 0], zero_padded_cotangent=False)
+    q, lens, c = torch.tensor(qkv).to(torch.bfloat16), torch.tensor(lengths), torch.tensor(ct).to(torch.bfloat16)
+    out, stats = mha_train_forward(q, lens, SEED, heads, rate)
+    want = mha_train_backward_reference(q, out, stats, c, lens, SEED, heads, rate)
+    got = _backward_with_the_scale_folded(q, out, stats, c, lens, SEED, heads, rate)
+    assert torch.equal(got, want)
+    assert min(part.abs().max().item() for part in want.split(heads * 64, dim=-1)) > 1e-3
+
+
 def test_wrappers_raise_on_bad_arguments_and_launch_nothing_on_the_cpu():
     qkv, lengths, ct = _case(6, 2, 16, 2, [16, 9])
     qkv, lengths, ct = torch.tensor(qkv), torch.tensor(lengths), torch.tensor(ct)

@@ -413,7 +413,11 @@ SEED = 20260821
     "b,t,heads,lengths,rate",
     [(2, 1, 2, [1, 0], 0.3), (3, 31, 1, [31, 17, 0], 0.1), (2, 749, 12, [749, 0], 0.1), (1, 1536, 2, [1500], 0.3),
      (2, 200, 3, [200, 64], 0.0), (1, 1664, 2, [1664], 0.1), (1, 1665, 2, [1665], 0.1),
-     (1, 3001, 12, [3001], 0.1)],
+     (1, 3001, 12, [3001], 0.1),
+     # the backward's tile edges: 64-row tiles, 128-row blocks, lengths that end inside a tile, one head, a block
+     # of keys wholly past a length (written as zeros)
+     (2, 63, 1, [63, 40], 0.1), (1, 64, 1, [64], 0.0), (2, 65, 1, [65, 33], 0.1), (2, 127, 1, [127, 100], 0.3),
+     (2, 128, 2, [128, 0], 0.1), (3, 129, 1, [129, 65, 1], 0.1), (2, 300, 1, [300, 97], 0.1)],
 )
 def test_training_attention_kernels_edge_shapes(cuda, b, t, heads, lengths, rate):
     """Forward and backward against the plain versions (8 bf16 ULP), the uniform row of a length 0 finite, and

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA and wgmma:
-// the attention forward (mha_forward.cuh) and the separable repeat
-// (separable_repeat.cu).
+// the attention forward (mha_forward.cuh), the training attention backward
+// (mha_train.cu) and the separable repeat (separable_repeat.cu).
 //
 // - mbarriers: init, arrive (with or without an expected transaction count), and
 //   a wait on a phase's parity;
@@ -10,9 +10,10 @@
 // - wgmma: the shared-memory matrix descriptor of a tile in TMA's 128-byte
 //   swizzle, the fence, commit and wait, and m64n64k16 bf16 products with f32
 //   accumulators: both operands from shared memory (B K-major or MN-major), or
-//   A from registers and B MN-major;
-// - pin (keeps the compiler from moving an accumulator across an asynchronous
-//   wgmma) and pack_bf16.
+//   A from registers and B MN-major; m64n32k16 with both operands K-major;
+// - setmaxnreg (a warpgroup hands registers to the others), pin (keeps the
+//   compiler from moving an accumulator across an asynchronous wgmma) and
+//   pack_bf16.
 
 #pragma once
 
@@ -59,6 +60,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }
 
+// a warpgroup's registers a thread, lowered or raised to R (a multiple of 8 in [24, 256]); every thread of the
+// warpgroup executes it
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
 // wgmma's shared-memory matrix descriptor for a tile in TMA's 128-byte swizzle: start address, leading and stride
 // byte offsets in 16-byte units, layout type 1 (128B)
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -70,9 +82,10 @@ __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_grou
 __device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
 
 // keeps the compiler from moving reads or writes of an accumulator across the asynchronous wgmma
-__device__ __forceinline__ void pin(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define HOPPER_D32                                                                                                 \
@@ -109,6 +122,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a
                ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
                : HOPPER_D32
                : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// d (64 x 32 f32) (+)= A (64 x 16, K-major in shared memory) . B (16 x 32, K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+               : "l"(da), "l"(db), "r"(accumulate));
 }
 
 #undef HOPPER_D32

@@ -265,24 +265,31 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+// A tensor map of a (batch, t, width) bf16 tensor in 64 x 64 boxes (one head's columns, 64 rows) in the 128-byte
+// swizzle; rows past t read as zeros. Returns a cudaError_t.
+inline int encode_rows(CUtensorMap* map, const void* p, int width, int t, int batch) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)t, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * sizeof(bf16), (cuuint64_t)width * sizeof(bf16) * t};
+  const cuuint32_t box[3] = {DH, 64, 1};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box, element_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
 // Launch the forward over (batch, t, heads): a tensor map of qkv encoded for this call, one block per 128
 // queries, head and batch row. Returns a cudaError_t.
 template <bool TRAIN>
 inline int launch(const void* qkv, const int* lengths, void* out, float* stats, const int* seed, float rate, int batch,
                   int t, int heads, void* stream) {
   if (batch < 1 || batch > 65535 || t < 1 || heads < 1 || heads > 65535) return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t width = 3ull * heads * DH;
-  const cuuint64_t dims[3] = {width, (cuuint64_t)t, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {width * sizeof(bf16), width * sizeof(bf16) * t};
-  const cuuint32_t box[3] = {DH, 64, 1};
-  const cuuint32_t element_strides[3] = {1, 1, 1};
   CUtensorMap map;
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(qkv), dims, strides, box, element_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  const int status = encode_rows(&map, qkv, 3 * heads * DH, t, batch);
+  if (status != (int)cudaSuccess) return status;
   cudaError_t err =
       cudaFuncSetAttribute(mha_forward_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;

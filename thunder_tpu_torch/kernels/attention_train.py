@@ -19,6 +19,9 @@ serving kernel). Semantics kept from the TPU kernels, per head of ``dh = 64``:
   ``dv = P_dᵀ·dO′`` with ``P_d`` the kept unnormalised ``bf16(e)`` and ``dO′ =
   bf16(f32(dO) / (z * (1 - rate)))``. The result is one packed ``(B, T, 3H)``
   tensor ``[dq | dk | dv]``, which the qkv GEMM's backward consumes as it is.
+  The kernels feed q to the products unscaled and multiply ``q·kᵀ`` and
+  ``dSᵀ·q`` by ``dh**-0.5 = 0.125`` in float32: a power of two, so the same
+  numbers as from ``q̂``.
 
 The mask is the stateless hash of ``kernels/dropout_hash.py`` (stream ``b *
 heads + head``, row = query, column = key) under an int32 ``seed`` tensor of

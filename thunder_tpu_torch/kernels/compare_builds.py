@@ -9,8 +9,10 @@ in the order other, this, this, other, so that drift in the card's clocks
 falls on both. Each process times, with CUDA events:
 
 - the serving attention at wav2vec2-base's 16 × 15 s shape (B = 16, T = 749,
-  12 heads) and at 8 × 15 s, and the training attention's forward and
-  backward at 8 × 15 s (rate 0.1), on random bf16 inputs from one seed;
+  12 heads) and at 8 × 15 s, the training attention's forward at 8 × 15 s
+  (rate 0.1) and its backward alone at 8 × 15 s and 8 × 30 s (T = 1499), at
+  rate 0.1 and at rate 0 (at 8 × 15 s, rate 0.1, also each kernel's device
+  time by torch.profiler), on random bf16 inputs from one seed;
 - the CTC kernel pair (``ctc_alpha`` + ``ctc_beta``) at QuartzNet's training
   shape (T = 751, B = 16, S = 129);
 - the separable repeat (``fused_separable_repeat``) at each of the eight
@@ -190,11 +192,39 @@ def _measure_attention(out: dict, gen) -> None:
     qkv8, lens8 = (qkv[:8] * 0.3).contiguous(), lens[:8]
     out["attention_serving_b8_ms"] = _cuda_ms(lambda: mha_from_qkv(qkv8, lens8, 12), 50)
     seed = torch.tensor([20260821], dtype=torch.int32, device="cuda")
-    o, stats = mha_train_forward(qkv8, lens8, seed, 12, 0.1)
-    dout = torch.randn(o.shape, device="cuda", generator=gen).to(torch.bfloat16)
     out["attention_train_fwd_ms"] = _cuda_ms(lambda: mha_train_forward(qkv8, lens8, seed, 12, 0.1), 50)
-    out["attention_train_bwd_ms"] = _cuda_ms(
-        lambda: mha_train_backward(qkv8, o, stats, dout, lens8, seed, 12, 0.1), 20)
+    # the backward alone at the step's length (15 s) and at 30 s, with dropout and without
+    for t, suffix in ((749, ""), (1499, "_1499")):
+        x = qkv8 if t == 749 else (torch.randn((8, t, 3 * 768), device="cuda", generator=gen) * 0.3).to(torch.bfloat16)
+        lens_t = torch.full((8,), t, dtype=torch.int32, device="cuda")
+        dout = torch.randn((8, t, 768), device="cuda", generator=gen).to(torch.bfloat16)
+        for rate, tag in ((0.1, ""), (0.0, "_rate0")):
+            o, stats = mha_train_forward(x, lens_t, seed, 12, rate)
+            out[f"attention_train_bwd{suffix}{tag}_ms"] = _cuda_ms(
+                lambda: mha_train_backward(x, o, stats, dout, lens_t, seed, 12, rate), 20)
+            if not suffix and not tag:
+                out["attention_train_bwd_by_kernel_ms"] = device_ms_by_kernel(
+                    lambda: mha_train_backward(x, o, stats, dout, lens_t, seed, 12, rate), 10)
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """The device time of each kernel that ``iters`` calls of ``fn`` launch, per call, by torch.profiler
+    (after one call outside it): ``{kernel name (60 characters): ms}``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return by_name
 
 
 def _measure_ctc(out: dict, gen) -> None:
