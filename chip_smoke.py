@@ -10,7 +10,10 @@ Phases, each of which fails the run:
 1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
 2. build the CUDA kernels from ``thunder_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card
-   (``thunder_tpu_torch.kernels.selftest``), one JSON line per check;
+   (``thunder_tpu_torch.kernels.selftest``), one JSON line per check (the
+   log-mel also at the ``frontend_log_mel_edge_*`` sizes: 44.1 and 48 kHz,
+   hop 161, n_fft 4096, the dense path's n_fft 400, a row of zeros, one
+   frame);
 4. QuartzNet15x5 greedy serving through ``CTCModule.create`` and
    ``InferenceEngine.predict`` at 64 rows x 15 s of speech-like audio, with
    random weights (seed 0) and random BN statistics: the launch counts of
@@ -20,7 +23,13 @@ Phases, each of which fails the run:
    torch.profiler gives the device time by kernel and the device's idle
    share between the forward's first and last device event;
 5. each kernel's time and its plain version's at the main path's shapes; for
-   the separable repeat, at each of its eight shapes, also a chain of PyTorch
+   the log-mel, the path its plan takes (must be ``"fft"``), and a chain of
+   PyTorch calls for the same function (preemphasis, ``torch.stft`` with the
+   centered reflect pad and the window, which runs cuFFT, ``|.|^2``,
+   ``torch.matmul`` with the filterbank and the guarded log: timed only, the
+   kernels line's ``library_ms``), and the frontend's time apart: the
+   log-mel, the masked per-feature normalize and the whole
+   ``FilterbankFeatures`` call; for the separable repeat, at each of its eight shapes, also a chain of PyTorch
    calls for the same function (bf16 ``F.conv1d(groups=C)`` + ``torch.matmul``
    + bias, ReLU and mask: timed only, its sum is the kernels line's
    ``library_ms``) and the kernel's launch plan (shared memory a block, ring
@@ -120,7 +129,7 @@ of its bytes (each input read once, each output written once) over 3.35
 TB/s and its operations of each type over the published peak for that type
 (989 TFLOP/s bf16 tensor, 67 TFLOP/s float32), for an H100 SXM at 700 W.
 The log-mel's operations are an FFT-based STFT's, the least the function
-needs, not the dense DFT product the kernel computes. The training attention's
+needs; its bytes are the audio in, the log-mel out and the kernel's tables. The training attention's
 are 4 T^2 64 forward and 10 T^2 64 backward a head and row (five products, the
 least the function needs, whatever the kernels recompute).
 
@@ -235,7 +244,7 @@ PROFILE_CATEGORIES = (
     ("add_layer_norm_train", ("add_ln_train_",)),
     ("add_layer_norm", ("add_ln_kernel",)),
     ("beam_search", ("beam_scan_kernel", "beam_backtrace_kernel")),
-    ("log_mel", ("log_mel_kernel",)),
+    ("log_mel", ("log_mel",)),
     ("separable_repeat", ("separable_repeat_kernel",)),
     ("depthwise_conv", ("conv_depthwise",)),
     ("conv_backward", ("dgrad", "wgrad")),
@@ -299,18 +308,39 @@ def bound(n_bytes: float, bf16_flop: float = 0.0, f32_flop: float = 0.0) -> dict
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def log_mel_bound(batch: int, samples: int, n_fft=512, hop=160, n_mels=64) -> dict:
-    """Audio in, log-mel out, DFT basis and filterbank in. The operations are those of an FFT-based
-    STFT per frame, not the dense (n_fft x 2*n_freqs) DFT product the kernel and the TPU kernel
-    compute: the window, a real FFT at 2.5 n_fft log2 n_fft, the power, the mel product over the
-    filterbank's non-zeros, and the guarded log."""
-    from thunder_tpu_torch.ops.stft import mel_filterbank
+def log_mel_bound(batch: int, samples: int, n_fft=512, hop=160, win=320, n_mels=64) -> dict:
+    """Audio in, log-mel out, and the FFT path's tables in (twiddles, window, the mel bands). The operations
+    are those of an FFT-based STFT per frame: the window, a real FFT at 2.5 n_fft log2 n_fft, the power, the
+    mel product over the filterbank's non-zeros, and the guarded log."""
+    from thunder_tpu_torch.kernels.frontend import mel_bands
 
     n_freqs, frames = n_fft // 2 + 1, batch * (samples // hop + 1)
-    nonzeros = int(np.count_nonzero(mel_filterbank(n_freqs, n_mels, SAMPLE_RATE)))
-    n_bytes = 4 * (batch * samples + frames * n_mels + n_fft * 2 * n_freqs + n_freqs * n_mels)
-    per_frame = n_fft + 2.5 * n_fft * np.log2(n_fft) + 3 * n_freqs + 2 * nonzeros + 2 * n_mels
+    bands, weights = mel_bands(n_fft, n_mels, SAMPLE_RATE)
+    tables = 8 * n_fft + 4 * win + bands.nbytes + weights.nbytes
+    n_bytes = 4 * (batch * samples + frames * n_mels) + tables
+    per_frame = n_fft + 2.5 * n_fft * np.log2(n_fft) + 3 * n_freqs + 2 * weights.size + 2 * n_mels
     return bound(n_bytes, f32_flop=frames * per_frame)
+
+
+def log_mel_library(n_fft=512, hop=160, win=320, n_mels=64, preemph=0.97):
+    """The log-mel as a chain of PyTorch library calls, the yardstick for its kernel (timed here only; the
+    port never calls it): preemphasis, ``torch.stft`` (cuFFT) with the centered reflect pad and the hann
+    window, ``|.|^2``, ``torch.matmul`` with the filterbank and ``log(. + 2^-24)``. Returns ``fn(audio)``."""
+    import torch
+
+    from thunder_tpu_torch.ops.stft import hann_window, mel_filterbank
+
+    window = torch.as_tensor(hann_window(win), device="cuda")
+    fb = torch.as_tensor(mel_filterbank(n_fft // 2 + 1, n_mels, SAMPLE_RATE), device="cuda")
+
+    def fn(audio):
+        y = torch.cat([audio[:, :1], audio[:, 1:] - preemph * audio[:, :-1]], dim=1)
+        spec = torch.stft(y, n_fft, hop_length=hop, win_length=win, window=window, center=True, pad_mode="reflect",
+                          return_complex=True)
+        power = torch.view_as_real(spec).square().sum(-1).transpose(1, 2)
+        return torch.log(torch.matmul(power, fb) + 2.0**-24)
+
+    return fn
 
 
 def separable_bound(batch, t_in, t_out, c_in, c_out, k) -> dict:
@@ -474,8 +504,9 @@ def run() -> int:
     from thunder_tpu_torch.audio import FilterbankFeatures
     from thunder_tpu_torch.engine import InferenceEngine
     from thunder_tpu_torch.kernels import _build, reset_launch_counts
-    from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_plan, log_mel_reference
     from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, exact_float32, run_selftests, ulp_bf16_error
+    from thunder_tpu_torch.ops.masking import lengths_to_mask, normalize_tensor
     from thunder_tpu_torch.kernels.separable_conv import (
         fused_separable_repeat,
         separable_plan,
@@ -563,14 +594,29 @@ def run() -> int:
 
     # ---- each kernel against its plain version at the main path's shapes
     kernels = []
+    frontend = engine.frontend
+    path = log_mel_plan(frontend.fft_size, frontend.n_window_stride, frontend.n_window_size, frontend.nfilt)["path"]
+    check(path == "fft", f"the log-mel plan takes the {path} path at the main shape, not fft")
+    library = log_mel_library()
     k_ms, p_ms = paired_ms(lambda: fused_log_mel(audio_d), lambda: log_mel_reference(audio_d), 20)
-    err = (fused_log_mel(audio_d) - log_mel_reference(audio_d)).abs().max().item()
+    _, lib_ms = paired_ms(lambda: fused_log_mel(audio_d), lambda: library(audio_d), 20)
+    mel = fused_log_mel(audio_d)
+    err = (mel - log_mel_reference(audio_d)).abs().max().item()
+    lib_err = (library(audio_d) - log_mel_reference(audio_d)).abs().max().item()
     log_mel_tol = KERNEL_CHECKS["frontend_log_mel"][1]
     check(err <= log_mel_tol, f"log-mel at the main path's shape off by {err} > {log_mel_tol}")
     kernels.append({"name": "log_mel", "route": "cuda", "source": "thunder_tpu_torch/csrc/log_mel.cu",
                     "replaces": "thunder_tpu/kernels/frontend_pallas.py:105", "launches": launches["log_mel"],
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **log_mel_bound(BATCH, samples),
-                    "library_ms": None, "library": "none (no single PyTorch call computes the log-mel)"})
+                    "path": path, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **log_mel_bound(BATCH, samples),
+                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                    "library": "a chain, not one call: preemphasis + torch.stft (cuFFT, reflect pad, window) + |.|^2 "
+                               "+ torch.matmul with the filterbank + log"})
+    # the frontend apart: the log-mel kernel, the masked per-feature normalize, the whole FilterbankFeatures call
+    mask = lengths_to_mask(frontend.output_lengths(lengths_d), mel.shape[1])[:, :, None]
+    norm_ms = cuda_ms(lambda: normalize_tensor(mel, mask, div_guard=frontend.div_guard, axis=1), 20)
+    frontend_ms = cuda_ms(lambda: frontend(audio_d, lengths_d), 20)
+    emit({"phase": "frontend_breakdown", "log_mel_ms": k_ms, "normalize_ms": norm_ms, "frontend_ms": frontend_ms,
+          "forward_ms": forward_ms, "card": card})
 
     feats, feat_lengths = engine.frontend(audio_d, lengths_d)
     shapes = {}

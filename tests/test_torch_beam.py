@@ -35,7 +35,14 @@ from thunder_tpu_torch.audio import FilterbankFeatures
 from thunder_tpu_torch.bridge import from_flax_variables
 from thunder_tpu_torch.engine import InferenceEngine
 from thunder_tpu_torch.kernels import KERNEL_WRAPPERS
-from thunder_tpu_torch.kernels.beam import MAX_CANDIDATES, MAX_SHARED_BYTES, beam_backtrace, beam_scan, scan_plan
+from thunder_tpu_torch.kernels.beam import (
+    MAX_CANDIDATES,
+    MAX_SHARED_BYTES,
+    beam_backtrace,
+    beam_scan,
+    scan_fits,
+    scan_plan,
+)
 from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
 from thunder_tpu_torch.module import CTCModule
 from thunder_tpu_torch.ops import ctc_beam as host
@@ -214,6 +221,43 @@ def test_device_search_no_frames_and_the_candidate_limit():
     # exactly 8192 candidates a frame is allowed
     assert len(beam_search_device(np.zeros((1, 2, 512), np.float32), beam_width=16, max_tokens_per_step=None,
                                   device="cpu")) == 1
+
+
+@pytest.mark.parametrize("b,t,v,width,k", [(2, 6, 1025, 16, None), (2, 8, 29, 300, None), (1, 4, 29, 300, 28)])
+def test_device_search_past_8192_candidates_matches_the_reference(b, t, v, width, k):
+    """Citrinet's V = 1025 at W = 16 with every token a step, and W = 300 on V = 29: more candidates a frame
+    than the JAX package's device search takes, within the scan's block; the JAX package's XLA scan's
+    hypotheses and scores, and the host search's hypotheses."""
+    logits = _logits(24, b, t, v)
+    kw = dict(blank=0, beam_width=width, max_tokens_per_step=k)
+    for nbest in (None, 3):
+        got = beam_search_device(logits, nbest=nbest, device="cpu", **kw)
+        want = jax_device.beam_search_device(logits, use_pallas=False, nbest=nbest, **kw)
+        (_same_hyps if nbest is None else _same_nbest)(want, got)
+    want = jax_host.beam_search_decode(logits, use_native=False, **kw)
+    _same_hyps(want, beam_search_device(logits, device="cpu", **kw))
+
+
+def test_device_search_takes_the_scan_up_to_its_block_and_refuses_past_it(monkeypatch):
+    """Every size goes to ``beam_scan`` (the kernel on the card) while its block fits in shared memory
+    (``scan_fits``: K = 1,605 at W = 16), and past that the search raises before any launch."""
+    from thunder_tpu_torch.ops import ctc_beam_device
+
+    calls = []
+    real = ctc_beam_device.beam_scan
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["beam_width"] * kwargs["k_tokens"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ctc_beam_device, "beam_scan", spy)
+    assert scan_fits(16, 1605) and not scan_fits(16, 1606) and scan_fits(300, 29)
+    for v, width, k in [(512, 16, None), (1605, 16, None), (29, 300, None), (29, 300, 27)]:
+        beam_search_device(_logits(25, 1, 3, v), blank=0, beam_width=width, max_tokens_per_step=k, device="cpu")
+    assert calls == [MAX_CANDIDATES, 16 * 1605, 300 * 29, 300 * 27]
+    with pytest.raises(ValueError, match="beam_width"):
+        beam_search_device(_logits(25, 1, 3, 1606), blank=0, beam_width=16, max_tokens_per_step=None, device="cpu")
+    assert len(calls) == 4
 
 
 def test_device_search_ranks_with_a_duck_typed_lm():

@@ -147,7 +147,7 @@ def test_attention_kernel_rejects_what_the_launch_does_not_take(cuda):
         mha_from_qkv(qkv, torch.ones(65536, dtype=torch.int32, device="cuda"), 1)
 
 
-@pytest.mark.parametrize("rows,d", [(1, 8), (33, 2048), (5, 1024)])
+@pytest.mark.parametrize("rows,d", [(1, 8), (33, 2048), (5, 1024), (9, 36), (4, 2056), (3, 1), (2, 4100)])
 def test_add_ln_kernel_edge_widths(cuda, rows, d):
     from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
     from thunder_tpu_torch.kernels.selftest import add_ln_case, ulp_bf16_error
@@ -191,30 +191,185 @@ def test_separable_repeat_plan_and_refusal_on_card(cuda):
     for c_in, k, dilation in ((256, 39, 1), (512, 87, 1), (512, 87, 2)):
         plan = separable_plan(c_in, k, 1, dilation)
         assert plan["blocks_per_sm"] == 2 and plan["smem_bytes"] <= 115712, (c_in, k, plan)
-    assert separable_plan(1024, 33)["blocks_per_sm"] == 1
-    assert separable_plan(2048, 33)["smem_bytes"] == 0
-    # a width whose A tile does not fit raises, and launches nothing
-    x = torch.zeros((1, 64, 2048), dtype=torch.bfloat16, device="cuda")
-    dw = torch.zeros((33, 2048), dtype=torch.bfloat16, device="cuda")
-    pw = torch.zeros((2048, 64), dtype=torch.bfloat16, device="cuda")
+    assert separable_plan(1024, 33)["blocks_per_sm"] == 1 and separable_plan(1024, 33)["parts"] == 1
+    # an A tile past one block: launches over even slices of C_in, multiples of 64 channels
+    assert {k: separable_plan(2048, 33)[k] for k in ("parts", "part")} == {"parts": 2, "part": 1024}
+    assert {k: separable_plan(1544, 33)[k] for k in ("parts", "part")} == {"parts": 2, "part": 832}
+    # a span too long for even 64 channels raises, and launches nothing
+    k = 1501
+    assert separable_plan(64, k, 1, 2)["smem_bytes"] == 0
+    x = torch.zeros((1, 64, 64), dtype=torch.bfloat16, device="cuda")
+    dw = torch.zeros((k, 64), dtype=torch.bfloat16, device="cuda")
+    pw = torch.zeros((64, 64), dtype=torch.bfloat16, device="cuda")
     before = fused_separable_repeat.launches
     with pytest.raises(ValueError, match="shared memory"):
         fused_separable_repeat(x, torch.full((1,), 64, dtype=torch.int32, device="cuda"), dw, pw,
-                               torch.zeros(64, device="cuda"), 33)
+                               torch.zeros(64, device="cuda"), k, dilation=2)
     assert fused_separable_repeat.launches == before
 
 
-@pytest.mark.parametrize("time,win,n_mels", [(12345, 320, 64), (8000, 400, 80)])
-def test_log_mel_other_configs_on_card(cuda, time, win, n_mels):
+@pytest.mark.parametrize(
+    "time,win,n_mels,sr,hop,n_fft",
+    [(12345, 320, 64, 16000, 160, 512), (8000, 400, 80, 16000, 160, 512),
+     # the other configurations of the frontend checks: 44.1 and 48 kHz with n_fft 2048, hop 161, n_fft 4096,
+     # the dense path's n_fft 400, a clip of one frame, and a long hop past the frames' overlap
+     (44100, 1103, 64, 44100, 441, 2048), (48000, 1200, 64, 48000, 480, 2048), (16000, 320, 64, 16000, 161, 512),
+     (48000, 2400, 128, 48000, 480, 4096), (16000, 400, 80, 16000, 160, 400), (100, 32, 16, 16000, 160, 32),
+     (16000, 100, 40, 16000, 1000, 128)],
+)
+def test_log_mel_other_configs_on_card(cuda, time, win, n_mels, sr, hop, n_fft):
     from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
     from thunder_tpu_torch.kernels.selftest import exact_float32
 
     exact_float32()
     audio = torch.as_tensor(np.random.default_rng(3).standard_normal((3, time)).astype(np.float32) * 0.3, device="cuda")
-    got = fused_log_mel(audio, win_length=win, n_mels=n_mels)
-    want = log_mel_reference(audio, win_length=win, n_mels=n_mels)
-    assert got.shape == want.shape == (3, time // 160 + 1, n_mels)
+    kw = dict(sample_rate=sr, n_fft=n_fft, hop_length=hop, win_length=win, n_mels=n_mels)
+    got = fused_log_mel(audio, **kw)
+    want = log_mel_reference(audio, **kw)
+    assert got.shape == want.shape == (3, time // hop + 1, n_mels)
     assert (got - want).abs().max().item() <= 2e-3
+
+
+def test_log_mel_plan_paths_and_refusals_launch_nothing(cuda):
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_plan
+
+    for n_fft in (32, 64, 512, 2048, 4096):
+        assert log_mel_plan(n_fft, 160, n_fft // 2, 64)["path"] == "fft"
+    for n_fft in (16, 400, 1000, 8192):
+        assert log_mel_plan(n_fft, 160, n_fft // 2, 64)["path"] == "dense"
+    # the main path: 16 frames of 256 complex points in two 32 KB buffers (the raw audio and the span, 15 hops +
+    # the window, fit in one), the twiddles and the window, and the mel tables (64 filters, 2 x 257 weights at
+    # most, each padded to 16 bytes): three blocks an SM
+    main = log_mel_plan(512, 160, 320, 64)
+    mel_tables = 4 * (3 * 64 + 516)
+    assert main == {"path": "fft", "smem_bytes": 2 * 8 * 16 * 256 + 4 * (1024 + 320) + mel_tables, "frames": 16,
+                    "threads": 256}
+    assert 3 * (main["smem_bytes"] + 1024) <= 228 * 1024
+    assert log_mel_plan(4096, 480, 2400, 128)["frames"] == 2
+    dense = log_mel_plan(400, 160, 400, 80)
+    span, tile = 15 * 160 + 400, 16 * 81
+    assert dense == {"path": "dense", "smem_bytes": 4 * (span + 16 * 201 + tile) + 4 * (3 * 80 + 404), "frames": 16,
+                     "threads": 224}
+    # a long hop takes fewer frames a block, never a refusal: one frame's span is the window alone
+    assert log_mel_plan(512, 100000, 320, 64)["frames"] == 1
+    for args in ((512, 160, 600, 64), (512, 0, 320, 64), (512, 160, 0, 64), (512, 160, 320, 0), (1, 1, 1, 1)):
+        assert log_mel_plan(*args)["smem_bytes"] == 0, args
+    big = log_mel_plan(120000, 160, 400, 64)  # one frame's power row alone is over 227 KB
+    assert big["path"] == "dense" and big["smem_bytes"] == 0
+    before = fused_log_mel.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_log_mel(torch.zeros((1, 200000), device="cuda"), n_fft=120000, win_length=400)
+    with pytest.raises(RuntimeError, match="reflect pad"):
+        fused_log_mel(torch.zeros((1, 256), device="cuda"))
+    assert fused_log_mel.launches == before
+
+
+def test_filterbank_at_44k1_runs_the_kernel_on_card(cuda):
+    """C11: n_fft 2048, hop 441 go through the kernel (one launch) and match the module on the CPU."""
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel
+    from thunder_tpu_torch.kernels.selftest import exact_float32
+
+    exact_float32()
+    module = FilterbankFeatures(sample_rate=44100, n_window_size=1103, n_window_stride=441, n_fft=2048)
+    audio = (np.random.default_rng(8).standard_normal((2, 88200)) * 0.2).astype(np.float32)
+    lengths = np.array([88200, 50000], np.int32)
+    before = fused_log_mel.launches
+    got, got_len = module(torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda"))
+    torch.cuda.synchronize()
+    assert fused_log_mel.launches == before + 1
+    want, want_len = module(torch.as_tensor(audio), torch.as_tensor(lengths))
+    assert torch.equal(got_len.cpu(), want_len)
+    assert (got.cpu() - want).abs().max().item() <= 1e-2  # the kernel's 2e-3 over each feature's spread
+
+
+def test_engine_runs_widths_of_100_and_2048_through_the_separable_kernel_on_card(cuda):
+    """C10: 100 channels (padded to 104) and a 2048-wide block (two launches over slices of C_in) run the
+    kernel in every repeat, and match the engine on the CPU."""
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import fused_separable_repeat, reset_launch_counts
+    from thunder_tpu_torch.kernels.separable_conv import separable_plan
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(),
+                              QuartznetEncoder(repeat=2, filters=(100, 2048), kernel_sizes=(33, 33)), Conv1dDecoder(29),
+                              device="cuda")
+    engine = InferenceEngine(module)
+    repeats = [rp for block in engine._plan for rp in block.repeats if rp.kind == "separable"]
+    widths = [(rp.pw.shape[0], rp.pw.shape[1]) for rp in repeats]
+    assert (256, 100) in widths and (100, 100) in widths and (2048, 2048) in widths
+    launches = sum(separable_plan(-(-c_in // 8) * 8, rp.kernel_size, rp.stride, rp.dilation)["parts"]
+                   for (c_in, _), rp in zip(widths, repeats))
+    assert launches > len(repeats)  # the 2048-wide repeats take two
+    audio = (np.random.default_rng(9).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000], np.int32)
+    reset_launch_counts()
+    got, got_lens = engine(audio, lengths)
+    torch.cuda.synchronize()
+    assert fused_separable_repeat.launches == launches
+    want, want_lens = InferenceEngine(module.to("cpu"))(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    assert (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max() < 0.1  # bf16 against float32
+
+
+def test_wav2vec2_of_width_36_serves_and_trains_on_card(cuda):
+    """C12: a hidden size that is not a multiple of 8 runs the add + LayerNorm kernels in bf16 on the card,
+    serving and training, and matches the CPU path."""
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import add_layer_norm, add_ln_train_backward, add_ln_train_forward
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+
+    config = Wav2Vec2Config(hidden_size=36, num_hidden_layers=2, num_attention_heads=2, intermediate_size=72,
+                            conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+                            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4, hidden_dropout=0.1)
+    audio = (np.random.default_rng(10).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000], np.int32)
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(config), LinearDecoder(32), device="cuda")
+    reset_launch_counts()
+    got, got_lens = InferenceEngine(module)(audio, lengths)
+    torch.cuda.synchronize()
+    sites = 2 * config.num_hidden_layers + 1  # two a layer and the encoder's, as 25 in wav2vec2-base
+    assert add_layer_norm.launches == sites
+    want, want_lens = InferenceEngine(module.to("cpu"))(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    assert (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max() < 0.1  # bf16 against float32
+    train = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False),
+                             Wav2Vec2Encoder(config, dtype=torch.bfloat16), LinearDecoder(32, dtype=torch.bfloat16),
+                             device="cuda")
+    x, lens = torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda")
+    reset_launch_counts()
+    logits, _ = train.model(x, lens, train=True, generator=torch.Generator(device="cuda").manual_seed(0))
+    logits.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert add_ln_train_forward.launches == sites
+    assert add_ln_train_backward.launches == 2 * sites  # the backward and the sum of partials
+    grad = train.model.encoder.layer0.layer_norm.scale.grad
+    assert grad is not None and bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("v,width", [(1025, 16), (29, 300)])
+def test_device_beam_past_8192_candidates_on_card(cuda, v, width):
+    """C13: W*K above the JAX package's 8192 runs the scan kernel (one launch) and gives the CPU's hypotheses."""
+    from thunder_tpu_torch.kernels.beam import beam_scan
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
+
+    logits = np.random.default_rng(11).normal(0.0, 2.0, (2, 24, v)).astype(np.float32)
+    kw = dict(lengths=[24, 17], blank=0, beam_width=width, max_tokens_per_step=None, nbest=2)
+    before = beam_scan.launches
+    got = beam_search_device(logits, device="cuda", **kw)
+    assert beam_scan.launches == before + 1
+    want = beam_search_device(logits, device="cpu", **kw)
+    for g_row, w_row in zip(got, want):
+        assert [ids.tolist() for ids, _ in g_row] == [ids.tolist() for ids, _ in w_row]
+        np.testing.assert_allclose([s for _, s in g_row], [s for _, s in w_row], rtol=0, atol=2e-3)
 
 
 @pytest.mark.parametrize("case", ["edge", "training_shape"])
@@ -314,12 +469,14 @@ def test_one_train_step_on_card_launches_each_kernel_once(cuda):
      (2, 19, 9, 5, 9, -12.0, True, False), (5, 64, 29, 40, 29, -12.0, False, False),
      (3, 15, 9, 8, 9, -12.0, False, True), (2, 10, 9, 40, 9, -1.5, False, False),
      (2, 6, 300, 16, 50, -12.0, False, False), (2, 12, 200, 64, 128, -12.0, False, False),
-     (1, 1000, 29, 16, 29, -12.0, False, False)],
+     (1, 1000, 29, 16, 29, -12.0, False, False), (2, 10, 1025, 16, 1025, -12.0, False, False),
+     (2, 12, 29, 300, 29, -12.0, False, False)],
 )
 def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width, k, floor, carried, ties):
     """K = V and K < V, a beam of one, frames the floor empties (flat frames), a carried state, W above a warp;
     exact ties (integer-valued logits), fewer finite candidates than W = 40 (a high floor), W*K = 800 and
-    8192, and one ``predict_long`` window (B = 1, T = 1000)."""
+    8192, one ``predict_long`` window (B = 1, T = 1000), and past 8192 candidates: V = K = 1025 at W = 16
+    and W = 300."""
     from thunder_tpu_torch.kernels.beam import (
         beam_backtrace,
         beam_backtrace_reference,
@@ -445,9 +602,11 @@ def test_training_attention_kernels_edge_shapes(cuda, b, t, heads, lengths, rate
 
 
 @pytest.mark.parametrize("rows,d,rate", [((7,), 128, 0.1), ((1001,), 768, 0.1), ((3, 67), 1024, 0.3), ((9,), 2048, 0.1),
-                                         ((130,), 1032, 0.0), ((1,), 8, 0.5)])
+                                         ((130,), 1032, 0.0), ((1,), 8, 0.5), ((5,), 36, 0.1), ((3, 5), 2056, 0.2),
+                                         ((17,), 1, 0.0), ((9,), 4100, 0.1)])
 def test_add_ln_train_kernels_edge_shapes(cuda, rows, d, rate):
-    """Row counts that are no multiple of a warp's rows or a block, every instantiated width; the same bits twice."""
+    """Row counts that are no multiple of a warp's rows or a block, every instantiated width, and widths the
+    registers do not hold (not a multiple of 8, over 2048); the same bits twice."""
     from thunder_tpu_torch.kernels.add_ln_train import (
         add_ln_train_backward,
         add_ln_train_backward_reference,
@@ -517,9 +676,9 @@ def test_training_wrappers_raise_on_card_for_what_the_kernels_do_not_take(cuda):
         mha_train_forward(torch.zeros(1, 4, 3 * 65536 * 64, device="cuda", dtype=torch.bfloat16), lens, seed, 65536)
     with pytest.raises(ValueError, match="seed"):
         mha_train_forward(torch.zeros(1, 4, 192, device="cuda", dtype=torch.bfloat16), lens, seed.cpu(), 1)
-    x = torch.zeros(4, 12, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        add_ln_train_forward(x, x, torch.ones(12, device="cuda"), torch.zeros(12, device="cuda"), seed)
+    x = torch.zeros(4, 12, device="cuda", dtype=torch.bfloat16)  # any width goes; a scale that does not fit raises
+    with pytest.raises(ValueError, match="shapes"):
+        add_ln_train_forward(x, x, torch.ones(13, device="cuda"), torch.zeros(13, device="cuda"), seed)
     x = torch.zeros(4, 16, device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         add_ln_train_forward(x, x, torch.ones(16, device="cuda"), torch.zeros(16, device="cuda"), seed)

@@ -24,6 +24,7 @@ from thunder_tpu.text import BatchTextTransformer as JaxText
 from thunder_tpu_torch.audio import FilterbankFeatures
 from thunder_tpu_torch.bridge import from_flax_variables
 from thunder_tpu_torch.engine import InferenceEngine
+from thunder_tpu_torch.kernels.separable_conv import pad_channels, separable_repeat_reference
 from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
 from thunder_tpu_torch.module import CTCModule
 from thunder_tpu_torch.text import BatchTextTransformer
@@ -236,3 +237,42 @@ def test_batch_norm_and_its_fold_match_jax():
     np.testing.assert_allclose(bn(torch.as_tensor(x)).detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     scale, bias = _fold_bn(bn)
     np.testing.assert_allclose(x * scale + bias, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c_in,c_out,k,stride,dilation", [(100, 100, 33, 1, 1), (64, 100, 33, 2, 1),
+                                                         (100, 64, 87, 1, 2), (3, 5, 1, 1, 1)])
+def test_padded_channels_leave_the_repeat_unchanged(c_in, c_out, k, stride, dilation):
+    """The wrapper's zero padding of channel counts that are not multiples of 8, as the card runs it: the
+    repeat over the padded inputs, sliced to C_out, is the repeat over the inputs."""
+    rng = np.random.default_rng(c_in + c_out + k)
+    t = 50
+    x = torch.as_tensor(rng.standard_normal((2, t, c_in)).astype(np.float32))
+    x[1, 30:] = 0.0
+    dw = torch.as_tensor(rng.standard_normal((k, c_in)).astype(np.float32) * 0.1)
+    pw = torch.as_tensor(rng.standard_normal((c_in, c_out)).astype(np.float32) * 0.1)
+    bias = torch.as_tensor(rng.standard_normal(c_out).astype(np.float32))
+    t_out = -(-t // stride)
+    lengths = torch.tensor([t_out, -(-30 // stride)], dtype=torch.int32)
+    padded = pad_channels(x, dw, pw, bias)
+    assert [tuple(a.shape) for a in padded] == [(2, t, -(-c_in // 8) * 8), (k, -(-c_in // 8) * 8),
+                                                (-(-c_in // 8) * 8, -(-c_out // 8) * 8), (-(-c_out // 8) * 8,)]
+    got = separable_repeat_reference(padded[0], lengths, *padded[1:], k, stride, dilation)
+    want = separable_repeat_reference(x, lengths, dw, pw, bias, k, stride, dilation)
+    assert bool((got[..., c_out:] == 0).all())
+    np.testing.assert_allclose(got[..., :c_out].numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_engine_with_100_channels_matches_jax_engine():
+    tt = JaxText(tokens=TOKENS)
+    widths = dict(repeat=2, filters=(100,), kernel_sizes=(33,))
+    jax_module = _randomized(JaxModule.create(jax.random.PRNGKey(3), audio_transform=JaxFilterbank(),
+                                              encoder=JaxQuartznet(**widths),
+                                              decoder=JaxDecoder(num_classes=tt.num_tokens), text_transform=tt,
+                                              sample_len=4000))
+    port = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(**widths),
+                            Conv1dDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
+    port.model.load_state_dict(from_flax_variables(jax.tree_util.tree_map(np.asarray, jax_module.variables)))
+    audio, lengths = _audio(4)
+    want, want_lens = JaxEngine(jax_module, compute_dtype=jnp.float32, use_pallas=False)(audio, lengths)
+    got, got_lens = InferenceEngine(port)(audio, lengths)
+    _assert_logits_close(got, got_lens, want, want_lens)

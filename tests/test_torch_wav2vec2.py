@@ -251,6 +251,55 @@ def test_bf16_engine_matches_jax_bf16_engine(slice_pair, monkeypatch):
         assert dev < 0.05, (i, dev)
 
 
+@pytest.mark.parametrize("train", [False, True])
+def test_add_layer_norm_takes_the_kernels_at_every_width(train, monkeypatch):
+    """bfloat16 add + LayerNorm goes to the kernels at every width: 128 (its row in registers on the card), 36
+    and 2056 (not a multiple of 8, over 2048: the kernels that re-read the row). Held to the JAX module in
+    float32 on the same bf16 inputs, which adds in float32 as the kernels do, to one bf16 rounding."""
+    calls = []
+    for name in ("add_layer_norm", "add_ln_dropout_train"):
+        def spy(*args, _name=name, _fn=getattr(w2v, name), **kwargs):
+            calls.append((_name, args[0].shape[-1]))
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(w2v, name, spy)
+    for d in (36, 2056, 128):
+        rng = np.random.default_rng(d)
+        x, y = ((rng.standard_normal((2, 5, d)) * 2).astype(np.float32) for _ in range(2))
+        scale, bias = (rng.standard_normal(d).astype(np.float32) for _ in range(2))
+        ln = w2v._AddLayerNorm(d, dtype=torch.bfloat16)
+        with torch.no_grad():
+            ln.scale.copy_(torch.as_tensor(scale))
+            ln.bias.copy_(torch.as_tensor(bias))
+        xb, yb = (torch.as_tensor(a).to(torch.bfloat16) for a in (x, y))
+        got = ln(xb, yb, train=train, dropout_rate=0.0, generator=torch.Generator().manual_seed(0))
+        assert got.dtype == torch.bfloat16 and got.shape == (2, 5, d)
+        want = jax_w2v._AddLayerNorm(dtype=jnp.float32).apply(
+            {"params": {"scale": scale, "bias": bias}}, jnp.asarray(xb.float().numpy()), jnp.asarray(yb.float().numpy()),
+            train=train, dropout_rate=0.0)
+        np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32), atol=2**-14,
+                                   rtol=2**-7)
+    kernel = "add_ln_dropout_train" if train else "add_layer_norm"
+    assert calls == [(kernel, 36), (kernel, 2056), (kernel, 128)]
+
+
+def test_bf16_encoder_of_width_36_serves_and_trains_on_the_cpu():
+    """A width that is not a multiple of 8, in bfloat16: the forward and a backward run through the add +
+    LayerNorm kernels' plain versions here (the card test holds the same model on the card to its CPU path)."""
+    cfg = w2v.Wav2Vec2Config(**{**SMALL, "hidden_size": 36, "intermediate_size": 72})
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              w2v.Wav2Vec2Encoder(cfg, dtype=torch.bfloat16), LinearDecoder(len(TOKENS) + 1),
+                              device="cpu")
+    encoder = module.model.encoder
+    audio, lengths = (torch.as_tensor(a) for a in _audio(7))
+    with torch.no_grad():
+        h, _ = encoder(audio, lengths)
+    assert h.shape[-1] == 36 and h.dtype == torch.bfloat16 and bool(torch.isfinite(h.float()).all())
+    h, _ = encoder(audio, lengths, train=True, generator=torch.Generator().manual_seed(0))
+    h.float().square().mean().backward()
+    grad = encoder.layer0.layer_norm.scale.grad
+    assert grad is not None and bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)
+
+
 def test_serving_copy_rounds_like_the_jax_engine(slice_pair):
     _, port = slice_pair
     encoder = port.model.encoder

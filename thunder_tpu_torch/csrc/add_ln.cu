@@ -18,9 +18,15 @@
 // so D <= 32 * 8 * MAX_VECS), reduces the sum and the sum of squares across
 // the warp with shuffles, and writes the normalised row with 16-byte stores.
 // Rows are independent, so there is no shared memory and no block barrier.
+// Any other width (not a multiple of 8, over 2048, or a tensor not 16-byte
+// aligned) runs add_ln_any_kernel: the same warp a row, a bf16 a lane at a
+// time, reading the row twice (the statistics, then the output; the second
+// read mostly hits L1 and L2) instead of keeping it in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -90,15 +96,46 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// any width and alignment: the row read twice, a bf16 a lane at a time
+__global__ void __launch_bounds__(WARPS * 32)
+    add_ln_any_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
+                      const float* __restrict__ b, bf16* __restrict__ out, int rows, int d, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (row >= rows) return;
+  const bf16* xr = x + (size_t)row * d;
+  const bf16* yr = y + (size_t)row * d;
+  float sum = 0.f, sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = __bfloat162float(xr[c]) + __bfloat162float(yr[c]);
+    sum += v;
+    sq += v * v;
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float mean = sum / d;
+  const float var = fmaxf(sq / d - mean * mean, 0.f);
+  const float inv = rsqrtf(var + eps);
+  bf16* orow = out + (size_t)row * d;
+  for (int c = lane; c < d; c += 32) {
+    const float v = __bfloat162float(xr[c]) + __bfloat162float(yr[c]);
+    orow[c] = __float2bfloat16((v - mean) * inv * g[c] + b[c]);
+  }
+}
+
 }  // namespace
 
-// x, y, out: (rows, d) bf16, 16-byte aligned; g, b: (d,) f32, 16-byte aligned;
-// d a multiple of 8 up to 2048. Returns cudaGetLastError().
+// x, y, out: (rows, d) bf16; g, b: (d,) f32; any d >= 1. A multiple of 8 up to 2048 with every pointer 16-byte
+// aligned keeps the row in registers, any other runs add_ln_any_kernel. Returns cudaGetLastError().
 extern "C" int thunder_add_layer_norm(const void* x, const void* y, const float* g, const float* b, void* out,
                                       int rows, int d, float eps, void* stream) {
-  if (rows < 1 || d < 8 || d % 8 || d > 32 * 8 * MAX_VECS) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + WARPS - 1) / WARPS;
-  add_ln_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+                         reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const auto kernel = aligned && d % 8 == 0 && d <= 32 * 8 * MAX_VECS ? add_ln_kernel : add_ln_any_kernel;
+  kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, b, static_cast<bf16*>(out), rows, d, eps);
   return (int)cudaGetLastError();
 }

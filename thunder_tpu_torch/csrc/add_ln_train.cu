@@ -26,9 +26,17 @@
 // partial row to a (warps, D) float32 workspace, and a second small kernel
 // sums the partials in a fixed order. No float atomics: the same inputs give
 // the same bits from run to run.
+// Any other width (not a multiple of 8, over 2048, or a tensor not 16-byte
+// aligned) runs the *_any kernels: the same warp a row and the same partial
+// rows of dg and db, a bf16 a lane at a time, re-reading x and y (and
+// regenerating the mask) in each pass instead of keeping the row in
+// registers; the warp's partial row of dg and db is kept in the workspace.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "dropout_hash.cuh"
 
@@ -214,6 +222,90 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// any width and alignment: x + dropout(y) at column c of a row, recomputed in each pass
+struct AnyRow {
+  const bf16* x;
+  const bf16* y;
+  uint32_t key;
+  float rate, inv_keep;
+  __device__ bool kept(int c) const { return rate <= 0.f || thunder_dropout::keep(key, (uint32_t)c, rate); }
+  __device__ float operator()(int c) const {
+    float yd = __bfloat162float(y[c]);
+    if (rate > 0.f) yd = kept(c) ? yd * inv_keep : 0.f;
+    return __bfloat162float(x[c]) + yd;
+  }
+};
+
+__device__ inline AnyRow any_row(const bf16* x, const bf16* y, int row, int d, uint32_t seed, float rate) {
+  return {x + (size_t)row * d, y + (size_t)row * d, thunder_dropout::row_key(seed, 0u, (uint32_t)row), rate,
+          1.f / (1.f - rate)};
+}
+
+// (mean, rstd) of one row, a pass over it
+__device__ inline void any_stats(const AnyRow& s, int d, int lane, float eps, float& mean, float& rstd) {
+  float sum = 0.f, sq = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = s(c);
+    sum += v;
+    sq += v * v;
+  }
+  mean = warp_sum(sum) / d;
+  rstd = rsqrtf(fmaxf(warp_sum(sq) / d - mean * mean, 0.f) + eps);
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+    add_ln_train_fwd_any_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
+                                const float* __restrict__ b, const int* __restrict__ seed, bf16* __restrict__ out,
+                                int rows, int d, float rate, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (row >= rows) return;
+  const AnyRow s = any_row(x, y, row, d, (uint32_t)seed[0], rate);
+  float mean, rstd;
+  any_stats(s, d, lane, eps, mean, rstd);
+  bf16* orow = out + (size_t)row * d;
+  for (int c = lane; c < d; c += 32) orow[c] = __float2bfloat16((s(c) - mean) * (rstd * g[c]) + b[c]);
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+    add_ln_train_bwd_any_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
+                                const int* __restrict__ seed, const bf16* __restrict__ dout, bf16* __restrict__ dx,
+                                bf16* __restrict__ dy, float* __restrict__ part_g, float* __restrict__ part_b,
+                                int rows, int d, float rate, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int part = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int row0 = part * ROWS_PER_WARP;
+  if (row0 >= rows) return;
+  float* pg = part_g + (size_t)part * d;
+  float* pb = part_b + (size_t)part * d;
+  for (int row = row0; row < min(row0 + ROWS_PER_WARP, rows); ++row) {
+    const AnyRow s = any_row(x, y, row, d, (uint32_t)seed[0], rate);
+    float mean, rstd;
+    any_stats(s, d, lane, eps, mean, rstd);
+    const bf16* dor = dout + (size_t)row * d;
+    float sg = 0.f, sgs = 0.f;
+    for (int c = lane; c < d; c += 32) {  // the row's two means, and its share of dg and db (same lane, in order)
+      const float shat = (s(c) - mean) * rstd;
+      const float dov = __bfloat162float(dor[c]);
+      const float gdv = __fmul_rn(dov, g[c]);  // rounded, as the next pass recomputes it: no fused multiply-add
+      sg += gdv;
+      sgs += gdv * shat;
+      pg[c] = (row == row0 ? 0.f : pg[c]) + dov * shat;
+      pb[c] = (row == row0 ? 0.f : pb[c]) + dov;
+    }
+    const float gm = warp_sum(sg) / d;
+    const float gsm = warp_sum(sgs) / d;
+    bf16* dxr = dx + (size_t)row * d;
+    bf16* dyr = dy + (size_t)row * d;
+    for (int c = lane; c < d; c += 32) {
+      const float shat = (s(c) - mean) * rstd;
+      const float ds = rstd * (__fmul_rn(__bfloat162float(dor[c]), g[c]) - gm - shat * gsm);
+      dxr[c] = __float2bfloat16(ds);
+      dyr[c] = __float2bfloat16(rate > 0.f ? (s.kept(c) ? ds * s.inv_keep : 0.f) : ds);
+    }
+  }
+}
+
 // dg[c] = sum_p part_g[p][c], db likewise, in a fixed order: thread (cx, py) sums the partials
 // py, py + RED_Y, ... in turn, then the RED_Y sums of a column are added in order
 __global__ void __launch_bounds__(RED_X * RED_Y)
@@ -252,7 +344,14 @@ __global__ void dropout_keep_mask_kernel(const int* __restrict__ seed, float* __
   mask[i] = thunder_dropout::keep(thunder_dropout::row_key((uint32_t)seed[0], 0u, row), col, rate) ? 1.f : 0.f;
 }
 
-bool bad_shape(int rows, int d) { return rows < 1 || d < 8 || d % 8 || d > 2048; }
+bool bad_shape(int rows, int d) { return rows < 1 || d < 1; }
+
+// the row in registers: a multiple of 8 up to 2048, every pointer 16-byte aligned
+bool vectorised(int d, std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return d % 8 == 0 && d <= 2048 && (bits & 15) == 0;
+}
 
 int parts_of(int rows) { return (rows + ROWS_PER_WARP - 1) / ROWS_PER_WARP; }
 
@@ -270,12 +369,18 @@ int parts_of(int rows) { return (rows + ROWS_PER_WARP - 1) / ROWS_PER_WARP; }
 
 }  // namespace
 
-// x, y, out: (rows, d) bf16, 16-byte aligned; g, b: (d,) f32, 16-byte aligned; seed: one int32 on the
-// device; d a multiple of 8 up to 2048; 0 <= rate < 1. Returns cudaGetLastError().
+// x, y, out: (rows, d) bf16; g, b: (d,) f32; seed: one int32 on the device; any d >= 1 (vectorised() picks the
+// kernel); 0 <= rate < 1. Returns cudaGetLastError().
 extern "C" int thunder_add_ln_train_fwd(const void* x, const void* y, const float* g, const float* b, const int* seed,
                                         void* out, int rows, int d, float rate, float eps, void* stream) {
   if (bad_shape(rows, d) || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + WARPS - 1) / WARPS;
+  if (!vectorised(d, {x, y, g, b, out})) {
+    add_ln_train_fwd_any_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, b, seed, static_cast<bf16*>(out), rows, d, rate,
+        eps);
+    return (int)cudaGetLastError();
+  }
 #define CALL(V)                                                                                          \
   add_ln_train_fwd_kernel<V><<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(              \
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, b, seed, static_cast<bf16*>(out), rows, d, rate, eps)
@@ -287,8 +392,8 @@ extern "C" int thunder_add_ln_train_fwd(const void* x, const void* y, const floa
 // The number of partial rows the backward writes for `rows` rows: part_g and part_b are (parts, d) f32.
 extern "C" int thunder_add_ln_train_parts(int rows) { return parts_of(rows); }
 
-// dout, dx, dy: (rows, d) bf16; part_g, part_b: (thunder_add_ln_train_parts(rows), d) f32 scratch;
-// dg, db: (d,) f32. Launches the backward and the sum of the partials. Returns cudaGetLastError().
+// dout, dx, dy: (rows, d) bf16, any d >= 1 as the forward; part_g, part_b: (thunder_add_ln_train_parts(rows), d)
+// f32 scratch; dg, db: (d,) f32. Launches the backward and the sum of the partials. Returns cudaGetLastError().
 extern "C" int thunder_add_ln_train_bwd(const void* x, const void* y, const float* g, const int* seed, const void* dout,
                                         void* dx, void* dy, float* part_g, float* part_b, float* dg, float* db,
                                         int rows, int d, float rate, float eps, void* stream) {
@@ -300,7 +405,13 @@ extern "C" int thunder_add_ln_train_bwd(const void* x, const void* y, const floa
   add_ln_train_bwd_kernel<V><<<blocks, WARPS * 32, 0, st>>>(                                                     \
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, seed, static_cast<const bf16*>(dout),        \
       static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps)
-  DISPATCH_VECS(d, CALL);
+  if (vectorised(d, {x, y, g, dout, dx, dy, part_g, part_b})) {
+    DISPATCH_VECS(d, CALL);
+  } else {
+    add_ln_train_bwd_any_kernel<<<blocks, WARPS * 32, 0, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, seed, static_cast<const bf16*>(dout),
+        static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps);
+  }
 #undef CALL
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -8,8 +8,9 @@
 //   out[b, t, o] = t < out_lengths[b] ? act( sum_c d[b, t, c] * pw[c, o] + bias[o] ) : 0
 // with act = ReLU or identity, the BN scale already folded into pw and bias.
 // Unlike the TPU kernels it takes any stride, dilation and channel count (a
-// multiple of 8), so the stem (stride 2, 64 channels) and the tail (dilation 2)
-// of QuartzNet run through it too.
+// multiple of 8 here; kernels/separable_conv.py pads others with zeros), so the
+// stem (stride 2, 64 channels) and the tail (dilation 2) of QuartzNet run
+// through it too.
 //
 // What bounds it on this card: by the operations, the depthwise, 2 k C_in f32
 // operations a frame on the CUDA cores (67 TFLOP/s), beside the pointwise
@@ -45,6 +46,12 @@
 // - the span and taps share their bytes with the weight ring when both do not
 //   fit beside the A tile (C_in = 512: A 64 KB, ring 2 x 3 x 8 KB); where they
 //   fit, the first weight boxes are requested before the depthwise starts.
+// - an input too wide for its A tile (C_in past about 1,500 at k = 33) runs
+//   as `parts` launches over slices of C_in of `part` channels each (the
+//   widest whose plan fits): each adds its product into a float32 (B, T_out,
+//   C_out) workspace in place, and the last adds bias, ReLU and the mask and
+//   stores bf16. x and dw keep their row stride x_ld = C_in; the weight map
+//   covers the part's rows of pw only, so the box past them arrives as zeros.
 // The first 4 x 256 16-byte chunks of the next channel chunk's span are
 // loaded into registers while this chunk's depthwise runs (8 of them, or the
 // rest batched four at a time, cost registers and gained less); keeping one
@@ -90,6 +97,7 @@ __host__ __device__ inline int span_rows(int k, int stride, int dilation) {
 struct Plan {
   long smem = 0;  // 0: does not fit
   int stages = 0, prefetch = 0, ring_off = 0, span_off = 0, layout = 0;
+  int part = 0, parts = 0;  // input channels a launch, launches (split_plan)
 };
 
 // Shared-memory layout from the 1024-byte aligned base: the A tile, each warpgroup's ring, then the chunk's input
@@ -119,6 +127,25 @@ Plan make_plan(int c_in, int k, int stride, int dilation) {
     }
   }
   return Plan{};
+}
+
+// All of C_in in one launch when its plan fits; else the fewest launches over slices of at most the widest multiple
+// of KC channels that fits, the slices as even as KC allows. smem 0: not even KC channels fit (the span alone is
+// too long).
+Plan split_plan(int c_in, int k, int stride, int dilation) {
+  Plan p = make_plan(c_in, k, stride, dilation);
+  int widest = c_in;
+  while (p.smem == 0 && widest > KC) {
+    widest = (int)round_up(widest, KC) - KC;
+    p = make_plan(widest, k, stride, dilation);
+  }
+  if (p.smem == 0) return Plan{};
+  const int parts = (c_in + widest - 1) / widest;
+  const int part = parts == 1 ? c_in : (int)round_up((c_in + parts - 1) / parts, KC);
+  if (part != widest) p = make_plan(part, k, stride, dilation);  // narrower: it fits too
+  p.part = part;
+  p.parts = parts;
+  return p;
 }
 
 __device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
@@ -169,13 +196,15 @@ __device__ __forceinline__ void depthwise_direct(const uint32_t* span, const uin
   }
 }
 
-// MODE 1: stride 1, dilation 1; MODE 2: stride 1, dilation 2; MODE 0: any stride and dilation
-template <int MODE>
+// MODE 1: stride 1, dilation 1; MODE 2: stride 1, dilation 2; MODE 0: any stride and dilation. SPLIT: one of
+// several launches over slices of C_in (x_ld, partial, first and last are read only then)
+template <int MODE, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 2)
     separable_repeat_kernel(const __grid_constant__ CUtensorMap pw_map, const bf16* __restrict__ x,
                             const bf16* __restrict__ dw, const float* __restrict__ bias,
-                            const int* __restrict__ out_lengths, bf16* __restrict__ out, int t_in, int t_out,
-                            int c_in, int c_out, int k, int stride, int dilation, int pad, int relu, int stages,
+                            const int* __restrict__ out_lengths, bf16* __restrict__ out,
+                            float* __restrict__ partial, int t_in, int t_out, int c_in, int x_ld, int c_out, int k,
+                            int stride, int dilation, int pad, int relu, int first, int last, int stages,
                             int prefetch, int ring_off, int span_off, int layout) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t lead = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
@@ -221,7 +250,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int rows = span_rows(k, stride, dilation);
   const int chunks = (rows + (int)round_up(k, U)) * 8;  // 16-byte chunks of the span and of the taps after it
   const int in0 = t0 * stride - pad;  // input frame of span row 0
-  const bf16* xb = x + (size_t)b * t_in * c_in;
+  const int ld = SPLIT ? x_ld : c_in;  // the row stride of x and dw
+  const bf16* xb = x + (size_t)b * t_in * ld;
   // 16-byte chunk i of channel chunk c0: span row i / 8 (zero outside the input), then the taps (zero past k)
   auto fetch = [&](int i, int c0) {
     const int row = i / 8;
@@ -229,9 +259,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (row < rows) {
       const int t = in0 + row;
-      if (t >= 0 && t < t_in && ch < c_in) v = *reinterpret_cast<const uint4*>(xb + (size_t)t * c_in + ch);
+      if (t >= 0 && t < t_in && ch < c_in) v = *reinterpret_cast<const uint4*>(xb + (size_t)t * ld + ch);
     } else if (row - rows < k && ch < c_in && i < chunks) {
-      v = *reinterpret_cast<const uint4*>(dw + (size_t)(row - rows) * c_in + ch);
+      v = *reinterpret_cast<const uint4*>(dw + (size_t)(row - rows) * ld + ch);
     }
     return v;
   };
@@ -314,8 +344,21 @@ __global__ void __launch_bounds__(THREADS, 2)
         const int t = t0 + row0 + 8 * ((i >> 1) & 1);
         const int o = q * 64 + 8 * (i / 4) + col0;
         if (t < t_out && o < c_out) {
-          float v0 = acc[i] + bias[o];
-          float v1 = acc[i + 1] + bias[o + 1];
+          float v0 = acc[i], v1 = acc[i + 1];
+          if (SPLIT) {
+            float2* ps = reinterpret_cast<float2*>(partial + ((size_t)b * t_out + t) * c_out + o);
+            if (!first) {  // the earlier slices' sum
+              const float2 sp = *ps;
+              v0 += sp.x;
+              v1 += sp.y;
+            }
+            if (!last) {
+              *ps = make_float2(v0, v1);
+              continue;
+            }
+          }
+          v0 += bias[o];
+          v1 += bias[o + 1];
           if (relu) {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
@@ -328,28 +371,36 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-using Kernel = decltype(&separable_repeat_kernel<1>);
+using Kernel = decltype(&separable_repeat_kernel<1, false>);
 
-Kernel pick(int stride, int dilation) {
-  if (stride == 1 && dilation == 1) return separable_repeat_kernel<1>;
-  if (stride == 1 && dilation == 2) return separable_repeat_kernel<2>;
-  return separable_repeat_kernel<0>;
+template <bool SPLIT>
+Kernel pick_mode(int stride, int dilation) {
+  if (stride == 1 && dilation == 1) return separable_repeat_kernel<1, SPLIT>;
+  if (stride == 1 && dilation == 2) return separable_repeat_kernel<2, SPLIT>;
+  return separable_repeat_kernel<0, SPLIT>;
+}
+
+Kernel pick(int stride, int dilation, bool split) {
+  return split ? pick_mode<true>(stride, dilation) : pick_mode<false>(stride, dilation);
 }
 
 }  // namespace
 
-// The launch's plan for these widths: out[0] shared-memory bytes per block (0: the span and the A tile do not fit
-// in 227 KB), out[1] the weight ring's stages per warpgroup, out[2] 1 if the first weight boxes are requested
-// before the depthwise, out[3] resident blocks per SM. Returns a cudaError_t.
+// The launch's plan for these widths (split_plan): out[0] shared-memory bytes per block (0: the span of 64
+// channels alone does not fit in 227 KB), out[1] the weight ring's stages per warpgroup, out[2] 1 if the first
+// weight boxes are requested before the depthwise, out[3] resident blocks per SM, out[4] the launches over slices
+// of C_in, out[5] the channels of each slice. Returns a cudaError_t.
 extern "C" int thunder_separable_repeat_plan(int c_in, int k, int stride, int dilation, int* out) {
   if (c_in < 8 || c_in % 8 || k < 1 || stride < 1 || dilation < 1) return (int)cudaErrorInvalidValue;
-  const Plan plan = make_plan(c_in, k, stride, dilation);
+  const Plan plan = split_plan(c_in, k, stride, dilation);
   out[0] = (int)plan.smem;
   out[1] = plan.stages;
   out[2] = plan.prefetch;
   out[3] = 0;
+  out[4] = plan.parts;
+  out[5] = plan.part;
   if (plan.smem == 0) return 0;
-  const Kernel kernel = pick(stride, dilation);
+  const Kernel kernel = pick(stride, dilation, plan.parts > 1);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, THREADS, plan.smem);
@@ -357,39 +408,49 @@ extern "C" int thunder_separable_repeat_plan(int c_in, int k, int stride, int di
 
 // x: (batch, t_in, c_in) bf16, zero beyond each row's input length; dw: (k, c_in) bf16;
 // pw: (c_in, c_out) bf16; bias: (c_out,) f32; out_lengths: (batch,) int32;
-// out: (batch, t_out, c_out) bf16; x, dw, pw and out 16-byte aligned. Returns cudaGetLastError().
+// out: (batch, t_out, c_out) bf16; x, dw, pw and out 16-byte aligned; partial: a (batch, t_out, c_out) f32
+// workspace when thunder_separable_repeat_plan gives more than one launch, else unused. Returns
+// cudaGetLastError().
 extern "C" int thunder_separable_repeat(const void* x, const void* dw, const void* pw, const float* bias,
-                                        const int* out_lengths, void* out, int batch, int t_in, int t_out, int c_in,
-                                        int c_out, int k, int stride, int dilation, int pad, int relu,
-                                        void* stream) {
+                                        const int* out_lengths, void* out, float* partial, int batch, int t_in,
+                                        int t_out, int c_in, int c_out, int k, int stride, int dilation, int pad,
+                                        int relu, void* stream) {
   if (batch < 1 || batch > 65535 || t_in < 1 || t_out < 1 || c_in < 8 || c_in % 8 || c_out < 8 || c_out % 8 ||
       k < 1 || stride < 1 || dilation < 1)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dw) | reinterpret_cast<uintptr_t>(pw) |
-       reinterpret_cast<uintptr_t>(out)) &
+       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(partial)) &
       15)
     return (int)cudaErrorMisalignedAddress;
-  const Plan plan = make_plan(c_in, k, stride, dilation);
+  const Plan plan = split_plan(c_in, k, stride, dilation);
   if (plan.smem == 0) return (int)cudaErrorInvalidValue;  // thunder_separable_repeat_plan names the reason
+  if (plan.parts > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  // pw as (c_out, c_in, 1), innermost first: 64 x 64 boxes in the 128-byte swizzle, zeros past either edge
-  const cuuint64_t dims[3] = {(cuuint64_t)c_out, (cuuint64_t)c_in, 1};
-  const cuuint64_t strides[2] = {(cuuint64_t)c_out * sizeof(bf16), (cuuint64_t)c_out * sizeof(bf16) * c_in};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t element_strides[3] = {1, 1, 1};
-  CUtensorMap map;
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(pw), dims, strides, box, element_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-  const Kernel kernel = pick(stride, dilation);
+  const Kernel kernel = pick(stride, dilation, plan.parts > 1);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_out + TT - 1) / TT, batch);
-  kernel<<<grid, THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<const bf16*>(x), static_cast<const bf16*>(dw), bias, out_lengths, static_cast<bf16*>(out),
-      t_in, t_out, c_in, c_out, k, stride, dilation, pad, relu, plan.stages, plan.prefetch, plan.ring_off,
-      plan.span_off, plan.layout);
-  return (int)cudaGetLastError();
+  for (int c0 = 0; c0 < c_in; c0 += plan.part) {
+    const int part = std::min(plan.part, c_in - c0);
+    // this slice's rows of pw as (c_out, part, 1), innermost first: 64 x 64 boxes in the 128-byte swizzle, zeros
+    // past either edge
+    const cuuint64_t dims[3] = {(cuuint64_t)c_out, (cuuint64_t)part, 1};
+    const cuuint64_t strides[2] = {(cuuint64_t)c_out * sizeof(bf16), (cuuint64_t)c_out * sizeof(bf16) * part};
+    const cuuint32_t box[3] = {64, 64, 1};
+    const cuuint32_t element_strides[3] = {1, 1, 1};
+    CUtensorMap map;
+    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+               const_cast<bf16*>(static_cast<const bf16*>(pw) + (size_t)c0 * c_out), dims, strides, box,
+               element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+    kernel<<<grid, THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(
+        map, static_cast<const bf16*>(x) + c0, static_cast<const bf16*>(dw) + c0, bias, out_lengths,
+        static_cast<bf16*>(out), partial, t_in, t_out, part, c_in, c_out, k, stride, dilation, pad, relu, c0 == 0,
+        c0 + part >= c_in, plan.stages, plan.prefetch, plan.ring_off, plan.span_off, plan.layout);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -9,7 +9,8 @@ Port of ``thunder_tpu/kernels/add_ln.py::add_layer_norm``; the kernel is
 with the fast variance ``E[s^2] - mean^2`` clipped at 0, float32 ``scale``
 and ``bias``, and the output in ``x``'s dtype. The add in float32 is the TPU
 kernel's documented deviation from the unfused path, which adds in the
-activation dtype before promoting.
+activation dtype before promoting. The kernel takes any width: a multiple of 8
+up to ``MAX_FEATURES`` keeps the row in registers, any other width re-reads it.
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`add_layer_norm_reference`) only for a CPU tensor.
@@ -23,7 +24,8 @@ from thunder_tpu_torch.kernels import _build
 
 __all__ = ["add_layer_norm", "add_layer_norm_reference", "MAX_FEATURES"]
 
-#: the kernel keeps a row in one warp's registers: 8 vectors of 8 values a lane
+#: the widest row the kernel keeps in one warp's registers (8 vectors of 8 values a lane); wider rows, and
+#: widths that are not a multiple of 8, take its second kernel, which reads the row twice
 MAX_FEATURES = 2048
 
 
@@ -43,8 +45,7 @@ def add_layer_norm(
     """``LayerNorm(x + y) * scale + bias`` over the last axis.
 
     Args:
-        x, y: ``(..., D)`` of one shape; on the card bfloat16, contiguous, with
-            ``D`` a multiple of 8 up to ``MAX_FEATURES``.
+        x, y: ``(..., D)`` of one shape; on the card bfloat16 and contiguous.
         scale, bias: ``(D,)``; float32 on the card.
 
     Returns:
@@ -62,11 +63,9 @@ def add_layer_norm(
         raise ValueError("the add + LayerNorm kernel takes bfloat16 x and y")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise ValueError("the add + LayerNorm kernel takes float32 scale and bias")
-    if d % 8 or not 8 <= d <= MAX_FEATURES:
-        raise ValueError(f"the add + LayerNorm kernel takes a multiple of 8 features up to {MAX_FEATURES}, got {d}")
     for name, t in (("x", x), ("y", y), ("scale", scale), ("bias", bias)):
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {x.device}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {x.device}")
     rows = x.numel() // d
     out = torch.empty_like(x)
     if rows == 0:

@@ -21,8 +21,9 @@ rstd`` and ``g = do * scale``
 row and column of the flattened ``(rows, D)`` input) under an int32 ``seed``
 tensor of one element that stays on the device; it is not the TPU kernel's
 Mosaic-PRNG mask, whose bits are the TPU's own. The TPU kernel's ``rows % 256``
-and ``D % 128`` requirements were Mosaic's blocks: here any row count goes,
-and ``D`` is a multiple of 8 up to ``MAX_FEATURES`` on the card. The kernels'
+and ``D % 128`` requirements were Mosaic's blocks: here any row count and any
+``D`` go (a multiple of 8 up to ``MAX_FEATURES`` keeps the row in registers,
+any other width re-reads it). The kernels'
 ``dscale`` and ``dbias`` are summed without atomics, so one seed gives the same
 bits from run to run.
 
@@ -36,7 +37,6 @@ from __future__ import annotations
 import torch
 
 from thunder_tpu_torch.kernels import _build, dropout_hash
-from thunder_tpu_torch.kernels.add_ln import MAX_FEATURES
 
 __all__ = [
     "add_ln_dropout_train",
@@ -109,12 +109,9 @@ def _check(x, y, scale, seed, rate):
 
 
 def _device_args(x, bf16_tensors, f32_tensors, seed):
-    """Check a CUDA launch's tensors: bfloat16 activations, float32 parameters, all contiguous, aligned, on one device."""
+    """Check a CUDA launch's tensors: bfloat16 activations, float32 parameters, all contiguous, on one device."""
     if x.device.type != "cuda":
         raise ValueError(f"add_ln_dropout_train runs on cuda or cpu tensors, got {x.device}")
-    d = x.shape[-1]
-    if d % 8 or not 8 <= d <= MAX_FEATURES:
-        raise ValueError(f"the add + dropout + LayerNorm kernels take a multiple of 8 features up to {MAX_FEATURES}, got {d}")
     for name, t in bf16_tensors.items():
         if t.dtype != torch.bfloat16:
             raise ValueError(f"the add + dropout + LayerNorm kernels take bfloat16 {name}, got {t.dtype}")
@@ -122,8 +119,8 @@ def _device_args(x, bf16_tensors, f32_tensors, seed):
         if t.dtype != torch.float32:
             raise ValueError(f"the add + dropout + LayerNorm kernels take float32 {name}, got {t.dtype}")
     for name, t in {**bf16_tensors, **f32_tensors, "seed": seed}.items():
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % (4 if name == "seed" else 16):
-            raise ValueError(f"{name} must be a contiguous, aligned tensor on {x.device}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {x.device}")
 
 
 def add_ln_train_forward(x, y, scale, bias, seed, rate: float = 0.0, eps: float = 1e-5) -> torch.Tensor:
@@ -225,8 +222,7 @@ def add_ln_dropout_train(x, y, scale, bias, seed, dropout_rate: float = 0.0, eps
     """``LayerNorm(x + dropout(y))`` in one pass, differentiable in ``x``, ``y``, ``scale`` and ``bias``.
 
     Args:
-        x, y: ``(..., D)`` of one shape; on the card bfloat16 with ``D`` a
-            multiple of 8 up to ``MAX_FEATURES``.
+        x, y: ``(..., D)`` of one shape; on the card bfloat16.
         scale, bias: ``(D,)`` float32.
         seed: int32 ``(1,)`` on ``x``'s device; not read at ``dropout_rate == 0``.
     """

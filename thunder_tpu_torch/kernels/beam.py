@@ -45,10 +45,12 @@ __all__ = [
     "beam_backtrace_reference",
     "candidates",
     "fresh_state",
+    "scan_fits",
     "scan_plan",
 ]
 
-#: the largest per-frame candidate block W*K, as the JAX package's device search allows
+#: the largest per-frame candidate block W*K the JAX package's device search allows; the kernel takes any W*K
+#: whose block fits (:func:`scan_fits`), every one up to this with W <= 2048 among them
 MAX_CANDIDATES = 8192
 #: shared memory a block may use on sm_90 (``csrc/beam_search.cu``: ``MAX_SMEM``)
 MAX_SHARED_BYTES = 232448
@@ -78,6 +80,12 @@ def scan_plan(beam_width: int, k: int) -> dict:
     runs = -(-(beam_width + beam_width * k) // 32)
     cap = MAX_TREE_THREADS if beam_width <= 32 else MAX_THREADS
     return {"threads": min(cap, 32 * runs), "smem_bytes": 4 * (18 * beam_width + 64 * runs + 4 * k + 2)}
+
+
+def scan_fits(beam_width: int, k: int) -> bool:
+    """Whether the scan takes ``beam_width`` beams of ``k`` candidates a frame: its block fits in
+    ``MAX_SHARED_BYTES`` (at W = 16, up to K = 1,605: Citrinet's V = 1025 with every token a step)."""
+    return scan_plan(beam_width, k)["smem_bytes"] <= MAX_SHARED_BYTES
 
 
 def fresh_state(batch: int, beam_width: int, device) -> State:
@@ -113,8 +121,10 @@ def _check_scan(logp, lengths, blank, beam_width, k_tokens, init_state):
     if beam_width < 1 or k_tokens < 1:
         raise ValueError(f"beam_width and k_tokens must be positive, got {beam_width}, {k_tokens}")
     k = min(int(k_tokens), vocab)
-    if beam_width * k > MAX_CANDIDATES:
-        raise ValueError(f"the beam scan requires beam_width*K <= {MAX_CANDIDATES} (got K={k}, W={beam_width})")
+    if not scan_fits(beam_width, k):
+        raise ValueError(f"beam_width {beam_width} with K={k} candidates a step needs "
+                         f"{scan_plan(beam_width, k)['smem_bytes']} bytes of the scan's shared memory, over "
+                         f"{MAX_SHARED_BYTES}")
     if init_state is not None and (len(init_state) != 5 or any(a.shape != (batch, beam_width) for a in init_state)):
         raise ValueError(f"init_state must be five ({batch}, {beam_width}) arrays")
 
@@ -213,10 +223,6 @@ def beam_scan(logp, lengths, floor, *, blank: int, beam_width: int, k_tokens: in
     dev, W = logp.device, beam_width
     if batch < 1:
         raise ValueError("the beam scan needs at least one row")
-    K = min(int(k_tokens), vocab)
-    smem = scan_plan(W, K)["smem_bytes"]
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"beam_width {W} with K={K} needs {smem} bytes of shared memory, over {MAX_SHARED_BYTES}")
     K, topv, topi = candidates(logp, k_tokens)
     state = fresh_state(batch, W, dev) if init_state is None else init_state
     pb0, pnb0 = (a.to(dev, torch.float32).contiguous() for a in state[:2])

@@ -19,6 +19,12 @@ falls on both. Each process times, with CUDA events:
   shapes of QuartzNet15x5's 77 launches a 64 × 15 s forward
   (``QUARTZNET_SEPARABLE_SHAPES``), their count-weighted sum, and three
   shapes that take most of one phase away (``SEPARABLE_PHASE_SHAPES``);
+- the log-mel kernel (``fused_log_mel``) at each of ``LOG_MEL_SHAPES``:
+  QuartzNet's serving batch (64 × 15 s) and training batch (16 × 15 s) at
+  16 kHz, and 16 × 15 s of 48 kHz audio with a 25 ms window (hop 480, win
+  1200, n_fft 2048); a shape the checkout's wrapper does not take (decided
+  before the call, by its plan or by the parent kernel's predicate) is
+  recorded as ``"refused"``;
 - the beam scan (``beam_scan``, W = 16, floor -12) at the three shapes of
   ``BEAM_SHAPES``: QuartzNet's serving decode (64 × 751 × 29, K = V), the
   ``beam_device_topk`` shape (64 × 188 × 1025, K = 50; the wrapper's top-K
@@ -27,14 +33,18 @@ falls on both. Each process times, with CUDA events:
   every row at full length;
 - one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``)
   and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW),
-  and one QuartzNet15x5 greedy forward at 64 × 15 s and training step at
-  16 × 15 s (SpecAugment, dropout 0.1, bf16, AdamW), as ``chip_smoke.py`` runs
-  them, on noise audio from numpy seed 0.
+  and one QuartzNet15x5 greedy forward at 64 × 15 s (20 iterations), a beam
+  ``predict`` of the same batch (``beam_width=16, beam_backend="device"``, the
+  median of 5 on the host clock, from numpy audio to transcripts) and a
+  training step at 16 × 15 s (SpecAugment,
+  dropout 0.1, bf16, AdamW), as ``chip_smoke.py`` runs them, on noise audio
+  from numpy seed 0.
 
 Every number is a mean over its iterations in milliseconds; the last line is
 one JSON object with both sides' four runs. Only the API both checkouts share
 is used. ``--parts`` limits each process to some of the groups
-(``attention``, ``ctc``, ``separable``, ``beam``, ``wav2vec2``, ``quartznet``).
+(``attention``, ``ctc``, ``separable``, ``log_mel``, ``beam``, ``wav2vec2``,
+``quartznet``).
 """
 
 from __future__ import annotations
@@ -44,10 +54,11 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-PARTS = ("attention", "ctc", "separable", "beam", "wav2vec2", "quartznet")
+PARTS = ("attention", "ctc", "separable", "log_mel", "beam", "wav2vec2", "quartznet")
 #: QuartzNet15x5's separable repeats in one forward at 64 x 15 s (T = 1501 log-mel frames, 751 after the stem):
 #: (t_in, C_in, C_out, k, stride, dilation) -> launches
 QUARTZNET_SEPARABLE_SHAPES = {
@@ -59,6 +70,14 @@ QUARTZNET_SEPARABLE_SHAPES = {
     (751, 512, 512, 63, 1, 1): 15,
     (751, 512, 512, 75, 1, 1): 15,
     (751, 512, 512, 87, 1, 2): 1,
+}
+
+
+#: the log-mel's shapes: name -> (B, samples, fused_log_mel keywords)
+LOG_MEL_SHAPES = {
+    "serving_64x240000": (64, 240000, {}),
+    "training_16x240000": (16, 240000, {}),
+    "48k_16x720000_n2048_hop480": (16, 720000, dict(sample_rate=48000, n_fft=2048, hop_length=480, win_length=1200)),
 }
 
 
@@ -149,6 +168,35 @@ def measure_beam(iters: int = 10) -> dict:
     return out
 
 
+def _log_mel_refused(n_fft: int = 512, hop_length: int = 160, win_length: int = 320, n_mels: int = 64, **_) -> bool:
+    """Whether the checkout's log-mel wrapper refuses these sizes, decided before any launch: by its plan where
+    it has one, else by the predicate of the dense kernel it replaced (at most 1,024 bins, n_fft and hop
+    multiples of 4)."""
+    from thunder_tpu_torch.kernels import frontend
+
+    if hasattr(frontend, "log_mel_plan"):
+        return frontend.log_mel_plan(n_fft, hop_length, win_length, n_mels)["smem_bytes"] == 0
+    return n_fft // 2 + 1 > 1024 or n_fft % 4 != 0 or hop_length % 4 != 0
+
+
+def measure_log_mel(iters: int = 20) -> dict:
+    """``fused_log_mel`` at each of ``LOG_MEL_SHAPES`` on noise audio (seed 0): ``{name: ms}``, or ``"refused"``
+    where the checkout's wrapper does not take the sizes (:func:`_log_mel_refused`)."""
+    import torch
+
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, (batch, samples, kw) in LOG_MEL_SHAPES.items():
+        if _log_mel_refused(**kw):
+            out[name] = "refused"
+            continue
+        audio = torch.randn((batch, samples), device="cuda", generator=gen) * 0.1
+        out[name] = _cuda_ms(lambda: fused_log_mel(audio, **kw), iters)
+    return out
+
+
 def measure(parts=PARTS) -> dict:
     """The timings of the checkout that ``thunder_tpu_torch`` imports from, for the groups in ``parts``."""
     import numpy as np
@@ -162,6 +210,8 @@ def measure(parts=PARTS) -> dict:
 
     if "separable" in parts:
         out["separable_ms"] = measure_separable()
+    if "log_mel" in parts:
+        out["log_mel_ms"] = measure_log_mel()
     if "beam" in parts:
         out["beam_scan_ms"] = measure_beam()
     if "attention" in parts:
@@ -293,7 +343,16 @@ def _measure_quartznet(out: dict, rng, step_gen) -> None:
     qn_engine = InferenceEngine(qn)
     qn_audio = torch.as_tensor((rng.standard_normal((64, 240000)) * 0.1).astype(np.float32), device="cuda")
     qn_lens = torch.full((64,), 240000, dtype=torch.int32, device="cuda")
-    out["quartznet_forward_ms"] = _cuda_ms(lambda: qn_engine.infer(qn_audio, qn_lens), 5)
+    out["quartznet_forward_ms"] = _cuda_ms(lambda: qn_engine.infer(qn_audio, qn_lens), 20)
+    host_audio, host_lens = qn_audio.cpu().numpy(), qn_lens.cpu().numpy()
+    qn_engine.predict(host_audio, host_lens, beam_width=16, beam_backend="device")
+    beam_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qn_engine.predict(host_audio, host_lens, beam_width=16, beam_backend="device")
+        beam_ms.append((time.perf_counter() - t0) * 1e3)
+    out["quartznet_beam_predict_ms"] = float(np.median(beam_ms))
     del qn_engine, qn
     augmenting = FilterbankFeatures(num_time_masks=2, num_freq_masks=2)
     qn_train = CTCModule.create(torch.Generator().manual_seed(0), augmenting,

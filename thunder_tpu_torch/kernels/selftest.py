@@ -2,7 +2,11 @@
 
 Port of ``thunder_tpu/kernels/selftest.py`` for the kernels this package has,
 with its check names and tolerances: ``frontend_log_mel`` (2e-3 absolute,
-log-mel units), ``separable_conv`` and ``repeat_tm`` (8 bf16 ULP at the
+log-mel units; the ``frontend_log_mel_edge_*`` checks, ``LOG_MEL_EDGES``,
+hold the kernel to the same limit at 44.1 and 48 kHz with n_fft 2048, hop
+161, n_fft 4096, the dense path's n_fft 400, frame counts that end inside a
+tile with a row of zeros, and a clip of one frame, and fail unless the plan
+takes the path named), ``separable_conv`` and ``repeat_tm`` (8 bf16 ULP at the
 reference's maximum magnitude), ``ctc_recursion`` (0.01: absolute loss delta
 or gradient delta relative to the largest gradient, against the plain time
 loop). ``ctc_edge`` holds the CTC kernels to the JAX package's CPU limits on
@@ -17,11 +21,14 @@ the TPU kernels did not take; ``repeat_tm`` runs ragged lengths and fails
 unless every row beyond a length is exactly zero. The ``separable_edge_*``
 checks (``SEPARABLE_EDGES``) hold the kernel at the edges of its tiles: C_in
 and C_out no multiple of 64 (200 -> 264), T_out = 1 and 65, k = 1, the
-strided stem and the dilated tail with a row of length 0, and C_in = 1024,
-each to 8 bf16 ULP and exact zeros beyond every length. ``attn_onepanel``
+strided stem and the dilated tail with a row of length 0, C_in = 1024, C_in =
+C_out = 100 (padded to 104 by the wrapper), and C_in = 2048 and 1544 (two
+launches over slices of C_in), each to 8 bf16 ULP and exact zeros beyond
+every length. ``attn_onepanel``
 (B = 2, T = 256, 4 heads), ``attn_onepanel_1536`` (B = 2, T = 1536, 12
 heads) and ``add_ln`` (8 x 768 rows x 768) keep the JAX names and limits (4,
-4 and 2 bf16 ULP); ``attn_onepanel_749`` adds the wav2vec2-base serving
+4 and 2 bf16 ULP; ``add_ln_width36`` and ``add_ln_width2056`` hold the
+kernel that re-reads the row to the same 2); ``attn_onepanel_749`` adds the wav2vec2-base serving
 length at 15 s (T = 749, not a multiple of 128) with ragged lengths and a
 row of length 0; ``attn_long_3001`` a 60 s chunk (B = 1, T = 3001, 12 heads),
 past the 1664 frames that the first kernel's score panel held. The attention
@@ -33,6 +40,9 @@ plain versions'; its number is then the largest difference of the float
 state and ``total`` (limit 2e-3, the JAX package's score tolerance against
 its host search; both routes compute the same float32 operations, so it is
 0 when the card's ``expf``/``log1pf`` round as PyTorch's do).
+``beam_device_v1025_all_tokens`` (B = 4, T = 60, V = K = 1025) and
+``beam_device_w300`` (B = 4, T = 120, V = 29, beam 300) hold it exactly past
+the JAX package's 8,192 candidates a frame.
 ``beam_device_topk`` runs the ``K < V`` pre-prune at the Citrinet serving
 shape (B = 64, T = 188, V = 1025, K = 50, beam 16), and ``beam_stream``
 holds four windows that tile the ``beam_device`` utterance, each one scan
@@ -50,7 +60,9 @@ The training kernels keep the JAX names, shapes and limits too:
 ``attn_train_grad`` (B = 2, T = 768, 12 heads, lengths ``[T, T - 129]``, the
 cotangent zero on padded queries, no dropout), ``attn_train_dropout`` and
 ``attn_train_dropout_1536`` (B = 2, 2 heads, rate 0.3, T = 128 and 1536) and
-``add_ln_train`` (2 x 512 rows x 768, rate 0.1), each at 8 bf16 ULP for the
+``add_ln_train`` (2 x 512 rows x 768, rate 0.1; ``add_ln_train_width36`` and
+``add_ln_train_width2056`` at the widths of ``ADD_LN_WIDTHS``, which run the
+kernels that re-read the row), each at 8 bf16 ULP for the
 forward and the bf16 gradients, and 1 % relative (1.0 in the check's units)
 for the float32 ``dscale`` and ``dbias``. Each holds the kernels both to
 their plain versions and to a float32 reference that applies the same mask
@@ -92,14 +104,15 @@ from thunder_tpu_torch.kernels.attention_train import (
 )
 from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_backtrace_reference, beam_scan, beam_scan_reference
 from thunder_tpu_torch.kernels.ctc import ctc_ll, ctc_ll_reference, extended_emissions, scores_from_ll
-from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
+from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_plan, log_mel_reference
 from thunder_tpu_torch.kernels.separable_conv import (
     fused_separable_repeat,
     output_length,
     separable_repeat_reference,
 )
 
-__all__ = ["run_selftests", "KERNEL_CHECKS", "SEPARABLE_EDGES", "ulp_bf16_error", "exact_float32"]
+__all__ = ["run_selftests", "KERNEL_CHECKS", "SEPARABLE_EDGES", "LOG_MEL_EDGES", "ADD_LN_WIDTHS", "ulp_bf16_error",
+           "exact_float32"]
 
 
 def exact_float32() -> None:
@@ -153,6 +166,24 @@ def _check_frontend(device) -> dict:
     audio = torch.as_tensor(rng.standard_normal((4, 16000)).astype(np.float32) * 0.2, device=device)
     err = (fused_log_mel(audio) - log_mel_reference(audio)).abs().max().item()
     return {"max_err": err, "max_abs_err": err}
+
+
+def _log_mel_check(seed, batch, time, path, zero_row=None, **config):
+    """The log-mel kernel against its plain version on noise audio at one configuration (``fused_log_mel``'s
+    keywords), with row ``zero_row`` all zeros; ``inf`` unless the plan takes ``path``."""
+    def check(device) -> dict:
+        audio = np.random.default_rng(seed).standard_normal((batch, time)).astype(np.float32) * 0.2
+        if zero_row is not None:
+            audio[zero_row] = 0.0
+        x = torch.as_tensor(audio, device=device)
+        err = (fused_log_mel(x, **config) - log_mel_reference(x, **config)).abs().max().item()
+        taken = log_mel_plan(config.get("n_fft", 512), config.get("hop_length", 160), config.get("win_length", 320),
+                             config.get("n_mels", 64))["path"]
+        result = {"max_err": err, "max_abs_err": err, "path": taken}
+        if taken != path:
+            result.update(max_err=float("inf"), error=f"the plan takes the {taken} path, not {path}")
+        return result
+    return check
 
 
 def _separable_check(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False, lengths=None):
@@ -299,10 +330,13 @@ def add_ln_case(seed, rows_shape, d, device):
     return x, y, scale, bias
 
 
-def _check_add_ln(device) -> dict:
-    case = add_ln_case(5, (8, 768), 768, device)
-    got, want = add_layer_norm(*case), add_layer_norm_reference(*case)
-    return {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
+def _add_ln_check(seed, rows_shape, d):
+    def check(device) -> dict:
+        case = add_ln_case(seed, rows_shape, d, device)
+        got, want = add_layer_norm(*case), add_layer_norm_reference(*case)
+        return {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
+
+    return check
 
 
 def attention_f32_reference(qkv, lengths, heads, mask=None, keep=1.0):
@@ -391,9 +425,12 @@ def add_ln_f32_reference(x, y, scale, bias, mask, rate, eps=1e-5):
     return (s - mu) * (torch.rsqrt(var + eps) * scale) + bias
 
 
-def _check_add_ln_train(device) -> dict:
-    rate = 0.1
-    x, y, scale, bias, ct = add_ln_train_case(12, (2, 512), 768, device)
+def _add_ln_train_check(seed, rows_shape, d, rate=0.1):
+    return lambda device: _check_add_ln_train(device, seed, rows_shape, d, rate)
+
+
+def _check_add_ln_train(device, seed=12, rows_shape=(2, 512), d=768, rate=0.1) -> dict:
+    x, y, scale, bias, ct = add_ln_train_case(seed, rows_shape, d, device)
     sd = torch.tensor([20260821], dtype=torch.int32, device=device)
     run = lambda: (add_ln_train_forward(x, y, scale, bias, sd, rate),  # noqa: E731
                    *add_ln_train_backward(x, y, scale, sd, ct, rate))
@@ -515,12 +552,41 @@ SEPARABLE_EDGES = {
     "separable_edge_stem": ((24, 3, 301, 64, 256, 33), {"stride": 2, "lengths": [301, 0, 150]}),
     "separable_edge_tail": ((25, 2, 200, 512, 512, 87), {"dilation": 2, "lengths": [200, 0]}),
     "separable_edge_cin1024": ((26, 2, 130, 1024, 1024, 33), {"lengths": [130, 0]}),  # one block an SM
+    # channel counts that are not multiples of 8: zero-padded by the wrapper
+    "separable_edge_cin100": ((27, 2, 120, 100, 100, 33), {"lengths": [120, 0]}),
+    # A tiles past one block: two launches over slices of C_in, the second one not a multiple of 64
+    "separable_edge_cin2048": ((28, 2, 130, 2048, 2048, 33), {"lengths": [130, 61]}),
+    "separable_edge_cin1544": ((29, 2, 70, 1544, 264, 33), {"lengths": [70, 0]}),
+}
+
+#: add + LayerNorm at widths its register-resident kernels do not take (not a multiple of 8, over 2048): the
+#: kernels that re-read the row. name -> (seed, rows, width)
+ADD_LN_WIDTHS = {"width36": (40, (8, 100), 36), "width2056": (41, (3, 67), 2056)}
+
+#: the log-mel kernel at other sizes: name -> (``_log_mel_check`` arguments, keywords). The FFT path tiles 16
+#: frames at n_fft 512 (fewer as n_fft grows); the dense path takes any other n_fft.
+LOG_MEL_EDGES = {
+    "frontend_log_mel_edge_44k1": ((30, 2, 44100, "fft"),
+                                   dict(sample_rate=44100, n_fft=2048, hop_length=441, win_length=1103)),
+    "frontend_log_mel_edge_48k": ((31, 2, 48000, "fft"),
+                                  dict(sample_rate=48000, n_fft=2048, hop_length=480, win_length=1200)),
+    "frontend_log_mel_edge_hop161": ((32, 2, 16000, "fft"), dict(hop_length=161)),
+    "frontend_log_mel_edge_n4096": ((33, 2, 48000, "fft"),
+                                    dict(sample_rate=48000, n_fft=4096, hop_length=480, win_length=2400, n_mels=128)),
+    "frontend_log_mel_edge_dense400": ((34, 3, 16000, "dense"), dict(n_fft=400, win_length=400, n_mels=80)),
+    # 101 frames a row: 6 tiles and 5 frames; row 1 all zeros (log 2^-24 everywhere)
+    "frontend_log_mel_edge_ragged_zero_row": ((35, 3, 16100, "fft"), dict(zero_row=1)),
+    # one frame: 100 samples at hop 160 (the reflect pad needs more than n_fft // 2 = 16)
+    "frontend_log_mel_edge_one_frame": ((36, 2, 100, "fft"), dict(n_fft=32, win_length=32, n_mels=16)),
+    # 78 frames: 4 tiles and 14 frames
+    "frontend_log_mel_edge_frames_off_tile": ((37, 3, 12345, "fft"), {}),
 }
 
 KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # name -> (check fn, tolerance); units: absolute log-mel for the frontend,
     # bf16 ULPs at the reference's max magnitude for the separable repeat
     "frontend_log_mel": (_check_frontend, 2e-3),
+    **{name: (_log_mel_check(*args, **kw), 2e-3) for name, (args, kw) in LOG_MEL_EDGES.items()},
     "separable_conv": (_separable_check(1, 4, 384, 512, 512, 33), 8.0),  # QuartzNet15x5 body shape
     "separable_conv_stem": (_separable_check(13, 4, 768, 64, 256, 33, stride=2), 8.0),
     "separable_conv_tail": (_separable_check(14, 4, 384, 512, 512, 87, dilation=2), 8.0),
@@ -538,7 +604,8 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_onepanel_1536": (_attention_check(6, 2, 1536, 12, [1536, 1479]), 4.0),
     "attn_onepanel_749": (_attention_check(7, 4, 749, 12, [749, 512, 37, 0]), 4.0),
     "attn_long_3001": (_attention_check(16, 1, 3001, 12, [3001]), 4.0),
-    "add_ln": (_check_add_ln, 2.0),
+    "add_ln": (_add_ln_check(5, (8, 768), 768), 2.0),
+    **{f"add_ln_{name}": (_add_ln_check(*args), 2.0) for name, args in ADD_LN_WIDTHS.items()},
     # the training kernels: bf16 ULPs against the plain version and against the float32 reference with the
     # same mask; inf when two runs differ in a bit or the kept fraction is off (dscale, dbias: 1 % is 1.0)
     "attn_train_grad": (_attention_train_check(8, 2, 768, 12, [768, 768 - 129], 0.0), 8.0),
@@ -547,12 +614,16 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_train_749": (_attention_train_check(10, 4, 749, 12, [749, 512, 37, 0], 0.1), 8.0),
     "attn_train_long_2048": (_attention_train_check(17, 2, 2048, 12, [2048, 1900], 0.1), 8.0),
     "add_ln_train": (_check_add_ln_train, 8.0),
+    **{f"add_ln_train_{name}": (_add_ln_train_check(*args), 8.0) for name, args in ADD_LN_WIDTHS.items()},
     # beam search: exact pointers, exts, integer state and hypotheses (else inf), then the float
     # state's and total's largest difference, within the JAX package's score tolerance
     "beam_device": (_beam_check(3, 64, 751, 29, 16, 29), 2e-3),
     "beam_device_topk": (_beam_check(4, 64, 188, 1025, 16, 50), 2e-3),
     "beam_stream": (_check_beam_stream, 2e-3),
     "beam_ties_dead": (_beam_check(5, 64, 751, 29, 16, 29, case=ties_dead_case, floor=-3.0), 2e-3),
+    # past the JAX package's 8,192 candidates a frame: Citrinet's V = 1025 with every token a step, and W = 300
+    "beam_device_v1025_all_tokens": (_beam_check(6, 4, 60, 1025, 16, 1025), 2e-3),
+    "beam_device_w300": (_beam_check(7, 4, 120, 29, 300, 29), 2e-3),
 }
 
 

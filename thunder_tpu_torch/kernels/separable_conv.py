@@ -15,6 +15,11 @@ beyond each row's valid length (the engine keeps that invariant), as for the
 TPU kernels. The time-major layout and tile shapes of the TPU kernels are not
 ported: they were TPU layout workarounds and do not change the result.
 
+The kernel reads 16 bytes at a time, so the wrapper pads channel counts that
+are not multiples of 8 with zeros (:func:`pad_channels`) and slices the
+output; an input too wide for one block's A tile runs as a few launches over
+slices of its channels (:func:`separable_plan`'s ``parts``).
+
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`separable_repeat_reference`) only for a CPU tensor.
 """
@@ -31,7 +36,8 @@ from thunder_tpu_torch.kernels import _build
 from thunder_tpu_torch.ops.conv import conv_output_length, get_same_padding
 from thunder_tpu_torch.ops.masking import lengths_to_mask
 
-__all__ = ["fused_separable_repeat", "separable_repeat_reference", "output_length", "separable_plan"]
+__all__ = ["fused_separable_repeat", "separable_repeat_reference", "output_length", "separable_plan",
+           "pad_channels"]
 
 
 def output_length(time: int, kernel_size: int, stride: int = 1, dilation: int = 1) -> int:
@@ -74,13 +80,24 @@ def separable_repeat_reference(
 @functools.lru_cache(maxsize=None)
 def separable_plan(c_in: int, kernel_size: int, stride: int = 1, dilation: int = 1) -> dict:
     """The kernel's launch plan on the current card for these widths: shared memory per block
-    (``smem_bytes``, 0 when the tile does not fit in 227 KB), weight-ring stages per warpgroup,
-    whether the first weight boxes are requested before the depthwise (``prefetch``), and the
-    resident blocks per SM (``blocks_per_sm``). Builds the kernels on first use."""
-    out = (ctypes.c_int * 4)()
+    (``smem_bytes``, 0 when not even 64 channels' input span fits in 227 KB), weight-ring stages per
+    warpgroup, whether the first weight boxes are requested before the depthwise (``prefetch``), the
+    resident blocks per SM (``blocks_per_sm``), and the launches over slices of ``c_in`` (``parts``, 1
+    unless the A tile of all of ``c_in`` does not fit) of ``part`` channels each. Builds the kernels on
+    first use."""
+    out = (ctypes.c_int * 6)()
     _build.check(_build.load().thunder_separable_repeat_plan(c_in, kernel_size, stride, dilation, out),
                  "thunder_separable_repeat_plan")
-    return {"smem_bytes": out[0], "stages": out[1], "prefetch": bool(out[2]), "blocks_per_sm": out[3]}
+    return {"smem_bytes": out[0], "stages": out[1], "prefetch": bool(out[2]), "blocks_per_sm": out[3],
+            "parts": out[4], "part": out[5]}
+
+
+def pad_channels(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, bias: torch.Tensor):
+    """``(x, dw, pw, bias)`` with C_in and C_out zero-padded to multiples of 8. A padded input channel has
+    zero taps and zero weights and a padded output channel zero weights and bias, so the repeat's first
+    C_out output channels are unchanged."""
+    pad_in, pad_out = -x.shape[-1] % 8, -pw.shape[1] % 8
+    return F.pad(x, (0, pad_in)), F.pad(dw, (0, pad_in)), F.pad(pw, (0, pad_out, 0, pad_in)), F.pad(bias, (0, pad_out))
 
 
 def _check(x, out_lengths, dw, pw, bias, kernel_size):
@@ -114,9 +131,11 @@ def fused_separable_repeat(
         pw: ``(C_in, C_out)`` pointwise weights with the BN scale folded in.
         bias: ``(C_out,)`` float32 folded-BN bias.
 
-    On the card: bfloat16 ``x``/``dw``/``pw``, channel counts multiples of 8,
-    and up to about 1,500 input channels (the A tile of 64 frames stays in
-    shared memory); a shape the kernel does not take raises.
+    On the card: bfloat16 ``x``/``dw``/``pw``. Channel counts that are not
+    multiples of 8 are padded with zeros (:func:`pad_channels`), and an input
+    whose A tile of 64 frames does not fit in shared memory (about 1,500
+    channels at k = 33) runs as ``separable_plan(...)["parts"]`` launches; a
+    span too long for even 64 channels raises.
 
     Returns:
         ``(batch, time_out, C_out)`` in ``x.dtype``.
@@ -138,25 +157,29 @@ def fused_separable_repeat(
     batch, time, c_in = x.shape
     c_out = pw.shape[1]
     if c_in % 8 or c_out % 8:
-        raise ValueError(f"channel counts must be multiples of 8, got {c_in} -> {c_out}")
+        x, dw, pw, bias = pad_channels(x, dw, pw, bias)
+        out = fused_separable_repeat(x, out_lengths, dw, pw, bias, kernel_size, stride, dilation, relu)
+        return out[..., :c_out].contiguous()
     pad = get_same_padding(kernel_size, stride, dilation)
     t_out = output_length(time, kernel_size, stride, dilation)
     if batch < 1 or t_out < 1:
         raise ValueError(f"the separable repeat kernel takes a non-empty batch, got {tuple(x.shape)}")
-    if separable_plan(c_in, kernel_size, stride, dilation)["smem_bytes"] == 0:
+    plan = separable_plan(c_in, kernel_size, stride, dilation)
+    if plan["smem_bytes"] == 0:
         raise ValueError(
-            f"the separable repeat kernel's A tile ({c_in} channels x 64 frames) and input span (k={kernel_size}, "
-            f"stride {stride}, dilation {dilation}) do not fit in one block's 227 KB of shared memory"
+            f"the separable repeat kernel's input span (k={kernel_size}, stride {stride}, dilation {dilation}) does "
+            "not fit in one block's 227 KB of shared memory beside even 64 channels' A tile"
         )
     out = torch.empty((batch, t_out, c_out), dtype=x.dtype, device=x.device)
+    partial = torch.empty((batch, t_out, c_out), dtype=torch.float32, device=x.device) if plan["parts"] > 1 else None
     lib = _build.load()
     status = lib.thunder_separable_repeat(
         x.data_ptr(), dw.data_ptr(), pw.data_ptr(), bias.data_ptr(), out_lengths.data_ptr(), out.data_ptr(),
-        batch, time, t_out, c_in, c_out, kernel_size, stride, dilation, pad, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        0 if partial is None else partial.data_ptr(), batch, time, t_out, c_in, c_out, kernel_size, stride, dilation,
+        pad, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "thunder_separable_repeat")
-    fused_separable_repeat.launches += 1
+    fused_separable_repeat.launches += plan["parts"]
     return out
 
 

@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from thunder_tpu_torch.kernels.beam import MAX_CANDIDATES, beam_backtrace, beam_scan
+from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_scan, scan_fits
 
 __all__ = ["beam_search_device", "beam_search_device_stream", "DeviceBeamState", "lm_prefix_score"]
 
@@ -52,10 +52,10 @@ def _inputs(logits, lengths, device):
 
 def _k_tokens(max_tokens_per_step, vocab: int, beam_width: int, what: str) -> int:
     k = vocab if max_tokens_per_step is None else min(int(max_tokens_per_step), vocab)
-    if beam_width * k > MAX_CANDIDATES:
+    if not scan_fits(beam_width, k):
         raise ValueError(
-            f"{what} requires beam_width*K <= {MAX_CANDIDATES} (got K={k}, W={beam_width}); lower "
-            "max_tokens_per_step or use the host backend"
+            f"{what} takes a beam_width and K whose scan block fits in shared memory (got K={k}, W={beam_width}); "
+            "lower max_tokens_per_step or use the host backend"
         )
     return k
 
@@ -79,8 +79,10 @@ def beam_search_device(
     collapsed id array per sample, else the top-``nbest`` ``(ids, log_prob)``
     pairs per sample, best first. ``logits`` may be a live tensor (the
     module and engine pass their forward's logits straight in). The search
-    runs in float32 on log-softmax of the logits; ``beam_width*K`` must not
-    exceed 8192, where ``K = min(max_tokens_per_step, V)``.
+    runs in float32 on log-softmax of the logits; ``beam_width`` and ``K =
+    min(max_tokens_per_step, V)`` must fit the scan's block
+    (:func:`~thunder_tpu_torch.kernels.beam.scan_fits`: up to K = 1,605 at
+    W = 16, 8,192 candidates ``W*K`` at any W up to 2,048).
     """
     logits, lengths = _inputs(logits, lengths, device)
     batch, frames, vocab = logits.shape
