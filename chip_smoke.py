@@ -84,7 +84,10 @@ Phases, each of which fails the run:
    is printed; ``predict_long`` on a 60 s speech-like clip with the device
    beam must make one launch of each beam kernel per window and give the
    text of the same windows through the plain versions; the scan alone is
-   timed on the first window's logits (B = 1, one 20 s window);
+   timed on the first window's logits (B = 1, one 20 s window); and the scan
+   past one block of shared memory (phase ``beam_chunked_shape``: B = 16, T =
+   188, V = K = 3000, W = 16, the ``beam_device`` inputs of numpy seed 3, the
+   chunked kernel) must equal its plain version exactly, both timed;
 10. wav2vec2-base CTC training at 8 rows x 15 s (``bench_train.py --model
     wav2vec2``: ``Wav2Vec2Preprocess(mask_input=False)``, the feature
     extractor frozen, attention, hidden and feature-projection dropout 0.1,
@@ -117,8 +120,12 @@ Phases, each of which fails the run:
     call's forward, backward alone on a retained graph and forward + backward
     ``SPREAD_REPEATS`` times in turns, as in phase 8; the PyTorch backward's
     kernels by device time, which name its backend; the add + LayerNorm
-    kernels' device time a call by torch.profiler beside their back-to-back
-    time); and
+    kernels' device time a call with their inputs in device memory, as a step
+    finds them, ``fwd_cold_ms`` and ``bwd_cold_ms``: the step's inputs and
+    five more sets of their shape in turns, 166 MB in all, by CUDA events
+    with the card held by a sleep kernel until the host has queued every
+    call, which is the kernels line's ``ms``; beside it their L2-warm time
+    by torch.profiler and their back-to-back time at the host's pace); and
     ``dropout_keep_mask`` at the add + LayerNorm's shape against its plain
     version (equal) and ``torch.rand`` (timed only). The train step never
     launches ``dropout_keep_mask``: its ``launches`` is 0 and the count of
@@ -989,7 +996,7 @@ def wav2vec2_training_phase(card: str) -> list:
         mha_train_forward,
         mha_train_forward_reference,
     )
-    from thunder_tpu_torch.kernels.compare_builds import device_ms_by_kernel
+    from thunder_tpu_torch.kernels.compare_builds import COLD_SETS, cold_ms, device_ms_by_kernel
     from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
     from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
     from thunder_tpu_torch.module import CTCModule
@@ -1217,12 +1224,22 @@ def wav2vec2_training_phase(card: str) -> list:
     n_busy = {name: sum(device_ms_by_kernel(fn, 10).values()) for name, fn in (
         ("fwd", lambda: add_ln_train_forward(x, y, scale, bias, seed, rate)),
         ("bwd", lambda: add_ln_train_backward(x, y, scale, seed, n_dout, rate)))}
-    emit({"phase": "w2v2_train_add_ln_shape", "rows": rows, "D": h, "rate": rate, "fwd_ms": nf_ms, "bwd_ms": nb_ms,
-          "fwd_busy_ms": n_busy["fwd"], "bwd_busy_ms": n_busy["bwd"],
+    # the device time a call with the inputs in device memory, as a step finds them: the step's inputs and
+    # COLD_SETS - 1 more sets of their shape, in turns, the card held until the host has queued every call
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sets = [(x, y, n_dout)] + [tuple((torch.randn(x.shape, device="cuda", generator=gen) * sd).to(bf16)
+                                     for sd in (2.0, 1.0, 1.0)) for _ in range(COLD_SETS - 1)]
+    n_cold = {"fwd": cold_ms([lambda a=a: add_ln_train_forward(a[0], a[1], scale, bias, seed, rate) for a in sets]),
+              "bwd": cold_ms([lambda a=a: add_ln_train_backward(a[0], a[1], scale, seed, a[2], rate) for a in sets])}
+    del sets
+    emit({"phase": "w2v2_train_add_ln_shape", "rows": rows, "D": h, "rate": rate,
+          "fwd_cold_ms": n_cold["fwd"]["ms"], "bwd_cold_ms": n_cold["bwd"]["ms"],
+          "fwd_ms_host_paced": nf_ms, "bwd_ms_host_paced": nb_ms,
+          "fwd_busy_ms": n_busy["fwd"], "bwd_busy_ms": n_busy["bwd"], "cold": n_cold,
           "plain_fwd_ms": nf_plain, "plain_bwd_ms": nb_plain, "library_fwd_ms": nlib_f, "library_fwd_bwd_ms": nlib,
           "ulp": n_ulp, "rel": n_rel, "max_abs_want": n_max, "ulp_of_zeros": n_zero_ulp,
           "max_abs_cotangent": n_dout.float().abs().max().item(),
-          "max_abs_cotangent_of_the_step": raw_n_dout.float().abs().max().item()})
+          "max_abs_cotangent_of_the_step": raw_n_dout.float().abs().max().item(), "card": card})
     check(max(n_ulp.values()) <= TRAIN_KERNEL_ULP and max(n_rel.values()) <= 0.01,
           f"add + dropout + LayerNorm at the step's shape off by {n_ulp} bf16 ULP, {n_rel} relative")
 
@@ -1276,9 +1293,12 @@ def wav2vec2_training_phase(card: str) -> list:
          "launches_is": f"{2 * layers + 1} forward + {2 * (2 * layers + 1)} backward (the backward, then the sum of "
                         "its partial dscale/dbias rows) in one train step",
          "max_abs_err": n_err, "max_ulp": max(n_ulp.values()), "max_rel_dscale_dbias": max(n_rel.values()),
-         "ms": nf_ms + nb_ms, "fwd_ms": nf_ms, "bwd_ms": nb_ms, "plain_ms": nf_plain + nb_plain,
-         "plain_fwd_ms": nf_plain, "plain_bwd_ms": nb_plain,
-         "ms_is": f"forward + backward at {rows} rows x {h}, rate {rate} (layer 0's first add + LayerNorm)",
+         "ms": n_cold["fwd"]["ms"] + n_cold["bwd"]["ms"], "fwd_ms": n_cold["fwd"]["ms"], "bwd_ms": n_cold["bwd"]["ms"],
+         "host_paced_ms": nf_ms + nb_ms, "host_paced_fwd_ms": nf_ms, "host_paced_bwd_ms": nb_ms,
+         "plain_ms": nf_plain + nb_plain, "plain_fwd_ms": nf_plain, "plain_bwd_ms": nb_plain,
+         "ms_is": f"forward + backward (with its partial sum) at {rows} rows x {h}, rate {rate} (layer 0's first add "
+                  f"+ LayerNorm), device time a call with the inputs in device memory (L2-cold: {COLD_SETS} input sets "
+                  "in turns); host_paced_*: back-to-back calls at the host's pace",
          **sum_bounds(n_fwd_bound, n_bwd_bound), "bound_fwd_ms": n_fwd_bound["bound_ms"],
          "bound_bwd_ms": n_bwd_bound["bound_ms"], "library_ms": nlib, "library_fwd_ms": nlib_f,
          "library": "F.layer_norm(x.float() + F.dropout(y).float()).to(bf16), forward + backward"},
@@ -1303,7 +1323,9 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
         beam_backtrace_reference,
         beam_scan,
         beam_scan_reference,
+        scan_plan,
     )
+    from thunder_tpu_torch.kernels.selftest import beam_case
     from thunder_tpu_torch.ops.ctc_beam import beam_search_decode
     from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
 
@@ -1410,12 +1432,32 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
           "scan_ms_per_window": window_scan_ms, "window_frames": w_logits.shape[1], "card": card})
     check(long_counts == (windows, windows), f"predict_long over {windows} windows launched {long_counts}")
     check(long_text == long_plain and set(long_text) <= set(VOCAB), "predict_long's text differs from the plain versions'")
+
+    # past one block of shared memory: every token a step at V = 3000 (the chunked scan), against the plain version
+    c_logits, _ = beam_case(3, 16, 188, 3000, "cuda")
+    c_logp = torch.log_softmax(c_logits, dim=-1).contiguous()
+    c_lens = torch.full((16,), 188, dtype=torch.int32, device="cuda")
+    c_kw = dict(blank=0, beam_width=width, k_tokens=3000)
+    c_scan = lambda: beam_scan(c_logp, c_lens, -12.0, **c_kw)  # noqa: E731
+    c_plain = lambda: beam_scan_reference(c_logp, c_lens, -12.0, **c_kw)  # noqa: E731
+    (cp1, ce1, ct1, cs1), (cp0, ce0, ct0, cs0) = c_scan(), c_plain()
+    c_finite = torch.isfinite(ct0)
+    c_err = (ct1[c_finite] - ct0[c_finite]).abs().max().item()
+    c_exact = (torch.equal(cp1, cp0) and torch.equal(ce1, ce0) and torch.equal(c_finite, torch.isfinite(ct1))
+               and all(torch.equal(a, b) for a, b in zip(cs1[2:], cs0[2:])))
+    c_ms, c_plain_ms = paired_ms(c_scan, c_plain, 2)
+    emit({"phase": "beam_chunked_shape", "B": 16, "T": 188, "V": 3000, "K": 3000, "W": width,
+          "plan": scan_plan(width, 3000), "ms": c_ms, "plain_ms": c_plain_ms, "exact": c_exact, "max_abs_err": c_err,
+          "card": card})
+    check(c_exact and c_err <= total_tol, f"the chunked beam scan differs from the plain version (exact {c_exact}, "
+                                          f"total {c_err})")
     source, pallas = "thunder_tpu_torch/csrc/beam_search.cu", "thunder_tpu/kernels/beam_pallas.py"
     shape = f"B={batch}, T={frames}, V=K={vocab}, W={width}"
     return [
         {"name": "beam_scan", "route": "cuda", "source": source, "replaces": f"{pallas}:214",
          "launches": counts["beam_scan"], "max_abs_err": scan_err, "ms": scan_ms, "plain_ms": scan_plain_ms,
          "ms_is": f"one launch at the forward's logits, {shape}", **beam_scan_bound(batch, frames, vocab, width),
+         "chunked_ms": c_ms, "chunked_plain_ms": c_plain_ms, "chunked_is": "B=16, T=188, V=K=3000, W=16",
          "library_ms": None, "library": "none (no single PyTorch call computes a prefix beam search)"},
         {"name": "beam_backtrace", "route": "cuda", "source": source, "replaces": f"{pallas}:374",
          "launches": counts["beam_backtrace"], "max_abs_err": 0.0, "ms": walk_ms, "plain_ms": walk_plain_ms,

@@ -30,6 +30,8 @@ from thunder_tpu_torch.kernels.add_ln_train import (
     add_ln_train_backward,
     add_ln_train_backward_reference,
     add_ln_train_forward,
+    backward_plan,
+    backward_rows,
     dropout_keep_mask,
     dropout_keep_mask_reference,
 )
@@ -202,3 +204,29 @@ def test_wrappers_raise_on_bad_arguments_and_launch_nothing_on_the_cpu():
     assert torch.equal(seed, dropout_hash.new_seed(torch.Generator().manual_seed(0), "cpu", 0.1))
     assert int(dropout_hash.new_seed(None, "cpu", 0.0)) == 0  # nothing is drawn at rate 0
     assert torch.equal(dropout_keep_mask_reference((4, 16), SEED, 0.1), dropout_keep_mask((4, 16), SEED, 0.1))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 7, 8, 511, 5992, 11992, 100003])
+def test_backward_plan_covers_every_row_once(rows):
+    """The mirror of the backward kernel's plan on 132 SMs: the warps of the blocks take every row once, each
+    block at least one (so each partial row of dscale/dbias is written), and no warp more than the plan says."""
+    plan = backward_plan(rows, 768, 132)
+    assert plan["partial_rows"] == plan["blocks"] <= 2 * 132 and plan["warps"] == 8
+    covered = np.zeros(rows, np.int64)
+    for block in range(plan["blocks"]):
+        taken = [backward_rows(rows, plan["blocks"], block, warp) for warp in range(plan["warps"])]
+        assert sum(len(r) for r in taken) >= 1
+        assert max(len(r) for r in taken) <= plan["rows_a_warp"]
+        for r in taken:
+            covered[list(r)] += 1
+    assert (covered == 1).all()
+
+
+def test_backward_plan_fills_the_card_at_the_train_step():
+    """wav2vec2-base's step (8 x 749 rows of 768): two blocks on each of 132 SMs, a workspace of at most 2 MB
+    (one partial row a block), and shared memory for two blocks an SM."""
+    plan = backward_plan(5992, 768, 132)
+    assert plan["blocks"] >= 264
+    assert plan["workspace_bytes"] <= 2 * 2**20
+    assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024 and plan["rows_a_warp"] == 3
+    assert backward_plan(5992, 2056, 132)["smem_bytes"] == 0  # the width the register rows do not take

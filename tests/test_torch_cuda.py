@@ -10,13 +10,17 @@ length 0; the CTC kernel pair is held to its plain loops on the edge case and
 at the training shape; and one ``Trainer.fit`` step on the card launches each
 kernel of the training path once. The beam scan and backtrace kernels are
 held to their plain versions at small shapes (besides their checks at the
-serving shapes), and a beam ``predict`` on the card makes one launch of each.
+serving shapes), past one block of shared memory too (the chunked scan), with
+the Python mirror of the scan's plan held to the kernel's, and a beam
+``predict`` on the card makes one launch of each.
 The training attention and add + dropout + LayerNorm kernels are held to
 their plain versions, forward and backward, at odd sizes (T = 1, 31, 749,
 1536, a row of length 0; row counts that are no multiple of a block, D = 128
 to 2048), with the packed ``dqkv`` and ``dscale``/``dbias`` equal bit for bit
-from run to run; their ``autograd.Function``s give the plain backward's
-gradients; and one small wav2vec2 train step launches them as counted.
+from run to run; the Python mirror of the add + LayerNorm backward's plan is
+held to the kernel's on this card; their ``autograd.Function``s give the plain
+backward's gradients; and one small wav2vec2 train step launches them as
+counted.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -355,9 +359,10 @@ def test_wav2vec2_of_width_36_serves_and_trains_on_card(cuda):
     assert grad is not None and bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)
 
 
-@pytest.mark.parametrize("v,width", [(1025, 16), (29, 300)])
+@pytest.mark.parametrize("v,width", [(1025, 16), (29, 300), (1606, 16), (3000, 16), (1000, 64)])
 def test_device_beam_past_8192_candidates_on_card(cuda, v, width):
-    """C13: W*K above the JAX package's 8192 runs the scan kernel (one launch) and gives the CPU's hypotheses."""
+    """C13: W*K above the JAX package's 8192 runs the scan kernel (one launch) and gives the CPU's hypotheses;
+    and past one block of shared memory (V = 1606 and 3000 at W = 16, 1000 at W = 64: the chunked scan)."""
     from thunder_tpu_torch.kernels.beam import beam_scan
     from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
 
@@ -470,7 +475,12 @@ def test_one_train_step_on_card_launches_each_kernel_once(cuda):
      (3, 15, 9, 8, 9, -12.0, False, True), (2, 10, 9, 40, 9, -1.5, False, False),
      (2, 6, 300, 16, 50, -12.0, False, False), (2, 12, 200, 64, 128, -12.0, False, False),
      (1, 1000, 29, 16, 29, -12.0, False, False), (2, 10, 1025, 16, 1025, -12.0, False, False),
-     (2, 12, 29, 300, 29, -12.0, False, False)],
+     (2, 12, 29, 300, 29, -12.0, False, False),
+     # past one block of shared memory (the chunked scan): a carried state, K < V, exact ties, a beam of one, and
+     # fewer finite candidates than W = 40 on the ranking path
+     (2, 19, 1700, 16, 1700, -12.0, True, False), (2, 8, 4000, 16, 2000, -12.0, False, False),
+     (3, 15, 5000, 8, 5000, -12.0, False, True), (2, 6, 20000, 1, 20000, -12.0, False, False),
+     (2, 10, 3000, 40, 3000, -1.5, False, False)],
 )
 def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width, k, floor, carried, ties):
     """K = V and K < V, a beam of one, frames the floor empties (flat frames), a carried state, W above a warp;
@@ -515,13 +525,30 @@ def test_beam_scan_plan_matches_the_kernel_and_refuses_above_shared_memory(cuda)
     from thunder_tpu_torch.kernels import _build
     from thunder_tpu_torch.kernels.beam import beam_scan, scan_plan
 
-    out = (ctypes.c_int * 2)()
-    for width, k in [(1, 1), (1, 29), (16, 29), (16, 50), (40, 29), (64, 128), (2048, 4), (3058, 1)]:
+    out = (ctypes.c_int * 3)()
+    for width, k in [(1, 1), (1, 29), (16, 29), (16, 50), (40, 29), (64, 128), (2048, 4), (3058, 1), (16, 1606),
+                     (16, 3000), (64, 1000), (33, 30000), (2901, 1)]:
         _build.check(_build.load().thunder_beam_scan_plan(width, k, ctypes.addressof(out)), "thunder_beam_scan_plan")
-        assert scan_plan(width, k) == {"threads": out[0], "smem_bytes": out[1]}, (width, k)
+        assert scan_plan(width, k) == {"threads": out[0], "smem_bytes": out[1], "chunk_runs": out[2]}, (width, k)
     logp = torch.log_softmax(torch.randn((1, 4, 2), device="cuda"), -1)
     with pytest.raises(ValueError, match="shared memory"):
         beam_scan(logp, torch.full((1,), 4, device="cuda"), -12.0, blank=1, beam_width=3058, k_tokens=1)
+
+
+def test_add_ln_train_backward_plan_matches_the_kernel(cuda):
+    """The Python mirror of the backward's plan against ``thunder_add_ln_train_plan`` on this card."""
+    import ctypes
+
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.kernels.add_ln_train import backward_plan
+
+    out = (ctypes.c_int * 4)()
+    for rows, d in [(1, 768), (3, 768), (5992, 768), (100003, 768), (7, 36), (11992, 2048), (9, 2056)]:
+        lib = _build.load()
+        _build.check(lib.thunder_add_ln_train_plan(rows, d, ctypes.addressof(out)), "thunder_add_ln_train_plan")
+        plan = backward_plan(rows, d, out[2])
+        assert out[2] == torch.cuda.get_device_properties(0).multi_processor_count
+        assert (plan["blocks"], plan["warps"], plan["smem_bytes"]) == (out[0], out[1], out[3]), (rows, d)
 
 
 def test_beam_predict_on_card_goes_through_both_kernels(cuda):
@@ -603,7 +630,8 @@ def test_training_attention_kernels_edge_shapes(cuda, b, t, heads, lengths, rate
 
 @pytest.mark.parametrize("rows,d,rate", [((7,), 128, 0.1), ((1001,), 768, 0.1), ((3, 67), 1024, 0.3), ((9,), 2048, 0.1),
                                          ((130,), 1032, 0.0), ((1,), 8, 0.5), ((5,), 36, 0.1), ((3, 5), 2056, 0.2),
-                                         ((17,), 1, 0.0), ((9,), 4100, 0.1)])
+                                         ((17,), 1, 0.0), ((9,), 4100, 0.1), ((8, 749), 768, 0.1), ((3,), 768, 0.1),
+                                         ((2, 3001), 1536, 0.1), ((600,), 36, 0.1)])
 def test_add_ln_train_kernels_edge_shapes(cuda, rows, d, rate):
     """Row counts that are no multiple of a warp's rows or a block, every instantiated width, and widths the
     registers do not hold (not a multiple of 8, over 2048); the same bits twice."""

@@ -15,22 +15,49 @@
 //
 // What bounds it on this card: bytes. The forward reads two bf16 values and
 // writes one per element (3 passes), the backward reads three and writes two
-// (5 passes), each for a few dozen float32 operations and one 32-bit hash.
+// (5 passes), each for a few dozen float32 operations and one 32-bit hash. At
+// wav2vec2-base's training step (5,992 rows of 768, rate 0.1) the bounds are
+// 0.0082 ms and 0.0137 ms at 3.35 TB/s, and a step finds the inputs in device
+// memory, not in the L2. L2-cold device time a call, six input sets in turns
+// (kernels/compare_builds.py --parts add_ln; NVIDIA H100 80GB HBM3, 700 W):
+//                      before this design      this design
+//   forward                0.0126-0.0129        (unchanged: 65 % of its bound)
+//   backward + sum         0.0507-0.0515        0.0231-0.0234
+// of which the backward kernel 0.038 -> 0.021 ms and the sum 0.0074 -> 0.0022.
 //
-// Design: one warp per row, as add_ln.cu: a lane keeps VECS 16-byte vectors
-// of the row in registers (D <= 256 * VECS; the kernels are instantiated for
-// VECS = 1, 2, 3, 4, 6, 8) and the row statistics go through warp shuffles.
-// The TPU kernel carries dg and db across a sequential grid; here the rows
-// run concurrently, so in the backward each warp takes ROWS_PER_WARP
-// consecutive rows, keeps its share of dg and db in registers and writes one
-// partial row to a (warps, D) float32 workspace, and a second small kernel
-// sums the partials in a fixed order. No float atomics: the same inputs give
-// the same bits from run to run.
+// Forward: one warp per row, as add_ln.cu: a lane keeps VECS 16-byte vectors of
+// the row in registers (D <= 256 * VECS; the kernels are instantiated for VECS
+// = 1, 2, 3, 4, 6, 8) and the row statistics go through warp shuffles.
+//
+// Backward: the TPU kernel carries dg and db across a sequential grid; here the
+// rows run concurrently. The grid comes from the SM count, BWD_BLOCKS_PER_SM
+// blocks an SM (264 on 132 SMs, both resident: 118 registers a thread at VECS
+// = 3, 77 KB of shared memory a block at D = 768), and block b takes a
+// balanced range of rows, its warp w the rows lo + w, lo + w + 8, ... So the
+// card is full at 5,992 rows (an earlier design's 8 rows a warp left 94 blocks
+// on 132 SMs). Each warp streams its rows through a ring of two rows in shared
+// memory filled by 16-byte cp.async: a row's x, y and dout are all in flight
+// before its first reduction, and once a row has landed the next row's loads
+// are issued before its arithmetic (an earlier design loaded dout only after
+// the statistics, with nothing of the next row in flight). A ring of three
+// rows, issuing after the arithmetic, and four warps a block were each slower
+// at the step's shape. The ring keeps the registers for the warp's share of
+// dg and db, which stays in registers across its rows; the block's warps then
+// add their shares in warp order through shared memory into ONE partial row a
+// block (1.6 MB at the step's shape, from 4.6 MB for a partial row a warp), and
+// a second small kernel, launched as a programmatic dependent launch so that
+// its launch overlaps the backward's end, sums the partial rows by columns
+// (32) and groups of partial rows (32), on 2 x 24 blocks at D = 768, in a fixed
+// order. No float atomics: the same inputs give the same bits from run to run.
+// The keep bits are the hash's integer compare (dropout_hash.cuh, keep_at).
+// Even L2-warm the backward takes most of its cold time: latency, not bytes,
+// is what is left (16 warps an SM, two warp reductions a row).
 // Any other width (not a multiple of 8, over 2048, or a tensor not 16-byte
-// aligned) runs the *_any kernels: the same warp a row and the same partial
-// rows of dg and db, a bf16 a lane at a time, re-reading x and y (and
-// regenerating the mask) in each pass instead of keeping the row in
-// registers; the warp's partial row of dg and db is kept in the workspace.
+// aligned) runs the *_any kernels: the forward a warp a row, the backward a
+// block a row over the same blocks' rows, each a bf16 a thread at a time,
+// re-reading x and y (and regenerating the mask) in each pass instead of
+// keeping the row in registers; a thread keeps the columns it owns of the
+// block's partial row of dg and db in the workspace.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,14 +71,52 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int WARPS = 8;          // warps per block
-constexpr int ROWS_PER_WARP = 8;  // backward: consecutive rows a warp reduces into one partial of dg, db
-constexpr int RED_X = 32, RED_Y = 8;  // the partial sum's block: 32 columns by 8 strided groups of partials
+constexpr int WARPS = 8;              // warps per block
+constexpr int BWD_BLOCKS_PER_SM = 2;  // backward: the grid, and so the partial rows of dg and db, from the SM count
+constexpr int RED_X = 32, RED_Y = 32;  // the partial sum's block: 32 columns by 32 strided groups of partial rows
 
 __device__ inline float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// both sums across the warp, their shuffles interleaved
+__device__ inline void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
+}
+
+__device__ inline void unpack8(const uint4& a, float (&v)[8]) {
+  const bf16* e = reinterpret_cast<const bf16*>(&a);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(e[j]);
+}
+
+// s = x + dropout(y) of one vector of 8, with its keep bits
+__device__ inline void sum_vec(const uint4& xa, const uint4& ya, unsigned kept, float rate, float inv_keep,
+                               float (&s)[8]) {
+  float xv[8], yv[8];
+  unpack8(xa, xv);
+  unpack8(ya, yv);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j] = xv[j] + (rate > 0.f ? ((kept >> j & 1u) ? yv[j] * inv_keep : 0.f) : yv[j]);
+}
+
+// the keep bits of vector c of a row (thunder_dropout::keep as its integer compare at the rate's threshold)
+__device__ inline unsigned keep_bits(uint32_t key, int c, float rate, uint32_t threshold) {
+  unsigned kept = 0xffu;
+  if (rate > 0.f) {
+    kept = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      kept |= (thunder_dropout::keep_at(key, (uint32_t)(c * 8 + j), threshold) ? 1u : 0u) << j;
+    }
+  }
+  return kept;
 }
 
 // s = x + dropout(y) of one row into registers; returns the keep bits of each vector
@@ -133,72 +198,163 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// the rows of block `blk` of `blocks` in the backward: [lo, hi), a balanced split (every block gets one or more)
+__device__ inline void block_rows(int rows, int blocks, int blk, int& lo, int& hi) {
+  lo = (int)((long long)blk * rows / blocks);
+  hi = (int)((long long)(blk + 1) * rows / blocks);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Backward, rows in registers: block b takes rows [lo, hi) (block_rows), warp w of it rows lo + w, lo + w + WARPS,
+// ...; each warp streams its rows through a ring of two rows (x, y, dout) in shared memory, filled by 16-byte
+// cp.async: once a row has landed, the next row's loads are issued, then this row's arithmetic runs. A lane reads
+// back only the vectors it copied, so the ring needs no barrier. Three passes over the row: statistics, the two
+// means and this lane's share of dg and db (registers), then dx and dy. At the end the warps' shares of dg and db
+// meet in shared memory and are added in warp order into the block's partial row.
 template <int VECS>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, VECS <= 4 ? 2 : 1)
     add_ln_train_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
                             const int* __restrict__ seed, const bf16* __restrict__ dout, bf16* __restrict__ dx,
                             bf16* __restrict__ dy, float* __restrict__ part_g, float* __restrict__ part_b, int rows,
                             int d, float rate, float eps) {
+  constexpr bool KEEP_S = VECS <= 3;  // the row's shat stays in registers; wider rows re-read x and y from the ring
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % 32;
-  const int part = blockIdx.x * WARPS + threadIdx.x / 32;  // this warp's partial row of dg, db
-  const int row0 = part * ROWS_PER_WARP;
-  if (row0 >= rows) return;
+  const int warp = threadIdx.x / 32;
   const int nvec = d / 8;
+  float4* g_lo = reinterpret_cast<float4*>(smem);  // [nvec] scale, columns 8c..8c+3, then [nvec] 8c+4..8c+7
+  float4* g_hi = g_lo + nvec;
+  uint4* ring = reinterpret_cast<uint4*>(g_hi + nvec) + (size_t)warp * 6 * nvec;  // [2][x, y, dout][nvec]
+  int lo, hi;
+  block_rows(rows, gridDim.x, blockIdx.x, lo, hi);
+  for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
+    g_lo[c] = reinterpret_cast<const float4*>(g)[2 * c];
+    g_hi[c] = reinterpret_cast<const float4*>(g)[2 * c + 1];
+  }
+  const uint32_t threshold = thunder_dropout::threshold(rate);
   const float inv_keep = 1.f / (1.f - rate);
   const uint32_t sd = (uint32_t)seed[0];
 
-  float gv[VECS][8], acc_g[VECS][8], acc_b[VECS][8];
+  auto issue = [&](int row, int stage) {  // row's x, y and dout into the ring's stage; an empty group past hi
+    if (row < hi) {
+      uint4* st = ring + stage * 3 * nvec;
+      const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * nvec;
+      const uint4* yr = reinterpret_cast<const uint4*>(y) + (size_t)row * nvec;
+      const uint4* dr = reinterpret_cast<const uint4*>(dout) + (size_t)row * nvec;
 #pragma unroll
-  for (int i = 0; i < VECS; ++i) {
-    const int c = lane + 32 * i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) gv[i][j] = acc_g[i][j] = acc_b[i][j] = 0.f;
-    if (c < nvec) load8(g, c, gv[i]);
-  }
-
-  for (int row = row0; row < min(row0 + ROWS_PER_WARP, rows); ++row) {
-    float s[VECS][8], gd[VECS][8];
-    unsigned kept[VECS];
-    float sum, sq;
-    load_sum<VECS>(x, y, row, d, lane, sd, rate, inv_keep, s, kept, sum, sq);
-    const float mean = sum / d;
-    const float rstd = rsqrtf(fmaxf(sq / d - mean * mean, 0.f) + eps);
-    const uint4* dor = reinterpret_cast<const uint4*>(dout + (size_t)row * d);
-    float sg = 0.f, sgs = 0.f;
-#pragma unroll
-    for (int i = 0; i < VECS; ++i) {
-      const int c = lane + 32 * i;
-      if (c < nvec) {
-        const uint4 da = dor[c];
-        const bf16* de = reinterpret_cast<const bf16*>(&da);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float shat = (s[i][j] - mean) * rstd;
-          const float dov = __bfloat162float(de[j]);
-          const float gdv = dov * gv[i][j];
-          s[i][j] = shat;
-          gd[i][j] = gdv;
-          sg += gdv;
-          sgs += gdv * shat;
-          acc_g[i][j] += dov * shat;
-          acc_b[i][j] += dov;
+      for (int i = 0; i < VECS; ++i) {
+        const int c = lane + 32 * i;
+        if (c < nvec) {
+          cp_async16(st + c, xr + c);
+          cp_async16(st + nvec + c, yr + c);
+          cp_async16(st + 2 * nvec + c, dr + c);
         }
       }
     }
-    const float gm = warp_sum(sg) / d;
-    const float gsm = warp_sum(sgs) / d;
+    cp_async_commit();
+  };
+  const int first = lo + warp;
+  issue(first, 0);
+
+  float acc_g[VECS][8], acc_b[VECS][8];
+#pragma unroll
+  for (int i = 0; i < VECS; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc_g[i][j] = acc_b[i][j] = 0.f;
+  __syncthreads();  // the scale is in shared memory
+
+  int stage = 0;
+  for (int row = first; row < hi; row += WARPS) {
+    cp_async_wait_all();  // this row's x, y and dout
+    issue(row + WARPS, stage ^ 1);  // the next row's, into the half the previous row left
+    const uint4* sx = ring + stage * 3 * nvec;
+    const uint4* sy = sx + nvec;
+    const uint4* sdo = sx + 2 * nvec;
+    const uint32_t key = thunder_dropout::row_key(sd, 0u, (uint32_t)row);
+    unsigned kept[VECS];
+    float s[KEEP_S ? VECS : 1][8];
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < VECS; ++i) {  // stage: statistics
+      const int c = lane + 32 * i;
+      kept[i] = 0xffu;
+      if (c < nvec) {
+        kept[i] = keep_bits(key, c, rate, threshold);
+        float v[8];
+        sum_vec(sx[c], sy[c], kept[i], rate, inv_keep, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sum += v[j];
+          sq += v[j] * v[j];
+          if constexpr (KEEP_S) s[i][j] = v[j];
+        }
+      }
+    }
+    warp_sum2(sum, sq);
+    const float mean = sum / d;
+    const float rstd = rsqrtf(fmaxf(sq / d - mean * mean, 0.f) + eps);
+    float sg = 0.f, sgs = 0.f;
+#pragma unroll
+    for (int i = 0; i < VECS; ++i) {  // stage: the two means, and this lane's share of dg and db
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        float v[8], dv[8];
+        if constexpr (KEEP_S) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = s[i][j];
+        } else {
+          sum_vec(sx[c], sy[c], kept[i], rate, inv_keep, v);
+        }
+        unpack8(sdo[c], dv);
+        const float4 ga = g_lo[c], gb = g_hi[c];
+        const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float shat = (v[j] - mean) * rstd;
+          const float gdv = __fmul_rn(dv[j], gv[j]);  // rounded, as the next pass recomputes it
+          sg += gdv;
+          sgs += gdv * shat;
+          acc_g[i][j] += dv[j] * shat;
+          acc_b[i][j] += dv[j];
+          if constexpr (KEEP_S) s[i][j] = shat;
+        }
+      }
+    }
+    warp_sum2(sg, sgs);
+    const float gm = sg / d;
+    const float gsm = sgs / d;
     uint4* dxr = reinterpret_cast<uint4*>(dx + (size_t)row * d);
     uint4* dyr = reinterpret_cast<uint4*>(dy + (size_t)row * d);
 #pragma unroll
-    for (int i = 0; i < VECS; ++i) {
+    for (int i = 0; i < VECS; ++i) {  // stage: dx, dy
       const int c = lane + 32 * i;
       if (c < nvec) {
+        float shat[8], dv[8];
+        if constexpr (KEEP_S) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) shat[j] = s[i][j];
+        } else {
+          sum_vec(sx[c], sy[c], kept[i], rate, inv_keep, shat);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) shat[j] = (shat[j] - mean) * rstd;
+        }
+        unpack8(sdo[c], dv);
+        const float4 ga = g_lo[c], gb = g_hi[c];
+        const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
         uint4 ox, oy;
         bf16* oxe = reinterpret_cast<bf16*>(&ox);
         bf16* oye = reinterpret_cast<bf16*>(&oy);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const float ds = rstd * (gd[i][j] - gm - s[i][j] * gsm);
+          const float ds = rstd * (__fmul_rn(dv[j], gv[j]) - gm - shat[j] * gsm);
           oxe[j] = __float2bfloat16(ds);
           oye[j] = __float2bfloat16(rate > 0.f ? ((kept[i] >> j & 1u) ? ds * inv_keep : 0.f) : ds);
         }
@@ -206,19 +362,35 @@ __global__ void __launch_bounds__(WARPS * 32)
         dyr[c] = oy;
       }
     }
+    stage ^= 1;
   }
+  cp_async_wait_all();
 
+  // stage: the block's partial row, the warps' shares added in warp order (each warp's share in its own ring)
+  float4* share = reinterpret_cast<float4*>(ring);  // [dg lo, dg hi, db lo, db hi][nvec]
 #pragma unroll
   for (int i = 0; i < VECS; ++i) {
     const int c = lane + 32 * i;
     if (c < nvec) {
-      float4* pg = reinterpret_cast<float4*>(part_g + (size_t)part * d) + 2 * c;
-      float4* pb = reinterpret_cast<float4*>(part_b + (size_t)part * d) + 2 * c;
-      pg[0] = make_float4(acc_g[i][0], acc_g[i][1], acc_g[i][2], acc_g[i][3]);
-      pg[1] = make_float4(acc_g[i][4], acc_g[i][5], acc_g[i][6], acc_g[i][7]);
-      pb[0] = make_float4(acc_b[i][0], acc_b[i][1], acc_b[i][2], acc_b[i][3]);
-      pb[1] = make_float4(acc_b[i][4], acc_b[i][5], acc_b[i][6], acc_b[i][7]);
+      share[c] = make_float4(acc_g[i][0], acc_g[i][1], acc_g[i][2], acc_g[i][3]);
+      share[nvec + c] = make_float4(acc_g[i][4], acc_g[i][5], acc_g[i][6], acc_g[i][7]);
+      share[2 * nvec + c] = make_float4(acc_b[i][0], acc_b[i][1], acc_b[i][2], acc_b[i][3]);
+      share[3 * nvec + c] = make_float4(acc_b[i][4], acc_b[i][5], acc_b[i][6], acc_b[i][7]);
     }
+  }
+  __syncthreads();
+  const float4* shares = reinterpret_cast<const float4*>(g_hi + nvec);
+  const size_t per_warp = (size_t)6 * nvec;
+  for (int q = threadIdx.x; q < 4 * nvec; q += blockDim.x) {
+    float4 a = shares[q];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      const float4 b = shares[w * per_warp + q];
+      a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+    }
+    const int part = q / nvec, c = q - part * nvec;
+    float* dst = (part < 2 ? part_g : part_b) + (size_t)blockIdx.x * d + 8 * c + 4 * (part & 1);
+    *reinterpret_cast<float4*>(dst) = a;
   }
 }
 
@@ -267,37 +439,67 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int c = lane; c < d; c += 32) orow[c] = __float2bfloat16((s(c) - mean) * (rstd * g[c]) + b[c]);
 }
 
+// both sums across the block, added in warp order; red: [2][WARPS] shared floats
+__device__ inline void block_sum2(float& a, float& b, float (*red)[WARPS]) {
+  warp_sum2(a, b);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) {
+    red[0][warp] = a;
+    red[1][warp] = b;
+  }
+  __syncthreads();
+  a = red[0][0];
+  b = red[1][0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) {
+    a += red[0][w];
+    b += red[1][w];
+  }
+  __syncthreads();  // red is free again
+}
+
+// Backward, any width: block b takes rows [lo, hi) (block_rows) one after the other, a row across the whole block
+// (column c to thread c % blockDim.x), re-reading x and y in each pass; thread t keeps the columns it owns of the
+// block's partial row of dg and db in the workspace, so one partial row a block as the vectorised kernel.
 __global__ void __launch_bounds__(WARPS * 32)
     add_ln_train_bwd_any_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
                                 const int* __restrict__ seed, const bf16* __restrict__ dout, bf16* __restrict__ dx,
                                 bf16* __restrict__ dy, float* __restrict__ part_g, float* __restrict__ part_b,
                                 int rows, int d, float rate, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int part = blockIdx.x * WARPS + threadIdx.x / 32;
-  const int row0 = part * ROWS_PER_WARP;
-  if (row0 >= rows) return;
-  float* pg = part_g + (size_t)part * d;
-  float* pb = part_b + (size_t)part * d;
-  for (int row = row0; row < min(row0 + ROWS_PER_WARP, rows); ++row) {
+  __shared__ float red[2][WARPS];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int lo, hi;
+  block_rows(rows, gridDim.x, blockIdx.x, lo, hi);
+  float* pg = part_g + (size_t)blockIdx.x * d;
+  float* pb = part_b + (size_t)blockIdx.x * d;
+  for (int row = lo; row < hi; ++row) {
     const AnyRow s = any_row(x, y, row, d, (uint32_t)seed[0], rate);
-    float mean, rstd;
-    any_stats(s, d, lane, eps, mean, rstd);
+    float sum = 0.f, sq = 0.f;
+    for (int c = tid; c < d; c += nt) {
+      const float v = s(c);
+      sum += v;
+      sq += v * v;
+    }
+    block_sum2(sum, sq, red);
+    const float mean = sum / d;
+    const float rstd = rsqrtf(fmaxf(sq / d - mean * mean, 0.f) + eps);
     const bf16* dor = dout + (size_t)row * d;
     float sg = 0.f, sgs = 0.f;
-    for (int c = lane; c < d; c += 32) {  // the row's two means, and its share of dg and db (same lane, in order)
+    for (int c = tid; c < d; c += nt) {  // the row's two means, and its share of dg and db (same thread, in order)
       const float shat = (s(c) - mean) * rstd;
       const float dov = __bfloat162float(dor[c]);
       const float gdv = __fmul_rn(dov, g[c]);  // rounded, as the next pass recomputes it: no fused multiply-add
       sg += gdv;
       sgs += gdv * shat;
-      pg[c] = (row == row0 ? 0.f : pg[c]) + dov * shat;
-      pb[c] = (row == row0 ? 0.f : pb[c]) + dov;
+      pg[c] = (row == lo ? 0.f : pg[c]) + dov * shat;
+      pb[c] = (row == lo ? 0.f : pb[c]) + dov;
     }
-    const float gm = warp_sum(sg) / d;
-    const float gsm = warp_sum(sgs) / d;
+    block_sum2(sg, sgs, red);
+    const float gm = sg / d;
+    const float gsm = sgs / d;
     bf16* dxr = dx + (size_t)row * d;
     bf16* dyr = dy + (size_t)row * d;
-    for (int c = lane; c < d; c += 32) {
+    for (int c = tid; c < d; c += nt) {
       const float shat = (s(c) - mean) * rstd;
       const float ds = rstd * (__fmul_rn(__bfloat162float(dor[c]), g[c]) - gm - shat * gsm);
       dxr[c] = __float2bfloat16(ds);
@@ -306,33 +508,27 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-// dg[c] = sum_p part_g[p][c], db likewise, in a fixed order: thread (cx, py) sums the partials
-// py, py + RED_Y, ... in turn, then the RED_Y sums of a column are added in order
+// dg[c] = sum_p part_g[p][c] (blockIdx.y 0), db likewise (1), in a fixed order: thread (cx, py) sums the partial
+// rows py, py + RED_Y, ... in turn, then the RED_Y sums of a column are added in order
 __global__ void __launch_bounds__(RED_X * RED_Y)
     add_ln_train_sum_kernel(const float* __restrict__ part_g, const float* __restrict__ part_b, float* __restrict__ dg,
                             float* __restrict__ db, int parts, int d) {
-  __shared__ float sh_g[RED_Y][RED_X], sh_b[RED_Y][RED_X];
+  __shared__ float sh[RED_Y][RED_X];
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // launched early (programmatic dependent launch): the partials
+  const float* part = blockIdx.y == 0 ? part_g : part_b;
   const int c = blockIdx.x * RED_X + threadIdx.x;
-  float a = 0.f, b = 0.f;
+  float a = 0.f;
   if (c < d) {
-    for (int p = threadIdx.y; p < parts; p += RED_Y) {
-      a += part_g[(size_t)p * d + c];
-      b += part_b[(size_t)p * d + c];
-    }
+#pragma unroll 4
+    for (int p = threadIdx.y; p < parts; p += RED_Y) a += part[(size_t)p * d + c];
   }
-  sh_g[threadIdx.y][threadIdx.x] = a;
-  sh_b[threadIdx.y][threadIdx.x] = b;
+  sh[threadIdx.y][threadIdx.x] = a;
   __syncthreads();
   if (threadIdx.y == 0 && c < d) {
-    a = sh_g[0][threadIdx.x];
-    b = sh_b[0][threadIdx.x];
+    a = sh[0][threadIdx.x];
 #pragma unroll
-    for (int i = 1; i < RED_Y; ++i) {
-      a += sh_g[i][threadIdx.x];
-      b += sh_b[i][threadIdx.x];
-    }
-    dg[c] = a;
-    db[c] = b;
+    for (int i = 1; i < RED_Y; ++i) a += sh[i][threadIdx.x];
+    (blockIdx.y == 0 ? dg : db)[c] = a;
   }
 }
 
@@ -353,7 +549,21 @@ bool vectorised(int d, std::initializer_list<const void*> ptrs) {
   return d % 8 == 0 && d <= 2048 && (bits & 15) == 0;
 }
 
-int parts_of(int rows) { return (rows + ROWS_PER_WARP - 1) / ROWS_PER_WARP; }
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 1;
+  return n > 0 ? n : 1;
+}
+
+// the backward's grid: BWD_BLOCKS_PER_SM blocks an SM, no more than WARPS rows a block need; one partial row each
+int bwd_blocks(int rows, int sms) {
+  const int need = (rows + WARPS - 1) / WARPS;
+  return need < BWD_BLOCKS_PER_SM * sms ? need : BWD_BLOCKS_PER_SM * sms;
+}
+
+// the vectorised backward's shared memory: the scale (2 nvec float4) and each warp's ring (2 x 3 x nvec uint4)
+size_t bwd_smem(int d) { return (size_t)(d / 8) * 16 * (2 + (size_t)WARPS * 6); }
 
 // the smallest instantiated VECS with 256 * VECS >= d
 #define DISPATCH_VECS(d, CALL)        \
@@ -389,33 +599,60 @@ extern "C" int thunder_add_ln_train_fwd(const void* x, const void* y, const floa
   return (int)cudaGetLastError();
 }
 
-// The number of partial rows the backward writes for `rows` rows: part_g and part_b are (parts, d) f32.
-extern "C" int thunder_add_ln_train_parts(int rows) { return parts_of(rows); }
+// The backward's plan on the current device for `rows` rows of width d (kernels/add_ln_train.py::backward_plan
+// computes the same): out[0] blocks, which is the partial rows of dg and db (part_g, part_b: (out[0], d) f32),
+// out[1] warps a block, out[2] the device's SMs, out[3] the vectorised kernel's shared bytes a block (0 for a
+// width it does not take).
+extern "C" int thunder_add_ln_train_plan(int rows, int d, int* out) {
+  if (bad_shape(rows, d)) return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  out[0] = bwd_blocks(rows, sms);
+  out[1] = WARPS;
+  out[2] = sms;
+  out[3] = d % 8 == 0 && d <= 2048 ? (int)bwd_smem(d) : 0;
+  return 0;
+}
 
-// dout, dx, dy: (rows, d) bf16, any d >= 1 as the forward; part_g, part_b: (thunder_add_ln_train_parts(rows), d)
-// f32 scratch; dg, db: (d,) f32. Launches the backward and the sum of the partials. Returns cudaGetLastError().
+// dout, dx, dy: (rows, d) bf16, any d >= 1 as the forward; part_g, part_b: (blocks, d) f32 scratch, blocks from
+// thunder_add_ln_train_plan; dg, db: (d,) f32. Launches the backward and the sum of the partials. Returns
+// cudaGetLastError().
 extern "C" int thunder_add_ln_train_bwd(const void* x, const void* y, const float* g, const int* seed, const void* dout,
                                         void* dx, void* dy, float* part_g, float* part_b, float* dg, float* db,
                                         int rows, int d, float rate, float eps, void* stream) {
   if (bad_shape(rows, d) || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
-  const int parts = parts_of(rows);
-  const int blocks = (parts + WARPS - 1) / WARPS;
+  const int blocks = bwd_blocks(rows, sm_count());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vectorised(d, {x, y, g, dout, dx, dy, part_g, part_b})) {
+    const size_t smem = bwd_smem(d);
+    cudaError_t err = cudaSuccess;
 #define CALL(V)                                                                                                  \
-  add_ln_train_bwd_kernel<V><<<blocks, WARPS * 32, 0, st>>>(                                                     \
+  err = cudaFuncSetAttribute(add_ln_train_bwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); \
+  if (err != cudaSuccess) return (int)err;                                                                       \
+  add_ln_train_bwd_kernel<V><<<blocks, WARPS * 32, smem, st>>>(                                                  \
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, seed, static_cast<const bf16*>(dout),        \
       static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps)
-  if (vectorised(d, {x, y, g, dout, dx, dy, part_g, part_b})) {
     DISPATCH_VECS(d, CALL);
+#undef CALL
   } else {
     add_ln_train_bwd_any_kernel<<<blocks, WARPS * 32, 0, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, seed, static_cast<const bf16*>(dout),
         static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps);
   }
-#undef CALL
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  add_ln_train_sum_kernel<<<(d + RED_X - 1) / RED_X, dim3(RED_X, RED_Y), 0, st>>>(part_g, part_b, dg, db, parts, d);
+  // the sum as a programmatic dependent launch: it is launched while the backward ends, and waits for it
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((d + RED_X - 1) / RED_X, 2);
+  config.blockDim = dim3(RED_X, RED_Y);
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, add_ln_train_sum_kernel, (const float*)part_g, (const float*)part_b, dg, db, blocks,
+                           d);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -76,6 +76,24 @@
 // TPU's time-major (T, K, B) layout, the batch on the 128 lanes and the TB-frame padding
 // were Mosaic's and are not carried over.
 //
+// Past one block (the chunked plan): where the keys of all W + W*K candidates do not fit beside
+// the state (at W = 16, K above 1,605), beam_scan_chunked_kernel walks a frame's candidates in
+// chunks of runs: the extend rows first, then the stay rows, whose merged mass is complete only
+// once every extend row has run. A chunk computes its rows as stage 1 does (the atomicMax into
+// `extra` and the repeated-last value in `slast` persist across chunks, until the commit), sorts its
+// runs, and merges its best W into a running top-W kept in `picks`: for W <= 32 the warps' tree as
+// above, then warp 0 merges the tree's list with the picks; for W > 32 the picks are copied as
+// sorted runs beside the chunk's and all are ranked together, a candidate below the W-th pick
+// skipped (it has W keys above it), at most 128 runs a chunk so that the ranking stays near the
+// one-block cost. A run with no key above the W-th running pick (or, for W <= 32, above the W-th
+// of its warp's list) is not sorted: it cannot reach the top W. The key order is total, so the
+// chunked top-W is the one-block top-W, in the same order. The chunks read their candidates from
+// device memory (L2), not from a double buffer of the whole frame. The one-block kernel is left as
+// it is, for the shapes it takes. The state (18 W words) and one chunk (with the picks' runs for
+// W > 32) must fit: W up to 2,901. At 16 x 188 x 3,000 (W = 16) a frame takes 67 us (NVIDIA H100
+// 80GB HBM3, 700 W; kernels/compare_builds.py --parts beam): 48,000 extend rows on 16 warps, the
+// block capped at 512 threads by the tree's 15 named barriers.
+//
 // The backtrace: one block per row (and per 128 output slots), which stages the row's
 // pointers in shared memory in chunks of frames, newest first; one thread per output
 // slot walks t = T-1 ... 0, writing toks[t] = exts[t][slot] and then slot = parents[t][slot].
@@ -93,6 +111,7 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr size_t MAX_SMEM = 232448;  // what a block may opt into on sm_90
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_TREE_THREADS = 512;  // W <= 32: at most 16 lists, 15 pair barriers (ids 1-15)
+constexpr int MAX_RANK_CHUNK_RUNS = 128;  // the chunked plan, W > 32: runs a chunk ranks beside the picks' runs
 constexpr size_t BACKTRACE_SMEM = 49152;  // the backtrace's frame chunks fit the default
 constexpr int BACKTRACE_THREADS = 128;
 
@@ -178,17 +197,31 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // C = W + W*K candidates in R = ceil(C/32) runs of 32; a thread per candidate, up to 512 for W <= 32
 // and 1024 above; 4-byte words: the candidates' 8-byte keys 2 x 32R, the picks' keys 2W, the state
 // 2 x 6W, the stay rows' pb, pnb, merged mass and repeated-last value 4W, the frame's candidates
-// double-buffered 2 x 2K and the blank's log-prob 2.
+// double-buffered 2 x 2K and the blank's log-prob 2. Where that is over MAX_SMEM, the chunked plan:
+// the state 18W, the picks' runs 64 ceil(W/32) for W > 32, and a chunk's keys 64 a run, as many runs
+// as fit (at most MAX_RANK_CHUNK_RUNS for W > 32, and no more than the extend rows take); a plan of
+// one run that is still over MAX_SMEM is refused.
 struct ScanPlan {
   int threads;
   size_t smem;
+  int chunk_runs;  // 0: the one-block plan
 };
+
+__host__ __device__ inline int pick_runs(int W) { return W <= 32 ? 0 : (W + 31) / 32; }
 
 ScanPlan scan_plan(int W, int K) {
   const long long runs = ((long long)W + (long long)W * K + 31) / 32;
   const long long cap = W <= 32 ? MAX_TREE_THREADS : MAX_THREADS;
-  const long long threads = runs * 32 < cap ? runs * 32 : cap;
-  return {(int)threads, 4 * (size_t)(18LL * W + 64 * runs + 4LL * K + 2)};
+  const size_t one_block = 4 * (size_t)(18LL * W + 64 * runs + 4LL * K + 2);
+  if (one_block <= MAX_SMEM) return {(int)(runs * 32 < cap ? runs * 32 : cap), one_block, 0};
+  const long long fixed = 18LL * W + 64LL * pick_runs(W);
+  long long chunk = ((long long)(MAX_SMEM / 4) - fixed) / 64;
+  if (W > 32 && chunk > MAX_RANK_CHUNK_RUNS) chunk = MAX_RANK_CHUNK_RUNS;
+  const long long extend_runs = ((long long)W * K + 31) / 32;
+  if (chunk > extend_runs) chunk = extend_runs;
+  if (chunk < 1) chunk = 1;
+  const long long threads = 32 * (pick_runs(W) + chunk) < cap ? 32 * (pick_runs(W) + chunk) : cap;
+  return {(int)threads, 4 * (size_t)(fixed + 64 * chunk), (int)chunk};
 }
 
 __global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_kernel(
@@ -444,6 +477,261 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_kernel(
   }
 }
 
+// The chunked plan: beam_scan_kernel's frame, over chunks of chunk_runs runs (see the note at the top).
+__global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_chunked_kernel(
+    const float* __restrict__ logp, const float* __restrict__ topv, const int* __restrict__ topi,
+    const int* __restrict__ lens, float floor_, const float* __restrict__ pb0, const float* __restrict__ pnb0,
+    const int* __restrict__ h10, const int* __restrict__ h20, const int* __restrict__ last0,
+    int* __restrict__ parents, int* __restrict__ exts, float* __restrict__ total_out, float* __restrict__ pb_out,
+    float* __restrict__ pnb_out, int* __restrict__ h1_out, int* __restrict__ h2_out, int* __restrict__ last_out,
+    int T, int V, int K, int W, int blank, int chunk_runs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int PR = pick_runs(W);  // W > 32: the running picks, ranked as sorted runs beside the chunk's
+  const int CH = 32 * chunk_runs;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // [32 PR] the picks' runs, then [CH] the chunk's keys
+  uint64_t* ck = keys + 32 * PR;
+  uint64_t* picks = ck + CH;                         // [W] the running picks, best first (0: none yet)
+  float* Ps = reinterpret_cast<float*>(picks + W);  // [2][W] each: the state, double-buffered
+  float* Ns = Ps + 2 * W;
+  float* Ts = Ns + 2 * W;
+  uint32_t* H1s = reinterpret_cast<uint32_t*>(Ts + 2 * W);
+  uint32_t* H2s = H1s + 2 * W;
+  int* Ls = reinterpret_cast<int*>(H2s + 2 * W);
+  float* spb = reinterpret_cast<float*>(Ls + 2 * W);
+  float* spnb = spb + W;
+  int* extra = reinterpret_cast<int*>(spnb + W);
+  float* slast = reinterpret_cast<float*>(extra + W);
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int len = max(0, min(lens[b], T));
+  const size_t row = (size_t)b * W;
+  const float* lp_row = logp + (size_t)b * T * V;
+  const float* tv_row = topv == nullptr ? nullptr : topv + (size_t)b * T * K;
+  const int* ti_row = topi == nullptr ? nullptr : topi + (size_t)b * T * K;
+  const int E = W * K;
+  const int n_ext = (E + CH - 1) / CH;
+  const int n_chunks = n_ext + (W + CH - 1) / CH;
+  const int dp = nt / K, dk = nt - dp * K;
+
+  for (int w = tid; w < W; w += nt) {
+    const float p = pb0[row + w], n = pnb0[row + w];
+    Ps[w] = p;
+    Ns[w] = n;
+    Ts[w] = lae(p, n);
+    H1s[w] = (uint32_t)h10[row + w];
+    H2s[w] = (uint32_t)h20[row + w];
+    Ls[w] = last0[row + w];
+    extra[w] = ordered(-INFINITY);
+    slast[w] = -INFINITY;
+    picks[w] = 0;
+  }
+  __syncthreads();
+  int* par_out = parents + (size_t)b * T * W;
+  int* ext_out = exts + (size_t)b * T * W;
+  int cur = 0;
+
+  for (int t = 0; t < len; ++t) {
+    const float* P = Ps + cur * W;
+    const float* N = Ns + cur * W;
+    const float* TT = Ts + cur * W;
+    const uint32_t* H1 = H1s + cur * W;
+    const uint32_t* H2 = H2s + cur * W;
+    const int* L = Ls + cur * W;
+    const float* fv = tv_row != nullptr ? tv_row + (size_t)t * K : lp_row + (size_t)t * V;
+    const int* fi = ti_row != nullptr ? ti_row + (size_t)t * K : nullptr;
+
+    for (int chunk = 0; chunk < n_chunks; ++chunk) {
+      const bool stay_rows = chunk >= n_ext;
+      const int lo = (stay_rows ? chunk - n_ext : chunk) * CH;
+      const int n = min(CH, (stay_rows ? W : E) - lo);
+      const int runs = (n + 31) >> 5;
+      if (!stay_rows) {
+        // stage: extend + merge, a thread per extend row of the chunk (as beam_scan_kernel's)
+        const int e0 = lo + tid;
+        for (int i = tid, p = e0 / K, k = e0 - (e0 / K) * K; i < n; i += nt) {
+          const float v = __ldg(fv + k);
+          const int tok = fi != nullptr ? __ldg(fi + k) : k;
+          const int lp = L[p];
+          const bool kept = v >= floor_;
+          const float ext = kept && tok != blank ? (tok == lp ? P[p] : TT[p]) + v : -INFINITY;
+          if (tok == lp && kept) slast[p] = N[p] + v;
+          const uint32_t vv = (uint32_t)(tok + 2);
+          const uint32_t e1 = H1[p] * M1 + vv;
+          const uint32_t e2 = H2[p] * M2 + vv;
+          bool absorbed = false, near = false;
+#pragma unroll 8
+          for (int q = 0; q < W; ++q) near |= e1 == H1[q];
+          if (near) {
+            for (int q = 0; q < W; ++q) {
+              if (e1 == H1[q] && e2 == H2[q]) {
+                absorbed = true;
+                atomicMax(&extra[q], ordered(ext));
+              }
+            }
+          }
+          ck[i] = sort_key(absorbed ? -INFINITY : ext, W + lo + i);
+          p += dp;
+          k += dk;
+          if (k >= K) {
+            k -= K;
+            ++p;
+          }
+        }
+      } else {
+        // stage: stay rows, once every extend row has merged into them
+        const float pblank = __ldg(lp_row + (size_t)t * V + blank);
+        for (int i = tid; i < n; i += nt) {
+          const int c = lo + i;
+          const float sp = lae(slast[c], unordered(extra[c]));
+          const float sb = pblank >= floor_ ? TT[c] + pblank : -INFINITY;
+          spb[c] = sb;
+          spnb[c] = sp;
+          ck[i] = sort_key(lae(sb, sp), c);
+        }
+      }
+      __syncthreads();
+
+      // stage: top-W sort, each warp its runs of the chunk. A run none of whose keys is above the W-th running
+      // pick, or above the W-th best of the warp's own list, cannot reach the top W: it is not sorted
+      const uint64_t pick_floor = picks[W - 1];
+      if (W <= 32) {
+        uint64_t best = 0;
+        for (int r = warp; r < runs; r += nwarps) {
+          const int i = r * 32 + lane;
+          const uint64_t key = i < n ? ck[i] : 0;
+          const uint64_t own = __shfl_sync(FULL, best, W - 1);
+          if (__ballot_sync(FULL, key > pick_floor && key > own) == 0) continue;
+          best = merge32(best, sort32(key, lane), lane);
+        }
+        // stage: top-W select, the tree of beam_scan_kernel over the chunk's lists, then into the picks
+        const int lists = min(runs, nwarps);
+        int id = 1;
+        for (int d = 1; d < lists && warp < lists; d <<= 1) {
+          const int pair = id + warp / (2 * d);
+          if (warp % (2 * d) == d) {
+            if (lane < W) ck[warp * 32 + lane] = best;
+            bar_arrive(pair);
+            break;
+          }
+          if (warp + d < lists) {
+            bar_sync(pair);
+            best = merge32(best, lane < W ? ck[(warp + d) * 32 + lane] : 0, lane);
+          }
+          id += (lists + 2 * d - 1) / (2 * d);
+        }
+        if (warp == 0) {
+          best = merge32(best, lane < W ? picks[lane] : 0, lane);
+          if (lane < W) picks[lane] = best;
+        }
+      } else {
+        for (int r = warp; r < runs; r += nwarps) {
+          const int i = r * 32 + lane;
+          uint64_t key = i < n ? ck[i] : 0;
+          key = __ballot_sync(FULL, key > pick_floor) == 0 ? 0 : sort32(key, lane);  // a run of 0s ranks nothing
+          __syncwarp();
+          keys[slot(PR + r, lane)] = key;
+        }
+        // the running picks, sorted already, as runs beside the chunk's
+        for (int i = tid; i < 32 * PR; i += nt) keys[slot(i >> 5, i & 31)] = i < W ? picks[i] : 0;
+        __syncthreads();
+        // stage: top-W select, ranks over the picks' runs and the chunk's; a key below the W-th pick is out
+        const int R = PR + runs;
+        int G = 1;
+        while (G < 32 && 4 * G < R) G <<= 1;
+        const uint64_t floor_key = keys[slot((W - 1) >> 5, (W - 1) & 31)];
+        const int S = R * 32;
+        const int per_warp = 32 / G;
+        const int g = lane & (G - 1);
+        for (int s0 = warp * per_warp; s0 < S; s0 += nwarps * per_warp) {
+          const int sv = s0 + lane / G;
+          uint64_t key = 0;
+          if (sv < S) {
+            const int pos = sv / R;
+            key = keys[slot(sv - pos * R, pos)];
+          }
+          const bool live = key != 0 && key >= floor_key;
+          int cnt = 0;
+          if (live) {
+            for (int r = g; r < R; r += 4 * G) {
+              const int n0 = count_above(keys, r, key);
+              const int n1 = r + G < R ? count_above(keys, r + G, key) : 0;
+              const int n2 = r + 2 * G < R ? count_above(keys, r + 2 * G, key) : 0;
+              const int n3 = r + 3 * G < R ? count_above(keys, r + 3 * G, key) : 0;
+              cnt += n0 + n1 + n2 + n3;
+            }
+          }
+          for (int o = 1; o < G; o <<= 1) cnt += __shfl_xor_sync(FULL, cnt, o);
+          if (g == 0 && live && cnt < W) picks[cnt] = key;
+        }
+      }
+      __syncthreads();
+    }
+
+    // stage: commit, or keep the state when every candidate is -inf
+    const bool valid = isfinite(key_value(picks[0]));
+    const int nxt = cur ^ 1;
+    for (int j = tid; j < W; j += nt) {
+      int par = j, ext = -1;
+      float np = P[j], nn = N[j], ntot = TT[j];
+      uint32_t n1 = H1[j], n2 = H2[j];
+      int nl = L[j];
+      if (valid) {
+        const float pv = key_value(picks[j]);
+        const bool dead = !isfinite(pv);
+        const int i = dead ? 0 : key_index(picks[j]);
+        const bool stay = i < W;
+        int tok = -1;
+        if (stay) {
+          par = i;
+        } else {
+          const int e = i - W;
+          par = e / K;
+          tok = fi != nullptr ? __ldg(fi + (e - par * K)) : e - par * K;
+        }
+        ext = tok;
+        const uint32_t vv = (uint32_t)(tok + 2);
+        np = (dead || !stay) ? -INFINITY : spb[par];
+        nn = dead ? -INFINITY : (stay ? spnb[i] : pv);
+        n1 = dead ? DEAD_H1 : (stay ? H1[par] : H1[par] * M1 + vv);
+        n2 = dead ? (uint32_t)j : (stay ? H2[par] : H2[par] * M2 + vv);
+        nl = dead ? -1 : (stay ? L[par] : tok);
+        ntot = dead ? -INFINITY : pv;
+      }
+      Ps[nxt * W + j] = np;
+      Ns[nxt * W + j] = nn;
+      Ts[nxt * W + j] = ntot;
+      H1s[nxt * W + j] = n1;
+      H2s[nxt * W + j] = n2;
+      Ls[nxt * W + j] = nl;
+      extra[j] = ordered(-INFINITY);
+      slast[j] = -INFINITY;
+      par_out[(size_t)t * W + j] = par;
+      ext_out[(size_t)t * W + j] = ext;
+    }
+    __syncthreads();
+    for (int j = tid; j < W; j += nt) picks[j] = 0;  // the next frame's picks start empty
+    cur = nxt;
+  }
+
+  for (size_t o = (size_t)len * W + tid; o < (size_t)T * W; o += nt) {
+    par_out[o] = (int)(o % W);
+    ext_out[o] = -1;
+  }
+  for (int w = tid; w < W; w += nt) {
+    pb_out[row + w] = Ps[cur * W + w];
+    pnb_out[row + w] = Ns[cur * W + w];
+    h1_out[row + w] = (int)H1s[cur * W + w];
+    h2_out[row + w] = (int)H2s[cur * W + w];
+    last_out[row + w] = Ls[cur * W + w];
+    total_out[row + w] = Ts[cur * W + w];
+  }
+}
+
 __global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_kernel(
     const int* __restrict__ parents, const int* __restrict__ exts, const int* __restrict__ slots0,
     int* __restrict__ toks, int* __restrict__ origin, int T, int W, int n_out, int chunk) {
@@ -485,12 +773,14 @@ __global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_kernel(
 
 }  // namespace
 
-// out[0] = threads, out[1] = shared bytes of one scan block for beam width W and K candidates.
+// out[0] = threads, out[1] = shared bytes of one scan block for beam width W and K candidates, out[2] = the runs
+// of a chunk (0: the one-block plan).
 extern "C" int thunder_beam_scan_plan(int W, int K, int* out) {
   if (W < 1 || K < 1) return (int)cudaErrorInvalidValue;
   const ScanPlan plan = scan_plan(W, K);
   out[0] = plan.threads;
   out[1] = (int)plan.smem;
+  out[2] = plan.chunk_runs;
   return 0;
 }
 
@@ -498,7 +788,8 @@ extern "C" int thunder_beam_scan_plan(int W, int K, int* out) {
 // null for K == V (ids 0..V-1); lens: (B,) int32; floor_: the prune floor; pb0, pnb0 (B, W)
 // float32, h10, h20, last0 (B, W) int32: the state going in (hashes as uint32 bits);
 // parents, exts: (B, T, W) int32 out; total, pb, pnb (B, W) float32 and h1, h2, last
-// (B, W) int32 out: the final state. Returns cudaGetLastError().
+// (B, W) int32 out: the final state. Any K; W up to where the state and one chunk fit (2,901).
+// Returns cudaGetLastError().
 extern "C" int thunder_beam_scan(const float* logp, const float* topv, const int* topi, const int* lens, float floor_,
                                  const float* pb0, const float* pnb0, const int* h10, const int* h20,
                                  const int* last0, int* parents, int* exts, float* total, float* pb, float* pnb,
@@ -506,16 +797,27 @@ extern "C" int thunder_beam_scan(const float* logp, const float* topv, const int
                                  void* stream) {
   if (B < 1 || T < 0 || V < 1 || K < 1 || K > V || W < 1 || blank < 0 || blank >= V) return (int)cudaErrorInvalidValue;
   if ((topv == nullptr) != (topi == nullptr) || (topv == nullptr && K != V)) return (int)cudaErrorInvalidValue;
+  if ((long long)W * K + W > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   const ScanPlan plan = scan_plan(W, K);
   if (plan.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (plan.smem > 49152) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan.chunk_runs == 0) {
+    if (plan.smem > 49152) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(beam_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    beam_scan_kernel<<<B, plan.threads, plan.smem, st>>>(logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20, last0,
+                                                         parents, exts, total, pb, pnb, h1, h2, last, T, V, K, W,
+                                                         blank);
+  } else {
     const cudaError_t err =
-        cudaFuncSetAttribute(beam_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+        cudaFuncSetAttribute(beam_scan_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (err != cudaSuccess) return (int)err;
+    beam_scan_chunked_kernel<<<B, plan.threads, plan.smem, st>>>(logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20,
+                                                                 last0, parents, exts, total, pb, pnb, h1, h2, last, T,
+                                                                 V, K, W, blank, plan.chunk_runs);
   }
-  beam_scan_kernel<<<B, plan.threads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
-      logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20, last0, parents, exts, total, pb, pnb, h1, h2, last, T, V,
-      K, W, blank);
   return (int)cudaGetLastError();
 }
 

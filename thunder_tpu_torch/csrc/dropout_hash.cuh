@@ -36,4 +36,12 @@ __device__ __forceinline__ bool keep(uint32_t key, uint32_t col, float rate) {
   return __uint2float_rn(bits >> 9) * 0x1p-23f >= rate;
 }
 
+// keep() as an integer compare: (bits >> 9) * 2^-23 >= rate, both sides exact in float, is
+// (bits >> 9) >= ceil(rate * 2^23); threshold(rate) is that ceiling, keep_at() the compare
+__host__ __device__ __forceinline__ uint32_t threshold(float rate) { return (uint32_t)ceilf(rate * 0x1p23f); }
+
+__device__ __forceinline__ bool keep_at(uint32_t key, uint32_t col, uint32_t threshold) {
+  return (mix32(key ^ (col * 0x85EBCA6Bu)) >> 9) >= threshold;
+}
+
 }  // namespace thunder_dropout

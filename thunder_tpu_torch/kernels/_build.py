@@ -44,7 +44,7 @@ SIGNATURES = {
     "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],
     "thunder_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     "thunder_add_ln_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
-    "thunder_add_ln_train_parts": [_I],
+    "thunder_add_ln_train_plan": [_I, _I, _P],
     "thunder_add_ln_train_bwd": [*[_P] * 11, _I, _I, _F, _F, _P],
     "thunder_dropout_keep_mask": [_P, _P, _I, _I, _F, _P],
     "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -34,6 +34,8 @@ CUDA tensors and its plain version only for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from thunder_tpu_torch.kernels import _build, dropout_hash
@@ -45,9 +47,36 @@ __all__ = [
     "add_ln_train_backward",
     "add_ln_train_forward_reference",
     "add_ln_train_backward_reference",
+    "backward_plan",
+    "backward_rows",
     "dropout_keep_mask",
     "dropout_keep_mask_reference",
 ]
+
+
+#: the backward kernels' warps a block and blocks an SM (``csrc/add_ln_train.cu``: ``WARPS``, ``BWD_BLOCKS_PER_SM``)
+BWD_WARPS, BWD_BLOCKS_PER_SM = 8, 2
+
+
+def backward_plan(rows: int, d: int, sms: int) -> dict:
+    """The backward's plan on a card of ``sms`` SMs, as ``csrc/add_ln_train.cu`` computes it
+    (``thunder_add_ln_train_plan``): ``blocks`` (two an SM, no more than ``BWD_WARPS`` rows a block
+    need), which is also the partial rows of ``dscale``/``dbias`` (one a block), ``warps`` a block, the
+    rows a warp takes at most, the float32 workspace's bytes (both partials), and the register-row
+    kernel's shared bytes a block: the scale and a ring of two rows of x, y and dout a warp (0 for a
+    width it does not take)."""
+    blocks = min(-(-rows // BWD_WARPS), BWD_BLOCKS_PER_SM * sms)
+    per_block = -(-rows // blocks)
+    return {"blocks": blocks, "warps": BWD_WARPS, "partial_rows": blocks, "rows_a_warp": -(-per_block // BWD_WARPS),
+            "workspace_bytes": 2 * blocks * d * 4,
+            "smem_bytes": (d // 8) * 16 * (2 + BWD_WARPS * 6) if d % 8 == 0 and d <= 2048 else 0}
+
+
+def backward_rows(rows: int, blocks: int, block: int, warp: int) -> range:
+    """The rows warp ``warp`` of block ``block`` takes in the register-row backward: the block's balanced
+    range ``[block * rows // blocks, (block + 1) * rows // blocks)``, every ``BWD_WARPS``-th from the warp's."""
+    lo, hi = block * rows // blocks, (block + 1) * rows // blocks
+    return range(lo + warp, hi, BWD_WARPS)
 
 
 def dropout_keep_mask_reference(shape, seed: torch.Tensor, rate: float) -> torch.Tensor:
@@ -146,8 +175,9 @@ def add_ln_train_forward(x, y, scale, bias, seed, rate: float = 0.0, eps: float 
 
 
 def add_ln_train_backward(x, y, scale, seed, dout, rate: float = 0.0, eps: float = 1e-5):
-    """``(dx, dy, dscale, dbias)``: the backward kernel and the fixed-order sum of its partial
-    ``dscale``/``dbias`` rows on the card (two launches), the plain version on the CPU."""
+    """``(dx, dy, dscale, dbias)``: the backward kernel (one partial ``dscale``/``dbias`` row a block,
+    :func:`backward_plan`) and the fixed-order sum of the partial rows on the card (two launches), the
+    plain version on the CPU."""
     _check(x, y, scale, seed, rate)
     if dout.shape != x.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not fit x {tuple(x.shape)}")
@@ -157,11 +187,14 @@ def add_ln_train_backward(x, y, scale, seed, dout, rate: float = 0.0, eps: float
     d = x.shape[-1]
     rows = x.numel() // d
     dx, dy = torch.empty_like(x), torch.empty_like(x)
-    dscale = torch.zeros((2, d), dtype=torch.float32, device=x.device)
     if rows == 0:
+        dscale = torch.zeros((2, d), dtype=torch.float32, device=x.device)
         return dx, dy, dscale[0], dscale[1]
+    dscale = torch.empty((2, d), dtype=torch.float32, device=x.device)  # the sum kernel writes every column
     lib = _build.load()
-    partials = torch.empty((2, lib.thunder_add_ln_train_parts(rows), d), dtype=torch.float32, device=x.device)
+    plan = (ctypes.c_int * 4)()
+    _build.check(lib.thunder_add_ln_train_plan(rows, d, ctypes.addressof(plan)), "thunder_add_ln_train_plan")
+    partials = torch.empty((2, plan[0], d), dtype=torch.float32, device=x.device)
     status = lib.thunder_add_ln_train_bwd(
         x.data_ptr(), y.data_ptr(), scale.data_ptr(), seed.data_ptr(), dout.data_ptr(), dx.data_ptr(), dy.data_ptr(),
         partials[0].data_ptr(), partials[1].data_ptr(), dscale[0].data_ptr(), dscale[1].data_ptr(), rows, d,

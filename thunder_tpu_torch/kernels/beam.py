@@ -38,6 +38,7 @@ import torch
 from thunder_tpu_torch.kernels import _build
 
 __all__ = [
+    "MAX_BEAM_WIDTH",
     "MAX_CANDIDATES",
     "beam_scan",
     "beam_scan_reference",
@@ -45,17 +46,20 @@ __all__ = [
     "beam_backtrace_reference",
     "candidates",
     "fresh_state",
+    "scan_chunks",
     "scan_fits",
     "scan_plan",
 ]
 
 #: the largest per-frame candidate block W*K the JAX package's device search allows; the kernel takes any W*K
-#: whose block fits (:func:`scan_fits`), every one up to this with W <= 2048 among them
+#: (past one block of shared memory it walks a frame in chunks) and any W up to :data:`MAX_BEAM_WIDTH`
 MAX_CANDIDATES = 8192
 #: shared memory a block may use on sm_90 (``csrc/beam_search.cu``: ``MAX_SMEM``)
 MAX_SHARED_BYTES = 232448
 #: threads a scan block may have (``csrc/beam_search.cu``: ``MAX_THREADS``, ``MAX_TREE_THREADS`` for W <= 32)
 MAX_THREADS, MAX_TREE_THREADS = 1024, 512
+#: the chunked plan's runs a chunk for W > 32, ranked beside the picks' runs (``MAX_RANK_CHUNK_RUNS``)
+MAX_RANK_CHUNK_RUNS = 128
 
 M1, M2 = 1000003, 2654435761
 H_SEED = 1
@@ -66,26 +70,59 @@ _NEG = float("-inf")
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def scan_plan(beam_width: int, k: int) -> dict:
-    """Threads and shared memory of one scan block, as ``csrc/beam_search.cu::scan_plan`` computes them.
+def _pick_runs(beam_width: int) -> int:
+    return 0 if beam_width <= 32 else -(-beam_width // 32)
 
-    The ``C = W + W*K`` candidates fall into ``ceil(C / 32)`` runs of 32, one warp's sort each; a thread
-    per candidate, up to 512 warps' worth for ``W <= 32`` (whose warps' lists merge in a tree of at most
-    15 named barriers) and 1024 above. Shared memory in 4-byte words: the candidates' 8-byte keys (2 x 32
-    a run), the picks' keys (2W), the state double-buffered (2 x 6 W-vectors), the stay rows' pb, pnb,
-    merged mass and repeated-last value (4W), and the frame's K candidates and ids with the blank's
-    log-prob, double-buffered for the prefetch (2 x (2K + 1)). The wrapper refuses a plan above
-    ``MAX_SHARED_BYTES``: every ``W*K <= MAX_CANDIDATES`` with ``W <= 2048`` fits.
+
+def scan_plan(beam_width: int, k: int) -> dict:
+    """Threads, shared memory and chunk of one scan block, as ``csrc/beam_search.cu::scan_plan`` computes them.
+
+    The one-block plan, where it fits in ``MAX_SHARED_BYTES`` (``chunk_runs`` 0): the ``C = W + W*K``
+    candidates fall into ``ceil(C / 32)`` runs of 32, one warp's sort each; a thread per candidate, up to 512
+    for ``W <= 32`` (whose warps' lists merge in a tree of at most 15 named barriers) and 1024 above. Shared
+    memory in 4-byte words: the candidates' 8-byte keys (2 x 32 a run), the picks' keys (2W), the state
+    double-buffered (2 x 6 W-vectors), the stay rows' pb, pnb, merged mass and repeated-last value (4W), and
+    the frame's K candidates and ids with the blank's log-prob, double-buffered for the prefetch (2 x (2K + 1)).
+
+    Else the chunked plan: the state and picks (18W), for ``W > 32`` the running picks as runs (64 words
+    each of ``ceil(W / 32)``), and the keys of a chunk of ``chunk_runs`` runs (64 words a run): as many as
+    fit, at most ``MAX_RANK_CHUNK_RUNS`` for ``W > 32``, no more than the extend rows fill. A plan whose
+    one-run chunk is still over ``MAX_SHARED_BYTES`` is refused (``W`` above :data:`MAX_BEAM_WIDTH`).
     """
     runs = -(-(beam_width + beam_width * k) // 32)
     cap = MAX_TREE_THREADS if beam_width <= 32 else MAX_THREADS
-    return {"threads": min(cap, 32 * runs), "smem_bytes": 4 * (18 * beam_width + 64 * runs + 4 * k + 2)}
+    one_block = 4 * (18 * beam_width + 64 * runs + 4 * k + 2)
+    if one_block <= MAX_SHARED_BYTES:
+        return {"threads": min(cap, 32 * runs), "smem_bytes": one_block, "chunk_runs": 0}
+    fixed = 18 * beam_width + 64 * _pick_runs(beam_width)
+    chunk = (MAX_SHARED_BYTES // 4 - fixed) // 64
+    if beam_width > 32:
+        chunk = min(chunk, MAX_RANK_CHUNK_RUNS)
+    chunk = max(1, min(chunk, -(-(beam_width * k) // 32)))
+    return {"threads": min(cap, 32 * (_pick_runs(beam_width) + chunk)), "smem_bytes": 4 * (fixed + 64 * chunk),
+            "chunk_runs": chunk}
 
 
-def scan_fits(beam_width: int, k: int) -> bool:
-    """Whether the scan takes ``beam_width`` beams of ``k`` candidates a frame: its block fits in
-    ``MAX_SHARED_BYTES`` (at W = 16, up to K = 1,605: Citrinet's V = 1025 with every token a step)."""
-    return scan_plan(beam_width, k)["smem_bytes"] <= MAX_SHARED_BYTES
+def scan_chunks(beam_width: int, k: int) -> list:
+    """A frame's chunks in the kernel's order, as ``(rows, lo, hi)``: ``("extend", lo, hi)`` over the extend
+    rows ``[0, W*K)``, then ``("stay", lo, hi)`` over the stay rows ``[0, W)``, each ``32 * chunk_runs`` rows
+    at most; one ``("all", 0, W + W*K)`` for the one-block plan."""
+    chunk = scan_plan(beam_width, k)["chunk_runs"]
+    if chunk == 0:
+        return [("all", 0, beam_width + beam_width * k)]
+    size = 32 * chunk
+    return [(rows, lo, min(lo + size, n)) for rows, n in (("extend", beam_width * k), ("stay", beam_width))
+            for lo in range(0, n, size)]
+
+
+def scan_fits(beam_width: int) -> bool:
+    """Whether the scan takes ``beam_width`` beams, for any K: the state and a chunk of one run fit in
+    ``MAX_SHARED_BYTES`` (up to :data:`MAX_BEAM_WIDTH`)."""
+    return 4 * (18 * beam_width + 64 * (_pick_runs(beam_width) + 1)) <= MAX_SHARED_BYTES
+
+
+#: the widest beam the scan takes
+MAX_BEAM_WIDTH = max(w for w in range(1, MAX_SHARED_BYTES // 72 + 1) if scan_fits(w))
 
 
 def fresh_state(batch: int, beam_width: int, device) -> State:
@@ -120,11 +157,10 @@ def _check_scan(logp, lengths, blank, beam_width, k_tokens, init_state):
         raise ValueError(f"blank {blank} outside the vocabulary of {vocab}")
     if beam_width < 1 or k_tokens < 1:
         raise ValueError(f"beam_width and k_tokens must be positive, got {beam_width}, {k_tokens}")
-    k = min(int(k_tokens), vocab)
-    if not scan_fits(beam_width, k):
-        raise ValueError(f"beam_width {beam_width} with K={k} candidates a step needs "
-                         f"{scan_plan(beam_width, k)['smem_bytes']} bytes of the scan's shared memory, over "
-                         f"{MAX_SHARED_BYTES}")
+    if not scan_fits(beam_width):
+        raise ValueError(f"beam_width {beam_width} needs {scan_plan(beam_width, 1)['smem_bytes']} bytes of the scan's "
+                         f"shared memory for its state and one chunk, over {MAX_SHARED_BYTES}; the scan takes a "
+                         f"beam_width up to {MAX_BEAM_WIDTH}")
     if init_state is not None and (len(init_state) != 5 or any(a.shape != (batch, beam_width) for a in init_state)):
         raise ValueError(f"init_state must be five ({batch}, {beam_width}) arrays")
 

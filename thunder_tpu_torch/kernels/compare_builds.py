@@ -25,14 +25,23 @@ falls on both. Each process times, with CUDA events:
   1200, n_fft 2048); a shape the checkout's wrapper does not take (decided
   before the call, by its plan or by the parent kernel's predicate) is
   recorded as ``"refused"``;
-- the beam scan (``beam_scan``, W = 16, floor -12) at the three shapes of
+- the beam scan (``beam_scan``, W = 16, floor -12) at the shapes of
   ``BEAM_SHAPES``: QuartzNet's serving decode (64 × 751 × 29, K = V), the
   ``beam_device_topk`` shape (64 × 188 × 1025, K = 50; the wrapper's top-K
   sort is in the time, and is timed alone beside it) and one ``predict_long``
   window (1 × 1000 × 29), on the ``beam_device`` inputs (numpy seed 3) with
-  every row at full length;
+  every row at full length; and 16 × 188 × 3000, every token a step (K =
+  3000), past one block of shared memory (``"refused"`` where the checkout
+  refuses it);
+- the add + dropout + LayerNorm training kernels at wav2vec2-base's step
+  shape (5,992 rows of 768, rate 0.1): the forward's and the backward's
+  device time a call L2-cold (rotating among six input sets, 166 MB in all,
+  with the card held by a sleep kernel until the host has queued every call)
+  and L2-warm (torch.profiler), and the backward's two kernels apart;
 - one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``)
-  and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW),
+  and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW;
+  beside it the device time of the step's add + dropout + LayerNorm kernels
+  by torch.profiler),
   and one QuartzNet15x5 greedy forward at 64 × 15 s (20 iterations), a beam
   ``predict`` of the same batch (``beam_width=16, beam_backend="device"``, the
   median of 5 on the host clock, from numpy audio to transcripts) and a
@@ -43,8 +52,8 @@ falls on both. Each process times, with CUDA events:
 Every number is a mean over its iterations in milliseconds; the last line is
 one JSON object with both sides' four runs. Only the API both checkouts share
 is used. ``--parts`` limits each process to some of the groups
-(``attention``, ``ctc``, ``separable``, ``log_mel``, ``beam``, ``wav2vec2``,
-``quartznet``).
+(``attention``, ``ctc``, ``separable``, ``log_mel``, ``beam``, ``add_ln``,
+``wav2vec2``, ``quartznet``).
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-PARTS = ("attention", "ctc", "separable", "log_mel", "beam", "wav2vec2", "quartznet")
+PARTS = ("attention", "ctc", "separable", "log_mel", "beam", "add_ln", "wav2vec2", "quartznet")
 #: QuartzNet15x5's separable repeats in one forward at 64 x 15 s (T = 1501 log-mel frames, 751 after the stem):
 #: (t_in, C_in, C_out, k, stride, dilation) -> launches
 QUARTZNET_SEPARABLE_SHAPES = {
@@ -86,7 +95,14 @@ BEAM_SHAPES = {
     "serving_64x751x29": (64, 751, 29, 16, 50),  # QuartzNet's decode of 64 x 15 s: K = V = 29
     "topk_64x188x1025": (64, 188, 1025, 16, 50),  # beam_device_topk: Citrinet's vocabulary, K = 50
     "window_1x1000x29": (1, 1000, 29, 16, 50),  # one 20 s predict_long window
+    "chunked_16x188x3000": (16, 188, 3000, 16, 3000),  # every token a step past one block: the chunked scan
 }
+
+#: the add + dropout + LayerNorm training kernels' shape: wav2vec2-base's step at 8 x 15 s (rows, D, rate)
+ADD_LN_TRAIN_SHAPE = (5992, 768, 0.1)
+#: input sets a cold timing rotates among: 6 x 27.6 MB of x, y and dout at that shape (110 MB of x and y alone), over
+#: twice the 50 MB L2
+COLD_SETS = 6
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -151,7 +167,8 @@ def measure_separable(batch: int = 64, iters: int = 10) -> dict:
 
 def measure_beam(iters: int = 10) -> dict:
     """``beam_scan`` at each of ``BEAM_SHAPES`` on the ``beam_device`` inputs (seed 3), every row at full
-    length: ``{name: ms}``, and ``{name}_topk_sort_ms`` (``candidates`` alone) where K < V."""
+    length: ``{name: ms}``, ``"refused"`` where the checkout's wrapper raises before any launch, and
+    ``{name}_topk_sort_ms`` (``candidates`` alone) where K < V."""
     import torch
 
     from thunder_tpu_torch.kernels.beam import beam_scan, candidates
@@ -162,9 +179,67 @@ def measure_beam(iters: int = 10) -> dict:
         logits, _ = beam_case(3, batch, frames, vocab, "cuda")
         logp = torch.log_softmax(logits, dim=-1).contiguous()
         lens = torch.full((batch,), frames, dtype=torch.int32, device="cuda")
+        try:
+            beam_scan(logp, lens, -12.0, blank=0, beam_width=width, k_tokens=k)
+        except ValueError:  # the wrapper's refusal, before any launch
+            out[name] = "refused"
+            continue
         out[name] = _cuda_ms(lambda: beam_scan(logp, lens, -12.0, blank=0, beam_width=width, k_tokens=k), iters)
         if k < vocab:
             out[f"{name}_topk_sort_ms"] = _cuda_ms(lambda: candidates(logp, k), iters)
+    return out
+
+
+def cold_ms(calls, iters: int = 40) -> dict:
+    """Device milliseconds a call of ``calls`` (functions of no argument, each on its own inputs, together over
+    the L2's 50 MB), called in turn ``iters`` times back to back, by CUDA events. A sleep kernel holds the card
+    until the host has queued every call, so the host's pace is not in the time; each call finds its inputs in
+    device memory. Returns ``{"ms", "host_queue_ms", "held_ms"}``: the host's queueing must end inside the hold."""
+    import torch
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    before.record()
+    torch.cuda._sleep(50_000_000)  # about 25 ms at the card's clock
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    held = before.elapsed_time(start)
+    if host_ms >= held:
+        raise RuntimeError(f"the host queued for {host_ms} ms, past the card's {held} ms hold: the time is the host's")
+    return {"ms": start.elapsed_time(end) / iters, "host_queue_ms": host_ms, "held_ms": held}
+
+
+def measure_add_ln(iters: int = 40) -> dict:
+    """The add + dropout + LayerNorm training kernels at ``ADD_LN_TRAIN_SHAPE`` on random bf16 inputs (seed 0):
+    the forward's and the backward's (with its partial sum) device time a call, L2-cold (:func:`cold_ms` over
+    ``COLD_SETS`` input sets) and L2-warm (one set, torch.profiler's kernel times: ``*_warm_ms``)."""
+    import torch
+
+    from thunder_tpu_torch.kernels.add_ln_train import add_ln_train_backward, add_ln_train_forward
+
+    rows, d, rate = ADD_LN_TRAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = lambda scale: (torch.randn((rows, d), device="cuda", generator=gen) * scale).to(torch.bfloat16)  # noqa: E731
+    sets = [(bf(2.0), bf(1.0), bf(1.0)) for _ in range(COLD_SETS)]
+    scale = torch.randn((d,), device="cuda", generator=gen) + 1.0
+    bias = torch.randn((d,), device="cuda", generator=gen)
+    seed = torch.tensor([20260821], dtype=torch.int32, device="cuda")
+    fwd = [lambda x=x, y=y: add_ln_train_forward(x, y, scale, bias, seed, rate) for x, y, _ in sets]
+    bwd = [lambda x=x, y=y, do=do: add_ln_train_backward(x, y, scale, seed, do, rate) for x, y, do in sets]
+    out = {"shape": [rows, d, rate]}
+    for name, calls in (("fwd", fwd), ("bwd", bwd)):
+        cold = cold_ms(calls, iters)
+        out[f"{name}_cold_ms"], out[f"{name}_cold_host_queue_ms"] = cold["ms"], cold["host_queue_ms"]
+        out[f"{name}_warm_ms"] = sum(device_ms_by_kernel(calls[0], 10).values())
+    by_kernel = device_ms_by_kernel(lambda: [fn() for fn in bwd], 5)  # a call of each set, in turn
+    out["bwd_cold_by_kernel_ms"] = {name: ms / len(bwd) for name, ms in by_kernel.items()}
     return out
 
 
@@ -214,6 +289,8 @@ def measure(parts=PARTS) -> dict:
         out["log_mel_ms"] = measure_log_mel()
     if "beam" in parts:
         out["beam_scan_ms"] = measure_beam()
+    if "add_ln" in parts:
+        out["add_ln_train"] = measure_add_ln()
     if "attention" in parts:
         _measure_attention(out, gen)
     if "ctc" in parts:
@@ -323,6 +400,9 @@ def _measure_wav2vec2(out: dict, vocab, audio, audio_lens, step_gen) -> None:
     for _ in range(2):
         step(*batch, step_gen)
     out["w2v2_train_step_ms"] = _cuda_ms(lambda: step(*batch, step_gen), 5)
+    # the step's add + dropout + LayerNorm kernels (forward, backward, partial sum) by torch.profiler
+    by_kernel = device_ms_by_kernel(lambda: step(*batch, step_gen), 2)
+    out["w2v2_train_step_add_ln_ms"] = sum(ms for name, ms in by_kernel.items() if "add_ln_train_" in name)
 
 
 def _measure_quartznet(out: dict, rng, step_gen) -> None:
@@ -388,8 +468,7 @@ def main() -> int:
         root = other if side == "other" else ROOT
         env = {**os.environ, "PYTHONPATH": str(root)}
         proc = subprocess.run([sys.executable, __file__, "--other", str(other), "--parts", args.parts, "--measure"],
-                              cwd=root, env=env,
-                              capture_output=True, text=True)
+                              cwd=root, env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return 1

@@ -42,7 +42,10 @@ its host search; both routes compute the same float32 operations, so it is
 0 when the card's ``expf``/``log1pf`` round as PyTorch's do).
 ``beam_device_v1025_all_tokens`` (B = 4, T = 60, V = K = 1025) and
 ``beam_device_w300`` (B = 4, T = 120, V = 29, beam 300) hold it exactly past
-the JAX package's 8,192 candidates a frame.
+the JAX package's 8,192 candidates a frame; ``beam_device_k3000`` (B = 16,
+T = 188, V = K = 3000, beam 16) and ``beam_device_w64_k1000`` (B = 4, T =
+40, V = K = 1000, beam 64, the ranking path) past one block of shared
+memory, where the scan walks each frame in chunks.
 ``beam_device_topk`` runs the ``K < V`` pre-prune at the Citrinet serving
 shape (B = 64, T = 188, V = 1025, K = 50, beam 16), and ``beam_stream``
 holds four windows that tile the ``beam_device`` utterance, each one scan
@@ -69,7 +72,12 @@ their plain versions and to a float32 reference that applies the same mask
 (the mask is the shared hash's, so it is computed, not recovered through
 probes as on the TPU), and returns ``inf`` when two runs with one seed differ
 in any bit, forward or backward, or when the kept fraction lies more than 5
-sigma from ``1 - rate``. ``attn_train_749`` adds the training length at 15 s
+sigma from ``1 - rate``. ``add_ln_train_rows5992`` (8 x 749 rows, the
+wav2vec2-base step's, the backward's grid at two blocks an SM) and
+``add_ln_train_rows3`` (fewer rows than a backward block has warps) hold
+the same limits; ``add_ln_train_repeat`` runs the backward five times at
+the step's shape on one seed, with a launch of other rows between, and
+fails unless dx, dy, dscale and dbias are equal bit for bit. ``attn_train_749`` adds the training length at 15 s
 with ragged lengths, a row of length 0 and rate 0.1: the uniform row must stay
 finite forward and backward; ``attn_train_long_2048`` a batch of about 41 s
 (B = 2, T = 2048, 12 heads, lengths ``[2048, 1900]``, rate 0.1).
@@ -458,6 +466,23 @@ def _check_add_ln_train(device, seed=12, rows_shape=(2, 512), d=768, rate=0.1) -
     return result
 
 
+def _check_add_ln_train_repeat(device) -> dict:
+    """The backward at the train step's shape, five times on one seed with other launches between: dx, dy,
+    dscale and dbias equal bit for bit (max_err 0, else inf)."""
+    x, y, scale, _, ct = add_ln_train_case(45, (8, 749), 768, device)
+    sd = torch.tensor([20260821], dtype=torch.int32, device=device)
+    first = add_ln_train_backward(x, y, scale, sd, ct, 0.1)
+    small = add_ln_train_case(46, (37,), 768, device)
+    same = True
+    for _ in range(4):
+        add_ln_train_backward(small[0], small[1], small[2], sd, small[4], 0.1)
+        same &= all(torch.equal(a, b) for a, b in zip(first, add_ln_train_backward(x, y, scale, sd, ct, 0.1)))
+    result = {"max_err": 0.0 if same else float("inf"), "max_abs_err": 0.0, "repeats": 5}
+    if not same:
+        result["error"] = "the backward gave other bits on one seed"
+    return result
+
+
 def beam_case(seed, b, t, v, device):
     """The ``beam_device`` inputs of the JAX selftest: logits with +2 on blank 0, lengths ``linspace(t // 2, t, b)``."""
     rng = np.random.default_rng(seed)
@@ -615,6 +640,11 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_train_long_2048": (_attention_train_check(17, 2, 2048, 12, [2048, 1900], 0.1), 8.0),
     "add_ln_train": (_check_add_ln_train, 8.0),
     **{f"add_ln_train_{name}": (_add_ln_train_check(*args), 8.0) for name, args in ADD_LN_WIDTHS.items()},
+    # wav2vec2-base's train step (8 x 749 rows: two blocks an SM), fewer rows than the backward has warps in a
+    # block, and the backward's bits from run to run at the step's shape
+    "add_ln_train_rows5992": (_add_ln_train_check(43, (8, 749), 768), 8.0),
+    "add_ln_train_rows3": (_add_ln_train_check(44, (3,), 768), 8.0),
+    "add_ln_train_repeat": (_check_add_ln_train_repeat, 8.0),
     # beam search: exact pointers, exts, integer state and hypotheses (else inf), then the float
     # state's and total's largest difference, within the JAX package's score tolerance
     "beam_device": (_beam_check(3, 64, 751, 29, 16, 29), 2e-3),
@@ -624,6 +654,10 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # past the JAX package's 8,192 candidates a frame: Citrinet's V = 1025 with every token a step, and W = 300
     "beam_device_v1025_all_tokens": (_beam_check(6, 4, 60, 1025, 16, 1025), 2e-3),
     "beam_device_w300": (_beam_check(7, 4, 120, 29, 300, 29), 2e-3),
+    # past one block of shared memory (the chunked scan): every token a step at K = 3,000 and W = 16, and W = 64
+    # (the ranking path) at K = 1,000
+    "beam_device_k3000": (_beam_check(8, 16, 188, 3000, 16, 3000), 2e-3),
+    "beam_device_w64_k1000": (_beam_check(9, 4, 40, 1000, 64, 1000), 2e-3),
 }
 
 
