@@ -49,7 +49,10 @@ Phases, each of which fails the run:
    ``TRAIN_LOSS_BOUND``;
 7. the CTC kernel pair at the training shape against its plain version and
    against ``F.ctc_loss`` forward + backward (``library_ms``, timed here only:
-   the port never calls it);
+   the port never calls it), each kernel alone (and in nanoseconds a frame),
+   and the chain floor: the latency of a step's arithmetic alone (one thread,
+   100,000 dependent lse3 steps, nothing loaded, stored or exchanged), times T,
+   for each kernel;
 8. wav2vec2-base greedy serving (``scripts/bench_w2v2.py``'s configuration:
    ``Wav2Vec2Preprocess(mask_input=True)``, 7-conv extractor, 12 post-LN
    layers of hidden 768 and 12 heads, ``LinearDecoder`` over 31 characters and
@@ -87,7 +90,12 @@ Phases, each of which fails the run:
    timed on the first window's logits (B = 1, one 20 s window); and the scan
    past one block of shared memory (phase ``beam_chunked_shape``: B = 16, T =
    188, V = K = 3000, W = 16, the ``beam_device`` inputs of numpy seed 3, the
-   chunked kernel) must equal its plain version exactly, both timed;
+   chunked kernel) must equal its plain version exactly, both timed; and both
+   beam kernels past the beam's state in shared memory (phase ``beam_wide``:
+   W = 3,000 at B = 2, T = 10, V = K = 29, the workspace plan; W = 7,000 at B
+   = 1, T = 20, V = K = 5, every slot's path walked from device memory), on
+   the ``beam_device_w3000`` and ``beam_backtrace_w7000`` checks' inputs, must
+   equal their plain versions exactly, all four timed;
 10. wav2vec2-base CTC training at 8 rows x 15 s (``bench_train.py --model
     wav2vec2``: ``Wav2Vec2Preprocess(mask_input=False)``, the feature
     extractor frozen, attention, hidden and feature-projection dropout 0.1,
@@ -380,6 +388,25 @@ def ctc_bound(t: int, b: int, s: int) -> dict:
     per state and frame over both directions (3 + 4 exp, 2 log, the maxima and sums)."""
     plane = 4 * t * b * s
     return bound(5 * plane + 2 * b * s + 16 * b, f32_flop=40.0 * t * b * s)
+
+
+def ctc_chain_floor(t: int, steps: int = 100000) -> dict:
+    """The least time of the CTC pair's two chains of ``t`` steps on this card: the latency of one step's
+    arithmetic alone (``thunder_ctc_lse3_chain``: one thread runs ``steps`` dependent lse3 and adds on two
+    states, with no neighbour to fetch and nothing loaded or stored), times ``t``, for each of the two kernels."""
+    import torch
+
+    from thunder_tpu_torch.kernels import _build
+
+    lib, out = _build.load(), torch.zeros(2, device="cuda")
+
+    def chain():
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.thunder_ctc_lse3_chain(out.data_ptr(), steps, -0.5, -2.0, stream), "thunder_ctc_lse3_chain")
+
+    step = cuda_ms(chain, 3) / steps
+    check(bool(torch.isfinite(out).all()), f"the lse3 chain ended on {out.tolist()}")
+    return {"chain_floor_ms": 2 * t * step, "lse3_step_ns": step * 1e6}
 
 
 def attention_bound(batch: int, t: int, heads: int) -> dict:
@@ -803,16 +830,22 @@ def training_phase(card: str, ctc_tol: float) -> dict:
     err = max((ll_k - ll_p).abs().max().item(), (d_k - d_p).abs().max().item())
     k_ms, p_ms = paired_ms(kernel_pair, plain_pair, 3)
     lib_ms = cuda_ms(library, 20)
+    ll = ll_from_alpha(a_k, lens, tl)
+    alpha_ms = cuda_ms(lambda: ctc_alpha(lp_z, skip_ok, lens, tl), 20)
+    beta_ms = cuda_ms(lambda: ctc_beta(lp_z, a_k, skip_ok, lens, tl, ll, ghat), 20)
+    floor = ctc_chain_floor(751)
     emit({"phase": "ctc_training_shape", "T": 751, "B": TRAIN_BATCH, "S": int(lp_z.shape[2]),
-          "kernel_ms": k_ms, "alpha_ms": cuda_ms(lambda: ctc_alpha(lp_z, skip_ok, lens, tl), 20),
-          "plain_ms": p_ms, "library_ms": lib_ms, "loss_delta": loss_delta, "grad_rel_delta": grad_rel})
+          "kernel_ms": k_ms, "alpha_ms": alpha_ms, "beta_ms": beta_ms, "alpha_ns_per_frame": alpha_ms * 1e6 / 751,
+          "beta_ns_per_frame": beta_ms * 1e6 / 751, "plain_ms": p_ms, "library_ms": lib_ms, **floor,
+          "loss_delta": loss_delta, "grad_rel_delta": grad_rel, "card": card})
     check(max(loss_delta, grad_rel) <= ctc_tol,
           f"CTC pair at the training shape off by {max(loss_delta, grad_rel)} > {ctc_tol}")
     return {"name": "ctc_recursion", "route": "cuda", "source": "thunder_tpu_torch/csrc/ctc_recursion.cu",
             "replaces": "thunder_tpu/kernels/ctc_pallas.py:264", "launches": counts["ctc_alpha"] + counts["ctc_beta"],
             "launches_is": "ctc_alpha + ctc_beta in one train step", "max_abs_err": err, "ms": k_ms,
-            "ms_is": f"ctc_alpha + ctc_beta at T=751, B={TRAIN_BATCH}, S={lp_z.shape[2]}", "plain_ms": p_ms,
-            **ctc_bound(751, TRAIN_BATCH, int(lp_z.shape[2])), "library_ms": lib_ms,
+            "ms_is": f"ctc_alpha + ctc_beta at T=751, B={TRAIN_BATCH}, S={lp_z.shape[2]}", "alpha_ms": alpha_ms,
+            "beta_ms": beta_ms, "plain_ms": p_ms, **ctc_bound(751, TRAIN_BATCH, int(lp_z.shape[2])),
+            "chain_floor_ms": floor["chain_floor_ms"], "library_ms": lib_ms,
             "library": "F.ctc_loss forward + backward, reduction sum, zero_infinity"}
 
 
@@ -1451,6 +1484,34 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
           "card": card})
     check(c_exact and c_err <= total_tol, f"the chunked beam scan differs from the plain version (exact {c_exact}, "
                                           f"total {c_err})")
+
+    # past the state that fits in shared memory (the workspace plan) at W = 3,000, and past one frame of pointers in
+    # the backtrace's 48 KB at W = 7,000: both kernels against their plain versions on the check's inputs, exactly,
+    # every slot's path walked, and timed
+    wide = {}
+    for seed, b, t, v, w in ((10, 2, 10, 29, 3000), (11, 1, 20, 5, 7000)):
+        w_logits, w_lens = beam_case(seed, b, t, v, "cuda")
+        w_logp = torch.log_softmax(w_logits, dim=-1).contiguous()
+        w_kw = dict(blank=0, beam_width=w, k_tokens=v)
+        w_scan = lambda: beam_scan(w_logp, w_lens, -12.0, **w_kw)  # noqa: E731
+        w_plain = lambda: beam_scan_reference(w_logp, w_lens, -12.0, **w_kw)  # noqa: E731
+        (wp1, we1, wt1, ws1), (wp0, we0, wt0, ws0) = w_scan(), w_plain()
+        slots = torch.argsort(-wt0, dim=1, stable=True).to(torch.int32)
+        w_walk = lambda: beam_backtrace(wp0, we0, slots)  # noqa: E731
+        w_walk_plain = lambda: beam_backtrace_reference(wp0, we0, slots)  # noqa: E731
+        (wk1, wo1), (wk0, wo0) = w_walk(), w_walk_plain()
+        w_finite = torch.isfinite(wt0)
+        w_err = (wt1[w_finite] - wt0[w_finite]).abs().max().item()
+        w_exact = (torch.equal(wp1, wp0) and torch.equal(we1, we0) and torch.equal(w_finite, torch.isfinite(wt1))
+                   and all(torch.equal(a, b) for a, b in zip(ws1[2:], ws0[2:])) and torch.equal(wk1, wk0)
+                   and torch.equal(wo1, wo0))
+        wide[w] = {"B": b, "T": t, "V": v, "K": v, "W": w, "plan": scan_plan(w, v), "scan_ms": cuda_ms(w_scan, 2),
+                   "scan_plain_ms": cuda_ms(w_plain, 1), "backtrace_ms": cuda_ms(w_walk, 10),
+                   "backtrace_plain_ms": cuda_ms(w_walk_plain, 2), "paths": int(slots.numel()),
+                   "live_slots": int(w_finite.sum().item()), "exact": w_exact, "max_abs_err": w_err}
+        emit({"phase": "beam_wide", **wide[w], "card": card})
+        check(w_exact and w_err <= total_tol, f"the beam kernels at W = {w} differ from the plain versions "
+                                              f"(exact {w_exact}, total {w_err})")
     source, pallas = "thunder_tpu_torch/csrc/beam_search.cu", "thunder_tpu/kernels/beam_pallas.py"
     shape = f"B={batch}, T={frames}, V=K={vocab}, W={width}"
     return [
@@ -1458,10 +1519,14 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
          "launches": counts["beam_scan"], "max_abs_err": scan_err, "ms": scan_ms, "plain_ms": scan_plain_ms,
          "ms_is": f"one launch at the forward's logits, {shape}", **beam_scan_bound(batch, frames, vocab, width),
          "chunked_ms": c_ms, "chunked_plain_ms": c_plain_ms, "chunked_is": "B=16, T=188, V=K=3000, W=16",
+         "workspace_ms": wide[3000]["scan_ms"], "workspace_plain_ms": wide[3000]["scan_plain_ms"],
+         "workspace_is": "B=2, T=10, V=K=29, W=3000",
          "library_ms": None, "library": "none (no single PyTorch call computes a prefix beam search)"},
         {"name": "beam_backtrace", "route": "cuda", "source": source, "replaces": f"{pallas}:374",
          "launches": counts["beam_backtrace"], "max_abs_err": 0.0, "ms": walk_ms, "plain_ms": walk_plain_ms,
          "ms_is": f"one launch, one path a row, {shape}", **beam_backtrace_bound(batch, frames, 1),
+         "walk_ms": wide[7000]["backtrace_ms"], "walk_plain_ms": wide[7000]["backtrace_plain_ms"],
+         "walk_is": "B=1, T=20, W=7000, every slot's path, its loads from device memory",
          "library_ms": None, "library": "none (no single PyTorch call walks beam pointers)"},
     ]
 

@@ -36,13 +36,11 @@ from thunder_tpu_torch.bridge import from_flax_variables
 from thunder_tpu_torch.engine import InferenceEngine
 from thunder_tpu_torch.kernels import KERNEL_WRAPPERS
 from thunder_tpu_torch.kernels.beam import (
-    MAX_BEAM_WIDTH,
     MAX_CANDIDATES,
     MAX_SHARED_BYTES,
     beam_backtrace,
     beam_scan,
     scan_chunks,
-    scan_fits,
     scan_plan,
 )
 from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
@@ -130,11 +128,13 @@ def test_scan_plan_takes_every_width_up_to_2048_and_the_serving_shapes():
         k = MAX_CANDIDATES // w
         assert scan_plan(w, k)["smem_bytes"] <= MAX_SHARED_BYTES, (w, k)
     # QuartzNet: a thread a candidate; Citrinet's top-K: 26 runs on 16 warps; both in one block
-    assert scan_plan(16, 29) == {"threads": 480, "smem_bytes": 5464, "chunk_runs": 0}
-    assert scan_plan(16, 50) == {"threads": 512, "smem_bytes": 8616, "chunk_runs": 0}
+    assert scan_plan(16, 29) == {"threads": 480, "smem_bytes": 5464, "chunk_runs": 0, "workspace_bytes": 0}
+    assert scan_plan(16, 50) == {"threads": 512, "smem_bytes": 8616, "chunk_runs": 0, "workspace_bytes": 0}
     assert scan_plan(40, 29)["threads"] == 1024  # above a warp: 1200 candidates, some threads take two
     assert scan_plan(1, 29)["threads"] == 32
-    assert scan_plan(3058, 1)["smem_bytes"] > MAX_SHARED_BYTES
+    # a state that does not fit beside one chunk: the workspace plan, its arrays in device memory
+    plan = scan_plan(3058, 1)
+    assert plan["smem_bytes"] == 0 and plan["workspace_bytes"] > MAX_SHARED_BYTES
 
 
 def test_wrappers_count_no_launch_on_the_cpu():
@@ -214,17 +214,36 @@ def test_device_search_no_frames_and_the_candidate_limit():
     assert [h.tolist() for h in beam_search_device(empty, beam_width=4, device="cpu")] == [[], []]
     nb = beam_search_device(empty, beam_width=4, nbest=2, device="cpu")
     assert [[(ids.tolist(), s) for ids, s in row] for row in nb] == [[([], 0.0)], [([], 0.0)]]
-    # any K a step (past one block of shared memory the kernel walks a frame in chunks); the limit is the beam's
+    # any K a step (past one block of shared memory the kernel walks a frame in chunks) and any beam: past 2,901
+    # beams the scan's arrays live in device memory (the workspace plan); the JAX package's XLA scan's hypotheses
+    # and scores
     big = np.zeros((1, 5, 3000), np.float32)
     assert len(beam_search_device(big, beam_width=16, max_tokens_per_step=None, device="cpu")) == 1
-    wide = np.zeros((1, 5, 7), np.float32)
-    with pytest.raises(ValueError, match="beam_width"):
-        beam_search_device(wide, beam_width=MAX_BEAM_WIDTH + 1, max_tokens_per_step=None, device="cpu")
-    with pytest.raises(ValueError, match="beam_width"):
-        beam_search_device_stream(wide, beam_width=MAX_BEAM_WIDTH + 1, max_tokens_per_step=None, device="cpu")
-    with pytest.raises(ValueError, match="beam_width"):
-        beam_scan(torch.zeros((1, 5, 7)), torch.full((1,), 5), -12.0, blank=0, beam_width=MAX_BEAM_WIDTH + 1,
-                  k_tokens=7)
+    logits = _logits(27, 1, 3, 5)
+    kw = dict(blank=0, beam_width=3000, max_tokens_per_step=None)
+    assert scan_plan(3000, 5)["workspace_bytes"] > 0
+    for nbest in (None, 4):
+        got = beam_search_device(logits, nbest=nbest, device="cpu", **kw)
+        want = jax_device.beam_search_device(logits, use_pallas=False, nbest=nbest, **kw)
+        (_same_hyps if nbest is None else _same_nbest)(want, got)
+    # the stream takes W = 3,000 where the JAX package's stream does (W*K <= 8192), and refuses where it does. Its
+    # windows are held to the JAX package's XLA search over the whole utterance, which its stream equals by contract
+    # (tests/test_ctc_beam_device.py): the JAX stream runs the Pallas kernel, in interpret mode on the CPU, whose
+    # trace at W = 3,000 takes longer than the whole suite
+    kw = dict(blank=0, beam_width=3000, max_tokens_per_step=2)
+    state = None
+    for lo, hi in [(0, 2), (2, 3)]:
+        state = beam_search_device_stream(logits[:, lo:hi], state=state, device="cpu", **kw)
+    want = jax_device.beam_search_device(logits, use_pallas=False, nbest=4, **kw)
+    _same_hyps([row[0][0] for row in want], state.best())
+    order = np.argsort(-state.total[0], kind="stable")[:4]
+    _same_nbest(want, [[(state.prefixes[0][w], float(state.total[0, w])) for w in order]])
+    kw["max_tokens_per_step"] = 3
+    with pytest.raises(ValueError, match="beam_width") as want:
+        jax_device.beam_search_device_stream(logits, **kw)
+    with pytest.raises(ValueError, match="beam_width") as got:
+        beam_search_device_stream(logits, device="cpu", **kw)
+    assert str(got.value) == str(want.value)
     # exactly 8192 candidates a frame is allowed
     assert len(beam_search_device(np.zeros((1, 2, 512), np.float32), beam_width=16, max_tokens_per_step=None,
                                   device="cpu")) == 1
@@ -245,15 +264,22 @@ def test_device_search_past_8192_candidates_matches_the_reference(b, t, v, width
     _same_hyps(want, beam_search_device(logits, device="cpu", **kw))
 
 
-@pytest.mark.parametrize("width", [1, 16, 32, 33, 300, 2048])
+@pytest.mark.parametrize("width", [1, 16, 32, 33, 300, 2048, 2901, 3000])
 @pytest.mark.parametrize("k", [29, 50, 1605, 1606, 3000, 30000])
 def test_scan_plan_fits_and_its_chunks_cover_every_run_once(width, k):
     """The mirror of the kernel's plan: every plan fits in shared memory, the one-block plan is taken wherever
-    its block fits, and a frame's chunks hold each extend row and each stay row once, in whole runs."""
+    its block fits, the workspace plan (no shared memory; the state, picks and a chunk's keys in device memory)
+    wherever the state and one run do not (W above 2,901), and a frame's chunks hold each extend row and each
+    stay row once, in whole runs."""
     plan = scan_plan(width, k)
-    assert plan["smem_bytes"] <= MAX_SHARED_BYTES and scan_fits(width)
+    assert plan["smem_bytes"] <= MAX_SHARED_BYTES
     one_block = 4 * (18 * width + 64 * -(-(width + width * k) // 32) + 4 * k + 2)
     assert (plan["chunk_runs"] == 0) == (one_block <= MAX_SHARED_BYTES)
+    words = 18 * width + 64 * (-(-width // 32) if width > 32 else 0) + 64 * plan["chunk_runs"]
+    if width > 2901:
+        assert plan["smem_bytes"] == 0 and plan["workspace_bytes"] == 4 * words
+    else:
+        assert plan["workspace_bytes"] == 0
     chunks = scan_chunks(width, k)
     if plan["chunk_runs"] == 0:
         assert chunks == [("all", 0, width + width * k)]
@@ -261,7 +287,7 @@ def test_scan_plan_fits_and_its_chunks_cover_every_run_once(width, k):
     size = 32 * plan["chunk_runs"]
     for rows, n in (("extend", width * k), ("stay", width)):
         spans = [(lo, hi) for r, lo, hi in chunks if r == rows]
-        covered = np.zeros(n, np.int64)
+        covered = np.zeros(n, np.uint8)
         for lo, hi in spans:
             assert lo % 32 == 0 and 0 < hi - lo <= size
             covered[lo:hi] += 1
@@ -272,9 +298,9 @@ def test_scan_plan_fits_and_its_chunks_cover_every_run_once(width, k):
 
 
 def test_device_search_takes_the_scan_up_to_its_block_and_refuses_past_it(monkeypatch):
-    """Every K goes to ``beam_scan`` (the kernel on the card): in one block while it fits in shared memory
-    (K = 1,605 at W = 16), in chunks past it; a beam_width whose state does not fit beside one chunk
-    (``scan_fits``: W above 2,901) raises before any launch."""
+    """Every K and W goes to ``beam_scan`` (the kernel on the card): in one block while it fits in shared memory
+    (K = 1,605 at W = 16), in chunks past it, and with its arrays in device memory where the state does not fit
+    beside one chunk (W above 2,901), with the JAX package's XLA scan's hypotheses and scores there."""
     from thunder_tpu_torch.ops import ctc_beam_device
 
     calls = []
@@ -286,16 +312,14 @@ def test_device_search_takes_the_scan_up_to_its_block_and_refuses_past_it(monkey
 
     monkeypatch.setattr(ctc_beam_device, "beam_scan", spy)
     assert scan_plan(16, 1605)["chunk_runs"] == 0 and scan_plan(16, 1606)["chunk_runs"] > 0
-    assert MAX_BEAM_WIDTH == 2901 and scan_fits(2901) and not scan_fits(2902)
+    assert scan_plan(2901, 1)["workspace_bytes"] == 0 and scan_plan(2902, 1)["workspace_bytes"] > 0
     for v, width, k in [(512, 16, None), (1605, 16, None), (1606, 16, None), (29, 300, None), (29, 300, 27)]:
         beam_search_device(_logits(25, 1, 3, v), blank=0, beam_width=width, max_tokens_per_step=k, device="cpu")
     assert calls == [MAX_CANDIDATES, 16 * 1605, 16 * 1606, 300 * 29, 300 * 27]
-    with pytest.raises(ValueError, match="beam_width"):
-        beam_search_device(_logits(25, 1, 3, 5), blank=0, beam_width=MAX_BEAM_WIDTH + 1, device="cpu")
-    with pytest.raises(ValueError, match="shared memory"):
-        beam_scan(torch.zeros((1, 3, 5)), torch.full((1,), 3), -12.0, blank=0, beam_width=MAX_BEAM_WIDTH + 1,
-                  k_tokens=5)
-    assert len(calls) == 5
+    logits = _logits(25, 1, 3, 5)
+    got = beam_search_device(logits, blank=0, beam_width=2902, nbest=3, device="cpu")
+    _same_nbest(jax_device.beam_search_device(logits, blank=0, beam_width=2902, nbest=3, use_pallas=False), got)
+    assert calls[5:] == [2902 * 5]
 
 
 @pytest.mark.parametrize("v", [1606, 3000])

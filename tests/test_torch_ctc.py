@@ -196,3 +196,46 @@ def test_kernel_wrappers_check_their_inputs(case):
         kctc.ctc_alpha(lp_z, skip_ok.int(), t_lens, t_tl)
     with pytest.raises(ValueError, match="cuda or cpu"):
         kctc.ctc_alpha(lp_z.to("meta"), skip_ok.to("meta"), t_lens.to("meta"), t_tl.to("meta"))
+
+
+@pytest.mark.parametrize("s_dim", [1, 2, 3, 33, 129, 257, 1025, 2049, 16385, 29054])
+def test_ctc_plan_covers_every_state_once(s_dim):
+    """The kernels' plan (``ctc_plan``, held to ``thunder_ctc_plan`` on the card): lane ``x`` of the row's block
+    holds states ``SPL x .. SPL x + SPL - 1``; every state lies in exactly one lane, no warp is idle, warps of two
+    states a lane carry a row up to 256 states, and warps of 8, 16 or 32 states a lane above."""
+    plan = kctc.ctc_plan(s_dim)
+    warps, spl = plan["warps"], plan["states_per_lane"]
+    assert 1 <= warps <= 32 and 1 <= spl <= 32
+    covered = np.zeros(s_dim, np.int64)
+    for lane in range(32 * warps):
+        states = np.arange(lane * spl, (lane + 1) * spl)
+        covered[states[states < s_dim]] += 1
+    assert (covered == 1).all()
+    assert 32 * (warps - 1) * spl < s_dim  # the last warp holds a state
+    if s_dim <= 256:
+        assert (warps, spl) == (-(-s_dim // 64), 2)
+    else:
+        assert spl in (8, 16, 32) and (spl == 8 or s_dim > 32 * 32 * spl // 2)
+
+
+def test_ctc_plan_refuses_outside_its_states():
+    assert kctc.ctc_plan(kctc.MAX_STATES) == {"warps": 32, "states_per_lane": 32}
+    for s_dim in (0, kctc.MAX_STATES + 1):
+        with pytest.raises(ValueError, match="extended states"):
+            kctc.ctc_plan(s_dim)
+
+
+def test_two_exponential_lse3_gives_the_plain_bits():
+    """The kernels' lse3 takes the exponentials of the two terms below the max (the max term's is exp(0) = 1) and
+    adds in the plain version's order: ``(1 + e_p) + e_c`` when a or b is the max, ``(e_a + e_b) + 1`` when c is.
+    In float32, on random values, ties between any two terms and the NEG sentinel, that is ``_lse3`` bit for bit."""
+    x = torch.as_tensor(np.random.default_rng(3).normal(0.0, 5.0, (3, 200000)).astype(np.float32))
+    x[:, ::7] = kctc.NEG
+    x[1, ::5], x[2, ::11], x[2, ::13] = x[0, ::5], x[1, ::11], x[0, ::13]
+    a, b, c = x
+    p, q = torch.minimum(a, b), torch.maximum(a, b)
+    m, r = torch.maximum(q, c), torch.minimum(q, c)
+    ep, er = torch.exp(p - m), torch.exp(r - m)
+    c_top, one = c >= q, torch.ones_like(ep)
+    got = m + torch.log((ep + torch.where(c_top, er, one)) + torch.where(c_top, one, er))
+    assert torch.equal(got, kctc._lse3(a, b, c))

@@ -6,12 +6,15 @@ small QuartzNet and a small wav2vec2 run through the engine on the card and
 on the CPU, with the launch counts of one forward; the attention and add +
 LayerNorm kernels are held to their plain versions at the wav2vec2-base
 serving shape (16 x 15 s: T = 749, 12 heads), with ragged rows and a row of
-length 0; the CTC kernel pair is held to its plain loops on the edge case and
-at the training shape; and one ``Trainer.fit`` step on the card launches each
-kernel of the training path once. The beam scan and backtrace kernels are
+length 0; the CTC kernel pair is held to its plain loops on the edge case, at
+both training shapes and at the edges of its plans (one warp of 3 and 8
+states a lane, two warps, up to 17 warps of 32), with the Python mirror of
+its plan held to the kernel's; and one ``Trainer.fit`` step on the card
+launches each kernel of the training path once. The beam scan and backtrace kernels are
 held to their plain versions at small shapes (besides their checks at the
-serving shapes), past one block of shared memory too (the chunked scan), with
-the Python mirror of the scan's plan held to the kernel's, and a beam
+serving shapes), past one block of shared memory too (the chunked scan) and
+past the state that fits in it (the workspace plan), with the Python mirror of
+the scan's plan held to the kernel's, and a beam
 ``predict`` on the card makes one launch of each.
 The training attention and add + dropout + LayerNorm kernels are held to
 their plain versions, forward and backward, at odd sizes (T = 1, 31, 749,
@@ -377,18 +380,42 @@ def test_device_beam_past_8192_candidates_on_card(cuda, v, width):
         np.testing.assert_allclose([s for _, s in g_row], [s for _, s in w_row], rtol=0, atol=2e-3)
 
 
-@pytest.mark.parametrize("case", ["edge", "training_shape"])
+#: ``ctc_training_case`` arguments (seed, B, T, V, labels) -> the kernels' plan (warps, states a lane); every row's
+#: length is drawn from [T / 2, T]
+CTC_SHAPES = {
+    "training_shape": ((12, 16, 751, 29, 64), (3, 2)),  # QuartzNet15x5 training: S = 129
+    "wav2vec2_shape": ((13, 8, 749, 32, 64), (3, 2)),  # wav2vec2-base training: S = 129
+    "two_warps": ((14, 4, 300, 29, 32), (2, 2)),  # S = 65: a warp of one state
+    "four_warps": ((15, 4, 400, 29, 127), (4, 2)),  # S = 255, the widest row of two states a lane
+    "two_warps_of_8": ((16, 4, 400, 29, 128), (2, 8)),  # S = 257: two warps of eight states a lane
+}
+
+
+@pytest.mark.parametrize("case", ["edge", *CTC_SHAPES])
 def test_ctc_kernels_match_plain_versions_on_card(cuda, case):
-    """Forward (alpha, ll) and gradient of the kernel pair against the plain loops on the card."""
-    from thunder_tpu_torch.kernels.ctc import alpha_reference, beta_reference, ctc_alpha, ctc_beta, ll_from_alpha
+    """Forward (alpha, ll) and gradient of the kernel pair against the plain loops on the card: the edge case (one
+    warp of one state a lane) and the plans of ``CTC_SHAPES``, rows shorter than T in each; the warps hand their
+    edge states to each other through a ring in shared memory."""
+    from thunder_tpu_torch.kernels.ctc import (
+        alpha_reference,
+        beta_reference,
+        ctc_alpha,
+        ctc_beta,
+        ctc_plan,
+        ll_from_alpha,
+    )
     from thunder_tpu_torch.kernels.selftest import ctc_edge_case, ctc_training_case
     from thunder_tpu_torch.ops.ctc import extended_emissions
 
     if case == "edge":
         logits, targets, lens, tl = ctc_edge_case("cuda")
-    else:  # QuartzNet15x5 training: T = 751, V = 29, targets padded to 64 labels (S = 129)
-        logits, targets, lens, tl = ctc_training_case(12, 16, 751, 29, 64, "cuda")
+        plan = (1, 2)
+    else:
+        args, plan = CTC_SHAPES[case]
+        logits, targets, lens, tl = ctc_training_case(*args, "cuda")
     lp_z, skip_ok = extended_emissions(torch.log_softmax(logits, dim=-1), targets, blank=0)
+    assert tuple(ctc_plan(lp_z.shape[2]).values()) == plan
+    assert bool((lens < lp_z.shape[0]).any())
     alpha = ctc_alpha(lp_z, skip_ok, lens, tl)
     want_alpha = alpha_reference(lp_z, skip_ok, lens, tl)
     ll, want_ll = ll_from_alpha(alpha, lens, tl), ll_from_alpha(want_alpha, lens, tl)
@@ -404,10 +431,12 @@ def test_ctc_kernels_match_plain_versions_on_card(cuda, case):
         assert bool((dlp[:, 5] == 0).all())
 
 
-@pytest.mark.parametrize("s_dim,t", [(801, 1000), (1025, 1200), (2049, 1200), (4097, 2300), (16385, 8700)])
+@pytest.mark.parametrize("s_dim,t", [(257, 600), (801, 1000), (1025, 1200), (2049, 1200), (4097, 2300),
+                                     (8193, 4500), (16385, 8700)])
 def test_ctc_kernels_past_1024_states(cuda, s_dim, t):
-    """Targets of 400 to 8192 labels: 1, 2, 4, 8 and 32 extended states a thread, against the plain loops. Over
-    thousands of frames the two routes' float32 sums drift apart by more than at T = 751: rtol 1e-5."""
+    """Targets of 128 to 8192 labels: 2 to 17 warps of 8 states a lane, 17 warps of 16 (S = 8193) and of 32
+    (S = 16385), against the plain loops. Over thousands of frames the two routes' float32 sums drift apart by
+    more than at T = 751: rtol 1e-5."""
     from thunder_tpu_torch.kernels.ctc import alpha_reference, beta_reference, ctc_alpha, ctc_beta, ll_from_alpha
     from thunder_tpu_torch.kernels.selftest import ctc_long_case
     from thunder_tpu_torch.ops.ctc import extended_emissions
@@ -429,13 +458,32 @@ def test_ctc_kernels_past_1024_states(cuda, s_dim, t):
 
 
 def test_ctc_kernels_raise_past_the_shared_row(cuda):
+    """Past 32 warps of 32 lanes of 32 states (MAX_STATES) the wrapper raises before any launch."""
     from thunder_tpu_torch.kernels.ctc import MAX_STATES, ctc_alpha
 
     lp_z = torch.zeros(1, 1, MAX_STATES + 1, device="cuda")
     skip_ok = torch.zeros(1, MAX_STATES + 1, dtype=torch.bool, device="cuda")
     one = torch.ones(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="227 KB"):
+    before = ctc_alpha.launches
+    with pytest.raises(ValueError, match="32 warps of 32 lanes"):
         ctc_alpha(lp_z, skip_ok, one, one)
+    assert ctc_alpha.launches == before
+
+
+def test_ctc_plan_matches_the_kernel(cuda):
+    """The Python mirror of the CTC kernels' plan against ``thunder_ctc_plan``, and the kernel's refusals."""
+    import ctypes
+
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.kernels.ctc import MAX_STATES, ctc_plan
+
+    out = (ctypes.c_int * 2)()
+    lib = _build.load()
+    for s_dim in [1, 2, 3, 19, 33, 65, 129, 255, 256, 257, 1025, 2049, 8192, 8193, 16385, 29054, MAX_STATES]:
+        _build.check(lib.thunder_ctc_plan(s_dim, ctypes.addressof(out)), "thunder_ctc_plan")
+        assert ctc_plan(s_dim) == {"warps": out[0], "states_per_lane": out[1]}, s_dim
+    assert lib.thunder_ctc_plan(0, ctypes.addressof(out)) != 0
+    assert lib.thunder_ctc_plan(MAX_STATES + 1, ctypes.addressof(out)) != 0
 
 
 def test_one_train_step_on_card_launches_each_kernel_once(cuda):
@@ -523,16 +571,26 @@ def test_beam_scan_plan_matches_the_kernel_and_refuses_above_shared_memory(cuda)
     import ctypes
 
     from thunder_tpu_torch.kernels import _build
-    from thunder_tpu_torch.kernels.beam import beam_scan, scan_plan
+    from thunder_tpu_torch.kernels.beam import beam_scan, beam_scan_reference, scan_plan
 
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     for width, k in [(1, 1), (1, 29), (16, 29), (16, 50), (40, 29), (64, 128), (2048, 4), (3058, 1), (16, 1606),
-                     (16, 3000), (64, 1000), (33, 30000), (2901, 1)]:
+                     (16, 3000), (64, 1000), (33, 30000), (2901, 1), (2902, 1), (3000, 29), (7000, 5)]:
         _build.check(_build.load().thunder_beam_scan_plan(width, k, ctypes.addressof(out)), "thunder_beam_scan_plan")
-        assert scan_plan(width, k) == {"threads": out[0], "smem_bytes": out[1], "chunk_runs": out[2]}, (width, k)
-    logp = torch.log_softmax(torch.randn((1, 4, 2), device="cuda"), -1)
-    with pytest.raises(ValueError, match="shared memory"):
-        beam_scan(logp, torch.full((1,), 4, device="cuda"), -12.0, blank=1, beam_width=3058, k_tokens=1)
+        assert scan_plan(width, k) == {"threads": out[0], "smem_bytes": out[1], "chunk_runs": out[2],
+                                       "workspace_bytes": 4 * out[3]}, (width, k)
+    # above shared memory (W = 3,058 at K = 1): the workspace plan, exactly the plain version's pointers and state
+    logp = torch.log_softmax(torch.randn((1, 4, 2), device="cuda", generator=torch.Generator("cuda").manual_seed(0)),
+                             -1)
+    lens = torch.full((1,), 4, device="cuda")
+    kw = dict(blank=1, beam_width=3058, k_tokens=1)
+    assert scan_plan(3058, 1)["workspace_bytes"] > 0
+    before = beam_scan.launches
+    got, want = beam_scan(logp, lens, -12.0, **kw), beam_scan_reference(logp, lens, -12.0, **kw)
+    assert beam_scan.launches == before + 1
+    for x, y in zip([*got[:2], *got[3][2:]], [*want[:2], *want[3][2:]]):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=2e-3)
 
 
 def test_add_ln_train_backward_plan_matches_the_kernel(cuda):

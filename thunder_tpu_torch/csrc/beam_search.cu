@@ -89,14 +89,24 @@
 // of its warp's list) is not sorted: it cannot reach the top W. The key order is total, so the
 // chunked top-W is the one-block top-W, in the same order. The chunks read their candidates from
 // device memory (L2), not from a double buffer of the whole frame. The one-block kernel is left as
-// it is, for the shapes it takes. The state (18 W words) and one chunk (with the picks' runs for
-// W > 32) must fit: W up to 2,901. At 16 x 188 x 3,000 (W = 16) a frame takes 67 us (NVIDIA H100
+// it is, for the shapes it takes. At 16 x 188 x 3,000 (W = 16) a frame takes 67 us (NVIDIA H100
 // 80GB HBM3, 700 W; kernels/compare_builds.py --parts beam): 48,000 extend rows on 16 warps, the
 // block capped at 512 threads by the tree's 15 named barriers.
+//
+// Past the shared memory of one block (the workspace plan): where the state (18 W words) and the
+// picks' runs do not fit beside one chunk (W above 2,901), the same chunked kernel keeps every array
+// it held in shared memory (the picks' runs and the chunk's keys, the picks, the double-buffered
+// state and the stay rows' four vectors) in a row of a device-memory workspace that the wrapper
+// allocates, one row a block; a template argument picks where they live, so the frame loop is the
+// chunked plan's and the plans up to W = 2,901 compile to the kernels they were. The merge then
+// compares each of W*K extend rows with the W stay rows' hashes through L1, which is slow and exact;
+// no caller asks for such a width.
 //
 // The backtrace: one block per row (and per 128 output slots), which stages the row's
 // pointers in shared memory in chunks of frames, newest first; one thread per output
 // slot walks t = T-1 ... 0, writing toks[t] = exts[t][slot] and then slot = parents[t][slot].
+// Past W = 6,144 one frame of pointers no longer fits the 48 KB the chunks take, and
+// beam_backtrace_walk_kernel walks the same way with its loads straight from device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -199,12 +209,14 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 // 2 x 6W, the stay rows' pb, pnb, merged mass and repeated-last value 4W, the frame's candidates
 // double-buffered 2 x 2K and the blank's log-prob 2. Where that is over MAX_SMEM, the chunked plan:
 // the state 18W, the picks' runs 64 ceil(W/32) for W > 32, and a chunk's keys 64 a run, as many runs
-// as fit (at most MAX_RANK_CHUNK_RUNS for W > 32, and no more than the extend rows take); a plan of
-// one run that is still over MAX_SMEM is refused.
+// as fit (at most MAX_RANK_CHUNK_RUNS for W > 32, and no more than the extend rows take). Where one
+// run does not fit beside the state, the workspace plan: the same words, MAX_RANK_CHUNK_RUNS runs a
+// chunk (no more than the extend rows take), in a row of device memory a block and no shared memory.
 struct ScanPlan {
   int threads;
   size_t smem;
-  int chunk_runs;  // 0: the one-block plan
+  int chunk_runs;    // 0: the one-block plan
+  size_t workspace;  // bytes of device memory a row (the workspace plan), else 0
 };
 
 __host__ __device__ inline int pick_runs(int W) { return W <= 32 ? 0 : (W + 31) / 32; }
@@ -215,13 +227,15 @@ ScanPlan scan_plan(int W, int K) {
   const size_t one_block = 4 * (size_t)(18LL * W + 64 * runs + 4LL * K + 2);
   if (one_block <= MAX_SMEM) return {(int)(runs * 32 < cap ? runs * 32 : cap), one_block, 0};
   const long long fixed = 18LL * W + 64LL * pick_runs(W);
-  long long chunk = ((long long)(MAX_SMEM / 4) - fixed) / 64;
+  const bool in_smem = 4 * (size_t)(fixed + 64) <= MAX_SMEM;
+  long long chunk = in_smem ? ((long long)(MAX_SMEM / 4) - fixed) / 64 : MAX_RANK_CHUNK_RUNS;
   if (W > 32 && chunk > MAX_RANK_CHUNK_RUNS) chunk = MAX_RANK_CHUNK_RUNS;
   const long long extend_runs = ((long long)W * K + 31) / 32;
   if (chunk > extend_runs) chunk = extend_runs;
   if (chunk < 1) chunk = 1;
   const long long threads = 32 * (pick_runs(W) + chunk) < cap ? 32 * (pick_runs(W) + chunk) : cap;
-  return {(int)threads, 4 * (size_t)(fixed + 64 * chunk), (int)chunk};
+  const size_t bytes = 4 * (size_t)(fixed + 64 * chunk);
+  return {(int)threads, in_smem ? bytes : 0, (int)chunk, in_smem ? 0 : bytes};
 }
 
 __global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_kernel(
@@ -477,18 +491,21 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_kernel(
   }
 }
 
-// The chunked plan: beam_scan_kernel's frame, over chunks of chunk_runs runs (see the note at the top).
+// The chunked plan: beam_scan_kernel's frame, over chunks of chunk_runs runs (see the note at the top). IN_SMEM:
+// its arrays in shared memory; else in the block's row of `workspace`, ws_row bytes a row (the workspace plan).
+template <bool IN_SMEM>
 __global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_chunked_kernel(
     const float* __restrict__ logp, const float* __restrict__ topv, const int* __restrict__ topi,
     const int* __restrict__ lens, float floor_, const float* __restrict__ pb0, const float* __restrict__ pnb0,
     const int* __restrict__ h10, const int* __restrict__ h20, const int* __restrict__ last0,
     int* __restrict__ parents, int* __restrict__ exts, float* __restrict__ total_out, float* __restrict__ pb_out,
     float* __restrict__ pnb_out, int* __restrict__ h1_out, int* __restrict__ h2_out, int* __restrict__ last_out,
-    int T, int V, int K, int W, int blank, int chunk_runs) {
+    int T, int V, int K, int W, int blank, int chunk_runs, unsigned char* __restrict__ workspace, size_t ws_row) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int PR = pick_runs(W);  // W > 32: the running picks, ranked as sorted runs beside the chunk's
   const int CH = 32 * chunk_runs;
-  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // [32 PR] the picks' runs, then [CH] the chunk's keys
+  unsigned char* base = IN_SMEM ? smem : workspace + (size_t)blockIdx.x * ws_row;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(base);  // [32 PR] the picks' runs, then [CH] the chunk's keys
   uint64_t* ck = keys + 32 * PR;
   uint64_t* picks = ck + CH;                         // [W] the running picks, best first (0: none yet)
   float* Ps = reinterpret_cast<float*>(picks + W);  // [2][W] each: the state, double-buffered
@@ -771,16 +788,43 @@ __global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_kernel(
   if (live) origin[g] = slot;
 }
 
+// Past W = 6,144 (one frame of pointers over the backtrace's 48 KB): the same walk, its loads from device memory.
+__global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_walk_kernel(
+    const int* __restrict__ parents, const int* __restrict__ exts, const int* __restrict__ slots0,
+    int* __restrict__ toks, int* __restrict__ origin, int T, int W, int n_out) {
+  const int b = blockIdx.x;
+  const int n = blockIdx.y * blockDim.x + threadIdx.x;
+  if (n >= n_out) return;
+  const size_t g = (size_t)b * n_out + n;
+  int slot = slots0[g];
+  const int* P = parents + (size_t)b * T * W;
+  const int* E = exts + (size_t)b * T * W;
+  int* out = toks + g * T;
+  for (int t = T - 1; t >= 0; --t) {
+    if (slot >= 0 && slot < W) {
+      const size_t o = (size_t)t * W + slot;
+      out[t] = __ldg(E + o);
+      slot = __ldg(P + o);
+    } else {  // as the TPU kernel's gather: no emission, slot 0
+      out[t] = -1;
+      slot = 0;
+    }
+  }
+  origin[g] = slot;
+}
+
 }  // namespace
 
 // out[0] = threads, out[1] = shared bytes of one scan block for beam width W and K candidates, out[2] = the runs
-// of a chunk (0: the one-block plan).
+// of a chunk (0: the one-block plan), out[3] = 4-byte words of device memory a row (the workspace plan, else 0).
 extern "C" int thunder_beam_scan_plan(int W, int K, int* out) {
   if (W < 1 || K < 1) return (int)cudaErrorInvalidValue;
   const ScanPlan plan = scan_plan(W, K);
+  if (plan.workspace / 4 > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   out[0] = plan.threads;
   out[1] = (int)plan.smem;
   out[2] = plan.chunk_runs;
+  out[3] = (int)(plan.workspace / 4);
   return 0;
 }
 
@@ -788,18 +832,18 @@ extern "C" int thunder_beam_scan_plan(int W, int K, int* out) {
 // null for K == V (ids 0..V-1); lens: (B,) int32; floor_: the prune floor; pb0, pnb0 (B, W)
 // float32, h10, h20, last0 (B, W) int32: the state going in (hashes as uint32 bits);
 // parents, exts: (B, T, W) int32 out; total, pb, pnb (B, W) float32 and h1, h2, last
-// (B, W) int32 out: the final state. Any K; W up to where the state and one chunk fit (2,901).
-// Returns cudaGetLastError().
+// (B, W) int32 out: the final state; workspace: B rows of the plan's workspace bytes (the workspace plan),
+// else null. Any K and W. Returns cudaGetLastError().
 extern "C" int thunder_beam_scan(const float* logp, const float* topv, const int* topi, const int* lens, float floor_,
                                  const float* pb0, const float* pnb0, const int* h10, const int* h20,
                                  const int* last0, int* parents, int* exts, float* total, float* pb, float* pnb,
                                  int* h1, int* h2, int* last, int B, int T, int V, int K, int W, int blank,
-                                 void* stream) {
+                                 void* workspace, void* stream) {
   if (B < 1 || T < 0 || V < 1 || K < 1 || K > V || W < 1 || blank < 0 || blank >= V) return (int)cudaErrorInvalidValue;
   if ((topv == nullptr) != (topi == nullptr) || (topv == nullptr && K != V)) return (int)cudaErrorInvalidValue;
   if ((long long)W * K + W > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   const ScanPlan plan = scan_plan(W, K);
-  if (plan.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (plan.workspace > 0 && workspace == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (plan.chunk_runs == 0) {
     if (plan.smem > 49152) {
@@ -810,13 +854,17 @@ extern "C" int thunder_beam_scan(const float* logp, const float* topv, const int
     beam_scan_kernel<<<B, plan.threads, plan.smem, st>>>(logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20, last0,
                                                          parents, exts, total, pb, pnb, h1, h2, last, T, V, K, W,
                                                          blank);
-  } else {
-    const cudaError_t err =
-        cudaFuncSetAttribute(beam_scan_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+  } else if (plan.workspace == 0) {
+    const cudaError_t err = cudaFuncSetAttribute(beam_scan_chunked_kernel<true>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (err != cudaSuccess) return (int)err;
-    beam_scan_chunked_kernel<<<B, plan.threads, plan.smem, st>>>(logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20,
-                                                                 last0, parents, exts, total, pb, pnb, h1, h2, last, T,
-                                                                 V, K, W, blank, plan.chunk_runs);
+    beam_scan_chunked_kernel<true><<<B, plan.threads, plan.smem, st>>>(
+        logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20, last0, parents, exts, total, pb, pnb, h1, h2, last, T, V,
+        K, W, blank, plan.chunk_runs, nullptr, 0);
+  } else {
+    beam_scan_chunked_kernel<false><<<B, plan.threads, 0, st>>>(
+        logp, topv, topi, lens, floor_, pb0, pnb0, h10, h20, last0, parents, exts, total, pb, pnb, h1, h2, last, T, V,
+        K, W, blank, plan.chunk_runs, static_cast<unsigned char*>(workspace), plan.workspace);
   }
   return (int)cudaGetLastError();
 }
@@ -828,11 +876,15 @@ extern "C" int thunder_beam_backtrace(const int* parents, const int* exts, const
                                       int B, int T, int W, int n_out, void* stream) {
   if (B < 1 || T < 0 || W < 1 || n_out < 1) return (int)cudaErrorInvalidValue;
   const int chunk = (int)(BACKTRACE_SMEM / (2 * sizeof(int) * (size_t)W));
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, (n_out + BACKTRACE_THREADS - 1) / BACKTRACE_THREADS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chunk < 1) {
+    beam_backtrace_walk_kernel<<<grid, BACKTRACE_THREADS, 0, st>>>(parents, exts, slots0, toks, origin, T, W, n_out);
+    return (int)cudaGetLastError();
+  }
   const int frames = T < chunk ? (T > 0 ? T : 1) : chunk;
   const size_t smem = 2 * sizeof(int) * (size_t)frames * W;
-  const dim3 grid(B, (n_out + BACKTRACE_THREADS - 1) / BACKTRACE_THREADS);
-  beam_backtrace_kernel<<<grid, BACKTRACE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      parents, exts, slots0, toks, origin, T, W, n_out, frames);
+  beam_backtrace_kernel<<<grid, BACKTRACE_THREADS, smem, st>>>(parents, exts, slots0, toks, origin, T, W, n_out,
+                                                               frames);
   return (int)cudaGetLastError();
 }

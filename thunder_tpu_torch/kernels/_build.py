@@ -39,8 +39,11 @@ SIGNATURES = {
     "thunder_log_mel_plan": [_I, _I, _I, _I, _P],
     "thunder_separable_repeat": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "thunder_separable_repeat_plan": [_I, _I, _I, _I, _P],
+    "thunder_ctc_plan": [_I, _P],
     "thunder_ctc_alpha": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thunder_ctc_beta": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "thunder_ctc_log_1_3_check": [_P, _P],
+    "thunder_ctc_lse3_chain": [_P, _I, _F, _F, _P],
     "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],
     "thunder_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     "thunder_add_ln_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
@@ -50,7 +53,7 @@ SIGNATURES = {
     "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _F, _P],
     "thunder_beam_scan_plan": [_I, _I, _P],
-    "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P],
+    "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P, _P],
     "thunder_beam_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -75,19 +78,19 @@ def _sources():
     return sources
 
 
-def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
-    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra_flags]).encode())
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in [*_sources(), *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libthunder_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build(extra_flags: tuple[str, ...] = ()) -> Path:
-    """Compile the sources (with ``extra_flags`` after ``NVCC_FLAGS``) unless a
-    library of the same hash exists; return its path. One ``nvcc -c`` runs for
-    each source, all at once, then one ``nvcc -shared`` links the objects."""
-    out = library_path(extra_flags)
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists; return its
+    path. One ``nvcc -c`` runs for each source, all at once, then one
+    ``nvcc -shared`` links the objects."""
+    out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -97,7 +100,7 @@ def build(extra_flags: tuple[str, ...] = ()) -> Path:
     objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     try:
         procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)],
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for src, obj in zip(sources, objects)
         ]
@@ -109,7 +112,7 @@ def build(extra_flags: tuple[str, ...] = ()) -> Path:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        link = subprocess.run([nvcc, *NVCC_FLAGS, *extra_flags, "-shared", "-o", str(tmp), *map(str, objects)],
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
                               capture_output=True, text=True)
         if link.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -121,18 +124,12 @@ def build(extra_flags: tuple[str, ...] = ()) -> Path:
     return out
 
 
-def load(extra_flags: tuple[str, ...] | None = None) -> ctypes.CDLL:
-    """The loaded kernel library, built on first call.
-
-    ``extra_flags`` builds the library with those nvcc flags added and loads it
-    in place of the current one, so that every wrapper launches from it until
-    the next such call; ``()`` returns to the default build. Only measurements
-    (``ctc_fast_math``) pass it.
-    """
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
     global _lib
     with _lock:
-        if _lib is None or extra_flags is not None:
-            lib = ctypes.CDLL(str(build(extra_flags or ())))
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -38,7 +38,6 @@ import torch
 from thunder_tpu_torch.kernels import _build
 
 __all__ = [
-    "MAX_BEAM_WIDTH",
     "MAX_CANDIDATES",
     "beam_scan",
     "beam_scan_reference",
@@ -47,12 +46,12 @@ __all__ = [
     "candidates",
     "fresh_state",
     "scan_chunks",
-    "scan_fits",
     "scan_plan",
 ]
 
-#: the largest per-frame candidate block W*K the JAX package's device search allows; the kernel takes any W*K
-#: (past one block of shared memory it walks a frame in chunks) and any W up to :data:`MAX_BEAM_WIDTH`
+#: the largest per-frame candidate block W*K the JAX package's streaming device search allows; the kernel takes
+#: any W*K (past one block of shared memory it walks a frame in chunks) and any W (past 2,901 its arrays live in
+#: a device-memory workspace)
 MAX_CANDIDATES = 8192
 #: shared memory a block may use on sm_90 (``csrc/beam_search.cu``: ``MAX_SMEM``)
 MAX_SHARED_BYTES = 232448
@@ -75,7 +74,8 @@ def _pick_runs(beam_width: int) -> int:
 
 
 def scan_plan(beam_width: int, k: int) -> dict:
-    """Threads, shared memory and chunk of one scan block, as ``csrc/beam_search.cu::scan_plan`` computes them.
+    """Threads, shared memory, chunk and workspace of one scan block, as ``csrc/beam_search.cu::scan_plan``
+    computes them.
 
     The one-block plan, where it fits in ``MAX_SHARED_BYTES`` (``chunk_runs`` 0): the ``C = W + W*K``
     candidates fall into ``ceil(C / 32)`` runs of 32, one warp's sort each; a thread per candidate, up to 512
@@ -86,21 +86,25 @@ def scan_plan(beam_width: int, k: int) -> dict:
 
     Else the chunked plan: the state and picks (18W), for ``W > 32`` the running picks as runs (64 words
     each of ``ceil(W / 32)``), and the keys of a chunk of ``chunk_runs`` runs (64 words a run): as many as
-    fit, at most ``MAX_RANK_CHUNK_RUNS`` for ``W > 32``, no more than the extend rows fill. A plan whose
-    one-run chunk is still over ``MAX_SHARED_BYTES`` is refused (``W`` above :data:`MAX_BEAM_WIDTH`).
+    fit, at most ``MAX_RANK_CHUNK_RUNS`` for ``W > 32``, no more than the extend rows fill. Where a chunk of
+    one run does not fit beside the state (``W`` above 2,901), the workspace plan: the same words with
+    ``MAX_RANK_CHUNK_RUNS`` runs a chunk (no more than the extend rows fill) in ``workspace_bytes`` of device
+    memory a row, and no shared memory. ``workspace_bytes`` is 0 for the other plans.
     """
     runs = -(-(beam_width + beam_width * k) // 32)
     cap = MAX_TREE_THREADS if beam_width <= 32 else MAX_THREADS
     one_block = 4 * (18 * beam_width + 64 * runs + 4 * k + 2)
     if one_block <= MAX_SHARED_BYTES:
-        return {"threads": min(cap, 32 * runs), "smem_bytes": one_block, "chunk_runs": 0}
+        return {"threads": min(cap, 32 * runs), "smem_bytes": one_block, "chunk_runs": 0, "workspace_bytes": 0}
     fixed = 18 * beam_width + 64 * _pick_runs(beam_width)
-    chunk = (MAX_SHARED_BYTES // 4 - fixed) // 64
+    in_smem = 4 * (fixed + 64) <= MAX_SHARED_BYTES
+    chunk = (MAX_SHARED_BYTES // 4 - fixed) // 64 if in_smem else MAX_RANK_CHUNK_RUNS
     if beam_width > 32:
         chunk = min(chunk, MAX_RANK_CHUNK_RUNS)
     chunk = max(1, min(chunk, -(-(beam_width * k) // 32)))
-    return {"threads": min(cap, 32 * (_pick_runs(beam_width) + chunk)), "smem_bytes": 4 * (fixed + 64 * chunk),
-            "chunk_runs": chunk}
+    size = 4 * (fixed + 64 * chunk)
+    return {"threads": min(cap, 32 * (_pick_runs(beam_width) + chunk)), "smem_bytes": size if in_smem else 0,
+            "chunk_runs": chunk, "workspace_bytes": 0 if in_smem else size}
 
 
 def scan_chunks(beam_width: int, k: int) -> list:
@@ -113,16 +117,6 @@ def scan_chunks(beam_width: int, k: int) -> list:
     size = 32 * chunk
     return [(rows, lo, min(lo + size, n)) for rows, n in (("extend", beam_width * k), ("stay", beam_width))
             for lo in range(0, n, size)]
-
-
-def scan_fits(beam_width: int) -> bool:
-    """Whether the scan takes ``beam_width`` beams, for any K: the state and a chunk of one run fit in
-    ``MAX_SHARED_BYTES`` (up to :data:`MAX_BEAM_WIDTH`)."""
-    return 4 * (18 * beam_width + 64 * (_pick_runs(beam_width) + 1)) <= MAX_SHARED_BYTES
-
-
-#: the widest beam the scan takes
-MAX_BEAM_WIDTH = max(w for w in range(1, MAX_SHARED_BYTES // 72 + 1) if scan_fits(w))
 
 
 def fresh_state(batch: int, beam_width: int, device) -> State:
@@ -157,10 +151,6 @@ def _check_scan(logp, lengths, blank, beam_width, k_tokens, init_state):
         raise ValueError(f"blank {blank} outside the vocabulary of {vocab}")
     if beam_width < 1 or k_tokens < 1:
         raise ValueError(f"beam_width and k_tokens must be positive, got {beam_width}, {k_tokens}")
-    if not scan_fits(beam_width):
-        raise ValueError(f"beam_width {beam_width} needs {scan_plan(beam_width, 1)['smem_bytes']} bytes of the scan's "
-                         f"shared memory for its state and one chunk, over {MAX_SHARED_BYTES}; the scan takes a "
-                         f"beam_width up to {MAX_BEAM_WIDTH}")
     if init_state is not None and (len(init_state) != 5 or any(a.shape != (batch, beam_width) for a in init_state)):
         raise ValueError(f"init_state must be five ({batch}, {beam_width}) arrays")
 
@@ -269,12 +259,14 @@ def beam_scan(logp, lengths, floor, *, blank: int, beam_width: int, k_tokens: in
     exts = torch.empty_like(parents)
     total, pb, pnb = (torch.empty((batch, W), dtype=torch.float32, device=dev) for _ in range(3))
     h1, h2, last = (torch.empty((batch, W), dtype=torch.int32, device=dev) for _ in range(3))
+    ws_bytes = scan_plan(W, K)["workspace_bytes"]
+    workspace = torch.empty(batch * ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
     status = _build.load().thunder_beam_scan(
         logp.data_ptr(), 0 if topv is None else topv.data_ptr(), 0 if topi is None else topi.data_ptr(),
         lens.data_ptr(), float(np.float32(floor)), pb0.data_ptr(), pnb0.data_ptr(), h10.data_ptr(), h20.data_ptr(),
         last0.data_ptr(), parents.data_ptr(), exts.data_ptr(), total.data_ptr(), pb.data_ptr(), pnb.data_ptr(),
         h1.data_ptr(), h2.data_ptr(), last.data_ptr(), batch, frames, vocab, K, W, int(blank),
-        torch.cuda.current_stream(dev).cuda_stream,
+        0 if workspace is None else workspace.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "thunder_beam_scan")
     beam_scan.launches += 1

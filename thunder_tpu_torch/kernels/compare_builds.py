@@ -13,8 +13,10 @@ falls on both. Each process times, with CUDA events:
   (rate 0.1) and its backward alone at 8 × 15 s and 8 × 30 s (T = 1499), at
   rate 0.1 and at rate 0 (at 8 × 15 s, rate 0.1, also each kernel's device
   time by torch.profiler), on random bf16 inputs from one seed;
-- the CTC kernel pair (``ctc_alpha`` + ``ctc_beta``) at QuartzNet's training
-  shape (T = 751, B = 16, S = 129);
+- the CTC kernels (``ctc_alpha``, ``ctc_beta`` and the pair) at the shapes of
+  ``CTC_SHAPES``: QuartzNet's training step (B = 16, T = 751, V = 29) and
+  wav2vec2-base's (B = 8, T = 749, V = 32), targets of 64 labels (S = 129),
+  each kernel also in nanoseconds a frame;
 - the separable repeat (``fused_separable_repeat``) at each of the eight
   shapes of QuartzNet15x5's 77 launches a 64 × 15 s forward
   (``QUARTZNET_SEPARABLE_SHAPES``), their count-weighted sum, and three
@@ -25,14 +27,15 @@ falls on both. Each process times, with CUDA events:
   1200, n_fft 2048); a shape the checkout's wrapper does not take (decided
   before the call, by its plan or by the parent kernel's predicate) is
   recorded as ``"refused"``;
-- the beam scan (``beam_scan``, W = 16, floor -12) at the shapes of
+- the beam scan (``beam_scan``, floor -12) at the shapes of
   ``BEAM_SHAPES``: QuartzNet's serving decode (64 × 751 × 29, K = V), the
   ``beam_device_topk`` shape (64 × 188 × 1025, K = 50; the wrapper's top-K
   sort is in the time, and is timed alone beside it) and one ``predict_long``
   window (1 × 1000 × 29), on the ``beam_device`` inputs (numpy seed 3) with
-  every row at full length; and 16 × 188 × 3000, every token a step (K =
-  3000), past one block of shared memory (``"refused"`` where the checkout
-  refuses it);
+  every row at full length, at W = 16; 16 × 188 × 3000, every token a step
+  (K = 3000), past one block of shared memory; and 2 × 10 × 29 at W = 3,000,
+  past the state that fits in shared memory (``"refused"`` where the checkout
+  refuses a shape);
 - the add + dropout + LayerNorm training kernels at wav2vec2-base's step
   shape (5,992 rows of 768, rate 0.1): the forward's and the backward's
   device time a call L2-cold (rotating among six input sets, 166 MB in all,
@@ -51,7 +54,11 @@ falls on both. Each process times, with CUDA events:
 
 Every number is a mean over its iterations in milliseconds; the last line is
 one JSON object with both sides' four runs. Only the API both checkouts share
-is used. ``--parts`` limits each process to some of the groups
+is used. ``--sass THIS=OTHER,...`` then compares the SASS of kernels in the two
+checkouts' built libraries (``cuobjdump -sass``, each kernel named by a
+substring of its mangled name on this side and, after ``=``, on the other;
+one name where both sides share it): the instructions each has and how many
+differ, addresses and encodings left out. ``--parts`` limits each process to some of the groups
 (``attention``, ``ctc``, ``separable``, ``log_mel``, ``beam``, ``add_ln``,
 ``wav2vec2``, ``quartznet``).
 """
@@ -59,6 +66,7 @@ is used. ``--parts`` limits each process to some of the groups
 from __future__ import annotations
 
 import argparse
+import difflib
 import json
 import os
 import subprocess
@@ -96,7 +104,11 @@ BEAM_SHAPES = {
     "topk_64x188x1025": (64, 188, 1025, 16, 50),  # beam_device_topk: Citrinet's vocabulary, K = 50
     "window_1x1000x29": (1, 1000, 29, 16, 50),  # one 20 s predict_long window
     "chunked_16x188x3000": (16, 188, 3000, 16, 3000),  # every token a step past one block: the chunked scan
+    "workspace_2x10x29_w3000": (2, 10, 29, 3000, 29),  # W = 3,000: the state in device memory (the workspace plan)
 }
+
+#: the CTC kernels' shapes: name -> (B, T, V), targets padded to 64 labels (S = 129), every row at full length
+CTC_SHAPES = {"quartznet_16x751": (16, 751, 29), "wav2vec2_8x749": (8, 749, 32)}
 
 #: the add + dropout + LayerNorm training kernels' shape: wav2vec2-base's step at 8 x 15 s (rows, D, rate)
 ADD_LN_TRAIN_SHAPE = (5992, 768, 0.1)
@@ -360,15 +372,21 @@ def _measure_ctc(out: dict, gen) -> None:
     from thunder_tpu_torch.kernels.ctc import ctc_alpha, ctc_beta, ll_from_alpha
     from thunder_tpu_torch.ops.ctc import extended_emissions
 
-    logits = torch.randn((16, 751, 29), device="cuda", generator=gen)
-    targets = torch.randint(1, 29, (16, 64), device="cuda", generator=gen, dtype=torch.int32)
-    tl = torch.randint(10, 65, (16,), device="cuda", generator=gen, dtype=torch.int32)
-    ctc_lens = torch.full((16,), 751, dtype=torch.int32, device="cuda")
-    lp_z, skip_ok = extended_emissions(torch.log_softmax(logits, dim=-1), targets, blank=0)
-    alpha = ctc_alpha(lp_z, skip_ok, ctc_lens, tl)
-    ll, ghat = ll_from_alpha(alpha, ctc_lens, tl), 1.0 / tl.float()
-    out["ctc_pair_ms"] = _cuda_ms(lambda: (ctc_alpha(lp_z, skip_ok, ctc_lens, tl),
-                                           ctc_beta(lp_z, alpha, skip_ok, ctc_lens, tl, ll, ghat)), 50)
+    for name, (batch, frames, vocab) in CTC_SHAPES.items():
+        logits = torch.randn((batch, frames, vocab), device="cuda", generator=gen)
+        targets = torch.randint(1, vocab, (batch, 64), device="cuda", generator=gen, dtype=torch.int32)
+        tl = torch.randint(10, 65, (batch,), device="cuda", generator=gen, dtype=torch.int32)
+        lens = torch.full((batch,), frames, dtype=torch.int32, device="cuda")
+        lp_z, skip_ok = extended_emissions(torch.log_softmax(logits, dim=-1), targets, blank=0)
+        alpha = ctc_alpha(lp_z, skip_ok, lens, tl)
+        ll, ghat = ll_from_alpha(alpha, lens, tl), 1.0 / tl.float()
+        alpha_ms = _cuda_ms(lambda: ctc_alpha(lp_z, skip_ok, lens, tl), 50)
+        beta_ms = _cuda_ms(lambda: ctc_beta(lp_z, alpha, skip_ok, lens, tl, ll, ghat), 50)
+        pair_ms = _cuda_ms(lambda: (ctc_alpha(lp_z, skip_ok, lens, tl),
+                                    ctc_beta(lp_z, alpha, skip_ok, lens, tl, ll, ghat)), 50)
+        out[f"ctc_{name}"] = {"pair_ms": pair_ms, "alpha_ms": alpha_ms, "beta_ms": beta_ms,
+                              "alpha_ns_per_frame": alpha_ms * 1e6 / frames, "beta_ns_per_frame": beta_ms * 1e6 / frames}
+    out["ctc_pair_ms"] = out["ctc_quartznet_16x751"]["pair_ms"]
 
 
 def _measure_wav2vec2(out: dict, vocab, audio, audio_lens, step_gen) -> None:
@@ -446,11 +464,50 @@ def _measure_quartznet(out: dict, rng, step_gen) -> None:
     out["quartznet_train_step_ms"] = _cuda_ms(lambda: step(*batch, step_gen), 5)
 
 
+def _library(root: Path) -> Path:
+    """The kernel library a checkout built last."""
+    return max((root / "thunder_tpu_torch" / "build").glob("libthunder_kernels_*.so"), key=lambda p: p.stat().st_mtime)
+
+
+def _sass_functions(library: Path) -> dict:
+    """``{mangled name: [instruction text]}`` of a library, by ``cuobjdump -sass``, addresses and encodings dropped."""
+    from thunder_tpu_torch.kernels import _build
+
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+    functions, current = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            current = functions.setdefault(line.split("Function :")[1].strip(), [])
+        elif current is not None and line.strip().startswith("/*") and "*/" in line:
+            instruction = line.split("*/", 1)[1].split("/*")[0].strip()
+            if instruction:
+                current.append(instruction)
+    return functions
+
+
+def sass_diff(pairs: list, this: Path, other: Path) -> dict:
+    """For each (this side's name, the other side's name): each side's instruction count and the lines that differ."""
+    mine, theirs = _sass_functions(_library(this)), _sass_functions(_library(other))
+    out = {}
+    for name, other_name in pairs:
+        a = [f for f in mine if name in f]
+        b = [f for f in theirs if other_name in f]
+        if len(a) != 1 or len(b) != 1:
+            raise SystemExit(f"--sass: {name!r} names {len(a)} kernels here and {other_name!r} {len(b)} there")
+        ours, parent = mine[a[0]], theirs[b[0]]
+        changed = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in
+                      difflib.SequenceMatcher(None, ours, parent, autojunk=False).get_opcodes() if tag != "equal")
+        out[name] = {"this_instructions": len(ours), "other_instructions": len(parent), "lines_differing": changed}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", required=True, help="root of the other checkout")
     parser.add_argument("--parts", default=",".join(PARTS), help="comma-separated groups to time (default: all)")
     parser.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--sass", default="", help="kernels whose SASS to compare, THIS=OTHER or NAME, comma-separated")
     args = parser.parse_args()
     parts = tuple(args.parts.split(","))
     unknown = set(parts) - set(PARTS)
@@ -475,6 +532,9 @@ def main() -> int:
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         print(json.dumps({"side": side, **result}), flush=True)
         runs[side].append(result)
+    if args.sass:
+        pairs = [(item.split("=")[0], item.split("=")[-1]) for item in args.sass.split(",")]
+        print(json.dumps({"sass": sass_diff(pairs, ROOT, other)}), flush=True)
     print(json.dumps({"card": card, "runs": runs}))
     return 0
 

@@ -22,7 +22,9 @@ the loop of ``thunder_tpu/ops/ctc.py:128-159``; ``ops/ctc.py`` takes it for
 CPU tensors, and the checks hold :func:`ctc_ll` to it. Impossible alignments
 keep end states at ``NEG = -1e30`` (never ``-inf``), so ``ll`` stays finite
 and :func:`scores_from_ll` maps it to ``+inf``. :func:`extended_emissions`
-makes the kernels' inputs from log-probabilities and targets.
+makes the kernels' inputs from log-probabilities and targets. :func:`ctc_plan`
+mirrors the kernels' launch plan: up to 256 extended states, warps of 64
+states (two a lane); above, warps of 32 x 8, 16 or 32 states.
 """
 
 from __future__ import annotations
@@ -45,11 +47,34 @@ __all__ = [
     "alpha_reference",
     "beta_reference",
     "ll_from_alpha",
+    "ctc_plan",
 ]
 
 NEG = -1e30
-#: the kernels keep two float32 rows of S + 2 states in a block's shared memory (227 KB on Hopper)
-MAX_STATES = 227 * 1024 // 8 - 2
+#: one row's block holds at most 32 warps of 32 lanes, each lane at most 32 states (``csrc/ctc_recursion.cu``)
+MAX_STATES = 32 * 32 * 32
+#: up to SMALL_WARPS warps of 32 lanes, SMALL_STATES_PER_LANE states each (``SMALL_SPL``, ``SMALL_WARPS``)
+SMALL_STATES_PER_LANE, SMALL_WARPS = 2, 4
+
+
+def ctc_plan(s_dim: int) -> dict:
+    """Warps and states a lane of one row's block, as ``csrc/ctc_recursion.cu::ctc_plan`` computes them.
+
+    Lane ``l`` of the block holds the consecutive states ``SPL * l + k``, ``k < SPL``. Up to 256 states
+    (``32 * SMALL_WARPS * SMALL_STATES_PER_LANE``) the row takes ``ceil(S / 64)`` warps of two states a lane; above,
+    the least ``SPL`` of 8, 16 and 32 with ``S <= 1024 * SPL`` and ``ceil(S / (32 * SPL))`` warps. Raises outside
+    ``1 .. MAX_STATES``.
+    """
+    if not 1 <= s_dim <= MAX_STATES:
+        raise ValueError(f"the CTC kernels take 1 to {MAX_STATES} extended states (a target of up to "
+                         f"{(MAX_STATES - 1) // 2} labels: 32 warps of 32 lanes, 32 states a lane); got {s_dim}")
+    small = 32 * SMALL_STATES_PER_LANE
+    if s_dim <= small * SMALL_WARPS:
+        return {"warps": -(-s_dim // small), "states_per_lane": SMALL_STATES_PER_LANE}
+    spl = 8
+    while s_dim > 32 * 32 * spl:
+        spl *= 2
+    return {"warps": -(-s_dim // (32 * spl)), "states_per_lane": spl}
 
 
 def _lse3(a, b, c):
@@ -167,10 +192,7 @@ def _device_args(lp_z, *tensors):
     """Check that a CUDA launch gets contiguous tensors on one device; int32 lengths."""
     if lp_z.device.type != "cuda":
         raise ValueError(f"the CTC recursion runs on cuda or cpu tensors, got {lp_z.device}")
-    if lp_z.shape[2] > MAX_STATES:
-        raise ValueError(f"the CTC kernels take at most {MAX_STATES} extended states (a target of "
-                         f"{(MAX_STATES - 1) // 2} labels): their double-buffered row of states must fit in a block's "
-                         f"227 KB of shared memory; got {lp_z.shape[2]}")
+    ctc_plan(lp_z.shape[2])
     out = []
     for t in (lp_z, *tensors):
         if t.device != lp_z.device or not t.is_contiguous():

@@ -13,9 +13,11 @@ loop). ``ctc_edge`` holds the CTC kernels to the JAX package's CPU limits on
 its edge case (a repeated label, an empty target, T = 61) plus one impossible
 alignment, which must give ``+inf`` on both routes and an exactly zero
 gradient. ``ctc_long_target`` holds the pair to the plain loop with
-``ctc_recursion``'s measure and limit past one state a thread: B = 2, T =
+``ctc_recursion``'s measure and limit past one warp a row: B = 2, T =
 1200, S = 1025 and 2049 (targets of 512 and 1024 labels, and 37 fewer on the
-second row, 1200 and 1100 frames). ``separable_conv_stem`` and
+second row, 1200 and 1100 frames). ``ctc_log_1_3`` counts the floats in [1,
+3] whose logarithm in the CTC chain differs from CUDA's ``logf`` in a bit
+(limit 0). ``separable_conv_stem`` and
 ``separable_conv_tail`` add QuartzNet's strided stem and dilated tail, which
 the TPU kernels did not take; ``repeat_tm`` runs ragged lengths and fails
 unless every row beyond a length is exactly zero. The ``separable_edge_*``
@@ -45,7 +47,11 @@ its host search; both routes compute the same float32 operations, so it is
 the JAX package's 8,192 candidates a frame; ``beam_device_k3000`` (B = 16,
 T = 188, V = K = 3000, beam 16) and ``beam_device_w64_k1000`` (B = 4, T =
 40, V = K = 1000, beam 64, the ranking path) past one block of shared
-memory, where the scan walks each frame in chunks.
+memory, where the scan walks each frame in chunks; ``beam_device_w3000`` (B =
+2, T = 10, V = K = 29, beam 3,000) past the state that fits in shared memory
+(the workspace plan), and ``beam_backtrace_w7000`` (B = 1, T = 20, V = K =
+5, beam 7,000) walks every slot's path with the backtrace's loads from device
+memory.
 ``beam_device_topk`` runs the ``K < V`` pre-prune at the Citrinet serving
 shape (B = 64, T = 188, V = 1025, K = 50, beam 16), and ``beam_stream``
 holds four windows that tile the ``beam_device`` utterance, each one scan
@@ -93,6 +99,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from thunder_tpu_torch.kernels import _build
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
 from thunder_tpu_torch.kernels.add_ln_train import (
     add_ln_train_backward,
@@ -272,7 +279,8 @@ def ctc_long_case(seed, s_dim, device, t=1200):
 
 
 def _check_ctc_long_target(device) -> dict:
-    """``ctc_recursion``'s measure at S = 1025 and 2049 extended states, two and four states a thread."""
+    """``ctc_recursion``'s measure at S = 1025 and 2049 extended states: five and nine warps of eight states a
+    lane."""
     result = {"max_err": 0.0, "max_abs_err": 0.0}
     for s_dim in (1025, 2049):
         case = ctc_long_case(15, s_dim, device)
@@ -304,6 +312,17 @@ def _check_ctc_edge(device) -> dict:
     elif bool((g1[inf1] != 0).any()) or not bool((g1[~inf1].abs().amax(dim=(1, 2)) > 0).all()):
         result.update(max_err=float("inf"), error="gradient of the impossible row not exactly 0, or of a possible row 0")
     return result
+
+
+def _check_ctc_log_1_3(device) -> dict:
+    """The CTC chain's logarithm (``log_1_3`` in ``csrc/ctc_recursion.cu``: CUDA's ``logf`` on [1, 3] without its
+    branches for zero, subnormals and infinities) against ``logf`` on every float in [1, 3]: the count whose bits
+    differ. At 0, the kernels' alpha keeps the plain version's bits."""
+    differs = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(_build.load().thunder_ctc_log_1_3_check(differs.data_ptr(), stream), "thunder_ctc_log_1_3_check")
+    n = float(differs.item())
+    return {"max_err": n, "max_abs_err": n, "floats": 0x40400000 - 0x3F800000 + 1}
 
 
 def attention_case(seed, b, t, heads, lengths, device):
@@ -521,7 +540,7 @@ def ties_dead_case(seed, b, t, v, device):
     return torch.as_tensor(logits, device=device), torch.as_tensor(lengths, device=device)
 
 
-def _beam_check(seed, b, t, v, width, k, case=beam_case, floor=-12.0):
+def _beam_check(seed, b, t, v, width, k, case=beam_case, floor=-12.0, paths=1):
     def check(device) -> dict:
         logits, lengths = case(seed, b, t, v, device)
         logp = torch.log_softmax(logits, dim=-1)
@@ -529,7 +548,7 @@ def _beam_check(seed, b, t, v, width, k, case=beam_case, floor=-12.0):
         runs = []
         for scan, backtrace in ((beam_scan, beam_backtrace), (beam_scan_reference, beam_backtrace_reference)):
             parents, exts, total, state = scan(logp, lengths, floor, **kw)
-            slots0 = torch.argsort(-total, dim=1, stable=True)[:, :1].to(torch.int32)
+            slots0 = torch.argsort(-total, dim=1, stable=True)[:, :paths].to(torch.int32)
             toks, origin = backtrace(parents, exts, slots0)
             runs.append((parents, exts, total, state, toks, origin))
         (p1, e1, t1, s1, k1, o1), (p0, e0, t0, s0, k0, o0) = runs
@@ -624,6 +643,8 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "ctc_recursion": (_check_ctc_recursion, 0.01),
     "ctc_edge": (_check_ctc_edge, 1e-5),
     "ctc_long_target": (_check_ctc_long_target, 0.01),
+    # the chain's branch-free logarithm against logf, bit for bit: the floats in [1, 3] that differ
+    "ctc_log_1_3": (_check_ctc_log_1_3, 0.0),
     # attention and add + LayerNorm: bf16 ULPs at the plain version's max magnitude
     "attn_onepanel": (_attention_check(4, 2, 256, 4, [256, 199]), 4.0),
     "attn_onepanel_1536": (_attention_check(6, 2, 1536, 12, [1536, 1479]), 4.0),
@@ -658,6 +679,10 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # (the ranking path) at K = 1,000
     "beam_device_k3000": (_beam_check(8, 16, 188, 3000, 16, 3000), 2e-3),
     "beam_device_w64_k1000": (_beam_check(9, 4, 40, 1000, 64, 1000), 2e-3),
+    # past the shared memory of one block (the workspace plan: the state in device memory) at W = 3,000, and at
+    # W = 7,000 every slot's path walked from device memory (one frame of pointers over the backtrace's 48 KB)
+    "beam_device_w3000": (_beam_check(10, 2, 10, 29, 3000, 29), 2e-3),
+    "beam_backtrace_w7000": (_beam_check(11, 1, 20, 5, 7000, 5, paths=7000), 2e-3),
 }
 
 

@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from thunder_tpu_torch.kernels.beam import MAX_BEAM_WIDTH, beam_backtrace, beam_scan, scan_fits
+from thunder_tpu_torch.kernels.beam import MAX_CANDIDATES, beam_backtrace, beam_scan
 
 __all__ = ["beam_search_device", "beam_search_device_stream", "DeviceBeamState", "lm_prefix_score"]
 
@@ -50,14 +50,8 @@ def _inputs(logits, lengths, device):
     return logits, lengths
 
 
-def _k_tokens(max_tokens_per_step, vocab: int, beam_width: int, what: str) -> int:
-    k = vocab if max_tokens_per_step is None else min(int(max_tokens_per_step), vocab)
-    if not scan_fits(beam_width):
-        raise ValueError(
-            f"{what} takes a beam_width up to {MAX_BEAM_WIDTH}, whose state fits beside one chunk of the scan in "
-            f"shared memory (got beam_width={beam_width}); lower it or use the host backend"
-        )
-    return k
+def _k_tokens(max_tokens_per_step, vocab: int) -> int:
+    return vocab if max_tokens_per_step is None else min(int(max_tokens_per_step), vocab)
 
 
 def beam_search_device(
@@ -80,14 +74,14 @@ def beam_search_device(
     pairs per sample, best first. ``logits`` may be a live tensor (the
     module and engine pass their forward's logits straight in). The search
     runs in float32 on log-softmax of the logits; ``K = min(max_tokens_per_step,
-    V)`` may be any size and ``beam_width`` up to 2,901
-    (:func:`~thunder_tpu_torch.kernels.beam.scan_fits`).
+    V)`` and ``beam_width`` may be any size (past 2,901 beams the scan keeps its
+    arrays in device memory, :func:`~thunder_tpu_torch.kernels.beam.scan_plan`).
     """
     logits, lengths = _inputs(logits, lengths, device)
     batch, frames, vocab = logits.shape
     if blank is None:
         blank = vocab - 1
-    k = _k_tokens(max_tokens_per_step, vocab, beam_width, "beam_search_device")
+    k = _k_tokens(max_tokens_per_step, vocab)
     # with an LM, rank over the FULL beam on the host (on-the-fly rescoring)
     n_out = int(beam_width) if lm is not None else (1 if nbest is None else min(int(nbest), beam_width))
     if frames == 0:
@@ -226,14 +220,20 @@ def beam_search_device_stream(
     of every slot, which gives the window's emissions per beam and the slot
     each beam descends from in the carried-in state (the stitch key); per
     window only the ``(B, W, T)`` emission matrix and two ``(B, W)`` arrays
-    cross to the host.
+    cross to the host. Like the JAX package's stream, it takes ``beam_width * K``
+    up to 8192.
     """
     logits, lengths = _inputs(logits, lengths, device)
     batch, frames, vocab = logits.shape
     if blank is None:
         blank = vocab - 1
     W = int(beam_width)
-    k = _k_tokens(max_tokens_per_step, vocab, W, "device streaming beam")
+    k = _k_tokens(max_tokens_per_step, vocab)
+    if W * k > MAX_CANDIDATES:
+        raise ValueError(
+            f"device streaming beam requires beam_width*K <= {MAX_CANDIDATES} (got K={k}, W={beam_width}); lower "
+            "max_tokens_per_step or use the host backend"
+        )
     if state is None:
         state = DeviceBeamState()
     if frames == 0:
