@@ -70,7 +70,8 @@ Phases, each of which fails the run:
    qkv and its first add + LayerNorm's inputs, captured by hooks) against
    their plain versions and a PyTorch call (the split into heads +
    ``F.scaled_dot_product_attention`` with the key mask; ``F.layer_norm`` of
-   the float32 sum), timed here only; the attention kernel and its PyTorch
+   the float32 sum), timed here only (the add + LayerNorm's ``ms`` its device
+   time a call, six input sets in turns under a sleep kernel's hold); the attention kernel and its PyTorch
    call are timed ``SPREAD_REPEATS`` times in turns (minimum, median and
    maximum printed; the median goes to the kernels line);
 9. beam serving on the QuartzNet15x5 engine of phase 4, same 64 x 15 s batch:
@@ -80,14 +81,21 @@ Phases, each of which fails the run:
    through the plain versions on the card, for all 64 rows; the beam decode
    is timed with CUDA events on the forward's own logits (the whole
    ``beam_search_device`` call, the scan and the backtrace apart, each beside
-   its plain version), and the whole predict on the host clock; on peaked
+   its plain version; the backtrace's device time with its pointers in device
+   memory, copies of them in turns under a sleep kernel's hold, and by the
+   profiler's kernel durations with the L2 flushed; beside it the chain
+   floor: ``thunder_beam_walk_chain``, one thread's dependent walk steps,
+   times T and times the composed walk's 2 ceil(T / 32) + 31), and the whole
+   predict on the host clock; on peaked
    logits (``scripts/bench_beam_device.py::peaked_logits``: 70 % blank
    frames, peak 6, numpy seed 0) rows 0-1 must equal the port's numpy host
    search, and on the served logits the share of rows 0-1 that agree with it
    is printed; ``predict_long`` on a 60 s speech-like clip with the device
    beam must make one launch of each beam kernel per window and give the
    text of the same windows through the plain versions; the scan alone is
-   timed on the first window's logits (B = 1, one 20 s window); and the scan
+   timed on the first window's logits (B = 1, one 20 s window), and the
+   window's backtrace of every slot's path is held to its plain version
+   exactly and timed by the profiler (L2 flushed); and the scan
    past one block of shared memory (phase ``beam_chunked_shape``: B = 16, T =
    188, V = K = 3000, W = 16, the ``beam_device`` inputs of numpy seed 3, the
    chunked kernel) must equal its plain version exactly, both timed; and both
@@ -135,7 +143,9 @@ Phases, each of which fails the run:
     call, which is the kernels line's ``ms``; beside it their L2-warm time
     by torch.profiler and their back-to-back time at the host's pace); and
     ``dropout_keep_mask`` at the add + LayerNorm's shape against its plain
-    version (equal) and ``torch.rand`` (timed only). The train step never
+    version (equal) and ``torch.rand`` (timed only), its ``ms`` the device
+    time a call (six seeds in turns under a sleep kernel's hold), beside the
+    profiler's kernel duration with the L2 flushed. The train step never
     launches ``dropout_keep_mask``: its ``launches`` is 0 and the count of
     that one call stands under ``own_call_launches``.
 
@@ -459,10 +469,44 @@ def beam_scan_bound(batch: int, t: int, v: int, width: int) -> dict:
     return bound(n_bytes, f32_flop=batch * t * (18.0 * width + 3.0 * width * v))
 
 
-def beam_backtrace_bound(batch: int, t: int, n_out: int) -> dict:
-    """What the walk needs: one parent and one ext read per path and frame, the start slot read, the
-    token written per path and frame and the origin written."""
-    return bound(4 * batch * n_out * (3 * t + 2))
+def beam_backtrace_bound(parents, slots0) -> dict:
+    """The bytes the function must move on this run's pointers: each 32-byte sector (the least the card's memory
+    moves) of the two (B, T, W) int32 pointer fields that the walk reads, once however many paths read it (a path
+    reads parents[t][slot] and exts[t][slot] at each frame whose slot is in [0, W); the fields start on a sector),
+    the start slots read, the tokens (B, n_out, T) and origins written. ``staging_ms``: both fields read whole
+    once, what staging them in shared memory costs at the memory rate."""
+    p, slot = parents.cpu().numpy().astype(np.int64), slots0.cpu().numpy().astype(np.int64)
+    batch, t, width = p.shape
+    n_out = slot.shape[1]
+    rows, sectors = np.arange(batch)[:, None], []
+    for f in range(t - 1, -1, -1):
+        inside = (slot >= 0) & (slot < width)
+        sectors.append((((rows * t + f) * width + slot) >> 3)[inside])
+        slot = np.where(inside, p[rows, f, np.where(inside, slot, 0)], 0)
+    n_sectors = int(np.unique(np.concatenate(sectors)).size) if sectors else 0
+    return {**bound(2 * 32 * n_sectors + 4 * batch * n_out * (t + 2)), "walk_sectors": 2 * n_sectors,
+            "staging_ms": 8 * batch * t * width / HBM_BYTES_PER_MS}
+
+
+def backtrace_chain_floor(t: int, steps: int = 100000) -> dict:
+    """The least time of the backtrace's dependent chain on this card: the latency of one step of the walk alone
+    (``thunder_beam_walk_chain``: one thread runs ``steps`` dependent shared-memory loads of a slot's parent, each
+    made canonical, with nothing else on the chain), times the serial walk's ``t`` steps and times the composed
+    walk's ``2 ceil(t / 32) + 31``."""
+    import torch
+
+    from thunder_tpu_torch.kernels import _build
+
+    lib, out = _build.load(), torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def chain():
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.thunder_beam_walk_chain(out.data_ptr(), steps, 16, stream), "thunder_beam_walk_chain")
+
+    step = cuda_ms(chain, 3) / steps
+    check(0 <= int(out.item()) < 16, f"the walk chain ended on slot {out.item()}")
+    return {"chain_floor_serial_ms": t * step, "chain_floor_composed_ms": (2 * -(-t // 32) + 31) * step,
+            "walk_step_ns": step * 1e6}
 
 
 @contextlib.contextmanager
@@ -860,6 +904,7 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
     from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
     from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
     from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+    from thunder_tpu_torch.kernels.compare_builds import COLD_SETS, cold_ms
     from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
     from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
     from thunder_tpu_torch.module import CTCModule
@@ -985,8 +1030,15 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
     n_ms, n_plain = paired_ms(lambda: add_layer_norm(x, y, ln.scale, ln.bias),
                               lambda: add_layer_norm_reference(x, y, ln.scale, ln.bias), 50)
     n_lib = cuda_ms(lambda: F.layer_norm(x.float() + y.float(), (h,), ln.scale, ln.bias, ln.epsilon).to(x.dtype), 50)
-    emit({"phase": "w2v2_add_ln_shape", "rows": rows, "D": h, "ms": n_ms, "plain_ms": n_plain, "library_ms": n_lib,
-          "ulp": n_ulp})
+    # the device time a call with the inputs in device memory: the forward's x and y and COLD_SETS - 1 more sets of
+    # their shape, in turns, the card held while the host queues
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sets = [(x, y)] + [tuple(torch.randn(x.shape, device="cuda", generator=gen).to(x.dtype) for _ in range(2))
+                       for _ in range(COLD_SETS - 1)]
+    n_cold = cold_ms([lambda a=a: add_layer_norm(a[0], a[1], ln.scale, ln.bias) for a in sets])["ms"]
+    del sets
+    emit({"phase": "w2v2_add_ln_shape", "rows": rows, "D": h, "cold_ms": n_cold, "host_paced_ms": n_ms,
+          "plain_ms": n_plain, "library_ms": n_lib, "ulp": n_ulp})
     check(n_ulp <= add_ln_tol, f"add + LayerNorm at the forward's shape off by {n_ulp} bf16 ULP > {add_ln_tol}")
     return [
         {"name": "mha_from_qkv", "route": "cuda", "source": "thunder_tpu_torch/csrc/mha_from_qkv.cu",
@@ -1000,8 +1052,10 @@ def wav2vec2_phase(card: str, attn_tol: float, add_ln_tol: float) -> list:
          "library": "split into (B, heads, T, 64) + F.scaled_dot_product_attention with the key mask + merge"},
         {"name": "add_layer_norm", "route": "cuda", "source": "thunder_tpu_torch/csrc/add_ln.cu",
          "replaces": "thunder_tpu/kernels/add_ln.py:41", "launches": counts["add_layer_norm"],
-         "max_abs_err": n_err, "max_ulp": n_ulp, "ms": n_ms, "plain_ms": n_plain,
-         "ms_is": f"one launch at {rows} rows x {h} (layer 0's first add + LayerNorm)",
+         "max_abs_err": n_err, "max_ulp": n_ulp, "ms": n_cold, "plain_ms": n_plain, "host_paced_ms": n_ms,
+         "ms_is": f"one launch at {rows} rows x {h} (layer 0's first add + LayerNorm): device time a call with the "
+                  f"inputs in device memory ({COLD_SETS} input sets in turns, the card held while the host queues); "
+                  "host_paced_ms: back-to-back calls",
          **add_ln_bound(rows, h), "library_ms": n_lib, "library": "F.layer_norm(x.float() + y.float()).to(bf16)"},
     ]
 
@@ -1029,7 +1083,7 @@ def wav2vec2_training_phase(card: str) -> list:
         mha_train_forward,
         mha_train_forward_reference,
     )
-    from thunder_tpu_torch.kernels.compare_builds import COLD_SETS, cold_ms, device_ms_by_kernel
+    from thunder_tpu_torch.kernels.compare_builds import COLD_SETS, cold_ms, device_ms_by_kernel, flushed_kernel_ms
     from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
     from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
     from thunder_tpu_torch.module import CTCModule
@@ -1282,11 +1336,17 @@ def wav2vec2_training_phase(card: str) -> list:
     mask_launches = dropout_keep_mask.launches
     keep_p = dropout_keep_mask_reference(x.shape, seed, rate)
     kept = keep.mean().item()
-    m_ms, m_plain = paired_ms(lambda: dropout_keep_mask(x.shape, seed, rate),
-                              lambda: dropout_keep_mask_reference(x.shape, seed, rate), 20)
+    m_host_ms, m_plain = paired_ms(lambda: dropout_keep_mask(x.shape, seed, rate),
+                                   lambda: dropout_keep_mask_reference(x.shape, seed, rate), 20)
+    # the device time a call: six seeds in turns, the card held while the host queues; and the kernel's duration by
+    # the profiler with the L2 flushed before each call
+    seeds = [seed + i for i in range(COLD_SETS)]
+    m_ms = cold_ms([lambda s=s: dropout_keep_mask(x.shape, s, rate) for s in seeds])["ms"]
+    m_flushed = flushed_kernel_ms(lambda: dropout_keep_mask(x.shape, seed, rate), ("dropout_keep_mask",))
     m_lib = cuda_ms(lambda: (torch.rand(x.shape, device="cuda") >= rate).float(), 20)
-    emit({"phase": "w2v2_train_keep_mask_shape", "rows": rows, "D": h, "rate": rate, "kept": kept, "ms": m_ms,
-          "plain_ms": m_plain, "library_ms": m_lib, "equal_to_plain": torch.equal(keep, keep_p)})
+    emit({"phase": "w2v2_train_keep_mask_shape", "rows": rows, "D": h, "rate": rate, "kept": kept, "cold_ms": m_ms,
+          "flushed_ms": m_flushed, "host_paced_ms": m_host_ms, "plain_ms": m_plain, "library_ms": m_lib,
+          "equal_to_plain": torch.equal(keep, keep_p)})
     check(torch.equal(keep, keep_p) and mask_launches == 1
           and abs(kept - (1 - rate)) < 5 * (rate * (1 - rate) / keep.numel()) ** 0.5,
           f"dropout_keep_mask at the step's shape: equal to plain {torch.equal(keep, keep_p)}, kept {kept}")
@@ -1340,7 +1400,11 @@ def wav2vec2_training_phase(card: str) -> list:
          "launches_is": "a check's helper, which no train step launches; own_call_launches is of one call at the "
                         "step's add + LayerNorm shape",
          "max_abs_err": (keep - keep_p).abs().max().item(), "ms": m_ms, "plain_ms": m_plain,
-         "ms_is": f"one launch at {rows} rows x {h}, rate {rate}", **bound(4 * rows * h, f32_flop=12.0 * rows * h),
+         "flushed_ms": m_flushed, "host_paced_ms": m_host_ms,
+         "ms_is": f"one launch at {rows} rows x {h}, rate {rate}: device time a call, {COLD_SETS} seeds in turns, the "
+                  "card held while the host queues; flushed_ms: the kernel's duration by the profiler, the L2 flushed "
+                  "before each call; host_paced_ms: back-to-back calls",
+         **bound(4 * rows * h, f32_flop=12.0 * rows * h),
          "library_ms": m_lib, "library": "(torch.rand(shape) >= rate).float(): other bits, the same distribution"},
     ]
 
@@ -1352,12 +1416,14 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
 
     from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
     from thunder_tpu_torch.kernels.beam import (
+        backtrace_plan,
         beam_backtrace,
         beam_backtrace_reference,
         beam_scan,
         beam_scan_reference,
         scan_plan,
     )
+    from thunder_tpu_torch.kernels.compare_builds import cold_ms, flushed_kernel_ms
     from thunder_tpu_torch.kernels.selftest import beam_case
     from thunder_tpu_torch.ops.ctc_beam import beam_search_decode
     from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
@@ -1421,10 +1487,18 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
     p_a, k_a = cuda_ms(scan_plain, 1), cuda_ms(scan, 10)
     k_b, p_b = cuda_ms(scan, 10), cuda_ms(scan_plain, 1)
     scan_ms, scan_plain_ms = (k_a + k_b) / 2, (p_a + p_b) / 2
-    walk_ms, walk_plain_ms = paired_ms(walk, walk_plain, 10)
+    walk_host_ms, walk_plain_ms = paired_ms(walk, walk_plain, 10)
+    # the backtrace's device time: its pointers in device memory (copies of them in turns, over 100 MB, the card
+    # held while the host queues), and by the profiler's kernel durations with the L2 flushed before each call
+    sets = [(p1.clone(), e1.clone()) for _ in range(-(-100_000_000 // (2 * p1.numel() * 4)))]
+    walk_ms = cold_ms([lambda p=p, e=e: beam_backtrace(p, e, slots0) for p, e in sets], 2 * len(sets))["ms"]
+    del sets
+    walk_flushed_ms = flushed_kernel_ms(walk, ("beam_backtrace",))
     emit({"phase": "beam_decode", "B": batch, "T": frames, "V": vocab, "W": width, "decode_ms": decode_ms,
           "decode_ms_host_clock": decode_host_ms, "decode_plain_ms": decode_plain_ms, "scan_ms": scan_ms,
-          "scan_plain_ms": scan_plain_ms, "backtrace_ms": walk_ms, "backtrace_plain_ms": walk_plain_ms,
+          "scan_plain_ms": scan_plain_ms, "backtrace_cold_ms": walk_ms, "backtrace_flushed_ms": walk_flushed_ms,
+          "backtrace_host_paced_ms": walk_host_ms, "backtrace_plain_ms": walk_plain_ms,
+          "backtrace_plan": backtrace_plan(width, 1, frames),
           "forward_ms": cuda_ms(lambda: engine.infer(audio_d, lengths_d), 5), **timings, "card": card})
     emit({"phase": "beam_profile", **device_profile(lambda: engine.predict(audio, lengths, **beam))})
 
@@ -1455,14 +1529,23 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
     long_counts = (beam_scan.launches, beam_backtrace.launches)
     with plain_beam():
         long_plain = engine.predict_long(clip, beam_width=width, beam_backend="device")
-    # the scan of one window alone (B = 1), on the first window's own logits
+    # the scan of one window alone (B = 1), on the first window's own logits, and the window's backtrace of every
+    # slot's path (n_out = W) against its plain version, exactly, by the profiler's kernel durations (L2 flushed)
     first = torch.as_tensor(clip[None, :chunk], device="cuda")
     w_logits, _, w_lengths = engine.infer(first, torch.full((1,), chunk, dtype=torch.int32, device="cuda"))
     w_logp = torch.log_softmax(w_logits.float(), dim=-1)
     window_scan_ms = cuda_ms(lambda: beam_scan(w_logp, w_lengths, -12.0, **kw), 10)
+    wp, we, _, _ = beam_scan(w_logp, w_lengths, -12.0, **kw)
+    w_slots = torch.arange(width, dtype=torch.int32, device="cuda").expand(1, width).contiguous()
+    window_walk = lambda: beam_backtrace(wp, we, w_slots)  # noqa: E731
+    window_exact = all(torch.equal(a, b) for a, b in zip(window_walk(), beam_backtrace_reference(wp, we, w_slots)))
+    window_walk_ms = flushed_kernel_ms(window_walk, ("beam_backtrace",))
     emit({"phase": "beam_predict_long", "seconds": 60, "windows": windows, "beam_launches": long_counts,
           "ms_host_clock": long_ms, "chars": len(long_text), "equal_to_plain": long_text == long_plain,
-          "scan_ms_per_window": window_scan_ms, "window_frames": w_logits.shape[1], "card": card})
+          "scan_ms_per_window": window_scan_ms, "window_frames": w_logits.shape[1],
+          "backtrace_flushed_ms_per_window": window_walk_ms, "backtrace_window_exact": window_exact,
+          "backtrace_window_plan": backtrace_plan(width, width, w_logits.shape[1]), "card": card})
+    check(window_exact, "the window's backtrace of every slot differs from its plain version")
     check(long_counts == (windows, windows), f"predict_long over {windows} windows launched {long_counts}")
     check(long_text == long_plain and set(long_text) <= set(VOCAB), "predict_long's text differs from the plain versions'")
 
@@ -1524,7 +1607,15 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
          "library_ms": None, "library": "none (no single PyTorch call computes a prefix beam search)"},
         {"name": "beam_backtrace", "route": "cuda", "source": source, "replaces": f"{pallas}:374",
          "launches": counts["beam_backtrace"], "max_abs_err": 0.0, "ms": walk_ms, "plain_ms": walk_plain_ms,
-         "ms_is": f"one launch, one path a row, {shape}", **beam_backtrace_bound(batch, frames, 1),
+         "ms_is": f"one launch, one path a row, {shape}: device time a call with the pointers in device memory "
+                  "(copies in turns, over 100 MB, the card held while the host queues); flushed_ms: the kernel's "
+                  "duration by the profiler, the L2 flushed before each call; host_paced_ms: back-to-back calls",
+         "flushed_ms": walk_flushed_ms, "host_paced_ms": walk_host_ms, **beam_backtrace_bound(p1, slots0),
+         "bound_is": "the 32-byte sectors of both pointer fields that this run's walk reads, the start slots, the "
+                     "tokens and origins; staging_ms: both fields read whole",
+         **backtrace_chain_floor(frames), "window_flushed_ms": window_walk_ms,
+         "window_is": f"one predict_long window, B=1, T={wp.shape[1]}, W={width}, every slot's path",
+         "window_bound_ms": beam_backtrace_bound(wp, w_slots)["bound_ms"],
          "walk_ms": wide[7000]["backtrace_ms"], "walk_plain_ms": wide[7000]["backtrace_plain_ms"],
          "walk_is": "B=1, T=20, W=7000, every slot's path, its loads from device memory",
          "library_ms": None, "library": "none (no single PyTorch call walks beam pointers)"},

@@ -173,6 +173,20 @@ def test_hash_matches_a_direct_uint32_computation():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("rate", [0.0, 2.0**-23, 0.1, 0.3, 0.5, 1 - 2.0**-23])
+def test_integer_threshold_equals_the_float_compare_on_every_23_bit_value(rate):
+    """The kernels test ``keep`` as ``bits >> 9 >= threshold(rate)`` (``dropout_hash.cuh::threshold``, ``keep_at``);
+    the plain versions as ``(bits >> 9) * 2**-23 >= rate`` in float32. The two agree on all 2**23 values of
+    ``bits >> 9``, and ``keep_at`` equals ``keep_from_keys`` on hashed keys and columns."""
+    top = torch.arange(2**23)
+    thr = dropout_hash.threshold(rate)
+    assert torch.equal(dropout_hash.keep_from_bits(top, rate), top >= thr)
+    assert 0 <= thr <= 2**23 - 1
+    keys = dropout_hash.row_keys(SEED, torch.zeros((), dtype=torch.long), torch.arange(40)[:, None])
+    cols = torch.arange(3000)[None, :]
+    assert torch.equal(dropout_hash.keep_at(keys, cols, thr), dropout_hash.keep_from_keys(keys, cols, rate))
+
+
 def test_wrappers_raise_on_bad_arguments_and_launch_nothing_on_the_cpu():
     x, y, scale, bias, ct = (torch.tensor(a) for a in _case(3, (4,), 16))
     before = [w.launches for w in KERNEL_WRAPPERS]

@@ -9,6 +9,11 @@
   package's device search (its XLA scan) and its numpy host search:
   hypotheses exactly, scores to 2e-3 (``tests/test_ctc_beam_device.py:67``:
   the host search sums in float64).
+- A numpy model of the backtrace kernel's composed walk (spans, segments,
+  tables of W + 1 slots, the hand-down, the re-walk) against
+  ``beam_backtrace_pallas`` (interpret mode) and the plain walk on random
+  pointer fields with slots outside [0, W), exactly; the mirror of the
+  backtrace's plan (routes, spans that fit).
 - The port's numpy host search against the JAX package's numpy reference.
 - ``CTCModule.predict``/``predict_long`` and ``InferenceEngine.predict``/
   ``predict_long`` with both backends against the JAX package's, on a tiny
@@ -39,12 +44,15 @@ from thunder_tpu_torch.kernels.beam import (
     MAX_CANDIDATES,
     MAX_SHARED_BYTES,
     beam_backtrace,
+    beam_backtrace_reference,
     beam_scan,
+    backtrace_plan,
     scan_chunks,
     scan_plan,
 )
 from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
 from thunder_tpu_torch.module import CTCModule
+from thunder_tpu_torch.kernels.selftest import pointer_field
 from thunder_tpu_torch.ops import ctc_beam as host
 from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device, beam_search_device_stream
 from thunder_tpu_torch.text import BatchTextTransformer
@@ -121,6 +129,119 @@ def test_plain_scan_and_backtrace_match_pallas_interpret(name):
     tk, to = beam_backtrace(tp, te, torch.as_tensor(slots0))
     np.testing.assert_array_equal(np.asarray(jk), tk.numpy())
     np.testing.assert_array_equal(np.asarray(jo), to.numpy())
+
+
+def _composed_walk(parents, exts, slots0, span):
+    """A numpy model of ``csrc/beam_search.cu::beam_backtrace_kernel<true>``: spans of ``span`` frames, newest first;
+    a span of n frames in 32 segments of ceil(n / 32), segment 31 the newest; each segment's map on the slots 0..W
+    (W: outside [0, W), which emits -1 and goes to slot 0) composed into a table; the paths' entry slots handed
+    down from segment 31 to 0 by one lookup each; each segment re-walked from its entry slots, emitting; the raw
+    slot after a span's oldest frame carried to the next span, and out as ``origin``."""
+    batch, frames, W = parents.shape
+    n_out = slots0.shape[1]
+    toks = np.full((batch, n_out, frames), -99, np.int64)  # -99: never written
+    origin = np.empty((batch, n_out), np.int64)
+
+    def canonical(s):
+        return np.where((s >= 0) & (s < W), s, W)
+
+    for b in range(batch):
+        raw = slots0[b].astype(np.int64)
+        slot = canonical(raw)
+        hi = frames
+        while hi > 0:
+            lo = max(0, hi - span)
+            n = hi - lo
+            seg = -(-n // 32)
+            pp, ee = parents[b, lo:hi].astype(np.int64), exts[b, lo:hi].astype(np.int64)
+
+            def step(f, s):
+                inside = s < W
+                r = np.where(inside, pp[f, np.minimum(s, W - 1)], 0)
+                return canonical(r), r, np.where(inside, ee[f, np.minimum(s, W - 1)], -1)
+
+            bounds = [(k * seg, min((k + 1) * seg, n)) for k in range(32)]
+            tables = np.empty((32, W + 1), np.int64)
+            for k, (f_lo, f_hi) in enumerate(bounds):
+                v = np.arange(W + 1)
+                for f in range(f_hi - 1, f_lo - 1, -1):
+                    v = step(f, v)[0]
+                tables[k] = v
+            entry = np.empty((32, n_out), np.int64)
+            e = slot
+            for k in range(31, 0, -1):
+                entry[k] = e
+                e = tables[k, e]
+            entry[0] = e
+            for k, (f_lo, f_hi) in enumerate(bounds):
+                s = entry[k]
+                for f in range(f_hi - 1, f_lo - 1, -1):
+                    s, r, toks[b, :, lo + f] = step(f, s)
+                if k == 0:
+                    raw = r
+            slot = canonical(raw)
+            hi = lo
+        origin[b] = raw
+    return toks, origin
+
+
+@pytest.mark.parametrize("frames", [1, 31, 32, 33, 751])
+@pytest.mark.parametrize("width", [1, 2, 3, 16, 64])
+@pytest.mark.parametrize("paths", ["one", "every_slot"])
+def test_composed_walk_model_matches_pallas_and_the_plain_walk(frames, width, paths):
+    """The composed walk gives the plain walk's tokens and origins bit for bit, over one span and over spans of a
+    third of the frames (the entry slots carried), slots outside [0, W) included; and so the TPU kernel's. Where
+    T is not a multiple of the TPU kernel's 256-frame block, its padded frames (identity pointers) send a start
+    slot outside [0, W) to slot 0 before frame T-1, so there it equals the plain walk from slot 0 instead (callers
+    start from in-range slots: an argsort of the totals)."""
+    n_out = 1 if paths == "one" else width
+    parents, exts, slots0 = (a.numpy() for a in pointer_field(frames * 131 + width, 4, frames, width, n_out, "cpu"))
+    jk, jo = beam_backtrace_pallas(jnp.asarray(parents), jnp.asarray(exts), jnp.asarray(slots0))
+    tk, to = beam_backtrace_reference(*map(torch.as_tensor, (parents, exts, slots0)))
+    inside = (slots0 >= 0) & (slots0 < width)
+    padded = frames % min(256, frames) != 0
+    pallas_slots = np.where(inside, slots0, 0) if padded else slots0
+    pk, po = beam_backtrace_reference(*map(torch.as_tensor, (parents, exts, pallas_slots)))
+    np.testing.assert_array_equal(np.asarray(jk), pk.numpy())
+    np.testing.assert_array_equal(np.asarray(jo), po.numpy())
+    np.testing.assert_array_equal(np.asarray(jk)[inside], tk.numpy()[inside])
+    assert not inside.all()
+    for span in sorted({frames, max(1, frames // 3)}):
+        mk, mo = _composed_walk(parents, exts, slots0, span)
+        np.testing.assert_array_equal(mk, tk.numpy())
+        np.testing.assert_array_equal(mo, to.numpy())
+
+
+@pytest.mark.parametrize("width,n_out,frames,route", [
+    (16, 1, 751, "composed"),  # the served beam predict: one path a row
+    (16, 16, 1001, "composed"),  # a predict_long window: every slot
+    (16, 16, 188, "composed"), (3, 3, 36, "composed"), (63, 64, 500, "composed"),
+    (3, 3, 35, "serial"),  # 2 ceil(35 / 32) + 31 = 35: the composed chain is not shorter
+    (16, 35, 751, "serial"),  # more paths than two a thread
+    (64, 64, 751, "serial"), (300, 3, 120, "serial"), (6144, 6144, 10, "serial"), (16, 1, 0, "serial"),
+    (6145, 1, 10, "walk"), (7000, 7000, 20, "walk"),
+])
+def test_backtrace_plan_routes_and_spans(width, n_out, frames, route):
+    """The mirror of the kernel's plan: the route; a span of every frame where they fit, else the longest that fits
+    (one frame more would not); the shared bytes a block within ``MAX_SHARED_BYTES``; the threads and blocks."""
+    plan = backtrace_plan(width, n_out, frames)
+    assert plan["route"] == route
+    if route == "walk":
+        assert plan == {"route": "walk", "threads": 128, "span": 0, "smem_bytes": 0, "blocks_y": -(-n_out // 128)}
+        return
+    assert 1 <= plan["span"] <= max(frames, 1) and plan["smem_bytes"] <= MAX_SHARED_BYTES
+    paths = n_out if route == "composed" else min(n_out, 128)
+    extra = 4 * (32 * (width + 1) + 32 * n_out + n_out + 9) if route == "composed" else 0
+    if plan["span"] < frames:  # the longest span: one frame more is over the shared memory
+        assert 16 + 4 * (2 * ((plan["span"] + 1) * width) + paths * (plan["span"] + 1)) + extra > MAX_SHARED_BYTES
+    if route == "composed":
+        assert plan["threads"] == 32 * min(width + 1, 32) and plan["blocks_y"] == 1
+        assert 2 * -(-plan["span"] // 32) + 31 < plan["span"]
+    else:
+        assert plan["threads"] == -(-paths // 32) * 32 and plan["blocks_y"] == -(-n_out // 128)
+    # the served shape and a window take every frame in one span
+    if (width, frames) in ((16, 751), (16, 1001)):
+        assert plan["span"] == frames
 
 
 def test_scan_plan_takes_every_width_up_to_2048_and_the_serving_shapes():

@@ -15,7 +15,10 @@ held to their plain versions at small shapes (besides their checks at the
 serving shapes), past one block of shared memory too (the chunked scan) and
 past the state that fits in it (the workspace plan), with the Python mirror of
 the scan's plan held to the kernel's, and a beam
-``predict`` on the card makes one launch of each.
+``predict`` on the card makes one launch of each; the backtrace is held to the
+plain walk at its edges (slots outside [0, W), T = 0, 200 rows, spans off 16
+bytes, rows past one span) with the mirror of its plan held to the kernel's;
+the keep mask to its plain version at d = 1, 36, 768, 2056.
 The training attention and add + dropout + LayerNorm kernels are held to
 their plain versions, forward and backward, at odd sizes (T = 1, 31, 749,
 1536, a row of length 0; row counts that are no multiple of a block, D = 128
@@ -37,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, run_selftests
+from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, pointer_field, run_selftests
 
 pytestmark = pytest.mark.cuda
 
@@ -565,6 +568,74 @@ def test_beam_kernels_match_plain_versions_at_small_shapes(cuda, b, t, v, width,
     toks0, origin0 = beam_backtrace_reference(want[0], want[1], slots0)
     torch.cuda.synchronize()
     assert torch.equal(toks, toks0) and torch.equal(origin, origin0)
+
+
+@pytest.mark.parametrize("b,t,w,paths,offset", [
+    *[(4, t, w, paths, 0) for t in (1, 31, 32, 33, 751) for w in (1, 2, 3, 16, 64) for paths in ("one", "every")],
+    (200, 751, 16, "one", 0), (200, 188, 16, "every", 0),  # more rows than SMs
+    (3, 37, 3, "every", 1), (3, 41, 5, "every", 3), (3, 40, 300, "one", 2),  # span edges not on 16 bytes
+    (2, 120, 300, "every", 0), (2, 0, 16, "one", 0), (2, 0, 16, "every", 0),
+    (2, 4000, 16, "one", 1), (1, 5000, 16, "every", 0), (2, 3000, 5, "every", 0),  # rows past one span
+    (2, 1001, 16, "every", 0), (1, 50, 6144, "one", 0),
+])
+def test_beam_backtrace_kernel_matches_the_plain_walk_at_its_edges(cuda, b, t, w, paths, offset):
+    """Both routes of the staged backtrace (the composed and the serial walk, ``backtrace_plan``) against the plain
+    walk, bit for bit, ``toks`` and ``origin``: slots outside [0, W) as parents and as start slots, T = 0, more rows
+    than SMs, frames of 4W bytes whose spans start and end off 16 bytes (W = 3, 5, 300, and fields that start off
+    16 bytes), rows longer than one span (the entry slots carried from span to span), one launch a call; and the
+    serial walk (``thunder_beam_backtrace_serial``) at every one of these shapes, where the plan picks the composed
+    walk too."""
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.kernels.beam import backtrace_plan, beam_backtrace, beam_backtrace_reference
+
+    n_out = 1 if paths == "one" else w
+    parents, exts, slots0 = pointer_field(b * 7 + t + w, b, t, w, n_out, "cuda", offset)
+    before = beam_backtrace.launches
+    toks, origin = beam_backtrace(parents, exts, slots0)
+    torch.cuda.synchronize()
+    assert beam_backtrace.launches == before + 1
+    want_toks, want_origin = beam_backtrace_reference(parents, exts, slots0)
+    assert torch.equal(toks, want_toks) and torch.equal(origin, want_origin), backtrace_plan(w, n_out, t)
+    toks.fill_(-99)
+    origin.fill_(-99)
+    _build.check(_build.load().thunder_beam_backtrace_serial(
+        parents.data_ptr(), exts.data_ptr(), slots0.data_ptr(), toks.data_ptr(), origin.data_ptr(), b, t, w, n_out,
+        torch.cuda.current_stream().cuda_stream), "thunder_beam_backtrace_serial")
+    torch.cuda.synchronize()
+    assert torch.equal(toks, want_toks) and torch.equal(origin, want_origin), "the serial walk"
+
+
+def test_beam_backtrace_plan_matches_the_kernel(cuda):
+    """The Python mirror of the backtrace's plan against ``thunder_beam_backtrace_plan``."""
+    import ctypes
+
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.kernels.beam import BACKTRACE_ROUTES, backtrace_plan
+
+    out = (ctypes.c_int * 5)()
+    for w, n_out, t in [(16, 1, 751), (16, 16, 1001), (16, 16, 188), (3, 3, 35), (3, 3, 36), (16, 35, 751),
+                        (63, 64, 500), (64, 64, 751), (300, 3, 120), (1, 1, 1), (16, 1, 0), (16, 1, 4000),
+                        (6144, 6144, 10), (6145, 1, 10), (7000, 7000, 20), (5, 5, 100000), (2, 200, 9)]:
+        _build.check(_build.load().thunder_beam_backtrace_plan(w, n_out, t, ctypes.addressof(out)),
+                     "thunder_beam_backtrace_plan")
+        assert backtrace_plan(w, n_out, t) == {"route": BACKTRACE_ROUTES[out[0]], "threads": out[1], "span": out[2],
+                                               "smem_bytes": out[3], "blocks_y": out[4]}, (w, n_out, t)
+
+
+@pytest.mark.parametrize("rows", [1, 5992])
+@pytest.mark.parametrize("d", [1, 36, 768, 2056])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.999])
+def test_dropout_keep_mask_kernel_matches_its_plain_version(cuda, rows, d, rate):
+    """The keep-mask kernel (a warp a row, float4 stores where d % 4 == 0) bit for bit against its plain version,
+    one launch a call."""
+    from thunder_tpu_torch.kernels.add_ln_train import dropout_keep_mask, dropout_keep_mask_reference
+
+    seed = torch.tensor([20260821 + d], dtype=torch.int32, device="cuda")
+    before = dropout_keep_mask.launches
+    got = dropout_keep_mask((rows, d), seed, rate)
+    torch.cuda.synchronize()
+    assert dropout_keep_mask.launches == before + 1
+    assert torch.equal(got, dropout_keep_mask_reference((rows, d), seed, rate))
 
 
 def test_beam_scan_plan_matches_the_kernel_and_refuses_above_shared_memory(cuda):

@@ -73,6 +73,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int WARPS = 8;              // warps per block
 constexpr int BWD_BLOCKS_PER_SM = 2;  // backward: the grid, and so the partial rows of dg and db, from the SM count
+constexpr int MASK_BLOCKS_PER_SM = 8;  // the keep mask: 64 warps an SM, the most an SM holds
 constexpr int RED_X = 32, RED_Y = 32;  // the partial sum's block: 32 columns by 32 strided groups of partial rows
 
 __device__ inline float warp_sum(float v) {
@@ -532,12 +533,36 @@ __global__ void __launch_bounds__(RED_X * RED_Y)
   }
 }
 
-__global__ void dropout_keep_mask_kernel(const int* __restrict__ seed, float* __restrict__ mask, int rows, int d,
-                                         float rate) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)rows * d) return;
-  const uint32_t row = (uint32_t)(i / d), col = (uint32_t)(i % d);
-  mask[i] = thunder_dropout::keep(thunder_dropout::row_key((uint32_t)seed[0], 0u, row), col, rate) ? 1.f : 0.f;
+// The keep mask as float32 0/1 (dropout_keep_mask; no train step launches it). What bounds it on this card: bytes,
+// the 4 bytes a value written (0.0055 ms at 5,992 x 768), then the hash (about 13 integer operations a value). An
+// earlier design ran a thread a value: a 64-bit division and remainder for its row and column, the row's key
+// recomputed (two mix32) and the float compare for each value, 4-byte stores. Device time a call at 5,992 x 768,
+// rate 0.1 (kernels/compare_builds.py --parts add_ln, both in one call; NVIDIA H100 80GB HBM3, 700 W): 0.0145-0.0146
+// ms before, 0.0067-0.0068 now, 81 % of the bound. Here a warp a row,
+// rows strided over the warps of a grid from the SM count: the row's key once, the rate's integer threshold once
+// (keep_at, as the forward kernel tests it), four consecutive columns a lane stored as one float4 where the rows
+// are 16-byte aligned (d % 4 == 0 and an aligned mask), a value a lane otherwise.
+__global__ void __launch_bounds__(WARPS * 32) dropout_keep_mask_kernel(const int* __restrict__ seed,
+                                                                       float* __restrict__ mask, int rows, int d,
+                                                                       uint32_t threshold, bool vec4) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t s = (uint32_t)__ldg(seed);
+  for (int row = blockIdx.x * WARPS + (threadIdx.x >> 5); row < rows; row += gridDim.x * WARPS) {
+    const uint32_t key = thunder_dropout::row_key(s, 0u, (uint32_t)row);
+    float* out = mask + (size_t)row * d;
+    if (vec4) {
+      for (int c = 4 * lane; c < d; c += 128) {
+        float4 v;
+        v.x = thunder_dropout::keep_at(key, (uint32_t)c, threshold) ? 1.f : 0.f;
+        v.y = thunder_dropout::keep_at(key, (uint32_t)c + 1u, threshold) ? 1.f : 0.f;
+        v.z = thunder_dropout::keep_at(key, (uint32_t)c + 2u, threshold) ? 1.f : 0.f;
+        v.w = thunder_dropout::keep_at(key, (uint32_t)c + 3u, threshold) ? 1.f : 0.f;
+        *reinterpret_cast<float4*>(out + c) = v;
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) out[c] = thunder_dropout::keep_at(key, (uint32_t)c, threshold) ? 1.f : 0.f;
+    }
+  }
 }
 
 bool bad_shape(int rows, int d) { return rows < 1 || d < 1; }
@@ -659,8 +684,10 @@ extern "C" int thunder_add_ln_train_bwd(const void* x, const void* y, const floa
 // mask: (rows, d) f32, 1 where add_ln_train keeps y under this seed and rate, else 0.
 extern "C" int thunder_dropout_keep_mask(const int* seed, float* mask, int rows, int d, float rate, void* stream) {
   if (rows < 1 || d < 1 || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)rows * d;
-  dropout_keep_mask_kernel<<<(unsigned)((n + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(seed, mask, rows,
-                                                                                                        d, rate);
+  const int need = (rows + WARPS - 1) / WARPS;
+  const int blocks = need < MASK_BLOCKS_PER_SM * sm_count() ? need : MASK_BLOCKS_PER_SM * sm_count();
+  const bool vec4 = d % 4 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  dropout_keep_mask_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      seed, mask, rows, d, thunder_dropout::threshold(rate), vec4);
   return (int)cudaGetLastError();
 }

@@ -102,15 +102,39 @@
 // compares each of W*K extend rows with the W stay rows' hashes through L1, which is slow and exact;
 // no caller asks for such a width.
 //
-// The backtrace: one block per row (and per 128 output slots), which stages the row's
-// pointers in shared memory in chunks of frames, newest first; one thread per output
-// slot walks t = T-1 ... 0, writing toks[t] = exts[t][slot] and then slot = parents[t][slot].
-// Past W = 6,144 one frame of pointers no longer fits the 48 KB the chunks take, and
-// beam_backtrace_walk_kernel walks the same way with its loads straight from device memory.
+// The backtrace: for each path, toks[t] = exts[t][slot], then slot = parents[t][slot], for t = T-1 ... 0;
+// origin = the slot after frame 0. A slot outside [0, W) emits -1 and goes to slot 0 (the TPU kernel's
+// gather). What bounds it on this card: a chain of T dependent loads a path, not bytes. At the served
+// shape (B = 64, T = 751, W = 16, one path a row) the walk reads one 32-byte sector of each pointer field a
+// frame, 3.1 MB (0.9 us at 3.35 TB/s), and staging both fields whole pulls 6.15 MB (1.8 us); one step of the walk alone takes 24.9 ns on this card (thunder_beam_walk_chain), so 751 steps 18.7 us.
+// An earlier design ran one block of 128 threads a row and one thread a path: it staged 48 KB of frames
+// at a time by a scalar loop between two block barriers, then one thread walked the 751 loads while 127
+// idled. Device time a call with the pointers in device memory (kernels/compare_builds.py --parts beam,
+// the earlier design in the same call; NVIDIA H100 80GB HBM3, 700 W): 0.0908-0.0912 ms before, 0.0085-0.0086
+// now; a predict_long window (1 x 1,001, every slot's path) 0.119 before, 0.0088 now. This design:
+//   - staging by bulk copies: one thread issues cp.async.bulk copies of a span's parents, then of its exts,
+//     each completing on its own mbarrier, so the walk waits only for the parents. A span is as many frames
+//     as fit one block's shared memory (all 751 at W = 16), newest first, the entry slots carried from span
+//     to span. Frames are 4W bytes: where a span does not start or end on 16 bytes, the bulk copy takes the
+//     aligned middle and threads load the at most six words around it; the caller's tensors are not padded;
+//   - the walk composed over segments where that shortens the chain (backtrace_plan: W <= 63, n_out at most
+//     two a thread, 2 ceil(n / 32) + 31 < n for a span of n frames): segment k of 32 composes its frames' maps
+//     into a table of W + 1 slots (slot W: "outside"), the paths' entry slots are handed down from the newest
+//     segment to the oldest by one table lookup each, and each segment is re-walked from its entry slots,
+//     emitting. The chain falls from n steps to 2 ceil(n / 32) + 31: 79 at T = 751 (2.0 us), from 751. A segment's
+//     threads are consecutive (min(W + 1, 32) of them), so a warp reads the words of two or three frames at a
+//     time, not 32 frames a segment apart, whose words share banks. Elsewhere a thread a path walks the span
+//     (thunder_beam_backtrace_serial takes this route at any W <= 6,144: 0.0258 ms at the served shape, 0.037 a
+//     window, against the composed walk's 0.0087 and 0.0089 in the same call; 0.169 at 264 x 751 x 300, one path
+//     a row, against the earlier design's 0.845);
+//   - tokens through shared memory (rows of odd stride) and out as contiguous runs along T, a warp a path.
+// Past W = 6,144 (WALK_MAX_W), beam_backtrace_walk_kernel walks with its loads from device memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -122,8 +146,12 @@ constexpr size_t MAX_SMEM = 232448;  // what a block may opt into on sm_90
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_TREE_THREADS = 512;  // W <= 32: at most 16 lists, 15 pair barriers (ids 1-15)
 constexpr int MAX_RANK_CHUNK_RUNS = 128;  // the chunked plan, W > 32: runs a chunk ranks beside the picks' runs
-constexpr size_t BACKTRACE_SMEM = 49152;  // the backtrace's frame chunks fit the default
-constexpr int BACKTRACE_THREADS = 128;
+constexpr int BACKTRACE_THREADS = 128;  // the walk from device memory: paths a block
+constexpr int WALK_MAX_W = 6144;        // past it the backtrace walks from device memory
+constexpr int SERIAL_PATHS = 128;       // the serial walk on staged spans: paths a block
+constexpr int SEGMENTS = 32;            // the composed walk: segments of a span, entry slots handed down 31 times
+constexpr int COMPOSE_MAX_W = 63;       // the composed walk: at most two table entries a thread
+enum { BACKTRACE_WALK = 0, BACKTRACE_SERIAL = 1, BACKTRACE_COMPOSED = 2 };
 
 __device__ __forceinline__ float lae(float a, float b) {
   if (isinf(a) && a == b) return a;
@@ -749,46 +777,241 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) beam_scan_chunked_kernel(
   }
 }
 
-__global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_kernel(
-    const int* __restrict__ parents, const int* __restrict__ exts, const int* __restrict__ slots0,
-    int* __restrict__ toks, int* __restrict__ origin, int T, int W, int n_out, int chunk) {
-  extern __shared__ int sh[];  // [chunk][W] parents, then [chunk][W] exts
-  int* sp = sh;
-  int* se = sh + (size_t)chunk * W;
-  const int b = blockIdx.x;
-  const int n = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool live = n < n_out;
-  const size_t g = (size_t)b * n_out + n;
-  int slot = live ? slots0[g] : 0;
-  const int* P = parents + (size_t)b * T * W;
-  const int* E = exts + (size_t)b * T * W;
-  int* out = toks + g * T;
-  for (int hi = T; hi > 0; hi -= chunk) {
-    const int lo = max(0, hi - chunk);
-    const int count = (hi - lo) * W;
-    __syncthreads();  // the previous chunk's walk is done
-    for (int i = threadIdx.x; i < count; i += blockDim.x) {
-      sp[i] = P[(size_t)lo * W + i];
-      se[i] = E[(size_t)lo * W + i];
-    }
-    __syncthreads();
-    if (live) {
-      for (int t = hi - 1; t >= lo; --t) {
-        if (slot >= 0 && slot < W) {
-          const int o = (t - lo) * W + slot;
-          out[t] = se[o];
-          slot = sp[o];
-        } else {  // as the TPU kernel's gather: no emission, slot 0
-          out[t] = -1;
-          slot = 0;
-        }
-      }
-    }
-  }
-  if (live) origin[g] = slot;
+// ---- the backtrace
+
+// A slot as the tables and the hand-down hold it: [0, W), or W for "outside [0, W)". A frame maps slot s < W to
+// parents[t][s] (made canonical) and W to 0, and emits exts[t][s] for s < W, -1 for W: the TPU kernel's gather.
+// The walks carry the same slot as (s, out): see step().
+__device__ __forceinline__ int canonical(int slot, int W) { return (unsigned)slot < (unsigned)W ? slot : W; }
+
+// The backtrace's plan for beam width W, n_out paths a row and T frames (kernels/beam.py::backtrace_plan mirrors it).
+struct BacktracePlan {
+  int route;    // BACKTRACE_WALK, BACKTRACE_SERIAL or BACKTRACE_COMPOSED
+  int threads;  // a block's
+  int span;     // frames staged at a time (0: the walk from device memory)
+  size_t smem;  // dynamic shared bytes of a block
+  int blocks_y; // blocks a row: the serial walk takes its paths SERIAL_PATHS to a block
+};
+
+__host__ __device__ inline int round4(int words) { return (words + 3) & ~3; }
+
+// the paths a block walks
+__host__ __device__ inline int block_paths(int n_out, bool composed) {
+  return composed || n_out < SERIAL_PATHS ? n_out : SERIAL_PATHS;
 }
 
-// Past W = 6,144 (one frame of pointers over the backtrace's 48 KB): the same walk, its loads from device memory.
+// the composed walk's words beside the span: the segments' tables of W + 1 entries, the hand-down's entry slot of
+// each segment and path, and the raw slot each path leaves the span with
+__host__ __device__ inline int compose_words(int W, int n_out, bool composed) {
+  return composed ? round4(SEGMENTS * (W + 1)) + round4(SEGMENTS * n_out) + round4(n_out) : 0;
+}
+
+// A block's shared bytes for a span: two mbarriers; the span's parents and exts, each at its source's word offset in
+// a 16-byte line (a bulk copy keeps the alignment); the paths' tokens, in rows of odd stride (span | 1) against bank
+// conflicts; the composed walk's words.
+__host__ __device__ inline size_t backtrace_smem(int W, int n_out, int span, bool composed) {
+  const int words = 2 * round4(span * W + 3) + round4(block_paths(n_out, composed) * (span | 1)) +
+                    compose_words(W, n_out, composed);
+  return 16 + 4 * (size_t)words;
+}
+
+// The longest span (at most T frames, at least 1) whose block fits MAX_SMEM: with round4(x) <= x + 3, a block's
+// words (the mbarriers' 4 among them) are at most span * (2W + paths) + 19 + paths + compose_words.
+inline int backtrace_span(int W, int n_out, int T, bool composed) {
+  const int paths = block_paths(n_out, composed);
+  const long long room = (long long)(MAX_SMEM / 4) - 19 - paths - compose_words(W, n_out, composed);
+  const long long span = room / (2LL * W + paths);
+  const int frames = T > 1 ? T : 1;
+  return span < frames ? (int)span : frames;
+}
+
+// the serial walk on staged spans (W <= WALK_MAX_W): a thread a path, SERIAL_PATHS paths a block
+inline BacktracePlan serial_plan(int W, int n_out, int T) {
+  const int span = backtrace_span(W, n_out, T, false);
+  return {BACKTRACE_SERIAL, (block_paths(n_out, false) + 31) & ~31, span, backtrace_smem(W, n_out, span, false),
+          (n_out + SERIAL_PATHS - 1) / SERIAL_PATHS};
+}
+
+inline BacktracePlan backtrace_plan(int W, int n_out, int T) {
+  if (W > WALK_MAX_W) {
+    return {BACKTRACE_WALK, BACKTRACE_THREADS, 0, 0, (n_out + BACKTRACE_THREADS - 1) / BACKTRACE_THREADS};
+  }
+  const int per_segment = W + 1 < 32 ? W + 1 : 32;  // the composed walk's threads a segment
+  if (W <= COMPOSE_MAX_W && n_out <= 2 * per_segment) {
+    const int span = backtrace_span(W, n_out, T, true);
+    if (2 * ((span + SEGMENTS - 1) / SEGMENTS) + SEGMENTS - 1 < span) {  // the composed chain is the shorter one
+      return {BACKTRACE_COMPOSED, SEGMENTS * per_segment, span, backtrace_smem(W, n_out, span, true), 1};
+    }
+  }
+  return serial_plan(W, n_out, T);
+}
+
+// The words of one field's span (n words from src) in shared memory: word i at buf[shift + i], shift = src's word
+// offset in its 16-byte line. Words [head, head + body) go by one bulk copy (16-byte aligned at both ends), the at
+// most 3 + 3 around them by plain loads.
+struct Staged {
+  int shift, head, body;
+};
+
+__device__ __forceinline__ Staged staged(const int* src, int n) {
+  const int shift = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int head = min(n, (4 - shift) & 3);
+  return {shift, head, ((n - head) >> 2) << 2};
+}
+
+// Thread 0 issues the bulk copies of a span's parents (completing on bar_p) and then its exts (bar_e); threads 0-15
+// load the words around them. The caller's __syncthreads makes those visible; the waits on the mbarriers, the
+// copies.
+__device__ __forceinline__ void stage_span(int* sp, int* se, const int* P, const int* E, int n, uint32_t bar_p,
+                                           uint32_t bar_e, int tid) {
+  if (tid == 0) {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the last span's reads, before the copies' writes
+    const Staged a = staged(P, n), b = staged(E, n);
+    hopper::mbar_expect_tx(bar_p, 4u * a.body);
+    if (a.body > 0) hopper::bulk_load(hopper::smem_u32(sp + a.shift + a.head), P + a.head, 4u * a.body, bar_p);
+    hopper::mbar_expect_tx(bar_e, 4u * b.body);
+    if (b.body > 0) hopper::bulk_load(hopper::smem_u32(se + b.shift + b.head), E + b.head, 4u * b.body, bar_e);
+  }
+  if (tid < 16) {
+    const int* src = tid < 8 ? P : E;
+    int* buf = tid < 8 ? sp : se;
+    const Staged s = staged(src, n);
+    const int j = tid & 7;
+    const int i = j < 4 ? j : s.head + s.body + (j - 4);
+    if ((j < 4 && i < s.head) || (j >= 4 && i < n)) buf[s.shift + i] = src[i];
+  }
+}
+
+// One frame of a walk on (s, out), s in [0, W) and out for a slot outside [0, W), given r = parents[t][s]: a slot
+// outside goes to slot 0; else the parent, or (0, out) if the parent is outside. The chain a frame is the load of r,
+// one compare and one select: the load never needs a guard, since s is always a slot of the frame.
+__device__ __forceinline__ void step(int r, int& s, bool& out, int W) {
+  const bool keep = !out && (unsigned)r < (unsigned)W;
+  out = !out && !keep;
+  s = keep ? r : 0;
+}
+
+// Frames f_hi - 1 down to f_lo of a staged span from the canonical slot `entry`, the tokens into tok[f]; returns the
+// slot after frame f_lo as the plain walk carries it (a parent outside [0, W) as it is, 0 after a slot outside).
+__device__ __forceinline__ int walk(const int* pp, const int* ee, int* tok, int f_hi, int f_lo, int entry, int W) {
+  int s = entry < W ? entry : 0, raw = entry;
+  bool out = entry >= W;
+#pragma unroll 4
+  for (int f = f_hi - 1; f >= f_lo; --f) {
+    const int o = f * W + s;
+    const int t = ee[o], r = pp[o];
+    tok[f] = out ? -1 : t;
+    raw = out ? 0 : r;
+    step(r, s, out, W);
+  }
+  return raw;
+}
+
+// One block a row (and, on the serial route, a group of SERIAL_PATHS paths). Spans of `span` frames, newest first:
+// staged by bulk copies (the parents first, then the exts, each on its own mbarrier), then walked.
+//   COMPOSED = false: a thread a path walks the span's frames one after another.
+//   COMPOSED = true: the span falls into SEGMENTS segments of ceil(n / SEGMENTS) frames, segment 31 the newest.
+//     1. each segment's map (the composition of its frames' maps on W + 1 slots) into a table: thread (k, j) of
+//        segment k walks entries j and j + per_segment through the segment, the lookups of a frame independent;
+//     2. a thread a path hands its entry slot down from segment 31 to segment 0, one table lookup a segment;
+//     3. thread (k, j) re-walks segment k for paths j and j + per_segment from their entry slots, emitting tokens.
+//     The dependent chain is 2 ceil(n / 32) + 31 loads, against n for the serial walk.
+//   Tokens go through shared memory and out as contiguous runs along T, a warp a path.
+template <bool COMPOSED>
+__global__ void __launch_bounds__(MAX_THREADS) beam_backtrace_kernel(
+    const int* __restrict__ parents, const int* __restrict__ exts, const int* __restrict__ slots0,
+    int* __restrict__ toks, int* __restrict__ origin, int T, int W, int n_out, int span) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  const int p0 = blockIdx.y * SERIAL_PATHS;  // the block's first path (0 on the composed route)
+  const int paths = min(n_out - p0, COMPOSED ? n_out : SERIAL_PATHS);
+  const int per_segment = W + 1 < 32 ? W + 1 : 32;
+  const int stride = span | 1;  // a path's token row
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  int* sp = reinterpret_cast<int*>(smem_raw + 16);
+  int* se = sp + round4(span * W + 3);
+  int* stok = se + round4(span * W + 3);
+  int* table = stok + round4(paths * stride);          // COMPOSED: [SEGMENTS][W + 1]
+  int* entry = table + round4(SEGMENTS * (W + 1));     // COMPOSED: [SEGMENTS][n_out]
+  int* leave = entry + round4(SEGMENTS * n_out);       // COMPOSED: [n_out]
+  const uint32_t bar_p = hopper::smem_u32(bars), bar_e = hopper::smem_u32(bars + 1);
+  if (tid == 0) {
+    hopper::mbar_init(bar_p, 1);
+    hopper::mbar_init(bar_e, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // A path's walker (thread tid for path p0 + tid) carries its slot across spans as (s, out): s in [0, W), and out
+  // for a slot outside [0, W), which emits -1 and goes to slot 0; raw is the slot as the plain walk carries it.
+  int raw = tid < paths ? slots0[(size_t)b * n_out + p0 + tid] : 0;
+  const int* P = parents + (size_t)b * T * W;
+  const int* E = exts + (size_t)b * T * W;
+  int phase = 0;
+  for (int hi = T; hi > 0; hi -= span, phase ^= 1) {
+    const int lo = max(0, hi - span), n = hi - lo;
+    __syncthreads();  // the previous span is consumed (on the first, the mbarriers are initialised)
+    stage_span(sp, se, P + (size_t)lo * W, E + (size_t)lo * W, n * W, bar_p, bar_e, tid);
+    __syncthreads();  // the plain loads around the bulk copies
+    const int* pp = sp + staged(P + (size_t)lo * W, n * W).shift;  // pp[f * W + s]: frame lo + f
+    const int* ee = se + staged(E + (size_t)lo * W, n * W).shift;
+    hopper::mbar_wait(bar_p, phase);
+    if constexpr (!COMPOSED) {
+      hopper::mbar_wait(bar_e, phase);
+      if (tid < paths) raw = walk(pp, ee, stok + tid * stride, n, 0, canonical(raw, W), W);
+      __syncthreads();
+    } else {
+      const int seg = (n + SEGMENTS - 1) / SEGMENTS;
+      const int k = tid / per_segment, j = tid - k * per_segment;
+      const int f_lo = k * seg, f_hi = min(f_lo + seg, n);
+      // phase 1, compose: each segment's map on slots 0..W, a thread's one or two entries walked together
+      if (j + per_segment <= W) {
+        int s0 = j, s1 = j + per_segment < W ? j + per_segment : 0;
+        bool o0 = false, o1 = j + per_segment >= W;
+        for (int f = f_hi - 1; f >= f_lo; --f) {
+          const int r0 = pp[f * W + s0], r1 = pp[f * W + s1];
+          step(r0, s0, o0, W);
+          step(r1, s1, o1, W);
+        }
+        table[k * (W + 1) + j + per_segment] = o1 ? W : s1;
+        table[k * (W + 1) + j] = o0 ? W : s0;
+      } else {
+        int s0 = j < W ? j : 0;
+        bool o0 = j >= W;
+#pragma unroll 4
+        for (int f = f_hi - 1; f >= f_lo; --f) step(pp[f * W + s0], s0, o0, W);
+        table[k * (W + 1) + j] = o0 ? W : s0;
+      }
+      __syncthreads();
+      // phase 2, hand-down: a path's entry slot of each segment, newest first
+      if (tid < n_out) {
+        int e = canonical(raw, W);
+        for (int s = SEGMENTS - 1; s > 0; --s) {
+          entry[s * n_out + tid] = e;
+          e = table[s * (W + 1) + e];
+        }
+        entry[tid] = e;
+      }
+      __syncthreads();
+      hopper::mbar_wait(bar_e, phase);
+      // phase 3, re-walk: each segment from its entry slots, emitting tokens; segment 0 holds the oldest frame
+      for (int q = j; q < n_out; q += per_segment) {
+        const int r = walk(pp, ee, stok + q * stride, f_hi, f_lo, entry[k * n_out + q], W);
+        if (k == 0) leave[q] = r;
+      }
+      __syncthreads();
+      if (tid < n_out) raw = leave[tid];
+    }
+    // the span's tokens, a warp a path, as contiguous runs along T
+    for (int q = warp; q < paths; q += nt >> 5) {
+      int* out = toks + ((size_t)b * n_out + p0 + q) * T + lo;
+#pragma unroll 8
+      for (int f = lane; f < n; f += 32) out[f] = stok[q * stride + f];
+    }
+  }
+  if (tid < paths) origin[(size_t)b * n_out + p0 + tid] = raw;
+}
+
+// Past W = 6,144 (WALK_MAX_W): a thread a path walks with its loads straight from device memory.
 __global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_walk_kernel(
     const int* __restrict__ parents, const int* __restrict__ exts, const int* __restrict__ slots0,
     int* __restrict__ toks, int* __restrict__ origin, int T, int W, int n_out) {
@@ -811,6 +1034,18 @@ __global__ void __launch_bounds__(BACKTRACE_THREADS) beam_backtrace_walk_kernel(
     }
   }
   origin[g] = slot;
+}
+
+// thunder_beam_walk_chain: one thread, `steps` dependent steps of the walks' chain, nothing else on it
+__global__ void beam_walk_chain_kernel(int* __restrict__ out, int steps, int W) {
+  __shared__ int field[64 * 16];
+  for (int i = threadIdx.x; i < 64 * W; i += blockDim.x) field[i] = (i * 7 + 3) % W;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int s = 0;
+  bool outside = false;
+  for (int i = 0; i < steps; ++i) step(field[(i & 63) * W + s], s, outside, W);
+  out[0] = outside ? W : s;
 }
 
 }  // namespace
@@ -869,22 +1104,60 @@ extern "C" int thunder_beam_scan(const float* logp, const float* topv, const int
   return (int)cudaGetLastError();
 }
 
+// out[0] = the route (0: the walk from device memory, 1: the serial walk on staged spans, 2: the composed walk),
+// out[1] = threads of a block, out[2] = frames of a span, out[3] = shared bytes of a block, out[4] = blocks a row,
+// for beam width W, n_out paths a row and T frames.
+extern "C" int thunder_beam_backtrace_plan(int W, int n_out, int T, int* out) {
+  if (W < 1 || n_out < 1 || T < 0) return (int)cudaErrorInvalidValue;
+  const BacktracePlan plan = backtrace_plan(W, n_out, T);
+  out[0] = plan.route;
+  out[1] = plan.threads;
+  out[2] = plan.span;
+  out[3] = (int)plan.smem;
+  out[4] = plan.blocks_y;
+  return 0;
+}
+
+static int launch_backtrace(const BacktracePlan& plan, const int* parents, const int* exts, const int* slots0, int* toks,
+                     int* origin, int B, int T, int W, int n_out, void* stream) {
+  const dim3 grid(B, plan.blocks_y);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plan.route == BACKTRACE_WALK) {
+    beam_backtrace_walk_kernel<<<grid, BACKTRACE_THREADS, 0, st>>>(parents, exts, slots0, toks, origin, T, W, n_out);
+    return (int)cudaGetLastError();
+  }
+  const bool composed = plan.route == BACKTRACE_COMPOSED;
+  const auto kernel = composed ? &beam_backtrace_kernel<true> : &beam_backtrace_kernel<false>;
+  if (plan.smem > 49152) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, plan.threads, plan.smem, st>>>(parents, exts, slots0, toks, origin, T, W, n_out, plan.span);
+  return (int)cudaGetLastError();
+}
+
 // parents, exts: (B, T, W) int32; slots0: (B, n_out) int32 start slots; toks: (B, n_out, T)
 // int32 out (-1 where the path emitted nothing); origin: (B, n_out) int32 out, each path's
 // slot in the window's initial state. Returns cudaGetLastError().
 extern "C" int thunder_beam_backtrace(const int* parents, const int* exts, const int* slots0, int* toks, int* origin,
                                       int B, int T, int W, int n_out, void* stream) {
   if (B < 1 || T < 0 || W < 1 || n_out < 1) return (int)cudaErrorInvalidValue;
-  const int chunk = (int)(BACKTRACE_SMEM / (2 * sizeof(int) * (size_t)W));
-  const dim3 grid(B, (n_out + BACKTRACE_THREADS - 1) / BACKTRACE_THREADS);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chunk < 1) {
-    beam_backtrace_walk_kernel<<<grid, BACKTRACE_THREADS, 0, st>>>(parents, exts, slots0, toks, origin, T, W, n_out);
-    return (int)cudaGetLastError();
-  }
-  const int frames = T < chunk ? (T > 0 ? T : 1) : chunk;
-  const size_t smem = 2 * sizeof(int) * (size_t)frames * W;
-  beam_backtrace_kernel<<<grid, BACKTRACE_THREADS, smem, st>>>(parents, exts, slots0, toks, origin, T, W, n_out,
-                                                               frames);
+  return launch_backtrace(backtrace_plan(W, n_out, T), parents, exts, slots0, toks, origin, B, T, W, n_out, stream);
+}
+
+// The same function by the serial walk on staged spans whatever the plan picks (W <= 6,144), for timing the
+// composed walk against it (kernels/compare_builds.py) and holding both routes to the plain walk at one shape.
+extern "C" int thunder_beam_backtrace_serial(const int* parents, const int* exts, const int* slots0, int* toks,
+                                             int* origin, int B, int T, int W, int n_out, void* stream) {
+  if (B < 1 || T < 0 || W < 1 || W > WALK_MAX_W || n_out < 1) return (int)cudaErrorInvalidValue;
+  return launch_backtrace(serial_plan(W, n_out, T), parents, exts, slots0, toks, origin, B, T, W, n_out, stream);
+}
+
+// The floor of the backtrace's chains on this card: `steps` dependent steps of the walk (a shared-memory load of
+// the slot's parent, a compare and a select: step()) in one thread, over 64 frames of a field of width W <= 16
+// whose parents are in [0, W); out[0] = the last slot. Returns cudaGetLastError().
+extern "C" int thunder_beam_walk_chain(int* out, int steps, int W, void* stream) {
+  if (steps < 1 || W < 1 || W > 16) return (int)cudaErrorInvalidValue;
+  beam_walk_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(out, steps, W);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA and wgmma:
 // the attention forward (mha_forward.cuh), the training attention backward
-// (mha_train.cu) and the separable repeat (separable_repeat.cu).
+// (mha_train.cu), the separable repeat (separable_repeat.cu) and the beam
+// backtrace (beam_search.cu, mbarriers and bulk copies only).
 //
 // - mbarriers: init, arrive (with or without an expected transaction count), and
 //   a wait on a phase's parity;
 // - TMA: a box of a 3D tensor map into shared memory, completing on an mbarrier;
 //   the tensor map is encoded on the host by cuTensorMapEncodeTiled, looked up
 //   through the CUDA runtime (encode_tiled), since the library links no libcuda;
+//   and a bulk copy of contiguous bytes (no tensor map), completing the same way;
 // - wgmma: the shared-memory matrix descriptor of a tile in TMA's 128-byte
 //   swizzle, the fence, commit and wait, and m64n64k16 bf16 products with f32
 //   accumulators: both operands from shared memory (B K-major or MN-major), or
@@ -56,6 +58,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
           dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory at src into shared memory at dst, both 16-byte aligned, by one bulk
+// copy; completes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }

@@ -54,7 +54,10 @@ SIGNATURES = {
     "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _F, _P],
     "thunder_beam_scan_plan": [_I, _I, _P],
     "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P, _P],
+    "thunder_beam_backtrace_plan": [_I, _I, _I, _P],
     "thunder_beam_backtrace": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "thunder_beam_backtrace_serial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "thunder_beam_walk_chain": [_P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

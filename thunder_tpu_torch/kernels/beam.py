@@ -43,6 +43,7 @@ __all__ = [
     "beam_scan_reference",
     "beam_backtrace",
     "beam_backtrace_reference",
+    "backtrace_plan",
     "candidates",
     "fresh_state",
     "scan_chunks",
@@ -59,6 +60,12 @@ MAX_SHARED_BYTES = 232448
 MAX_THREADS, MAX_TREE_THREADS = 1024, 512
 #: the chunked plan's runs a chunk for W > 32, ranked beside the picks' runs (``MAX_RANK_CHUNK_RUNS``)
 MAX_RANK_CHUNK_RUNS = 128
+
+#: the backtrace (``csrc/beam_search.cu``): past ``WALK_MAX_W`` it walks from device memory, ``BACKTRACE_THREADS``
+#: paths a block; the serial walk on staged spans takes ``SERIAL_PATHS`` paths a block; the composed walk cuts a
+#: span into ``SEGMENTS`` segments and takes W up to ``COMPOSE_MAX_W``
+WALK_MAX_W, BACKTRACE_THREADS, SERIAL_PATHS, SEGMENTS, COMPOSE_MAX_W = 6144, 128, 128, 32, 63
+BACKTRACE_ROUTES = ("walk", "serial", "composed")  # the C plan's route numbers
 
 M1, M2 = 1000003, 2654435761
 H_SEED = 1
@@ -271,6 +278,46 @@ def beam_scan(logp, lengths, floor, *, blank: int, beam_width: int, k_tokens: in
     _build.check(status, "thunder_beam_scan")
     beam_scan.launches += 1
     return parents, exts, total, (pb, pnb, h1, h2, last)
+
+
+def _round4(words: int) -> int:
+    return (words + 3) & ~3
+
+
+def backtrace_plan(beam_width: int, n_out: int, frames: int) -> dict:
+    """The backtrace's plan for ``n_out`` paths a row over ``frames`` frames, as ``csrc/beam_search.cu::
+    backtrace_plan`` computes it (``thunder_beam_backtrace_plan``).
+
+    Past ``WALK_MAX_W`` the route is ``"walk"``: a thread a path, its loads from device memory, no span. Else the
+    row's pointers are staged in spans of ``span`` frames (newest first), as many as fit ``MAX_SHARED_BYTES``
+    beside the block's token rows (odd stride ``span | 1``) and, on the composed route, the segments' tables of W +
+    1 slots, the entry slots handed down and the slot each path leaves a span with; each field of a span takes its
+    words plus the up to 3 of its source's offset in a 16-byte line. The route is ``"composed"`` where W <=
+    ``COMPOSE_MAX_W``, the paths are at most two a thread (``n_out <= 2 min(W + 1, 32)``) and the composed chain
+    ``2 ceil(span / 32) + 31`` is shorter than the span, with ``32 min(W + 1, 32)`` threads (a segment's threads,
+    consecutive); else ``"serial"``, a thread a path, ``SERIAL_PATHS`` paths a block and ``blocks_y`` blocks a row."""
+    W = beam_width
+    if W > WALK_MAX_W:
+        return {"route": "walk", "threads": BACKTRACE_THREADS, "span": 0, "smem_bytes": 0,
+                "blocks_y": -(-n_out // BACKTRACE_THREADS)}
+
+    def fit(composed: bool) -> tuple:
+        paths = n_out if composed or n_out < SERIAL_PATHS else SERIAL_PATHS
+        extra = _round4(SEGMENTS * (W + 1)) + _round4(SEGMENTS * n_out) + _round4(n_out) if composed else 0
+        room = MAX_SHARED_BYTES // 4 - 19 - paths - extra
+        span = min(room // (2 * W + paths), max(frames, 1))
+        words = 2 * _round4(span * W + 3) + _round4(paths * (span | 1)) + extra
+        return span, 16 + 4 * words, paths
+
+    per_segment = min(W + 1, 32)
+    if W <= COMPOSE_MAX_W and n_out <= 2 * per_segment:
+        span, smem, _ = fit(True)
+        if 2 * -(-span // SEGMENTS) + SEGMENTS - 1 < span:
+            return {"route": "composed", "threads": SEGMENTS * per_segment, "span": span, "smem_bytes": smem,
+                    "blocks_y": 1}
+    span, smem, paths = fit(False)
+    return {"route": "serial", "threads": -(-paths // 32) * 32, "span": span, "smem_bytes": smem,
+            "blocks_y": -(-n_out // SERIAL_PATHS)}
 
 
 def _check_backtrace(parents, exts, slots0):

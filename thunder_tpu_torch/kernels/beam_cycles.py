@@ -95,8 +95,8 @@ def build(source_path: Path, tag: str) -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, lib = out_dir / f"{tag}.cu", out_dir / f"{tag}.so"
     cu.write_text(text)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(cu)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(source_path.parent), "-shared", "-o",
+                           str(lib), str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the instrumented {source_path}:\n{proc.stderr[-4000:]}")
     dll = ctypes.CDLL(str(lib))

@@ -36,11 +36,21 @@ falls on both. Each process times, with CUDA events:
   (K = 3000), past one block of shared memory; and 2 × 10 × 29 at W = 3,000,
   past the state that fits in shared memory (``"refused"`` where the checkout
   refuses a shape);
+- the beam backtrace at the shapes of ``BACKTRACE_SHAPES`` (the served
+  decode, 64 x 751 at W = 16, one path a row; a ``predict_long`` window,
+  1 x 1001, every slot's path, both on the scan's own pointers; 264 x 751 at
+  W = 300, one path a row, on random pointers): the kernel's device time by
+  the profiler with the L2 flushed before each call and L2-warm, and L2-cold
+  by ``cold_ms`` (copies of the pointers in turns, 100 MB); the same for the
+  serial walk on staged spans whatever the plan picks, where the checkout
+  has it; and one ``beam_search_device`` decode at the served shape;
 - the add + dropout + LayerNorm training kernels at wav2vec2-base's step
   shape (5,992 rows of 768, rate 0.1): the forward's and the backward's
   device time a call L2-cold (rotating among six input sets, 166 MB in all,
   with the card held by a sleep kernel until the host has queued every call)
-  and L2-warm (torch.profiler), and the backward's two kernels apart;
+  and L2-warm (torch.profiler), and the backward's two kernels apart; the
+  keep mask at that shape and the serving add + LayerNorm at 11,984 × 768,
+  each L2-cold, flushed and warm;
 - one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``)
   and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW;
   beside it the device time of the step's add + dropout + LayerNorm kernels
@@ -66,6 +76,7 @@ differ, addresses and encodings left out. ``--parts`` limits each process to som
 from __future__ import annotations
 
 import argparse
+import ctypes
 import difflib
 import json
 import os
@@ -115,6 +126,16 @@ ADD_LN_TRAIN_SHAPE = (5992, 768, 0.1)
 #: input sets a cold timing rotates among: 6 x 27.6 MB of x, y and dout at that shape (110 MB of x and y alone), over
 #: twice the 50 MB L2
 COLD_SETS = 6
+#: the backtrace's shapes: name -> (B, T, W, paths a row). QuartzNet's served decode walks one path a row and a
+#: predict_long window every slot's path, both on the scan's own pointers (the beam_device inputs, numpy seed 3, every
+#: row at full length, W = 16); at W = 300 (the serial walk on staged spans, two rows an SM) the pointers are random in
+#: [0, W) (torch seed 0): the walk's steps do not depend on them
+BACKTRACE_SHAPES = {"serving_64x751_w16_paths1": (64, 751, 16, 1), "window_1x1001_w16_paths16": (1, 1001, 16, 16),
+                    "wide_264x751_w300_paths1": (264, 751, 300, 1)}
+#: the serving add + LayerNorm's shape (kernels/add_ln.py): wav2vec2-base's 16 x 15 s forward (rows, D)
+ADD_LN_SHAPE = (11984, 768)
+#: bytes a fill writes before each call of a flushed timing: over twice the L2
+FLUSH_BYTES = 128 << 20
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -199,6 +220,117 @@ def measure_beam(iters: int = 10) -> dict:
         out[name] = _cuda_ms(lambda: beam_scan(logp, lens, -12.0, blank=0, beam_width=width, k_tokens=k), iters)
         if k < vocab:
             out[f"{name}_topk_sort_ms"] = _cuda_ms(lambda: candidates(logp, k), iters)
+    return out
+
+
+def flushed_kernel_ms(fn, names, iters: int = 20) -> float:
+    """Device milliseconds a call of ``fn`` in the kernels whose names hold one of ``names``, by torch.profiler's
+    kernel durations, with the L2 flushed before each call (a fill of ``FLUSH_BYTES``, not counted): the kernels'
+    own time with their inputs in device memory, neither the host's pace nor the gaps between launches in it."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def call():
+        flush.zero_()
+        fn()
+
+    by_kernel = device_ms_by_kernel(call, iters)
+    del flush
+    return sum(ms for name, ms in by_kernel.items() if any(n in name for n in names))
+
+
+def measure_backtrace(iters: int = 20) -> dict:
+    """``beam_backtrace`` at each of ``BACKTRACE_SHAPES``: ``{name: {...}}`` with the kernel's device time a call by
+    the profiler, L2-flushed before each call (``flushed_ms``) and L2-warm (``warm_ms``), and, where the pointers
+    are over 4 MB, ``cold_ms`` (:func:`cold_ms` over copies of the pointers, together over 100 MB: back-to-back
+    launches, the gaps between them in the time); where the checkout has ``thunder_beam_backtrace_serial``, the same function by the serial walk on
+    staged spans whatever the plan picks (``serial_cold_ms``, ``serial_flushed_ms``); and ``beam_decode_ms``, one
+    ``beam_search_device`` call at the served shape (64 x 751 x 29), CUDA events, its host copies included."""
+    import torch
+
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_scan
+    from thunder_tpu_torch.kernels.selftest import beam_case
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
+
+    lib = _build.load()
+    serial = getattr(lib, "thunder_beam_backtrace_serial", None)
+    if serial is not None:
+        serial.argtypes, serial.restype = _build.SIGNATURES["thunder_beam_backtrace"], ctypes.c_int
+    names = ("beam_backtrace",)
+    out = {}
+    for name, (batch, frames, width, paths) in BACKTRACE_SHAPES.items():
+        if width == 16:
+            logits, _ = beam_case(3, batch, frames, 29, "cuda")
+            lens = torch.full((batch,), frames, dtype=torch.int32, device="cuda")
+            logp = torch.log_softmax(logits, dim=-1).contiguous()
+            parents, exts, total, _ = beam_scan(logp, lens, -12.0, blank=0, beam_width=width, k_tokens=29)
+            slots0 = torch.argsort(-total, dim=1, stable=True)[:, :paths].to(torch.int32).contiguous()
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            parents, exts = (torch.randint(0, width, (batch, frames, width), generator=gen, device="cuda",
+                                           dtype=torch.int32) for _ in range(2))
+            slots0 = torch.zeros((batch, paths), dtype=torch.int32, device="cuda")
+        toks = torch.empty((batch, paths, frames), dtype=torch.int32, device="cuda")
+        origin = torch.empty((batch, paths), dtype=torch.int32, device="cuda")
+
+        def walk_serial(p, e):
+            stream = torch.cuda.current_stream().cuda_stream
+            _build.check(serial(p.data_ptr(), e.data_ptr(), slots0.data_ptr(), toks.data_ptr(), origin.data_ptr(),
+                                batch, frames, width, paths, stream), "thunder_beam_backtrace_serial")
+
+        routes = {"": lambda p, e: beam_backtrace(p, e, slots0)}
+        if serial is not None:
+            routes["serial_"] = walk_serial
+        entry = {f"{prefix}flushed_ms": flushed_kernel_ms(lambda fn=fn: fn(parents, exts), names, iters)
+                 for prefix, fn in routes.items()}
+        entry["warm_ms"] = sum(device_ms_by_kernel(lambda: beam_backtrace(parents, exts, slots0), iters).values())
+        if batch * frames * width * 8 < 4 << 20:  # a window's 128 KB: copies over 100 MB would fill the launch queue
+            out[name] = entry
+            continue
+        sets = [(parents, exts)] + [(parents.clone(), exts.clone())
+                                    for _ in range(-(-100_000_000 // (batch * frames * width * 8)) - 1)]
+        entry["cold_sets"] = len(sets)
+        for prefix, fn in routes.items():
+            try:
+                timed = cold_ms([lambda p=p, e=e, fn=fn: fn(p, e) for p, e in sets], max(2 * len(sets), 8))
+            except RuntimeError as err:
+                raise RuntimeError(f"{name}, {prefix or 'plan'} route: {err}") from err
+            entry[f"{prefix}cold_ms"], entry[f"{prefix}cold_host_queue_ms"] = timed["ms"], timed["host_queue_ms"]
+        del sets
+        out[name] = entry
+        if name.startswith("serving"):
+            out["beam_decode_ms"] = _cuda_ms(lambda: beam_search_device(logits, lens, blank=0, beam_width=width), 5)
+    return out
+
+
+def measure_keep_mask_and_add_ln(iters: int = 40) -> dict:
+    """``dropout_keep_mask`` at ``ADD_LN_TRAIN_SHAPE`` (rows, D, rate) and ``add_layer_norm`` (the serving kernel) at
+    ``ADD_LN_SHAPE`` on random bf16 inputs (seed 1): each one's device time a call L2-cold (:func:`cold_ms`: six
+    seeds for the mask, whose output is all it moves; ``COLD_SETS`` input sets for the add + LayerNorm), flushed
+    (:func:`flushed_kernel_ms`) and L2-warm (the profiler)."""
+    import torch
+
+    from thunder_tpu_torch.kernels.add_ln import add_layer_norm
+    from thunder_tpu_torch.kernels.add_ln_train import dropout_keep_mask
+
+    rows, d, rate = ADD_LN_TRAIN_SHAPE
+    seeds = [torch.tensor([20260821 + i], dtype=torch.int32, device="cuda") for i in range(COLD_SETS)]
+    masks = [lambda s=s: dropout_keep_mask((rows, d), s, rate) for s in seeds]
+    out = {"keep_mask": {"shape": [rows, d, rate], "cold_ms": cold_ms(masks, iters)["ms"],
+                         "flushed_ms": flushed_kernel_ms(masks[0], ("dropout_keep_mask",)),
+                         "warm_ms": sum(device_ms_by_kernel(masks[0], 10).values())}}
+    n_rows, n_d = ADD_LN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sets = [tuple((torch.randn((n_rows, n_d), device="cuda", generator=gen) * sd).to(torch.bfloat16) for sd in (2.0, 1.0))
+            for _ in range(COLD_SETS)]
+    scale = torch.randn((n_d,), device="cuda", generator=gen) + 1.0
+    bias = torch.randn((n_d,), device="cuda", generator=gen)
+    calls = [lambda x=x, y=y: add_layer_norm(x, y, scale, bias) for x, y in sets]
+    out["add_ln"] = {"shape": [n_rows, n_d], "cold_ms": cold_ms(calls, iters)["ms"],
+                     "flushed_ms": flushed_kernel_ms(calls[0], ("add_ln",)),
+                     "warm_ms": sum(device_ms_by_kernel(calls[0], 10).values())}
     return out
 
 
@@ -301,8 +433,10 @@ def measure(parts=PARTS) -> dict:
         out["log_mel_ms"] = measure_log_mel()
     if "beam" in parts:
         out["beam_scan_ms"] = measure_beam()
+        out["beam_backtrace"] = measure_backtrace()
     if "add_ln" in parts:
         out["add_ln_train"] = measure_add_ln()
+        out.update(measure_keep_mask_and_add_ln())
     if "attention" in parts:
         _measure_attention(out, gen)
     if "ctc" in parts:

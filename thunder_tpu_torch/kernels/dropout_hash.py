@@ -19,7 +19,11 @@ attention probabilities (``row`` the query, ``col`` the key) and 0 for the add
 + LayerNorm branch (``row`` and ``col`` of the flattened ``(rows, D)`` input).
 Stream, row and column sit in separate words, so no flat index can wrap.
 
-``csrc/dropout_hash.cuh`` holds the same function as ``__device__`` code; the
+The kernels test ``keep`` as an integer compare: ``u >= rate``, both sides
+exact in float32, is ``bits >> 9 >= threshold(rate) = ceil(rate * 2**23)``
+(:func:`threshold`, :func:`keep_at`).
+
+``csrc/dropout_hash.cuh`` holds the same functions as ``__device__`` code; the
 plain versions of the kernels call this module, so both sides make the same
 mask bit for bit, on the CPU and on the card. uint32 values are held in int64
 tensors in ``[0, 2**32)``, and a product with a 32-bit constant is split into
@@ -28,11 +32,14 @@ tensors in ``[0, 2**32)``, and a product with a 32-bit constant is split into
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from thunder_tpu_torch.kernels.beam import _mul_mod32 as _mul32  # h * m mod 2**32 in int64, split into 16-bit halves
 
-__all__ = ["mix32", "row_keys", "keep_from_keys", "keep_mask", "new_seed"]
+__all__ = ["mix32", "row_keys", "keep_from_bits", "keep_from_keys", "threshold", "keep_at", "keep_mask", "new_seed"]
 
 _MASK = 0xFFFFFFFF
 _STREAM_MUL = 0x9E3779B1
@@ -54,11 +61,30 @@ def row_keys(seed: torch.Tensor, stream: torch.Tensor, rows: torch.Tensor) -> to
     return mix32(mix32(seed ^ _mul32(stream.long() & _MASK, _STREAM_MUL)) ^ (rows.long() & _MASK))
 
 
+def _bits(keys: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    return mix32(keys ^ _mul32(cols.long() & _MASK, _COL_MUL))
+
+
+def keep_from_bits(top: torch.Tensor, rate: float) -> torch.Tensor:
+    """The float compare of the keep test on ``top = bits >> 9``: ``top * 2**-23 >= rate`` in float32."""
+    u = top.to(torch.float32) * 2.0**-23
+    return u >= torch.tensor(rate, dtype=torch.float32, device=u.device)
+
+
 def keep_from_keys(keys: torch.Tensor, cols: torch.Tensor, rate: float) -> torch.Tensor:
     """``keep`` (bool) of the columns ``cols`` under the row keys ``keys`` (broadcast)."""
-    bits = mix32(keys ^ _mul32(cols.long() & _MASK, _COL_MUL))
-    u = (bits >> 9).to(torch.float32) * 2.0**-23
-    return u >= torch.tensor(rate, dtype=torch.float32, device=u.device)
+    return keep_from_bits(_bits(keys, cols) >> 9, rate)
+
+
+def threshold(rate: float) -> int:
+    """``dropout_hash.cuh::threshold``: ``ceil(rate * 2**23)`` of the float32 rate, the least ``bits >> 9`` kept
+    (the product is exact in float32 and in float64 alike)."""
+    return math.ceil(float(np.float32(rate)) * 2.0**23)
+
+
+def keep_at(keys: torch.Tensor, cols: torch.Tensor, threshold: int) -> torch.Tensor:
+    """``dropout_hash.cuh::keep_at``: the keep test as the integer compare ``bits >> 9 >= threshold``."""
+    return (_bits(keys, cols) >> 9) >= threshold
 
 
 def keep_mask(seed: torch.Tensor, streams: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, rate: float) -> torch.Tensor:

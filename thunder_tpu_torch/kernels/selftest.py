@@ -51,7 +51,8 @@ memory, where the scan walks each frame in chunks; ``beam_device_w3000`` (B =
 2, T = 10, V = K = 29, beam 3,000) past the state that fits in shared memory
 (the workspace plan), and ``beam_backtrace_w7000`` (B = 1, T = 20, V = K =
 5, beam 7,000) walks every slot's path with the backtrace's loads from device
-memory.
+memory; ``beam_backtrace_window`` walks every slot's path of a ``predict_long``
+window (B = 2, T = 1001, V = 29, beam 16, rows of 500 and 1,001 frames).
 ``beam_device_topk`` runs the ``K < V`` pre-prune at the Citrinet serving
 shape (B = 64, T = 188, V = 1025, K = 50, beam 16), and ``beam_stream``
 holds four windows that tile the ``beam_device`` utterance, each one scan
@@ -511,6 +512,26 @@ def beam_case(seed, b, t, v, device):
     return torch.as_tensor(logits, device=device), torch.as_tensor(lengths, device=device)
 
 
+def pointer_field(seed, b, t, w, n_out, device, offset=0):
+    """Random beam pointers (B, T, W) int32 with about 1 in 8 outside [0, W) (-1, -7, W, W + 5), tokens in [-1, 29),
+    and start slots (B, n_out) with -1, W and W + 5 among them; ``offset`` int32 words before the fields in their
+    storage (a start that is not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    parents = rng.integers(0, w, (b, t, w))
+    off = rng.random((b, t, w)) < 0.125
+    parents[off] = rng.choice([-1, -7, w, w + 5], off.sum())
+    exts = rng.integers(-1, 29, (b, t, w))
+    slots0 = rng.integers(0, w, (b, n_out))
+    slots0[: min(b, 3), 0] = [-1, w, w + 5][: min(b, 3)]
+
+    def placed(a):
+        flat = torch.zeros(offset + a.size, dtype=torch.int32, device=device)
+        flat[offset:] = torch.as_tensor(a.reshape(-1), dtype=torch.int32, device=device)
+        return flat[offset:].view(a.shape)
+
+    return placed(parents), placed(exts), torch.as_tensor(slots0, dtype=torch.int32, device=device)
+
+
 def _hypotheses(toks: torch.Tensor) -> list:
     return [row[row >= 0].tolist() for row in toks[:, 0].cpu()]
 
@@ -683,6 +704,9 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     # W = 7,000 every slot's path walked from device memory (one frame of pointers over the backtrace's 48 KB)
     "beam_device_w3000": (_beam_check(10, 2, 10, 29, 3000, 29), 2e-3),
     "beam_backtrace_w7000": (_beam_check(11, 1, 20, 5, 7000, 5, paths=7000), 2e-3),
+    # a predict_long window's backtrace: every slot's path (n_out = W = 16) over 1,001 frames, the composed walk
+    # (rows of 500 and 1,001 frames)
+    "beam_backtrace_window": (_beam_check(12, 2, 1001, 29, 16, 29, paths=16), 2e-3),
 }
 
 
