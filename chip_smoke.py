@@ -147,7 +147,45 @@ Phases, each of which fails the run:
     time a call (six seeds in turns under a sleep kernel's hold), beside the
     profiler's kernel duration with the L2 flushed. The train step never
     launches ``dropout_keep_mask``: its ``launches`` is 0 and the count of
-    that one call stands under ``own_call_launches``.
+    that one call stands under ``own_call_launches``;
+12. Citrinet-256 greedy serving (the published widths: an 80-mel
+    ``FilterbankFeatures``, the stem, 21 squeeze-excite blocks with the
+    stride on the last repeat, the 640-channel tail, a ``Conv1dDecoder``
+    over 1,024 single-character tokens and the blank; random weights, seed
+    0; BN by ``fit_bn``: random affines, statistics fitted to 8 rows of
+    the batch) through ``CTCModule.create`` and
+    ``InferenceEngine.predict`` at 64 rows x 15 s of speech-like audio (T =
+    1501 -> 751 -> 376 -> 188): one predict must make exactly 1 log-mel and
+    107 separable-repeat launches; forward ms (mean of ``CITRINET_TIMED``,
+    CUDA events) and RTF; one profiled forward; rows 0-1 against the port's
+    float32 CPU path (``LOGIT_BOUND``, argmax agreement printed); the
+    log-mel kernel against its plain version on this batch at 80 mels
+    (2e-3); the separable repeat at every shape of the plan against its
+    plain version (8 bf16 ULP), four of them (the 80-channel stem, a
+    stride-2 repeat at T 1501, a k 39 repeat at T 188, the 640-channel
+    tail) timed beside it and the chain of PyTorch calls;
+13. the device beam on that engine (W = 16) at K = 50 and with
+    ``max_tokens_per_step=None`` (K = 1025): each predict must add exactly 1
+    ``beam_scan`` and 1 ``beam_backtrace`` launch, and its 64 transcripts
+    must equal the plain versions'; decode ms on the forward's logits; a 60
+    s ``predict_long``, greedy (1 log-mel and 107 separable launches a
+    window; each window's logits within ``LOGIT_BOUND`` of the same
+    window's through the plain log-mel and separable repeat, over its valid
+    frames) and with the device beam (one launch of each beam kernel a
+    window, the plain versions' text);
+14. Citrinet-256 CTC training at 16 rows x 15 s (``bench_train.py --model
+    citrinet``: SpecAugment 2 + 2 masks, dither, dropout 0.1, bf16 compute,
+    AdamW lr 1e-4, the 29-token character vocabulary and the fixed text of
+    phase 6), as phase 6 runs QuartzNet: one ``Trainer.fit`` step must make
+    exactly 1 log-mel, 1 ``ctc_alpha`` and 1 ``ctc_beta`` launch, the timed
+    steps, a profile, every loss finite and the last below ``1 -
+    CITRINET_LOSS_FALL`` times the first, and the train-mode loss without
+    dropout or augmentation within ``TRAIN_LOSS_BOUND`` of float32 on the
+    CPU; then the CTC pair against its plain version at the step's shape
+    (B 16, T 188), at phase 7's tolerance. Each kernel's entry of the
+    kernels line gives its launches on the Citrinet paths under
+    ``citrinet_launches``, and its deviation from its plain version at
+    Citrinet's shapes under ``citrinet_max_abs_err``.
 
 Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
 of its bytes (each input read once, each output written once) over 3.35
@@ -194,6 +232,14 @@ W2V_LOSS_FALL = 0.15
 # |bf16 card - f32 CPU| / |f32 CPU| of the train-mode loss with every dropout rate 0 on rows 0-1: the serving
 # logits of the same model deviate by about 0.01 of their scale, and the loss averages 749 frames
 W2V_TRAIN_LOSS_BOUND = 0.05
+# Citrinet-256 (phases 12-14): a 1,024-token vocabulary of single characters, so the char tokenizer encodes them
+CITRINET_VOCAB = [chr(0x4E00 + i) for i in range(1024)]
+CITRINET_SEPARABLE = 107  # separable-repeat launches a forward: the stem, 21 blocks x 5 repeats, the tail
+CITRINET_TIMED = 10
+# the last of the 14 Citrinet training losses must be below (1 - CITRINET_LOSS_FALL) x the first; on the port's
+# float32 CPU path the same configuration (full depth and width; ``citrinet_cpu_loss_fall``) at 2 x 6 s and
+# 4 x 8 s ended at 0.922 and 0.923 of the first loss (AdamW at lr 1e-4 moves it slowly)
+CITRINET_LOSS_FALL = 0.05
 TRAIN_KERNEL_ULP = 8.0  # the training kernels against their plain versions, bf16 ULP (dscale, dbias: 1 %)
 HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
 BF16_FLOP_PER_MS, F32_FLOP_PER_MS = 989e9, 67e9  # dense tensor-core bf16, float32 outside the tensor cores
@@ -224,6 +270,38 @@ def randomize_bn(module, seed: int = 0) -> None:
                 t.copy_(torch.as_tensor(rng.uniform(0.5, 2.0, t.shape).astype(np.float32)))
             elif name.endswith((".mean", ".bn.scale", ".bn.bias")):
                 t.copy_(torch.as_tensor((rng.standard_normal(t.shape) * 0.3).astype(np.float32)))
+
+
+def fit_bn(module, audio: np.ndarray, lengths: np.ndarray) -> None:
+    """BN for a deep random network whose output follows its input: every affine drawn with scale U(0.2, 0.5)
+    and bias U(0.5, 1.0), so that the ReLUs mostly pass, and every running mean and variance set to those of the
+    BN's input on ``audio`` (full-length rows), layer by layer in one eval forward. ``randomize_bn``'s
+    statistics fit no activations: their offsets swamp Citrinet-256's signal, whose logits then hardly vary
+    over time and whose transcripts are one character long. Fitted statistics with ``randomize_bn``'s centred
+    affines make it chaotic instead: bf16 rounding then moves its logits by nearly ``LOGIT_BOUND``."""
+    import torch
+
+    from thunder_tpu_torch.models.layers import TorchBatchNorm
+
+    def fit(bn, args) -> None:
+        x = args[0].float().flatten(0, -2)
+        bn.mean.copy_(x.mean(0))
+        bn.var.copy_(x.var(0))
+
+    rng = np.random.default_rng(0)
+    norms = [m for m in module.model.modules() if isinstance(m, TorchBatchNorm)]
+    device = next(module.model.parameters()).device
+    with torch.no_grad():
+        for bn in norms:
+            bn.scale.copy_(torch.as_tensor(rng.uniform(0.2, 0.5, bn.scale.shape).astype(np.float32)))
+            bn.bias.copy_(torch.as_tensor(rng.uniform(0.5, 1.0, bn.bias.shape).astype(np.float32)))
+    hooks = [bn.register_forward_pre_hook(fit) for bn in norms]
+    try:
+        with torch.no_grad():
+            module.model(torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device))
+    finally:
+        for hook in hooks:
+            hook.remove()
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -549,6 +627,87 @@ def peaked_logits(rng, batch, t, v, blank, blank_frac=0.7, peak=6.0):
     return logits
 
 
+def logits_vs_cpu_f32(phase: str, module, logits, out_lengths, audio, lengths) -> None:
+    """Rows 0-1 of the card's bf16 logits against the port's float32 CPU path (plain versions of every
+    kernel) on the same module's weights: equal lengths, and the largest deviation over valid frames within
+    ``LOGIT_BOUND`` of the CPU logits' scale; the argmax agreement is printed."""
+    import torch
+
+    from thunder_tpu_torch.engine import InferenceEngine
+
+    torch.set_num_threads(8)
+    t0 = time.perf_counter()
+    ref_logits, ref_lengths = InferenceEngine(module.to("cpu"))(audio[:2], lengths[:2])
+    cpu_seconds = time.perf_counter() - t0
+    check(torch.equal(ref_lengths, out_lengths[:2].cpu()), f"lengths differ from the CPU path: {ref_lengths} vs {out_lengths[:2]}")
+    got = logits[:2].float().cpu()
+    valid = torch.arange(got.shape[1])[None, :] < ref_lengths[:, None]
+    rel = ((got - ref_logits).abs()[valid].max() / ref_logits.abs()[valid].max()).item()
+    agree = (got.argmax(-1) == ref_logits.argmax(-1))[valid].float().mean().item()
+    row0 = ref_logits[0, : int(ref_lengths[0])]  # how much the logits follow the input: a flat row checks little
+    emit({"phase": phase, "rows": 2, "max_rel_dev": rel, "bound": LOGIT_BOUND, "argmax_agreement": agree,
+          "row0_time_std_over_scale": (row0.std(0).mean() / ref_logits.abs()[valid].max()).item(),
+          "row0_argmax_tokens": int(row0.argmax(-1).unique().numel()), "cpu_seconds": cpu_seconds})
+    check(rel < LOGIT_BOUND, f"bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
+
+
+def separable_shapes(engine, audio, lengths) -> dict:
+    """The separable repeats of a conv engine's plan by shape: ``(t_in, c_in, c_out, k, stride, dilation)`` ->
+    ``[one repeat's plan, launches a forward]``, from the frontend's output on ``audio``."""
+    feats, _ = engine.frontend(audio, lengths)
+    shapes = {}
+    t_in, c_in = feats.shape[1], feats.shape[2]
+    for block in engine._plan:
+        for rp in block.repeats:
+            if rp.kind == "separable":
+                key = (t_in, c_in, rp.pw.shape[1], rp.kernel_size, rp.stride, rp.dilation)
+                shapes.setdefault(key, [rp, 0])[1] += 1
+            c_in = rp.pw.shape[1]
+            t_in = -(-t_in // rp.stride)
+    return shapes
+
+
+def separable_shape_error(key: tuple, rp, gen) -> tuple:
+    """One separable shape of a plan (``separable_shapes``) at B = BATCH on random bf16 input: the kernel's
+    largest deviation from its plain version, absolute and in bf16 ULP. Returns both, and the two calls'
+    arguments and keywords."""
+    import torch
+
+    from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat, separable_repeat_reference
+    from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
+
+    t, c, co, k, s, d = key
+    x = torch.randn((BATCH, t, c), device="cuda", generator=gen).to(torch.bfloat16)
+    out_len = torch.full((BATCH,), -(-t // s), dtype=torch.int32, device="cuda")
+    args = (x, out_len, rp.dw, rp.pw, rp.bias, k)
+    kw = dict(stride=s, dilation=d, relu=rp.relu)
+    got, want = fused_separable_repeat(*args, **kw), separable_repeat_reference(*args, **kw)
+    return (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want), args, kw
+
+
+def time_separable_shape(phase: str, key: tuple, rp, count: int, gen) -> dict:
+    """One separable shape of a plan (``separable_shapes``) at B = BATCH on random bf16 input: the kernel
+    against its plain version (8 bf16 ULP), both timed in turns, and the chain of PyTorch calls; prints and
+    returns the line, with the shape's ``work`` for ``bound``."""
+    from thunder_tpu_torch.kernels.separable_conv import (
+        fused_separable_repeat,
+        separable_plan,
+        separable_repeat_reference,
+    )
+
+    t, c, co, k, s, d = key
+    e_abs, e_ulp, args, kw = separable_shape_error(key, rp, gen)
+    km, pm = paired_ms(lambda: fused_separable_repeat(*args, **kw), lambda: separable_repeat_reference(*args, **kw), 10)
+    _, chain_ms = paired_ms(lambda: fused_separable_repeat(*args, **kw), lambda: separable_chain(*args, **kw), 10)
+    work = separable_bound(BATCH, t, -(-t // s), c, co, k)
+    line = {"t_in": t, "c_in": c, "c_out": co, "k": k, "stride": s, "dilation": d, "relu": rp.relu, "count": count,
+            "ms": km, "plain_ms": pm, "chain_ms": chain_ms, "max_abs_err": e_abs, "ulp": e_ulp,
+            "plan": separable_plan(c, k, s, d), **bound(work["bytes"], work["bf16_flop"], work["f32_flop"])}
+    emit({phase: line})
+    check(e_ulp <= 8.0, f"separable repeat at {key} off by {e_ulp} bf16 ULP")
+    return {**line, "work": work}
+
+
 def gpu_line() -> str:
     cmd = ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
@@ -583,13 +742,9 @@ def run() -> int:
     from thunder_tpu_torch.engine import InferenceEngine
     from thunder_tpu_torch.kernels import _build, reset_launch_counts
     from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_plan, log_mel_reference
-    from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, exact_float32, run_selftests, ulp_bf16_error
+    from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, exact_float32, run_selftests
     from thunder_tpu_torch.ops.masking import lengths_to_mask, normalize_tensor
-    from thunder_tpu_torch.kernels.separable_conv import (
-        fused_separable_repeat,
-        separable_plan,
-        separable_repeat_reference,
-    )
+    from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat
     from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
     from thunder_tpu_torch.module import CTCModule
     from thunder_tpu_torch.text import BatchTextTransformer
@@ -656,19 +811,7 @@ def run() -> int:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
     emit({"phase": "profile", **device_profile(lambda: engine.infer(audio_d, lengths_d))})
 
-    # rows 0-1 through the port's float32 CPU path (plain versions of both kernels)
-    torch.set_num_threads(8)
-    t0 = time.perf_counter()
-    ref_logits, ref_lengths = InferenceEngine(module.to("cpu"))(audio[:2], lengths[:2])
-    cpu_seconds = time.perf_counter() - t0
-    check(torch.equal(ref_lengths, out_lengths[:2].cpu()), f"lengths differ from the CPU path: {ref_lengths} vs {out_lengths[:2]}")
-    got = logits[:2].float().cpu()
-    valid = torch.arange(got.shape[1])[None, :] < ref_lengths[:, None]
-    rel = ((got - ref_logits).abs()[valid].max() / ref_logits.abs()[valid].max()).item()
-    agree = (got.argmax(-1) == ref_logits.argmax(-1))[valid].float().mean().item()
-    emit({"phase": "vs_cpu_f32", "rows": 2, "max_rel_dev": rel, "bound": LOGIT_BOUND, "argmax_agreement": agree,
-          "cpu_seconds": cpu_seconds})
-    check(rel < LOGIT_BOUND, f"bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
+    logits_vs_cpu_f32("vs_cpu_f32", module, logits, out_lengths, audio, lengths)
 
     # ---- each kernel against its plain version at the main path's shapes
     kernels = []
@@ -696,40 +839,17 @@ def run() -> int:
     emit({"phase": "frontend_breakdown", "log_mel_ms": k_ms, "normalize_ms": norm_ms, "frontend_ms": frontend_ms,
           "forward_ms": forward_ms, "card": card})
 
-    feats, feat_lengths = engine.frontend(audio_d, lengths_d)
-    shapes = {}
-    t_in, c_in = feats.shape[1], feats.shape[2]
-    for block in engine._plan:
-        for rp in block.repeats:
-            if rp.kind == "separable":
-                key = (t_in, c_in, rp.pw.shape[1], rp.kernel_size, rp.stride, rp.dilation)
-                shapes.setdefault(key, [rp, 0])[1] += 1
-            c_in = rp.pw.shape[1]
-            t_in = -(-t_in // rp.stride)
+    shapes = separable_shapes(engine, audio_d, lengths_d)
     total_k = total_p = total_chain = max_err = max_ulp = 0.0
     work = {"bytes": 0.0, "f32_flop": 0.0, "bf16_flop": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for (t, c, co, k, s, d), (rp, count) in shapes.items():
-        x = torch.randn((BATCH, t, c), device="cuda", generator=gen).to(torch.bfloat16)
-        t_out = -(-t // s)
-        out_len = torch.full((BATCH,), t_out, dtype=torch.int32, device="cuda")
-        args = (x, out_len, rp.dw, rp.pw, rp.bias, k)
-        kw = dict(stride=s, dilation=d, relu=rp.relu)
-        got, want = fused_separable_repeat(*args, **kw), separable_repeat_reference(*args, **kw)
-        e_abs = (got.float() - want.float()).abs().max().item()
-        e_ulp = ulp_bf16_error(got, want)
-        km, pm = paired_ms(lambda: fused_separable_repeat(*args, **kw), lambda: separable_repeat_reference(*args, **kw), 10)
-        _, chain_ms = paired_ms(lambda: fused_separable_repeat(*args, **kw), lambda: separable_chain(*args, **kw), 10)
-        shape_work = separable_bound(BATCH, t, t_out, c, co, k)
-        emit({"separable_shape": {"t_in": t, "c_in": c, "c_out": co, "k": k, "stride": s, "dilation": d,
-                                  "count": count, "ms": km, "plain_ms": pm, "chain_ms": chain_ms,
-                                  "max_abs_err": e_abs, "ulp": e_ulp, "plan": separable_plan(c, k, s, d),
-                                  **bound(shape_work["bytes"], shape_work["bf16_flop"], shape_work["f32_flop"])}})
+    for key, (rp, count) in shapes.items():
+        line = time_separable_shape("separable_shape", key, rp, count, gen)
+        km, pm, chain_ms = line["ms"], line["plain_ms"], line["chain_ms"]
         total_k, total_p, total_chain = total_k + count * km, total_p + count * pm, total_chain + count * chain_ms
-        max_err, max_ulp = max(max_err, e_abs), max(max_ulp, e_ulp)
-        for key in work:
-            work[key] += count * shape_work[key]
-        check(e_ulp <= 8.0, f"separable repeat at {(t, c, co, k, s, d)} off by {e_ulp} bf16 ULP")
+        max_err, max_ulp = max(max_err, line["max_abs_err"]), max(max_ulp, line["ulp"])
+        for name in work:
+            work[name] += count * line["work"][name]
     kernels.append({"name": "separable_repeat", "route": "cuda", "source": "thunder_tpu_torch/csrc/separable_repeat.cu",
                     "replaces": "thunder_tpu/kernels/separable_conv.py:56",
                     "also_replaces": "thunder_tpu/kernels/repeat_tm.py:162",
@@ -752,6 +872,15 @@ def run() -> int:
     # ---- wav2vec2-base training, then its kernels at the step's shapes
     kernels.extend(wav2vec2_training_phase(card))
 
+    # ---- Citrinet-256: greedy serving, the device beam (K = 50 and every token), predict_long, training
+    citrinet_engine, c_audio, c_lengths, c_serving, c_serving_checks = citrinet_serving_phase(card)
+    c_beam = citrinet_beam_phase(card, citrinet_engine, c_audio, c_lengths)
+    del citrinet_engine
+    c_training, c_training_checks = citrinet_training_phase(card, KERNEL_CHECKS["ctc_recursion"][1])
+    add_citrinet_launches(kernels, c_serving, c_beam, c_training)
+    for entry in kernels:
+        entry.update({**c_serving_checks, **c_training_checks}.get(entry["name"], {}))
+
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -759,32 +888,23 @@ def run() -> int:
     return 0
 
 
-def training_phase(card: str, ctc_tol: float) -> dict:
-    """Train QuartzNet15x5 at TRAIN_BATCH x TRAIN_SECONDS on the card (phases 6 and 7 of the
-    module docstring); returns the CTC kernel pair's entry of the kernels line."""
+def train_path(card: str, prefix: str, create, loss_fall: float) -> tuple:
+    """Train a conv CTC model at TRAIN_BATCH x TRAIN_SECONDS on the card (``bench_train.py``'s configuration,
+    ``create(device, dtype, train_config)`` the model; phases ``{prefix}train_launches_per_step``,
+    ``{prefix}training``, ``{prefix}train_profile``, ``{prefix}train_vs_cpu_f32``): one ``Trainer.fit`` step
+    must make exactly 1 log-mel, 1 ``ctc_alpha`` and 1 ``ctc_beta`` launch; then the timed steps, every loss
+    finite and the last below ``1 - loss_fall`` times the first; then the train-mode loss without dropout or
+    augmentation, bf16 on the card against float32 on the CPU. Returns the launch counts and the batch on the
+    card (audio, lengths, targets, target lengths)."""
     import torch
-    import torch.nn.functional as F
 
-    from thunder_tpu_torch.audio import FilterbankFeatures
     from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
-    from thunder_tpu_torch.kernels.ctc import alpha_reference, beta_reference, ctc_alpha, ctc_beta, ll_from_alpha
-    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
-    from thunder_tpu_torch.module import CTCModule
-    from thunder_tpu_torch.ops.ctc import extended_emissions
     from thunder_tpu_torch.text import BatchTextTransformer
     from thunder_tpu_torch.training.optim import adamw
     from thunder_tpu_torch.training.trainer import Trainer, TrainStep, _encode_targets
 
     tt = BatchTextTransformer(VOCAB)
     bf16 = torch.bfloat16
-
-    def create(device, dtype, train_config: bool) -> CTCModule:
-        """The same weights (generator seed 0) in either configuration."""
-        frontend = FilterbankFeatures(num_time_masks=2, num_freq_masks=2) if train_config else FilterbankFeatures(dither=0.0)
-        encoder = QuartznetEncoder(repeat_blocks=3, dropout=0.1 if train_config else 0.0, dtype=dtype)
-        return CTCModule.create(torch.Generator().manual_seed(0), frontend, encoder, Conv1dDecoder(29, dtype=dtype), tt,
-                                device=device)
-
     samples = int(TRAIN_SECONDS * SAMPLE_RATE)
     audio = (np.random.default_rng(0).standard_normal((TRAIN_BATCH, samples)) * 0.1).astype(np.float32)
     lengths = np.full((TRAIN_BATCH,), samples, dtype=np.int32)
@@ -800,9 +920,9 @@ def training_phase(card: str, ctc_tol: float) -> dict:
     trainer.fit(module, [(audio, lengths, texts)])
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-    emit({"phase": "train_launches_per_step", **counts})
+    emit({"phase": f"{prefix}train_launches_per_step", **counts})
     check(counts == expected_counts(fused_log_mel=1, ctc_alpha=1, ctc_beta=1),
-          f"one train step must launch 1 log-mel, 1 ctc_alpha and 1 ctc_beta, got {counts}")
+          f"one {prefix}train step must launch 1 log-mel, 1 ctc_alpha and 1 ctc_beta, got {counts}")
     check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"Trainer.fit loss {trainer.logs[0]}")
 
     # warm-up and timed steps on one fixed batch, with one optimizer and one generator
@@ -824,13 +944,13 @@ def training_phase(card: str, ctc_tol: float) -> dict:
     host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
     step_ms = start.elapsed_time(end) / TRAIN_TIMED
     losses = [loss.item() for loss in losses]
-    emit({"phase": "training", "batch": TRAIN_BATCH, "seconds": TRAIN_SECONDS, "step_ms": step_ms,
+    emit({"phase": f"{prefix}training", "batch": TRAIN_BATCH, "seconds": TRAIN_SECONDS, "step_ms": step_ms,
           "step_ms_host_clock": host_ms, "audio_s_per_s": TRAIN_BATCH * TRAIN_SECONDS / (step_ms / 1e3),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses, "card": card})
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
-    check(losses[-1] < (1 - LOSS_FALL) * losses[0],
-          f"loss did not fall by {LOSS_FALL:.0%} over {len(losses)} steps: {losses[0]} -> {losses[-1]}")
-    emit({"phase": "train_profile", **device_profile(lambda: step(*batch, generator))})
+    check(losses[-1] < (1 - loss_fall) * losses[0],
+          f"loss did not fall by {loss_fall:.0%} over {len(losses)} steps: {losses[0]} -> {losses[-1]}")
+    emit({"phase": f"{prefix}train_profile", **device_profile(lambda: step(*batch, generator))})
 
     # bf16 on the card against float32 on the CPU: one train-mode forward, dropout and augmentation off
     with torch.no_grad():
@@ -840,17 +960,29 @@ def training_phase(card: str, ctc_tol: float) -> dict:
         cpu_loss, _ = create("cpu", torch.float32, False).loss(audio[:2], lengths[:2], targets[:2],
                                                                target_lengths[:2], train=True)
     rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
-    emit({"phase": "train_vs_cpu_f32", "rows": 2, "card_loss": card_loss.item(), "cpu_loss": cpu_loss.item(),
+    emit({"phase": f"{prefix}train_vs_cpu_f32", "rows": 2, "card_loss": card_loss.item(), "cpu_loss": cpu_loss.item(),
           "rel_dev": rel, "bound": TRAIN_LOSS_BOUND, "cpu_seconds": time.perf_counter() - t0})
     check(rel < TRAIN_LOSS_BOUND, f"bf16 card loss vs f32 CPU loss off by {rel} >= {TRAIN_LOSS_BOUND}")
+    return counts, batch
 
-    # the CTC pair at the training shape: kernel, plain version and F.ctc_loss on the same inputs
-    logits = torch.randn((TRAIN_BATCH, 751, len(VOCAB) + 1), device="cuda",
-                         generator=torch.Generator(device="cuda").manual_seed(2))
+
+def ctc_pair_check(t: int, targets, target_lengths, seed: int) -> dict:
+    """The CTC kernel pair (``ctc_alpha``, then ``ctc_beta``) against its plain version at ``len(targets)`` x
+    ``t`` frames over VOCAB and the blank, on the log-softmax of random logits (generator ``seed``): returns
+    ``loss_delta`` (the summed |loss difference| per target length), ``grad_rel`` (the gradient's largest
+    deviation over its scale) and ``max_abs_err``, with the two calls and their inputs for timing."""
+    import torch
+
+    from thunder_tpu_torch.kernels.ctc import alpha_reference, beta_reference, ctc_alpha, ctc_beta, ll_from_alpha
+    from thunder_tpu_torch.ops.ctc import extended_emissions
+
+    batch = targets.shape[0]
+    logits = torch.randn((batch, t, len(VOCAB) + 1), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
     log_probs = torch.log_softmax(logits, dim=-1)
-    lens = torch.full((TRAIN_BATCH,), 751, dtype=torch.int32, device="cuda")
-    lp_z, skip_ok = extended_emissions(log_probs, batch[2], blank=0)
-    tl = batch[3]
+    lens = torch.full((batch,), t, dtype=torch.int32, device="cuda")
+    lp_z, skip_ok = extended_emissions(log_probs, targets, blank=0)
+    tl = target_lengths
     ghat = 1.0 / tl.float()
 
     def kernel_pair():
@@ -861,17 +993,49 @@ def training_phase(card: str, ctc_tol: float) -> dict:
         alpha = alpha_reference(lp_z, skip_ok, lens, tl)
         return alpha, beta_reference(lp_z, alpha, skip_ok, lens, tl, ll_from_alpha(alpha, lens, tl), ghat)
 
-    lp_t = log_probs.detach().transpose(0, 1).contiguous().requires_grad_(True)
+    (a_k, d_k), (a_p, d_p) = kernel_pair(), plain_pair()
+    ll_k, ll_p = ll_from_alpha(a_k, lens, tl), ll_from_alpha(a_p, lens, tl)
+    return {"log_probs": log_probs, "lp_z": lp_z, "skip_ok": skip_ok, "lens": lens, "tl": tl, "ghat": ghat,
+            "alpha": a_k, "kernel_pair": kernel_pair, "plain_pair": plain_pair,
+            "loss_delta": ((ll_k - ll_p) / tl).abs().sum().item(),
+            "grad_rel": ((d_k - d_p).abs().max() / d_p.abs().max()).item(),
+            "max_abs_err": max((ll_k - ll_p).abs().max().item(), (d_k - d_p).abs().max().item())}
+
+
+def training_phase(card: str, ctc_tol: float) -> dict:
+    """Train QuartzNet15x5 at TRAIN_BATCH x TRAIN_SECONDS on the card (phases 6 and 7 of the
+    module docstring); returns the CTC kernel pair's entry of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.kernels.ctc import ctc_alpha, ctc_beta, ll_from_alpha
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    tt = BatchTextTransformer(VOCAB)
+
+    def create(device, dtype, train_config: bool) -> CTCModule:
+        """The same weights (generator seed 0) in either configuration."""
+        frontend = FilterbankFeatures(num_time_masks=2, num_freq_masks=2) if train_config else FilterbankFeatures(dither=0.0)
+        encoder = QuartznetEncoder(repeat_blocks=3, dropout=0.1 if train_config else 0.0, dtype=dtype)
+        return CTCModule.create(torch.Generator().manual_seed(0), frontend, encoder, Conv1dDecoder(29, dtype=dtype), tt,
+                                device=device)
+
+    counts, batch = train_path(card, "", create, LOSS_FALL)
+
+    # the CTC pair at the training shape: kernel, plain version and F.ctc_loss on the same inputs
+    pair = ctc_pair_check(751, batch[2], batch[3], seed=2)
+    lp_z, skip_ok, lens, tl, ghat, a_k = (pair[name] for name in ("lp_z", "skip_ok", "lens", "tl", "ghat", "alpha"))
+    kernel_pair, plain_pair = pair["kernel_pair"], pair["plain_pair"]
+    loss_delta, grad_rel, err = pair["loss_delta"], pair["grad_rel"], pair["max_abs_err"]
+    lp_t = pair["log_probs"].detach().transpose(0, 1).contiguous().requires_grad_(True)
 
     def library():
         loss = F.ctc_loss(lp_t, batch[2], lens, tl, blank=0, reduction="sum", zero_infinity=True)
         return torch.autograd.grad(loss, lp_t)
 
-    (a_k, d_k), (a_p, d_p) = kernel_pair(), plain_pair()
-    ll_k, ll_p = ll_from_alpha(a_k, lens, tl), ll_from_alpha(a_p, lens, tl)
-    loss_delta = ((ll_k - ll_p) / tl).abs().sum().item()
-    grad_rel = ((d_k - d_p).abs().max() / d_p.abs().max()).item()
-    err = max((ll_k - ll_p).abs().max().item(), (d_k - d_p).abs().max().item())
     k_ms, p_ms = paired_ms(kernel_pair, plain_pair, 3)
     lib_ms = cuda_ms(library, 20)
     ll = ll_from_alpha(a_k, lens, tl)
@@ -1621,6 +1785,288 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
          "library_ms": None, "library": "none (no single PyTorch call walks beam pointers)"},
     ]
 
+
+def citrinet_create(device, dtype=None, vocab=CITRINET_VOCAB, train_config: bool = False, dropout: float = 0.0):
+    """Citrinet-256 (the published widths, 21 blocks, random weights from generator seed 0) with an 80-mel
+    frontend and a ``Conv1dDecoder`` over ``vocab`` and the blank; ``train_config`` adds SpecAugment's 2 + 2
+    masks and the default dither (``bench_train.py --model citrinet``)."""
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.models import CitrinetEncoder, Conv1dDecoder
+    from thunder_tpu_torch.models.citrinet import CITRINET_256_FILTERS, CITRINET_256_KERNELS, CITRINET_256_STRIDES
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    dtype = dtype or torch.float32
+    frontend = (FilterbankFeatures(nfilt=80, num_time_masks=2, num_freq_masks=2) if train_config
+                else FilterbankFeatures(nfilt=80, dither=0.0))
+    encoder = CitrinetEncoder(CITRINET_256_FILTERS, CITRINET_256_KERNELS, CITRINET_256_STRIDES, feat_in=80,
+                              dropout=dropout, dtype=dtype)
+    return CTCModule.create(torch.Generator().manual_seed(0), frontend, encoder,
+                            Conv1dDecoder(len(vocab) + 1, dtype=dtype), BatchTextTransformer(vocab), device=device)
+
+
+@contextlib.contextmanager
+def plain_conv_serving():
+    """Route the conv engine's log-mel and separable repeats through their plain versions, on the same device."""
+    import thunder_tpu_torch.audio.frontend as frontend
+    import thunder_tpu_torch.engine as engine
+    from thunder_tpu_torch.kernels.frontend import log_mel_reference
+    from thunder_tpu_torch.kernels.separable_conv import separable_repeat_reference
+
+    saved = frontend.fused_log_mel, engine.fused_separable_repeat
+    frontend.fused_log_mel, engine.fused_separable_repeat = log_mel_reference, separable_repeat_reference
+    try:
+        yield
+    finally:
+        frontend.fused_log_mel, engine.fused_separable_repeat = saved
+
+
+@contextlib.contextmanager
+def recorded_forwards(engine):
+    """Record every ``engine.infer`` call's ``(logits, argmax ids, out_lengths)`` in the list it yields."""
+    calls, infer = [], engine.infer
+
+    def recording(padded, lengths):
+        calls.append(infer(padded, lengths))
+        return calls[-1]
+
+    engine.infer = recording
+    try:
+        yield calls
+    finally:
+        del engine.infer
+
+
+def citrinet_serving_phase(card: str) -> tuple:
+    """Citrinet-256 greedy serving at BATCH x SECONDS (phase 12 of the module docstring), then the log-mel and
+    every separable shape of the plan against their plain versions. Returns the engine, the batch, the launch
+    counts of one predict and, by kernel, the deviations and timed shapes for the kernels line."""
+    import torch
+
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_reference
+    from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS
+
+    rng = np.random.default_rng(0)
+    samples = int(SECONDS * SAMPLE_RATE)
+    base = speech_like(samples, rng)
+    audio = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(BATCH)])
+    lengths = np.full((BATCH,), samples, dtype=np.int32)
+    module = citrinet_create("cuda")
+    fit_bn(module, audio[:8], lengths[:8])
+    engine = InferenceEngine(module)
+    engine.warmup([BATCH], [SECONDS])
+
+    reset_launch_counts()
+    texts = engine.predict(audio, lengths)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    emit({"phase": "citrinet_launches_per_forward", **counts})
+    want = expected_counts(fused_log_mel=1, fused_separable_repeat=CITRINET_SEPARABLE)
+    check(counts == want, f"one Citrinet predict must launch {want}, got {counts}")
+    check(len(texts) == BATCH and all(isinstance(t, str) and set(t) <= set(CITRINET_VOCAB) for t in texts),
+          f"Citrinet transcripts outside the vocabulary: {texts[:4]}")
+
+    audio_d, lengths_d = torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda")
+    logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+    frames = (int(SECONDS * SAMPLE_RATE) // 160 + 1 + 7) // 8  # 1501 -> 751 -> 376 -> 188
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (BATCH, frames, len(CITRINET_VOCAB) + 1),
+          f"Citrinet logits not finite or of shape {tuple(logits.shape)}")
+    forward_ms = cuda_ms(lambda: engine.infer(audio_d, lengths_d), CITRINET_TIMED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.predict(audio, lengths)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "citrinet_serving", "batch": BATCH, "seconds": SECONDS, "frames": frames, "forward_ms": forward_ms,
+          "rtf": BATCH * SECONDS / (forward_ms / 1e3), "predict_ms_host_clock": predict_ms,
+          "transcript_chars": [min(map(len, texts)), max(map(len, texts))],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    emit({"phase": "citrinet_profile", **device_profile(lambda: engine.infer(audio_d, lengths_d))})
+    logits_vs_cpu_f32("citrinet_vs_cpu_f32", module, logits, out_lengths, audio, lengths)
+
+    # the log-mel kernel against its plain version on this batch, at 80 mels
+    fe = engine.frontend
+    mel_kw = dict(sample_rate=fe.sample_rate, n_fft=fe.fft_size, hop_length=fe.n_window_stride,
+                  win_length=fe.n_window_size, n_mels=fe.nfilt, preemph=fe.preemph)
+    mel_err = (fused_log_mel(audio_d, **mel_kw) - log_mel_reference(audio_d, **mel_kw)).abs().max().item()
+    mel_tol = KERNEL_CHECKS["frontend_log_mel"][1]
+    emit({"phase": "citrinet_log_mel", "batch": BATCH, "seconds": SECONDS, **mel_kw, "max_abs_err": mel_err,
+          "tol": mel_tol})
+    check(mel_err <= mel_tol, f"log-mel at Citrinet's 80 mels off by {mel_err} > {mel_tol}")
+
+    # every separable shape of the plan against its plain version; timed beside it and the chain: the
+    # 80-channel stem, a stride-2 last repeat at T 1501 (no ReLU), a k 39 repeat at T 188 and the 640-channel tail
+    shapes = separable_shapes(engine, audio_d, lengths_d)
+    check(sum(count for _, count in shapes.values()) == CITRINET_SEPARABLE, f"Citrinet plan shapes {list(shapes)}")
+    wanted = [(1501, 80, 256, 5, 1, 1), (1501, 256, 256, 11, 2, 1), (188, 256, 256, 39, 1, 1),
+              (188, 256, 640, 41, 1, 1)]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    timed, errors = [], {}
+    for key in wanted:
+        check(key in shapes, f"no Citrinet repeat of shape {key}: {list(shapes)}")
+        line = time_separable_shape("citrinet_separable_shape", key, *shapes[key], gen)
+        line.pop("work")
+        timed.append(line)
+        errors[key] = line["max_abs_err"], line["ulp"]
+    for key, (rp, _) in shapes.items():
+        if key not in errors:
+            errors[key] = separable_shape_error(key, rp, gen)[:2]
+    worst = max(errors, key=lambda key: errors[key][1])
+    emit({"phase": "citrinet_separable_checked", "shapes": len(errors), "launches": CITRINET_SEPARABLE,
+          "max_abs_err": max(e for e, _ in errors.values()), "max_ulp": errors[worst][1], "worst": list(worst),
+          "ulp_by_shape": [[*key, ulp] for key, (_, ulp) in errors.items()]})
+    check(errors[worst][1] <= 8.0, f"separable repeat at Citrinet's {worst} off by {errors[worst][1]} bf16 ULP")
+    deviations = {"log_mel": {"citrinet_max_abs_err": mel_err},
+                  "separable_repeat": {"citrinet_shapes": timed, "citrinet_shapes_checked": len(errors),
+                                       "citrinet_max_abs_err": max(e for e, _ in errors.values()),
+                                       "citrinet_max_ulp": errors[worst][1]}}
+    return engine, audio, lengths, counts, deviations
+
+
+def citrinet_beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray) -> dict:
+    """The device beam on the Citrinet-256 engine (phase 13 of the module docstring): K = 50 and every token a
+    step, then ``predict_long`` greedy and beam. Returns the launch counts of one beam predict and of each
+    ``predict_long`` run."""
+    import torch
+
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
+
+    width, blank = 16, engine.module.blank_idx
+    audio_d, lengths_d = torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda")
+    logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+    counts = {}
+    for k in (50, None):
+        beam = dict(beam_width=width, beam_backend="device", max_tokens_per_step=k)
+        engine.predict(audio, lengths, **beam)  # warms the beam path
+        reset_launch_counts()
+        texts = engine.predict(audio, lengths, **beam)
+        torch.cuda.synchronize()
+        counts[k] = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        want = expected_counts(fused_log_mel=1, fused_separable_repeat=CITRINET_SEPARABLE, beam_scan=1,
+                               beam_backtrace=1)
+        check(counts[k] == want, f"one Citrinet beam predict (K = {k}) must launch {want}, got {counts[k]}")
+        with plain_beam():
+            plain_texts = engine.predict(audio, lengths, **beam)
+        agree = sum(a == b for a, b in zip(texts, plain_texts))
+        decode = lambda: beam_search_device(logits, out_lengths, blank=blank, beam_width=width,  # noqa: E731
+                                            max_tokens_per_step=k)
+        decode_ms = cuda_ms(decode, 3)
+        with plain_beam():
+            decode_plain_ms = cuda_ms(decode, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict(audio, lengths, **beam)
+        emit({"phase": "citrinet_beam", "B": BATCH, "T": logits.shape[1], "V": logits.shape[2],
+              "K": logits.shape[2] if k is None else k, "W": width, "launches": counts[k], "rows": BATCH,
+              "equal_rows": agree, "decode_ms": decode_ms, "decode_plain_ms": decode_plain_ms,
+              "predict_ms_host_clock": (time.perf_counter() - t0) * 1e3, "card": card})
+        check(len(texts) == BATCH and all(set(t) <= set(CITRINET_VOCAB) for t in texts),
+              f"Citrinet beam transcripts outside the vocabulary: {texts[:4]}")
+        check(agree == BATCH, f"Citrinet beam (K = {k}) differs from the plain versions on {BATCH - agree} rows")
+
+    # long audio at the 8x frame stride: 1 log-mel + 107 separable a window, and one launch of each beam kernel a
+    # window with the beam; greedy, each window's logits against the same window's through the plain log-mel and
+    # separable repeat, within LOGIT_BOUND of their scale over its valid frames; beam, the text of the plain
+    # beam kernels on the same logits
+    clip = speech_like(60 * SAMPLE_RATE, np.random.default_rng(2))
+    chunk, overlap = 20 * SAMPLE_RATE, 2 * SAMPLE_RATE
+    windows = len(range(0, max(clip.shape[0] - overlap, 1), chunk - overlap))
+    long = {}
+    for name, beam in (("greedy", {}), ("beam", dict(beam_width=width, beam_backend="device"))):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_forwards(engine) as forwards:
+            text = engine.predict_long(clip, **beam)
+        long_ms = (time.perf_counter() - t0) * 1e3
+        long[name] = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        with plain_beam() if beam else plain_conv_serving(), recorded_forwards(engine) as plain_forwards:
+            plain = engine.predict_long(clip, **beam)
+        per_window = dict(fused_log_mel=windows, fused_separable_repeat=windows * CITRINET_SEPARABLE)
+        if beam:
+            per_window.update(beam_scan=windows, beam_backtrace=windows)
+        line = {"phase": "citrinet_predict_long", "decode": name, "seconds": 60, "windows": windows,
+                "launches": long[name], "ms_host_clock": long_ms, "chars": len(text), "equal_to_plain": text == plain}
+        if not beam:
+            check(len(forwards) == len(plain_forwards) == windows, f"Citrinet predict_long ran {len(forwards)} and "
+                                                                   f"{len(plain_forwards)} forwards, not {windows}")
+            rels = []
+            for (got, _, got_len), (want, _, want_len) in zip(forwards, plain_forwards):
+                check(torch.equal(got_len, want_len), f"window lengths {got_len} vs the plain versions' {want_len}")
+                valid = torch.arange(got.shape[1], device=got.device)[None, :] < want_len[:, None]
+                rels.append(((got.float() - want.float()).abs()[valid].max() / want.float().abs()[valid].max()).item())
+            line.update(window_max_rel_dev=rels, bound=LOGIT_BOUND)
+        emit({**line, "card": card})
+        check(long[name] == expected_counts(**per_window), f"Citrinet predict_long ({name}) over {windows} windows "
+                                                           f"launched {long[name]}")
+        check(len(text) > 0 and set(text) <= set(CITRINET_VOCAB), f"Citrinet predict_long ({name}) text {text[:20]!r}")
+        if beam:  # the same forward's logits: the search is exact
+            check(text == plain, "Citrinet predict_long's beam text differs from the plain versions'")
+        else:
+            check(max(rels) < LOGIT_BOUND, f"Citrinet predict_long's window logits off the plain versions' by "
+                                           f"{max(rels)} >= {LOGIT_BOUND} of their scale")
+    return {"beam_k50": counts[50], "beam_all_tokens": counts[None], "long_greedy": long["greedy"],
+            "long_beam": long["beam"]}
+
+
+def citrinet_training_phase(card: str, ctc_tol: float) -> tuple:
+    """Train Citrinet-256 at TRAIN_BATCH x TRAIN_SECONDS (phase 14 of the module docstring; ``bench_train.py
+    --model citrinet``: SpecAugment 2 + 2 masks, dither, dropout 0.1, bf16 compute, AdamW lr 1e-4, the 29-token
+    character vocabulary), then the CTC pair against its plain version at the step's shape. Returns the launch
+    counts of one step and the pair's deviation for the kernels line."""
+    def create(device, dtype, train_config: bool):
+        return citrinet_create(device, dtype, VOCAB, train_config, dropout=0.1 if train_config else 0.0)
+
+    counts, batch = train_path(card, "citrinet_", create, CITRINET_LOSS_FALL)
+    frames = (int(TRAIN_SECONDS * SAMPLE_RATE) // 160 + 1 + 7) // 8  # 1501 -> 751 -> 376 -> 188
+    pair = ctc_pair_check(frames, batch[2], batch[3], seed=4)
+    emit({"phase": "citrinet_ctc_training_shape", "T": frames, "B": TRAIN_BATCH, "S": int(pair["lp_z"].shape[2]),
+          "loss_delta": pair["loss_delta"], "grad_rel_delta": pair["grad_rel"], "max_abs_err": pair["max_abs_err"],
+          "tol": ctc_tol, "card": card})
+    worst = max(pair["loss_delta"], pair["grad_rel"])
+    check(worst <= ctc_tol, f"CTC pair at Citrinet's training shape off by {worst} > {ctc_tol}")
+    return counts, {"ctc_recursion": {"citrinet_max_abs_err": pair["max_abs_err"], "citrinet_T": frames}}
+
+
+def citrinet_cpu_loss_fall(batch: int, seconds: float) -> dict:
+    """The Citrinet training phase's losses on the port's float32 CPU path (plain versions of every kernel) at
+    ``batch`` x ``seconds``, from which ``CITRINET_LOSS_FALL`` is set; needs no card:
+    ``python3 -c "import chip_smoke; print(chip_smoke.citrinet_cpu_loss_fall(2, 6.0))"``."""
+    import torch
+
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import TrainStep, _encode_targets
+
+    module = citrinet_create("cpu", torch.float32, VOCAB, train_config=True, dropout=0.1)
+    samples = int(seconds * SAMPLE_RATE)
+    audio = torch.as_tensor((np.random.default_rng(0).standard_normal((batch, samples)) * 0.1).astype(np.float32))
+    lengths = torch.full((batch,), samples, dtype=torch.int32)
+    targets, target_lengths = _encode_targets(BatchTextTransformer(VOCAB), [TRAIN_TEXT] * batch)
+    step = TrainStep(module.model, adamw(module.model.parameters(), learning_rate=1e-4), module.blank_idx)
+    generator = torch.Generator().manual_seed(0)
+    losses = [step(audio, lengths, torch.as_tensor(targets), torch.as_tensor(target_lengths), generator).item()
+              for _ in range(1 + TRAIN_WARMUP + TRAIN_TIMED)]
+    return {"batch": batch, "seconds": seconds, "losses": losses, "last_over_first": losses[-1] / losses[0]}
+
+
+def add_citrinet_launches(kernels: list, serving: dict, beam: dict, training: dict) -> None:
+    """Each kernel's launches on the Citrinet paths (0 for those they do not reach), beside its entry's
+    ``launches`` on its own main path."""
+    wrappers = {"log_mel": ("fused_log_mel",), "separable_repeat": ("fused_separable_repeat",),
+                "ctc_recursion": ("ctc_alpha", "ctc_beta"), "mha_from_qkv": ("mha_from_qkv",),
+                "add_layer_norm": ("add_layer_norm",), "beam_scan": ("beam_scan",),
+                "beam_backtrace": ("beam_backtrace",), "mha_train": ("mha_train_forward", "mha_train_backward"),
+                "add_ln_dropout_train": ("add_ln_train_forward", "add_ln_train_backward"),
+                "dropout_keep_mask": ("dropout_keep_mask",)}
+    runs = {"forward": serving, "beam_predict_k50": beam["beam_k50"],
+            "beam_predict_all_tokens": beam["beam_all_tokens"], "predict_long_greedy": beam["long_greedy"],
+            "predict_long_beam": beam["long_beam"], "train_step": training}
+    for entry in kernels:
+        entry["citrinet_launches"] = {run: sum(c[w] for w in wrappers[entry["name"]]) for run, c in runs.items()}
 
 if __name__ == "__main__":
     sys.exit(main())

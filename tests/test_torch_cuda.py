@@ -2,8 +2,9 @@
 
 Each kernel is held against its plain PyTorch version on the same device, with
 the check names and tolerances of ``thunder_tpu_torch.kernels.selftest``; a
-small QuartzNet and a small wav2vec2 run through the engine on the card and
-on the CPU, with the launch counts of one forward; the attention and add +
+small QuartzNet, a small Citrinet and a small wav2vec2 run through the
+engine on the card and on the CPU, with the launch counts of one forward (and
+one Citrinet train step); the attention and add +
 LayerNorm kernels are held to their plain versions at the wav2vec2-base
 serving shape (16 x 15 s: T = 749, 12 heads), with ragged rows and a row of
 length 0; the CTC kernel pair is held to its plain loops on the edge case, at
@@ -81,6 +82,47 @@ def test_small_quartznet_on_card_matches_cpu(cuda):
     valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
     dev = (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max()
     assert dev < 0.1  # bf16 on the card against float32 on the CPU
+
+
+def test_small_citrinet_on_card_matches_cpu_and_trains(cuda):
+    """A small Citrinet (80 mels; three blocks of 2 repeats, the last two strided) through the engine: one launch
+    of each separable repeat (the stem, 3 x 2, the tail), within 0.1 of float32 on the CPU; one ``Trainer.fit``
+    step launches the log-mel and each CTC kernel once."""
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import CitrinetEncoder, Conv1dDecoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    small = dict(filters=(64, 64, 64), kernel_sizes=(11, 13, 15), strides=(1, 2, 2), repeat=2)
+    tt = BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '"))
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(nfilt=80), CitrinetEncoder(**small),
+                              Conv1dDecoder(29), tt, device="cuda")
+    audio = (np.random.default_rng(0).standard_normal((2, 32000)) * 0.2).astype(np.float32)
+    lengths = np.array([32000, 18000], np.int32)
+    reset_launch_counts()
+    got, got_lens = InferenceEngine(module)(audio, lengths)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    assert {k: v for k, v in counts.items() if v} == {"fused_log_mel": 1, "fused_separable_repeat": 8}
+    want, want_lens = InferenceEngine(module.to("cpu"))(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    dev = (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max()
+    assert dev < 0.1  # bf16 on the card against float32 on the CPU
+
+    train = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(nfilt=80, num_time_masks=2),
+                             CitrinetEncoder(**small, dropout=0.1, dtype=torch.bfloat16),
+                             Conv1dDecoder(29, dtype=torch.bfloat16), tt, device="cuda")
+    reset_launch_counts()
+    trainer = Trainer(device="cuda", fast_dev_run=True)
+    trainer.fit(train, [(audio, lengths, ["hello world", "the cat"])])
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    assert {k: v for k, v in counts.items() if v} == {"fused_log_mel": 1, "ctc_alpha": 1, "ctc_beta": 1}
+    assert np.isfinite(trainer.logs[0]["loss/train_loss"])
 
 
 def test_small_wav2vec2_on_card_matches_cpu(cuda):

@@ -19,8 +19,13 @@ _LAZY = {
     "CTCModule": "thunder_tpu_torch.module",
     "InferenceEngine": "thunder_tpu_torch.engine",
     "FilterbankFeatures": "thunder_tpu_torch.audio",
+    "Wav2Vec2Preprocess": "thunder_tpu_torch.audio",
     "QuartznetEncoder": "thunder_tpu_torch.models",
+    "CitrinetEncoder": "thunder_tpu_torch.models",
+    "Wav2Vec2Encoder": "thunder_tpu_torch.models",
+    "Wav2Vec2Config": "thunder_tpu_torch.models",
     "Conv1dDecoder": "thunder_tpu_torch.models",
+    "LinearDecoder": "thunder_tpu_torch.models",
     "BatchTextTransformer": "thunder_tpu_torch.text",
     "Trainer": "thunder_tpu_torch.training.trainer",
 }

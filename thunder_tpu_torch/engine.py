@@ -1,17 +1,26 @@
 """CTC inference engine: the serving hot path.
 
-Port of ``thunder_tpu/engine.py::InferenceEngine`` for QuartzNet and
-wav2vec2 (float mode). The QuartzNet path:
+Port of ``thunder_tpu/engine.py::InferenceEngine`` for QuartzNet, Citrinet
+and wav2vec2 (float mode). The conv path (QuartzNet and Citrinet), planned
+from the encoder's blocks:
 
 - batch norm folded into the pointwise weights and a float32 bias at build
   time (eval-mode running statistics);
-- every separable repeat (the stride-2 stem, the 75 body repeats and the
-  dilation-2 tail) is one launch of the fused separable-repeat kernel, which
-  also applies bias, ReLU and the zero-beyond-length mask;
-- the dense 1x1 convs (residual branches, the 1024-channel block) and the
-  decoder are matmuls in the compute dtype with float32 accumulation, with
-  the mask folded into the same elementwise pass (masks cached per length of
-  time within a forward);
+- every separable repeat (QuartzNet's stride-2 stem, 75 body repeats and
+  dilation-2 tail; Citrinet's stem, 105 body repeats, the last of each
+  stride-2 block strided, and k=41 tail) is one launch of the fused
+  separable-repeat kernel, which also applies bias, ReLU and the
+  zero-beyond-length mask;
+- the dense 1x1 convs (residual branches, strided ``x[:, ::s]`` in
+  Citrinet's stride-2 blocks; the 1024-channel block) and the decoder are
+  matmuls in the compute dtype with float32 accumulation, with the mask
+  folded into the same elementwise pass (masks cached per length of time
+  within a forward);
+- Citrinet's squeeze-excite (the JAX engine's ``_apply_se``): the mean over
+  each row's valid frames, ``fc1`` with float32 accumulation, ReLU, a cast
+  to the compute dtype, ``fc2`` with float32 accumulation, the sigmoid cast
+  to the activations' dtype, and the gate; after the repeats, before the
+  residual add;
 - the log-mel frontend is one launch of the fused log-mel kernel.
 
 The wav2vec2 path (after the JAX engine's wav2vec2 branch): the waveform
@@ -49,6 +58,7 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat
+from thunder_tpu_torch.models.citrinet import CitrinetEncoder
 from thunder_tpu_torch.models.decoders import Conv1dDecoder, LinearDecoder
 from thunder_tpu_torch.models.layers import BN_EPS
 from thunder_tpu_torch.models.quartznet import QuartznetEncoder
@@ -83,7 +93,7 @@ class _RepeatPlan:
     stride: int
     dilation: int
     relu: bool
-    bias: torch.Tensor  # (C_out,) float32
+    bias: torch.Tensor  # (C_out,) float32 for the separable kernel, the compute dtype for a dense product
     dw: Optional[torch.Tensor] = None  # (k, C_in) compute dtype
     pw: Optional[torch.Tensor] = None  # (C_in, C_out) compute dtype, BN scale folded in
 
@@ -92,6 +102,7 @@ class _RepeatPlan:
 class _BlockPlan:
     repeats: List[_RepeatPlan]
     res: Optional[_RepeatPlan]
+    se: Optional[tuple] = None  # (fc1 (C, C / r), fc2 (C / r, C)) float32, rounded to the compute dtype
 
 
 def _decoder_weights(decoder) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -106,9 +117,22 @@ def _decoder_weights(decoder) -> tuple[Optional[torch.Tensor], Optional[torch.Te
                               f"got {type(decoder).__name__}")
 
 
+def _check_residual_lengths(repeats: List[_RepeatPlan], res: _RepeatPlan, block: int, longest: int = 1 << 16) -> None:
+    """Raise unless the residual branch gives the lengths (and so the frames) of the block's repeats for every
+    input length up to ``longest``: the forward adds the two and keeps the repeats' lengths."""
+    lengths = want = np.arange(longest + 1)
+    for rp in repeats:
+        want = conv_output_length(want, rp.kernel_size, rp.stride, get_same_padding(rp.kernel_size, rp.stride,
+                                                                                    rp.dilation), rp.dilation)
+    got = conv_output_length(lengths, 1, res.stride, 0)
+    if not np.array_equal(got, want):
+        raise NotImplementedError(f"block {block}: the residual's lengths differ from its repeats' (residual "
+                                  f"stride {res.stride}, repeat strides {[rp.stride for rp in repeats]})")
+
+
 class InferenceEngine:
-    """CTC inference over a ``CTCModule``'s weights (QuartzNet with BN folded, wav2vec2, or any other
-    encoder through the module's eval forward)."""
+    """CTC inference over a ``CTCModule``'s weights (QuartzNet and Citrinet with BN folded, wav2vec2, or any
+    other encoder through the module's eval forward)."""
 
     def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None,
                  pad_multiple: int = 16000):
@@ -124,9 +148,9 @@ class InferenceEngine:
         if isinstance(encoder, Wav2Vec2Encoder):
             self._encoder = serving_copy(encoder, self.dtype).to(self.device)
             self._forward = self._forward_wav2vec2
-        elif isinstance(encoder, QuartznetEncoder):
+        elif isinstance(encoder, (QuartznetEncoder, CitrinetEncoder)):
             self._plan = self._build_plan(encoder)
-            self._forward = self._forward_quartznet
+            self._forward = self._forward_conv
         else:
             self._model = module.to(self.device).model if self.device != module.device else module.model
             self._forward = self._forward_module
@@ -139,32 +163,39 @@ class InferenceEngine:
     # planning
     # ------------------------------------------------------------------
 
-    def _repeat_plan(self, rep, stride, dilation, relu) -> _RepeatPlan:
+    def _repeat_plan(self, rep, relu) -> _RepeatPlan:
         scale, bias = _fold_bn(rep.bn)
         put = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
         if rep.separable:
-            dw = rep.depthwise.kernel.detach().cpu().numpy()[:, 0, :]  # (k, C)
+            conv = rep.depthwise
+            dw = conv.kernel.detach().cpu().numpy()[:, 0, :]  # (k, C)
             pw = rep.pointwise.kernel.detach().cpu().numpy()[0] * scale[None, :]  # (C, C_out)
-            return _RepeatPlan("separable", dw.shape[0], stride, dilation, relu, put(bias),
+            return _RepeatPlan("separable", dw.shape[0], conv.stride, conv.dilation, relu, put(bias),
                                dw=put(dw).to(self.dtype).contiguous(), pw=put(pw).to(self.dtype).contiguous())
         kernel = rep.conv.kernel.detach().cpu().numpy()
-        if kernel.shape[0] != 1 or stride != 1:
-            raise NotImplementedError("dense convs other than 1x1 with stride 1 are not on the QuartzNet path")
-        return _RepeatPlan("dense", 1, stride, 1, relu, put(bias), pw=put(kernel[0] * scale[None, :]).to(self.dtype))
+        if kernel.shape[0] != 1:
+            raise NotImplementedError("dense convs other than 1x1 are not on the QuartzNet or Citrinet path")
+        return _RepeatPlan("dense", 1, rep.conv.stride, 1, relu, put(bias).to(self.dtype),
+                           pw=put(kernel[0] * scale[None, :]).to(self.dtype))
 
-    def _build_plan(self, encoder: QuartznetEncoder) -> List[_BlockPlan]:
+    def _build_plan(self, encoder) -> List[_BlockPlan]:
+        """One :class:`_BlockPlan` per ``EncoderBlock`` of a QuartzNet or Citrinet encoder, read from the
+        blocks themselves: each repeat's own stride, the residual's stride and the squeeze-excite."""
         plan = []
         for b in range(encoder.num_blocks):
             block = getattr(encoder, f"block{b}")
-            repeats = []
-            for r in range(block.repeat):
-                rep = getattr(block, f"rep{r}")
-                conv = rep.depthwise if rep.separable else rep.conv
-                repeats.append(self._repeat_plan(rep, conv.stride, conv.dilation, relu=r != block.repeat - 1))
+            repeats = [self._repeat_plan(getattr(block, f"rep{r}"), relu=r != block.repeat - 1)
+                       for r in range(block.repeat)]
             res = None
             if block.res is not None:
-                res = self._repeat_plan(block.res, block.res.conv.stride, 1, relu=False)
-            plan.append(_BlockPlan(repeats, res))
+                res = self._repeat_plan(block.res, relu=False)
+                _check_residual_lengths(repeats, res, b)
+            se = None
+            if block.se is not None:
+                # float32 copies of the compute-dtype weights: the products accumulate in float32
+                se = tuple(fc.kernel.detach().to(self.device, self.dtype).float()
+                           for fc in (block.se.fc1, block.se.fc2))
+            plan.append(_BlockPlan(repeats, res, se))
         return plan
 
     # ------------------------------------------------------------------
@@ -174,18 +205,33 @@ class InferenceEngine:
     def _apply_repeat(self, rp: _RepeatPlan, x, lengths, mask_cache: Dict[int, torch.Tensor]):
         """One conv repeat. The input is zero beyond ``lengths``; so is the output."""
         pad = get_same_padding(rp.kernel_size, rp.stride, rp.dilation)
-        new_lengths = conv_output_length(lengths, rp.kernel_size, rp.stride, pad, rp.dilation)
+        if rp.stride == 1 and 2 * pad == rp.dilation * (rp.kernel_size - 1):
+            new_lengths = lengths  # same padding at stride 1 keeps every length: no launches to recompute them
+        else:
+            new_lengths = conv_output_length(lengths, rp.kernel_size, rp.stride, pad, rp.dilation)
         if rp.kind == "separable":
             y = fused_separable_repeat(x, new_lengths, rp.dw, rp.pw, rp.bias, rp.kernel_size,
                                        stride=rp.stride, dilation=rp.dilation, relu=rp.relu)
             return y, new_lengths
-        y = torch.matmul(x, rp.pw) + rp.bias.to(self.dtype)
+        if rp.stride > 1:
+            x = x[:, :: rp.stride]  # a 1x1 conv's same padding is 0
+        y = torch.matmul(x, rp.pw) + rp.bias
         if rp.relu:
             y = torch.relu(y)
         t = y.shape[1]
         if t not in mask_cache:
             mask_cache[t] = lengths_to_mask(new_lengths, t).to(self.dtype)[:, :, None]
         return y * mask_cache[t], new_lengths
+
+    def _apply_se(self, se, x, lengths):
+        """Squeeze-excite gate of ``x``, which is zero beyond ``lengths``: its masked mean is its sum over
+        the frames (float32) over the valid count, at least 1."""
+        fc1, fc2 = se
+        count = lengths.clamp(1, x.shape[1]).to(torch.float32)[:, None]
+        pooled = (x.sum(dim=1, dtype=torch.float32) / count).to(self.dtype)
+        y = torch.relu(torch.matmul(pooled.float(), fc1)).to(self.dtype)
+        y = torch.matmul(y.float(), fc2)
+        return x * torch.sigmoid(y).to(x.dtype)[:, None, :]
 
     def _decode(self, x: torch.Tensor):
         """Encoder output -> float32 logits (compute-dtype product, float32 accumulation and bias; without a
@@ -196,7 +242,7 @@ class InferenceEngine:
             logits = torch.matmul(x.float(), self._dec_kernel.float()) + self._dec_bias
         return logits, greedy_decode(logits)
 
-    def _forward_quartznet(self, audio: torch.Tensor, lengths: torch.Tensor):
+    def _forward_conv(self, audio: torch.Tensor, lengths: torch.Tensor):
         feats, out_lengths = self.frontend(audio, lengths)
         x = feats.to(self.dtype)
         mask_cache: Dict[int, torch.Tensor] = {}
@@ -204,6 +250,8 @@ class InferenceEngine:
             inp, inp_lengths = x, out_lengths
             for rp in block.repeats:
                 x, out_lengths = self._apply_repeat(rp, x, out_lengths, mask_cache)
+            if block.se is not None:
+                x = self._apply_se(block.se, x, out_lengths)
             if block.res is not None:
                 res, _ = self._apply_repeat(block.res, inp, inp_lengths, mask_cache)
                 x = x + res

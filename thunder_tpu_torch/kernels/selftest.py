@@ -26,7 +26,11 @@ and C_out no multiple of 64 (200 -> 264), T_out = 1 and 65, k = 1, the
 strided stem and the dilated tail with a row of length 0, C_in = 1024, C_in =
 C_out = 100 (padded to 104 by the wrapper), and C_in = 2048 and 1544 (two
 launches over slices of C_in), each to 8 bf16 ULP and exact zeros beyond
-every length. ``attn_onepanel``
+every length; the ``separable_citrinet_*`` checks (``SEPARABLE_CITRINET``)
+at Citrinet-256's own shapes: the stem from 80 channels (k 5, T 1501), a
+stride-2 repeat without ReLU (256 channels, k 11, T 1501 -> 751) and the
+640-channel tail (k 41, T 188). ``frontend_log_mel_80`` is Citrinet's
+80-mel frontend at n_fft 512 (the FFT path). ``attn_onepanel``
 (B = 2, T = 256, 4 heads), ``attn_onepanel_1536`` (B = 2, T = 1536, 12
 heads) and ``add_ln`` (8 x 768 rows x 768) keep the JAX names and limits (4,
 4 and 2 bf16 ULP; ``add_ln_width36`` and ``add_ln_width2056`` hold the
@@ -127,8 +131,8 @@ from thunder_tpu_torch.kernels.separable_conv import (
     separable_repeat_reference,
 )
 
-__all__ = ["run_selftests", "KERNEL_CHECKS", "SEPARABLE_EDGES", "LOG_MEL_EDGES", "ADD_LN_WIDTHS", "ulp_bf16_error",
-           "exact_float32"]
+__all__ = ["run_selftests", "KERNEL_CHECKS", "SEPARABLE_EDGES", "SEPARABLE_CITRINET", "LOG_MEL_EDGES", "ADD_LN_WIDTHS",
+           "ulp_bf16_error", "exact_float32"]
 
 
 def exact_float32() -> None:
@@ -202,9 +206,9 @@ def _log_mel_check(seed, batch, time, path, zero_row=None, **config):
     return check
 
 
-def _separable_check(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False, lengths=None):
+def _separable_check(seed, b, t, c, co, k, stride=1, dilation=1, ragged=False, lengths=None, relu=True):
     def check(device) -> dict:
-        case = _separable_case(seed, b, t, c, co, k, stride, dilation, ragged, device, lengths)
+        case = {**_separable_case(seed, b, t, c, co, k, stride, dilation, ragged, device, lengths), "relu": relu}
         got = fused_separable_repeat(**case)
         want = separable_repeat_reference(**case)
         if got.shape != (b, output_length(t, k, stride, dilation), co):
@@ -645,6 +649,18 @@ LOG_MEL_EDGES = {
     "frontend_log_mel_edge_one_frame": ((36, 2, 100, "fft"), dict(n_fft=32, win_length=32, n_mels=16)),
     # 78 frames: 4 tiles and 14 frames
     "frontend_log_mel_edge_frames_off_tile": ((37, 3, 12345, "fft"), {}),
+    # Citrinet's 80-mel frontend at the default FFT size (the FFT path; the 80-mel dense check above is n_fft 400)
+    "frontend_log_mel_80": ((38, 3, 16000, "fft"), dict(n_mels=80)),
+}
+
+#: the separable repeat at Citrinet-256's serving shapes that QuartzNet's do not cover, each with a row of
+#: length 0 and a ragged row: the stem from the 80-mel features (a 160-byte row), a stride-2 last repeat
+#: without ReLU in the middle of a block, and the 640-channel tail at the 8x-strided frame rate
+SEPARABLE_CITRINET = {
+    "separable_citrinet_stem": ((50, 4, 1501, 80, 256, 5), {"lengths": [1501, 0, 777, 1]}),
+    "separable_citrinet_stride2": ((51, 4, 1501, 256, 256, 11),
+                                   {"stride": 2, "relu": False, "lengths": [1501, 0, 1000, 2]}),
+    "separable_citrinet_tail": ((52, 4, 188, 256, 640, 41), {"lengths": [188, 0, 95, 1]}),
 }
 
 KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
@@ -658,6 +674,7 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "repeat_tm": (_separable_check(2, 16, 384, 256, 256, 33, ragged=True), 8.0),  # ragged lengths, exact-zero mask
     # the edges of the kernel's tiles, each with a row of length 0 where it has rows to spare
     **{name: (_separable_check(*args, **kw), 8.0) for name, (args, kw) in SEPARABLE_EDGES.items()},
+    **{name: (_separable_check(*args, **kw), 8.0) for name, (args, kw) in SEPARABLE_CITRINET.items()},
     # CTC: max(abs loss delta, grad delta / max|grad|) at B=16, T=751, V=29, L=43, the JAX check's limit;
     # the edge case: max(rel loss delta, abs grad delta), the JAX package's gradient atol, inf on a
     # structural fault

@@ -12,8 +12,9 @@ follow the flax modules so that weights map one to one (see ``bridge.py``):
 
 Parameters are allocated at construction and drawn by :func:`init_parameters`
 from an explicit ``torch.Generator``, with the initializer flax gives each
-kernel: xavier uniform for the conv encoders' kernels, lecun normal for
-``Dense`` and the wav2vec2 modules (a module says so with ``kernel_init``).
+kernel: the encoder's :class:`InitMode` for the conv encoders' kernels
+(xavier uniform by default), lecun normal for ``Dense`` and the wav2vec2
+modules (a module says so with ``kernel_init``).
 Parameters stay float32; each module's ``dtype`` is its compute type, cast
 at flax's cast points (conv input and kernel, batch norm's folded fast path
 in bfloat16), with no autocast.
@@ -22,6 +23,11 @@ in bfloat16), with no autocast.
 statistics in place) and applies dropout with masks drawn from the
 ``generator`` passed down the call, after each activated repeat and after
 each block, with flax's semantics.
+
+``EncoderBlock`` is the QuartzNet and Citrinet block: Citrinet's options
+(the stride on the last repeat only, :class:`SqueezeExcite` after the conv
+stack, a residual strided by ``stride`` rather than ``stride**repeat``) are
+flags, off by default.
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from thunder_tpu_torch.ops.conv import conv1d, conv_output_length, get_same_padd
 from thunder_tpu_torch.ops.masking import apply_mask, lengths_to_mask
 
 __all__ = [
-    "BN_EPS", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "EncoderBlock", "Dense", "init_parameters", "dropout",
-    "apply_dropout",
+    "BN_EPS", "InitMode", "weight_init", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "SqueezeExcite",
+    "EncoderBlock", "Dense", "init_parameters", "dropout", "apply_dropout",
 ]
 
 BN_EPS = 1e-3
@@ -65,24 +71,57 @@ def _fans(w: torch.Tensor) -> tuple[int, int]:
     return w.shape[-2] * receptive, w.shape[-1] * receptive
 
 
-def _xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's ``variance_scaling(1.0, "fan_avg", "uniform")`` for a WIO kernel."""
+def _variance_scaling_(w: torch.Tensor, generator: torch.Generator, scale: float, mode: str,
+                       distribution: str) -> None:
+    """flax's ``variance_scaling(scale, mode, distribution)`` for a WIO kernel: variance ``scale / n``
+    with ``n`` the fan-in or the mean of the fans; "normal" is an untruncated normal, "truncated_normal"
+    a normal cut at 2 standard deviations and rescaled to that variance."""
     fan_in, fan_out = _fans(w)
-    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    denominator = fan_in if mode == "fan_in" else (fan_in + fan_out) / 2
     with torch.no_grad():
-        w.copy_((torch.rand(w.shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * limit)
+        if distribution == "uniform":
+            limit = math.sqrt(3.0 * scale / denominator)
+            w.copy_((torch.rand(w.shape, generator=generator, dtype=torch.float32) * 2.0 - 1.0) * limit)
+        elif distribution == "normal":
+            w.copy_(torch.randn(w.shape, generator=generator, dtype=torch.float32) * math.sqrt(scale / denominator))
+        else:
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            w.mul_(math.sqrt(scale / denominator) / 0.87962566103423978)
 
 
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's ``lecun_normal``: ``variance_scaling(1.0, "fan_in", "truncated_normal")``, a
-    normal cut at 2 standard deviations and rescaled to variance ``1 / fan_in``."""
-    fan_in, _ = _fans(w)
-    with torch.no_grad():
-        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        w.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+class InitMode:
+    """The conv encoders' weight init schemes (the JAX package's ``InitMode``)."""
+
+    xavier_uniform = "xavier_uniform"
+    xavier_normal = "xavier_normal"
+    kaiming_uniform = "kaiming_uniform"
+    kaiming_normal = "kaiming_normal"
 
 
-_KERNEL_INITS = {"xavier_uniform": _xavier_uniform_, "lecun_normal": _lecun_normal_}
+#: ``InitMode`` name -> ``variance_scaling`` arguments (kaiming: the ReLU gain, fan_in)
+_INIT_MODES = {
+    InitMode.xavier_uniform: (1.0, "fan_avg", "uniform"),
+    InitMode.xavier_normal: (1.0, "fan_avg", "normal"),
+    InitMode.kaiming_uniform: (2.0, "fan_in", "uniform"),
+    InitMode.kaiming_normal: (2.0, "fan_in", "normal"),
+}
+
+
+def _initializer(name: str):
+    """``init(weight, generator)`` for an ``InitMode`` name or ``"lecun_normal"``, flax's ``nn.Dense`` default."""
+    scale, fan, distribution = (1.0, "fan_in", "truncated_normal") if name == "lecun_normal" else _INIT_MODES[name]
+    return lambda w, generator: _variance_scaling_(w, generator, scale, fan, distribution)
+
+
+def weight_init(mode: str = InitMode.xavier_uniform):
+    """The initializer of an ``InitMode`` name: ``init(weight, generator)`` fills a WIO kernel in place.
+
+    Raises:
+        ValueError: for a name that is not an ``InitMode``, as the JAX package does.
+    """
+    if mode not in _INIT_MODES:
+        raise ValueError(f"Unknown Initialization mode: {mode}")
+    return _initializer(mode)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -92,7 +131,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     built with."""
     for m in module.modules():
         if hasattr(m, "kernel"):
-            _KERNEL_INITS[getattr(m, "kernel_init", "xavier_uniform")](m.kernel, generator)
+            _initializer(getattr(m, "kernel_init", InitMode.xavier_uniform))(m.kernel, generator)
             if getattr(m, "bias", None) is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, TorchBatchNorm):
@@ -107,20 +146,22 @@ class Dense(nn.Module):
 
     Input, kernel and bias are cast to ``dtype`` (flax's ``promote_dtype``);
     the product runs over a flattened ``(rows, in)`` view with the bias in
-    the GEMM's epilogue.
+    the GEMM's epilogue. ``use_bias=False`` (flax's) leaves the module
+    without a ``bias`` parameter, as flax's tree has none.
     """
 
     kernel_init = "lecun_normal"
 
-    def __init__(self, in_features: int, features: int, dtype=torch.float32):
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x2 = x.reshape(-1, x.shape[-1]).to(self.dtype)
-        y = torch.addmm(self.bias.to(self.dtype), x2, self.kernel.to(self.dtype))
+        kernel = self.kernel.to(self.dtype)
+        y = torch.matmul(x2, kernel) if self.bias is None else torch.addmm(self.bias.to(self.dtype), x2, kernel)
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
@@ -179,7 +220,8 @@ class TorchBatchNorm(nn.Module):
 
 class MaskedConv1d(nn.Module):
     """1-D conv with same padding that zero-fills beyond ``lengths`` before
-    convolving and returns the post-conv lengths."""
+    convolving and returns the post-conv lengths; its kernel is drawn with
+    ``init_mode`` (an :class:`InitMode`)."""
 
     def __init__(
         self,
@@ -190,10 +232,13 @@ class MaskedConv1d(nn.Module):
         dilation: int = 1,
         groups: int = 1,
         use_bias: bool = False,
+        init_mode: str = InitMode.xavier_uniform,
         dtype=torch.float32,
     ):
         super().__init__()
+        weight_init(init_mode)  # an unknown name raises here, at construction, as in flax
         self.kernel_size, self.stride, self.dilation, self.groups = kernel_size, stride, dilation, groups
+        self.kernel_init = init_mode
         self.dtype = dtype
         self.padding = get_same_padding(kernel_size, stride, dilation)
         self.kernel = nn.Parameter(torch.empty(kernel_size, in_features // groups, features))
@@ -224,18 +269,20 @@ class ConvBnAct(nn.Module):
         separable: bool = False,
         activation: bool = True,
         dropout: float = 0.0,
+        init_mode: str = InitMode.xavier_uniform,
         dtype=torch.float32,
     ):
         super().__init__()
         self.separable = separable
         self.activation = activation
         self.dropout = dropout
+        kw = dict(init_mode=init_mode, dtype=dtype)
         if separable:
             self.depthwise = MaskedConv1d(in_features, in_features, kernel_size, stride, dilation, groups=in_features,
-                                          dtype=dtype)
-            self.pointwise = MaskedConv1d(in_features, features, 1, dtype=dtype)
+                                          **kw)
+            self.pointwise = MaskedConv1d(in_features, features, 1, **kw)
         else:
-            self.conv = MaskedConv1d(in_features, features, kernel_size, stride, dilation, dtype=dtype)
+            self.conv = MaskedConv1d(in_features, features, kernel_size, stride, dilation, **kw)
         self.bn = TorchBatchNorm(features, dtype=dtype)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
@@ -252,10 +299,49 @@ class ConvBnAct(nn.Module):
         return x, lengths
 
 
+class SqueezeExcite(nn.Module):
+    """Citrinet's channel gate from a global average pool masked by ``lengths``.
+
+    The pool sums the valid frames (in float32) and divides by ``max(count,
+    1)``, as the JAX module does where the PyTorch original pools the padded
+    axis too; then ``fc1`` (C -> C / ``reduction_ratio``, no bias), ReLU,
+    ``fc2`` (no bias) and a sigmoid gate ``x``, in ``dtype`` (the ``Dense``
+    layers cast their input, flax's cast points).
+    """
+
+    def __init__(self, channels: int, reduction_ratio: int = 8, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = Dense(channels, channels // reduction_ratio, use_bias=False, dtype=dtype)
+        self.fc2 = Dense(channels // reduction_ratio, channels, use_bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        mask = lengths_to_mask(lengths, x.shape[1])[:, :, None]
+        count = mask.sum(dim=1, dtype=torch.float32).clamp_min(1.0)
+        pooled = torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device)).sum(dim=1, dtype=torch.float32)
+        gate = torch.sigmoid(self.fc2(torch.relu(self.fc1(pooled / count))))
+        return x * gate[:, None, :].to(x.dtype)
+
+
 class EncoderBlock(nn.Module):
-    """The QuartzNet residual block: ``repeat`` x (conv -> bn -> relu -> dropout),
-    the last repeat without activation, an optional 1x1 conv-bn residual from
-    the block input, then a final ReLU and dropout."""
+    """The QuartzNet and Citrinet residual block: ``repeat`` x (conv -> bn ->
+    relu -> dropout), the last repeat without activation, an optional
+    squeeze-excite, an optional 1x1 conv-bn residual from the block input,
+    then a final ReLU and dropout.
+
+    Citrinet's options, off by default (QuartzNet):
+
+    - ``stride_last_only``: only the last repeat strides (each repeat's same
+      padding is that of its own stride);
+    - ``squeeze_excite``: :class:`SqueezeExcite` (``se_reduction_ratio``)
+      after the conv stack, before the residual add;
+    - ``residual_stride_pow``: the residual strides by ``stride**repeat``
+      when true (QuartzNet), by ``stride`` when false (Citrinet).
+
+    The residual's stride must meet the repeats': with ``stride > 1`` and
+    ``repeat > 1``, ``stride_last_only`` goes with ``residual_stride_pow=False``
+    and the other way round; the two mismatched pairings raise ``ValueError``.
+    """
 
     def __init__(
         self,
@@ -268,33 +354,50 @@ class EncoderBlock(nn.Module):
         residual: bool = True,
         separable: bool = False,
         dropout: float = 0.0,
+        stride_last_only: bool = False,
+        squeeze_excite: bool = False,
+        se_reduction_ratio: int = 8,
+        residual_stride_pow: bool = True,
+        init_mode: str = InitMode.xavier_uniform,
         dtype=torch.float32,
     ):
         super().__init__()
+        if residual and stride > 1 and repeat > 1 and stride_last_only == residual_stride_pow:
+            raise ValueError(
+                f"EncoderBlock: stride_last_only={stride_last_only} with residual_stride_pow={residual_stride_pow} "
+                f"gives the residual a stride of {stride**repeat if residual_stride_pow else stride} and the repeats "
+                f"one of {stride if stride_last_only else stride**repeat}"
+            )
         self.repeat = repeat
         self.dropout = dropout
         for r in range(repeat):
+            last = r == repeat - 1
             rep = ConvBnAct(
                 in_features if r == 0 else features,
                 features,
                 kernel_size,
-                stride=stride,
+                stride=stride if last or not stride_last_only else 1,
                 dilation=dilation,
                 separable=separable,
-                activation=r != repeat - 1,
+                activation=not last,
                 dropout=dropout,
+                init_mode=init_mode,
                 dtype=dtype,
             )
             self.add_module(f"rep{r}", rep)
+        self.se = SqueezeExcite(features, se_reduction_ratio, dtype=dtype) if squeeze_excite else None
         self.res = None
         if residual:
-            res_stride = 1 if stride == 1 else stride**repeat
-            self.res = ConvBnAct(in_features, features, 1, stride=res_stride, activation=False, dtype=dtype)
+            res_stride = 1 if stride == 1 else stride**repeat if residual_stride_pow else stride
+            self.res = ConvBnAct(in_features, features, 1, stride=res_stride, activation=False, init_mode=init_mode,
+                                 dtype=dtype)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
         out, out_lengths = x, lengths
         for r in range(self.repeat):
             out, out_lengths = getattr(self, f"rep{r}")(out, out_lengths, train=train, generator=generator)
+        if self.se is not None:
+            out = self.se(out, out_lengths)
         if self.res is not None:
             res, _ = self.res(x, lengths, train=train)
             out = out + res

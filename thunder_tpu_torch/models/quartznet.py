@@ -7,6 +7,7 @@ Port of ``thunder_tpu/models/quartznet.py``:
   then a k=87 dilation-2 512-channel block and a 1x1 1024-channel block;
 - QuartzNet5x5 = repeat_blocks=1, QuartzNet15x5 = repeat_blocks=3;
 - ``dropout`` after each activated repeat and each block in train mode,
+  ``init_mode`` the conv kernels' :class:`~thunder_tpu_torch.models.layers.InitMode`,
   ``dtype`` the compute type (parameters stay float32).
 
 Layout ``(batch, frames, channels)``; returns ``(encoded, lengths)``.
@@ -19,7 +20,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from thunder_tpu_torch.models.layers import EncoderBlock
+from thunder_tpu_torch.models.layers import EncoderBlock, InitMode
 
 __all__ = ["QuartznetEncoder"]
 
@@ -36,6 +37,7 @@ class QuartznetEncoder(nn.Module):
         repeat_blocks: int = 1,
         repeat: int = 5,
         dropout: float = 0.0,
+        init_mode: str = InitMode.xavier_uniform,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -45,6 +47,7 @@ class QuartznetEncoder(nn.Module):
         self.repeat_blocks = repeat_blocks
         self.repeat = repeat
         self.dropout = dropout
+        self.init_mode = init_mode
         self.dtype = dtype
         blocks = [dict(features=256, repeat=1, kernel_size=33, stride=2, residual=False, separable=True)]
         for f, k in zip(self.filters, self.kernel_sizes):
@@ -54,7 +57,8 @@ class QuartznetEncoder(nn.Module):
         in_features = feat_in
         self.num_blocks = len(blocks)
         for i, cfg in enumerate(blocks):
-            self.add_module(f"block{i}", EncoderBlock(in_features, **cfg, dropout=dropout, dtype=dtype))
+            self.add_module(f"block{i}", EncoderBlock(in_features, **cfg, dropout=dropout, init_mode=init_mode,
+                                                        dtype=dtype))
             in_features = cfg["features"]
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
