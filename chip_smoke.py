@@ -13,13 +13,16 @@ Phases, each of which fails the run:
    (``thunder_tpu_torch.kernels.selftest``), one JSON line per check (the
    log-mel also at the ``frontend_log_mel_edge_*`` sizes: 44.1 and 48 kHz,
    hop 161, n_fft 4096, the dense path's n_fft 400, a row of zeros, one
-   frame);
+   frame, 66,536 rows, the wide path's n_fft 32,768; the separable repeat at
+   the ``separable_edge_*`` shapes, tap slices among them);
 4. QuartzNet15x5 greedy serving through ``CTCModule.create`` and
    ``InferenceEngine.predict`` at 64 rows x 15 s of speech-like audio, with
-   random weights (seed 0) and random BN statistics: the launch counts of
-   one forward must be 1 log-mel and 77 separable repeats; rows 0-1 are held
-   against the port's float32 CPU path (bf16-vs-f32 bound 0.1 of the logits'
-   scale); RTF = audio seconds per second of device time; one forward under
+   random weights (seed 0) and BN by ``fit_bn`` (random affines, statistics
+   fitted to 8 rows of the batch, so that the logits follow the input): the
+   launch counts of one forward must be 1 log-mel and 77 separable repeats;
+   rows 0-1 are held against the port's float32 CPU path (bf16-vs-f32 bound
+   0.1 of the logits' scale; row 0's variation over time and its argmax
+   tokens printed); RTF = audio seconds per second of device time; one forward under
    torch.profiler gives the device time by kernel and the device's idle
    share between the forward's first and last device event;
 5. each kernel's time and its plain version's at the main path's shapes; for
@@ -89,8 +92,7 @@ Phases, each of which fails the run:
    predict on the host clock; on peaked
    logits (``scripts/bench_beam_device.py::peaked_logits``: 70 % blank
    frames, peak 6, numpy seed 0) rows 0-1 must equal the port's numpy host
-   search, and on the served logits the share of rows 0-1 that agree with it
-   is printed; ``predict_long`` on a 60 s speech-like clip with the device
+   search, and so must rows 0-1 of the served logits; ``predict_long`` on a 60 s speech-like clip with the device
    beam must make one launch of each beam kernel per window and give the
    text of the same windows through the plain versions; the scan alone is
    timed on the first window's logits (B = 1, one 20 s window), and the
@@ -185,7 +187,44 @@ Phases, each of which fails the run:
     (B 16, T 188), at phase 7's tolerance. Each kernel's entry of the
     kernels line gives its launches on the Citrinet paths under
     ``citrinet_launches``, and its deviation from its plain version at
-    Citrinet's shapes under ``citrinet_max_abs_err``.
+    Citrinet's shapes under ``citrinet_max_abs_err``;
+15. wav2vec2-base at 16 x 15 s in each of the engine's modes (``W2V_MODES``:
+    float, ``posconv_dense``, ``int8_weights``, ``int8_compute`` and both
+    int8 modes): one predict must make exactly the 12 attention and 25 add +
+    LayerNorm launches and, with ``int8_compute``, 54 int8 products (4 a
+    layer and extractor convs 1-6); forward ms (CUDA events, the modes in
+    turns, median of 5), ``weight_bytes``; rows 0-1 of each mode but float
+    (phase 8 holds it) against the same mode in float32 on the CPU
+    (``LOGIT_BOUND``); a profile of two modes; one 40 s predict in
+    ``int8_weights`` + ``int8_compute`` with the same launches and the text
+    of the same predict through the plain versions;
+16. ``int8_products``: ``dynamic_int8_matmul`` at the four GEMM kinds (16 x
+    749 rows) and ``dynamic_int8_conv`` at extractor convs 1-6, through
+    ``torch._int_mm``, equal to the plain version (the float64 product) on the
+    same card inputs, exactly; times beside the bf16 ``torch.matmul`` and
+    ``conv1d`` they replace and their bounds (int8 operations at 1,979 TOP/s or
+    bytes at 3.35 TB/s), and the convs also as a sum over taps (timed only);
+17. ``conv_int8_serving``: QuartzNet15x5 (phase 4's module) and Citrinet-256
+    (phase 12's) with ``int8_weights`` at 64 x 15 s: one predict must make 1
+    log-mel and 77 (107) separable launches; forward ms beside the float
+    engine's, in turns; ``weight_bytes`` of both; rows 0-1 against the same
+    int8 engine in float32 on the CPU;
+18. ``pos_conv_fold``: wav2vec2's positional conv (k 128, 768 channels, 16
+    groups) at the train step's shape (bf16 8 x 749 from a float32
+    parameter): the grouped conv forward and forward + backward against its
+    block-diagonal dense fold built in the graph (the weight gradient read
+    back as the diagonal blocks), times and the profiler's kernels of each,
+    the fold's output and gradients within ``FOLD_GRAD_BOUND`` of the grouped
+    conv's; the serving shape (16 x 749), forward only (timing only: no path
+    changes);
+19. ``c16_shapes``: the separable repeat at the smallest k that its taps
+    take two launches at dilation 2 and C 256 (561, B 16, T 751) against its
+    plain version, timed; the log-mel at 66,536 rows of 0.1 s clips (two
+    launches over slices of rows) and at n_fft 32,768 (the wide path, two
+    launches), timed, beside their ``frontend_log_mel_edge_*`` checks. The
+    kernels line's log-mel, separable, attention and add + LayerNorm entries
+    give their launches in phases 15 and 17 (``w2v2_mode_launches``,
+    ``int8_weights_launches``) and at C16's shapes (``c16``).
 
 Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
 of its bytes (each input read once, each output written once) over 3.35
@@ -245,7 +284,13 @@ HBM_BYTES_PER_MS = 3.35e9  # 3.35 TB/s
 BF16_FLOP_PER_MS, F32_FLOP_PER_MS = 989e9, 67e9  # dense tensor-core bf16, float32 outside the tensor cores
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets ``t_s``, the seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -627,17 +672,18 @@ def peaked_logits(rng, batch, t, v, blank, blank_frac=0.7, peak=6.0):
     return logits
 
 
-def logits_vs_cpu_f32(phase: str, module, logits, out_lengths, audio, lengths) -> None:
+def logits_vs_cpu_f32(phase: str, module, logits, out_lengths, audio, lengths, **modes) -> dict:
     """Rows 0-1 of the card's bf16 logits against the port's float32 CPU path (plain versions of every
-    kernel) on the same module's weights: equal lengths, and the largest deviation over valid frames within
-    ``LOGIT_BOUND`` of the CPU logits' scale; the argmax agreement is printed."""
+    kernel) on the same module's weights, in the same serving ``modes`` of the engine: equal lengths, and the
+    largest deviation over valid frames within ``LOGIT_BOUND`` of the CPU logits' scale; the argmax agreement,
+    row 0's variation over time and its argmax tokens are printed and returned."""
     import torch
 
     from thunder_tpu_torch.engine import InferenceEngine
 
     torch.set_num_threads(8)
     t0 = time.perf_counter()
-    ref_logits, ref_lengths = InferenceEngine(module.to("cpu"))(audio[:2], lengths[:2])
+    ref_logits, ref_lengths = InferenceEngine(module.to("cpu"), **modes)(audio[:2], lengths[:2])
     cpu_seconds = time.perf_counter() - t0
     check(torch.equal(ref_lengths, out_lengths[:2].cpu()), f"lengths differ from the CPU path: {ref_lengths} vs {out_lengths[:2]}")
     got = logits[:2].float().cpu()
@@ -645,10 +691,12 @@ def logits_vs_cpu_f32(phase: str, module, logits, out_lengths, audio, lengths) -
     rel = ((got - ref_logits).abs()[valid].max() / ref_logits.abs()[valid].max()).item()
     agree = (got.argmax(-1) == ref_logits.argmax(-1))[valid].float().mean().item()
     row0 = ref_logits[0, : int(ref_lengths[0])]  # how much the logits follow the input: a flat row checks little
-    emit({"phase": phase, "rows": 2, "max_rel_dev": rel, "bound": LOGIT_BOUND, "argmax_agreement": agree,
-          "row0_time_std_over_scale": (row0.std(0).mean() / ref_logits.abs()[valid].max()).item(),
-          "row0_argmax_tokens": int(row0.argmax(-1).unique().numel()), "cpu_seconds": cpu_seconds})
-    check(rel < LOGIT_BOUND, f"bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
+    line = {"phase": phase, "rows": 2, "max_rel_dev": rel, "bound": LOGIT_BOUND, "argmax_agreement": agree,
+            "row0_time_std_over_scale": (row0.std(0).mean() / ref_logits.abs()[valid].max()).item(),
+            "row0_argmax_tokens": int(row0.argmax(-1).unique().numel()), "cpu_seconds": cpu_seconds}
+    emit(line)
+    check(rel < LOGIT_BOUND, f"{phase}: bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
+    return line
 
 
 def separable_shapes(engine, audio, lengths) -> dict:
@@ -777,13 +825,13 @@ def run() -> int:
         tt,
         device="cuda",
     )
-    randomize_bn(module)
-    engine = InferenceEngine(module)
     rng = np.random.default_rng(0)
     samples = int(SECONDS * SAMPLE_RATE)
     base = speech_like(samples, rng)
     audio = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(BATCH)])
     lengths = np.full((BATCH,), samples, dtype=np.int32)
+    fit_bn(module, audio[:8], lengths[:8])
+    engine = InferenceEngine(module)
     engine.warmup([BATCH], [SECONDS])
 
     reset_launch_counts()
@@ -867,6 +915,8 @@ def run() -> int:
 
     # ---- beam serving on the phase-4 engine, then its two kernels at the forward's shapes
     kernels.extend(beam_phase(card, engine, audio, lengths, KERNEL_CHECKS["beam_device"][1]))
+    # ---- the same QuartzNet served from int8 weights
+    int8_launches = {"quartznet": conv_int8_phase(card, "quartznet", engine, module, audio, lengths, 77)}
     del engine, module, logits
 
     # ---- wav2vec2-base training, then its kernels at the step's shapes
@@ -875,11 +925,20 @@ def run() -> int:
     # ---- Citrinet-256: greedy serving, the device beam (K = 50 and every token), predict_long, training
     citrinet_engine, c_audio, c_lengths, c_serving, c_serving_checks = citrinet_serving_phase(card)
     c_beam = citrinet_beam_phase(card, citrinet_engine, c_audio, c_lengths)
+    int8_launches["citrinet"] = conv_int8_phase(card, "citrinet", citrinet_engine, citrinet_engine.module, c_audio,
+                                                c_lengths, CITRINET_SEPARABLE)
     del citrinet_engine
     c_training, c_training_checks = citrinet_training_phase(card, KERNEL_CHECKS["ctc_recursion"][1])
     add_citrinet_launches(kernels, c_serving, c_beam, c_training)
     for entry in kernels:
         entry.update({**c_serving_checks, **c_training_checks}.get(entry["name"], {}))
+
+    # ---- the engine's serving modes: wav2vec2's five, the int8 products, the positional conv's fold, C16's shapes
+    mode_launches = wav2vec2_modes_phase(card)
+    int8_products_phase(card)
+    pos_conv_fold_phase(card)
+    c16 = c16_shapes_phase(card, checks)
+    add_mode_launches(kernels, int8_launches, mode_launches, c16)
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -1681,6 +1740,7 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
     emit({"phase": "beam_vs_host", "peaked_rows_equal": peaked_equal, "served_rows_agree_share": served_share,
           "host_seconds_two_rows": host_s})
     check(all(peaked_equal), f"device beam differs from the host search on peaked rows 0-1: {peaked_equal}")
+    check(served_share == 1.0, f"device beam differs from the host search on served rows 0-1: share {served_share}")
 
     # long audio: one launch of each beam kernel per window, the same text as the plain versions
     clip = speech_like(60 * SAMPLE_RATE, np.random.default_rng(2))
@@ -2067,6 +2127,414 @@ def add_citrinet_launches(kernels: list, serving: dict, beam: dict, training: di
             "predict_long_beam": beam["long_beam"], "train_step": training}
     for entry in kernels:
         entry["citrinet_launches"] = {run: sum(c[w] for w in wrappers[entry["name"]]) for run, c in runs.items()}
+
+
+def add_mode_launches(kernels: list, int8_launches: dict, mode_launches: dict, c16: dict) -> None:
+    """Each kernel's launches in the serving-mode phases: the conv models' ``int8_weights`` predicts (log-mel and
+    separable repeat), wav2vec2's modes (attention and add + LayerNorm), and the C16 shapes' launches a call."""
+    wrappers = {"log_mel": "fused_log_mel", "separable_repeat": "fused_separable_repeat",
+                "mha_from_qkv": "mha_from_qkv", "add_layer_norm": "add_layer_norm"}
+    for entry in kernels:
+        wrapper = wrappers.get(entry["name"])
+        if wrapper is None:
+            continue
+        entry["int8_weights_launches"] = {model: c[wrapper] for model, c in int8_launches.items()}
+        entry["w2v2_mode_launches"] = {mode: c[wrapper] for mode, c in mode_launches.items()}
+    for entry in kernels:
+        if entry["name"] == "separable_repeat":
+            entry["c16"] = {k: c16["separable"][k] for k in ("k", "dilation", "C", "launches", "ulp", "ms", "plain_ms",
+                                                             "bound_ms")}
+        elif entry["name"] == "log_mel":
+            entry["c16"] = {name: {k: v[k] for k in ("batch", "launches", "ms", "check_max_abs_err")}
+                            for name, v in c16["log_mel"].items()}
+
+
+# ---- the engine's serving modes (phases 15-19)
+
+#: the wav2vec2 engine's modes: name -> InferenceEngine keywords
+W2V_MODES = {
+    "float": {},
+    "posconv_dense": dict(posconv_dense=True),
+    "int8_weights": dict(int8_weights=True),
+    "int8_compute": dict(int8_compute=True),
+    "int8_both": dict(int8_weights=True, int8_compute=True),
+}
+INT8_MODE_FOR_LONG_CLIP = "int8_both"
+#: the fold's output and its input and weight gradients against the same conv in float32 on the same bf16 values
+#: (max |difference| / max |float32|): bf16 products, float32 sums over 128 x 48 terms (grouped) or 128 x 768
+#: (dense, 720 of them zeros), outputs rounded to bf16; against the grouped conv's, that bound plus the grouped
+#: conv's own distance from float32
+FOLD_GRAD_BOUND = 0.02
+INT8_TOPS_PER_MS = 1979e9  # dense int8 tensor-core operations
+
+
+def int8_bound(n_bytes: float, int8_ops: float) -> dict:
+    """``bound`` for an int8 product: its bytes over the memory rate, its int8 operations over the int8 peak."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_MS, int8_ops / INT8_TOPS_PER_MS
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Route the int8 products (``quantization.int8_mm``) through their plain version, on the same device."""
+    from thunder_tpu_torch import quantization
+
+    saved = quantization.int8_mm
+    quantization.int8_mm = quantization.int8_mm_reference
+    try:
+        yield
+    finally:
+        quantization.int8_mm = saved
+
+
+def wav2vec2_modes_phase(card: str) -> dict:
+    """wav2vec2-base at W2V_BATCH x W2V_SECONDS in each of ``W2V_MODES`` (phase 15 of the module docstring): per
+    mode the launches of one predict (the serving kernels, 12 + 25) and its int8 products, forward ms (CUDA
+    events, mean of 5, the modes timed in turns), ``weight_bytes`` and, but for float mode (phase 8 holds it),
+    rows 0-1 against the same mode in float32 on the CPU; then a 40 s predict in ``INT8_MODE_FOR_LONG_CLIP``
+    against the same predict through the plain versions. Returns each mode's launch counts, for the kernels
+    line."""
+    import torch
+
+    from thunder_tpu_torch import quantization
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    tt = BatchTextTransformer(W2V_VOCAB)
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(tt.num_tokens), tt, device="cuda")
+    cfg = module.model.encoder.config
+    rng = np.random.default_rng(1)  # phase 8's batch
+    samples = int(W2V_SECONDS * SAMPLE_RATE)
+    base = speech_like(samples, rng)
+    audio = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(W2V_BATCH)])
+    lengths = np.full((W2V_BATCH,), samples, dtype=np.int32)
+    audio_d, lengths_d = torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda")
+    layers = cfg.num_hidden_layers
+    want = expected_counts(mha_from_qkv=layers, add_layer_norm=2 * layers + 1)
+    engines, counts, lines = {}, {}, {}
+    for name, modes in W2V_MODES.items():
+        t0 = time.perf_counter()
+        engine = engines[name] = InferenceEngine(module, **modes)
+        create_s = time.perf_counter() - t0
+        engine.warmup([W2V_BATCH], [W2V_SECONDS])
+        reset_launch_counts()
+        products = quantization.int8_mm.launches
+        texts = engine.predict(audio, lengths)
+        torch.cuda.synchronize()
+        counts[name] = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        int8_products = quantization.int8_mm.launches - products
+        want_products = 4 * layers + sum(d >= 64 for d in cfg.conv_dim[:-1]) if modes.get("int8_compute") else 0
+        check(counts[name] == want, f"one wav2vec2 predict in mode {name} must launch {want}, got {counts[name]}")
+        check(int8_products == want_products,
+              f"mode {name}: {int8_products} int8 products a predict, expected {want_products}")
+        check(len(texts) == W2V_BATCH and all(set(t) <= set(W2V_VOCAB) for t in texts),
+              f"mode {name}: transcripts outside the vocabulary")
+        logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+        check(bool(torch.isfinite(logits).all()), f"mode {name}: logits not finite")
+        lines[name] = {"weight_bytes": engine.weight_bytes(), "int8_products_per_forward": int8_products,
+                       "create_s": create_s}
+        if name != "float":
+            lines[name]["vs_cpu_f32"] = logits_vs_cpu_f32(f"w2v2_mode_{name}_vs_cpu_f32", module, logits,
+                                                          out_lengths, audio, lengths, **modes)
+    # forward ms, the modes in turns (all once, then again, ...), so that drift falls on each
+    runs = spread_ms({name: (lambda e=engine: e.infer(audio_d, lengths_d)) for name, engine in engines.items()}, 3)
+    for name in W2V_MODES:
+        lines[name].update(forward_ms=runs[name]["median"], forward_ms_runs=runs[name]["runs"])
+        emit({"phase": "w2v2_serving_mode", "mode": name, "batch": W2V_BATCH, "seconds": W2V_SECONDS,
+              "launches": {k: v for k, v in counts[name].items() if v}, **lines[name], "card": card})
+    emit({"phase": "w2v2_mode_profile", "mode": INT8_MODE_FOR_LONG_CLIP,
+          **device_profile(lambda: engines[INT8_MODE_FOR_LONG_CLIP].infer(audio_d, lengths_d))})
+    emit({"phase": "w2v2_mode_profile", "mode": "posconv_dense",
+          **device_profile(lambda: engines["posconv_dense"].infer(audio_d, lengths_d))})
+
+    # a 40 s clip (T = 1999) in an int8 mode, against the same predict through the plain versions
+    engine = engines[INT8_MODE_FOR_LONG_CLIP]
+    clip = speech_like(LONG_CLIP_SECONDS * SAMPLE_RATE, np.random.default_rng(3))
+    clip_args = (clip[None], np.array([clip.shape[0]], np.int32))
+    reset_launch_counts()
+    clip_text = engine.predict(clip)[0]
+    torch.cuda.synchronize()
+    clip_counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    clip_logits, _, clip_lengths = engine.infer(*clip_args)
+    with plain_wav2vec2(), plain_int8():
+        plain_logits, _, _ = engine.infer(*clip_args)
+        clip_plain = engine.predict(clip)[0]
+    rel = ((clip_logits - plain_logits).abs().max() / plain_logits.abs().max()).item()
+    emit({"phase": "w2v2_mode_predict_40s", "mode": INT8_MODE_FOR_LONG_CLIP, "frames": int(clip_lengths[0]),
+          "launches": {k: v for k, v in clip_counts.items() if v}, "equal_to_plain": clip_text == clip_plain,
+          "logits_max_rel_dev_vs_plain": rel, "chars": len(clip_text)})
+    check(clip_counts == want, f"the 40 s predict in {INT8_MODE_FOR_LONG_CLIP} must launch {want}, got {clip_counts}")
+    check(clip_text == clip_plain and rel < LOGIT_BOUND,
+          f"the 40 s int8 predict differs from the plain versions': text equal {clip_text == clip_plain}, {rel}")
+    counts["predict_40s_" + INT8_MODE_FOR_LONG_CLIP] = clip_counts
+    return counts
+
+
+def conv_taps_int8(x, kernel_q8, kernel_scale, stride: int):
+    """``dynamic_int8_conv`` as a sum over the taps of one int8 product each on the strided rows of the input
+    (the alternative to the port's im2col, timed here only)."""
+    import torch
+
+    from thunder_tpu_torch.quantization import _quantize_rows, int8_mm
+
+    batch, t_in, c_in = x.shape
+    taps = kernel_q8.shape[0]
+    t_out = (t_in - taps) // stride + 1
+    xq, s = _quantize_rows(x, (1, 2))
+    acc = None
+    for j in range(taps):
+        rows = xq[:, j: j + stride * (t_out - 1) + 1: stride].reshape(batch * t_out, c_in)
+        part = int8_mm(rows, kernel_q8[j])
+        acc = part if acc is None else acc.add_(part)
+    return acc.float().reshape(batch, t_out, -1) * s * kernel_scale
+
+
+def int8_products_phase(card: str) -> dict:
+    """The int8 products at wav2vec2-base's serving shapes (phase 16 of the module docstring): the four GEMM kinds
+    at 16 x 749 rows and extractor convs 1-6 at 16 x 15 s, each through ``torch._int_mm`` against its plain
+    version (the float64 product) on the same card inputs, exactly; its time beside the bf16 product it replaces
+    and its bound. For the convs also the sum over taps (``conv_taps_int8``), the formulation the port does not
+    take, and which is faster."""
+    import torch
+
+    from thunder_tpu_torch import quantization
+    from thunder_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from thunder_tpu_torch.ops.conv import conv1d
+
+    cfg = Wav2Vec2Config()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = W2V_BATCH * 749
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    lines = []
+
+    def weights(shape):  # int8 in the layout the engine keeps (column-major), its scale, and the bf16 weight
+        w = torch.randn(shape, device="cuda", generator=gen) * 0.05
+        q, scale = quantization.quantize_array(w)
+        q = quantization.column_major(torch.as_tensor(q, device="cuda"))
+        return q, torch.as_tensor(scale.reshape(-1), device="cuda"), w.to(torch.bfloat16)
+
+    for name, k, n in (("qkv_proj", h, 3 * h), ("out_proj", h, h), ("intermediate_dense", h, ffn),
+                       ("output_dense", ffn, h)):
+        x = torch.randn((rows, k), device="cuda", generator=gen).to(torch.bfloat16)
+        q, scale, w = weights((k, n))
+        got = quantization.dynamic_int8_matmul(x, q, scale)
+        with plain_int8():
+            want = quantization.dynamic_int8_matmul(x, q, scale)
+        dev = (got - want).abs().max().item()
+        ms, bf16_ms = paired_ms(lambda: quantization.dynamic_int8_matmul(x, q, scale), lambda: torch.matmul(x, w), 20)
+        xq = torch.randint(-127, 128, (rows, k), generator=gen, device="cuda", dtype=torch.int8)
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, q), 20)
+        q_rows = q.contiguous()  # row-major: the layout the card takes slower
+        int_mm_row_major_ms = cuda_ms(lambda: torch._int_mm(xq, q_rows), 20)
+        lines.append({"product": name, "M": rows, "K": k, "N": n, "max_abs_dev_vs_plain": dev, "bound_dev": 0.0,
+                      "ms": ms, "int_mm_ms": int_mm_ms, "int_mm_row_major_weight_ms": int_mm_row_major_ms,
+                      "bf16_matmul_ms": bf16_ms,
+                      **int8_bound(2 * rows * k + k * n + 4 * n + 4 * rows * n, 2.0 * rows * k * n)})
+    t = int(W2V_SECONDS * SAMPLE_RATE)
+    t = (t - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
+    for i, (c_in, c_out, k, stride) in enumerate(zip(cfg.conv_dim[:-1], cfg.conv_dim[1:], cfg.conv_kernel[1:],
+                                                     cfg.conv_stride[1:]), start=1):
+        t_out = (t - k) // stride + 1
+        x = torch.randn((W2V_BATCH, t, c_in), device="cuda", generator=gen).to(torch.bfloat16)
+        q, scale, w = weights((k, c_in, c_out))
+        got = quantization.dynamic_int8_conv(x, q, scale, stride)
+        taps = conv_taps_int8(x, q, scale, stride)
+        with plain_int8():
+            want = quantization.dynamic_int8_conv(x, q, scale, stride)
+        dev = max((got - want).abs().max().item(), (taps - want).abs().max().item())
+        ms, bf16_ms = paired_ms(lambda: quantization.dynamic_int8_conv(x, q, scale, stride),
+                                lambda: conv1d(x, w, stride=stride), 10)
+        taps_ms, _ = paired_ms(lambda: conv_taps_int8(x, q, scale, stride), lambda: conv1d(x, w, stride=stride), 10)
+        lines.append({"product": f"extractor_conv{i}", "B": W2V_BATCH, "T_in": t, "T_out": t_out, "k": k,
+                      "stride": stride, "C_in": c_in, "C_out": c_out, "max_abs_dev_vs_plain": dev, "bound_dev": 0.0,
+                      "ms": ms, "taps_ms": taps_ms, "bf16_conv_ms": bf16_ms,
+                      **int8_bound(2 * W2V_BATCH * t * c_in + k * c_in * c_out + 4 * c_out
+                                   + 4 * W2V_BATCH * t_out * c_out, 2.0 * W2V_BATCH * t_out * k * c_in * c_out)})
+        t = t_out
+    line = {"phase": "int8_products", "route": "torch._int_mm (cuBLASLt int8 GEMM, int32 sums) after the float32 "
+                                                "quantize passes; not a kernel of this repository",
+            "plain": "the same quantize passes, then the float64 product (exact)", "products": lines,
+            "im2col_faster_than_taps": sum(p["ms"] for p in lines if "taps_ms" in p)
+                                       <= sum(p["taps_ms"] for p in lines if "taps_ms" in p), "card": card}
+    emit(line)
+    worst = max(p["max_abs_dev_vs_plain"] for p in lines)
+    check(worst == 0.0, f"an int8 product differs from its plain version by {worst}")
+    return line
+
+
+def conv_int8_phase(card: str, name: str, engine, module, audio: np.ndarray, lengths: np.ndarray,
+                    separable: int) -> dict:
+    """A conv model's ``int8_weights`` engine beside its float engine ``engine`` on the same module (phase 17 of
+    the module docstring): one predict's launches (1 log-mel and ``separable`` separable repeats), forward ms of
+    both in turns, ``weight_bytes`` of both, rows 0-1 against the same int8 engine in float32 on the CPU. Returns
+    the launch counts."""
+    import torch
+
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+
+    q8 = InferenceEngine(module, int8_weights=True)
+    q8.warmup([BATCH], [SECONDS])
+    reset_launch_counts()
+    texts = q8.predict(audio, lengths)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    want = expected_counts(fused_log_mel=1, fused_separable_repeat=separable)
+    check(counts == want, f"one {name} int8_weights predict must launch {want}, got {counts}")
+    check(len(texts) == BATCH, f"{name} int8: {len(texts)} transcripts")
+    audio_d, lengths_d = torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda")
+    logits, _, out_lengths = q8.infer(audio_d, lengths_d)
+    check(bool(torch.isfinite(logits).all()), f"{name} int8 logits not finite")
+    runs = spread_ms({"float": lambda: engine.infer(audio_d, lengths_d), "int8_weights": lambda: q8.infer(audio_d,
+                                                                                                        lengths_d)}, 10)
+    line = {"phase": "conv_int8_serving", "model": name, "batch": BATCH, "seconds": SECONDS,
+            "forward_ms": runs["int8_weights"]["median"], "float_forward_ms": runs["float"]["median"],
+            "forward_ms_runs": runs["int8_weights"]["runs"], "float_forward_ms_runs": runs["float"]["runs"],
+            "weight_bytes": q8.weight_bytes(), "float_weight_bytes": engine.weight_bytes(),
+            "launches": {k: v for k, v in counts.items() if v}, "card": card}
+    line["weight_bytes_ratio"] = line["weight_bytes"] / line["float_weight_bytes"]
+    emit(line)
+    logits_vs_cpu_f32(f"{name}_int8_vs_cpu_f32", module, logits, out_lengths, audio, lengths, int8_weights=True)
+    return counts
+
+
+def pos_conv_fold_phase(card: str) -> dict:
+    """The wav2vec2 positional conv (k 128, 768 channels, 16 groups) at the train step's shape, bf16 (8, 749,
+    768) from a float32 parameter, as the step runs it: the grouped conv forward, and forward + backward (input
+    and weight gradients); its block-diagonal dense fold built from the grouped parameter inside the graph,
+    forward, and forward + backward (the weight gradient reaches the grouped parameter as the diagonal blocks);
+    both against the grouped conv in float32 on the same bf16 values, the fold within ``FOLD_GRAD_BOUND`` of
+    it, and of the grouped conv within that plus the grouped conv's own deviation; each timed with CUDA events
+    and its kernels named by the profiler. Then the serving shape (16, 749), forward only, both ways. Timing only:
+    the training path does not change (phase 18 of the module docstring)."""
+    import torch
+
+    from thunder_tpu_torch.kernels.compare_builds import device_ms_by_kernel
+    from thunder_tpu_torch.ops.conv import conv1d
+
+    taps, h, groups = 128, 768, 16
+    gs = h // groups
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    kernel = (torch.randn((taps, gs, h), device="cuda", generator=gen) * gs ** -0.5 / taps ** 0.5).requires_grad_()
+    bias = torch.zeros(h, device="cuda", requires_grad=True)
+
+    def grouped(x):
+        return conv1d(x, kernel.to(torch.bfloat16), bias.to(torch.bfloat16), padding=taps // 2, groups=groups)[
+            :, : x.shape[1]]
+
+    def folded(x):
+        w = kernel.to(torch.bfloat16).reshape(taps, gs, groups, gs)
+        eye = torch.eye(groups, device="cuda", dtype=torch.bfloat16)
+        dense = torch.einsum("kigj,gh->kgihj", w, eye).reshape(taps, h, h)  # block g: w[:, :, g gs:(g+1) gs]
+        return conv1d(x, dense, bias.to(torch.bfloat16), padding=taps // 2)[:, : x.shape[1]]
+
+    out = {}
+    for shape_name, batch, train in (("train_step", W2V_TRAIN_BATCH, True), ("serving", W2V_BATCH, False)):
+        x = torch.randn((batch, 749, h), device="cuda", generator=gen).to(torch.bfloat16)
+        cot = torch.randn((batch, 749, h), device="cuda", generator=gen).to(torch.bfloat16)
+        xg = x.clone().requires_grad_(train)
+        line = {"B": batch, "T": 749}
+        for name, conv in (("grouped", grouped), ("fold", folded)):
+            def forward(conv=conv):
+                with torch.set_grad_enabled(train):
+                    return conv(xg)
+
+            line[f"{name}_forward_ms"] = cuda_ms(forward, 10)
+            line[f"{name}_forward_kernels"] = device_ms_by_kernel(forward, 2)
+            if train:
+                def step(conv=conv):
+                    kernel.grad = bias.grad = xg.grad = None
+                    conv(xg).backward(cot)
+
+                line[f"{name}_forward_backward_ms"] = cuda_ms(step, 5)
+                line[f"{name}_forward_backward_kernels"] = device_ms_by_kernel(step, 1)
+                step()
+                line[f"{name}_grads"] = (xg.grad.float().clone(), kernel.grad.clone())
+        # the same conv in float32 (TF32 off) on the same bf16 input, weights and cotangent
+        x32 = x.float().requires_grad_(train)
+        k32 = kernel.detach().to(torch.bfloat16).float().requires_grad_(train)
+        with torch.set_grad_enabled(train):
+            y32 = conv1d(x32, k32, bias.detach().to(torch.bfloat16).float(), padding=taps // 2, groups=groups)[
+                :, : x.shape[1]]
+            if train:
+                y32.backward(cot.float())
+        rel = lambda a, b: ((a.float() - b).abs().max() / b.abs().max()).item()  # noqa: E731
+        with torch.no_grad():
+            y_grouped, y_fold = (conv(xg) for conv in (grouped, folded))
+        y32 = y32.detach()
+        line.update(forward_fold_vs_grouped=rel(y_fold, y_grouped.float()), forward_fold_vs_f32=rel(y_fold, y32),
+                    forward_grouped_vs_f32=rel(y_grouped, y32), bound=FOLD_GRAD_BOUND)
+        devs = [line["forward_fold_vs_f32"]]
+        limits = [FOLD_GRAD_BOUND]
+        if train:
+            (dx_g, dw_g), (dx_f, dw_f) = line.pop("grouped_grads"), line.pop("fold_grads")
+            for name, g, f, ref in (("dx", dx_g, dx_f, x32.grad), ("dw", dw_g, dw_f, k32.grad)):
+                line[f"{name}_fold_vs_grouped"] = rel(f, g)
+                line[f"{name}_fold_vs_f32"] = rel(f, ref)
+                line[f"{name}_grouped_vs_f32"] = rel(g, ref)
+                devs += [line[f"{name}_fold_vs_f32"], line[f"{name}_fold_vs_grouped"]]
+                limits += [FOLD_GRAD_BOUND, line[f"{name}_grouped_vs_f32"] + FOLD_GRAD_BOUND]
+        out[shape_name] = line
+        emit({"phase": "pos_conv_fold", "shape": shape_name, **line, "card": card})
+        check(all(d <= limit for d, limit in zip(devs, limits)),
+              f"pos_conv_fold at {shape_name}: the fold's deviations {devs} over their bounds {limits}")
+    return out
+
+
+def c16_shapes_phase(card: str, checks: list) -> dict:
+    """C16 (phase 19 of the module docstring): the shapes the kernels refused before they ran over slices. The
+    separable repeat at the smallest k whose span does not fit beside 64 channels at dilation 2 and C 256 (the
+    ``separable_edge_taps561`` check holds it to its plain version), timed at B 16, T 751 against its plain
+    version; the log-mel at 65,536 + 1,000 rows of 0.1 s clips and at n_fft 32,768 (the ``frontend_log_mel_edge_*``
+    checks hold them to their plain versions), timed, with the launches a call."""
+    import torch
+
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_plan
+    from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, _separable_case, ulp_bf16_error
+    from thunder_tpu_torch.kernels.separable_conv import (
+        fused_separable_repeat,
+        separable_plan,
+        separable_repeat_reference,
+    )
+
+    by_name = {c["name"]: c for c in checks}
+    k_min = next(k for k in range(400, 2000) if separable_plan(256, k, 1, 2)["tap_slices"] > 1)
+    check(k_min == 561, f"the smallest k taken over tap slices at dilation 2 is {k_min}, not the checks' 561")
+    case = _separable_case(58, 16, 751, 256, 256, k_min, dilation=2, device="cuda")
+    before = fused_separable_repeat.launches
+    got = fused_separable_repeat(**case)
+    launches = fused_separable_repeat.launches - before
+    ulp = ulp_bf16_error(got, separable_repeat_reference(**case))
+    ms, plain_ms = paired_ms(lambda: fused_separable_repeat(**case), lambda: separable_repeat_reference(**case), 5)
+    work = separable_bound(16, 751, 751, 256, 256, k_min)
+    separable = {"k": k_min, "dilation": 2, "C": 256, "B": 16, "T": 751, "plan": separable_plan(256, k_min, 1, 2),
+                 "launches": launches, "ulp": ulp, "ms": ms, "plain_ms": plain_ms,
+                 **bound(work["bytes"], work["bf16_flop"], work["f32_flop"])}
+    check(ulp <= 8.0 and launches == separable["plan"]["launches"], f"separable at k {k_min}: {separable}")
+    log_mel = {}
+    for name, batch, samples, kw in (("rows66536", 65536 + 1000, 1600, {}),
+                                     ("n_fft32768", 2, 48000, dict(n_fft=32768, hop_length=4096, win_length=16384,
+                                                                   n_mels=128))):
+        audio = torch.randn((batch, samples), device="cuda").mul_(0.2)
+        before = fused_log_mel.launches
+        fused_log_mel(audio, **kw)
+        launches = fused_log_mel.launches - before
+        ms = cuda_ms(lambda: fused_log_mel(audio, **kw), 3)
+        result = by_name[f"frontend_log_mel_edge_{'rows66536' if name == 'rows66536' else 'wide32768'}"]
+        log_mel[name] = {"batch": batch, "samples": samples, **kw, "launches": launches, "ms": ms,
+                         "plan": log_mel_plan(kw.get("n_fft", 512), kw.get("hop_length", 160),
+                                              kw.get("win_length", 320), kw.get("n_mels", 64)),
+                         "check_max_abs_err": result["max_abs_err"], "tol": KERNEL_CHECKS[result["name"]][1]}
+        check(result["ok"] and launches == 2, f"log-mel at {name}: {log_mel[name]}")
+        del audio
+    line = {"phase": "c16_shapes", "separable": separable, "log_mel": log_mel, "card": card}
+    emit(line)
+    return line
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -19,7 +19,12 @@ the scan's plan held to the kernel's, and a beam
 ``predict`` on the card makes one launch of each; the backtrace is held to the
 plain walk at its edges (slots outside [0, W), T = 0, 200 rows, spans off 16
 bytes, rows past one span) with the mirror of its plan held to the kernel's;
-the keep mask to its plain version at d = 1, 36, 768, 2056.
+the keep mask to its plain version at d = 1, 36, 768, 2056. The engine's
+serving modes run on a small wav2vec2 (each mode) and QuartzNet
+(``int8_weights``) against the same mode on the CPU; ``int8_mm`` and the
+dynamic int8 products equal their plain versions and the CPU's bit for bit;
+the separable repeat's tap slices and the log-mel's wide path (C16) are held
+to their plain versions.
 The training attention and add + dropout + LayerNorm kernels are held to
 their plain versions, forward and backward, at odd sizes (T = 1, 31, 749,
 1536, a row of length 0; row counts that are no multiple of a block, D = 128
@@ -237,26 +242,44 @@ def test_separable_repeat_ragged_shapes_on_card(cuda, b, t, c, co, k, stride, di
 
 
 def test_separable_repeat_plan_and_refusal_on_card(cuda):
-    from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat, separable_plan
+    from thunder_tpu_torch.kernels.selftest import _separable_case, ulp_bf16_error
+    from thunder_tpu_torch.kernels.separable_conv import (
+        fused_separable_repeat,
+        separable_plan,
+        separable_repeat_reference,
+    )
 
     # QuartzNet's widths keep two blocks on an SM (one's depthwise beside the other's products)
     for c_in, k, dilation in ((256, 39, 1), (512, 87, 1), (512, 87, 2)):
         plan = separable_plan(c_in, k, 1, dilation)
         assert plan["blocks_per_sm"] == 2 and plan["smem_bytes"] <= 115712, (c_in, k, plan)
+        assert plan["tap_slices"] == 1 and plan["taps"] == k and plan["launches"] == 1
     assert separable_plan(1024, 33)["blocks_per_sm"] == 1 and separable_plan(1024, 33)["parts"] == 1
     # an A tile past one block: launches over even slices of C_in, multiples of 64 channels
     assert {k: separable_plan(2048, 33)[k] for k in ("parts", "part")} == {"parts": 2, "part": 1024}
     assert {k: separable_plan(1544, 33)[k] for k in ("parts", "part")} == {"parts": 2, "part": 832}
-    # a span too long for even 64 channels raises, and launches nothing
+    # C16: the smallest k whose span does not fit beside 64 channels at dilation 2 is 561 (k rounds up to 568
+    # taps in the span); from there the taps go in slices of 560, and the launch gives the plain version's result
+    assert separable_plan(256, 560, 1, 2)["tap_slices"] == 1
+    assert {k: separable_plan(256, 561, 1, 2)[k] for k in ("taps", "tap_slices", "launches")} == {
+        "taps": 560, "tap_slices": 2, "launches": 2 * separable_plan(256, 561, 1, 2)["parts"]}
     k = 1501
-    assert separable_plan(64, k, 1, 2)["smem_bytes"] == 0
+    plan = separable_plan(64, k, 1, 2)
+    assert plan["smem_bytes"] > 0 and plan["tap_slices"] == 3, plan
+    case = _separable_case(57, 2, 300, 64, 64, k, dilation=2, device="cuda", lengths=[300, 120])
+    before = fused_separable_repeat.launches
+    got = fused_separable_repeat(**case)
+    assert fused_separable_repeat.launches == before + plan["launches"]
+    assert ulp_bf16_error(got, separable_repeat_reference(**case)) <= 8.0
+    # a span too long for even 8 taps beside 64 channels (dilation 300) raises, and launches nothing
+    assert separable_plan(64, 9, 1, 300)["smem_bytes"] == 0
     x = torch.zeros((1, 64, 64), dtype=torch.bfloat16, device="cuda")
-    dw = torch.zeros((k, 64), dtype=torch.bfloat16, device="cuda")
+    dw = torch.zeros((9, 64), dtype=torch.bfloat16, device="cuda")
     pw = torch.zeros((64, 64), dtype=torch.bfloat16, device="cuda")
     before = fused_separable_repeat.launches
     with pytest.raises(ValueError, match="shared memory"):
         fused_separable_repeat(x, torch.full((1,), 64, dtype=torch.int32, device="cuda"), dw, pw,
-                               torch.zeros(64, device="cuda"), k, dilation=2)
+                               torch.zeros(64, device="cuda"), 9, dilation=300)
     assert fused_separable_repeat.launches == before
 
 
@@ -306,11 +329,15 @@ def test_log_mel_plan_paths_and_refusals_launch_nothing(cuda):
     assert log_mel_plan(512, 100000, 320, 64)["frames"] == 1
     for args in ((512, 160, 600, 64), (512, 0, 320, 64), (512, 160, 0, 64), (512, 160, 320, 0), (1, 1, 1, 1)):
         assert log_mel_plan(*args)["smem_bytes"] == 0, args
-    big = log_mel_plan(120000, 160, 400, 64)  # one frame's power row alone is over 227 KB
-    assert big["path"] == "dense" and big["smem_bytes"] == 0
+    # C16: one frame's power row alone is over 227 KB: the wide path, whose power launch holds the span only
+    assert log_mel_plan(120000, 160, 400, 64) == {"path": "wide", "smem_bytes": 4 * (15 * 160 + 400), "frames": 16,
+                                                 "threads": 256}
+    assert log_mel_plan(32768, 4096, 16384, 128)["path"] == "wide"
+    big = log_mel_plan(120000, 160, 60000, 64)  # one frame's span is over 227 KB
+    assert big["path"] == "wide" and big["smem_bytes"] == 0
     before = fused_log_mel.launches
     with pytest.raises(ValueError, match="shared memory"):
-        fused_log_mel(torch.zeros((1, 200000), device="cuda"), n_fft=120000, win_length=400)
+        fused_log_mel(torch.zeros((1, 200000), device="cuda"), n_fft=120000, win_length=60000)
     with pytest.raises(RuntimeError, match="reflect pad"):
         fused_log_mel(torch.zeros((1, 256), device="cuda"))
     assert fused_log_mel.launches == before
@@ -916,3 +943,116 @@ def test_small_wav2vec2_train_step_on_card_launches_the_training_kernels(cuda):
     key = frozen + "conv0.kernel"
     torch.testing.assert_close(after[key], before[key] * (1 - 1e-3 * 1e-2), rtol=1e-6, atol=0)
     assert not torch.equal(after[key], before[key])
+
+
+@pytest.mark.parametrize("mode", [dict(posconv_dense=True), dict(int8_weights=True), dict(int8_compute=True),
+                                  dict(int8_weights=True, int8_compute=True)], ids=lambda m: "+".join(m))
+def test_small_wav2vec2_serving_modes_on_card_match_cpu(cuda, mode):
+    """The engine's serving modes on a small wav2vec2 (64-channel extractor, so that ``int8_compute`` takes its
+    convs 1 and 2): the same kernel launches as float mode, the int8 products through ``torch._int_mm``, within
+    0.1 of the same mode in float32 on the CPU."""
+    from thunder_tpu_torch import quantization
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+
+    config = Wav2Vec2Config(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                            conv_dim=(64, 64, 64), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+                            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(config), LinearDecoder(32), device="cuda")
+    audio = (np.random.default_rng(0).standard_normal((3, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000, 400], np.int32)
+    engine = InferenceEngine(module, **mode)
+    reset_launch_counts()
+    products = quantization.int8_mm.launches
+    got, got_lens = engine(audio, lengths)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    assert {k: v for k, v in counts.items() if v} == {"mha_from_qkv": 2, "add_layer_norm": 5}
+    assert quantization.int8_mm.launches - products == (4 * 2 + 2 if mode.get("int8_compute") else 0)
+    want, want_lens = InferenceEngine(module.to("cpu"), **mode)(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    dev = (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max()
+    assert dev < 0.1  # bf16 on the card against float32 on the CPU
+
+
+def test_small_quartznet_int8_weights_on_card_match_cpu(cuda):
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import fused_log_mel, fused_separable_repeat, reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(),
+                              QuartznetEncoder(repeat=2, filters=(256,), kernel_sizes=(33,)), Conv1dDecoder(29),
+                              device="cuda")
+    audio = (np.random.default_rng(0).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000], np.int32)
+    engine = InferenceEngine(module, int8_weights=True)
+    assert engine.weight_bytes() < 0.6 * InferenceEngine(module).weight_bytes()
+    reset_launch_counts()
+    got, got_lens = engine(audio, lengths)
+    assert (fused_log_mel.launches, fused_separable_repeat.launches) == (1, 4)
+    want, want_lens = InferenceEngine(module.to("cpu"), int8_weights=True)(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    dev = (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max()
+    assert dev < 0.1
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 768, 2304), (16, 768, 768), (17, 3072, 768), (11984, 768, 3072),
+                                   (5, 13, 3)])
+def test_int8_mm_on_card_is_the_exact_product(cuda, m, k, n):
+    """``torch._int_mm`` through ``int8_mm``'s padding (rows to 17, widths to multiples of 8) equals the plain
+    version's int64 product on the same card tensors, bit for bit."""
+    from thunder_tpu_torch import quantization
+
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    before = quantization.int8_mm.launches
+    got = quantization.int8_mm(a, b)
+    assert quantization.int8_mm.launches == before + 1 and got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, quantization.int8_mm_reference(a, b))
+
+
+@pytest.mark.parametrize("kind", ["matmul", "conv"])
+def test_dynamic_int8_products_on_card_equal_the_cpu(cuda, kind):
+    """The float32 quantize passes, the exact integer product and the float32 rescale are each correctly rounded
+    elementwise, so the card's dynamic products equal the CPU's bit for bit on the same input."""
+    from thunder_tpu_torch import quantization
+
+    rng = np.random.default_rng(1)
+    if kind == "matmul":
+        x = torch.as_tensor(rng.standard_normal((300, 768)).astype(np.float32)).to(torch.bfloat16)
+        q, scale = quantization.quantize_array(rng.standard_normal((768, 3072)).astype(np.float32) * 0.05)
+        args = (torch.as_tensor(q), torch.as_tensor(scale.reshape(-1)))
+        fn = quantization.dynamic_int8_matmul
+    else:
+        x = torch.as_tensor(rng.standard_normal((2, 999, 512)).astype(np.float32)).to(torch.bfloat16)
+        q, scale = quantization.quantize_array(rng.standard_normal((3, 512, 512)).astype(np.float32) * 0.05)
+        args = (torch.as_tensor(q), torch.as_tensor(scale.reshape(-1)), 2)
+        fn = quantization.dynamic_int8_conv
+    got = fn(x.cuda(), *(a.cuda() if isinstance(a, torch.Tensor) else a for a in args))
+    assert torch.equal(got.cpu(), fn(x, *args))
+
+
+def test_log_mel_wide_path_at_an_fft_size_of_no_power_of_two_on_card(cuda):
+    """C16: the wide path with n_fft 30,000 (the basis's phase step mod n_fft rounds 2 r / n_fft) against the
+    plain version, at 2e-3, in two launches."""
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel, log_mel_plan, log_mel_reference
+    from thunder_tpu_torch.kernels.selftest import exact_float32
+
+    exact_float32()
+    kw = dict(n_fft=30000, hop_length=3000, win_length=15000, n_mels=80)
+    assert log_mel_plan(30000, 3000, 15000, 80)["path"] == "wide"
+    audio = torch.as_tensor(np.random.default_rng(2).standard_normal((3, 40000)).astype(np.float32) * 0.2,
+                            device="cuda")
+    before = fused_log_mel.launches
+    got = fused_log_mel(audio, **kw)
+    assert fused_log_mel.launches == before + 2
+    assert (got - log_mel_reference(audio, **kw)).abs().max().item() <= 2e-3

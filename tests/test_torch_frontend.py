@@ -4,8 +4,10 @@ On the CPU the ``fused_log_mel`` wrapper runs its plain version; it is held
 against the JAX Pallas kernel in interpret mode and against the JAX XLA
 pipeline at 2e-3 absolute (the on-chip ``frontend_log_mel`` tolerance), at
 the path's default and at 44.1 kHz (hop 441, n_fft 2048), 48 kHz (hop 480,
-win 1200), hop 161 and the dense path's n_fft 400. The whole
-``FilterbankFeatures`` module is held at 1e-4 (float32 on both sides).
+win 1200), hop 161 and the dense path's n_fft 400; at n_fft 32,768 and
+20,000 (the card kernel's wide path) against the XLA pipeline through
+``jnp.fft.rfft``. The whole ``FilterbankFeatures`` module is held at 1e-4
+(float32 on both sides).
 
 The kernel's host tables are checked here (the mel bands against the dense
 filterbank, the twiddles against numpy's float64 exponentials), and so is a
@@ -247,3 +249,17 @@ def test_fused_log_mel_refuses_short_clips_as_the_plain_version_does():
     with pytest.raises(RuntimeError, match="[Pp]adding"):
         fused_log_mel(torch.zeros(1, 256))
     assert fused_log_mel(torch.zeros(1, 257)).shape == (1, 2, 64)
+
+
+@pytest.mark.parametrize("n_fft,win,hop,n_mels", [(32768, 2048, 4096, 128), (20000, 1200, 480, 80)])
+def test_plain_log_mel_at_a_large_fft_matches_jax_xla(n_fft, win, hop, n_mels):
+    """C16: an FFT size past the card kernel's one-block tile (its "wide" path) through the plain version, which
+    multiplies each frame's windowed samples only, against the JAX package's XLA pipeline through
+    ``jnp.fft.rfft`` (its windowed-basis product would need an (n_fft, n_fft + 2) table), at the kernel's 2e-3."""
+    rng = np.random.default_rng(n_fft)
+    audio = (rng.standard_normal((2, 3 * n_fft // 2 + 123)) * 0.3).astype(np.float32)
+    got = fused_log_mel(torch.as_tensor(audio), n_fft=n_fft, hop_length=hop, win_length=win, n_mels=n_mels).numpy()
+    want = np.asarray(jax_mel_features(jax_preemphasis(jnp.asarray(audio)), 16000, n_fft, hop, win, n_mels,
+                                       method="fft"))
+    assert got.shape == want.shape == (2, log_mel_frames(audio.shape[1], n_fft, hop), n_mels)
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)

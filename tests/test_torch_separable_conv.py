@@ -8,7 +8,9 @@ ULP, the on-chip tolerance), and, for the stride-2 stem and the dilation-2
 tail that the TPU kernels do not take, against ``thunder_tpu.ops.conv.conv1d``
 followed by a matmul. The same comparison holds the shapes at the edges of the
 card kernel's tiles: channel counts that are no multiple of 64, T_out = 1 and
-65, k = 1, a row of length 0, and C_in = 1024.
+65, k = 1, a row of length 0, and C_in = 1024; and spans that the card kernel
+runs over slices of its taps (k 561 and 1201 at dilation 2, k 1601 at stride
+2).
 """
 
 import jax.numpy as jnp
@@ -109,6 +111,10 @@ def test_matches_fused_repeat_tm_bf16_rounding_points():
         pytest.param(33, 2, 1, 64, 256, 301, (301, 0, 150), id="stem-stride2-zero-row"),
         pytest.param(87, 1, 2, 512, 512, 200, (200, 0), id="tail-dilation2-k87"),
         pytest.param(33, 1, 1, 1024, 1024, 130, (130, 0), id="cin1024"),
+        # C16: spans too long for 64 channels beside their A tile, which the card kernel runs over tap slices
+        pytest.param(561, 1, 2, 256, 256, 700, (700, 0), id="taps561-dilation2"),
+        pytest.param(1201, 1, 2, 256, 264, 900, (900, 311), id="taps1201-dilation2"),
+        pytest.param(1601, 2, 1, 64, 64, 2000, (2000, 1500), id="taps1601-stride2"),
     ],
 )
 def test_strided_and_dilated_match_conv1d_then_matmul(k, stride, dilation, c, co, t, lengths):

@@ -54,7 +54,19 @@
 //   over each filter's non-zeros only (first bin, count, offset and weights in
 //   ascending bin order, from the host), a thread a (mel, frame), so that a
 //   warp reads one or two filters' weights and loops alike; then logf with
-//   no fast-math log into a padded tile, and the tile's rows go out coalesced.
+//   no fast-math log into a padded tile, and the tile's rows go out coalesced;
+// - path "wide" (an n_fft whose dense tile does not fit in shared memory, past
+//   about 16,000 with a long window): the power goes through device memory, a
+//   float32 (rows, frames, n_freqs) workspace, in two launches. The first is
+//   the dense path's product over slices of 256 bins (a block a tile of frames,
+//   a slice of bins and a row, the span of its frames in shared memory), with
+//   the windowed basis made in registers, cos and sin of 2 pi r / n_fft by
+//   sincospif with r = n k mod n_fft stepped by k, times the window from
+//   device memory, each rounded as the host rounds its table; the second is
+//   the mel product and the log over the workspace's rows, a block a tile of
+//   frames. The wrapper sizes the workspace for a slice of rows and the launches
+//   go slice by slice.
+// - rows: launches over slices of at most 65,535 rows (the grid's y extent).
 // The TPU kernel's 3-pass bf16 split, its 128-lane and 8-sublane rounding and
 // its chunked shifted matmuls were Mosaic workarounds and are not carried over.
 
@@ -70,7 +82,11 @@ constexpr int FFT_MIN = 32, FFT_MAX = 4096;
 constexpr int FFT_TILE_POINTS = 4096;  // complex points a tile: two 32 KB buffers
 constexpr int FFT_MAX_FRAMES = 64;
 constexpr int DENSE_MAX_FRAMES = 16;
-constexpr int PATH_FFT = 1, PATH_DENSE = 2;
+constexpr int PATH_FFT = 1, PATH_DENSE = 2, PATH_WIDE = 3;
+constexpr int WIDE_BINS = 256;        // bins a block of the wide path's power launch: a thread a bin
+constexpr int WIDE_MAX_FRAMES = 16;
+constexpr int WIDE_MEL_FRAMES = 16;   // frames a block of its mel launch
+constexpr int MAX_ROWS = 65535;       // rows a launch: the grid's y (z on the wide path) extent
 constexpr float LOG_GUARD = 5.9604644775390625e-08f;  // 2^-24
 
 struct Plan {
@@ -113,6 +129,17 @@ Plan make_plan(int n_fft, int hop, int win, int n_mels) {
   p.threads = std::min(1024, (n_freqs + 31) / 32 * 32);
   for (int ft = DENSE_MAX_FRAMES; ft >= 1; ft /= 2) {
     const long smem = 4L * ((long)(ft - 1) * hop + win + (long)ft * n_freqs + (long)ft * (n_mels + 1)) + mel_tables;
+    if (smem <= MAX_SMEM) {
+      p.smem = smem;
+      p.frames = ft;
+      return p;
+    }
+  }
+  // the wide path: the power launch holds its frames' span only
+  p.path = PATH_WIDE;
+  p.threads = WIDE_BINS;
+  for (int ft = WIDE_MAX_FRAMES; ft >= 1; ft /= 2) {
+    const long smem = 4L * ((long)(ft - 1) * hop + win);
     if (smem <= MAX_SMEM) {
       p.smem = smem;
       p.frames = ft;
@@ -448,6 +475,95 @@ __global__ void __launch_bounds__(1024) log_mel_dense_kernel(
   store_tile(tile, out + ((size_t)b * n_frames + f0) * n_mels, min(FT, n_frames - f0), n_mels);
 }
 
+// The wide path's power: power[b, f, k] = |sum_i x_f[i] w[i] e^{-2 pi i (lpad + i) k / n_fft}|^2 for the block's
+// FT frames (a tile), WIDE_BINS bins (a thread a bin) and row. The basis entry is rounded as the host's table:
+// float32 cos and sin (sincospif, within an ulp or two of the host's float64 ones rounded), then times the window.
+template <int FT>
+__global__ void __launch_bounds__(WIDE_BINS) log_mel_wide_power_kernel(
+    const float* __restrict__ audio, const float* __restrict__ window, float* __restrict__ power, int time,
+    int n_frames, int n_fft, int hop, int win, float preemph) {
+  extern __shared__ __align__(16) float span[];
+  const int n_freqs = n_fft / 2 + 1;
+  const int span_len = (FT - 1) * hop + win;
+  const int b = blockIdx.z, f0 = blockIdx.x * FT, k = blockIdx.y * WIDE_BINS + threadIdx.x;
+  const int lpad = (n_fft - win) / 2;
+  load_span(span, audio + (size_t)b * time, (long)f0 * hop + lpad, span_len, time, n_fft / 2, preemph);
+  __syncthreads();
+  if (k >= n_freqs) return;
+  float re[FT], im[FT];
+#pragma unroll
+  for (int f = 0; f < FT; ++f) re[f] = im[f] = 0.f;
+  const float two_over_n = 2.0f / (float)n_fft;
+  int r = (int)(((long)lpad * k) % n_fft);  // (lpad + i) k mod n_fft, stepped by k
+  for (int i = 0; i < win; ++i) {
+    float s, c;
+    sincospif((float)r * two_over_n, &s, &c);
+    const float w = __ldg(window + i);
+    c = __fmul_rn(c, w);
+    s = __fmul_rn(-s, w);
+#pragma unroll
+    for (int f = 0; f < FT; ++f) {
+      const float x = span[f * hop + i];
+      re[f] = fmaf(x, c, re[f]);
+      im[f] = fmaf(x, s, im[f]);
+    }
+    r += k;
+    if (r >= n_fft) r -= n_fft;
+  }
+  float* out = power + ((size_t)b * n_frames + f0) * n_freqs + k;
+#pragma unroll
+  for (int f = 0; f < FT; ++f)
+    if (f0 + f < n_frames) out[(size_t)f * n_freqs] = re[f] * re[f] + im[f] * im[f];
+}
+
+// The wide path's mel product and log over the power workspace: a block WIDE_MEL_FRAMES frames of one row, the
+// filters' tables read from device memory.
+__global__ void __launch_bounds__(FFT_THREADS) log_mel_wide_mel_kernel(
+    const float* __restrict__ power, const float* __restrict__ tables, float* __restrict__ out, int n_frames,
+    int n_freqs, int n_mels) {
+  extern __shared__ __align__(16) float tile[];  // [WIDE_MEL_FRAMES][n_mels + 1]
+  constexpr int LOG_FT = 4;
+  static_assert(WIDE_MEL_FRAMES == 1 << LOG_FT, "the mel tile's frames");
+  const int b = blockIdx.y, f0 = blockIdx.x * WIDE_MEL_FRAMES;
+  const int rows = min(WIDE_MEL_FRAMES, n_frames - f0);
+  const int* bands = reinterpret_cast<const int*>(tables);
+  const float* weights = tables + (3 * n_mels + 3) / 4 * 4;
+  // the frames past n_frames read row f0 (inside the workspace) and are never stored
+  const float* rows_in = power + ((size_t)b * n_frames + f0) * n_freqs;
+  for (int idx = threadIdx.x; idx < n_mels << LOG_FT; idx += blockDim.x) {
+    const int mel = idx >> LOG_FT, f = idx & (WIDE_MEL_FRAMES - 1);
+    const int count = bands[n_mels + mel];
+    const float* p = rows_in + (size_t)(f < rows ? f : 0) * n_freqs + bands[mel];
+    const float* w = weights + bands[2 * n_mels + mel];
+    float acc = 0.f;
+    for (int i = 0; i < count; ++i) acc = fmaf(p[i], w[i], acc);
+    tile[f * (n_mels + 1) + mel] = logf(acc + LOG_GUARD);
+  }
+  __syncthreads();
+  store_tile(tile, out + ((size_t)b * n_frames + f0) * n_mels, rows, n_mels);
+}
+
+template <int FT>
+cudaError_t launch_wide(const Plan& p, int batch, cudaStream_t stream, const float* audio, const float* window,
+                        const float* tables, float* power, float* out, int time, int n_frames, int n_fft, int hop,
+                        int win, int n_mels, float preemph) {
+  if (p.smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(log_mel_wide_power_kernel<FT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int n_freqs = n_fft / 2 + 1;
+  const dim3 grid((n_frames + FT - 1) / FT, (n_freqs + WIDE_BINS - 1) / WIDE_BINS, batch);
+  log_mel_wide_power_kernel<FT><<<grid, WIDE_BINS, p.smem, stream>>>(audio, window, power, time, n_frames, n_fft,
+                                                                      hop, win, preemph);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 mel_grid((n_frames + WIDE_MEL_FRAMES - 1) / WIDE_MEL_FRAMES, batch);
+  log_mel_wide_mel_kernel<<<mel_grid, FFT_THREADS, 4 * WIDE_MEL_FRAMES * (n_mels + 1), stream>>>(
+      power, tables, out, n_frames, n_freqs, n_mels);
+  return cudaGetLastError();
+}
+
 template <int FT>
 cudaError_t launch_dense(const Plan& p, dim3 grid, cudaStream_t stream, const float* audio, const float* basis,
                          const float4* tables, float* out, int time, int n_frames, int n_fft, int hop, int win,
@@ -464,8 +580,8 @@ cudaError_t launch_dense(const Plan& p, dim3 grid, cudaStream_t stream, const fl
 
 }  // namespace
 
-// The plan for these sizes: out[0] the path (1 fft, 2 dense), out[1] shared memory a block (0: refused),
-// out[2] frames a block, out[3] threads a block.
+// The plan for these sizes: out[0] the path (1 fft, 2 dense, 3 wide), out[1] shared memory a block (0: refused;
+// on the wide path its power launch's), out[2] frames a block, out[3] threads a block.
 extern "C" int thunder_log_mel_plan(int n_fft, int hop, int win, int n_mels, int* out) {
   const Plan p = make_plan(n_fft, hop, win, n_mels);
   out[0] = p.path;
@@ -478,40 +594,53 @@ extern "C" int thunder_log_mel_plan(int n_fft, int hop, int win, int n_mels, int
 // audio: (batch, time) raw float32; tables: the host's packed tables, table_words floats (a multiple of 4, each
 // part padded to one): on the fft path the twiddles e^{-2 pi i k / n_fft} as (n_fft, 2) and the win_length hann
 // window, then on both paths the (3, n_mels) int32 first bin, count and offset of each mel filter's non-zeros
-// and the weights (at most two a bin); basis: the windowed basis (n_fft, 2 * n_freqs) on the dense path, else
-// unused; out: (batch, n_frames, n_mels). Returns cudaGetLastError().
-extern "C" int thunder_log_mel(const float* audio, const float* tables, const float* basis, float* out, int batch,
-                               int time, int n_frames, int n_fft, int hop, int win, int n_mels, int table_words,
-                               float preemph, void* stream) {
+// and the weights (at most two a bin); basis: the windowed basis (n_fft, 2 * n_freqs) on the dense path, the
+// window (win,) on the wide path, else unused; power: on the wide path a (slice_rows, n_frames, n_freqs) float32
+// workspace, else unused; out: (batch, n_frames, n_mels). The launches go over slices of slice_rows rows (at most
+// 65,535). Returns cudaGetLastError().
+extern "C" int thunder_log_mel(const float* audio, const float* tables, const float* basis, float* power, float* out,
+                               int batch, int time, int n_frames, int n_fft, int hop, int win, int n_mels,
+                               int table_words, int slice_rows, float preemph, void* stream) {
   const Plan p = make_plan(n_fft, hop, win, n_mels);
   const int n_freqs = n_fft / 2 + 1;
   const long fft_words = p.path == PATH_FFT ? 2L * n_fft + round4(win) : 0;
-  if (p.smem == 0 || batch < 1 || batch > 65535 || time <= n_fft / 2 || n_frames < 1 || table_words % 4 ||
-      table_words > fft_words + round4(3 * n_mels) + round4(2 * n_freqs))
+  if (p.smem == 0 || batch < 1 || slice_rows < 1 || slice_rows > MAX_ROWS || time <= n_fft / 2 || n_frames < 1 ||
+      table_words % 4 || table_words > fft_words + round4(3 * n_mels) + round4(2 * n_freqs) ||
+      (p.path == PATH_WIDE && power == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_frames + p.frames - 1) / p.frames, batch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* tables4 = reinterpret_cast<const float4*>(tables);
-  if (p.path == PATH_FFT) {
-    if (p.smem > 48 * 1024) {
-      cudaError_t err =
-          cudaFuncSetAttribute(log_mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    int log_n = 0, log_ft = 0;
-    while ((1 << log_n) < n_fft) ++log_n;
-    while ((1 << log_ft) < p.frames) ++log_ft;
-    log_mel_fft_kernel<<<grid, p.threads, p.smem, s>>>(audio, tables4, out, time, n_frames, log_n, hop, win, n_mels,
-                                                        table_words, log_ft, (int)p.buf, preemph);
-    return (int)cudaGetLastError();
+  int log_n = 0, log_ft = 0;
+  while ((1 << log_n) < n_fft) ++log_n;
+  while ((1 << log_ft) < p.frames) ++log_ft;
+  if (p.path == PATH_FFT && p.smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(log_mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  decltype(&launch_dense<1>) launch = launch_dense<1>;
+  decltype(&launch_dense<1>) dense = launch_dense<1>;
+  decltype(&launch_wide<1>) wide = launch_wide<1>;
   switch (p.frames) {
-    case 16: launch = launch_dense<16>; break;
-    case 8: launch = launch_dense<8>; break;
-    case 4: launch = launch_dense<4>; break;
-    case 2: launch = launch_dense<2>; break;
+    case 16: dense = launch_dense<16>; wide = launch_wide<16>; break;
+    case 8: dense = launch_dense<8>; wide = launch_wide<8>; break;
+    case 4: dense = launch_dense<4>; wide = launch_wide<4>; break;
+    case 2: dense = launch_dense<2>; wide = launch_wide<2>; break;
   }
-  return (int)launch(p, grid, s, audio, basis, tables4, out, time, n_frames, n_fft, hop, win, n_mels, table_words,
-                     preemph);
+  for (int r0 = 0; r0 < batch; r0 += slice_rows) {
+    const int rows = std::min(slice_rows, batch - r0);
+    const float* a = audio + (size_t)r0 * time;
+    float* o = out + (size_t)r0 * n_frames * n_mels;
+    const dim3 grid((n_frames + p.frames - 1) / p.frames, rows);
+    cudaError_t err;
+    if (p.path == PATH_FFT) {
+      log_mel_fft_kernel<<<grid, p.threads, p.smem, s>>>(a, tables4, o, time, n_frames, log_n, hop, win, n_mels,
+                                                          table_words, log_ft, (int)p.buf, preemph);
+      err = cudaGetLastError();
+    } else if (p.path == PATH_DENSE) {
+      err = dense(p, grid, s, a, basis, tables4, o, time, n_frames, n_fft, hop, win, n_mels, table_words, preemph);
+    } else {
+      err = wide(p, rows, s, a, basis, tables, power, o, time, n_frames, n_fft, hop, win, n_mels, preemph);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

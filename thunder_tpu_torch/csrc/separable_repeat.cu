@@ -52,6 +52,16 @@
 //   C_out) workspace in place, and the last adds bias, ReLU and the mask and
 //   stores bf16. x and dw keep their row stride x_ld = C_in; the weight map
 //   covers the part's rows of pw only, so the box past them arrives as zeros.
+// - a span too long for even 64 channels beside their A tile (k past 560 at
+//   dilation 2) runs as launches over slices of the taps, `taps` of them each
+//   (the most, a multiple of U, whose span fits), each slice over the channel
+//   slices above: every slice but the last only adds its taps into the
+//   depthwise sums, kept in a float32 (B, T_out, C_in) workspace, and stops
+//   there; each slice after the first starts its sums from the workspace; the
+//   last rounds them to bf16 and runs the product and the epilogue. The f32
+//   sums take the taps in order, one fused multiply-add each, as one launch
+//   would, so slicing the taps does not change the result. These launches take
+//   the direct depthwise (any stride and dilation).
 // The first 4 x 256 16-byte chunks of the next channel chunk's span are
 // loaded into registers while this chunk's depthwise runs (8 of them, or the
 // rest batched four at a time, cost registers and gained less); keeping one
@@ -97,7 +107,8 @@ __host__ __device__ inline int span_rows(int k, int stride, int dilation) {
 struct Plan {
   long smem = 0;  // 0: does not fit
   int stages = 0, prefetch = 0, ring_off = 0, span_off = 0, layout = 0;
-  int part = 0, parts = 0;  // input channels a launch, launches (split_plan)
+  int part = 0, parts = 0;       // input channels a launch, launches over them (channel_plan)
+  int taps = 0, tap_slices = 0;  // taps a launch, launches over them (split_plan)
 };
 
 // Shared-memory layout from the 1024-byte aligned base: the A tile, each warpgroup's ring, then the chunk's input
@@ -132,7 +143,7 @@ Plan make_plan(int c_in, int k, int stride, int dilation) {
 // All of C_in in one launch when its plan fits; else the fewest launches over slices of at most the widest multiple
 // of KC channels that fits, the slices as even as KC allows. smem 0: not even KC channels fit (the span alone is
 // too long).
-Plan split_plan(int c_in, int k, int stride, int dilation) {
+Plan channel_plan(int c_in, int k, int stride, int dilation) {
   Plan p = make_plan(c_in, k, stride, dilation);
   int widest = c_in;
   while (p.smem == 0 && widest > KC) {
@@ -145,6 +156,22 @@ Plan split_plan(int c_in, int k, int stride, int dilation) {
   if (part != widest) p = make_plan(part, k, stride, dilation);  // narrower: it fits too
   p.part = part;
   p.parts = parts;
+  return p;
+}
+
+// channel_plan over all k taps when it fits; else over slices of `taps` taps, the most (a multiple of U) whose span
+// fits beside KC channels. The plan made for `taps` holds the shorter last slice too. smem 0: not even U taps fit.
+Plan split_plan(int c_in, int k, int stride, int dilation) {
+  Plan p = channel_plan(c_in, k, stride, dilation);
+  int taps = k;
+  if (p.smem == 0) {
+    taps = (int)round_up(k, U) - U;
+    while (taps >= U && make_plan(KC, taps, stride, dilation).smem == 0) taps -= U;
+    if (taps < U) return Plan{};
+    p = channel_plan(c_in, taps, stride, dilation);
+  }
+  p.taps = taps;
+  p.tap_slices = (k + taps - 1) / taps;
   return p;
 }
 
@@ -197,15 +224,18 @@ __device__ __forceinline__ void depthwise_direct(const uint32_t* span, const uin
 }
 
 // MODE 1: stride 1, dilation 1; MODE 2: stride 1, dilation 2; MODE 0: any stride and dilation. SPLIT: one of
-// several launches over slices of C_in (x_ld, partial, first and last are read only then)
-template <int MODE, bool SPLIT>
+// several launches over slices of C_in (x_ld, partial, first and last are read only then). TAPS: one of several
+// launches over slices of the taps (dw_sum, a (B, t_out, x_ld) f32 workspace, tap_in and tap_out are read only
+// then): tap_in starts the depthwise sums from dw_sum, tap_out stores them there and ends the launch
+template <int MODE, bool SPLIT, bool TAPS>
 __global__ void __launch_bounds__(THREADS, 2)
     separable_repeat_kernel(const __grid_constant__ CUtensorMap pw_map, const bf16* __restrict__ x,
                             const bf16* __restrict__ dw, const float* __restrict__ bias,
                             const int* __restrict__ out_lengths, bf16* __restrict__ out,
-                            float* __restrict__ partial, int t_in, int t_out, int c_in, int x_ld, int c_out, int k,
-                            int stride, int dilation, int pad, int relu, int first, int last, int stages,
-                            int prefetch, int ring_off, int span_off, int layout) {
+                            float* __restrict__ partial, float* __restrict__ dw_sum, int t_in, int t_out, int c_in,
+                            int x_ld, int c_out, int k, int stride, int dilation, int pad, int relu, int first,
+                            int last, int tap_in, int tap_out, int stages, int prefetch, int ring_off, int span_off,
+                            int layout) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t lead = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
   unsigned char* smem = smem_raw + lead;
@@ -250,7 +280,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int rows = span_rows(k, stride, dilation);
   const int chunks = (rows + (int)round_up(k, U)) * 8;  // 16-byte chunks of the span and of the taps after it
   const int in0 = t0 * stride - pad;  // input frame of span row 0
-  const int ld = SPLIT ? x_ld : c_in;  // the row stride of x and dw
+  const int ld = SPLIT ? x_ld : c_in;  // the row stride of x, dw and dw_sum
   const bf16* xb = x + (size_t)b * t_in * ld;
   // 16-byte chunk i of channel chunk c0: span row i / 8 (zero outside the input), then the taps (zero past k)
   auto fetch = [&](int i, int c0) {
@@ -285,6 +315,17 @@ __global__ void __launch_bounds__(THREADS, 2)
     float a0[R], a1[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) a0[i] = a1[i] = 0.f;
+    const int ch = c0 + 2 * p;
+    float* sums = TAPS ? dw_sum + ((size_t)b * t_out + t0 + g * R) * ld + ch : nullptr;  // at its first frame
+    if (TAPS && tap_in && ch < c_in) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (t0 + g * R + i < t_out) {
+          const float2 v = *reinterpret_cast<const float2*>(sums + (size_t)i * ld);
+          a0[i] = v.x;
+          a1[i] = v.y;
+        }
+    }
     const uint32_t* col = reinterpret_cast<const uint32_t*>(span) + p;
     const uint32_t* taps = col + rows * 32;
     if (MODE == 1)
@@ -294,15 +335,24 @@ __global__ void __launch_bounds__(THREADS, 2)
     else
       depthwise_direct(col, taps, k, g * R, stride, dilation, a0, a1);
 
-    unsigned char* panel = smem + (c0 / KC) * PANEL_BYTES;
+    if (TAPS && tap_out) {
+      if (ch < c_in) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = g * R + i;
-      *reinterpret_cast<uint32_t*>(panel + r * 128 + (((p >> 2) ^ (r & 7)) << 4) + (p & 3) * 4) =
-          pack_bf16(a0[i], a1[i]);
+        for (int i = 0; i < R; ++i)
+          if (t0 + g * R + i < t_out) *reinterpret_cast<float2*>(sums + (size_t)i * ld) = make_float2(a0[i], a1[i]);
+      }
+    } else {
+      unsigned char* panel = smem + (c0 / KC) * PANEL_BYTES;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = g * R + i;
+        *reinterpret_cast<uint32_t*>(panel + r * 128 + (((p >> 2) ^ (r & 7)) << 4) + (p & 3) * 4) =
+            pack_bf16(a0[i], a1[i]);
+      }
     }
     __syncthreads();  // the next chunk overwrites the span
   }
+  if (TAPS && tap_out) return;  // the later tap slices go on from the sums; no weight box was requested
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the A tile, visible to wgmma; the span, free for TMA
   __syncthreads();
 
@@ -371,25 +421,28 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-using Kernel = decltype(&separable_repeat_kernel<1, false>);
+using Kernel = decltype(&separable_repeat_kernel<1, false, false>);
 
 template <bool SPLIT>
-Kernel pick_mode(int stride, int dilation) {
-  if (stride == 1 && dilation == 1) return separable_repeat_kernel<1, SPLIT>;
-  if (stride == 1 && dilation == 2) return separable_repeat_kernel<2, SPLIT>;
-  return separable_repeat_kernel<0, SPLIT>;
+Kernel pick_mode(int stride, int dilation, bool taps) {
+  if (taps) return separable_repeat_kernel<0, SPLIT, true>;
+  if (stride == 1 && dilation == 1) return separable_repeat_kernel<1, SPLIT, false>;
+  if (stride == 1 && dilation == 2) return separable_repeat_kernel<2, SPLIT, false>;
+  return separable_repeat_kernel<0, SPLIT, false>;
 }
 
-Kernel pick(int stride, int dilation, bool split) {
-  return split ? pick_mode<true>(stride, dilation) : pick_mode<false>(stride, dilation);
+Kernel pick(int stride, int dilation, const Plan& plan) {
+  const bool taps = plan.tap_slices > 1;
+  return plan.parts > 1 ? pick_mode<true>(stride, dilation, taps) : pick_mode<false>(stride, dilation, taps);
 }
 
 }  // namespace
 
 // The launch's plan for these widths (split_plan): out[0] shared-memory bytes per block (0: the span of 64
-// channels alone does not fit in 227 KB), out[1] the weight ring's stages per warpgroup, out[2] 1 if the first
+// channels and 8 taps does not fit in 227 KB), out[1] the weight ring's stages per warpgroup, out[2] 1 if the first
 // weight boxes are requested before the depthwise, out[3] resident blocks per SM, out[4] the launches over slices
-// of C_in, out[5] the channels of each slice. Returns a cudaError_t.
+// of C_in, out[5] the channels of each slice, out[6] the taps a launch, out[7] the launches over slices of the
+// taps (each over the slices of C_in). Returns a cudaError_t.
 extern "C" int thunder_separable_repeat_plan(int c_in, int k, int stride, int dilation, int* out) {
   if (c_in < 8 || c_in % 8 || k < 1 || stride < 1 || dilation < 1) return (int)cudaErrorInvalidValue;
   const Plan plan = split_plan(c_in, k, stride, dilation);
@@ -399,8 +452,10 @@ extern "C" int thunder_separable_repeat_plan(int c_in, int k, int stride, int di
   out[3] = 0;
   out[4] = plan.parts;
   out[5] = plan.part;
+  out[6] = plan.taps;
+  out[7] = plan.tap_slices;
   if (plan.smem == 0) return 0;
-  const Kernel kernel = pick(stride, dilation, plan.parts > 1);
+  const Kernel kernel = pick(stride, dilation, plan);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, THREADS, plan.smem);
@@ -409,48 +464,57 @@ extern "C" int thunder_separable_repeat_plan(int c_in, int k, int stride, int di
 // x: (batch, t_in, c_in) bf16, zero beyond each row's input length; dw: (k, c_in) bf16;
 // pw: (c_in, c_out) bf16; bias: (c_out,) f32; out_lengths: (batch,) int32;
 // out: (batch, t_out, c_out) bf16; x, dw, pw and out 16-byte aligned; partial: a (batch, t_out, c_out) f32
-// workspace when thunder_separable_repeat_plan gives more than one launch, else unused. Returns
+// workspace when thunder_separable_repeat_plan gives more than one launch over C_in, else unused; dw_sum: a
+// (batch, t_out, c_in) f32 workspace when it gives more than one launch over the taps, else unused. Returns
 // cudaGetLastError().
 extern "C" int thunder_separable_repeat(const void* x, const void* dw, const void* pw, const float* bias,
-                                        const int* out_lengths, void* out, float* partial, int batch, int t_in,
-                                        int t_out, int c_in, int c_out, int k, int stride, int dilation, int pad,
-                                        int relu, void* stream) {
+                                        const int* out_lengths, void* out, float* partial, float* dw_sum, int batch,
+                                        int t_in, int t_out, int c_in, int c_out, int k, int stride, int dilation,
+                                        int pad, int relu, void* stream) {
   if (batch < 1 || batch > 65535 || t_in < 1 || t_out < 1 || c_in < 8 || c_in % 8 || c_out < 8 || c_out % 8 ||
       k < 1 || stride < 1 || dilation < 1)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dw) | reinterpret_cast<uintptr_t>(pw) |
-       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(partial)) &
+       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(partial) |
+       reinterpret_cast<uintptr_t>(dw_sum)) &
       15)
     return (int)cudaErrorMisalignedAddress;
   const Plan plan = split_plan(c_in, k, stride, dilation);
   if (plan.smem == 0) return (int)cudaErrorInvalidValue;  // thunder_separable_repeat_plan names the reason
-  if (plan.parts > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  if ((plan.parts > 1 && partial == nullptr) || (plan.tap_slices > 1 && dw_sum == nullptr))
+    return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const Kernel kernel = pick(stride, dilation, plan.parts > 1);
+  const Kernel kernel = pick(stride, dilation, plan);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t_out + TT - 1) / TT, batch);
-  for (int c0 = 0; c0 < c_in; c0 += plan.part) {
-    const int part = std::min(plan.part, c_in - c0);
-    // this slice's rows of pw as (c_out, part, 1), innermost first: 64 x 64 boxes in the 128-byte swizzle, zeros
-    // past either edge
-    const cuuint64_t dims[3] = {(cuuint64_t)c_out, (cuuint64_t)part, 1};
-    const cuuint64_t strides[2] = {(cuuint64_t)c_out * sizeof(bf16), (cuuint64_t)c_out * sizeof(bf16) * part};
-    const cuuint32_t box[3] = {64, 64, 1};
-    const cuuint32_t element_strides[3] = {1, 1, 1};
-    CUtensorMap map;
-    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-               const_cast<bf16*>(static_cast<const bf16*>(pw) + (size_t)c0 * c_out), dims, strides, box,
-               element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-    kernel<<<grid, THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(
-        map, static_cast<const bf16*>(x) + c0, static_cast<const bf16*>(dw) + c0, bias, out_lengths,
-        static_cast<bf16*>(out), partial, t_in, t_out, part, c_in, c_out, k, stride, dilation, pad, relu, c0 == 0,
-        c0 + part >= c_in, plan.stages, plan.prefetch, plan.ring_off, plan.span_off, plan.layout);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  for (int j0 = 0; j0 < k; j0 += plan.taps) {
+    const int taps = std::min(plan.taps, k - j0);
+    const int tap_out = j0 + taps < k;
+    for (int c0 = 0; c0 < c_in; c0 += plan.part) {
+      const int part = std::min(plan.part, c_in - c0);
+      // this slice's rows of pw as (c_out, part, 1), innermost first: 64 x 64 boxes in the 128-byte swizzle, zeros
+      // past either edge
+      const cuuint64_t dims[3] = {(cuuint64_t)c_out, (cuuint64_t)part, 1};
+      const cuuint64_t strides[2] = {(cuuint64_t)c_out * sizeof(bf16), (cuuint64_t)c_out * sizeof(bf16) * part};
+      const cuuint32_t box[3] = {64, 64, 1};
+      const cuuint32_t element_strides[3] = {1, 1, 1};
+      CUtensorMap map;
+      if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                 const_cast<bf16*>(static_cast<const bf16*>(pw) + (size_t)c0 * c_out), dims, strides, box,
+                 element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
+      // tap slice j0 of the taps: its taps' rows of dw, its input frames from j0 * dilation later (pad less that)
+      kernel<<<grid, THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(
+          map, static_cast<const bf16*>(x) + c0, static_cast<const bf16*>(dw) + (size_t)j0 * c_in + c0, bias,
+          out_lengths, static_cast<bf16*>(out), partial, dw_sum == nullptr ? nullptr : dw_sum + c0, t_in, t_out, part,
+          c_in, c_out, taps, stride, dilation, pad - j0 * dilation, relu, c0 == 0, c0 + part >= c_in, j0 > 0, tap_out,
+          plan.stages, tap_out ? 0 : plan.prefetch, plan.ring_off, plan.span_off, plan.layout);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return 0;
 }

@@ -1,7 +1,9 @@
 """CTC inference engine: the serving hot path.
 
 Port of ``thunder_tpu/engine.py::InferenceEngine`` for QuartzNet, Citrinet
-and wav2vec2 (float mode). The conv path (QuartzNet and Citrinet), planned
+and wav2vec2, with its serving modes (``int8_weights``, ``int8_compute``,
+``posconv_dense``; the JAX engine's ``mesh`` and ``use_pallas`` are not taken:
+the port serves one card and always runs its kernels). The conv path (QuartzNet and Citrinet), planned
 from the encoder's blocks:
 
 - batch norm folded into the pointwise weights and a float32 bias at build
@@ -28,8 +30,32 @@ normalization in float32, then a copy of the encoder whose weights are
 pre-cast once to the compute dtype (the masked instance norm's stay float32;
 see ``models.wav2vec2.serving_copy``), whose layers run the attention and add
 + LayerNorm kernels, then the decoder as a product with float32 accumulation
-and a float32 bias. Its int8 modes and the dense positional-conv fold are not
-ported.
+and a float32 bias.
+
+The serving modes, as the JAX engine builds them (``models.wav2vec2.serving_copy``
+for wav2vec2):
+
+- ``posconv_dense`` (wav2vec2, off by default): the grouped positional conv
+  folded into a block-diagonal dense conv of one group;
+- ``int8_compute`` (wav2vec2 only; any other encoder raises ``ValueError``):
+  the transformer's four big Dense layers and the extractor convs of at least
+  64 input channels as W8A8 products (``quantization.dynamic_int8_matmul``
+  and ``dynamic_int8_conv``: dynamic per-row or per-sample int8 activations,
+  ``torch._int_mm`` on the card);
+- ``int8_weights``: the remaining matmul weights stay int8 with a float32
+  scale a column on the device (wav2vec2: the Dense kernels; the conv path:
+  every separable repeat's folded pointwise weights, the 1x1 convs and the
+  residuals), and are dequantized in the compute dtype at each use,
+  ``q * scale`` (the scale pre-cast once, which gives the same values); the
+  separable-repeat kernel then runs on the dequantized weights. The decoder
+  kernel is quantized in every int8 mode.
+
+The JAX engine keeps the unquantized weights of its int8 modes in float32 and
+rounds them to the compute dtype in each call; the port stores them as its
+float mode does (the compute dtype; norm parameters as ``serving_copy`` keeps
+them), which gives the same values, except that the JAX engine applies the
+LayerNorm parameters unrounded there. ``weight_bytes()`` counts the tensors
+the engine keeps on the device.
 
 Any other encoder is served through the module's eval forward (the JAX
 engine's generic fallback): its dtype, no BN folding, no kernels of its own.
@@ -75,6 +101,7 @@ from thunder_tpu_torch.module import (
 from thunder_tpu_torch.ops.conv import conv_output_length, get_same_padding
 from thunder_tpu_torch.ops.ctc import greedy_decode
 from thunder_tpu_torch.ops.masking import lengths_to_mask
+from thunder_tpu_torch.quantization import quantize_array
 
 __all__ = ["InferenceEngine"]
 
@@ -95,7 +122,12 @@ class _RepeatPlan:
     relu: bool
     bias: torch.Tensor  # (C_out,) float32 for the separable kernel, the compute dtype for a dense product
     dw: Optional[torch.Tensor] = None  # (k, C_in) compute dtype
-    pw: Optional[torch.Tensor] = None  # (C_in, C_out) compute dtype, BN scale folded in
+    pw: Optional[torch.Tensor] = None  # (C_in, C_out) compute dtype, BN scale folded in; int8 with q_scale
+    q_scale: Optional[torch.Tensor] = None  # (1, C_out) int8_weights: pw's scale, in the compute dtype
+
+    def weights(self) -> torch.Tensor:
+        """``pw`` in the compute dtype: dequantized under ``int8_weights``."""
+        return self.pw if self.q_scale is None else self.pw * self.q_scale
 
 
 @dataclass
@@ -135,18 +167,26 @@ class InferenceEngine:
     other encoder through the module's eval forward)."""
 
     def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None,
-                 pad_multiple: int = 16000):
+                 pad_multiple: int = 16000, int8_weights: bool = False, int8_compute: bool = False,
+                 posconv_dense: Optional[bool] = None):
+        """``int8_weights``, ``int8_compute`` and ``posconv_dense`` are the JAX engine's serving modes, with its
+        defaults (see the module docstring); ``int8_compute`` raises ``ValueError`` for any encoder but wav2vec2."""
         self.device = require_device(device if device is not None else module.device)
         on_cuda = self.device.type == "cuda"
         self.dtype = compute_dtype or (torch.bfloat16 if on_cuda else torch.float32)
         if on_cuda and self.dtype != torch.bfloat16:
             raise ValueError("on the card the engine computes in bfloat16 (the kernels' type)")
         encoder = module.model.encoder
+        self.int8_weights, self.int8_compute = bool(int8_weights), bool(int8_compute)
+        if self.int8_compute and not isinstance(encoder, Wav2Vec2Encoder):
+            raise ValueError("int8_compute is a wav2vec2 serving mode")
         self.module = module
         self.pad_multiple = pad_multiple
         self.frontend = module.model.audio_transform.to(self.device)
         if isinstance(encoder, Wav2Vec2Encoder):
-            self._encoder = serving_copy(encoder, self.dtype).to(self.device)
+            self._encoder = serving_copy(encoder, self.dtype, posconv_dense=bool(posconv_dense),
+                                         int8_compute=self.int8_compute, int8_weights=self.int8_weights)
+            self._encoder.to(self.device)
             self._forward = self._forward_wav2vec2
         elif isinstance(encoder, (QuartznetEncoder, CitrinetEncoder)):
             self._plan = self._build_plan(encoder)
@@ -156,8 +196,17 @@ class InferenceEngine:
             self._forward = self._forward_module
             return
         kernel, bias = _decoder_weights(module.model.decoder)
-        self._dec_kernel = None if kernel is None else kernel.to(self.device, self.dtype)  # (C, V)
         self._dec_bias = None if bias is None else bias.to(self.device, torch.float32)
+        self._dec_kernel = self._dec_scale = None  # (C, V); int8 with (1, V) scale in the int8 modes
+        if kernel is not None and (self.int8_weights or self.int8_compute):
+            self._dec_kernel, self._dec_scale = self._quantized(kernel)
+        elif kernel is not None:
+            self._dec_kernel = kernel.to(self.device, self.dtype)
+
+    def _quantized(self, w) -> tuple[torch.Tensor, torch.Tensor]:
+        """``quantize_array(w)`` on the device: int8 values and the scale, pre-cast to the compute dtype."""
+        q, scale = quantize_array(w)
+        return torch.as_tensor(q, device=self.device), torch.as_tensor(scale, device=self.device).to(self.dtype)
 
     # ------------------------------------------------------------------
     # planning
@@ -170,13 +219,19 @@ class InferenceEngine:
             conv = rep.depthwise
             dw = conv.kernel.detach().cpu().numpy()[:, 0, :]  # (k, C)
             pw = rep.pointwise.kernel.detach().cpu().numpy()[0] * scale[None, :]  # (C, C_out)
-            return _RepeatPlan("separable", dw.shape[0], conv.stride, conv.dilation, relu, put(bias),
-                               dw=put(dw).to(self.dtype).contiguous(), pw=put(pw).to(self.dtype).contiguous())
-        kernel = rep.conv.kernel.detach().cpu().numpy()
-        if kernel.shape[0] != 1:
-            raise NotImplementedError("dense convs other than 1x1 are not on the QuartzNet or Citrinet path")
-        return _RepeatPlan("dense", 1, rep.conv.stride, 1, relu, put(bias).to(self.dtype),
-                           pw=put(kernel[0] * scale[None, :]).to(self.dtype))
+            plan = _RepeatPlan("separable", dw.shape[0], conv.stride, conv.dilation, relu, put(bias),
+                               dw=put(dw).to(self.dtype).contiguous())
+        else:
+            kernel = rep.conv.kernel.detach().cpu().numpy()
+            if kernel.shape[0] != 1:
+                raise NotImplementedError("dense convs other than 1x1 are not on the QuartzNet or Citrinet path")
+            pw = kernel[0] * scale[None, :]
+            plan = _RepeatPlan("dense", 1, rep.conv.stride, 1, relu, put(bias).to(self.dtype))
+        if self.int8_weights:  # every pointwise and 1x1 product of the plan
+            plan.pw, plan.q_scale = self._quantized(pw)
+        else:
+            plan.pw = put(pw).to(self.dtype).contiguous()
+        return plan
 
     def _build_plan(self, encoder) -> List[_BlockPlan]:
         """One :class:`_BlockPlan` per ``EncoderBlock`` of a QuartzNet or Citrinet encoder, read from the
@@ -210,12 +265,12 @@ class InferenceEngine:
         else:
             new_lengths = conv_output_length(lengths, rp.kernel_size, rp.stride, pad, rp.dilation)
         if rp.kind == "separable":
-            y = fused_separable_repeat(x, new_lengths, rp.dw, rp.pw, rp.bias, rp.kernel_size,
+            y = fused_separable_repeat(x, new_lengths, rp.dw, rp.weights(), rp.bias, rp.kernel_size,
                                        stride=rp.stride, dilation=rp.dilation, relu=rp.relu)
             return y, new_lengths
         if rp.stride > 1:
             x = x[:, :: rp.stride]  # a 1x1 conv's same padding is 0
-        y = torch.matmul(x, rp.pw) + rp.bias
+        y = torch.matmul(x, rp.weights()) + rp.bias
         if rp.relu:
             y = torch.relu(y)
         t = y.shape[1]
@@ -239,7 +294,8 @@ class InferenceEngine:
         if self._dec_kernel is None:
             logits = x.float()
         else:
-            logits = torch.matmul(x.float(), self._dec_kernel.float()) + self._dec_bias
+            kernel = self._dec_kernel if self._dec_scale is None else self._dec_kernel * self._dec_scale
+            logits = torch.matmul(x.float(), kernel.float()) + self._dec_bias
         return logits, greedy_decode(logits)
 
     def _forward_conv(self, audio: torch.Tensor, lengths: torch.Tensor):
@@ -279,6 +335,22 @@ class InferenceEngine:
     def __call__(self, audio, lengths):
         logits, _, out_lengths = self.infer(audio, lengths)
         return logits, out_lengths
+
+    def weight_bytes(self) -> int:
+        """Bytes of the weight tensors the engine keeps on its device: the conv plan or the wav2vec2 serving
+        copy's parameters and buffers, and the decoder (the module's parameters and buffers for the generic
+        encoder path). The int8 modes hold their quantized weights as int8 and a scale a column."""
+        if hasattr(self, "_model"):
+            tensors = [*self._model.parameters(), *self._model.buffers()]
+        else:
+            if hasattr(self, "_encoder"):
+                tensors = [*self._encoder.parameters(), *self._encoder.buffers()]
+            else:
+                tensors = [t for block in self._plan for rp in (*block.repeats, block.res) if rp is not None
+                           for t in (rp.dw, rp.pw, rp.q_scale, rp.bias)]
+                tensors += [t for block in self._plan for t in block.se or ()]
+            tensors += [self._dec_kernel, self._dec_scale, self._dec_bias]
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     def warmup(self, batch_sizes, durations_s, sample_rate: int = 16000) -> int:
         """Run every (batch size, bucketed duration) pair once, so the kernels are

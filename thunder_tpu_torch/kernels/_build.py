@@ -35,9 +35,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signature of every entry point: name -> argtypes (all return int)
 SIGNATURES = {
-    "thunder_log_mel": [_P, _P, _P, _P, *[_I] * 8, _F, _P],
+    "thunder_log_mel": [_P, _P, _P, _P, _P, *[_I] * 9, _F, _P],
     "thunder_log_mel_plan": [_I, _I, _I, _I, _P],
-    "thunder_separable_repeat": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "thunder_separable_repeat": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "thunder_separable_repeat_plan": [_I, _I, _I, _I, _P],
     "thunder_ctc_plan": [_I, _P],
     "thunder_ctc_alpha": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

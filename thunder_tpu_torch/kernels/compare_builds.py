@@ -51,11 +51,14 @@ falls on both. Each process times, with CUDA events:
   and L2-warm (torch.profiler), and the backward's two kernels apart; the
   keep mask at that shape and the serving add + LayerNorm at 11,984 × 768,
   each L2-cold, flushed and warm;
-- one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``)
+- one wav2vec2-base greedy forward at 16 × 15 s (``InferenceEngine.infer``;
+  also its launches by kernel wrapper and the SHA-256 of its logits, which
+  the last lines compare across the four runs)
   and one training step at 8 × 15 s (frozen extractor, dropout 0.1, AdamW;
   beside it the device time of the step's add + dropout + LayerNorm kernels
   by torch.profiler),
-  and one QuartzNet15x5 greedy forward at 64 × 15 s (20 iterations), a beam
+  and one QuartzNet15x5 greedy forward at 64 × 15 s (20 iterations; its
+  launches and logits' SHA-256 too), a beam
   ``predict`` of the same batch (``beam_width=16, beam_backend="device"``, the
   median of 5 on the host clock, from numpy audio to transcripts) and a
   training step at 16 × 15 s (SpecAugment,
@@ -538,6 +541,7 @@ def _measure_wav2vec2(out: dict, vocab, audio, audio_lens, step_gen) -> None:
                               Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(len(vocab) + 1),
                               BatchTextTransformer(vocab), device="cuda")
     engine = InferenceEngine(module)
+    out.update(_forward_fingerprint("w2v2", engine, audio, audio_lens))
     out["w2v2_forward_ms"] = _cuda_ms(lambda: engine.infer(audio, audio_lens), 5)
     del engine, module
 
@@ -555,6 +559,23 @@ def _measure_wav2vec2(out: dict, vocab, audio, audio_lens, step_gen) -> None:
     # the step's add + dropout + LayerNorm kernels (forward, backward, partial sum) by torch.profiler
     by_kernel = device_ms_by_kernel(lambda: step(*batch, step_gen), 2)
     out["w2v2_train_step_add_ln_ms"] = sum(ms for name, ms in by_kernel.items() if "add_ln_train_" in name)
+
+
+def _forward_fingerprint(prefix: str, engine, audio, lengths) -> dict:
+    """One forward's launches by kernel wrapper and the SHA-256 of its float32 logits' bytes, so that two
+    checkouts' forwards can be found equal bit for bit."""
+    import hashlib
+
+    import torch
+
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+
+    reset_launch_counts()
+    logits = engine.infer(audio, lengths)[0]
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS if w.launches}
+    digest = hashlib.sha256(logits.float().contiguous().cpu().numpy().tobytes()).hexdigest()
+    return {f"{prefix}_launches": launches, f"{prefix}_logits_sha256": digest}
 
 
 def _measure_quartznet(out: dict, rng, step_gen) -> None:
@@ -575,6 +596,7 @@ def _measure_quartznet(out: dict, rng, step_gen) -> None:
     qn_engine = InferenceEngine(qn)
     qn_audio = torch.as_tensor((rng.standard_normal((64, 240000)) * 0.1).astype(np.float32), device="cuda")
     qn_lens = torch.full((64,), 240000, dtype=torch.int32, device="cuda")
+    out.update(_forward_fingerprint("quartznet", qn_engine, qn_audio, qn_lens))
     out["quartznet_forward_ms"] = _cuda_ms(lambda: qn_engine.infer(qn_audio, qn_lens), 20)
     host_audio, host_lens = qn_audio.cpu().numpy(), qn_lens.cpu().numpy()
     qn_engine.predict(host_audio, host_lens, beam_width=16, beam_backend="device")
@@ -669,6 +691,10 @@ def main() -> int:
     if args.sass:
         pairs = [(item.split("=")[0], item.split("=")[-1]) for item in args.sass.split(",")]
         print(json.dumps({"sass": sass_diff(pairs, ROOT, other)}), flush=True)
+    every = runs["other"] + runs["this"]
+    same = {key: all(r[key] == every[0][key] for r in every) for key in every[0]
+            if key.endswith(("_logits_sha256", "_launches"))}
+    print(json.dumps({"same_on_both_sides": same}), flush=True)
     print(json.dumps({"card": card, "runs": runs}))
     return 0
 

@@ -6,16 +6,21 @@ centered reflect pad on its load, then framing, the windowed real DFT, power,
 the mel product and ``log(x + 2**-24)`` in one pass: nothing but the log-mel
 reaches device memory. Its plan (:func:`log_mel_plan`, the kernel's own on
 the card) names its path: ``"fft"`` (a real FFT a frame, for a power-of-two
-``n_fft`` from 32 to 4096) or ``"dense"`` (a windowed-DFT product, for any
-other size), and the shared memory a block needs; the wrapper refuses only
-what that plan cannot fit in 227 KB (one frame's tile of an ``n_fft`` past
-about 16,000 on the dense path).
+``n_fft`` from 32 to 4096), ``"dense"`` (a windowed-DFT product, for any
+other size) or ``"wide"`` (an ``n_fft`` whose dense tile does not fit in
+shared memory, past about 16,000 with a long window: the dense product over
+slices of bins into a float32 power workspace, then the mel and log in a
+second launch), and the shared memory a block needs; the wrapper refuses only
+a frame's span past 227 KB (a window of about 58,000 samples). Batches run
+as launches over slices of at most 65,535 rows (on the wide path, of as many
+rows as a 1 GiB power workspace holds).
 
 The host tables, made once per configuration in :func:`_device_constants`
 and packed into one array (:func:`packed_tables`): the twiddles ``e^{-2 pi i
 k / n_fft}`` (:func:`fft_twiddles`, float64 cast to float32) and the window
 on the fft path, each mel filter's non-zeros (:func:`mel_bands`); and the
-windowed basis on the dense path.
+windowed basis on the dense path, the window on the wide path (which makes
+its basis in registers).
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`log_mel_reference`) only for a CPU tensor. Neither has a backward,
@@ -39,6 +44,8 @@ __all__ = ["fused_log_mel", "log_mel_reference", "log_mel_plan", "log_mel_frames
 
 #: ``csrc/log_mel.cu``'s FFT path's sizes: the tables it reads differ by path
 FFT_MIN, FFT_MAX = 32, 4096
+#: rows a launch (the grid's extent), and the wide path's power workspace (float32 values)
+MAX_ROWS, WIDE_WORKSPACE = 65535, 1 << 28
 
 
 def log_mel_reference(
@@ -66,7 +73,8 @@ def log_mel_plan(n_fft: int, hop_length: int, win_length: int, n_mels: int) -> d
     out = (ctypes.c_int * 4)()
     _build.check(_build.load().thunder_log_mel_plan(n_fft, hop_length, win_length, n_mels, out),
                  "thunder_log_mel_plan")
-    return {"path": {1: "fft", 2: "dense"}[out[0]], "smem_bytes": out[1], "frames": out[2], "threads": out[3]}
+    return {"path": {1: "fft", 2: "dense", 3: "wide"}[out[0]], "smem_bytes": out[1], "frames": out[2],
+            "threads": out[3]}
 
 
 def log_mel_frames(time: int, n_fft: int, hop_length: int) -> int:
@@ -106,11 +114,15 @@ def packed_tables(sample_rate: int, n_fft: int, win_length: int, n_mels: int) ->
 
 
 @functools.lru_cache(maxsize=None)
-def _device_constants(device: torch.device, sample_rate: int, n_fft: int, win_length: int, n_mels: int):
+def _device_constants(device: torch.device, sample_rate: int, n_fft: int, win_length: int, n_mels: int, path: str):
     """``(tables, basis)`` on ``device``, made once per configuration: :func:`packed_tables`, and the windowed
-    basis on the dense path (``None`` on the fft path)."""
+    basis on the dense path, the window on the wide path (``None`` on the fft path)."""
     put = lambda a: torch.as_tensor(a, device=device).contiguous()  # noqa: E731
-    basis = None if _fft_path(n_fft) else put(windowed_basis(n_fft, win_length))
+    basis = None
+    if path == "dense":
+        basis = put(windowed_basis(n_fft, win_length))
+    elif path == "wide":
+        basis = put(hann_window(win_length))
     return put(packed_tables(sample_rate, n_fft, win_length, n_mels)), basis
 
 
@@ -134,9 +146,9 @@ def fused_log_mel(
         raise ValueError(f"fused_log_mel runs on cuda or cpu tensors, got {audio.device}")
     batch, time = audio.shape
     plan = log_mel_plan(n_fft, hop_length, win_length, n_mels)
-    if plan["smem_bytes"] == 0 or not 1 <= batch <= 65535:
-        raise ValueError(f"the log-mel kernel takes 1 <= win <= n_fft, hop >= 1, n_mels >= 1, 1 to 65535 rows and "
-                         f"a tile that fits in 227 KB of shared memory (got n_fft={n_fft}, "
+    if plan["smem_bytes"] == 0 or batch < 1:
+        raise ValueError(f"the log-mel kernel takes 1 <= win <= n_fft, hop >= 1, n_mels >= 1, a row or more and "
+                         f"a frame's span that fits in 227 KB of shared memory (got n_fft={n_fft}, "
                          f"hop={hop_length}, win={win_length}, n_mels={n_mels}, batch={batch})")
     if time <= n_fft // 2:  # as the plain version's reflect pad refuses it
         raise RuntimeError(f"the centered reflect pad of {n_fft // 2} samples needs more than that many samples, "
@@ -144,15 +156,20 @@ def fused_log_mel(
     if not audio.is_contiguous():
         raise ValueError("fused_log_mel takes contiguous audio")
     n_frames = log_mel_frames(time, n_fft, hop_length)
-    tables, basis = _device_constants(audio.device, sample_rate, n_fft, win_length, n_mels)
+    tables, basis = _device_constants(audio.device, sample_rate, n_fft, win_length, n_mels, plan["path"])
     out = torch.empty((batch, n_frames, n_mels), dtype=torch.float32, device=audio.device)
+    wide = plan["path"] == "wide"
+    n_freqs = n_fft // 2 + 1
+    slice_rows = min(batch, MAX_ROWS, max(1, WIDE_WORKSPACE // (n_frames * n_freqs)) if wide else MAX_ROWS)
+    power = torch.empty((slice_rows, n_frames, n_freqs), dtype=torch.float32, device=audio.device) if wide else None
     status = _build.load().thunder_log_mel(
-        audio.data_ptr(), tables.data_ptr(), 0 if basis is None else basis.data_ptr(), out.data_ptr(),
-        batch, time, n_frames, n_fft, hop_length, win_length, n_mels, tables.numel(), float(preemph),
+        audio.data_ptr(), tables.data_ptr(), 0 if basis is None else basis.data_ptr(),
+        0 if power is None else power.data_ptr(), out.data_ptr(), batch, time, n_frames, n_fft, hop_length,
+        win_length, n_mels, tables.numel(), slice_rows, float(preemph),
         torch.cuda.current_stream(audio.device).cuda_stream,
     )
     _build.check(status, "thunder_log_mel")
-    fused_log_mel.launches += 1
+    fused_log_mel.launches += -(-batch // slice_rows) * (2 if wide else 1)
     return out
 
 

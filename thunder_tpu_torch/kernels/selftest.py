@@ -5,7 +5,8 @@ with its check names and tolerances: ``frontend_log_mel`` (2e-3 absolute,
 log-mel units; the ``frontend_log_mel_edge_*`` checks, ``LOG_MEL_EDGES``,
 hold the kernel to the same limit at 44.1 and 48 kHz with n_fft 2048, hop
 161, n_fft 4096, the dense path's n_fft 400, frame counts that end inside a
-tile with a row of zeros, and a clip of one frame, and fail unless the plan
+tile with a row of zeros, a clip of one frame, 66,536 rows (two launches
+over row slices) and the wide path's n_fft 32,768, and fail unless the plan
 takes the path named), ``separable_conv`` and ``repeat_tm`` (8 bf16 ULP at the
 reference's maximum magnitude), ``ctc_recursion`` (0.01: absolute loss delta
 or gradient delta relative to the largest gradient, against the plain time
@@ -24,9 +25,10 @@ unless every row beyond a length is exactly zero. The ``separable_edge_*``
 checks (``SEPARABLE_EDGES``) hold the kernel at the edges of its tiles: C_in
 and C_out no multiple of 64 (200 -> 264), T_out = 1 and 65, k = 1, the
 strided stem and the dilated tail with a row of length 0, C_in = 1024, C_in =
-C_out = 100 (padded to 104 by the wrapper), and C_in = 2048 and 1544 (two
-launches over slices of C_in), each to 8 bf16 ULP and exact zeros beyond
-every length; the ``separable_citrinet_*`` checks (``SEPARABLE_CITRINET``)
+C_out = 100 (padded to 104 by the wrapper), C_in = 2048 and 1544 (two
+launches over slices of C_in), and spans too long for 64 channels (k 561 and
+1201 at dilation 2, k 1601 at stride 2, k 561 at C_in 2048: launches over
+slices of the taps), each to 8 bf16 ULP and exact zeros beyond every length; the ``separable_citrinet_*`` checks (``SEPARABLE_CITRINET``)
 at Citrinet-256's own shapes: the stem from 80 channels (k 5, T 1501), a
 stride-2 repeat without ReLU (256 channels, k 11, T 1501 -> 751) and the
 640-channel tail (k 41, T 188). ``frontend_log_mel_80`` is Citrinet's
@@ -626,6 +628,12 @@ SEPARABLE_EDGES = {
     # A tiles past one block: two launches over slices of C_in, the second one not a multiple of 64
     "separable_edge_cin2048": ((28, 2, 130, 2048, 2048, 33), {"lengths": [130, 61]}),
     "separable_edge_cin1544": ((29, 2, 70, 1544, 264, 33), {"lengths": [70, 0]}),
+    # spans too long for 64 channels beside their A tile: launches over slices of the taps (two at k = 561 and
+    # dilation 2, the smallest such k; three at 1201; at stride 2; and each over 32 slices of C_in at 2048)
+    "separable_edge_taps561": ((53, 2, 700, 256, 256, 561), {"dilation": 2, "lengths": [700, 0]}),
+    "separable_edge_taps1201": ((54, 2, 900, 256, 264, 1201), {"dilation": 2, "lengths": [900, 311]}),
+    "separable_edge_taps_stride2": ((55, 2, 2000, 64, 64, 1601), {"stride": 2, "lengths": [2000, 1500]}),
+    "separable_edge_taps_cin2048": ((56, 1, 300, 2048, 128, 561), {"dilation": 2}),
 }
 
 #: add + LayerNorm at widths its register-resident kernels do not take (not a multiple of 8, over 2048): the
@@ -651,6 +659,11 @@ LOG_MEL_EDGES = {
     "frontend_log_mel_edge_frames_off_tile": ((37, 3, 12345, "fft"), {}),
     # Citrinet's 80-mel frontend at the default FFT size (the FFT path; the 80-mel dense check above is n_fft 400)
     "frontend_log_mel_80": ((38, 3, 16000, "fft"), dict(n_mels=80)),
+    # past the grid's 65,535 rows: two launches over slices of rows, 0.1 s clips
+    "frontend_log_mel_edge_rows66536": ((39, 65536 + 1000, 1600, "fft"), {}),
+    # past one block's dense tile: the wide path (power through device memory), n_fft 32,768 with a 1 s window
+    "frontend_log_mel_edge_wide32768": ((40, 2, 48000, "wide"),
+                                        dict(n_fft=32768, hop_length=4096, win_length=16384, n_mels=128)),
 }
 
 #: the separable repeat at Citrinet-256's serving shapes that QuartzNet's do not cover, each with a row of

@@ -18,7 +18,11 @@ ported: they were TPU layout workarounds and do not change the result.
 The kernel reads 16 bytes at a time, so the wrapper pads channel counts that
 are not multiples of 8 with zeros (:func:`pad_channels`) and slices the
 output; an input too wide for one block's A tile runs as a few launches over
-slices of its channels (:func:`separable_plan`'s ``parts``).
+slices of its channels (:func:`separable_plan`'s ``parts``), and a span too
+long for even 64 channels beside their A tile (k past 560 at dilation 2) as
+launches over slices of its taps (``tap_slices``), which carry the float32
+depthwise sums from one to the next in a workspace, so that the result is the
+one launch's.
 
 The wrapper runs the kernel for a CUDA tensor and the plain version
 (:func:`separable_repeat_reference`) only for a CPU tensor.
@@ -80,16 +84,17 @@ def separable_repeat_reference(
 @functools.lru_cache(maxsize=None)
 def separable_plan(c_in: int, kernel_size: int, stride: int = 1, dilation: int = 1) -> dict:
     """The kernel's launch plan on the current card for these widths: shared memory per block
-    (``smem_bytes``, 0 when not even 64 channels' input span fits in 227 KB), weight-ring stages per
-    warpgroup, whether the first weight boxes are requested before the depthwise (``prefetch``), the
-    resident blocks per SM (``blocks_per_sm``), and the launches over slices of ``c_in`` (``parts``, 1
-    unless the A tile of all of ``c_in`` does not fit) of ``part`` channels each. Builds the kernels on
-    first use."""
-    out = (ctypes.c_int * 6)()
+    (``smem_bytes``, 0 when not even 64 channels' input span over 8 taps fits in 227 KB), weight-ring stages
+    per warpgroup, whether the first weight boxes are requested before the depthwise (``prefetch``), the
+    resident blocks per SM (``blocks_per_sm``), the launches over slices of ``c_in`` (``parts``, 1 unless
+    the A tile of all of ``c_in`` does not fit) of ``part`` channels each, the launches over slices of the
+    taps (``tap_slices``, 1 unless the span of all ``kernel_size`` taps does not fit beside 64 channels) of
+    ``taps`` taps each, and ``launches`` in all. Builds the kernels on first use."""
+    out = (ctypes.c_int * 8)()
     _build.check(_build.load().thunder_separable_repeat_plan(c_in, kernel_size, stride, dilation, out),
                  "thunder_separable_repeat_plan")
     return {"smem_bytes": out[0], "stages": out[1], "prefetch": bool(out[2]), "blocks_per_sm": out[3],
-            "parts": out[4], "part": out[5]}
+            "parts": out[4], "part": out[5], "taps": out[6], "tap_slices": out[7], "launches": out[4] * out[7]}
 
 
 def pad_channels(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, bias: torch.Tensor):
@@ -132,10 +137,11 @@ def fused_separable_repeat(
         bias: ``(C_out,)`` float32 folded-BN bias.
 
     On the card: bfloat16 ``x``/``dw``/``pw``. Channel counts that are not
-    multiples of 8 are padded with zeros (:func:`pad_channels`), and an input
+    multiples of 8 are padded with zeros (:func:`pad_channels`), an input
     whose A tile of 64 frames does not fit in shared memory (about 1,500
-    channels at k = 33) runs as ``separable_plan(...)["parts"]`` launches; a
-    span too long for even 64 channels raises.
+    channels at k = 33) runs as ``separable_plan(...)["parts"]`` launches, and
+    a span too long for 64 channels as ``tap_slices`` times as many; a span
+    too long for even 8 taps (a dilation past about 240) raises.
 
     Returns:
         ``(batch, time_out, C_out)`` in ``x.dtype``.
@@ -168,18 +174,20 @@ def fused_separable_repeat(
     if plan["smem_bytes"] == 0:
         raise ValueError(
             f"the separable repeat kernel's input span (k={kernel_size}, stride {stride}, dilation {dilation}) does "
-            "not fit in one block's 227 KB of shared memory beside even 64 channels' A tile"
+            "not fit in one block's 227 KB of shared memory beside even 64 channels' A tile over 8 taps"
         )
     out = torch.empty((batch, t_out, c_out), dtype=x.dtype, device=x.device)
-    partial = torch.empty((batch, t_out, c_out), dtype=torch.float32, device=x.device) if plan["parts"] > 1 else None
+    workspace = lambda needed, c: (torch.empty((batch, t_out, c), dtype=torch.float32, device=x.device)  # noqa: E731
+                                   if needed else None)
+    partial, dw_sum = workspace(plan["parts"] > 1, c_out), workspace(plan["tap_slices"] > 1, c_in)
     lib = _build.load()
     status = lib.thunder_separable_repeat(
         x.data_ptr(), dw.data_ptr(), pw.data_ptr(), bias.data_ptr(), out_lengths.data_ptr(), out.data_ptr(),
-        0 if partial is None else partial.data_ptr(), batch, time, t_out, c_in, c_out, kernel_size, stride, dilation,
-        pad, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        0 if partial is None else partial.data_ptr(), 0 if dw_sum is None else dw_sum.data_ptr(), batch, time, t_out,
+        c_in, c_out, kernel_size, stride, dilation, pad, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "thunder_separable_repeat")
-    fused_separable_repeat.launches += plan["parts"]
+    fused_separable_repeat.launches += plan["launches"]
     return out
 
 

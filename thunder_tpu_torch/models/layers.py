@@ -42,7 +42,7 @@ from thunder_tpu_torch.ops.masking import apply_mask, lengths_to_mask
 
 __all__ = [
     "BN_EPS", "InitMode", "weight_init", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "SqueezeExcite",
-    "EncoderBlock", "Dense", "init_parameters", "dropout", "apply_dropout",
+    "EncoderBlock", "Dense", "dense", "init_parameters", "dropout", "apply_dropout",
 ]
 
 BN_EPS = 1e-3
@@ -159,10 +159,15 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x2 = x.reshape(-1, x.shape[-1]).to(self.dtype)
-        kernel = self.kernel.to(self.dtype)
-        y = torch.matmul(x2, kernel) if self.bias is None else torch.addmm(self.bias.to(self.dtype), x2, kernel)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
+        return dense(x, self.kernel, self.bias, self.dtype)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """:class:`Dense`'s math: ``x @ kernel + bias`` in ``dtype`` over a flattened ``(rows, in)`` view."""
+    x2 = x.reshape(-1, x.shape[-1]).to(dtype)
+    kernel = kernel.to(dtype)
+    y = torch.matmul(x2, kernel) if bias is None else torch.addmm(bias.to(dtype), x2, kernel)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 class TorchBatchNorm(nn.Module):

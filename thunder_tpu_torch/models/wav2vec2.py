@@ -28,14 +28,23 @@ generator. The TPU-only gates of the JAX module (the 640-frame flash
 threshold, ``T % 128``, the 128-frame pad around the layer stack and the
 kill-switch environment variables) change no valid frame and are not ported.
 
+The serving engine's modes build their copy through :func:`serving_copy`:
+``posconv_dense`` folds the grouped positional conv into a block-diagonal
+dense one; ``int8_compute`` serves the transformer's four big Dense layers
+and the extractor convs of at least 64 input channels as W8A8 products
+(:class:`_Int8Dense`, :class:`_Int8Conv`: the JAX module's ``_Dense`` and
+``_ExtractorConv`` int8 branches); ``int8_weights`` keeps the other Dense
+kernels in int8 and dequantizes them in the compute dtype at each call.
+
 Not ported (they raise ``NotImplementedError``): ``remat``, SEW, the MMS
 adapters, data2vec-audio's positional conv stack, WavLM's relative position
-bias, int8 compute and ``Wav2Vec2Config.from_hf``.
+bias and ``Wav2Vec2Config.from_hf``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy as _copy
 from typing import Optional, Sequence
 
 import torch
@@ -47,11 +56,21 @@ from thunder_tpu_torch.kernels.add_ln_train import add_ln_dropout_train
 from thunder_tpu_torch.kernels.attention import HEAD_DIM, mha_from_qkv
 from thunder_tpu_torch.kernels.attention_train import mha_train
 from thunder_tpu_torch.kernels.dropout_hash import new_seed
-from thunder_tpu_torch.models.layers import Dense, dropout
+from thunder_tpu_torch.models.layers import Dense, dense, dropout
 from thunder_tpu_torch.ops.conv import conv1d
 from thunder_tpu_torch.ops.masking import lengths_to_mask
+from thunder_tpu_torch.quantization import (
+    SCALE,
+    VALUES,
+    column_major,
+    dynamic_int8_conv,
+    dynamic_int8_matmul,
+    quantize_tree,
+    quantize_tree_compute,
+)
 
-__all__ = ["Wav2Vec2Config", "Wav2Vec2Encoder", "LayerNorm", "feat_extract_output_lengths", "gelu", "serving_copy"]
+__all__ = ["Wav2Vec2Config", "Wav2Vec2Encoder", "LayerNorm", "feat_extract_output_lengths", "gelu", "fold_pos_conv",
+           "serving_copy"]
 
 # minimax odd-polynomial fit of Phi(x) = 0.5*(1+erf(x/sqrt(2))) on [-4, 4], the
 # JAX module's coefficients (gelu absolute error 2.0e-3, exact 0/1 tails)
@@ -455,14 +474,94 @@ class Wav2Vec2Encoder(nn.Module):
         return h, out_lengths
 
 
-def serving_copy(encoder: Wav2Vec2Encoder, dtype: torch.dtype) -> Wav2Vec2Encoder:
+class _Int8Dense(nn.Module):
+    """A Dense served from int8: ``kernel_q8`` (int8, ``(in, out)``) and ``kernel_scale`` (float32, one a
+    column) as buffers, with the bias.
+
+    ``compute=False`` (the engine's ``int8_weights``): the kernel is dequantized in the compute dtype at each
+    call, ``q.to(dtype) * scale.to(dtype)``, and :class:`Dense`'s math runs on it. ``compute=True``
+    (``int8_compute``, the JAX module's ``_Dense`` int8 branch): :func:`dynamic_int8_matmul` over the flattened
+    rows, the bias added in float32, then a cast to ``dtype``; the kernel is kept in :func:`column_major`
+    order, which the card's int8 product takes fastest."""
+
+    def __init__(self, kernel_q8: torch.Tensor, kernel_scale: torch.Tensor, bias: Optional[torch.Tensor],
+                 dtype: torch.dtype, compute: bool):
+        super().__init__()
+        self.dtype, self.compute = dtype, compute
+        self.register_buffer("kernel_q8", column_major(kernel_q8) if compute else kernel_q8)
+        self.register_buffer("kernel_scale", kernel_scale.reshape(-1))
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.compute:
+            return dense(x, self.kernel_q8.to(self.dtype) * self.kernel_scale.to(self.dtype), self.bias, self.dtype)
+        y = dynamic_int8_matmul(x.reshape(-1, x.shape[-1]), self.kernel_q8, self.kernel_scale)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.dtype).reshape(*x.shape[:-1], y.shape[-1])
+
+
+class _Int8Conv(nn.Module):
+    """An extractor conv (VALID, one group) served W8A8, the JAX module's ``_ExtractorConv`` int8 branch:
+    :func:`dynamic_int8_conv`, the bias added in float32, then a cast to ``dtype``; the kernel in
+    :func:`column_major` order."""
+
+    def __init__(self, kernel_q8: torch.Tensor, kernel_scale: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.stride, self.dtype = stride, dtype
+        self.register_buffer("kernel_q8", column_major(kernel_q8))
+        self.register_buffer("kernel_scale", kernel_scale)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = dynamic_int8_conv(x, self.kernel_q8, self.kernel_scale, self.stride)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.dtype)
+
+
+def fold_pos_conv(config: Wav2Vec2Config, state: dict) -> tuple[Wav2Vec2Config, dict]:
+    """The JAX engine's ``posconv_dense`` fold: without a positional conv stack, with more than one group of
+    ``gs`` channels and ``groups * gs == hidden``, the grouped ``(K, gs, hidden)`` kernel becomes a block-diagonal
+    ``(K, hidden, hidden)`` one (off-block zeros add exactly 0) under a copy of ``config`` with one group. Else
+    ``(config, state)`` as they are."""
+    groups, w = config.num_conv_pos_embedding_groups, state.get("pos_conv.kernel")
+    if config.pos_conv_stack or groups <= 1 or w is None or groups * w.shape[1] != w.shape[2]:
+        return config, state
+    taps, gs, h = w.shape
+    folded = torch.zeros((taps, h, h), dtype=w.dtype)
+    for g in range(groups):
+        folded[:, g * gs:(g + 1) * gs, g * gs:(g + 1) * gs] = w[:, :, g * gs:(g + 1) * gs]
+    config = _copy.copy(config)
+    config.num_conv_pos_embedding_groups = 1
+    return config, {**state, "pos_conv.kernel": folded}
+
+
+def _replace(root: nn.Module, path: str, module: nn.Module) -> None:
+    parent, _, name = path.rpartition(".")
+    setattr(root.get_submodule(parent), name, module)
+
+
+def serving_copy(encoder: Wav2Vec2Encoder, dtype: torch.dtype, posconv_dense: bool = False,
+                 int8_compute: bool = False, int8_weights: bool = False) -> Wav2Vec2Encoder:
     """A copy of ``encoder`` that computes in ``dtype``, with its weights pre-cast once
     (the JAX engine's serving copy): every parameter is rounded to ``dtype`` except the
     masked instance norm's, which apply in float32. Conv and dense weights are stored in
     ``dtype``; norm parameters keep float32 storage (the add + LayerNorm kernel's type)
-    with their values rounded through ``dtype``, as the JAX engine's bf16 copies promote."""
-    copy = Wav2Vec2Encoder(encoder.config, dtype=dtype)
-    copy.load_state_dict(encoder.state_dict())
+    with their values rounded through ``dtype``, as the JAX engine's bf16 copies promote.
+
+    The engine's modes, in the JAX engine's order: ``posconv_dense`` (:func:`fold_pos_conv`), then
+    ``int8_compute`` (:func:`quantize_tree_compute`: each selected Dense becomes an :class:`_Int8Dense`
+    with ``compute=True`` and each selected extractor conv an :class:`_Int8Conv`, both with the float32
+    bias), then ``int8_weights`` (:func:`quantize_tree` over what is left: each selected Dense becomes an
+    :class:`_Int8Dense` with ``compute=False``, the bias as in float mode). Quantization starts from
+    ``encoder``'s float32 weights."""
+    config, state = encoder.config, {k: v.detach().float().cpu() for k, v in encoder.state_dict().items()}
+    if posconv_dense:
+        config, state = fold_pos_conv(config, state)
+    copy = Wav2Vec2Encoder(config, dtype=dtype)
+    copy.load_state_dict(state)
     with torch.no_grad():
         for module in copy.modules():
             if isinstance(module, _MaskedInstanceNorm):
@@ -470,4 +569,22 @@ def serving_copy(encoder: Wav2Vec2Encoder, dtype: torch.dtype) -> Wav2Vec2Encode
             rounded_only = isinstance(module, (LayerNorm, _AddLayerNorm))
             for p in module.parameters(recurse=False):
                 p.data = p.data.to(dtype).float() if rounded_only else p.data.to(dtype)
+    tree = quantize_tree_compute(state) if int8_compute else state
+    for name in [k for k in tree if k.endswith(".kernel_q8")]:
+        path = name[: -len(".kernel_q8")]
+        old = copy.get_submodule(path)
+        bias = state.get(f"{path}.bias")
+        q, scale = tree[name], tree[f"{path}.kernel_scale"]
+        _replace(copy, path, _Int8Dense(q, scale, bias, dtype, compute=True) if isinstance(old, Dense)
+                 else _Int8Conv(q, scale, bias, old.stride, dtype))
+    if int8_weights:
+        tree = quantize_tree(tree)
+        for name in [k for k in tree if k.endswith(f".kernel.{VALUES}")]:
+            path = name[: -len(f".kernel.{VALUES}")]
+            old = copy.get_submodule(path)
+            if not isinstance(old, Dense):
+                raise NotImplementedError(f"int8_weights: {path} is a {type(old).__name__}; only Dense kernels are "
+                                          "served from int8 storage")
+            bias = None if old.bias is None else old.bias.detach()
+            _replace(copy, path, _Int8Dense(tree[name], tree[f"{path}.kernel.{SCALE}"], bias, dtype, compute=False))
     return copy.requires_grad_(False).eval()

@@ -97,19 +97,19 @@ def _padded_window(window: np.ndarray, n_fft: int) -> np.ndarray:
     return np.pad(window, (lpad, rpad))
 
 
-def _rdft_basis(n_fft: int, dtype=np.float32):
-    """Real-DFT basis: cos/sin matrices of shape (n_fft, n_fft//2+1)."""
+def _rdft_basis(n_fft: int, dtype=np.float32, rows: slice = slice(None)):
+    """Real-DFT basis: cos/sin matrices of shape (n_fft, n_fft//2+1), or their ``rows``."""
     n_freqs = n_fft // 2 + 1
-    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    n = np.arange(n_fft, dtype=np.float64)[rows, None]
     k = np.arange(n_freqs, dtype=np.float64)[None, :]
     angle = -2.0 * np.pi * n * k / n_fft
     return np.cos(angle).astype(dtype), np.sin(angle).astype(dtype)
 
 
-def windowed_basis(n_fft: int, win_length: int) -> np.ndarray:
-    """``(n_fft, 2 * n_freqs)`` float32: the windowed cos basis, then the sin basis."""
-    window = _padded_window(hann_window(win_length), n_fft)
-    cos_b, sin_b = _rdft_basis(n_fft)
+def windowed_basis(n_fft: int, win_length: int, rows: slice = slice(None)) -> np.ndarray:
+    """``(n_fft, 2 * n_freqs)`` float32: the windowed cos basis, then the sin basis; or their ``rows``."""
+    window = _padded_window(hann_window(win_length), n_fft)[rows]
+    cos_b, sin_b = _rdft_basis(n_fft, rows=rows)
     return np.concatenate([cos_b * window[:, None], sin_b * window[:, None]], axis=1).astype(np.float32)
 
 
@@ -130,10 +130,12 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int, center: bool = Tr
 
 
 def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, center: bool = True):
-    """Real and imaginary STFT ``(batch, frames, n_fft // 2 + 1)`` as a windowed-basis matmul."""
+    """Real and imaginary STFT ``(batch, frames, n_fft // 2 + 1)`` as a windowed-basis matmul over the window's
+    samples of each frame (the basis is zero outside them, so a large ``n_fft`` with a short window stays small)."""
     n_freqs = n_fft // 2 + 1
-    basis = torch.as_tensor(windowed_basis(n_fft, win_length), device=x.device)
-    spec = torch.matmul(frame_signal(x.float(), n_fft, hop_length, center=center), basis)
+    under = slice((n_fft - win_length) // 2, (n_fft - win_length) // 2 + win_length)
+    basis = torch.as_tensor(windowed_basis(n_fft, win_length, under), device=x.device)
+    spec = torch.matmul(frame_signal(x.float(), n_fft, hop_length, center=center)[..., under], basis)
     return spec[..., :n_freqs], spec[..., n_freqs:]
 
 
