@@ -225,6 +225,30 @@ Phases, each of which fails the run:
     kernels line's log-mel, separable, attention and add + LayerNorm entries
     give their launches in phases 15 and 17 (``w2v2_mode_launches``,
     ``int8_weights_launches``) and at C16's shapes (``c16``).
+20. ``loading``: real checkpoints through the user's entry points. QuartzNet15x5
+    (phase 4's configuration and ``fit_bn`` weights) and Citrinet-256
+    (phase 12's widths, a 1,024-piece unigram ``tokenizer.model`` trained by
+    ``train_sentencepiece_model`` on ``SPM_LINES`` seeded lines, V = 1,025)
+    written as ``.nemo`` archives in NeMo's raw layout (``write_nemo``:
+    torch-layout weights under NeMo's keys, BN statistics, a
+    ``model_config.yaml`` in NeMo's schema) and loaded by ``load_pretrained``
+    (load seconds on the host clock, the archive's bytes): one forward at 64 x
+    15 s must launch 1 log-mel and 77 (107) separable repeats and give logits
+    bit-equal (SHA-256) to an engine built from the source module, with the
+    same transcripts; the loaded Citrinet's device beam (W 16, K 50) must
+    equal the source engine's and its text transform round-trip the seed
+    text; both repo fixtures (``tests/fixtures/tiny_*.nemo``) on the card
+    within ``LOGIT_BOUND`` of the float32 CPU path; ``save_inference_bundle``
+    then ``load_inference_bundle`` of the loaded QuartzNet, the loaded
+    Citrinet (with its ``tokenizer.model``) and a random wav2vec2-base (16 x
+    15 s) must give bit-equal logits with the same launches;
+    ``finetune_ctc_module`` on the QuartzNet archive with a new 30-token head
+    (the archive's encoder exactly) and one ``Trainer.fit`` step at 16 x 15 s
+    must launch 1 log-mel, 1 ``ctc_alpha`` and 1 ``ctc_beta`` with a finite
+    loss; one step of a random wav2vec2-base at 8 x 15 s, dropout 0.1, with
+    ``frozen_paths`` on its extractor must leave every extractor tensor
+    bit-equal and move every other parameter. The kernels line's entries give
+    their launches in each of these runs (``loading_launches``).
 
 Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
 of its bytes (each input read once, each output written once) over 3.35
@@ -672,7 +696,7 @@ def peaked_logits(rng, batch, t, v, blank, blank_frac=0.7, peak=6.0):
     return logits
 
 
-def logits_vs_cpu_f32(phase: str, module, logits, out_lengths, audio, lengths, **modes) -> dict:
+def logits_vs_cpu_f32(phase: str, module, logits, out_lengths, audio, lengths, card: str = None, **modes) -> dict:
     """Rows 0-1 of the card's bf16 logits against the port's float32 CPU path (plain versions of every
     kernel) on the same module's weights, in the same serving ``modes`` of the engine: equal lengths, and the
     largest deviation over valid frames within ``LOGIT_BOUND`` of the CPU logits' scale; the argmax agreement,
@@ -694,7 +718,7 @@ def logits_vs_cpu_f32(phase: str, module, logits, out_lengths, audio, lengths, *
     line = {"phase": phase, "rows": 2, "max_rel_dev": rel, "bound": LOGIT_BOUND, "argmax_agreement": agree,
             "row0_time_std_over_scale": (row0.std(0).mean() / ref_logits.abs()[valid].max()).item(),
             "row0_argmax_tokens": int(row0.argmax(-1).unique().numel()), "cpu_seconds": cpu_seconds}
-    emit(line)
+    emit({**line, "card": card} if card else line)
     check(rel < LOGIT_BOUND, f"{phase}: bf16 card vs f32 CPU deviation {rel} >= {LOGIT_BOUND}")
     return line
 
@@ -939,6 +963,9 @@ def run() -> int:
     pos_conv_fold_phase(card)
     c16 = c16_shapes_phase(card, checks)
     add_mode_launches(kernels, int8_launches, mode_launches, c16)
+
+    # ---- loading real checkpoints: NeMo archives, the fixtures, bundles, fine-tuning, frozen_paths
+    add_loading_launches(kernels, loading_phase(card))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -2116,17 +2143,11 @@ def citrinet_cpu_loss_fall(batch: int, seconds: float) -> dict:
 def add_citrinet_launches(kernels: list, serving: dict, beam: dict, training: dict) -> None:
     """Each kernel's launches on the Citrinet paths (0 for those they do not reach), beside its entry's
     ``launches`` on its own main path."""
-    wrappers = {"log_mel": ("fused_log_mel",), "separable_repeat": ("fused_separable_repeat",),
-                "ctc_recursion": ("ctc_alpha", "ctc_beta"), "mha_from_qkv": ("mha_from_qkv",),
-                "add_layer_norm": ("add_layer_norm",), "beam_scan": ("beam_scan",),
-                "beam_backtrace": ("beam_backtrace",), "mha_train": ("mha_train_forward", "mha_train_backward"),
-                "add_ln_dropout_train": ("add_ln_train_forward", "add_ln_train_backward"),
-                "dropout_keep_mask": ("dropout_keep_mask",)}
     runs = {"forward": serving, "beam_predict_k50": beam["beam_k50"],
             "beam_predict_all_tokens": beam["beam_all_tokens"], "predict_long_greedy": beam["long_greedy"],
             "predict_long_beam": beam["long_beam"], "train_step": training}
     for entry in kernels:
-        entry["citrinet_launches"] = {run: sum(c[w] for w in wrappers[entry["name"]]) for run, c in runs.items()}
+        entry["citrinet_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
 
 
 def add_mode_launches(kernels: list, int8_launches: dict, mode_launches: dict, c16: dict) -> None:
@@ -2535,6 +2556,421 @@ def c16_shapes_phase(card: str, checks: list) -> dict:
     line = {"phase": "c16_shapes", "separable": separable, "log_mel": log_mel, "card": card}
     emit(line)
     return line
+
+
+# ---- loading real checkpoints (phase 20)
+
+QN15X5 = dict(repeat_blocks=3)  # QuartzNet15x5: the encoder's default five (filters, kernel) pairs, each 3 times
+QN_SEPARABLE = 77  # separable-repeat launches a QuartzNet15x5 forward: the stem, 15 blocks x 5 repeats, k 87
+FINETUNE_VOCAB = list("abcdefghijklmnopqrstuvwxyz '.,")  # 30 tokens: the fine-tuning phase's new head
+SPM_LINES, SPM_PIECES = 4000, 1024  # the Citrinet archive's tokenizer: 1,024 unigram pieces, so V = 1,025
+# the unigram trainer (the JAX package's algorithm) ends with fewer pieces than it is asked for: a piece whose
+# expected count vanishes in the last EM round drops out. On ``seeded_lines(SPM_LINES)`` a vocab_size of 1,056
+# leaves exactly SPM_PIECES (1,024 asks leave 995)
+SPM_VOCAB_SIZE = 1056
+LOADING_BEAM = dict(beam_width=16, beam_backend="device", max_tokens_per_step=50)
+FIXTURES = ("tests/fixtures/tiny_quartznet.nemo", "tests/fixtures/tiny_citrinet.nemo")
+#: the kernels line's entries and the wrappers whose launches each counts
+ENTRY_WRAPPERS = {"log_mel": ("fused_log_mel",), "separable_repeat": ("fused_separable_repeat",),
+                  "ctc_recursion": ("ctc_alpha", "ctc_beta"), "mha_from_qkv": ("mha_from_qkv",),
+                  "add_layer_norm": ("add_layer_norm",), "beam_scan": ("beam_scan",),
+                  "beam_backtrace": ("beam_backtrace",), "mha_train": ("mha_train_forward", "mha_train_backward"),
+                  "add_ln_dropout_train": ("add_ln_train_forward", "add_ln_train_backward"),
+                  "dropout_keep_mask": ("dropout_keep_mask",)}
+
+
+def _jasper_block(filters: int, kernel: int, repeat: int = 1, stride: int = 1, dilation: int = 1,
+                  residual: bool = True, separable: bool = True, **extra) -> dict:
+    return {"filters": filters, "repeat": repeat, "kernel": [kernel], "stride": [stride], "dilation": [dilation],
+            "dropout": 0.0, "residual": residual, "separable": separable, **extra}
+
+
+def _nemo_preprocessor(frontend) -> dict:
+    return {"_target_": "nemo.collections.asr.modules.AudioToMelSpectrogramPreprocessor",
+            "sample_rate": frontend.sample_rate, "window_size": frontend.n_window_size / frontend.sample_rate,
+            "window_stride": frontend.n_window_stride / frontend.sample_rate, "n_fft": frontend.fft_size,
+            "features": frontend.nfilt, "dither": frontend.dither, "normalize": "per_feature", "window": "hann"}
+
+
+def nemo_quartznet_config(module) -> dict:
+    """NeMo's ``model_config.yaml`` schema for a port QuartzNet module: ``labels``, ``preprocessor``, the
+    ``encoder.jasper`` list (stem, every body block, the k 87 and 1x1 blocks) and ``decoder``."""
+    enc, vocab = module.model.encoder, module.text_transform.vocab
+    labels = [t for t in vocab.itos if t != vocab.blank_token]
+    jasper = [_jasper_block(256, 33, stride=2, residual=False)]
+    for f, k in zip(enc.filters, enc.kernel_sizes):
+        jasper += [_jasper_block(f, k, repeat=enc.repeat)] * enc.repeat_blocks
+    jasper += [_jasper_block(512, 87, dilation=2, residual=False), _jasper_block(1024, 1, residual=False,
+                                                                                 separable=False)]
+    return {"sample_rate": SAMPLE_RATE, "labels": labels, "preprocessor": _nemo_preprocessor(module.model.audio_transform),
+            "encoder": {"_target_": "nemo.collections.asr.modules.ConvASREncoder", "feat_in": enc.feat_in,
+                        "activation": "relu", "conv_mask": True, "jasper": jasper},
+            "decoder": {"_target_": "nemo.collections.asr.modules.ConvASRDecoder", "feat_in": enc.final_dimension,
+                        "num_classes": len(labels), "vocabulary": labels}}
+
+
+def nemo_citrinet_config(module, pieces) -> dict:
+    """NeMo's ``model_config.yaml`` schema for a port Citrinet module whose tokenizer has ``pieces``: the
+    vocabulary in NeMo's wordpiece style (``▁x`` -> ``x``, ``x`` -> ``##x``) under ``decoder.vocabulary`` only,
+    and squeeze-excite blocks with the stride on the last repeat."""
+    enc = module.model.encoder
+    labels = [p[1:] if p.startswith("▁") else "##" + p for p in pieces]
+    se = dict(se=True, se_context_size=-1)
+    jasper = [_jasper_block(256, 5, residual=False, **se)]
+    jasper += [_jasper_block(f, k, repeat=enc.repeat, stride=s, stride_last=True, residual_mode="stride_add", **se)
+               for f, k, s in zip(enc.filters, enc.kernel_sizes, enc.strides)]
+    jasper.append(_jasper_block(640, 41, residual=False, **se))
+    return {"sample_rate": SAMPLE_RATE, "preprocessor": _nemo_preprocessor(module.model.audio_transform),
+            "encoder": {"_target_": "nemo.collections.asr.modules.ConvASREncoder", "feat_in": enc.feat_in,
+                        "activation": "relu", "conv_mask": True, "jasper": jasper},
+            "decoder": {"_target_": "nemo.collections.asr.modules.ConvASRDecoder", "feat_in": enc.final_dimension,
+                        "num_classes": len(labels), "vocabulary": labels}}
+
+
+def write_nemo(path, module, config: dict, tokenizer_model: bytes = None) -> None:
+    """Write a port QuartzNet or Citrinet module as a ``.nemo`` archive in NeMo's raw layout: the keys of
+    ``nemo_key_map``'s table, torch-layout ``(out, in, k)`` conv weights, the BN running statistics (and a
+    ``num_batches_tracked`` each), the squeeze-excite weights as ``mconv.<after the last repeat>.fc.{0,2}.weight``,
+    ``config`` as ``model_config.yaml`` and any ``tokenizer.model``."""
+    import io
+    import tarfile
+
+    import torch
+    import yaml
+
+    from thunder_tpu_torch.compat.nemo import _block_layout
+
+    encoder = module.model.encoder
+    separable = _block_layout(encoder)
+    bn_names = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    state = {}
+    for key, value in module.model.state_dict().items():
+        w = value.detach().cpu().clone()
+        parts = key.split(".")
+        if parts[0] == "decoder":
+            kernel = parts[1] == "kernel"
+            state["decoder.decoder_layers.0." + ("weight" if kernel else "bias")] = (
+                w.permute(2, 1, 0).contiguous() if kernel else w)
+            continue
+        block = int(parts[1].removeprefix("block"))
+        prefix = f"encoder.encoder.{block}."
+        group = 5 if separable[block] else 4
+        if parts[2] == "se":
+            last = getattr(encoder, parts[1]).repeat - 1
+            state[prefix + f"mconv.{last * group + 3}.fc.{0 if parts[3] == 'fc1' else 2}.weight"] = w.t().contiguous()
+        elif parts[2] == "res":
+            if parts[3] == "conv":
+                state[prefix + "res.0.0.conv.weight"] = w.permute(2, 1, 0).contiguous()
+            else:
+                state[prefix + f"res.0.1.{bn_names[parts[4]]}"] = w
+        else:
+            rep = int(parts[2].removeprefix("rep"))
+            if parts[3] == "bn":
+                idx = rep * group + (2 if separable[block] else 1)
+                state[prefix + f"mconv.{idx}.{bn_names[parts[4]]}"] = w
+                if parts[4] == "var":
+                    state[prefix + f"mconv.{idx}.num_batches_tracked"] = torch.tensor(7)
+            else:
+                idx = rep * group + (1 if parts[3] == "pointwise" else 0)
+                state[prefix + f"mconv.{idx}.conv.weight"] = w.permute(2, 1, 0).contiguous()
+    weights = io.BytesIO()
+    torch.save(state, weights)
+    files = {"model_config.yaml": yaml.safe_dump(config).encode(), "model_weights.ckpt": weights.getvalue()}
+    if tokenizer_model is not None:
+        files["tokenizer.model"] = tokenizer_model
+    with tarfile.open(path, "w") as tar:
+        for name, payload in files.items():
+            info = tarfile.TarInfo(name)
+            info.size = len(payload)
+            tar.addfile(info, io.BytesIO(payload))
+
+
+def seeded_lines(n_lines: int, seed: int = 0, n_words: int = 3000) -> list:
+    """``n_lines`` lines of 4-14 words drawn with Zipf-like frequencies from ``n_words`` random lowercase words
+    (numpy ``seed``): the Citrinet archive's tokenizer corpus."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    lexicon = ["".join(rng.choice(letters, rng.integers(2, 11))) for _ in range(n_words)]
+    p = 1.0 / np.arange(1, n_words + 1)
+    p /= p.sum()
+    return [" ".join(rng.choice(lexicon, rng.integers(4, 15), p=p)) for _ in range(n_lines)]
+
+
+def logits_sha256(logits) -> str:
+    import hashlib
+
+    return hashlib.sha256(logits.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+
+def launch_counts() -> dict:
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS
+
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_loaded(card: str, phase: str, path, source, audio, lengths, want: dict, device) -> tuple:
+    """``load_pretrained(path)`` on ``device``, timed on the host clock; one ``InferenceEngine.infer`` of the
+    batch must launch ``want`` and give logits bit-equal (SHA-256) to an engine built from ``source``; its
+    ``predict`` the same transcripts. Returns the loaded module, both engines and the launches."""
+    import os
+
+    import torch
+
+    from thunder_tpu_torch import load_pretrained
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+
+    sync(device)
+    t0 = time.perf_counter()
+    loaded = load_pretrained(str(path), device=device)
+    sync(device)
+    load_s = time.perf_counter() - t0
+    check(loaded.device == torch.device(device) and next(loaded.model.parameters()).device.type == torch.device(device).type,
+          f"{phase}: the loaded module is not on {device}")
+    engine, source_engine = InferenceEngine(loaded), InferenceEngine(source)
+    audio_d, lengths_d = torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device)
+    source_logits, _, _ = source_engine.infer(audio_d, lengths_d)
+    reset_launch_counts()
+    logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+    sync(device)
+    counts = launch_counts()
+    texts, source_texts = engine.predict(audio, lengths), source_engine.predict(audio, lengths)
+    line = {"phase": phase, "load_s_host_clock": load_s, "archive_bytes": os.path.getsize(path),
+            "batch": int(audio.shape[0]), "seconds": audio.shape[1] / SAMPLE_RATE, "frames": int(logits.shape[1]),
+            "V": int(logits.shape[2]), "launches": counts, "logits_sha256": logits_sha256(logits),
+            "source_logits_sha256": logits_sha256(source_logits), "equal_transcripts": texts == source_texts,
+            "transcript_chars": [min(map(len, texts)), max(map(len, texts))], "card": card}
+    emit(line)
+    check(counts == want, f"{phase}: one forward must launch {want}, got {counts}")
+    check(bool(torch.isfinite(logits).all()), f"{phase}: logits not finite")
+    check(line["logits_sha256"] == line["source_logits_sha256"], f"{phase}: logits differ from the source module's")
+    check(texts == source_texts, f"{phase}: transcripts differ from the source module's")
+    return loaded, engine, source_engine, counts, line
+
+
+def bundle_round_trip(card: str, name: str, module, engine, audio, lengths, tmp, device) -> dict:
+    """``save_inference_bundle`` then ``load_inference_bundle``: the restored engine's logits bit-equal to
+    ``engine``'s, with the same launches. Returns the launches."""
+    import torch
+
+    from thunder_tpu_torch import load_inference_bundle, save_inference_bundle
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+
+    audio_d, lengths_d = torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device)
+    reset_launch_counts()
+    logits, _, _ = engine.infer(audio_d, lengths_d)
+    sync(device)
+    want = launch_counts()
+    t0 = time.perf_counter()
+    directory = save_inference_bundle(str(tmp / f"bundle_{name}"), module)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = load_inference_bundle(directory, device=device)
+    sync(device)
+    load_s = time.perf_counter() - t0
+    restored_engine = InferenceEngine(restored)
+    reset_launch_counts()
+    again, _, _ = restored_engine.infer(audio_d, lengths_d)
+    sync(device)
+    counts = launch_counts()
+    line = {"phase": f"loading_bundle_{name}", "save_s_host_clock": save_s, "load_s_host_clock": load_s,
+            "files": sorted(p.name for p in tmp.joinpath(f"bundle_{name}").iterdir()), "launches": counts,
+            "logits_sha256": logits_sha256(again), "before_sha256": logits_sha256(logits), "card": card}
+    emit(line)
+    check(counts == want, f"bundle {name}: the restored engine launches {counts}, the original {want}")
+    check(line["logits_sha256"] == line["before_sha256"], f"bundle {name}: logits differ after the round trip")
+    return counts
+
+
+def loading_phase(card: str, device="cuda") -> dict:
+    """Phase 20 of the module docstring: full-width QuartzNet15x5 and Citrinet-256 written as ``.nemo``
+    archives, loaded through ``load_pretrained`` and served; the repo's fixtures on the card; the inference
+    bundle round trip; ``finetune_ctc_module`` and one step; a ``frozen_paths`` step. Returns the launches of
+    each run, by run, for the kernels line."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from thunder_tpu_torch import finetune_ctc_module, load_pretrained
+    from thunder_tpu_torch.audio import FilterbankFeatures, Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, LinearDecoder, QuartznetEncoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer, train_sentencepiece_model
+    from thunder_tpu_torch.text.sentencepiece_model import SentencePieceModel
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    runs = {}
+    rng = np.random.default_rng(0)
+    samples = int(SECONDS * SAMPLE_RATE)
+    base = speech_like(samples, rng)
+    audio = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(BATCH)])
+    lengths = np.full((BATCH,), samples, dtype=np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # ---- 1. QuartzNet15x5 from a .nemo archive
+        source = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(**QN15X5),
+                                  Conv1dDecoder(len(VOCAB) + 1), BatchTextTransformer(VOCAB), device=device)
+        fit_bn(source, audio[:8], lengths[:8])
+        qn_path = tmp / "quartznet15x5.nemo"
+        write_nemo(qn_path, source, nemo_quartznet_config(source))
+        qn, qn_engine, _, runs["quartznet_forward"], _ = serve_loaded(
+            card, "loading_quartznet", qn_path, source, audio, lengths,
+            expected_counts(fused_log_mel=1, fused_separable_repeat=QN_SEPARABLE), device)
+        del source
+
+        # ---- 2. Citrinet-256 from a .nemo archive with a 1,024-piece sentencepiece tokenizer
+        lines = seeded_lines(SPM_LINES)
+        (tmp / "text.txt").write_text("\n".join(lines) + "\n")
+        t0 = time.perf_counter()
+        train_sentencepiece_model(str(tmp / "text.txt"), SPM_VOCAB_SIZE, str(tmp / "spm"))
+        train_s = time.perf_counter() - t0
+        sp_path = tmp / "spm" / "tokenizer.model"
+        pieces = SentencePieceModel.load(str(sp_path)).pieces
+        check(len(pieces) == SPM_PIECES, f"the tokenizer has {len(pieces)} pieces, not {SPM_PIECES}")
+        source = citrinet_create(device, vocab=pieces)
+        source.text_transform = BatchTextTransformer(pieces, sentencepiece_model=str(sp_path))
+        fit_bn(source, audio[:8], lengths[:8])
+        cn_path = tmp / "citrinet256.nemo"
+        write_nemo(cn_path, source, nemo_citrinet_config(source, pieces), tokenizer_model=sp_path.read_bytes())
+        cn, cn_engine, cn_source_engine, runs["citrinet_forward"], cn_line = serve_loaded(
+            card, "loading_citrinet", cn_path, source, audio, lengths,
+            expected_counts(fused_log_mel=1, fused_separable_repeat=CITRINET_SEPARABLE), device)
+        check(cn.text_transform.vocab.itos == source.text_transform.vocab.itos and cn_line["V"] == SPM_PIECES + 1,
+              "the loaded Citrinet's vocabulary differs from its tokenizer's pieces")
+        cn_engine.predict(audio, lengths, **LOADING_BEAM)  # warms the beam path
+        reset_launch_counts()
+        beam_texts = cn_engine.predict(audio, lengths, **LOADING_BEAM)
+        sync(device)
+        runs["citrinet_beam"] = launch_counts()
+        source_beam = cn_source_engine.predict(audio, lengths, **LOADING_BEAM)
+        sample = lines[:64]
+        ids, _ = cn.text_transform.encode(sample)
+        decoded = [t.strip() for t in cn.text_transform.decode_prediction(ids, remove_repeated=False)]
+        emit({"phase": "loading_citrinet_beam_and_text", "W": LOADING_BEAM["beam_width"],
+              "K": LOADING_BEAM["max_tokens_per_step"], "launches": runs["citrinet_beam"],
+              "equal_rows": sum(a == b for a, b in zip(beam_texts, source_beam)), "rows": len(beam_texts),
+              "tokenizer_train_s_host_clock": train_s, "tokenizer_lines": SPM_LINES, "pieces": len(pieces),
+              "text_rows": len(sample), "text_round_trip_equal": sum(a == b for a, b in zip(decoded, sample)),
+              "pieces_per_line": float(np.mean([len(cn.text_transform.tokenizer(t)) for t in sample])), "card": card})
+        check(runs["citrinet_beam"] == expected_counts(fused_log_mel=1, fused_separable_repeat=CITRINET_SEPARABLE,
+                                                       beam_scan=1, beam_backtrace=1),
+              f"one loaded Citrinet beam predict launched {runs['citrinet_beam']}")
+        check(beam_texts == source_beam, "the loaded Citrinet's device beam differs from the source engine's")
+        check(decoded == sample, "the Citrinet text transform does not round-trip the seed text")
+        del source, cn_source_engine
+
+        # ---- 3. the repo's fixtures on the card against the float32 CPU path
+        clip = np.arange(SAMPLE_RATE) / SAMPLE_RATE
+        fixture_audio = np.stack([(0.4 * np.sin(2 * np.pi * 220 * clip) + 0.3 * np.sin(2 * np.pi * 521 * clip)),
+                                  speech_like(SAMPLE_RATE, np.random.default_rng(5))]).astype(np.float32)
+        fixture_lengths = np.array([SAMPLE_RATE, SAMPLE_RATE * 3 // 4], np.int32)
+        for fixture in FIXTURES:
+            name = Path(fixture).stem.removeprefix("tiny_")
+            module = load_pretrained(fixture, device=device)
+            engine = InferenceEngine(module)
+            repeats = sum(rp.kind == "separable" for block in engine._plan for rp in block.repeats)
+            reset_launch_counts()
+            logits, _, out_lengths = engine.infer(torch.as_tensor(fixture_audio, device=device),
+                                                  torch.as_tensor(fixture_lengths, device=device))
+            sync(device)
+            runs[f"fixture_{name}"] = launch_counts()
+            emit({"phase": f"loading_fixture_{name}", "launches": runs[f"fixture_{name}"], "card": card})
+            check(runs[f"fixture_{name}"] == expected_counts(fused_log_mel=1, fused_separable_repeat=repeats),
+                  f"fixture {name}: {runs[f'fixture_{name}']}")
+            logits_vs_cpu_f32(f"loading_fixture_{name}_vs_cpu_f32", module, logits, out_lengths, fixture_audio,
+                              fixture_lengths, card=card)
+
+        # ---- 4. the inference bundle round trip: QuartzNet, Citrinet (with its tokenizer.model), wav2vec2-base
+        runs["bundle_quartznet"] = bundle_round_trip(card, "quartznet", qn, qn_engine, audio, lengths, tmp, device)
+        runs["bundle_citrinet"] = bundle_round_trip(card, "citrinet", cn, cn_engine, audio, lengths, tmp, device)
+        check((tmp / "bundle_citrinet" / "tokenizer.model").exists(), "the Citrinet bundle has no tokenizer.model")
+        del cn, cn_engine
+        w2v_tt = BatchTextTransformer(W2V_VOCAB)
+        w2v = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                               Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(w2v_tt.num_tokens), w2v_tt,
+                               device=device)
+        w2v_samples = int(W2V_SECONDS * SAMPLE_RATE)
+        w2v_audio = np.stack([speech_like(w2v_samples, np.random.default_rng(1 + i)) for i in range(W2V_BATCH)])
+        w2v_lengths = np.full((W2V_BATCH,), w2v_samples, dtype=np.int32)
+        runs["bundle_wav2vec2"] = bundle_round_trip(card, "wav2vec2", w2v, InferenceEngine(w2v), w2v_audio,
+                                                    w2v_lengths, tmp, device)
+        layers = w2v.model.encoder.config.num_hidden_layers
+        check(runs["bundle_wav2vec2"] == expected_counts(mha_from_qkv=layers, add_layer_norm=2 * layers + 1),
+              f"wav2vec2 bundle launches {runs['bundle_wav2vec2']}")
+        del w2v, qn_engine
+
+        # ---- 5. fine-tuning: a new 30-token head on the QuartzNet archive, one Trainer.fit step
+        t0 = time.perf_counter()
+        tuned = finetune_ctc_module(str(qn_path), checkpoint_kwargs={"device": device}, tokens=FINETUNE_VOCAB,
+                                    decoder_builder=Conv1dDecoder)
+        finetune_s = time.perf_counter() - t0
+        archive_state = qn.model.state_dict()
+        encoder_equal = all(torch.equal(v, archive_state[k]) for k, v in tuned.model.state_dict().items()
+                            if k.startswith("encoder."))
+        train_samples = int(TRAIN_SECONDS * SAMPLE_RATE)
+        train_audio = (np.random.default_rng(0).standard_normal((TRAIN_BATCH, train_samples)) * 0.1).astype(np.float32)
+        train_lengths = np.full((TRAIN_BATCH,), train_samples, dtype=np.int32)
+        batch = [(train_audio, train_lengths, [TRAIN_TEXT] * TRAIN_BATCH)]
+        reset_launch_counts()
+        trainer = Trainer(seed=0, log_every=1, device=device)
+        trainer.fit(tuned, batch)
+        sync(device)
+        runs["finetune_step"] = launch_counts()
+        loss = trainer.logs[-1]["loss/train_loss"]
+        emit({"phase": "loading_finetune", "finetune_s_host_clock": finetune_s, "V": tuned.text_transform.num_tokens,
+              "encoder_equal_to_archive": encoder_equal, "batch": TRAIN_BATCH, "seconds": TRAIN_SECONDS,
+              "loss": loss, "launches": runs["finetune_step"], "card": card})
+        check(encoder_equal, "the fine-tuning module's encoder differs from the archive's")
+        check(tuned.text_transform.num_tokens == len(FINETUNE_VOCAB) + 1, "the new head's vocabulary")
+        check(runs["finetune_step"] == expected_counts(fused_log_mel=1, ctc_alpha=1, ctc_beta=1),
+              f"one fine-tuning step launched {runs['finetune_step']}")
+        check(bool(np.isfinite(loss)), f"fine-tuning loss {loss}")
+        del tuned, qn, trainer
+
+        # ---- 6. frozen_paths (C4): one wav2vec2-base step at 8 x 15 s, dropout 0.1, the extractor untouched
+        cfg = Wav2Vec2Config(hidden_dropout=0.1, attention_dropout=0.1, feat_proj_dropout=0.1)
+        module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False),
+                                  Wav2Vec2Encoder(cfg, dtype=torch.bfloat16, freeze_feature_extractor=True),
+                                  LinearDecoder(len(VOCAB) + 1, dtype=torch.bfloat16), BatchTextTransformer(VOCAB),
+                                  device=device)
+        module.frozen_paths = [("encoder", "feature_extractor")]
+        before = {k: v.clone() for k, v in module.model.state_dict().items()}
+        b = W2V_TRAIN_BATCH
+        reset_launch_counts()
+        trained = Trainer(seed=0, device=device).fit(module, [(train_audio[:b], train_lengths[:b], [TRAIN_TEXT] * b)])
+        sync(device)
+        runs["frozen_paths_step"] = launch_counts()
+        after = trained.model.state_dict()
+        frozen = [k for k in before if k.startswith("encoder.feature_extractor.")]
+        params = {n for n, _ in trained.model.named_parameters()}
+        others = [k for k in before if k in params and k not in frozen]
+        frozen_equal = sum(torch.equal(after[k], before[k]) for k in frozen)
+        moved = sum(not torch.equal(after[k], before[k]) for k in others)
+        emit({"phase": "loading_frozen_paths_step", "batch": b, "seconds": W2V_SECONDS, "frozen_tensors": len(frozen),
+              "frozen_bit_equal": frozen_equal, "other_parameters": len(others), "moved": moved,
+              "launches": runs["frozen_paths_step"], "card": card})
+        check(frozen and frozen_equal == len(frozen), f"{len(frozen) - frozen_equal} frozen extractor tensors moved")
+        check(moved == len(others), f"{len(others) - moved} trainable parameters did not move")
+    return runs
+
+
+def add_loading_launches(kernels: list, runs: dict) -> None:
+    """Each kernel's launches in the loading phase's runs (0 for those they do not reach)."""
+    for entry in kernels:
+        entry["loading_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -24,7 +24,12 @@ serving modes run on a small wav2vec2 (each mode) and QuartzNet
 (``int8_weights``) against the same mode on the CPU; ``int8_mm`` and the
 dynamic int8 products equal their plain versions and the CPU's bit for bit;
 the separable repeat's tap slices and the log-mel's wide path (C16) are held
-to their plain versions.
+to their plain versions. The repo's ``.nemo`` fixtures load on the card
+through ``load_pretrained`` (within 0.1 of float32 on the CPU, one launch of
+each kernel of the plan), the inference bundle round trip gives the same
+logits bit for bit on the card, a ``frozen_paths`` step on the card leaves
+the frozen extractor bit-equal, and a tiny HF wav2vec2 loads and serves on the
+card where ``transformers`` is installed.
 The training attention and add + dropout + LayerNorm kernels are held to
 their plain versions, forward and backward, at odd sizes (T = 1, 31, 749,
 1536, a row of length 0; row counts that are no multiple of a block, D = 128
@@ -41,6 +46,8 @@ On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 (``--noconftest``: ``tests/conftest.py`` sets up JAX, which the port does not need.)
 This file imports no JAX.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1056,3 +1063,100 @@ def test_log_mel_wide_path_at_an_fft_size_of_no_power_of_two_on_card(cuda):
     got = fused_log_mel(audio, **kw)
     assert fused_log_mel.launches == before + 2
     assert (got - log_mel_reference(audio, **kw)).abs().max().item() <= 2e-3
+
+
+FIXTURES = Path(__file__).parent / "fixtures"
+
+
+@pytest.mark.parametrize("name", ["tiny_quartznet", "tiny_citrinet"])
+def test_fixtures_load_on_card_and_match_cpu(cuda, name):
+    from thunder_tpu_torch import load_pretrained
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import fused_log_mel, fused_separable_repeat, reset_launch_counts
+
+    module = load_pretrained(str(FIXTURES / f"{name}.nemo"))
+    assert module.device.type == "cuda" and next(module.model.parameters()).is_cuda
+    engine = InferenceEngine(module)
+    repeats = sum(rp.kind == "separable" for block in engine._plan for rp in block.repeats)
+    audio = (np.random.default_rng(0).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000], np.int32)
+    reset_launch_counts()
+    got, got_lens = engine(audio, lengths)
+    assert (fused_log_mel.launches, fused_separable_repeat.launches) == (1, repeats)
+    want, want_lens = InferenceEngine(module.to("cpu"))(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    assert (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max() < 0.1
+
+
+@pytest.mark.parametrize("name", ["tiny_quartznet", "tiny_citrinet"])
+def test_bundle_round_trip_on_card_is_bit_equal(cuda, name, tmp_path):
+    from thunder_tpu_torch import load_inference_bundle, load_pretrained, save_inference_bundle
+    from thunder_tpu_torch.engine import InferenceEngine
+
+    module = load_pretrained(str(FIXTURES / f"{name}.nemo"))
+    restored = load_inference_bundle(save_inference_bundle(str(tmp_path / "bundle"), module))
+    assert restored.device.type == "cuda"
+    audio = (np.random.default_rng(1).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 12000], np.int32)
+    a, _ = InferenceEngine(module)(audio, lengths)
+    b, _ = InferenceEngine(restored)(audio, lengths)
+    assert torch.equal(a, b)
+    assert InferenceEngine(restored).predict(audio, lengths) == InferenceEngine(module).predict(audio, lengths)
+
+
+def test_frozen_paths_step_on_card_leaves_the_extractor_bit_equal(cuda):
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    config = Wav2Vec2Config(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                            conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+                            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False),
+                              Wav2Vec2Encoder(config, dtype=torch.bfloat16), LinearDecoder(29, dtype=torch.bfloat16),
+                              BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '")), device="cuda")
+    module.frozen_paths = [("encoder", "feature_extractor")]
+    audio = (np.random.default_rng(0).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    loader = [(audio, np.array([16000, 9000], np.int32), ["hello world", "the cat"])] * 2
+    before = {k: v.clone() for k, v in module.model.state_dict().items()}
+    after = Trainer(device="cuda").fit(module, loader).model.state_dict()
+    frozen = [k for k in before if k.startswith("encoder.feature_extractor.")]
+    assert frozen and all(torch.equal(after[k], before[k]) for k in frozen)
+    assert all(not torch.equal(after[k], before[k]) for k in before if k not in frozen)
+
+
+def test_hf_checkpoint_loads_on_card(cuda, tmp_path):
+    """A tiny HF wav2vec2 (dh 64, so the serving kernels run) saved with ``save_pretrained``, loaded on the card:
+    the attention and add + LayerNorm launches of one forward, within 0.1 of float32 on the CPU."""
+    transformers = pytest.importorskip("transformers")
+    import json
+
+    from thunder_tpu_torch import load_pretrained
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import add_layer_norm, mha_from_qkv, reset_launch_counts
+
+    vocab = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3, "|": 4, "a": 5, "b": 6, "c": 7}
+    cfg = transformers.Wav2Vec2Config(vocab_size=len(vocab), hidden_size=128, num_hidden_layers=2,
+                                      num_attention_heads=2, intermediate_size=256, conv_dim=(32, 32, 32),
+                                      conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2), num_conv_pos_embeddings=16,
+                                      num_conv_pos_embedding_groups=4)
+    torch.manual_seed(0)
+    transformers.Wav2Vec2ForCTC(cfg).eval().save_pretrained(tmp_path)
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    transformers.Wav2Vec2CTCTokenizer(str(tmp_path / "vocab.json"), pad_token="<pad>", unk_token="<unk>",
+                                      word_delimiter_token="|").save_pretrained(tmp_path)
+    transformers.Wav2Vec2FeatureExtractor(do_normalize=True).save_pretrained(tmp_path)
+    module = load_pretrained(str(tmp_path))
+    assert module.device.type == "cuda" and module.frozen_paths == [("encoder", "feature_extractor")]
+    audio = (np.random.default_rng(0).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000], np.int32)
+    reset_launch_counts()
+    got, got_lens = InferenceEngine(module)(audio, lengths)
+    assert (mha_from_qkv.launches, add_layer_norm.launches) == (2, 5)
+    want, want_lens = InferenceEngine(module.to("cpu"))(audio, lengths)
+    assert torch.equal(got_lens.cpu(), want_lens)
+    valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
+    assert (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max() < 0.1

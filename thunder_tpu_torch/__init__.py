@@ -28,6 +28,11 @@ _LAZY = {
     "LinearDecoder": "thunder_tpu_torch.models",
     "BatchTextTransformer": "thunder_tpu_torch.text",
     "Trainer": "thunder_tpu_torch.training.trainer",
+    "load_pretrained": "thunder_tpu_torch.registry",
+    "register_checkpoint_enum": "thunder_tpu_torch.registry",
+    "finetune_ctc_module": "thunder_tpu_torch.finetune",
+    "save_inference_bundle": "thunder_tpu_torch.export",
+    "load_inference_bundle": "thunder_tpu_torch.export",
 }
 
 

@@ -21,7 +21,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_flax_variables"]
+__all__ = ["from_flax_variables", "state_key"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -32,12 +32,17 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield prefix + (key,), value
 
 
+def state_key(collection: str, path: tuple) -> str:
+    """The ``state_dict`` key of one flax leaf: ``collection`` ("params" or "batch_stats") and its path."""
+    if collection == "params" and len(path) >= 2 and path[-2] == "conv" and path[-1] in ("kernel", "bias"):
+        path = path[:-2] + path[-1:]
+    return ".".join(path)
+
+
 def from_flax_variables(variables_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ``{"params": ..., "batch_stats": ...}`` of numpy arrays -> a ``state_dict``."""
     state: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables_np.get(collection, {})):
-            if collection == "params" and len(path) >= 2 and path[-2] == "conv" and path[-1] in ("kernel", "bias"):
-                path = path[:-2] + path[-1:]
-            state[".".join(path)] = torch.from_numpy(np.array(value, dtype=np.float32))
+            state[state_key(collection, path)] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state

@@ -37,8 +37,9 @@ and the extractor convs of at least 64 input channels as W8A8 products
 kernels in int8 and dequantizes them in the compute dtype at each call.
 
 Not ported (they raise ``NotImplementedError``): ``remat``, SEW, the MMS
-adapters, data2vec-audio's positional conv stack, WavLM's relative position
-bias and ``Wav2Vec2Config.from_hf``.
+adapters, data2vec-audio's positional conv stack and WavLM's relative
+position bias. ``Wav2Vec2Config.from_hf`` reads every family's config, so
+those families raise when the encoder is built from it.
 """
 
 from __future__ import annotations
@@ -111,12 +112,12 @@ def gelu(x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
 
 
 class Wav2Vec2Config:
-    """The fields of the JAX package's ``Wav2Vec2Config`` that the port reads (defaults = base;
-    the dropout rates are HF's defaults and act in train mode only).
+    """The JAX package's ``Wav2Vec2Config``, field for field (defaults = base; the dropout rates are HF's
+    defaults and act in train mode only).
 
-    The flags of the variants the port does not run yet (``sew_style``, ``add_adapter``, ``adapter_attn_dim``,
-    ``pos_conv_stack``, ``rel_pos_buckets``) are kept so that
-    :class:`Wav2Vec2Encoder` can refuse them.
+    The fields of the variants the port does not run yet (``sew_style``, ``add_adapter``, ``adapter_attn_dim``,
+    ``pos_conv_stack``, ``rel_pos_buckets`` and their sizes) are kept so that :class:`Wav2Vec2Encoder` can
+    refuse them and an inference bundle's ``config.json`` has the JAX package's keys.
     """
 
     def __init__(
@@ -139,9 +140,16 @@ class Wav2Vec2Config:
         feat_proj_dropout: float = 0.1,
         feat_proj_layer_norm: bool = True,
         pos_conv_stack: bool = False,
+        conv_pos_kernel_size: Optional[int] = None,
         rel_pos_buckets: int = 0,
+        rel_pos_max_distance: int = 0,
         sew_style: bool = False,
+        squeeze_factor: int = 1,
         add_adapter: bool = False,
+        output_hidden_size: Optional[int] = None,
+        num_adapter_layers: int = 3,
+        adapter_kernel_size: int = 3,
+        adapter_stride: int = 2,
         adapter_attn_dim: Optional[int] = None,
     ):
         if feat_extract_norm not in ("group", "layer"):
@@ -165,10 +173,56 @@ class Wav2Vec2Config:
         #: HuBERT can drop the feature-projection LayerNorm
         self.feat_proj_layer_norm = feat_proj_layer_norm
         self.pos_conv_stack = pos_conv_stack
+        self.conv_pos_kernel_size = conv_pos_kernel_size
         self.rel_pos_buckets = rel_pos_buckets
+        self.rel_pos_max_distance = rel_pos_max_distance
         self.sew_style = sew_style
+        self.squeeze_factor = squeeze_factor
         self.add_adapter = add_adapter
+        self.output_hidden_size = output_hidden_size or hidden_size
+        self.num_adapter_layers = num_adapter_layers
+        self.adapter_kernel_size = adapter_kernel_size
+        self.adapter_stride = adapter_stride
         self.adapter_attn_dim = adapter_attn_dim
+
+    @classmethod
+    def from_hf(cls, hf_config) -> "Wav2Vec2Config":
+        """Any wav2vec2-family HF config (wav2vec2, HuBERT, WavLM, data2vec-audio, SEW): the JAX package's
+        ``Wav2Vec2Config.from_hf``."""
+        model_type = getattr(hf_config, "model_type", "wav2vec2")
+        is_d2v = model_type == "data2vec-audio"
+        return cls(
+            hidden_size=hf_config.hidden_size,
+            num_hidden_layers=hf_config.num_hidden_layers,
+            num_attention_heads=hf_config.num_attention_heads,
+            intermediate_size=hf_config.intermediate_size,
+            conv_dim=hf_config.conv_dim,
+            conv_kernel=hf_config.conv_kernel,
+            conv_stride=hf_config.conv_stride,
+            conv_bias=hf_config.conv_bias,
+            # data2vec-audio hardcodes per-layer LN convs and post-norm layers (its config has neither flag)
+            feat_extract_norm="layer" if is_d2v else hf_config.feat_extract_norm,
+            do_stable_layer_norm=getattr(hf_config, "do_stable_layer_norm", False),
+            num_conv_pos_embeddings=hf_config.num_conv_pos_embeddings,
+            num_conv_pos_embedding_groups=hf_config.num_conv_pos_embedding_groups,
+            layer_norm_eps=hf_config.layer_norm_eps,
+            hidden_dropout=getattr(hf_config, "hidden_dropout", 0.1),
+            attention_dropout=getattr(hf_config, "attention_dropout", 0.1),
+            feat_proj_dropout=getattr(hf_config, "feat_proj_dropout", 0.1),
+            feat_proj_layer_norm=getattr(hf_config, "feat_proj_layer_norm", True),
+            pos_conv_stack=is_d2v,
+            conv_pos_kernel_size=getattr(hf_config, "conv_pos_kernel_size", None),
+            rel_pos_buckets=getattr(hf_config, "num_buckets", 0) if model_type == "wavlm" else 0,
+            rel_pos_max_distance=getattr(hf_config, "max_bucket_distance", 0) if model_type == "wavlm" else 0,
+            sew_style=model_type == "sew",
+            squeeze_factor=getattr(hf_config, "squeeze_factor", 1) if model_type == "sew" else 1,
+            add_adapter=bool(getattr(hf_config, "add_adapter", False)),
+            output_hidden_size=getattr(hf_config, "output_hidden_size", None),
+            num_adapter_layers=getattr(hf_config, "num_adapter_layers", 3),
+            adapter_kernel_size=getattr(hf_config, "adapter_kernel_size", 3),
+            adapter_stride=getattr(hf_config, "adapter_stride", 2),
+            adapter_attn_dim=getattr(hf_config, "adapter_attn_dim", None),
+        )
 
 
 def feat_extract_output_lengths(lengths, kernels: Sequence[int], strides: Sequence[int]):
@@ -410,10 +464,14 @@ class Wav2Vec2Encoder(nn.Module):
     extractor's output (HF's ``freeze_feature_encoder()``): the extractor then
     runs without recording a graph, so none of its activations is kept for the
     backward, and its parameters receive no gradient.
+
+    ``mask_input`` records the checkpoint's feature-extractor setting, as the
+    JAX encoder's field does (the frontend's ``Wav2Vec2Preprocess`` acts on
+    it; an inference bundle's ``config.json`` carries it).
     """
 
     def __init__(self, config: Optional[Wav2Vec2Config] = None, dtype=torch.float32, remat: bool = False,
-                 freeze_feature_extractor: bool = False):
+                 freeze_feature_extractor: bool = False, mask_input: bool = True):
         super().__init__()
         config = config or Wav2Vec2Config()
         unported = {
@@ -430,6 +488,7 @@ class Wav2Vec2Encoder(nn.Module):
         self.config = config
         self.dtype = dtype
         self.freeze_feature_extractor = freeze_feature_extractor
+        self.mask_input = mask_input
         h, eps, k = config.hidden_size, config.layer_norm_eps, config.num_conv_pos_embeddings
         self.feature_extractor = _FeatureExtractor(config, dtype=dtype)
         if config.feat_proj_layer_norm:

@@ -291,6 +291,10 @@ class CTCModule:
     text_transform: Optional[BatchTextTransformer]
     device: torch.device
     pad_multiple: int = 16000
+    #: parameter-name prefixes, as flax path tuples (``("encoder", "feature_extractor")`` for
+    #: ``encoder.feature_extractor.*``), that training leaves untouched: the ``Trainer`` keeps them out of the
+    #: optimizer and the gradient clip (the HF loader freezes the wav2vec2 conv feature extractor)
+    frozen_paths: Optional[List[Tuple[str, ...]]] = None
 
     @classmethod
     def create(
@@ -320,6 +324,11 @@ class CTCModule:
         model = copy.deepcopy(self.model)
         model.load_state_dict(state)
         return replace(self, model=model)
+
+    @property
+    def encoder_final_dimension(self) -> int:
+        """Channels out of the encoder (the decoder's input)."""
+        return self.model.encoder.final_dimension
 
     @property
     def blank_idx(self) -> int:

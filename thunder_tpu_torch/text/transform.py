@@ -1,26 +1,23 @@
-"""Batched text encode/decode glue (character tokenizer).
+"""Batched text encode/decode glue.
 
-Port of the character-tokenizer path of
-``thunder_tpu/text/transform.py::BatchTextTransformer``: tokenize -> add
-specials -> numericalize -> pad, and the inverse CTC decode (consecutive
+Port of ``thunder_tpu/text/transform.py::BatchTextTransformer``: tokenize ->
+add specials -> numericalize -> pad, and the inverse CTC decode (consecutive
 duplicate collapse -> tokens -> string -> marker cleanup -> special-token
-strip). Sentencepiece (BPE) tokenizers wait for a later slice.
+strip). The tokenizer is, in this order of precedence, a custom function, a
+sentencepiece model (:class:`~thunder_tpu_torch.text.tokenizer.BPETokenizer`)
+or the character tokenizer.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from thunder_tpu_torch.text.tokenizer import BPETokenizer, char_tokenizer
 from thunder_tpu_torch.text.vocab import Vocabulary
 
 __all__ = ["BatchTextTransformer", "char_tokenizer"]
-
-
-def char_tokenizer(text: str) -> List[str]:
-    """Character split."""
-    return list(text)
 
 
 class BatchTextTransformer:
@@ -32,6 +29,8 @@ class BatchTextTransformer:
         unknown_token: Optional[str] = None,
         start_token: Optional[str] = None,
         end_token: Optional[str] = None,
+        sentencepiece_model: Optional[str] = None,
+        custom_tokenizer_function: Optional[Callable[[str], List[str]]] = None,
     ):
         self.vocab = Vocabulary(
             tokens,
@@ -41,7 +40,12 @@ class BatchTextTransformer:
             start_token=start_token,
             end_token=end_token,
         )
-        self.tokenizer = char_tokenizer
+        if custom_tokenizer_function is not None:
+            self.tokenizer = custom_tokenizer_function
+        elif sentencepiece_model is not None:
+            self.tokenizer = BPETokenizer(sentencepiece_model)
+        else:
+            self.tokenizer = char_tokenizer
 
     def encode(
         self, items: Sequence[str], return_length: bool = True, pad_to: Optional[int] = None
@@ -74,6 +78,18 @@ class BatchTextTransformer:
             text = text.replace("▁", " ").replace("|", " ")
             out.append(self.vocab.remove_special_tokens(text))
         return out
+
+    @classmethod
+    def from_sentencepiece(cls, output_dir: str) -> "BatchTextTransformer":
+        """Build from a sentencepiece training output folder (``tokenizer.vocab`` and ``tokenizer.model``)."""
+        special_tokens = {"<s>", "</s>", "<pad>", "<unk>"}
+        vocab: List[str] = []
+        with open(f"{output_dir}/tokenizer.vocab", "r", encoding="utf-8") as f:
+            for line in f:
+                piece = line.split("\t")[0]
+                if piece not in special_tokens:
+                    vocab.append(piece)
+        return cls(tokens=vocab, sentencepiece_model=f"{output_dir}/tokenizer.model")
 
     @property
     def num_tokens(self) -> int:

@@ -1,16 +1,43 @@
-"""Checkpoint tree migrations.
+"""Module checkpoints and checkpoint tree migrations.
 
-Port of ``migrate_fused_qkv`` from ``thunder_tpu/training/checkpointing.py``:
-pure numpy on nested dicts, lists, tuples and namedtuples, so a parameter or
-optimizer-moment tree saved by either package goes through it. Saving and
-restoring train state is not ported yet (``ROADMAP.md``).
+Port of ``save_module``, ``restore_module_variables`` and
+``migrate_fused_qkv`` from ``thunder_tpu/training/checkpointing.py``:
+
+- ``save_module`` / ``restore_module_variables`` keep a module's weights (its
+  model's ``state_dict``: parameters and batch-norm running statistics) with
+  ``torch.save`` / ``torch.load(weights_only=True)``, where the JAX package
+  keeps its variables with Orbax;
+- ``migrate_fused_qkv`` is pure numpy on nested dicts, lists, tuples and
+  namedtuples, so a parameter or optimizer-moment tree saved by either
+  package goes through it.
+
+Saving and restoring train state is not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
-import numpy as np
+from pathlib import Path
 
-__all__ = ["migrate_fused_qkv"]
+import numpy as np
+import torch
+
+__all__ = ["migrate_fused_qkv", "save_module", "restore_module_variables"]
+
+#: the weights' file name inside a checkpoint folder
+MODULE_FILE = "module.pt"
+
+
+def save_module(directory: str, module) -> str:
+    """Save a CTCModule's weights (an inference checkpoint) as ``directory/module.pt``; returns its path."""
+    path = Path(directory).absolute() / MODULE_FILE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in module.model.state_dict().items()}, path)
+    return str(path)
+
+
+def restore_module_variables(path: str, module):
+    """A copy of ``module`` holding the weights saved at ``path`` (strict: the same keys and shapes)."""
+    return module.with_state(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def migrate_fused_qkv(tree):

@@ -5,10 +5,15 @@ Port of the single-device path of ``thunder_tpu/training/trainer.py``:
 - :class:`TrainStep` is ``_train_step_body`` / ``make_train_step``: the
   model's train-mode forward, ``calculate_ctc``, the backward, gradient
   clipping by value and then by global norm (optax's order and formulas), and
-  the optimizer step (parameters without a gradient, such as a frozen feature
-  extractor's, step with a zero gradient, so weight decay reaches them as it
-  does in optax), once every ``accumulate_grad_batches`` calls (optax's
-  ``MultiSteps``: the mean of the micro-batch gradients);
+  the optimizer step (the optimizer's parameters without a gradient, such as
+  a feature extractor's behind ``freeze_feature_extractor``, step with a zero
+  gradient, so weight decay reaches them as it does in optax), once every
+  ``accumulate_grad_batches`` calls (optax's ``MultiSteps``: the mean of the
+  micro-batch gradients);
+- a module's ``frozen_paths`` (``freeze_subtrees_transform``) keep their
+  parameters out of the optimizer and the clip
+  (:func:`~thunder_tpu_torch.training.optim.trainable_parameters`): they
+  are not updated at all;
 - :func:`eval_step` is ``make_eval_step``;
 - :class:`Trainer` keeps the JAX ``Trainer``'s knobs that the slice needs
   (``max_epochs``, ``log_every``, ``fast_dev_run``,
@@ -35,7 +40,7 @@ import torch
 from thunder_tpu_torch.module import CTCModule, decode_greedy, require_device, to_device
 from thunder_tpu_torch.ops.ctc import calculate_ctc, greedy_decode
 from thunder_tpu_torch.training.metrics import CharErrorRate, WordErrorRate
-from thunder_tpu_torch.training.optim import adamw, build_optimizer
+from thunder_tpu_torch.training.optim import adamw, build_optimizer, trainable_parameters
 
 __all__ = ["TrainStep", "Trainer", "eval_step", "clip_by_global_norm_"]
 
@@ -61,8 +66,9 @@ class TrainStep:
     """``step(audio, audio_lengths, targets, target_lengths, generator) -> loss``.
 
     Every call runs forward and backward; every ``accumulate_grad_batches``-th
-    call also clips and steps the optimizer. The batch-norm running statistics
-    move in place on every call. Returns the loss, detached, on the device.
+    call also clips and steps the optimizer. Only the optimizer's parameters
+    are clipped and stepped. The batch-norm running statistics move in place
+    on every call. Returns the loss, detached, on the device.
     """
 
     def __init__(self, model, optimizer: torch.optim.Optimizer, blank_idx: int, accumulate_grad_batches: int = 1,
@@ -74,6 +80,7 @@ class TrainStep:
         self.gradient_clip_norm = gradient_clip_norm
         self.gradient_clip_value = gradient_clip_value
         self.calls = 0
+        self.params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def __call__(self, audio, audio_lengths, targets, target_lengths, generator: torch.Generator) -> torch.Tensor:
         logits, out_lengths = self.model(audio, audio_lengths, train=True, generator=generator)
@@ -84,10 +91,10 @@ class TrainStep:
             # a parameter the loss does not reach (a frozen feature extractor) gets a zero gradient, as
             # JAX's stop_gradient gives it: optax's adamw still applies its decoupled weight decay to such
             # a parameter, and torch.optim.AdamW skips one whose gradient is None
-            for p in self.model.parameters():
-                if p.requires_grad and p.grad is None:
+            for p in self.params:
+                if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            grads = [p.grad for p in self.params]
             if self.gradient_clip_value is not None:
                 for g in grads:
                     g.clamp_(-self.gradient_clip_value, self.gradient_clip_value)
@@ -137,7 +144,8 @@ class Trainer:
         """Train a copy of ``module`` on ``self.device``; return it with the trained weights."""
         device = require_device(self.device)
         module = module.to(device)
-        optimizer = build_optimizer(module.model.parameters(), self.optimizer_builder, self.optimizer_kwargs)
+        params = trainable_parameters(module.model, module.frozen_paths)
+        optimizer = build_optimizer(params, self.optimizer_builder, self.optimizer_kwargs)
         train_step = TrainStep(module.model, optimizer, module.blank_idx, self.accumulate_grad_batches,
                                self.gradient_clip_norm, self.gradient_clip_value)
         generator = torch.Generator(device=device).manual_seed(self.seed)
