@@ -249,6 +249,34 @@ Phases, each of which fails the run:
     ``frozen_paths`` on its extractor must leave every extractor tensor
     bit-equal and move every other parameter. The kernels line's entries give
     their launches in each of these runs (``loading_launches``).
+21. ``training_remat``: QuartzNet15x5 and Citrinet-256 at 16 x 15 s and
+    wav2vec2-base at 8 x 15 s (``bench_train.py``'s configurations,
+    wav2vec2 with ``--remat``), each through two forward + backward steps
+    without ``remat`` and one with it from the same weights and generator
+    state: loss, running statistics and generator state bit-equal, the
+    gradients within ``REMAT_GRAD_FLOOR`` or ``REMAT_GRAD_SPREADS`` times
+    the spread of the two steps without it, the remat step's launches as
+    derived (wav2vec2: 24 + 24 attention, 49 + 50 add + dropout + LN); a
+    CUDA generator's ``get_state``/``set_state`` under the sync debug mode
+    "error"; then ``TrainStep`` with and without remat in turns: peak memory
+    and step ms;
+22. ``trainer_features``: QuartzNet15x5 at 16 x 15 s through ``Trainer.fit``
+    with ``onecycle`` (``total_steps_arg``), ``FinetuneEncoderDecoder``,
+    best-only checkpoints, ``eval_beam_width=16`` and a ``JsonlLogger`` (the
+    rates equal the schedule's, 1 log-mel and 1 + 1 CTC launches a step);
+    the frozen epoch alone (encoder bit-equal, decoder moved), its
+    checkpoint restored bit for bit and resumed (the first loss within
+    ``RESUME_LOSS_TOL`` of the uninterrupted run's); a plateau run and an
+    early-stopping run;
+23. ``learning_gate``: ``examples/synthetic_learning_demo.py``'s task on
+    the port (2,048 tone-coded WAV items through ``ManifestDatamodule``, 6
+    epochs) must end at a held-out WER of at most ``GATE_WER``; its WER
+    curve, wall seconds and the loader's wait. The kernels line's entries
+    give their launches in phases 21-23 (``training_launches``).
+
+Every profile (``device_profile``) must hold each launch of the port's
+kernels that the launch counters saw during the profiled call; a trace that
+misses some is taken again (``records_complete``, ``attempts``).
 
 Every kernel's ``bound_ms`` is computed from this run's shapes: the largest
 of its bytes (each input read once, each output written once) over 3.35
@@ -427,20 +455,39 @@ PROFILE_CATEGORIES = (
 )
 
 
-def device_profile(fn) -> dict:
+#: the name patterns of the port's own kernels, which the launch counters count one for one
+OWN_KERNELS = ("log_mel_", "separable_repeat_kernel", "ctc_alpha_kernel", "ctc_beta_kernel", "mha_forward_kernel",
+               "mha_train_d", "add_ln_", "beam_scan", "beam_backtrace", "dropout_keep_mask_kernel")
+
+
+def device_profile(fn, attempts: int = 3) -> dict:
     """Device activity of one call of ``fn`` under torch.profiler: busy and idle
     time between its first and last device event, the top kernels by time, and
-    the time per category of ``PROFILE_CATEGORIES`` (the rest is "elementwise_and_other")."""
+    the time per category of ``PROFILE_CATEGORIES`` (the rest is "elementwise_and_other").
+
+    The trace must hold every launch of the port's kernels that the launch counters saw during the call
+    (``own_kernel_events`` against ``own_kernel_launches``): CUPTI can drop kernel records (a Citrinet serving
+    profile once listed 656 of its 662 events, no log-mel and 104 of 107 separable repeats, while the counters
+    saw 1 and 107). A trace that misses some is taken again, up to ``attempts`` calls; ``records_complete``
+    says whether the kept one holds them all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for attempt in range(1, attempts + 1):
+        before = launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launched = sum(launch_counts().values()) - sum(before.values())
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        own = sum(any(p in e.name for p in OWN_KERNELS) for e in events)
+        if own == launched:
+            break
+    completeness = {"own_kernel_launches": launched, "own_kernel_events": own, "records_complete": own == launched,
+                    "attempts": attempt}
     if not events:
-        return {"device_events": 0, "idle_share": "not measured"}
+        return {"device_events": 0, "idle_share": "not measured", **completeness}
     span_us = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     by_name: dict = {}
@@ -460,6 +507,7 @@ def device_profile(fn) -> dict:
         "idle_share": max(0.0, 1.0 - busy_us / span_us),
         "top": [{"name": n[:80], "ms": t / 1e3, "calls": c} for n, (t, c) in top],
         "categories_ms": dict(sorted(categories.items(), key=lambda kv: -kv[1])),
+        **completeness,
     }
 
 
@@ -966,6 +1014,12 @@ def run() -> int:
 
     # ---- loading real checkpoints: NeMo archives, the fixtures, bundles, fine-tuning, frozen_paths
     add_loading_launches(kernels, loading_phase(card))
+
+    # ---- the rest of training: remat on the three encoders, the trainer's features, the learning gate
+    training_runs = {f"remat_{name}": counts for name, counts in training_remat_phase(card).items()}
+    training_runs["trainer_features_run_a"] = trainer_features_phase(card)
+    training_runs["learning_gate"] = learning_gate_phase(card)
+    add_training_launches(kernels, training_runs)
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -2970,6 +3024,454 @@ def add_loading_launches(kernels: list, runs: dict) -> None:
     """Each kernel's launches in the loading phase's runs (0 for those they do not reach)."""
     for entry in kernels:
         entry["loading_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
+
+
+
+# ---- phases 21-23: the rest of training (remat, the trainer's features, the learning gate)
+
+#: |grad remat on - grad remat off| / |grad remat off| over each tensor's largest magnitude, at most this or
+#: REMAT_GRAD_SPREADS times the same measure between two remat-off steps: cuDNN's convolution backward (weight
+#: gradients accumulated by atomics) is not deterministic, so two steps without remat differ too
+REMAT_GRAD_FLOOR = 1e-3
+REMAT_GRAD_SPREADS = 4.0
+REMAT_TIMED = 3
+#: the first loss of the resumed run against the uninterrupted run's loss at that step, relative: the two
+#: start from bit-equal states, and cuDNN's nondeterministic backward moves the weights apart by its spread
+RESUME_LOSS_TOL = 1e-2
+#: the synthetic learning gate (``examples/synthetic_learning_demo.py``; ``bench.py``'s bound)
+GATE_CHARS = "abcdefgh"
+GATE_ITEMS, GATE_EPOCHS, GATE_BATCH, GATE_WER = 2048, 6, 32, 0.15
+
+
+def step_state(model, generator) -> dict:
+    """The parts of a train step that remat must leave unchanged: the running statistics and the generator."""
+    return {"buffers": {k: v.detach().clone() for k, v in model.named_buffers()}, "generator": generator.get_state()}
+
+
+def grad_deviation(grads: dict, reference: dict) -> float:
+    """The largest of ``max|g - ref| / max|ref|`` over the tensors (a tensor of zeros counts its max |g|)."""
+    worst = 0.0
+    for name, ref in reference.items():
+        scale = ref.abs().max().item()
+        diff = (grads[name] - ref).abs().max().item()
+        worst = max(worst, diff / scale if scale > 0 else diff)
+    return worst
+
+
+def remat_generator_syncs(device) -> dict:
+    """A CUDA generator's get_state and set_state, as ``checkpointed`` calls them once a block, under the sync
+    debug mode "error": a device synchronisation raises. Also their host time."""
+    import torch
+
+    generator = torch.Generator(device=device).manual_seed(0)
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for _ in range(100):
+            generator.set_state(generator.get_state())
+        us = (time.perf_counter() - t0) * 1e4
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    return {"get_set_state_us": us, "syncs": 0}
+
+
+def training_remat_phase(card: str, device="cuda") -> dict:
+    """Phase ``training_remat``: QuartzNet15x5 and Citrinet-256 at TRAIN_BATCH x TRAIN_SECONDS and wav2vec2-base
+    at W2V_TRAIN_BATCH x W2V_SECONDS (``bench_train.py``'s configurations, wav2vec2 with ``--remat``), each
+    from the same weights and generator state: two forward + backward steps with remat off and one with it
+    on. The loss, the running statistics and the generator's state after the step must be bit-equal; the
+    gradients within REMAT_GRAD_FLOOR, or REMAT_GRAD_SPREADS times the spread of the two remat-off steps; the
+    launches of the remat step as derived (QuartzNet and Citrinet: 1 log-mel, 1 + 1 CTC, the frontend and
+    the loss being outside the blocks; wav2vec2: each layer's attention and its two add + dropout + LayerNorm
+    forwards once more in the recompute, the encoder's own add + LayerNorm not, so 12 + 12 and 25 + 24 forward
+    launches, the backward's 24 and 50 unchanged). Then ``TrainStep`` with AdamW, remat off and on in turns:
+    ``torch.cuda.max_memory_allocated`` of a step and its ms (CUDA events, mean of REMAT_TIMED). Returns each
+    model's launches of the remat step."""
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures, Wav2Vec2Preprocess
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, LinearDecoder, QuartznetEncoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.ops.ctc import calculate_ctc
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import TrainStep, _encode_targets
+
+    tt = BatchTextTransformer(VOCAB)
+    bf16 = torch.bfloat16
+    if torch.device(device).type == "cuda":
+        syncs = remat_generator_syncs(device)
+        emit({"phase": "remat_generator_state", **syncs, "card": card})
+
+    def quartznet():
+        return CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(num_time_masks=2, num_freq_masks=2),
+                                QuartznetEncoder(repeat_blocks=3, dropout=0.1, dtype=bf16), Conv1dDecoder(29, dtype=bf16),
+                                tt, device=device)
+
+    def citrinet():
+        return citrinet_create(device, bf16, VOCAB, train_config=True, dropout=0.1)
+
+    def wav2vec2():
+        cfg = Wav2Vec2Config(hidden_dropout=0.1, attention_dropout=0.1, feat_proj_dropout=0.1)
+        return CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False),
+                                Wav2Vec2Encoder(cfg, dtype=bf16, freeze_feature_extractor=True),
+                                LinearDecoder(tt.num_tokens, dtype=bf16), tt, device=device)
+
+    layers = Wav2Vec2Config().num_hidden_layers
+    conv = expected_counts(fused_log_mel=1, ctc_alpha=1, ctc_beta=1)
+    models = [("quartznet15x5", quartznet, TRAIN_BATCH, TRAIN_SECONDS, conv),
+              ("citrinet256", citrinet, TRAIN_BATCH, TRAIN_SECONDS, conv),
+              ("wav2vec2_base", wav2vec2, W2V_TRAIN_BATCH, W2V_SECONDS,
+               expected_counts(mha_train_forward=2 * layers, mha_train_backward=2 * layers,
+                               add_ln_train_forward=(2 * layers + 1) + 2 * layers,
+                               add_ln_train_backward=2 * (2 * layers + 1), ctc_alpha=1, ctc_beta=1))]
+    runs = {}
+    for name, create, b, seconds, want in models:
+        samples = int(seconds * SAMPLE_RATE)
+        audio = torch.as_tensor((np.random.default_rng(0).standard_normal((b, samples)) * 0.1).astype(np.float32),
+                                device=device)
+        lengths = torch.full((b,), samples, dtype=torch.int32, device=device)
+        targets, target_lengths = (torch.as_tensor(a, device=device) for a in _encode_targets(tt, [TRAIN_TEXT] * b))
+        module = create()
+        model = module.model
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        generator = torch.Generator(device=device).manual_seed(0)
+        entry_state = generator.get_state()
+
+        def forward_backward(remat: bool):
+            model.load_state_dict(start)
+            model.encoder.remat = remat
+            model.zero_grad(set_to_none=True)
+            generator.set_state(entry_state)
+            reset_launch_counts()
+            logits, out_lengths = model(audio, lengths, train=True, generator=generator)
+            loss = calculate_ctc(logits, targets, out_lengths, target_lengths, module.blank_idx)
+            loss.backward()
+            sync(device)
+            grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters() if p.grad is not None}
+            return loss.detach(), grads, step_state(model, generator), launch_counts()
+
+        off, grads_off, state_off, _ = forward_backward(False)
+        off2, grads_off2, state_off2, _ = forward_backward(False)
+        on, grads_on, state_on, counts = forward_backward(True)
+        spread = grad_deviation(grads_off2, grads_off)
+        dev = grad_deviation(grads_on, grads_off)
+        buffers_equal = all(torch.equal(state_on["buffers"][k], v) for k, v in state_off["buffers"].items())
+        generator_equal = torch.equal(state_on["generator"], state_off["generator"])
+        line = {"phase": "training_remat", "model": name, "batch": b, "seconds": seconds,
+                "loss_off": off.item(), "loss_off_again": off2.item(), "loss_on": on.item(),
+                "loss_bit_equal": bool(torch.equal(on, off)), "buffers_bit_equal": buffers_equal,
+                "generator_state_equal": generator_equal, "grad_rel_dev": dev, "grad_rel_spread_off_off": spread,
+                "grad_tol": max(REMAT_GRAD_FLOOR, REMAT_GRAD_SPREADS * spread), "launches_remat_step": counts}
+
+        # the whole step (TrainStep with AdamW) in turns: peak memory and device time, remat off and on
+        timing = {}
+        for remat in (False, True, False, True):
+            model.load_state_dict(start)
+            model.encoder.remat = remat
+            step = TrainStep(model, adamw(model.parameters(), learning_rate=1e-4), module.blank_idx)
+            step(audio, lengths, targets, target_lengths, generator)  # warm-up, the optimizer's state allocated
+            sync(device)
+            if torch.device(device).type == "cuda":
+                line["allocated_before_step_gb"] = torch.cuda.memory_allocated() / 1e9
+                torch.cuda.reset_peak_memory_stats()
+                begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                begin.record()
+                for _ in range(REMAT_TIMED):
+                    step(audio, lengths, targets, target_lengths, generator)
+                end.record()
+                torch.cuda.synchronize()
+                timing.setdefault(remat, []).append((begin.elapsed_time(end) / REMAT_TIMED,
+                                                     torch.cuda.max_memory_allocated() / 1e9))
+            del step
+        model.encoder.remat = False
+        if name == "wav2vec2_base" and torch.device(device).type == "cuda":
+            # the frozen extractor runs without a graph, remat or not: its transient peak above what is allocated
+            with torch.no_grad():
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                model.encoder.feature_extractor(model.audio_transform(audio, lengths)[0], lengths)
+                line["frozen_extractor_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        for remat, label in ((False, "off"), (True, "on")):
+            if remat in timing:
+                line[f"step_ms_{label}"] = [t for t, _ in timing[remat]]
+                line[f"peak_mem_gb_{label}"] = max(m for _, m in timing[remat])
+        emit({**line, "card": card})
+        check(line["loss_bit_equal"], f"{name}: the remat step's loss {on.item()} != {off.item()} without remat")
+        check(buffers_equal, f"{name}: the running statistics after a remat step differ from those without it")
+        check(generator_equal, f"{name}: the generator's state after a remat step differs from that without it")
+        check(dev <= line["grad_tol"], f"{name}: remat gradients off by {dev} > {line['grad_tol']} (spread {spread})")
+        if torch.device(device).type == "cuda":
+            check(counts == want, f"{name}: a remat step must launch {want}, got {counts}")
+        runs[name] = counts
+        del module, model, start, grads_off, grads_off2, grads_on
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return runs
+
+
+class TimedLoader:
+    """A loader that adds up the host time its consumer waits for each batch (``wait_s``)."""
+
+    def __init__(self, loader):
+        self.loader, self.wait_s, self.batches = loader, 0.0, 0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.wait_s += time.perf_counter() - t0
+            self.batches += 1
+            yield batch
+
+
+def trainer_features_phase(card: str, device="cuda") -> dict:
+    """Phase ``trainer_features``: QuartzNet15x5 (``bench_train.py --model quartznet``'s configuration) at
+    TRAIN_BATCH x TRAIN_SECONDS through ``Trainer.fit``, two batches an epoch and a validation batch of 2 rows:
+
+    - run A, 2 epochs: AdamW under ``onecycle`` through ``total_steps_arg``, ``FinetuneEncoderDecoder(
+      unfreeze_encoder_at_epoch=1)``, ``checkpoint_dir`` with ``checkpoint_monitor``, ``eval_beam_width=16``
+      (the host beam), a ``JsonlLogger``: each step's learning rate equals the schedule's, each train step
+      launches 1 log-mel and 1 + 1 CTC kernels and each validation batch 1 log-mel and 1 ``ctc_alpha``;
+    - run B, epoch 0 of the same run alone: the encoder's parameters bit-equal while the decoder's moved;
+      its checkpoint restored into a fresh ``TrainStep`` gives back the saved parameters, optimizer state,
+      generator state and step bit for bit, and ``resume_from`` it, its first loss within RESUME_LOSS_TOL of
+      run A's third;
+    - a ``reduce_on_plateau`` run (3 epochs, one batch each): ``lr_scale/plateau`` each epoch equals the rule
+      replayed on the logged validation losses, and the next epoch's learning rate carries it;
+    - an ``EarlyStopping(patience=0, min_delta=1e9)`` run: it stops after epoch 1 and saves a checkpoint there.
+    Returns the launches of run A."""
+    import os
+    import tempfile
+
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training import checkpointing
+    from thunder_tpu_torch.training.loggers import JsonlLogger
+    from thunder_tpu_torch.training.optim import onecycle, plateau_update, reduce_on_plateau
+    from thunder_tpu_torch.training.trainer import EarlyStopping, FinetuneEncoderDecoder, Trainer
+
+    tt = BatchTextTransformer(VOCAB)
+    dtype = torch.bfloat16
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(num_time_masks=2, num_freq_masks=2),
+                              QuartznetEncoder(repeat_blocks=3, dropout=0.1, dtype=dtype), Conv1dDecoder(29, dtype=dtype),
+                              tt, device=device)
+    samples = int(TRAIN_SECONDS * SAMPLE_RATE)
+    rng = np.random.default_rng(0)
+
+    def batch(n):
+        audio = (rng.standard_normal((n, samples)) * 0.1).astype(np.float32)
+        return audio, np.full((n,), samples, dtype=np.int32), [TRAIN_TEXT] * n
+
+    train, val = [batch(TRAIN_BATCH), batch(TRAIN_BATCH)], [batch(2)]
+    common = dict(optimizer_kwargs={"learning_rate": 1e-3}, lr_scheduler_builder=onecycle, seed=0, log_every=1,
+                  device=device)
+    monitor = dict(checkpoint_monitor="loss/val_loss")
+
+    def finetune():
+        return [FinetuneEncoderDecoder(unfreeze_encoder_at_epoch=1)]
+
+    def train_losses(trainer):
+        return [e["loss/train_loss"] for e in trainer.logs if "loss/train_loss" in e]
+
+    params = [n for n, _ in module.model.named_parameters()]
+    start = {k: v.detach().clone() for k, v in module.model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as d:
+        # ---- run A: 2 epochs, the schedule through total_steps_arg, the freeze, best-only checkpoints, beam eval
+        run_a = Trainer(max_epochs=2, lr_scheduler_kwargs={"max_lr": 1e-3, "total_steps_arg": "total_steps"},
+                        callbacks=finetune(), checkpoint_dir=f"{d}/a", eval_beam_width=16,
+                        logger=JsonlLogger(f"{d}/a.jsonl"), **monitor, **common)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run_a.fit(module, train, val_loader=val)
+        sync(device)
+        a_s = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = len(train) * 2
+        lrs = [e["lr"] for e in run_a.logs if "lr" in e]
+        schedule = [onecycle(1e-3, steps)(s) for s in range(steps)]
+        vals_a = [e for e in run_a.logs if "loss/val_loss" in e]
+        with open(f"{d}/a.jsonl") as f:
+            logged = sum(1 for _ in f)
+        emit({"phase": "trainer_features_run_a", "train_losses": train_losses(run_a), "lrs": lrs, "schedule": schedule,
+              "val": vals_a, "checkpoints": sorted(os.listdir(f"{d}/a")), "jsonl_lines": logged, "launches": counts,
+              "seconds": a_s, "card": card})
+        check(lrs == schedule, f"run A's learning rates {lrs} are not onecycle's {schedule}")
+        check(logged == len(run_a.logs), f"the JsonlLogger wrote {logged} lines for {len(run_a.logs)} log entries")
+        check(len(vals_a) == 2 and all(np.isfinite(e["loss/val_loss"]) for e in vals_a), f"run A's validation {vals_a}")
+        if torch.device(device).type == "cuda":
+            want = expected_counts(fused_log_mel=steps + 2, ctc_alpha=steps + 2, ctc_beta=steps)
+            check(counts == want, f"run A ({steps} steps, 2 validation batches) must launch {want}, got {counts}")
+
+        # ---- run B: epoch 0 alone; the encoder frozen; its checkpoint restored; a run resumed from it
+        fixed = {"max_lr": 1e-3, "total_steps": steps}
+        run_b = Trainer(max_epochs=1, lr_scheduler_kwargs=fixed, callbacks=finetune(), checkpoint_dir=f"{d}/b",
+                        **monitor, **common)
+        trained = run_b.fit(module, train, val_loader=val)
+        after = trained.model.state_dict()
+        encoder_equal = all(torch.equal(after[n], start[n]) for n in params if n.startswith("encoder."))
+        decoder_moved = all(not torch.equal(after[n], start[n]) for n in params if n.startswith("decoder."))
+        (folder,) = os.listdir(f"{d}/b")
+        payload = checkpointing.restore_checkpoint(f"{d}/b/{folder}")
+        saved_equal = all(torch.equal(payload["model"][k], v.cpu()) for k, v in after.items())
+        resume = dict(lr_scheduler_kwargs=fixed, callbacks=finetune(), resume_from=f"{d}/b/{folder}", **common)
+        train_step, generator, _ = Trainer(max_epochs=1, **resume).train_step_for(module.to(device), train)
+        checkpointing.load_train_state(payload, train_step, generator)
+        restored_equal = same_tree(checkpointing.train_state(train_step, generator), payload)
+        resumed = Trainer(max_epochs=1, **resume)
+        resumed.fit(module, train, val_loader=val)
+        first, want_loss = train_losses(resumed)[0], train_losses(run_a)[len(train)]
+        emit({"phase": "trainer_features_resume", "checkpoint": folder, "encoder_bit_equal": encoder_equal,
+              "decoder_moved": decoder_moved, "saved_equals_trained": saved_equal, "restored_equals_saved": restored_equal,
+              "step": payload["step"], "resumed_first_loss": first, "run_a_loss_at_that_step": want_loss,
+              "rel_dev": abs(first - want_loss) / abs(want_loss), "tol": RESUME_LOSS_TOL, "card": card})
+        check(encoder_equal and decoder_moved, "epoch 0 under the freeze must keep the encoder and move the decoder")
+        check(folder == f"step_{len(train)}" and saved_equal and restored_equal,
+              f"checkpoint {folder}: saved {saved_equal}, restored {restored_equal}")
+        check(abs(first - want_loss) <= RESUME_LOSS_TOL * abs(want_loss),
+              f"the resumed run's first loss {first} is not run A's {want_loss}")
+
+        # ---- the plateau: the scale replayed on the logged validation losses, and carried into the next epoch
+        kw = {"factor": 0.5, "patience": 0}
+        plateau = Trainer(max_epochs=3, optimizer_kwargs={"learning_rate": 1e-3}, lr_scheduler_builder=reduce_on_plateau,
+                          lr_scheduler_kwargs=dict(kw), seed=0, log_every=1, device=device)
+        plateau.fit(module, train[:1], val_loader=val)
+        state, scales, replayed = reduce_on_plateau(**kw).init(), [], []
+        for e in plateau.logs:
+            if "lr_scale/plateau" in e:
+                state = plateau_update(state, e["loss/val_loss"], **kw)
+                scales.append(e["lr_scale/plateau"])
+                replayed.append(float(state.scale))
+        plateau_lrs = [e["lr"] for e in plateau.logs if "lr" in e]
+        emit({"phase": "trainer_features_plateau", "scales": scales, "replayed": replayed, "lrs": plateau_lrs,
+              "val_losses": [e["loss/val_loss"] for e in plateau.logs if "loss/val_loss" in e], "card": card})
+        check(scales == replayed and len(scales) == 3, f"plateau scales {scales} are not the rule's {replayed}")
+        check(plateau_lrs == [1e-3] + [1e-3 * s for s in scales[:-1]], f"plateau learning rates {plateau_lrs}")
+
+        # ---- early stopping: epoch 0 sets the best, epoch 1 cannot beat it by 1e9 and stops, with a checkpoint
+        stopping = Trainer(max_epochs=4, optimizer_kwargs={"learning_rate": 1e-3},
+                           callbacks=[EarlyStopping(patience=0, min_delta=1e9)], checkpoint_dir=f"{d}/e", seed=0,
+                           log_every=1, device=device)
+        stopping.fit(module, train[:1], val_loader=val)
+        stops = [e["epoch"] for e in stopping.logs if e.get("early_stop")]
+        saved = sorted(os.listdir(f"{d}/e"))
+        emit({"phase": "trainer_features_early_stop", "stopped_at_epoch": stops, "checkpoints": saved, "card": card})
+        check(stops == [1] and saved == ["step_1", "step_2"], f"early stop at {stops}, checkpoints {saved}")
+    return counts
+
+
+def same_tree(a, b) -> bool:
+    """Two train states (nested dicts, lists and tensors) bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def learning_gate_phase(card: str, device="cuda", items: int = GATE_ITEMS, epochs: int = GATE_EPOCHS,
+                        batch: int = GATE_BATCH) -> dict:
+    """Phase ``learning_gate``: ``examples/synthetic_learning_demo.py::run`` on the port. 2,048 items of 3-8
+    tone-coded characters (a 0.12 s Hann-windowed tone a character, noise 0.02, numpy seed 0) written as
+    16-bit WAVs into a temporary folder; QuartzNet (one block of two 128-channel repeats, k 33) trained by
+    ``Trainer.fit(datamodule=ManifestDatamodule(...))`` with AdamW at lr 1e-3, norm clip 1.0, batch 32, 6
+    epochs; the last validation WER must be at or below GATE_WER (``bench.py``'s gate). Prints the WER curve,
+    the wall seconds and the host time the trainer waited for the loader. Every train step launches 1 log-mel
+    and 1 + 1 CTC kernels, every validation batch 1 log-mel and 1 ``ctc_alpha``. Returns the run's launches."""
+    import json
+    import tempfile
+    import wave
+
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.data import ManifestDatamodule
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    freqs = {c: 300 + 150 * i for i, c in enumerate(GATE_CHARS)}
+    seg = int(0.12 * SAMPLE_RATE)
+    tones = {c: 0.4 * np.sin(2 * np.pi * f * np.arange(seg) / SAMPLE_RATE) * np.hanning(seg) for c, f in freqs.items()}
+
+    class TimedManifestDatamodule(ManifestDatamodule):
+        def train_dataloader(self):
+            self.timed = TimedLoader(super().train_dataloader())
+            return self.timed
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(0)
+        rows = []
+        for i in range(items):
+            text = "".join(rng.choice(list(GATE_CHARS)) for _ in range(rng.integers(3, 9)))
+            sig = np.concatenate([tones[c] for c in text])
+            sig = np.clip(sig + 0.02 * rng.standard_normal(sig.shape), -1, 1).astype(np.float32)
+            path = f"{d}/{i}.wav"
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(SAMPLE_RATE)
+                w.writeframes((sig * 32767).astype(np.int16).tobytes())
+            rows.append({"audio_filepath": path, "text": text, "duration": len(sig) / SAMPLE_RATE})
+        split = items - max(items // 32, 8)
+        with open(f"{d}/t.json", "w") as f:
+            f.write("\n".join(json.dumps(x) for x in rows[:split]))
+        with open(f"{d}/v.json", "w") as f:
+            f.write("\n".join(json.dumps(x) for x in rows[split:]))
+        synth_s = time.perf_counter() - t_start
+
+        tt = BatchTextTransformer(list(GATE_CHARS))
+        module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(),
+                                  QuartznetEncoder(repeat=2, filters=(128,), kernel_sizes=(33,)),
+                                  Conv1dDecoder(tt.num_tokens), tt, device=device)
+        dm = TimedManifestDatamodule(f"{d}/t.json", f"{d}/v.json", f"{d}/v.json", batch_size=batch, num_workers=8)
+        trainer = Trainer(max_epochs=epochs, optimizer_kwargs={"learning_rate": 1e-3}, gradient_clip_norm=1.0,
+                          log_every=100, device=device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(module, datamodule=dm)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    curve = [(e["epoch"], e["metrics/wer"], e["metrics/cer"]) for e in trainer.logs if "metrics/wer" in e]
+    steps = dm.timed.batches
+    val_batches = epochs * -(-(items - split) // batch)
+    emit({"phase": "learning_gate", "items": items, "epochs": epochs, "batch": batch, "train_steps": steps,
+          "val_curve_epoch_wer_cer": curve, "final_wer": curve[-1][1], "bound": GATE_WER, "wall_s": wall,
+          "synthesis_s": synth_s, "loader_wait_s": dm.timed.wait_s, "loader_wait_share": dm.timed.wait_s / wall,
+          "launches": counts, "card": card})
+    if torch.device(device).type == "cuda":
+        want = expected_counts(fused_log_mel=steps + val_batches, ctc_alpha=steps + val_batches, ctc_beta=steps)
+        check(counts == want, f"the learning gate must launch {want}, got {counts}")
+    check(curve[-1][1] <= GATE_WER, f"synthetic held-out WER {curve[-1][1]} > {GATE_WER}: the learning gate failed")
+    return counts
+
+
+def add_training_launches(kernels: list, runs: dict) -> None:
+    """Each kernel's launches in the remat steps, the trainer_features run A and the learning gate."""
+    for entry in kernels:
+        entry["training_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
 
 
 if __name__ == "__main__":

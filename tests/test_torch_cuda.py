@@ -29,7 +29,11 @@ through ``load_pretrained`` (within 0.1 of float32 on the CPU, one launch of
 each kernel of the plan), the inference bundle round trip gives the same
 logits bit for bit on the card, a ``frozen_paths`` step on the card leaves
 the frozen extractor bit-equal, and a tiny HF wav2vec2 loads and serves on the
-card where ``transformers`` is installed.
+card where ``transformers`` is installed. ``remat`` on a small wav2vec2 (bf16, dropout 0.1) and a
+small Citrinet gives the loss, the running statistics and the generator's state of the step without it,
+bit for bit, with the recompute's launches (each layer's attention and two add + dropout + LayerNorm
+forwards once more); a checkpoint saved on the card restores into a fresh train step bit for bit and a
+run resumed from it carries on.
 The training attention and add + dropout + LayerNorm kernels are held to
 their plain versions, forward and backward, at odd sizes (T = 1, 31, 749,
 1536, a row of length 0; row counts that are no multiple of a block, D = 128
@@ -1160,3 +1164,98 @@ def test_hf_checkpoint_loads_on_card(cuda, tmp_path):
     assert torch.equal(got_lens.cpu(), want_lens)
     valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
     assert (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max() < 0.1
+
+
+def _small_w2v2_module(remat: bool):
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    config = Wav2Vec2Config(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                            conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+                            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    return CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False),
+                            Wav2Vec2Encoder(config, dtype=torch.bfloat16, freeze_feature_extractor=True, remat=remat),
+                            LinearDecoder(29, dtype=torch.bfloat16), BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '")),
+                            device="cuda")
+
+
+def _small_citrinet_module(remat: bool):
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.models import CitrinetEncoder, Conv1dDecoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    encoder = CitrinetEncoder(filters=(256, 256, 256), kernel_sizes=(11, 13, 15), strides=(1, 2, 2), feat_in=80,
+                              repeat=2, dropout=0.1, dtype=torch.bfloat16, remat=remat)
+    return CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(nfilt=80, num_time_masks=1),
+                            encoder, Conv1dDecoder(29, dtype=torch.bfloat16),
+                            BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '")), device="cuda")
+
+
+def _remat_step(module, audio, lengths, texts):
+    """One forward + backward of the train step from the generator's seed 5: ``(loss, buffers, generator
+    state, launches)``."""
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.ops.ctc import calculate_ctc
+    from thunder_tpu_torch.training.trainer import _device_batch
+
+    generator = torch.Generator(device="cuda").manual_seed(5)
+    batch = _device_batch(module, audio, lengths, texts)
+    reset_launch_counts()
+    logits, out_lengths = module.model(batch[0], batch[1], train=True, generator=generator)
+    loss = calculate_ctc(logits, batch[2], out_lengths, batch[3], module.blank_idx)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS if w.launches}
+    return loss.detach(), {k: v.clone() for k, v in module.model.named_buffers()}, generator.get_state(), counts
+
+
+@pytest.mark.parametrize("family", ["wav2vec2", "citrinet"])
+def test_remat_on_card_is_bit_transparent_and_relaunches_the_forward(cuda, family):
+    make = _small_w2v2_module if family == "wav2vec2" else _small_citrinet_module
+    audio = (np.random.default_rng(0).standard_normal((2, 32000)) * 0.2).astype(np.float32)
+    lengths, texts = np.array([32000, 21000], np.int32), ["hello world", "the cat"]
+    loss0, buffers0, gen0, counts0 = _remat_step(make(False), audio, lengths, texts)
+    loss1, buffers1, gen1, counts1 = _remat_step(make(True), audio, lengths, texts)
+    assert torch.equal(loss0, loss1) and torch.isfinite(loss1)
+    assert buffers0.keys() == buffers1.keys() and all(torch.equal(buffers0[k], buffers1[k]) for k in buffers0)
+    assert torch.equal(gen0, gen1)
+    if family == "wav2vec2":  # 2 layers: the attention and two add + LN forwards of each once more
+        assert counts0 == {"mha_train_forward": 2, "mha_train_backward": 4, "add_ln_train_forward": 5,
+                           "add_ln_train_backward": 10, "ctc_alpha": 1, "ctc_beta": 1}
+        assert counts1 == {**counts0, "mha_train_forward": 4, "add_ln_train_forward": 9}
+    else:  # the frontend and the loss are outside the blocks
+        assert counts0 == counts1 == {"fused_log_mel": 1, "ctc_alpha": 1, "ctc_beta": 1}
+
+
+def test_checkpoint_on_card_restores_bit_equal_and_resumes(cuda, tmp_path):
+    from thunder_tpu_torch.training import checkpointing
+    from thunder_tpu_torch.training.optim import onecycle
+    from thunder_tpu_torch.training.trainer import FinetuneEncoderDecoder, Trainer
+
+    audio = (np.random.default_rng(0).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    loader = [(audio, np.array([16000, 9000], np.int32), ["hello world", "the cat"])] * 2
+
+    def trainer(epochs, **kw):
+        return Trainer(max_epochs=epochs, device="cuda", log_every=1, lr_scheduler_builder=onecycle,
+                       lr_scheduler_kwargs={"max_lr": 1e-3, "total_steps": 4},
+                       callbacks=[FinetuneEncoderDecoder(unfreeze_encoder_at_epoch=1)], **kw)
+
+    module = _small_w2v2_module(remat=True)
+    first = trainer(1, checkpoint_dir=str(tmp_path / "ck"))
+    trained = first.fit(module, loader)
+    folder = tmp_path / "ck" / "step_2"
+    payload = checkpointing.restore_checkpoint(str(folder))
+    assert payload["step"] == 2 and payload["generator"].device.type == "cpu"
+    assert all(torch.equal(payload["model"][k], v.cpu()) for k, v in trained.model.state_dict().items())
+    train_step, generator, _ = trainer(1).train_step_for(module.to("cuda"), loader)
+    checkpointing.load_train_state(payload, train_step, generator)
+    again = checkpointing.train_state(train_step, generator)
+    assert torch.equal(again["generator"], payload["generator"])
+    for name, state in payload["optimizer"]["state"].items():
+        assert all(torch.equal(again["optimizer"]["state"][name][k], v) for k, v in state.items()), name
+    resumed = trainer(1, resume_from=str(folder))
+    resumed.fit(module, loader)
+    assert len(resumed.logs) == 2 and all(np.isfinite(e["loss/train_loss"]) for e in resumed.logs)

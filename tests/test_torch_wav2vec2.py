@@ -326,11 +326,12 @@ def test_unported_config_flags_raise(flag):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="remat"):
-        w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL), remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL), remat=True, freeze_feature_extractor=True)
     encoder = w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL))
+    # remat is ported (tests/test_torch_remat.py): it builds, with or without the frozen extractor, and keeps
+    # the parameter tree
+    for frozen in (False, True):
+        remat = w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL), remat=True, freeze_feature_extractor=frozen)
+        assert remat.remat and list(remat.state_dict()) == list(encoder.state_dict())
     audio, lengths = (torch.as_tensor(a) for a in _audio())
     # train mode runs; with dropout rates above 0 it draws from an explicit generator and raises without one
     with pytest.raises(ValueError, match="generator"):

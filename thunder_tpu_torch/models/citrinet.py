@@ -6,7 +6,8 @@ Port of ``thunder_tpu/models/citrinet.py``, the same block list:
 - body: one separable residual squeeze-excite block per (filters, kernel,
   stride), ``repeat`` repeats, the stride on the last repeat only and the
   residual 1x1 conv strided by ``stride``;
-- tail: 640 channels, k=41, squeeze-excite, no residual.
+- tail: 640 channels, k=41, squeeze-excite, no residual;
+- ``remat``: each block rematerialized in the backward, as QuartzNet's.
 
 ``CITRINET_256_*`` are the published Citrinet-256 widths (the JAX package's
 ``flops.py`` constants): 21 blocks of 256 channels in three megablocks of 6,
@@ -22,7 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from thunder_tpu_torch.models.layers import EncoderBlock, InitMode
+from thunder_tpu_torch.models.layers import EncoderBlock, InitMode, run_block
 
 __all__ = ["CitrinetEncoder", "CITRINET_256_FILTERS", "CITRINET_256_KERNELS", "CITRINET_256_STRIDES"]
 
@@ -52,14 +53,13 @@ class CitrinetEncoder(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError("CitrinetEncoder(remat=True): block rematerialization is not ported")
         self.feat_in = feat_in
         self.filters, self.kernel_sizes, self.strides = tuple(filters), tuple(kernel_sizes), tuple(strides)
         self.repeat = repeat
         self.dropout = dropout
         self.init_mode = init_mode
         self.dtype = dtype
+        self.remat = remat
         blocks = [dict(features=256, repeat=1, kernel_size=5, residual=False)]
         for f, k, s in zip(self.filters, self.kernel_sizes, self.strides):
             blocks.append(dict(features=f, repeat=repeat, kernel_size=k, stride=s))
@@ -74,5 +74,6 @@ class CitrinetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
         for i in range(self.num_blocks):
-            x, lengths = getattr(self, f"block{i}")(x, lengths, train=train, generator=generator)
+            x, lengths = run_block(getattr(self, f"block{i}"), x, lengths, remat=self.remat, train=train,
+                                   generator=generator)
         return x, lengths

@@ -24,6 +24,12 @@ statistics in place) and applies dropout with masks drawn from the
 ``generator`` passed down the call, after each activated repeat and after
 each block, with flax's semantics.
 
+:func:`checkpointed` is flax's ``nn.remat`` for a block or layer: its
+activations are recomputed in the backward, with the same dropout masks and
+kernel seeds (the explicit generator is replayed) and without moving the
+running statistics a second time, so it changes no loss, gradient or
+statistic.
+
 ``EncoderBlock`` is the QuartzNet and Citrinet block: Citrinet's options
 (the stride on the last repeat only, :class:`SqueezeExcite` after the conv
 stack, a residual strided by ``stride`` rather than ``stride**repeat``) are
@@ -32,9 +38,11 @@ flags, off by default.
 
 from __future__ import annotations
 
+import contextvars
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from thunder_tpu_torch.ops.conv import conv1d, conv_output_length, get_same_padding
@@ -42,7 +50,8 @@ from thunder_tpu_torch.ops.masking import apply_mask, lengths_to_mask
 
 __all__ = [
     "BN_EPS", "InitMode", "weight_init", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "SqueezeExcite",
-    "EncoderBlock", "Dense", "dense", "init_parameters", "dropout", "apply_dropout",
+    "EncoderBlock", "Dense", "dense", "init_parameters", "dropout", "apply_dropout", "checkpointed", "recomputing",
+    "run_block",
 ]
 
 BN_EPS = 1e-3
@@ -63,6 +72,60 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
         raise ValueError("dropout in train mode draws from an explicit torch.Generator; pass generator=")
     keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
     return apply_dropout(x, keep, rate)
+
+
+_RECOMPUTING = contextvars.ContextVar("thunder_tpu_torch_recomputing", default=False)
+
+
+def recomputing() -> bool:
+    """Whether the running code is a :func:`checkpointed` block's recompute in the backward."""
+    return _RECOMPUTING.get()
+
+
+def checkpointed(block: nn.Module, *args, generator: torch.Generator | None = None, **kwargs):
+    """``block(*args, generator=generator, **kwargs)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    block keeps none of its activations for the backward, which runs it a second time to recompute them.
+
+    The recompute is the forward again, bit for bit:
+
+    - ``checkpoint``'s own RNG stash covers only the default generators, and the port draws every dropout mask
+      and training-kernel seed from the explicit ``generator``: its state on entering the block is set again
+      for the recompute, and the state the backward found is put back after it (also when ``checkpoint``
+      stops the recompute early);
+    - the recompute runs with :func:`recomputing` true, so that :class:`TorchBatchNorm` does not move its
+      running statistics a second time (flax's ``nn.remat`` keeps the forward's ``batch_stats`` update only).
+
+    A generator's ``get_state``/``set_state`` are host operations (a CUDA generator's state is its seed and
+    offset), so this adds no device synchronisation.
+    """
+    entry = generator.get_state() if generator is not None else None
+    runs = 0
+
+    def run(*inputs):
+        nonlocal runs
+        runs += 1
+        if runs == 1:
+            return block(*inputs, generator=generator, **kwargs)
+        resume = generator.get_state() if generator is not None else None
+        if generator is not None:
+            generator.set_state(entry)
+        token = _RECOMPUTING.set(True)
+        try:
+            return block(*inputs, generator=generator, **kwargs)
+        finally:
+            _RECOMPUTING.reset(token)
+            if generator is not None:
+                generator.set_state(resume)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def run_block(block: nn.Module, *args, remat: bool, train: bool, generator: torch.Generator | None):
+    """``block(*args, train=train, generator=generator)``, :func:`checkpointed` when ``remat`` applies: in train
+    mode with gradients on (an eval or no-grad forward keeps nothing for a backward)."""
+    if remat and train and torch.is_grad_enabled():
+        return checkpointed(block, *args, train=True, generator=generator)
+    return block(*args, train=train, generator=generator)
 
 
 def _fans(w: torch.Tensor) -> tuple[int, int]:
@@ -208,11 +271,13 @@ class TorchBatchNorm(nn.Module):
         fast = self.dtype == torch.bfloat16
         if train:
             n, mean, var = self._batch_statistics(x, mask, fast)
-            # in place, PyTorch's counterpart of flax's mutable=["batch_stats"]
-            with torch.no_grad():
-                unbiased = var * (n / (n - 1).clamp_min(1.0))
-                self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean)
-                self.var.copy_((1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased)
+            # in place, PyTorch's counterpart of flax's mutable=["batch_stats"]; once a step, not again in a
+            # checkpointed block's recompute
+            if not recomputing():
+                with torch.no_grad():
+                    unbiased = var * (n / (n - 1).clamp_min(1.0))
+                    self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean)
+                    self.var.copy_((1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased)
         else:
             mean, var = self.mean, self.var
         if fast:

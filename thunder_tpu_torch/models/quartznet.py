@@ -8,7 +8,11 @@ Port of ``thunder_tpu/models/quartznet.py``:
 - QuartzNet5x5 = repeat_blocks=1, QuartzNet15x5 = repeat_blocks=3;
 - ``dropout`` after each activated repeat and each block in train mode,
   ``init_mode`` the conv kernels' :class:`~thunder_tpu_torch.models.layers.InitMode`,
-  ``dtype`` the compute type (parameters stay float32).
+  ``dtype`` the compute type (parameters stay float32);
+- ``remat``: each block is rematerialized in the backward (its activations
+  recomputed instead of kept, :func:`~thunder_tpu_torch.models.layers.checkpointed`)
+  in train mode with gradients on: the same loss, gradients and running
+  statistics for one more forward of compute.
 
 Layout ``(batch, frames, channels)``; returns ``(encoded, lengths)``.
 """
@@ -20,7 +24,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from thunder_tpu_torch.models.layers import EncoderBlock, InitMode
+from thunder_tpu_torch.models.layers import EncoderBlock, InitMode, run_block
 
 __all__ = ["QuartznetEncoder"]
 
@@ -39,6 +43,7 @@ class QuartznetEncoder(nn.Module):
         dropout: float = 0.0,
         init_mode: str = InitMode.xavier_uniform,
         dtype=torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
         self.feat_in = feat_in
@@ -49,6 +54,7 @@ class QuartznetEncoder(nn.Module):
         self.dropout = dropout
         self.init_mode = init_mode
         self.dtype = dtype
+        self.remat = remat
         blocks = [dict(features=256, repeat=1, kernel_size=33, stride=2, residual=False, separable=True)]
         for f, k in zip(self.filters, self.kernel_sizes):
             blocks += [dict(features=f, repeat=repeat, kernel_size=k, separable=True)] * repeat_blocks
@@ -63,5 +69,6 @@ class QuartznetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
         for i in range(self.num_blocks):
-            x, lengths = getattr(self, f"block{i}")(x, lengths, train=train, generator=generator)
+            x, lengths = run_block(getattr(self, f"block{i}"), x, lengths, remat=self.remat, train=train,
+                                   generator=generator)
         return x, lengths

@@ -36,7 +36,7 @@ and the extractor convs of at least 64 input channels as W8A8 products
 ``_ExtractorConv`` int8 branches); ``int8_weights`` keeps the other Dense
 kernels in int8 and dequantizes them in the compute dtype at each call.
 
-Not ported (they raise ``NotImplementedError``): ``remat``, SEW, the MMS
+Not ported (they raise ``NotImplementedError``): SEW, the MMS
 adapters, data2vec-audio's positional conv stack and WavLM's relative
 position bias. ``Wav2Vec2Config.from_hf`` reads every family's config, so
 those families raise when the encoder is built from it.
@@ -57,7 +57,7 @@ from thunder_tpu_torch.kernels.add_ln_train import add_ln_dropout_train
 from thunder_tpu_torch.kernels.attention import HEAD_DIM, mha_from_qkv
 from thunder_tpu_torch.kernels.attention_train import mha_train
 from thunder_tpu_torch.kernels.dropout_hash import new_seed
-from thunder_tpu_torch.models.layers import Dense, dense, dropout
+from thunder_tpu_torch.models.layers import Dense, dense, dropout, run_block
 from thunder_tpu_torch.ops.conv import conv1d
 from thunder_tpu_torch.ops.masking import lengths_to_mask
 from thunder_tpu_torch.quantization import (
@@ -468,6 +468,11 @@ class Wav2Vec2Encoder(nn.Module):
     ``mask_input`` records the checkpoint's feature-extractor setting, as the
     JAX encoder's field does (the frontend's ``Wav2Vec2Preprocess`` acts on
     it; an inference bundle's ``config.json`` carries it).
+
+    ``remat`` rematerializes each transformer layer in the backward
+    (:func:`~thunder_tpu_torch.models.layers.checkpointed`) in train mode with
+    gradients on: the training kernels' forwards run again in the recompute
+    with the same seeds, so the loss and gradients are those without it.
     """
 
     def __init__(self, config: Optional[Wav2Vec2Config] = None, dtype=torch.float32, remat: bool = False,
@@ -480,13 +485,13 @@ class Wav2Vec2Encoder(nn.Module):
             "adapter_attn_dim": config.adapter_attn_dim,
             "pos_conv_stack": config.pos_conv_stack,
             "rel_pos_buckets": config.rel_pos_buckets,
-            "remat": remat,
         }
         for flag, value in unported.items():
             if value:
                 raise NotImplementedError(f"Wav2Vec2Encoder: {flag}={value!r} is not ported to thunder_tpu_torch yet")
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         self.freeze_feature_extractor = freeze_feature_extractor
         self.mask_input = mask_input
         h, eps, k = config.hidden_size, config.layer_norm_eps, config.num_conv_pos_embeddings
@@ -527,7 +532,7 @@ class Wav2Vec2Encoder(nn.Module):
         if train:  # HF's encoder-level dropout, after the positional embedding (and its LayerNorm)
             h = dropout(h, cfg.hidden_dropout, generator)
         for i in range(cfg.num_hidden_layers):
-            h = getattr(self, f"layer{i}")(h, out_lengths, train=train, generator=generator)
+            h = run_block(getattr(self, f"layer{i}"), h, out_lengths, remat=self.remat, train=train, generator=generator)
         if cfg.do_stable_layer_norm:
             h = self.enc_layer_norm(h)
         return h, out_lengths

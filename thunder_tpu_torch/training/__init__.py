@@ -1,1 +1,1 @@
-"""Training: the optimizer factories, WER/CER and the CTC training loop."""
+"""Training: optimizers and schedules, WER/CER, loggers, checkpoints and the CTC training loop."""

@@ -1,8 +1,8 @@
 """Utility helpers: cache folder, file walking, checkpoint download, checkpoint enums.
 
 Port of ``thunder_tpu/utils.py`` (urllib, no extra package), with the port's
-own cache folder, ``~/.thunder_tpu_torch``. ``audio_len`` waits for the
-port's audio reader.
+own cache folder, ``~/.thunder_tpu_torch``; ``audio_len`` reads WAV headers
+(``data/audio_io.py``).
 """
 
 from __future__ import annotations
@@ -15,12 +15,21 @@ from pathlib import Path
 from typing import Callable, List, Union
 
 __all__ = [
+    "audio_len",
     "get_default_cache_folder",
     "get_files",
     "chain_calls",
     "BaseCheckpoint",
     "download_checkpoint",
 ]
+
+
+def audio_len(item: Union[Path, str]) -> float:
+    """Duration in seconds of an audio file (header read only)."""
+    from thunder_tpu_torch.data.audio_io import audio_info
+
+    info = audio_info(str(item))
+    return info.num_frames / info.sample_rate
 
 
 def get_default_cache_folder() -> Path:
