@@ -8,7 +8,9 @@ the CUDA toolkit:
 Phases, each of which fails the run:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-2. build the CUDA kernels from ``thunder_tpu_torch/csrc``;
+2. build the CUDA kernels from ``thunder_tpu_torch/csrc`` (nvcc), then the
+   native host runtime from ``thunder_tpu_torch/csrc/thunder_native.cpp``
+   (g++; ``lm_native_build``: its seconds and the machine's cores);
 3. each kernel against its plain PyTorch version on the card
    (``thunder_tpu_torch.kernels.selftest``), one JSON line per check (the
    log-mel also at the ``frontend_log_mel_edge_*`` sizes: 44.1 and 48 kHz,
@@ -273,6 +275,35 @@ Phases, each of which fails the run:
     epochs) must end at a held-out WER of at most ``GATE_WER``; its WER
     curve, wall seconds and the loader's wait. The kernels line's entries
     give their launches in phases 21-23 (``training_launches``).
+24. ``lm_native``: the native host runtime (``thunder_tpu_torch/native.py``)
+    builds with g++ (its seconds and the machine's cores printed); 64 FLAC
+    files of 15 s (phase 4's rows quantized to 16 bits, written by
+    ``flac_bytes``) read back through ``data.load_audio`` bit-equal to the
+    PCM written (the decode rate in audio seconds per host second); QuartzNet15x5
+    (``fit_bn`` weights) serves them greedily with 1 log-mel and 77 separable
+    launches and the in-memory rows' transcripts; a 4-gram ``NGramLM`` and a
+    ``WordFusionLM`` over a word 3-gram, fitted on ``LM_LINES`` seeded lines,
+    each with a native mirror; ``predict(beam_width=16, beam_backend="host",
+    lm=NGramLM, lm_weight=0.5)`` launches nothing past the forward and runs the
+    C++ beam, and ``beam_search_decode`` on ``peaked_logits`` at 64 × 751 × 29
+    with and without the LM: on rows 0-7 of each the C++ beam's ids equal the
+    numpy search's (``use_native=False``, one spawned process a row), and its
+    host milliseconds are printed beside the numpy search's;
+    ``predict(beam_width=16, beam_backend="device", lm=WordFusionLM)`` launches
+    1 log-mel, 77 separable repeats, 1 ``beam_scan`` and 1 ``beam_backtrace``,
+    and its 64 transcripts equal the same decode through the plain versions on
+    the card and on the port's CPU path, where each hypothesis both keep (the
+    16-best of each row) scores within the rounding of a float32 chain of T
+    steps (T 2^-24 of its magnitude) and a row whose best differs must be a
+    rounding tie: of the LM ranking when both paths kept the same 16
+    survivors, else of the scan's top-16 cut or its pruning threshold at the
+    frame where the survivors first part (``lm_ranked_rows``,
+    ``lm_parting``; such a row's logits and both ranked lists are written
+    under ``smoke_out/lm_ties``, and ``python3 chip_smoke.py --lm-ties N``
+    runs only this comparison, on the rows of seeds 0 to N - 1); the host
+    ranking's milliseconds beside the device decode's
+    and its kernels'. The kernels line's entries
+    give their launches in this phase's runs (``lm_native_launches``).
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -843,12 +874,22 @@ def check(ok: bool, message: str) -> None:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--lm-ties", type=int, default=0, metavar="N",
+                        help="run only lm_tie_search over N seeds (phase 24's CPU-path comparison)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device", file=sys.stderr)
         return 1
     try:
+        if args.lm_ties:
+            card = gpu_line()
+            print(card, flush=True)
+            return lm_tie_search(card, args.lm_ties)
         return run()
     except Failed as failure:
         print(f"chip_smoke: {failure}", file=sys.stderr)
@@ -875,10 +916,11 @@ def run() -> int:
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
     exact_float32()
 
-    # ---- build
+    # ---- build: the CUDA kernels (nvcc), then the native host runtime (g++), which later phases use before 24
     t0 = time.perf_counter()
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": _build.library_path().name})
+    lm_native_build()
 
     # ---- kernel checks
     checks = run_selftests()
@@ -1020,6 +1062,9 @@ def run() -> int:
     training_runs["trainer_features_run_a"] = trainer_features_phase(card)
     training_runs["learning_gate"] = learning_gate_phase(card)
     add_training_launches(kernels, training_runs)
+
+    # ---- language-model decoding and the native host runtime: FLAC files, the C++ beam, word fusion
+    add_lm_native_launches(kernels, lm_native_phase(card))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -1809,13 +1854,14 @@ def beam_phase(card: str, engine, audio: np.ndarray, lengths: np.ndarray, total_
     # against the numpy host search: exact on peaked logits, the share that agrees on the served ones
     peaked = peaked_logits(np.random.default_rng(0), BATCH, frames, vocab, blank)
     t0 = time.perf_counter()
-    host = beam_search_decode(peaked[:2], blank=blank, beam_width=width, max_tokens_per_step=None)
+    host = beam_search_decode(peaked[:2], blank=blank, beam_width=width, max_tokens_per_step=None, use_native=False)
     host_s = time.perf_counter() - t0
     card_rows = beam_search_device(torch.as_tensor(peaked, device="cuda"), blank=blank, beam_width=width,
                                    max_tokens_per_step=None)[:2]
     peaked_equal = [h.tolist() == d.tolist() for h, d in zip(host, card_rows)]
     served = logits[:2].float().cpu().numpy()
-    served_host = beam_search_decode(served, out_lengths[:2].cpu().numpy(), blank=blank, beam_width=width)
+    served_host = beam_search_decode(served, out_lengths[:2].cpu().numpy(), blank=blank, beam_width=width,
+                                     use_native=False)
     served_card = beam_search_device(logits[:2], out_lengths[:2], blank=blank, beam_width=width)
     served_share = sum(h.tolist() == d.tolist() for h, d in zip(served_host, served_card)) / 2
     emit({"phase": "beam_vs_host", "peaked_rows_equal": peaked_equal, "served_rows_agree_share": served_share,
@@ -3473,6 +3519,478 @@ def add_training_launches(kernels: list, runs: dict) -> None:
     for entry in kernels:
         entry["training_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
 
+
+
+# ---- phase 24: language-model decoding and the native host runtime
+
+LM_WIDTH, LM_WEIGHT, LM_ORDER, WORD_LM_ORDER = 16, 0.5, 4, 3
+LM_LINES = 2000  # seeded lines the token and word LMs are fitted on
+NUMPY_ROWS = 8  # rows the numpy search reproduces, one a worker process (7 s a row with an LM on one core)
+FLAC_BLOCK, FLAC_PARTITION_ORDER = 4096, 4
+
+
+def _crc(data: bytes, table: list, bits: int) -> int:
+    crc, shift, mask = 0, bits - 8, (1 << bits) - 1
+    for byte in data:
+        crc = ((crc << 8) & mask) ^ table[(crc >> shift) ^ byte]
+    return crc
+
+
+def _crc_table(poly: int, bits: int) -> list:
+    table, top, mask = [], 1 << (bits - 1), (1 << bits) - 1
+    for byte in range(256):
+        crc = byte << (bits - 8)
+        for _ in range(8):
+            crc = ((crc << 1) ^ poly) & mask if crc & top else (crc << 1) & mask
+        table.append(crc)
+    return table
+
+
+def _bits(value: int, n: int) -> np.ndarray:
+    """``value``'s low ``n`` bits, most significant first, as 0/1 bytes."""
+    return ((int(value) & ((1 << n) - 1)) >> np.arange(n - 1, -1, -1)) & 1
+
+
+def _rice(residuals: np.ndarray) -> np.ndarray:
+    """One Rice partition: its 4-bit parameter (the cheapest of 0-14) and the codes, as 0/1 bytes."""
+    u = np.where(residuals >= 0, 2 * residuals, -2 * residuals - 1).astype(np.int64)
+    k = int(np.argmin([(u >> k).sum() + u.size * (1 + k) for k in range(15)]))
+    q = u >> k
+    lens = q + 1 + k
+    starts = np.cumsum(lens) - lens
+    out = np.zeros(int(lens.sum()), np.uint8)
+    out[starts + q] = 1
+    for j in range(k):
+        out[starts + q + 1 + j] = (u >> (k - 1 - j)) & 1
+    return np.concatenate([_bits(k, 4).astype(np.uint8), out])
+
+
+def flac_bytes(pcm: np.ndarray, rate: int) -> bytes:
+    """A mono 16-bit FLAC stream of ``pcm`` (int16), numpy-vectorised: frames of ``FLAC_BLOCK`` samples, each one
+    FIXED order-2 subframe whose residuals are Rice-coded in ``2**FLAC_PARTITION_ORDER`` partitions (a parameter
+    each), with the frame's CRC-8 and CRC-16 (the decoder the port ships skips them; the format has them)."""
+    crc8, crc16 = _crc_table(0x07, 8), _crc_table(0x8005, 16)
+    x = np.asarray(pcm, np.int64)
+    info = np.concatenate([_bits(FLAC_BLOCK, 16), _bits(FLAC_BLOCK, 16), _bits(0, 24), _bits(0, 24), _bits(rate, 20),
+                           _bits(0, 3), _bits(15, 5), _bits(x.size, 36)]).astype(np.uint8)
+    out = [b"fLaC", bytes([0x80, 0, 0, 34]), np.packbits(info).tobytes(), bytes(16)]
+    for number, start in enumerate(range(0, x.size, FLAC_BLOCK)):
+        block = x[start : start + FLAC_BLOCK]
+        n = block.size
+        utf8 = bytes([number]) if number < 0x80 else bytes([0xC0 | number >> 6, 0x80 | number & 0x3F])
+        header = bytes([0xFF, 0xF8, 0x70, 0x08]) + utf8 + (n - 1).to_bytes(2, "big")
+        header += bytes([_crc(header, crc8, 8)])
+        order = min(2, n)  # FIXED order 2: the second difference (a block of one or two samples: all warm-up)
+        residual = (block[2:] - 2 * block[1:-1] + block[:-2]) if order == 2 else block[order:] - block[: n - order]
+        parts = FLAC_PARTITION_ORDER if n % (1 << FLAC_PARTITION_ORDER) == 0 and n >> FLAC_PARTITION_ORDER > 2 else 0
+        size = n >> parts
+        edges = [0] + [size * (i + 1) - order for i in range(1 << parts)]
+        # subframe header: a zero pad bit, the type (FIXED: 8 + order) in 6 bits, no wasted bits
+        pieces = [_bits((8 + order) << 1, 8), *[_bits(v, 16) for v in block[:order]], _bits(0, 2), _bits(parts, 4),
+                  *[_rice(residual[lo:hi]) for lo, hi in zip(edges[:-1], edges[1:])]]
+        body = np.packbits(np.concatenate([np.asarray(b, np.uint8) for b in pieces])).tobytes()
+        frame = header + body
+        out.append(frame + _crc(frame, crc16, 16).to_bytes(2, "big"))
+    return b"".join(out)
+
+
+_NUMPY_LM = None
+
+
+def _numpy_worker_init(lines: list, vocab: list, order: int) -> None:
+    """Fit the token LM of ``lm_native_phase`` once in a worker process (an LM's C++ mirror does not pickle)."""
+    global _NUMPY_LM
+    from thunder_tpu_torch.text import BatchTextTransformer, NGramLM
+
+    _NUMPY_LM = NGramLM.from_texts(lines, BatchTextTransformer(vocab), order=order) if order else None
+
+
+def _numpy_beam_row(job) -> tuple:
+    """The numpy search (``use_native=False``) of one row; returns its ids and seconds."""
+    from thunder_tpu_torch.ops.ctc_beam import beam_search_decode
+
+    logits, length, blank, use_lm = job
+    t0 = time.perf_counter()
+    ids = beam_search_decode(logits[None], [length], blank=blank, beam_width=LM_WIDTH, lm=_NUMPY_LM if use_lm else None,
+                             lm_weight=LM_WEIGHT, use_native=False)[0]
+    return ids.tolist(), time.perf_counter() - t0
+
+
+def numpy_rows(logits: np.ndarray, lengths, blank: int, lines: list, use_lm: bool) -> tuple:
+    """The numpy search of rows 0 to ``NUMPY_ROWS`` - 1, one a spawned worker process: their ids, the sum of
+    the rows' seconds (one core each) and the wall seconds."""
+    import concurrent.futures
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    jobs = [(np.asarray(logits[b], np.float32), int(lengths[b]), blank, use_lm) for b in range(NUMPY_ROWS)]
+    with concurrent.futures.ProcessPoolExecutor(NUMPY_ROWS, mp_context=multiprocessing.get_context("spawn"),
+                                                initializer=_numpy_worker_init,
+                                                initargs=(lines, VOCAB, LM_ORDER if use_lm else 0)) as pool:
+        results = list(pool.map(_numpy_beam_row, jobs))
+    return [ids for ids, _ in results], sum(sec for _, sec in results), time.perf_counter() - t0
+
+
+def host_ms(fn, repeats: int = 3) -> float:
+    """Median host milliseconds of ``fn()`` over ``repeats`` calls, after one call."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+LM_TIE_DIR = "smoke_out/lm_ties"  # under the checkout: the rows whose best differs on the CPU path
+
+
+def lm_rows(seed: int) -> tuple:
+    """Phase 24's rows from ``seed``: 64 x 15 s of one speech-like signal at random gains, quantized to 16 bits
+    (int16 PCM), the same as float32 in [-1, 1), and the lengths."""
+    rng = np.random.default_rng(seed)
+    samples = int(SECONDS * SAMPLE_RATE)
+    base = speech_like(samples, rng)
+    pcm = np.clip(np.round(np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(BATCH)]) * 32767), -32768,
+                  32767).astype(np.int16)
+    return pcm, pcm.astype(np.float32) / 32768.0, np.full((BATCH,), samples, dtype=np.int32)
+
+
+def lm_parting(row_logits, frames: int, blank: int, prune_logp: float = -12.0) -> dict:
+    """Where the card's beam scan and the port's CPU path part on one row of logits (on the card): both search the
+    row cut at every length 1 to ``frames`` (one batch of ``frames`` rows), and the first length t whose 16
+    survivors differ is the parting. Up to t - 1 both paths kept the same prefixes, so their scores there differ
+    only by rounding; what follows t is a consequence of it. At t: the hypotheses only one path keeps, each with
+    its margin over the other path's lowest kept score (a tie at the top-W cut when at most ``tol``, the float32
+    chain bound at t steps), the tokens of frame t whose log-probabilities fall on different sides of
+    ``prune_logp`` on the two paths (a tie at the pruning threshold), the shared hypotheses' largest difference,
+    and ``tie``: every hypothesis kept by one path alone is a cut tie, or the frame has a threshold tie. None when
+    the survivors never differ."""
+    import torch
+
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
+
+    x = row_logits[:frames].float()
+    stack = x[None].expand(frames, frames, x.shape[-1]).contiguous()
+    lens = torch.arange(1, frames + 1, dtype=torch.int32, device=x.device)
+    kw = dict(blank=blank, beam_width=LM_WIDTH, prune_logp=prune_logp, nbest=LM_WIDTH)
+    card = [{tuple(ids.tolist()): s for ids, s in hyps} for hyps in beam_search_device(stack, lens, **kw)]
+    cpu = [{tuple(ids.tolist()): s for ids, s in hyps} for hyps in beam_search_device(stack.cpu(), lens.cpu(), **kw)]
+    differ = [a.keys() != b.keys() for a, b in zip(card, cpu)]
+    if not any(differ):
+        return None
+    t = differ.index(True)
+    a, b = card[t], cpu[t]
+    low_card, low_cpu = min(a.values()), min(b.values())
+    tol = (t + 1) * 2.0**-24 * max(abs(low_card), abs(low_cpu))
+    margins = [a[k] - low_cpu for k in a.keys() - b.keys()] + [b[k] - low_card for k in b.keys() - a.keys()]
+    logp_card, logp_cpu = torch.log_softmax(x[t], -1).cpu().numpy(), torch.log_softmax(x[t].cpu(), -1).numpy()
+    flips = np.flatnonzero((logp_card >= prune_logp) != (logp_cpu >= prune_logp))
+    shared = a.keys() & b.keys()
+    return {"length": t + 1, "kept_by_one_path": len(margins), "margins": margins, "tol": tol,
+            "threshold_flips": [(int(v), float(logp_card[v]), float(logp_cpu[v])) for v in flips],
+            "shared_max_dev": max((abs(a[k] - b[k]) for k in shared), default=0.0),
+            "lengths_differing": int(sum(differ)), "tie": bool(len(flips)) or max(margins) <= tol}
+
+
+def lm_ranked_rows(logits, out_lengths, blank: int, lm, tag: str) -> dict:
+    """The device beam's 16 survivors a row ranked by ``lm``, on the card (the kernels) and on the port's CPU path
+    (the plain versions on the CPU, with its own log-softmax and scan arithmetic), ranked as
+    ``beam_search_device(lm=...)`` ranks them (acoustic total + ``LM_WEIGHT`` x ``lm_prefix_score``, a stable sort).
+
+    A hypothesis the two paths share scores within ``tol``, the worst-case rounding of a float32 chain of T steps
+    (T 2^-24 of the best fused score's magnitude); ``deviation`` is the largest such difference over ``tol``. For a
+    row whose best differs, the row's logits and both ranked lists go to ``LM_TIE_DIR/<tag>_row<b>.npz``, and its
+    entry of ``differing`` says whether it is a tie: with the same 16 survivors on both paths, a tie of the ranking
+    (``gap``, the CPU best's fused score less the card best's on the CPU, at most ``tol``); with different
+    survivors, a tie where the scans parted (``lm_parting``)."""
+    from pathlib import Path
+
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device, lm_prefix_score
+
+    card = beam_search_device(logits, out_lengths, blank=blank, beam_width=LM_WIDTH, nbest=LM_WIDTH)
+    cpu = beam_search_device(logits.cpu(), out_lengths.cpu(), blank=blank, beam_width=LM_WIDTH, nbest=LM_WIDTH)
+    lm_scores = {}
+
+    def ranked(hyps):
+        out = []
+        for ids, acoustic in hyps:
+            key = tuple(ids.tolist())
+            if key not in lm_scores:
+                lm_scores[key] = lm_prefix_score(lm, ids, final=True)
+            out.append((key, acoustic, acoustic + LM_WEIGHT * lm_scores[key]))
+        return sorted(out, key=lambda h: -h[2])
+
+    equal, survivors_differ, deviation, differing, best = 0, 0, 0.0, [], []
+    for b, (card_hyps, cpu_hyps) in enumerate(zip(card, cpu)):
+        card_r, cpu_r = ranked(card_hyps), ranked(cpu_hyps)
+        best.append(card_r[0][0])
+        frames = int(out_lengths[b])
+        tol = frames * 2.0**-24 * abs(cpu_r[0][2])
+        card_fused, cpu_fused = {k: f for k, _, f in card_r}, {k: f for k, _, f in cpu_r}
+        for key in card_fused.keys() & cpu_fused.keys():
+            deviation = max(deviation, abs(card_fused[key] - cpu_fused[key]) / tol)
+        survivors_differ += card_fused.keys() != cpu_fused.keys()
+        if card_r[0][0] == cpu_r[0][0]:
+            equal += 1
+            continue
+        card_best, cpu_best = card_r[0][0], cpu_r[0][0]
+        entry = {"row": b, "frames": frames, "tol": tol, "gap": cpu_r[0][2] - cpu_fused.get(card_best, -np.inf),
+                 "card_gap": card_r[0][2] - card_fused.get(cpu_best, -np.inf),
+                 "card_best_on_cpu_path": card_best in cpu_fused, "cpu_best_on_card": cpu_best in card_fused,
+                 "survivors_equal": card_fused.keys() == cpu_fused.keys(),
+                 "card_top3": [(len(k), a, f) for k, a, f in card_r[:3]],
+                 "cpu_top3": [(len(k), a, f) for k, a, f in cpu_r[:3]]}
+        if entry["survivors_equal"]:
+            entry["tie"] = entry["gap"] <= tol  # the ranking's tie: the same 16 survivors
+        else:  # the scans kept different survivors: where they parted must be a rounding tie
+            entry["parting"] = lm_parting(logits[b], frames, blank)
+            entry["tie"] = entry["parting"] is not None and entry["parting"]["tie"]
+        dump = Path(__file__).resolve().parent / LM_TIE_DIR / f"{tag}_row{b}.npz"
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        lists = {}
+        for name, r in (("card", card_r), ("cpu", cpu_r)):
+            lists[f"{name}_ids"] = np.array([np.pad(np.array(k, np.int32), (0, frames - len(k)), constant_values=-1)
+                                             for k, _, _ in r])
+            lists[f"{name}_acoustic"] = np.array([a for _, a, _ in r], np.float64)
+            lists[f"{name}_fused"] = np.array([f for _, _, f in r], np.float64)
+        np.savez(dump, logits=logits[b, :frames].float().cpu().numpy(), **lists)
+        entry["dump"] = str(dump.relative_to(dump.parents[2]))
+        differing.append(entry)
+    return {"equal": equal, "differing": differing, "deviation": deviation, "survivors_differ": survivors_differ,
+            "best": best}
+
+
+def lm_native_build() -> None:
+    """Load the native host runtime, building it with g++ on its first use in this process; print the seconds
+    (0 once loaded) and the machine's cores."""
+    import os
+
+    from thunder_tpu_torch import native
+
+    t0 = time.perf_counter()
+    built = native.native_available()
+    emit({"phase": "lm_native_build", "seconds": time.perf_counter() - t0, "nproc": os.cpu_count(),
+          "available": built, "library": native.library_path().name})
+    check(built, "the native runtime did not build")
+
+
+def lm_native_phase(card: str, device="cuda") -> dict:
+    """Phase 24 of the module docstring: the native runtime built, 64 FLAC files read back bit-exact and served
+    by QuartzNet15x5, the host backend's C++ beam with a 4-gram token LM held to the numpy search, the device beam
+    with word fusion held to the port's CPU path and to the plain versions. Returns the launches of its runs, by
+    run, for the kernels line."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from thunder_tpu_torch import native
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.data import load_audio
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.kernels.beam import beam_backtrace, beam_scan
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule, run_beam_decode
+    from thunder_tpu_torch.ops.ctc_beam import beam_search_decode, log_softmax
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
+    from thunder_tpu_torch.text import BatchTextTransformer, NGramLM, WordFusionLM, WordNGramLM
+
+    runs = {}
+    lm_native_build()
+
+    # ---- 64 FLAC files of 15 s, 16-bit, from seed 0 (phase 4's rows), read back through load_audio
+    pcm, in_memory, lengths = lm_rows(0)
+    samples = pcm.shape[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = []
+        for b in range(BATCH):
+            paths.append(Path(tmp) / f"row{b:02d}.flac")
+            paths[-1].write_bytes(flac_bytes(pcm[b], SAMPLE_RATE))
+        write_s = time.perf_counter() - t0
+        flac_bytes_total = sum(p.stat().st_size for p in paths)
+        t0 = time.perf_counter()
+        decoded = [load_audio(p) for p in paths]
+        decode_s = time.perf_counter() - t0
+    rates = {rate for _, rate in decoded}
+    audio = np.concatenate([a for a, _ in decoded])
+    exact = rates == {SAMPLE_RATE} and audio.shape == (BATCH, samples) and np.array_equal(audio, in_memory)
+    emit({"phase": "lm_native_flac", "files": BATCH, "seconds_each": SECONDS, "bytes": flac_bytes_total,
+          "compression": flac_bytes_total / (BATCH * samples * 2), "write_s": write_s, "decode_s": decode_s,
+          "audio_s_per_host_s": BATCH * SECONDS / decode_s, "bit_exact": exact, "card": card})
+    check(exact, "the FLAC files did not read back bit-equal to the PCM written")
+
+    # ---- QuartzNet15x5 greedy serving of the decoded rows
+    tt = BatchTextTransformer(VOCAB)
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(**QN15X5),
+                              Conv1dDecoder(len(VOCAB) + 1), tt, device=device)
+    fit_bn(module, audio[:8], lengths[:8])
+    engine = InferenceEngine(module)
+    engine.warmup([BATCH], [SECONDS])
+    blank = module.blank_idx
+    reset_launch_counts()
+    texts = engine.predict(audio, lengths)
+    sync(device)
+    runs["greedy_from_flac"] = launch_counts()
+    check(texts == engine.predict(in_memory, lengths), "transcripts of the FLAC rows differ from the in-memory rows'")
+    check(runs["greedy_from_flac"] == expected_counts(fused_log_mel=1, fused_separable_repeat=QN_SEPARABLE),
+          f"a greedy predict launched {runs['greedy_from_flac']}")
+
+    # ---- the LMs: a 4-gram over the character vocabulary, word fusion over a word 3-gram
+    lines = seeded_lines(LM_LINES)
+    t0 = time.perf_counter()
+    ngram = NGramLM.from_texts(lines, tt, order=LM_ORDER)
+    word_lm = WordNGramLM(order=WORD_LM_ORDER).fit(lines)
+    fusion = WordFusionLM(word_lm, tt)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mirrors = ngram.native() is not None and fusion.native() is not None
+    mirror_s = time.perf_counter() - t0
+    check(mirrors, "an LM has no native mirror")
+
+    # ---- the host backend: the C++ beam with the 4-gram fused inside it, against the numpy search
+    host_kw = dict(beam_width=LM_WIDTH, beam_backend="host", lm=ngram, lm_weight=LM_WEIGHT)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    host_texts = engine.predict(audio, lengths, **host_kw)
+    host_predict_ms = (time.perf_counter() - t0) * 1e3
+    runs["host_beam_lm"] = launch_counts()
+    check(runs["host_beam_lm"] == runs["greedy_from_flac"], f"a host-beam predict launched {runs['host_beam_lm']}")
+    logits, _, out_lengths = engine.infer(torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device))
+    served = logits.float().cpu().numpy()
+    served_lengths = out_lengths.cpu().numpy()
+    served_ids = beam_search_decode(served, served_lengths, blank=blank, beam_width=LM_WIDTH, lm=ngram,
+                                    lm_weight=LM_WEIGHT)
+    check(host_texts == [tt.decode_prediction(h[None], remove_repeated=False)[0] if len(h) else "" for h in served_ids],
+          "the host predict's texts differ from the C++ beam on its own logits")
+    numpy_served, served_numpy_s, served_pool_s = numpy_rows(served, served_lengths, blank, lines, use_lm=True)
+    served_equal = [a.tolist() == b for a, b in zip(served_ids, numpy_served)]
+    peaked = peaked_logits(np.random.default_rng(0), BATCH, served.shape[1], served.shape[2], blank)
+    timings = {}
+    for name, lm in (("lm", ngram), ("no_lm", None)):
+        decode = lambda lm=lm, use_native=True: beam_search_decode(  # noqa: E731
+            peaked, blank=blank, beam_width=LM_WIDTH, lm=lm, lm_weight=LM_WEIGHT, use_native=use_native)
+        ids = decode()
+        numpy_ids, numpy_s, pool_s = numpy_rows(peaked, [peaked.shape[1]] * BATCH, blank, lines, use_lm=lm is not None)
+        lp = log_softmax(peaked[:NUMPY_ROWS])
+        native_lm = lm.native() if lm is not None else None
+        one_thread = lambda: native.native_ctc_beam_search_batch(  # noqa: E731
+            lp, [lp.shape[1]] * NUMPY_ROWS, blank, LM_WIDTH, -12.0, max_tokens_per_step=50, lm=native_lm,
+            lm_weight=LM_WEIGHT if native_lm is not None else 0.0, n_threads=1)
+        timings[name] = {"native_ms_64_rows_threaded": host_ms(decode),
+                         f"native_ms_{NUMPY_ROWS}_rows_one_thread": host_ms(one_thread),
+                         f"numpy_ms_{NUMPY_ROWS}_rows_one_core_each_summed": numpy_s * 1e3,
+                         "numpy_pool_wall_s": pool_s,
+                         "rows_equal": [a.tolist() == b for a, b in zip(ids, numpy_ids)],
+                         "native_equals_its_batch_on_rows": [a.tolist() == b.tolist() for a, b in zip(ids, one_thread())]}
+    emit({"phase": "lm_native_host", "B": BATCH, "T": served.shape[1], "V": served.shape[2], "W": LM_WIDTH,
+          "lm": f"NGramLM order {LM_ORDER} on {LM_LINES} seeded lines", "lm_weight": LM_WEIGHT, "fit_s": fit_s,
+          "mirror_s": mirror_s, "predict_ms_host_clock": host_predict_ms, "served_rows_equal": served_equal,
+          "served_numpy_ms_summed": served_numpy_s * 1e3, "served_numpy_pool_wall_s": served_pool_s,
+          "peaked": timings, "card": card})
+    check(all(served_equal), f"the C++ beam differs from the numpy search on served rows: {served_equal}")
+    for name, t in timings.items():
+        check(all(t["rows_equal"]) and all(t["native_equals_its_batch_on_rows"]),
+              f"the C++ beam differs from the numpy search on peaked rows ({name}): {t['rows_equal']}")
+
+    # ---- the device backend: the beam kernels, word fusion ranking the surviving beams on the host
+    device_kw = dict(beam_width=LM_WIDTH, beam_backend="device", lm=fusion, lm_weight=LM_WEIGHT)
+    engine.predict(audio, lengths, **device_kw)  # warms the path
+    reset_launch_counts()
+    device_texts = engine.predict(audio, lengths, **device_kw)
+    sync(device)
+    runs["device_beam_word_fusion"] = launch_counts()
+    want = expected_counts(fused_log_mel=1, fused_separable_repeat=QN_SEPARABLE, beam_scan=1, beam_backtrace=1)
+    check(runs["device_beam_word_fusion"] == want,
+          f"a device-beam predict with word fusion launched {runs['device_beam_word_fusion']}")
+    beam_args = dict(blank=blank, text_transform=tt, beam_width=LM_WIDTH, nbest=None, prune_logp=-12.0, lm=fusion,
+                     lm_weight=LM_WEIGHT, backend="device")
+    with plain_beam():
+        plain_texts = run_beam_decode(logits, out_lengths, **beam_args)
+    plain_equal = sum(a == b for a, b in zip(device_texts, plain_texts))
+    # the port's CPU path: its own log-softmax and scan arithmetic in float32 (``lm_ranked_rows``)
+    cpu_path = lm_ranked_rows(logits, out_lengths, blank, fusion, "phase")
+    check([tt.decode_prediction(np.array(k, np.int32)[None], remove_repeated=False)[0] if k else ""
+           for k in cpu_path["best"]] == device_texts, "the card's ranking differs from the device-beam predict's")
+    fused = lambda: beam_search_device(logits, out_lengths, blank=blank, beam_width=LM_WIDTH, lm=fusion,  # noqa: E731
+                                       lm_weight=LM_WEIGHT)
+    bare = lambda: beam_search_device(logits, out_lengths, blank=blank, beam_width=LM_WIDTH)  # noqa: E731
+    bare_wide = lambda: beam_search_device(logits, out_lengths, blank=blank, beam_width=LM_WIDTH, nbest=LM_WIDTH)  # noqa: E731
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    scan = lambda: beam_scan(logp, out_lengths, -12.0, blank=blank, beam_width=LM_WIDTH, k_tokens=50)  # noqa: E731
+    parents, exts, total, _ = scan()
+    slots = torch.argsort(-total, dim=1, stable=True).to(torch.int32)
+    walk = lambda: beam_backtrace(parents, exts, slots)  # noqa: E731
+    fused_ms, bare_ms, wide_ms = host_ms(fused, repeats=1), host_ms(bare), host_ms(bare_wide)
+    emit({"phase": "lm_native_device", "B": BATCH, "W": LM_WIDTH,
+          "lm": f"WordFusionLM over a word {WORD_LM_ORDER}-gram of {len(word_lm.words)} words", "lm_weight": LM_WEIGHT,
+          "rows_equal_to_cpu_path": cpu_path["equal"], "rows_differing_on_cpu_path": cpu_path["differing"],
+          "rows_whose_survivors_differ_on_cpu_path": cpu_path["survivors_differ"],
+          "max_score_deviation_over_tol": cpu_path["deviation"], "rows_equal_to_plain_versions": plain_equal,
+          "decode_lm_ms_host_clock": fused_ms, "decode_ms_host_clock": bare_ms,
+          "decode_every_beam_ms_host_clock": wide_ms, "lm_ranking_ms_host_clock": fused_ms - wide_ms,
+          "decode_ms": cuda_ms(bare, 3), "scan_ms": cuda_ms(scan, 5), "backtrace_every_slot_ms": cuda_ms(walk, 5),
+          "card": card})
+    check(cpu_path["deviation"] <= 1.0,
+          f"a hypothesis scores {cpu_path['deviation']} times the float32 chain's rounding apart on the CPU path")
+    check(all(row["tie"] for row in cpu_path["differing"]),
+          f"the device beam with word fusion differs from the CPU path past a tie: {cpu_path['differing']}")
+    check(plain_equal == BATCH, f"the device beam with word fusion differs from the plain versions on "
+                                f"{BATCH - plain_equal} rows")
+    return runs
+
+
+def lm_tie_search(card: str, trials: int) -> int:
+    """``python3 chip_smoke.py --lm-ties N``: phase 24's device beam with word fusion against the port's CPU path
+    (``lm_ranked_rows``) on the rows of seeds 0 to N - 1 (seed 0: the phase's own rows, served twice to show whether
+    the card's logits repeat bit for bit), QuartzNet15x5 and the LMs built as in the phase, the card's float32
+    products at PyTorch's defaults (as when the phase runs alone). One line a seed, then the totals; every row
+    whose best differs is dumped (``LM_TIE_DIR``). Exits 1 when such a row is not a tie."""
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import _build
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer, WordFusionLM, WordNGramLM
+
+    _build.load()
+    tt = BatchTextTransformer(VOCAB)
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(**QN15X5),
+                              Conv1dDecoder(len(VOCAB) + 1), tt, device="cuda")
+    _, audio, lengths = lm_rows(0)
+    fit_bn(module, audio[:8], lengths[:8])
+    engine = InferenceEngine(module)
+    fusion = WordFusionLM(WordNGramLM(order=WORD_LM_ORDER).fit(seeded_lines(LM_LINES)), tt)
+    totals = {"rows": 0, "equal": 0, "differing": 0, "ties": 0, "survivors_differ": 0, "max_deviation": 0.0}
+    for seed in range(trials):
+        _, audio, lengths = lm_rows(seed)
+        audio_d, lengths_d = torch.as_tensor(audio, device="cuda"), torch.as_tensor(lengths, device="cuda")
+        logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+        line = {"phase": "lm_ties", "seed": seed}
+        if seed == 0:
+            line["logits_repeat_bit_for_bit"] = bool(torch.equal(logits, engine.infer(audio_d, lengths_d)[0]))
+        t0 = time.perf_counter()
+        rows = lm_ranked_rows(logits, out_lengths, module.blank_idx, fusion, f"seed{seed}")
+        emit({**line, "seconds": time.perf_counter() - t0, "equal": rows["equal"], "differing": rows["differing"],
+              "survivors_differ": rows["survivors_differ"], "max_deviation_over_tol": rows["deviation"]})
+        totals["rows"] += BATCH
+        totals["equal"] += rows["equal"]
+        totals["differing"] += len(rows["differing"])
+        totals["ties"] += sum(row["tie"] for row in rows["differing"])
+        totals["survivors_differ"] += rows["survivors_differ"]
+        totals["max_deviation"] = max(totals["max_deviation"], rows["deviation"])
+    emit({"phase": "lm_ties_total", "seeds": trials, **totals, "card": card})
+    return 0 if totals["ties"] == totals["differing"] and totals["max_deviation"] <= 1.0 else 1
+
+
+def add_lm_native_launches(kernels: list, runs: dict) -> None:
+    """Each kernel's launches in phase 24's runs (0 for those they do not reach)."""
+    for entry in kernels:
+        entry["lm_native_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
 
 if __name__ == "__main__":
     sys.exit(main())

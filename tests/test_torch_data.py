@@ -8,7 +8,7 @@
   ``ManifestDatamodule`` and ``asr_collate`` likewise;
 - the two faults of the JAX parser are not in the port: a data chunk whose size passes the file's end is
   read to the file's end in whole frames (C6), and every invalid (format, bit depth) pair raises (C7);
-- FLAC, Ogg and MP3 raise ``NotImplementedError``.
+- truncated FLAC, Ogg and MP3 headers raise ``ValueError`` with the JAX package's messages.
 """
 
 import json
@@ -151,14 +151,28 @@ def test_invalid_format_and_bit_depth_pairs_raise(tmp_path, fmt, bits):
         load_audio(path)
 
 
+#: the JAX package's messages on the truncated headers below: (load_audio's, audio_info's)
+COMPRESSED_ERRORS = {
+    "a.flac": (r"native flac decode failed \(-5\)", "invalid FLAC sample rate"),
+    "a.ogg": ("no compressed-audio backend succeeded", "unrecognized Ogg codec"),
+    "a.mp3": ("no compressed-audio backend succeeded", "no MPEG Layer III frames found"),
+}
+
+
 @pytest.mark.parametrize("name,head", [("a.flac", b"fLaC\x00\x00\x00\x22"), ("a.ogg", b"OggS\x00\x02"),
                                        ("a.mp3", b"ID3\x04\x00\x00")])
 def test_compressed_formats_are_not_ported(tmp_path, name, head):
+    """FLAC, Ogg and MP3 are ported (the name is kept from when they raised ``NotImplementedError``): a truncated
+    header of each raises ``ValueError`` in the port's ``load_audio`` and ``audio_info`` with the JAX package's
+    message on the same file."""
     path = tmp_path / name
     path.write_bytes(head + bytes(64))
-    for fn in (load_audio, audio_info):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(path)
+    load_error, info_error = COMPRESSED_ERRORS[name]
+    for port_fn, jax_fn, message in ((load_audio, jax_audio_io.load_audio, load_error),
+                                     (audio_info, jax_audio_io.audio_info, info_error)):
+        for fn in (port_fn, jax_fn):
+            with pytest.raises(ValueError, match=message):
+                fn(path)
 
 
 @pytest.mark.parametrize("orig,new", [(8000, 16000), (44100, 16000), (48000, 16000), (16000, 16000), (22050, 8000)])

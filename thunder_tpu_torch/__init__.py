@@ -33,6 +33,10 @@ _LAZY = {
     "finetune_ctc_module": "thunder_tpu_torch.finetune",
     "save_inference_bundle": "thunder_tpu_torch.export",
     "load_inference_bundle": "thunder_tpu_torch.export",
+    "NGramLM": "thunder_tpu_torch.text.lm",
+    "ArpaLM": "thunder_tpu_torch.text.lm",
+    "WordFusionLM": "thunder_tpu_torch.text.word_fusion",
+    "WordNGramLM": "thunder_tpu_torch.text.word_fusion",
 }
 
 

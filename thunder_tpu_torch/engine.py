@@ -63,7 +63,7 @@ A module without a decoder (an encoder-only checkpoint) serves the encoder's
 output as float32 logits.
 
 Decoding is greedy by default, on the argmax ids the forward computed;
-``predict(beam_width=...)`` runs the prefix beam search on the host (numpy)
+``predict(beam_width=...)`` runs the prefix beam search on the host (the C++ runtime)
 or, with ``beam_backend="device"``, on the forward's logits where they lie,
 through the beam scan and backtrace kernels; ``predict_long`` decodes long
 audio in overlapped chunks, greedy or as one continuous beam search.
@@ -370,7 +370,7 @@ class InferenceEngine:
                 **beam_kwargs) -> List[str]:
         """Greedy decode of an audio batch (or one clip) by default; ``beam_width``
         switches to CTC prefix beam search over the logits, ``beam_backend="host"``
-        (default, the numpy search, in-search LM fusion) or ``"device"`` (the beam
+        (default, the C++ search, in-search LM fusion) or ``"device"`` (the beam
         kernels on the forward's logits, which stay on the device; an ``lm`` ranks
         the surviving beam on the host). With ``nbest=k``, returns per sample the
         top-k ``(text, log_prob)`` pairs instead of one string."""

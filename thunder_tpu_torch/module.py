@@ -129,8 +129,9 @@ def run_beam_decode(logits, out_lengths, *, blank: int, text_transform, beam_wid
 
     ``backend`` selects where the search runs:
 
-    - ``"host"`` (default): the numpy search of
-      :mod:`thunder_tpu_torch.ops.ctc_beam`, with in-search LM shallow fusion;
+    - ``"host"`` (default): the search of :mod:`thunder_tpu_torch.ops.ctc_beam`
+      (the C++ runtime, or numpy with ``use_native=False``), with in-search LM
+      shallow fusion;
     - ``"device"``: :func:`thunder_tpu_torch.ops.ctc_beam_device.beam_search_device`
       on the logits where they lie (the beam kernels on the card); with
       ``lm``, the full surviving beam is LM-ranked on the host.
@@ -368,8 +369,9 @@ class CTCModule:
         """Audio batch (or one clip) -> transcriptions.
 
         Greedy CTC decode by default; ``beam_width`` switches to prefix beam
-        search over the logits, on ``beam_backend="host"`` (default, the numpy
-        search with in-search LM fusion) or ``"device"`` (the beam kernels on
+        search over the logits, on ``beam_backend="host"`` (default, the C++
+        search of :mod:`thunder_tpu_torch.native` with in-search LM fusion; the
+        numpy search with ``use_native=False``) or ``"device"`` (the beam kernels on
         the logits where they lie; an ``lm`` ranks the surviving beam on the
         host). With ``nbest=k``, returns per sample the top-k ``(text,
         log_prob)`` pairs instead of one string.

@@ -1,11 +1,15 @@
-"""CTC prefix beam-search decoding on the host (numpy).
+"""CTC prefix beam-search decoding on the host (numpy and the C++ runtime).
 
 Port of ``thunder_tpu/ops/ctc_beam.py``: the exact numpy reference of the
 prefix beam search (Hannun et al., 2014), carried state for cross-window
 decoding, and the batched best-path and n-best entry points. It is the
 ``beam_backend="host"`` search of the port and the independent oracle that
-``chip_smoke.py`` holds the device search against. The JAX package's C++
-runtime (``use_native``) is not ported: every search here is the numpy one.
+``chip_smoke.py`` holds the device search against. With ``use_native``
+(the default, as in the JAX package) the entry points run the same search in
+the port's C++ runtime (:mod:`thunder_tpu_torch.native`,
+``tn_ctc_beam_search*``), with an ``NGramLM``, ``ArpaLM`` or ``WordFusionLM``
+fused inside it through the LM's ``native()`` mirror; an ``lm`` without one,
+or a machine where the runtime does not build, runs the numpy search.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from thunder_tpu_torch.native import native_available, native_ctc_beam_search_batch, native_ctc_beam_search_stream
 
 __all__ = [
     "prefix_beam_search",
@@ -31,6 +37,11 @@ def log_softmax(logits: np.ndarray) -> np.ndarray:
     return logits - m - np.log(np.exp(logits - m).sum(axis=-1, keepdims=True))
 
 _NEG_INF = -np.inf
+
+
+def _native_lm(lm):
+    """The LM's C++ mirror (``lm.native()``), or ``None`` for no LM or an LM without one."""
+    return lm.native() if (lm is not None and hasattr(lm, "native")) else None
 
 
 def _logaddexp(a: float, b: float) -> float:
@@ -68,7 +79,7 @@ def prefix_beam_search(
             prune floor) — bounds the cost on large vocabularies even when
             the floor does not bite.
         lm: optional shallow-fusion scorer ``lm(prefix_ids, token) -> logp``
-            (any callable; ``final_score`` is read when present), added with weight
+            (e.g. :class:`thunder_tpu_torch.text.lm.NGramLM`; ``final_score`` is read when present), added with weight
             ``lm_weight`` each time a prefix is extended by ``token``.
         init_beams: carried beam state ``prefix -> (pb, pnb)`` from a previous
             window (cross-chunk decoding); default seeds the empty prefix.
@@ -220,6 +231,7 @@ def beam_search_stream(
     lm=None,
     lm_weight: float = 0.5,
     state: Optional[BeamState] = None,
+    use_native: bool = True,
 ) -> BeamState:
     """Advance carried beam state over one ``(T, V)`` log-softmax window.
 
@@ -229,10 +241,29 @@ def beam_search_stream(
     *identical* to beam-searching the whole utterance at once.  LM fusion
     also improves: the scorer sees the full carried prefix, not a chunk-local
     fragment.
+
+    Uses the C++ runtime (``tn_ctc_beam_search_stream_lm``) when available —
+    including LM fusion when ``lm`` has a native mirror (``lm.native()``);
+    only arbitrary Python ``lm`` callables fall back to the numpy reference.
     """
     state = state or BeamState()
+    logp = np.asarray(logp, np.float32)
+    native_lm = _native_lm(lm) if use_native else None
+    if use_native and (lm is None or native_lm is not None) and native_available():
+        res = native_ctc_beam_search_stream(
+            logp,
+            blank,
+            beam_width,
+            prune_logp,
+            max_tokens_per_step=max_tokens_per_step,
+            in_beams=[(np.asarray(p, np.int32), pb, pnb) for p, (pb, pnb) in state.beams.items()],
+            lm=native_lm,
+            lm_weight=lm_weight if native_lm is not None else 0.0,
+        )
+        if res is not None:
+            return BeamState({tuple(int(x) for x in p): (pb, pnb) for p, pb, pnb in res})
     _, beams = prefix_beam_search(
-        np.asarray(logp, np.float32),
+        logp,
         blank,
         beam_width,
         prune_logp,
@@ -255,11 +286,13 @@ def beam_search_nbest(
     max_tokens_per_step: int = 50,
     lm=None,
     lm_weight: float = 0.5,
+    use_native: bool = True,
 ) -> List[List[Tuple[np.ndarray, float]]]:
     """N-best decode: ``(B, T, V)`` logits -> per sample the top ``nbest``
     ``(label ids, total log-prob)`` pairs, best first.
 
-    Runs the same search as :func:`beam_search_decode` and ranks the final
+    Runs the same search as :func:`beam_search_decode` (C++ when available —
+    the stream entry point exports every surviving beam) and ranks the final
     beams with the end-of-utterance fusion bonus applied, so hypothesis
     scores are directly comparable for downstream rescoring.
     """
@@ -281,6 +314,7 @@ def beam_search_nbest(
             max_tokens_per_step=max_tokens_per_step,
             lm=lm,
             lm_weight=lm_weight,
+            use_native=use_native,
         )
         ranked = sorted(
             (
@@ -306,12 +340,14 @@ def beam_search_decode(
     max_tokens_per_step: int = 50,
     lm=None,
     lm_weight: float = 0.5,
+    use_native: bool = True,
 ) -> List[np.ndarray]:
     """Batched best-path decode: ``(B, T, V)`` logits -> list of id arrays.
 
     Applies log-softmax, runs prefix beam search per sample over its valid
-    frames, and returns each best label sequence — already collapsed, ready
-    for ``BatchTextTransformer.decode_prediction(..., remove_repeated=False)``.
+    frames (the C++ runtime when available, else the numpy reference), and
+    returns each best label sequence — already collapsed, ready for
+    ``BatchTextTransformer.decode_prediction(..., remove_repeated=False)``.
     """
     logits = np.asarray(logits, np.float32)
     B, T, V = logits.shape
@@ -320,6 +356,25 @@ def beam_search_decode(
     if lengths is None:
         lengths = [T] * B
     logp = log_softmax(logits)
+
+    native_lm = _native_lm(lm) if use_native else None
+    if use_native and (lm is None or native_lm is not None) and native_available():
+        # an LM with a native mirror fuses in C++; arbitrary Python lm callables run the numpy reference (the
+        # only path that can call back into them). The batch entry point threads the independent per-sample
+        # searches over host cores.
+        res = native_ctc_beam_search_batch(
+            logp,
+            lengths,
+            blank,
+            beam_width,
+            prune_logp,
+            max_tokens_per_step=max_tokens_per_step,
+            lm=native_lm,
+            lm_weight=lm_weight if native_lm is not None else 0.0,
+        )
+        if res is not None:
+            return res
+
     out = []
     for b in range(B):
         lp = logp[b, : int(lengths[b])]

@@ -7,10 +7,11 @@ read it: this module implements
 - a minimal protobuf *wire format* parser/serializer (no generated code),
 - the subset of ``sentencepiece_model.proto`` we need (pieces with
   piece/score/type, trainer_spec.model_type, normalizer_spec),
-- unigram (Viterbi, pure Python) and BPE (score-greedy merge) segmentation.
+- unigram (Viterbi) and BPE (score-greedy merge) segmentation.
 
-The JAX package's native (C++) unigram encoder gives the same spans as the
-Python dynamic programme kept here; it is not ported.
+The unigram Viterbi runs in the port's C++ runtime
+(:class:`thunder_tpu_torch.native.NativeSpmEncoder`) where it builds, else
+in the pure-Python dynamic programme: both give the same spans.
 
 Field numbers follow the public sentencepiece_model.proto:
 ModelProto{pieces=1, trainer_spec=2, normalizer_spec=3};
@@ -130,6 +131,23 @@ class SentencePieceModel:
                 self._index[p] = i
                 if len(p) > self._max_piece_len:
                     self._max_piece_len = len(p)
+        self._native_enc = None  # stale after any piece change
+
+    def _native_encoder(self):
+        """The C++ Viterbi encoder (tn_spm_*), built on first use; ``None`` where the runtime does not build."""
+        if self._native_enc is None:
+            from thunder_tpu_torch.native import NativeSpmEncoder, native_available
+
+            if not native_available():
+                return None
+            min_score = min(self.scores) if self.scores else 0.0
+            pieces = list(self._index.keys())
+            try:
+                self._native_enc = NativeSpmEncoder(pieces, [self.scores[self._index[p]] for p in pieces],
+                                                    min_score - 10.0)
+            except ValueError:
+                return None
+        return self._native_enc
 
     # -- loading ----------------------------------------------------------
 
@@ -169,6 +187,16 @@ class SentencePieceModel:
         return self._encode_unigram(s)
 
     def _encode_unigram(self, s: str) -> List[str]:
+        """Viterbi segmentation maximizing the total piece score (C++ where it builds, else the Python
+        dynamic programme: the same spans)."""
+        enc = self._native_encoder()
+        if enc is not None:
+            out = enc.encode_spans(s)
+            if out is not None:
+                return out
+        return self._encode_unigram_py(s)
+
+    def _encode_unigram_py(self, s: str) -> List[str]:
         """Viterbi segmentation maximizing the total piece score; an unknown character is kept as a piece
         of its own at the lowest score less 10, as sentencepiece keeps its surface."""
         n = len(s)

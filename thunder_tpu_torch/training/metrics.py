@@ -1,7 +1,8 @@
 """WER / CER accumulators (host side).
 
-Port of ``thunder_tpu/training/metrics.py`` with its Python edit distance
-(the native one waits for the port of the native runtime). Both rates are
+Port of ``thunder_tpu/training/metrics.py``: the edit distance runs in the
+port's C++ runtime (:func:`thunder_tpu_torch.native.native_edit_distance`)
+where it builds, else in Python (the same distance). Both rates are
 edit-distance ratios accumulated as (total edits, total reference length).
 """
 
@@ -12,7 +13,7 @@ from typing import List, Sequence
 __all__ = ["edit_distance", "ErrorRate", "CharErrorRate", "WordErrorRate", "wer", "cer"]
 
 
-def edit_distance(a: Sequence, b: Sequence) -> int:
+def _edit_distance_py(a: Sequence, b: Sequence) -> int:
     """Levenshtein distance, O(len(a)*len(b)) with two rows."""
     if len(a) < len(b):
         a, b = b, a
@@ -25,6 +26,20 @@ def edit_distance(a: Sequence, b: Sequence) -> int:
             cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb)))
         prev = cur
     return prev[-1]
+
+
+def edit_distance(a: Sequence, b: Sequence) -> int:
+    """Levenshtein distance between two sequences (the native kernel where it builds)."""
+    from thunder_tpu_torch.native import native_available, native_edit_distance
+
+    if not native_available():
+        return _edit_distance_py(a, b)
+    if isinstance(a, str) and isinstance(b, str):
+        return native_edit_distance(a, b)
+    # map arbitrary hashable tokens (e.g. words) onto ints for the C kernel
+    ids: dict = {}
+    enc = lambda seq: [ids.setdefault(t, len(ids)) for t in seq]  # noqa: E731
+    return native_edit_distance(enc(a), enc(b))
 
 
 class ErrorRate:
