@@ -303,7 +303,62 @@ Phases, each of which fails the run:
     runs only this comparison, on the rows of seeds 0 to N - 1); the host
     ranking's milliseconds beside the device decode's
     and its kernels'. The kernels line's entries
-    give their launches in this phase's runs (``lm_native_launches``).
+    give their launches in this phase's runs (``lm_native_launches``);
+25. ``streaming``: ``StreamingTranscriber`` on phase 4's QuartzNet15x5 engine
+    built ``batch_invariant`` and on its ``CTCModule``, one 60 s speech-like
+    clip each, fed in pushes of 800 to 20,000 samples (numpy seed), greedy and
+    with the device beam (W = 16), at (chunk, overlap) = (0.5, 0.125), (1,
+    0.25), (2, 0.5) and (20, 2) s on the engine, (2, 0.5) and (20, 2) s on the
+    module: each ``flush()`` must equal the same predictor's ``predict_long`` on
+    that grid, every greedy partial must be a prefix of it (the beam's
+    partials may be revised: counted, not checked), and the launches must be
+    1 log-mel (+ 77 separable repeats on the engine) a window, + 1
+    ``beam_scan`` and 1 ``beam_backtrace`` with the device beam; the device
+    beam's window as it is and padded to its 64-frame bucket must give the
+    same beams; a row of a 64 x 1 s forward of the engine must be bit-equal to
+    the same row served alone, stage by stage (``streaming_batch_invariance``,
+    which also prints the default engine's rows and both engines' forward at
+    64 x 15 s); a ``StreamingPool(batch_size=64)`` on the engine, 64 streams
+    of 60 s (8 distinct clips, stream k feeding clip k % 8) fed round-robin in
+    pushes of 1,600 samples (100 ms) at (1, 0.25) and (2, 0.5) s, greedy and
+    with the device beam, and at (2, 0.5) once more from 8 threads: every
+    stream's text must equal that of a lone ``StreamingTranscriber`` on its
+    clip (one push, then ``flush``), with 1 log-mel + 77
+    separable launches a forward and one scan and backtrace a window a
+    stream with the device beam; the forward of one drain is timed with CUDA
+    events; two 30 s streams with the device beam ranked by word fusion
+    (phase 24's LM) must equal ``predict_long`` with it. Push latencies
+    (p50, p99, host clock) of the pushes that complete a window (lone) or run
+    a forward (pool), and the sustained RTF (audio seconds over wall
+    seconds), are printed. The kernels line's ``streaming_launches``;
+26. ``align``: ``CTCModule.align`` of 64 seeded transcripts of 20-120
+    characters on 64 x 15 s (T = 751; 1 log-mel launch): the card's Viterbi
+    states and scores must equal the plain CPU run of ``ctc_forced_align``
+    on the card's float32 log-probs bit for bit, every score must be finite,
+    the spans ordered within the clip, 64 subtitle documents rendered, a
+    text too long for its frames ``-inf``, and ``torch.argmax`` on the card
+    must take the first of tied choices; the forward and the Viterbi are timed
+    apart (CUDA events), the Viterbi's device kernels counted by the
+    profiler (``align_launches``);
+27. ``profiling``: ``profiling.trace`` around one engine forward at 64 x 15 s
+    with an ``annotate("serve")`` span: the written Chrome trace must hold the
+    span, 1 log-mel kernel and 77 separable repeats in one of
+    ``TRACE_TAKES`` takes (each take's launch calls without a kernel record,
+    in ``trace``'s warm-up and in the block, are printed); ``StepTimer`` over 10 synchronized forwards, timed
+    before the traces and after a ``gc.collect()``, must give an RTF within
+    ``STEP_TIMER_RTF_TOL`` of phase 4's measurement taken again in the phase
+    (CUDA events over 10 forwards, the mean of one taken before and one after
+    the steps; each step's time and the card's clocks printed beside it)
+    (``profiling_launches``);
+28. ``cli``: ``python -m thunder_tpu_torch`` in subprocesses on the card, no
+    ``--device``, on a ``.nemo`` of phase 4's module (``write_nemo``), a 15 s
+    WAV, a 60 s WAV and a 15 s FLAC: ``transcribe`` (the module with
+    ``--timestamps``; ``--engine``; ``--engine --beam-width 16 --beam-backend
+    device``) must print the in-process API's records, ``eval`` of an 8-item
+    manifest the in-process WER and CER, ``train`` one epoch and exit 0,
+    ``export`` a bundle that serves the source module's logits bit for bit;
+    with ``CUDA_VISIBLE_DEVICES=`` the CLI must exit non-zero
+    (``cli_launches``, counted in each subprocess).
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -325,6 +380,7 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -859,6 +915,12 @@ def time_separable_shape(phase: str, key: tuple, rp, count: int, gen) -> dict:
     return {**line, "work": work}
 
 
+def gpu_clocks() -> str:
+    """The card's SM clock, power draw and temperature now, as nvidia-smi reads them."""
+    cmd = ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"]
+    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
 def gpu_line() -> str:
     cmd = ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
@@ -1055,16 +1117,22 @@ def run() -> int:
     add_mode_launches(kernels, int8_launches, mode_launches, c16)
 
     # ---- loading real checkpoints: NeMo archives, the fixtures, bundles, fine-tuning, frozen_paths
-    add_loading_launches(kernels, loading_phase(card))
+    add_launches(kernels, "loading_launches", loading_phase(card))
 
     # ---- the rest of training: remat on the three encoders, the trainer's features, the learning gate
     training_runs = {f"remat_{name}": counts for name, counts in training_remat_phase(card).items()}
     training_runs["trainer_features_run_a"] = trainer_features_phase(card)
     training_runs["learning_gate"] = learning_gate_phase(card)
-    add_training_launches(kernels, training_runs)
+    add_launches(kernels, "training_launches", training_runs)
 
     # ---- language-model decoding and the native host runtime: FLAC files, the C++ beam, word fusion
-    add_lm_native_launches(kernels, lm_native_phase(card))
+    add_launches(kernels, "lm_native_launches", lm_native_phase(card))
+
+    # ---- the user-facing entry points: streaming, forced alignment, profiling, the CLI
+    add_launches(kernels, "streaming_launches", streaming_phase(card))
+    add_launches(kernels, "align_launches", align_phase(card))
+    add_launches(kernels, "profiling_launches", profiling_phase(card))
+    add_launches(kernels, "cli_launches", cli_phase(card))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -3066,10 +3134,6 @@ def loading_phase(card: str, device="cuda") -> dict:
     return runs
 
 
-def add_loading_launches(kernels: list, runs: dict) -> None:
-    """Each kernel's launches in the loading phase's runs (0 for those they do not reach)."""
-    for entry in kernels:
-        entry["loading_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
 
 
 
@@ -3514,10 +3578,6 @@ def learning_gate_phase(card: str, device="cuda", items: int = GATE_ITEMS, epoch
     return counts
 
 
-def add_training_launches(kernels: list, runs: dict) -> None:
-    """Each kernel's launches in the remat steps, the trainer_features run A and the learning gate."""
-    for entry in kernels:
-        entry["training_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
 
 
 
@@ -3987,10 +4047,712 @@ def lm_tie_search(card: str, trials: int) -> int:
     return 0 if totals["ties"] == totals["differing"] and totals["max_deviation"] <= 1.0 else 1
 
 
-def add_lm_native_launches(kernels: list, runs: dict) -> None:
-    """Each kernel's launches in phase 24's runs (0 for those they do not reach)."""
+def add_launches(kernels: list, key: str, runs: dict) -> None:
+    """Each kernel entry's launches in a phase's runs, by run, under ``key`` (0 for the runs it does not reach)."""
     for entry in kernels:
-        entry["lm_native_launches"] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
+        entry[key] = {run: sum(c[w] for w in ENTRY_WRAPPERS[entry["name"]]) for run, c in runs.items()}
+
+
+# ---- phases 25-28: streaming, forced alignment, profiling, the CLI
+
+STREAM_SECONDS = 60.0
+STREAM_GRIDS = ((0.5, 0.125), (1.0, 0.25), (2.0, 0.5), (20.0, 2.0))  # (chunk, overlap) seconds of the lone streams
+MODULE_GRIDS = STREAM_GRIDS[2:]  # the module's lone streams (a window's float32 forward of one row costs 30-136 ms)
+POOL_GRIDS = ((1.0, 0.25), (2.0, 0.5))
+POOL_BATCH = 64  # the pool's rows a forward, and its streams
+POOL_CLIPS = 8  # distinct clips among the pool's streams (stream k feeds clip k % POOL_CLIPS), each a lone reference
+POOL_PUSH = 1600  # samples a push: 100 ms, a microphone's buffer
+POOL_THREADS = 8
+STREAM_BEAM = dict(beam_width=LM_WIDTH, beam_backend="device")
+FUSION_STREAMS, FUSION_SECONDS, FUSION_GRID = 2, 30.0, (2.0, 0.5)
+ALIGN_CHARS = (20, 120)  # the seeded transcripts' lengths
+STEP_TIMER_FORWARDS, STEP_TIMER_RTF_TOL = 10, 0.10
+TRACE_TAKES = 6  # takes of the profiling phase's trace, of which one must hold every kernel record
+
+
+def served_quartznet(device, batch_invariant: bool = False):
+    """Phase 4's QuartzNet15x5 (seed 0; BN by ``fit_bn`` on the first 8 rows of phase 4's batch), its engine (with
+    ``batch_invariant``), and phase 4's batch (``BATCH`` rows of ``SECONDS``)."""
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    rng = np.random.default_rng(0)
+    samples = int(SECONDS * SAMPLE_RATE)
+    base = speech_like(samples, rng)
+    rows = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(BATCH)])
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(**QN15X5),
+                              Conv1dDecoder(len(VOCAB) + 1), BatchTextTransformer(VOCAB), device=device)
+    fit_bn(module, rows[:8], np.full((len(rows[:8]),), samples, np.int32))
+    return module, InferenceEngine(module, batch_invariant=batch_invariant), rows
+
+
+def stream_clips(n: int, seconds: float, seed: int) -> list:
+    """``n`` speech-like clips of ``seconds``: one signal from ``seed``, each clip shifted by its own offset and
+    scaled by its own gain."""
+    rng = np.random.default_rng(seed)
+    base = speech_like(int(seconds * SAMPLE_RATE), rng)
+    return [(np.roll(base, int(rng.integers(0, base.size))) * (0.7 + 0.6 * rng.random())).astype(np.float32)
+            for _ in range(n)]
+
+
+def grid_windows(samples: int, chunk_s: float, overlap_s: float) -> int:
+    """Windows that ``chunked_transcribe`` (and a stream) decodes for a clip of ``samples`` longer than a chunk."""
+    chunk, overlap = int(chunk_s * SAMPLE_RATE), int(overlap_s * SAMPLE_RATE)
+    return len(range(0, max(samples - overlap, 1), chunk - overlap))
+
+
+def percentiles_ms(seconds: list) -> dict:
+    if not seconds:
+        return {"n": 0}
+    ms = np.asarray(seconds) * 1e3
+    return {"n": int(ms.size), "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max())}
+
+
+class CountedInfer:
+    """A predictor's ``infer`` that counts its calls: set as the predictor's attribute for a run, so that the
+    streams built on it call through it."""
+
+    def __init__(self, predictor):
+        self.predictor, self.real, self.calls = predictor, predictor.infer, 0
+
+    def __call__(self, audio, lengths):
+        self.calls += 1
+        return self.real(audio, lengths)
+
+    def __enter__(self):
+        self.predictor.infer = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.predictor.infer
+
+
+def lone_stream_run(predictor, clip: np.ndarray, grid: tuple, beam: dict, rng, device) -> dict:
+    """One ``StreamingTranscriber`` on ``predictor`` fed ``clip`` in pushes of 800 to 20,000 samples (``rng``):
+    its text, partials, the host seconds of the pushes that completed a window and the wall seconds."""
+    from thunder_tpu_torch.streaming import StreamingTranscriber
+
+    stream = StreamingTranscriber(predictor, chunk_seconds=grid[0], overlap_seconds=grid[1], **beam)
+    partials, window_pushes, i = [], [], 0
+    sync(device)
+    t_start = time.perf_counter()
+    while i < clip.size:
+        n = int(rng.integers(800, 20001))
+        done = stream._chunks_done
+        t0 = time.perf_counter()
+        partials.append(stream.push(clip[i: i + n]))
+        if stream._chunks_done > done:
+            window_pushes.append(time.perf_counter() - t0)
+        i += n
+    text = stream.flush()
+    sync(device)
+    return {"text": text, "partials": partials, "window_pushes": window_pushes,
+            "wall_s": time.perf_counter() - t_start}
+
+
+def lone_reference(engine, clip: np.ndarray, grid: tuple, beam: dict) -> str:
+    """The text of a lone ``StreamingTranscriber`` on ``engine`` given the whole clip in one push, then flushed."""
+    from thunder_tpu_torch.streaming import StreamingTranscriber
+
+    stream = StreamingTranscriber(engine, chunk_seconds=grid[0], overlap_seconds=grid[1], **beam)
+    stream.push(clip)
+    return stream.flush()
+
+
+def pool_run(predictor, clips: list, grid: tuple, beam: dict, threads: int, device) -> dict:
+    """A ``StreamingPool(batch_size=POOL_BATCH)`` of one stream a clip, fed round-robin in pushes of ``POOL_PUSH``
+    samples, from one thread or from ``threads`` threads (each feeding its share of the streams round-robin), then
+    every stream flushed: the texts, the host seconds of the pushes that ran a forward, the wall seconds and the
+    forwards."""
+    import threading
+
+    from thunder_tpu_torch.streaming import StreamingPool
+
+    with CountedInfer(predictor) as counted:
+        pool = StreamingPool(predictor, batch_size=POOL_BATCH, chunk_seconds=grid[0], overlap_seconds=grid[1], **beam)
+        sids = [pool.open() for _ in clips]
+        drain_pushes, errors = [], []
+
+        def feed(share):
+            try:
+                for start in range(0, max(c.size for c in clips), POOL_PUSH):
+                    for k in share:
+                        if start < clips[k].size:
+                            calls = counted.calls
+                            t0 = time.perf_counter()
+                            pool.push(sids[k], clips[k][start: start + POOL_PUSH])
+                            if counted.calls > calls:
+                                drain_pushes.append(time.perf_counter() - t0)
+            except Exception as err:  # re-raised below: a thread's exception would be lost
+                errors.append(err)
+
+        sync(device)
+        t_start = time.perf_counter()
+        if threads == 1:
+            feed(range(len(clips)))
+        else:
+            workers = [threading.Thread(target=feed, args=(range(t, len(clips), threads),)) for t in range(threads)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=600)
+            check(not any(w.is_alive() for w in workers), "a pool feeding thread did not finish in 600 s")
+        if errors:
+            raise errors[0]
+        texts = [pool.flush(sid) for sid in sids]
+        sync(device)
+        wall = time.perf_counter() - t_start
+    return {"texts": texts, "drain_pushes": drain_pushes, "wall_s": wall, "forwards": counted.calls}
+
+
+def batch_invariance(card: str, engine, clips: list, served: np.ndarray, device) -> None:
+    """Whether a row of a ``(POOL_BATCH, 1 s)`` forward of the ``batch_invariant`` engine is bit-equal to the same
+    row served alone: each stage on the same input (the log-mel kernel, the frontend, every repeat of the plan on
+    rows 0-7, the decoder) and the whole forward on every row; beside them the default engine's frontend, decoder
+    and whole forward, whose float32 sums the option replaces, and the forward of both engines on ``served`` (phase
+    4's 64 x 15 s batch), in turns (default, invariant, invariant, default)."""
+    import torch
+
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels.frontend import fused_log_mel
+
+    rows = range(min(8, len(clips)))
+    samples = SAMPLE_RATE
+    audio = torch.as_tensor(np.stack([c[:samples] for c in clips]), device=device)
+    lengths = torch.full((audio.shape[0],), samples, dtype=torch.int32, device=device)
+    lengths[-1] = samples // 3  # a row shorter than its window
+    default = InferenceEngine(engine.module)
+
+    def differing(batch_fn, row_fn) -> int:
+        full = batch_fn()
+        return sum(not torch.equal(full[r: r + 1], row_fn(r)) for r in rows)
+
+    def whole_forward(eng) -> tuple:
+        logits, preds, out_lengths = eng.infer(audio, lengths)
+        alone = [eng.infer(audio[r: r + 1], lengths[r: r + 1]) for r in range(audio.shape[0])]
+        whole = sum(not torch.equal(logits[r: r + 1], alone[r][0]) for r in range(audio.shape[0]))
+        flips = sum(int((preds[r, : int(out_lengths[r])] != alone[r][1][0, : int(out_lengths[r])]).sum())
+                    for r in range(audio.shape[0]))
+        return whole, flips
+
+    def frontend(eng):
+        return differing(lambda: eng.frontend(audio, lengths, sum_dtype=eng._sum_dtype)[0],
+                         lambda r: eng.frontend(audio[r: r + 1], lengths[r: r + 1], sum_dtype=eng._sum_dtype)[0])
+
+    stages = {"log_mel": differing(lambda: fused_log_mel(audio), lambda r: fused_log_mel(audio[r: r + 1])),
+              "frontend": frontend(engine)}
+    x, x_lengths = engine.frontend(audio, lengths, sum_dtype=engine._sum_dtype)
+    x = x.to(engine.dtype)
+    repeats = {"separable": 0, "dense": 0}
+    for block in engine._plan:
+        inp, inp_lengths = x, x_lengths
+        for rp in block.repeats + ([block.res] if block.res is not None else []):
+            src, src_lengths = (inp, inp_lengths) if rp is block.res else (x, x_lengths)
+            out, out_lengths = engine._apply_repeat(rp, src, src_lengths, {})
+            repeats[rp.kind] += differing(lambda: out, lambda r: engine._apply_repeat(rp, src[r: r + 1],
+                                                                                      src_lengths[r: r + 1], {})[0])
+            if rp is block.res:
+                x = x + out
+            else:
+                x, x_lengths = out, out_lengths
+        x = torch.relu(x)
+    stages.update({f"{kind}_repeats": n for kind, n in repeats.items()})
+    stages["decoder"] = differing(lambda: engine._decode(x)[0], lambda r: engine._decode(x[r: r + 1])[0])
+    whole, flips = whole_forward(engine)
+    default_whole, default_flips = whole_forward(default)
+    default_stages = {"frontend": frontend(default),
+                      "decoder": differing(lambda: default._decode(x)[0], lambda r: default._decode(x[r: r + 1])[0])}
+    audio_s = torch.as_tensor(served, device=device)
+    lengths_s = torch.full((audio_s.shape[0],), audio_s.shape[1], dtype=torch.int32, device=device)
+    forward_ms = {"default": [], "batch_invariant": []}
+    for name, eng in (("default", default), ("batch_invariant", engine), ("batch_invariant", engine),
+                      ("default", default)):
+        forward_ms[name].append(cuda_ms(lambda: eng.infer(audio_s, lengths_s), 20))
+    emit({"phase": "streaming_batch_invariance", "batch": int(audio.shape[0]), "seconds": 1.0,
+          "rows_differing_of_8": stages, "whole_forward_rows_differing": whole, "whole_forward_argmax_flips": flips,
+          "default_engine": {"rows_differing_of_8": default_stages, "whole_forward_rows_differing": default_whole,
+                             "whole_forward_argmax_flips": default_flips},
+          "forward_ms_64x15s": forward_ms, "card": card})
+    check(not any(stages.values()) and whole == 0, "a row of the batch differs from the same row served alone")
+
+
+def streaming_phase(card: str, device="cuda") -> dict:
+    """Phase 25 of the module docstring: lone streams on the ``batch_invariant`` engine and the module, the pool of
+    64 streams on that engine from one and from 8 threads, word fusion on the device beam. Returns the launches of
+    its runs, by run."""
+    import torch
+
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device_stream
+    from thunder_tpu_torch.text import WordFusionLM, WordNGramLM
+
+    runs = {}
+    module, engine, served = served_quartznet(device, batch_invariant=True)
+    samples = int(STREAM_SECONDS * SAMPLE_RATE)
+    clip = stream_clips(1, STREAM_SECONDS, seed=25)[0]
+    decodes = {"greedy": {}, "device_beam": STREAM_BEAM}
+
+    # ---- lone streams: each flush equals predict_long on the same grid; greedy partials are prefixes of it
+    for pname, predictor, grids in (("engine", engine, STREAM_GRIDS), ("module", module, MODULE_GRIDS)):
+        for dname, beam in decodes.items():
+            for grid in grids:
+                tag = f"lone_{pname}_{dname}_{grid[0]:g}s"
+                predictor.predict_long(clip[: int(grid[0] * SAMPLE_RATE) * 2], chunk_seconds=grid[0],
+                                       overlap_seconds=grid[1], **beam)  # warms this grid's shapes
+                reset_launch_counts()
+                run = lone_stream_run(predictor, clip, grid, beam, np.random.default_rng(len(runs)), device)
+                runs[tag] = launch_counts()
+                want = predictor.predict_long(clip, chunk_seconds=grid[0], overlap_seconds=grid[1], **beam)
+                windows = grid_windows(samples, *grid)
+                beam_launches = windows if beam else 0
+                expect = expected_counts(fused_log_mel=windows,
+                                         fused_separable_repeat=QN_SEPARABLE * windows if pname == "engine" else 0,
+                                         beam_scan=beam_launches, beam_backtrace=beam_launches)
+                not_prefix = sum(not run["text"].startswith(p) for p in run["partials"])
+                emit({"phase": "streaming_lone", "predictor": pname, "decode": dname, "chunk_s": grid[0],
+                      "overlap_s": grid[1], "seconds": STREAM_SECONDS, "pushes": len(run["partials"]),
+                      "windows": windows, "launches": {k: v for k, v in runs[tag].items() if v},
+                      "flush_equals_predict_long": run["text"] == want, "text_chars": len(run["text"]),
+                      "partials_not_prefix": not_prefix, "window_push_latency": percentiles_ms(run["window_pushes"]),
+                      "wall_s": run["wall_s"], "rtf": STREAM_SECONDS / run["wall_s"], "card": card})
+                check(runs[tag] == expect, f"{tag}: launched {runs[tag]}, expected {expect}")
+                check(run["text"] == want, f"{tag}: flush() differs from predict_long")
+                check(bool(beam) or not_prefix == 0, f"{tag}: {not_prefix} greedy partials are no prefix of the text")
+
+    # the device beam searches each trimmed window as it is; predict_long pads it to a 64-frame bucket
+    logits, _, out_lengths = engine.infer(clip[None, : 20 * SAMPLE_RATE], np.array([20 * SAMPLE_RATE], np.int32))
+    win = logits[:, : int(out_lengths[0]) - 50]
+    bucket = -(-win.shape[1] // 64) * 64
+    plain = beam_search_device_stream(win, blank=module.blank_idx, beam_width=LM_WIDTH)
+    padded = beam_search_device_stream(torch.nn.functional.pad(win, (0, 0, 0, bucket - win.shape[1])),
+                                       lengths=[win.shape[1]], blank=module.blank_idx, beam_width=LM_WIDTH)
+    same = np.array_equal(plain.total, padded.total) and all(
+        (a is None and b is None) or (a is not None and b is not None and a.tolist() == b.tolist())
+        for a, b in zip(plain.prefixes[0], padded.prefixes[0]))
+    emit({"phase": "streaming_window_padding", "frames": int(win.shape[1]), "bucket": bucket, "same_beams": same})
+    check(same, "the device beam's window padded to its bucket gives other beams than the window as it is")
+
+    # ---- the pool: 64 streams of 60 s, each equal to the lone stream of its clip; the forward of one drain
+    distinct = stream_clips(POOL_BATCH, STREAM_SECONDS, seed=26)
+    batch_invariance(card, engine, distinct, served, device)
+    clips = [distinct[k % POOL_CLIPS] for k in range(POOL_BATCH)]
+    t0 = time.perf_counter()
+    lone = {(dname, grid): [lone_reference(engine, c, grid, beam) for c in distinct[:POOL_CLIPS]]
+            for dname, beam in decodes.items() for grid in POOL_GRIDS}
+    emit({"phase": "streaming_pool_lone_references", "clips": POOL_CLIPS, "grids": POOL_GRIDS,
+          "seconds_host_clock": time.perf_counter() - t0})
+    for dname, beam in decodes.items():
+        for grid in POOL_GRIDS:
+            windows = grid_windows(samples, *grid)
+            lone_texts = [lone[dname, grid][k % POOL_CLIPS] for k in range(POOL_BATCH)]
+            for threads in (1, POOL_THREADS) if grid == POOL_GRIDS[-1] else (1,):
+                tag = f"pool_{dname}_{grid[0]:g}s" + (f"_{threads}_threads" if threads > 1 else "")
+                reset_launch_counts()
+                run = pool_run(engine, clips, grid, beam, threads, device)
+                runs[tag] = launch_counts()
+                beam_launches = windows * POOL_BATCH if beam else 0
+                expect = expected_counts(fused_log_mel=run["forwards"],
+                                         fused_separable_repeat=QN_SEPARABLE * run["forwards"],
+                                         beam_scan=beam_launches, beam_backtrace=beam_launches)
+                differing = [k for k, (a, b) in enumerate(zip(run["texts"], lone_texts)) if a != b]
+                line = {"phase": "streaming_pool", "decode": dname, "chunk_s": grid[0], "overlap_s": grid[1],
+                        "streams": POOL_BATCH, "clips": POOL_CLIPS, "seconds": STREAM_SECONDS, "push_samples": POOL_PUSH,
+                        "threads": threads, "windows_per_stream": windows, "forwards": run["forwards"],
+                        "launches": {k: v for k, v in runs[tag].items() if v}, "streams_differing": differing,
+                        "drain_push_latency": percentiles_ms(run["drain_pushes"]), "wall_s": run["wall_s"],
+                        "rtf": POOL_BATCH * STREAM_SECONDS / run["wall_s"], "card": card}
+                if threads == 1:
+                    padded = np.zeros((POOL_BATCH, int(grid[0] * SAMPLE_RATE)), np.float32)
+                    for k, c in enumerate(clips):
+                        padded[k] = c[: padded.shape[1]]
+                    audio_d = torch.as_tensor(padded, device=device)
+                    lengths_d = torch.full((POOL_BATCH,), padded.shape[1], dtype=torch.int32, device=device)
+                    line["drain_forward_ms"] = cuda_ms(lambda: engine.infer(audio_d, lengths_d), 10)
+                emit(line)
+                check(runs[tag] == expect, f"{tag}: launched {runs[tag]}, expected {expect}")
+                check(not differing, f"{tag}: streams {differing} differ from their lone streams")
+
+    # ---- word fusion on the device beam: 2 lone streams of 30 s, each equal to predict_long with the same LM
+    fusion = WordFusionLM(WordNGramLM(order=WORD_LM_ORDER).fit(seeded_lines(LM_LINES)), module.text_transform)
+    fused = dict(STREAM_BEAM, lm=fusion, lm_weight=LM_WEIGHT)
+    reset_launch_counts()
+    results = []
+    for k, c in enumerate(stream_clips(FUSION_STREAMS, FUSION_SECONDS, seed=27)):
+        run = lone_stream_run(engine, c, FUSION_GRID, fused, np.random.default_rng(100 + k), device)
+        t0 = time.perf_counter()
+        want = engine.predict_long(c, chunk_seconds=FUSION_GRID[0], overlap_seconds=FUSION_GRID[1], **fused)
+        results.append((run, want, time.perf_counter() - t0))
+    runs["word_fusion"] = launch_counts()
+    windows = grid_windows(int(FUSION_SECONDS * SAMPLE_RATE), *FUSION_GRID) * FUSION_STREAMS
+    expect = expected_counts(fused_log_mel=2 * windows, fused_separable_repeat=2 * QN_SEPARABLE * windows,
+                             beam_scan=2 * windows, beam_backtrace=2 * windows)
+    emit({"phase": "streaming_word_fusion", "streams": FUSION_STREAMS, "seconds": FUSION_SECONDS,
+          "chunk_s": FUSION_GRID[0], "overlap_s": FUSION_GRID[1], "W": LM_WIDTH, "lm_weight": LM_WEIGHT,
+          "equal_to_predict_long": [run["text"] == want for run, want, _ in results],
+          "stream_wall_s": [run["wall_s"] for run, _, _ in results],
+          "window_push_latency": [percentiles_ms(run["window_pushes"]) for run, _, _ in results],
+          "predict_long_s": [s for _, _, s in results], "launches": {k: v for k, v in runs["word_fusion"].items() if v},
+          "card": card})
+    check(runs["word_fusion"] == expect, f"word fusion streams launched {runs['word_fusion']}, expected {expect}")
+    check(all(run["text"] == want for run, want, _ in results), "a word-fusion stream differs from predict_long")
+    return runs
+
+
+def align_texts(n: int, seed: int) -> list:
+    """``n`` seeded strings of ``ALIGN_CHARS`` characters from the vocabulary."""
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(VOCAB, int(rng.integers(ALIGN_CHARS[0], ALIGN_CHARS[1] + 1)))) for _ in range(n)]
+
+
+def align_phase(card: str, device="cuda") -> dict:
+    """Phase 26 of the module docstring: ``CTCModule.align`` of 64 seeded transcripts on 64 x 15 s. Returns the
+    launches of its call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.module import host_batch, to_device
+    from thunder_tpu_torch.ops.ctc import ctc_forced_align
+    from thunder_tpu_torch.text.subtitles import to_srt, to_vtt, word_spans
+
+    module, _, audio = served_quartznet(device)
+    samples = audio.shape[1]
+    lengths = np.full((BATCH,), samples, np.int32)
+    texts = align_texts(BATCH, seed=26)
+    module.align(audio[:2], texts[:2], lengths[:2])  # warms the path
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    spans, scores = module.align(audio, texts, lengths)
+    sync(device)
+    align_ms = (time.perf_counter() - t0) * 1e3
+    runs = {"align": launch_counts()}
+    check(runs["align"] == expected_counts(fused_log_mel=1), f"align launched {runs['align']}")
+
+    # the forward and the Viterbi apart; the Viterbi on the card against its plain CPU run on the same log-probs
+    padded, lengths_h = host_batch(audio, lengths, module.pad_multiple)
+    targets, target_lengths = module.text_transform.encode(texts)
+    audio_d, lengths_d = torch.as_tensor(padded, device=device), torch.as_tensor(lengths_h, device=device)
+    targets_d, target_lengths_d = to_device(targets, torch.int32, device), to_device(target_lengths, torch.int32, device)
+    logits, _, out_lengths = module.infer(audio_d, lengths_d)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    viterbi = lambda: ctc_forced_align(logp, out_lengths, targets_d, target_lengths_d, module.blank_idx)  # noqa: E731
+    states, _, card_scores = viterbi()
+    t0 = time.perf_counter()
+    cpu_states, _, cpu_scores = ctc_forced_align(logp.cpu(), out_lengths.cpu(), torch.as_tensor(targets),
+                                                 torch.as_tensor(target_lengths), module.blank_idx)
+    cpu_viterbi_ms = (time.perf_counter() - t0) * 1e3
+    forward_ms = cuda_ms(lambda: module.infer(audio_d, lengths_d), 3)
+    viterbi_ms = cuda_ms(viterbi, 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        viterbi()
+        sync(device)
+    device_kernels = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    launch_calls = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC") for e in prof.events())
+
+    # first-maximum ties of the stacked choices on the card, as on the CPU and in jnp.argmax
+    g = torch.Generator().manual_seed(0)
+    stacked = torch.randint(0, 2, (3, BATCH, 2 * ALIGN_CHARS[1] + 1), generator=g).float()
+    ties_first = bool(torch.equal(torch.argmax(stacked.to(device), dim=0).cpu(), torch.argmax(stacked, dim=0))
+                      and (torch.argmax(stacked.to(device), dim=0).cpu().numpy()
+                           == np.argmax(stacked.numpy(), axis=0)).all())
+
+    duration = samples / SAMPLE_RATE
+    ordered = all(all(0.0 <= s < e <= duration + 1e-6 for _, s, e in row)
+                  and all(a[1] <= b[1] and a[2] <= b[2] for a, b in zip(row, row[1:])) for row in spans)
+    docs = [(to_srt(row), to_vtt(row), word_spans(row)) for row in spans]
+    rendered = sum(bool(srt) and "-->" in srt and vtt.startswith("WEBVTT") and bool(words) for srt, vtt, words in docs)
+    too_long, too_long_scores = module.align(audio[0, :SAMPLE_RATE], ["ab" * 60])  # 120 tokens, 51 frames
+    line = {"phase": "align", "batch": BATCH, "seconds": SECONDS, "frames": int(logits.shape[1]),
+            "chars": [int(target_lengths.min()), int(target_lengths.max())], "align_ms_host_clock": align_ms,
+            "forward_ms": forward_ms, "viterbi_ms": viterbi_ms, "viterbi_device_kernels": device_kernels,
+            "viterbi_launch_calls": launch_calls, "viterbi_cpu_ms_host_clock": cpu_viterbi_ms,
+            "states_equal_cpu": bool(torch.equal(states.cpu(), cpu_states)),
+            "scores_bit_equal_cpu": bool(torch.equal(card_scores.cpu(), cpu_scores)),
+            "scores_finite": bool(np.isfinite(scores).all()), "spans_ordered_within_clip": ordered,
+            "documents_rendered": rendered, "too_long_score": float(too_long_scores[0]), "ties_first_index": ties_first,
+            "launches": {k: v for k, v in runs["align"].items() if v}, "card": card}
+    emit(line)
+    check(line["states_equal_cpu"] and line["scores_bit_equal_cpu"], "the card's Viterbi differs from its CPU run")
+    check(np.array_equal(scores, card_scores.cpu().numpy()), "align's scores differ from the Viterbi on its log-probs")
+    check(line["scores_finite"], "an align score is not finite")
+    check(ordered, "align's spans are out of order or outside the clip")
+    check(rendered == BATCH, f"{rendered} of {BATCH} subtitle documents rendered")
+    check(np.isneginf(too_long_scores[0]) and len(too_long[0]) == 120, "a text too long for its frames is not -inf")
+    check(ties_first, "torch.argmax on the card does not take the first of tied choices")
+    return runs
+
+
+def unrecorded_launches(events: list, block: str) -> dict:
+    """A Chrome trace's kernel launch calls (host side) against its kernel records (card side), matched by
+    correlation id: the calls, those without a record before the host span ``block`` (``trace``'s warm-up) and
+    in or after it, the host microseconds from the first call to the first and last unrecorded one, and the
+    least and median microseconds from a call to its kernel's start."""
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "LaunchKernel" in e.get("name", "")
+                and "correlation" in e.get("args", {})}
+    kernel_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+    start = min((e["ts"] for e in events if e.get("name") == block and e.get("cat") == "user_annotation"),
+                default=float("inf"))
+    missing = sorted(ts for c, ts in launches.items() if c not in kernel_ts)
+    lead = [ts - launches[c] for c, ts in kernel_ts.items() if c in launches]
+    first = min(launches.values(), default=0.0)
+    return {"launch_calls": len(launches), "unrecorded_before_block": sum(ts < start for ts in missing),
+            "unrecorded_in_block": sum(ts >= start for ts in missing),
+            "unrecorded_from_first_call_us": [missing[0] - first, missing[-1] - first] if missing else [],
+            "call_to_kernel_us": [min(lead), float(np.median(lead))] if lead else []}
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Yields a list that gains ``[generation, ms]`` for each collection the garbage collector makes in the block."""
+    pauses, start = [], [0.0]
+
+    def record(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            pauses.append([info["generation"], (time.perf_counter() - start[0]) * 1e3])
+
+    gc.callbacks.append(record)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(record)
+
+
+def profiling_phase(card: str, device="cuda") -> dict:
+    """Phase 27 of the module docstring: ``profiling.trace`` around one engine forward at 64 x 15 s with an
+    ``annotate("serve")`` span, counted in the written trace; ``StepTimer`` over synchronized forwards against
+    phase 4's RTF, measured again here as phase 4 measures it (CUDA events over 10 forwards back to back): the
+    card and its host run at another pace late in a whole run than at its start. Returns the launches of the
+    traced forward."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.profiling import StepTimer, annotate, trace
+
+    _, engine, audio = served_quartznet(device)
+    samples = audio.shape[1]
+    audio_d = torch.as_tensor(audio, device=device)
+    lengths_d = torch.full((BATCH,), samples, dtype=torch.int32, device=device)
+    forward = lambda: engine.infer(audio_d, lengths_d)  # noqa: E731
+    forward()
+    # the timed steps come before the traces, and after a collection: neither the profiler's state after a
+    # trace nor a collection of the garbage of the phases before falls into a step. Phase 4's measurement is
+    # taken before and after them, so that a drift of the card's pace falls on both sides
+    gc.collect()
+    forward_ms_before = cuda_ms(forward, 10)
+    timer = StepTimer()
+    with gc_pauses() as pauses:
+        for _ in range(STEP_TIMER_FORWARDS):
+            with timer.step(BATCH * samples):
+                forward()
+                sync(device)
+    forward_ms_after = cuda_ms(forward, 10)
+    forward_ms = (forward_ms_before + forward_ms_after) / 2
+    serving_rtf = BATCH * SECONDS / (forward_ms / 1e3)
+    summary = timer.summary()
+    takes = []
+    for _ in range(TRACE_TAKES):  # every take is kept: how often a take misses records is a finding
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launch_counts()
+            with trace(tmp):
+                with annotate("serve"):
+                    forward()
+                sync(device)
+            files = list(Path(tmp).glob("*.pt.trace.json"))
+            events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+        counts = launch_counts()
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        found = {"files": len(files), "serve_spans": sum(e.get("name") == "serve" for e in events),
+                 "log_mel_kernels": sum("log_mel_" in k for k in kernels),
+                 "separable_kernels": sum("separable_repeat_kernel" in k for k in kernels),
+                 "kernel_events": len(kernels), **unrecorded_launches(events, "serve")}
+        found["complete"] = found["log_mel_kernels"] == 1 and found["separable_kernels"] == QN_SEPARABLE
+        takes.append((found, counts))
+    found, counts = next((t for t in takes if t[0]["complete"]), takes[-1])
+    emit({"phase": "profiling", **found, "complete_takes": sum(t["complete"] for t, _ in takes),
+          "takes": [t for t, _ in takes],
+          "launches": {k: v for k, v in counts.items() if v},
+          "step_timer": summary, "step_ms": [t * 1e3 for t in timer.times], "forward_ms": forward_ms,
+          "forward_ms_before_after": [forward_ms_before, forward_ms_after], "gc_pauses_in_steps": pauses,
+          "serving_rtf": serving_rtf,
+          "rtf_ratio": summary["rtf"] / serving_rtf, "clocks": gpu_clocks(), "card": card})
+    check(found["files"] == 1 and found["serve_spans"] >= 1, f"the trace lacks the annotated span: {found}")
+    check(found["log_mel_kernels"] == 1 and found["separable_kernels"] == QN_SEPARABLE,
+          f"the trace does not hold 1 log-mel and {QN_SEPARABLE} separable kernels: {found}")
+    check(counts == expected_counts(fused_log_mel=1, fused_separable_repeat=QN_SEPARABLE),
+          f"the traced forward launched {counts}")
+    check(abs(summary["rtf"] / serving_rtf - 1) <= STEP_TIMER_RTF_TOL,
+          f"StepTimer's rtf {summary['rtf']:.0f} is not within {STEP_TIMER_RTF_TOL:.0%} of the CUDA events' "
+          f"{serving_rtf:.0f} (steps {', '.join(f'{t * 1e3:.2f}' for t in timer.times)} ms; forward "
+          f"{forward_ms:.2f} ms)")
+    return {"traced_forward": counts}
+
+
+# runs ``python -m thunder_tpu_torch`` (``runpy``, as ``-m`` does) and prints, at its end, the kernels' launches
+CLI_RUNNER = """import json, runpy, sys
+sys.argv = ["thunder_tpu_torch", *sys.argv[1:]]
+try:
+    runpy.run_module("thunder_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS
+    print("cli_launches " + json.dumps({w.__name__: w.launches for w in KERNEL_WRAPPERS}), file=sys.stderr)
+"""
+
+
+def write_wav(path, pcm: np.ndarray) -> None:
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SAMPLE_RATE)
+        w.writeframes(np.asarray(pcm, np.int16).tobytes())
+
+
+def cli_phase(card: str, device="cuda") -> dict:
+    """Phase 28 of the module docstring: ``python -m thunder_tpu_torch`` in subprocesses on the card (no
+    ``--device``; ``device="cpu"`` adds ``--device cpu``, to rehearse), against the in-process API on the same
+    files. Returns the launches of each CLI run."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from thunder_tpu_torch import load_inference_bundle, load_pretrained
+    from thunder_tpu_torch.data import ManifestDatamodule, load_audio
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.training.metrics import CharErrorRate, WordErrorRate
+
+    module, _, _ = served_quartznet(device)
+    pcm = [np.clip(np.round(c * 32767), -32768, 32767).astype(np.int16)
+           for c in stream_clips(10, STREAM_SECONDS, seed=28)]
+    short = int(SECONDS * SAMPLE_RATE)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        nemo = tmp / "quartznet15x5.nemo"
+        write_nemo(nemo, module, nemo_quartznet_config(module))
+        files = [tmp / "clip15.wav", tmp / "clip60.wav", tmp / "clip15.flac"]
+        write_wav(files[0], pcm[0][:short])
+        write_wav(files[1], pcm[1])
+        files[2].write_bytes(flac_bytes(pcm[2][:short], SAMPLE_RATE))
+        texts = align_texts(8, seed=28)
+        entries = []
+        for k in range(8):
+            write_wav(tmp / f"item{k}.wav", pcm[2 + k][:short])
+            entries.append(json.dumps({"audio_filepath": str(tmp / f"item{k}.wav"), "duration": SECONDS,
+                                       "text": texts[k]}))
+        manifest = tmp / "manifest.json"
+        manifest.write_text("\n".join(entries))
+        clips = [str(f) for f in files]
+        common = ["--checkpoint", str(nemo)] + (["--device", device] if device != "cuda" else [])
+        jobs = {
+            "transcribe_timestamps": ["transcribe", *common, "--timestamps", *clips],
+            "transcribe_engine": ["transcribe", *common, "--engine", *clips],
+            "transcribe_device_beam": ["transcribe", *common, "--engine", "--beam-width", str(LM_WIDTH),
+                                       "--beam-backend", "device", *clips],
+            "eval": ["eval", *common, "--engine", "--manifest", str(manifest), "--batch-size", "8",
+                     "--num-workers", "4"],
+            "train": ["train", *common, "--train-manifest", str(manifest), "--epochs", "1", "--batch-size", "8",
+                      "--num-workers", "4", "--log-every", "1"],
+            "export": ["export", *common, "--output", str(tmp / "bundle")],
+        }
+        env = {**os.environ, "PYTHONPATH": os.getcwd()}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen([sys.executable, "-c", CLI_RUNNER, *argv], stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True, env=env) for name, argv in jobs.items()}
+        no_card = subprocess.Popen([sys.executable, "-m", "thunder_tpu_torch", "transcribe", "--checkpoint", str(nemo),
+                                    clips[0]],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                   env={**env, "CUDA_VISIBLE_DEVICES": ""})
+        outputs = {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            outputs[name] = (proc.returncode, out, err)
+        no_card_out, no_card_err = no_card.communicate(timeout=600)
+        cli_s = time.perf_counter() - t0
+        for name, (rc, _, err) in outputs.items():
+            check(rc == 0, f"cli {name} exited {rc}: {err[-2000:]}")
+        runs = {name: json.loads([line for line in err.splitlines() if line.startswith("cli_launches ")][-1]
+                                 .removeprefix("cli_launches ")) for name, (_, _, err) in outputs.items()}
+        records = {name: [json.loads(line) for line in outputs[name][1].splitlines() if line.startswith("{")]
+                   for name in ("transcribe_timestamps", "transcribe_engine", "transcribe_device_beam", "eval")}
+
+        # the in-process API on the same files (the CLI, as this run, computes float32 in full)
+        loaded = load_pretrained(str(nemo), device=device)
+        engine = InferenceEngine(loaded)
+        beam = dict(beam_width=LM_WIDTH, beam_backend="device")
+        want = {"transcribe_timestamps": [], "transcribe_engine": [], "transcribe_device_beam": []}
+        windows = 0
+        for path in clips:
+            audio = load_audio(path)[0][0]
+            is_long = audio.size > 20 * SAMPLE_RATE
+            windows += grid_windows(audio.size, 20.0, 2.0) if is_long else 1
+            for name, predictor, kwargs in (("transcribe_timestamps", loaded, {}), ("transcribe_engine", engine, {}),
+                                            ("transcribe_device_beam", engine, beam)):
+                text = (predictor.predict_long(audio, chunk_seconds=20.0, overlap_seconds=2.0, **kwargs) if is_long
+                        else predictor.predict(audio, **kwargs)[0])
+                record = {"audio": path, "text": text.strip()}
+                if name == "transcribe_timestamps" and text.strip() and not is_long:
+                    spans, _ = loaded.align(audio, [text])
+                    record["tokens"] = [{"token": t, "start": round(s, 3), "end": round(e, 3)} for t, s, e in spans[0]]
+                want[name].append(record)
+        aligned = sum("tokens" in r for r in want["transcribe_timestamps"])
+        dm = ManifestDatamodule(str(manifest), str(manifest), str(manifest), batch_size=8, num_workers=4)
+        dm.setup("test")
+        wer, cer = WordErrorRate(), CharErrorRate()
+        for audio, lengths, refs in dm.test_dataloader():
+            hyps = engine.predict(audio, lengths)
+            wer.update(hyps, list(refs))
+            cer.update(hyps, list(refs))
+        restored = InferenceEngine(load_inference_bundle(str(tmp / "bundle"), device=device))
+        probe = torch.as_tensor(np.stack([p[:short] for p in pcm[:4]]).astype(np.float32) / 32768.0, device=device)
+        probe_lengths = torch.full((4,), short, dtype=torch.int32, device=device)
+        bundle_equal = logits_sha256(restored.infer(probe, probe_lengths)[0]) == logits_sha256(
+            engine.infer(probe, probe_lengths)[0])
+
+    ev = records["eval"][0] if records["eval"] else {}
+    expect = {
+        "transcribe_timestamps": expected_counts(fused_log_mel=windows + aligned),
+        "transcribe_engine": expected_counts(fused_log_mel=windows, fused_separable_repeat=QN_SEPARABLE * windows),
+        "transcribe_device_beam": expected_counts(fused_log_mel=windows, fused_separable_repeat=QN_SEPARABLE * windows,
+                                                  beam_scan=windows, beam_backtrace=windows),
+        "eval": expected_counts(fused_log_mel=1, fused_separable_repeat=QN_SEPARABLE),
+    }
+    line = {"phase": "cli", "jobs": list(jobs), "wall_s": cli_s, "files": [f.name for f in files],
+            "transcribe_equal": {name: records[name] == want[name] for name in want},
+            "timestamped_records": aligned,
+            "eval": ev, "eval_in_process": {"wer": round(wer.compute(), 4), "cer": round(cer.compute(), 4)},
+            "bundle_logits_equal": bundle_equal,
+            "no_card_exit": no_card.returncode, "no_card_error": no_card_err.strip().splitlines()[-1:],
+            "launches": {name: {k: v for k, v in c.items() if v} for name, c in runs.items()}, "card": card}
+    emit(line)
+    for name, want_counts in expect.items():
+        check(runs[name] == want_counts, f"cli {name} launched {runs[name]}, expected {want_counts}")
+    check(all(line["transcribe_equal"].values()), f"the CLI's records differ from the in-process API: "
+                                                  f"{ {n: (records[n], want[n]) for n in want} }")
+    check(ev.get("utterances") == 8 and {k: ev.get(k) for k in ("wer", "cer")} == line["eval_in_process"],
+          f"cli eval {ev} differs from the in-process metrics {line['eval_in_process']}")
+    check(runs["train"]["ctc_beta"] >= 1, f"cli train launched no CTC backward: {runs['train']}")
+    check(bundle_equal, "the exported bundle serves other logits than the source module")
+    check(no_card.returncode != 0 and "no CUDA device is available" in no_card_err,
+          f"the CLI without a card exited {no_card.returncode}: {no_card_err[-500:]}")
+    return runs
+
 
 if __name__ == "__main__":
     sys.exit(main())

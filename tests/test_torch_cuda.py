@@ -1259,3 +1259,78 @@ def test_checkpoint_on_card_restores_bit_equal_and_resumes(cuda, tmp_path):
     resumed = trainer(1, resume_from=str(folder))
     resumed.fit(module, loader)
     assert len(resumed.logs) == 2 and all(np.isfinite(e["loss/train_loss"]) for e in resumed.logs)
+
+
+def test_streaming_pool_on_card_equals_predict_long(cuda):
+    """A ``StreamingPool`` of 4 streams on a small QuartzNet engine built ``batch_invariant`` (greedy and the device
+    beam, padded to 4 rows a forward) gives each stream the text of ``predict_long`` on the same grid, which
+    decodes at one row; a
+    forward makes 1 log-mel launch and one separable repeat a repeat, the device beam one scan and one backtrace
+    a window a stream."""
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.streaming import StreamingPool
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    tt = BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '"))
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(),
+                              QuartznetEncoder(repeat=2, filters=(256,), kernel_sizes=(33,)), Conv1dDecoder(29), tt,
+                              device="cuda")
+    engine = InferenceEngine(module, batch_invariant=True)
+    rng = np.random.default_rng(0)
+    feeds = [(rng.standard_normal(int(s * 16000)) * 0.2).astype(np.float32) for s in (3.3, 4.1, 2.6, 5.0)]
+    for beam in ({}, {"beam_width": 8, "beam_backend": "device"}):
+        kw = dict(chunk_seconds=1.0, overlap_seconds=0.25, **beam)
+        want = [engine.predict_long(f, **kw) for f in feeds]
+        pool = StreamingPool(engine, batch_size=4, **kw)
+        sids = [pool.open() for _ in feeds]
+        reset_launch_counts()
+        for start in range(0, max(f.size for f in feeds), 1600):
+            for sid, f in zip(sids, feeds):
+                if start < f.size:
+                    pool.push(sid, f[start: start + 1600])
+        assert [pool.flush(sid) for sid in sids] == want
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        windows = sum(len(range(0, max(f.size - 4000, 1), 12000)) for f in feeds)
+        assert counts["fused_separable_repeat"] == 4 * counts["fused_log_mel"] > 0  # stem, 2 body repeats, tail
+        assert counts["beam_scan"] == counts["beam_backtrace"] == (windows if beam else 0)
+
+
+def test_align_on_card_equals_its_cpu_run(cuda):
+    """``CTCModule.align`` on the card: 1 log-mel launch; its Viterbi states and scores equal the plain CPU run of
+    ``ctc_forced_align`` on the card's float32 log-probs bit for bit; a text too long for its frames is ``-inf``."""
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.ops.ctc import ctc_forced_align
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    tt = BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '"))
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(),
+                              QuartznetEncoder(repeat=2, filters=(256,), kernel_sizes=(33,)), Conv1dDecoder(29), tt,
+                              device="cuda")
+    rng = np.random.default_rng(1)
+    audio = (rng.standard_normal((3, 48000)) * 0.2).astype(np.float32)
+    lengths = np.array([48000, 30000, 16000], np.int32)
+    texts = ["the cat sat", "a dog ran off", "ab" * 40]  # the last: 80 tokens in 51 frames
+    reset_launch_counts()
+    spans, scores = module.align(audio, texts, lengths)
+    torch.cuda.synchronize()
+    assert {w.__name__: w.launches for w in KERNEL_WRAPPERS}["fused_log_mel"] == 1
+    assert np.isfinite(scores[:2]).all() and np.isneginf(scores[2])
+    assert ["".join(t for t, _, _ in row) for row in spans] == texts
+    logits, _, out_lengths = module.infer(audio, lengths)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    targets, target_lengths = tt.encode(texts)
+    card = ctc_forced_align(logp, out_lengths, torch.as_tensor(targets, device="cuda"),
+                            torch.as_tensor(target_lengths, device="cuda"), module.blank_idx)
+    cpu = ctc_forced_align(logp.cpu(), out_lengths.cpu(), torch.as_tensor(targets), torch.as_tensor(target_lengths),
+                           module.blank_idx)
+    for got, want in zip(card, cpu):
+        assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(scores, cpu[2].numpy())

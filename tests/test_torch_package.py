@@ -37,6 +37,21 @@ def test_every_module_imports_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert len(MODULES) >= 20
+    assert {"thunder_tpu_torch.streaming", "thunder_tpu_torch.profiling", "thunder_tpu_torch.__main__"} <= set(MODULES)
+
+
+def test_cli_without_a_card_exits_with_the_device_error():
+    # no card visible and no --device cpu: the CLI refuses before it loads anything, and loads no JAX
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "thunder_tpu_torch", "transcribe", "--checkpoint",
+         "tests/fixtures/tiny_quartznet.nemo", "missing.wav"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr and "--device cpu" in proc.stderr
+    imported = {line.split("|")[-1].strip().split(".")[0] for line in proc.stderr.splitlines() if "|" in line}
+    assert not imported & {"jax", "jaxlib", "flax", "optax", "thunder_tpu"}, imported
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():

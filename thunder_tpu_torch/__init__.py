@@ -18,6 +18,8 @@ __version__ = "0.1.0"
 _LAZY = {
     "CTCModule": "thunder_tpu_torch.module",
     "InferenceEngine": "thunder_tpu_torch.engine",
+    "StreamingTranscriber": "thunder_tpu_torch.streaming",
+    "StreamingPool": "thunder_tpu_torch.streaming",
     "FilterbankFeatures": "thunder_tpu_torch.audio",
     "Wav2Vec2Preprocess": "thunder_tpu_torch.audio",
     "QuartznetEncoder": "thunder_tpu_torch.models",

@@ -85,11 +85,12 @@ class FilterbankFeatures(nn.Module):
         return power_spectrum_lengths(lengths, self.n_window_stride)
 
     def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, sum_dtype: Optional[torch.dtype] = None):
+        """``sum_dtype``: the normalization's sums, as in :func:`~thunder_tpu_torch.ops.masking.masked_mean_std`."""
         x = audio.float()
         if train and self.dither > 0:
             x = x + self.dither * torch.randn(x.shape, generator=_required(generator), device=x.device)
-        out_lengths = self.output_lengths(lengths)
+        # the log-mel kernel goes first: the card starts on it while the host queues the lengths' small ops
         mel = fused_log_mel(
             x.contiguous(),
             sample_rate=self.sample_rate,
@@ -99,8 +100,9 @@ class FilterbankFeatures(nn.Module):
             n_mels=self.nfilt,
             preemph=self.preemph,
         )
+        out_lengths = self.output_lengths(lengths)
         mask = lengths_to_mask(out_lengths, mel.shape[1])[:, :, None]
-        feats = normalize_tensor(mel, mask, div_guard=self.div_guard, axis=1)
+        feats = normalize_tensor(mel, mask, div_guard=self.div_guard, axis=1, sum_dtype=sum_dtype)
         if train and self.num_cutout_masks > 0:
             draws = torch.rand(4 * self.num_cutout_masks, generator=_required(generator), device=feats.device)
             feats = spec_cutout(feats, draws, self.num_cutout_masks, self.mask_time_width, self.mask_freq_width)

@@ -49,6 +49,16 @@ for wav2vec2):
   ``q * scale`` (the scale pre-cast once, which gives the same values); the
   separable-repeat kernel then runs on the dequantized weights. The decoder
   kernel is quantized in every int8 mode.
+- ``batch_invariant`` (QuartzNet only; any other encoder raises
+  ``ValueError``; off by default, a port option without a JAX counterpart):
+  the frontend's masked statistics and the decoder's product accumulate in
+  float64 and round to float32. On the card their float32 sums change their
+  order with the number of rows, so a row's logits could differ in their last
+  bits between a batch and the row alone; with the option a row of a
+  ``(64, 1 s)`` batch was measured bit-equal to the row alone, stage by stage
+  (``chip_smoke.py``'s ``batch_invariance``), which a ``StreamingPool`` needs
+  for its rows to equal a lone stream's. Citrinet's squeeze-excite gates and
+  wav2vec2's layers are not made so.
 
 The JAX engine keeps the unquantized weights of its int8 modes in float32 and
 rounds them to the compute dtype in each call; the port stores them as its
@@ -168,9 +178,10 @@ class InferenceEngine:
 
     def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None,
                  pad_multiple: int = 16000, int8_weights: bool = False, int8_compute: bool = False,
-                 posconv_dense: Optional[bool] = None):
+                 posconv_dense: Optional[bool] = None, batch_invariant: bool = False):
         """``int8_weights``, ``int8_compute`` and ``posconv_dense`` are the JAX engine's serving modes, with its
-        defaults (see the module docstring); ``int8_compute`` raises ``ValueError`` for any encoder but wav2vec2."""
+        defaults (see the module docstring); ``int8_compute`` raises ``ValueError`` for any encoder but wav2vec2,
+        ``batch_invariant`` for any but QuartzNet."""
         self.device = require_device(device if device is not None else module.device)
         on_cuda = self.device.type == "cuda"
         self.dtype = compute_dtype or (torch.bfloat16 if on_cuda else torch.float32)
@@ -180,6 +191,10 @@ class InferenceEngine:
         self.int8_weights, self.int8_compute = bool(int8_weights), bool(int8_compute)
         if self.int8_compute and not isinstance(encoder, Wav2Vec2Encoder):
             raise ValueError("int8_compute is a wav2vec2 serving mode")
+        if batch_invariant and not isinstance(encoder, QuartznetEncoder):
+            raise ValueError("batch_invariant is a QuartzNet serving mode")
+        self.batch_invariant = bool(batch_invariant)
+        self._sum_dtype = torch.float64 if self.batch_invariant else torch.float32  # statistics and decoder
         self.module = module
         self.pad_multiple = pad_multiple
         self.frontend = module.model.audio_transform.to(self.device)
@@ -289,17 +304,18 @@ class InferenceEngine:
         return x * torch.sigmoid(y).to(x.dtype)[:, None, :]
 
     def _decode(self, x: torch.Tensor):
-        """Encoder output -> float32 logits (compute-dtype product, float32 accumulation and bias; without a
-        decoder the encoder output itself) and argmax."""
+        """Encoder output -> float32 logits (compute-dtype product, float32 accumulation (float64 rounded to
+        float32 with ``batch_invariant``) and bias; without a decoder the encoder output itself) and argmax."""
         if self._dec_kernel is None:
             logits = x.float()
         else:
             kernel = self._dec_kernel if self._dec_scale is None else self._dec_kernel * self._dec_scale
-            logits = torch.matmul(x.float(), kernel.float()) + self._dec_bias
+            acc = self._sum_dtype
+            logits = torch.matmul(x.to(acc), kernel.to(acc)).float() + self._dec_bias
         return logits, greedy_decode(logits)
 
     def _forward_conv(self, audio: torch.Tensor, lengths: torch.Tensor):
-        feats, out_lengths = self.frontend(audio, lengths)
+        feats, out_lengths = self.frontend(audio, lengths, sum_dtype=self._sum_dtype)
         x = feats.to(self.dtype)
         mask_cache: Dict[int, torch.Tensor] = {}
         for block in self._plan:

@@ -24,7 +24,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "check", "CSRC_DIR", "BUILD_DIR"]
+import torch
+
+__all__ = ["load", "check", "stream", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -130,6 +132,8 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -139,6 +143,12 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the raw handle a launch takes: the value of
+    ``torch.cuda.current_stream(t.device).cuda_stream`` without building a ``Stream`` object each launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(status: int, name: str) -> None:

@@ -72,7 +72,7 @@ def add_layer_norm(
         return out
     status = _build.load().thunder_add_layer_norm(
         x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _build.stream(x),
     )
     _build.check(status, "thunder_add_layer_norm")
     add_layer_norm.launches += 1

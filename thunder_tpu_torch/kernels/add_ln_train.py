@@ -167,7 +167,7 @@ def add_ln_train_forward(x, y, scale, bias, seed, rate: float = 0.0, eps: float 
         return out
     status = _build.load().thunder_add_ln_train_fwd(
         x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), seed.data_ptr(), out.data_ptr(), rows, d,
-        float(rate), float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        float(rate), float(eps), _build.stream(x),
     )
     _build.check(status, "thunder_add_ln_train_fwd")
     add_ln_train_forward.launches += 1
@@ -198,7 +198,7 @@ def add_ln_train_backward(x, y, scale, seed, dout, rate: float = 0.0, eps: float
     status = lib.thunder_add_ln_train_bwd(
         x.data_ptr(), y.data_ptr(), scale.data_ptr(), seed.data_ptr(), dout.data_ptr(), dx.data_ptr(), dy.data_ptr(),
         partials[0].data_ptr(), partials[1].data_ptr(), dscale[0].data_ptr(), dscale[1].data_ptr(), rows, d,
-        float(rate), float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        float(rate), float(eps), _build.stream(x),
     )
     _build.check(status, "thunder_add_ln_train_bwd")
     add_ln_train_backward.launches += 2
@@ -222,7 +222,7 @@ def dropout_keep_mask(shape, seed: torch.Tensor, rate: float) -> torch.Tensor:
     d = shape[-1]
     status = _build.load().thunder_dropout_keep_mask(
         seed.data_ptr(), mask.data_ptr(), mask.numel() // d, d, float(rate),
-        torch.cuda.current_stream(seed.device).cuda_stream,
+        _build.stream(seed),
     )
     _build.check(status, "thunder_dropout_keep_mask")
     dropout_keep_mask.launches += 1

@@ -104,7 +104,7 @@ def mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.
     out = torch.empty((batch, t, h3 // 3), dtype=qkv.dtype, device=qkv.device)
     status = _build.load().thunder_mha_from_qkv(
         qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), batch, t, heads,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_from_qkv")
     mha_from_qkv.launches += 1

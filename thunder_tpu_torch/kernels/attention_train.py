@@ -174,7 +174,7 @@ def mha_train_forward(qkv, lengths, seed, heads: int, rate: float = 0.0):
     stats = torch.empty((2, batch, heads, t), dtype=torch.float32, device=qkv.device)
     status = _build.load().thunder_mha_train_fwd(
         qkv.data_ptr(), lengths.data_ptr(), seed.data_ptr(), out.data_ptr(), stats.data_ptr(), batch, t, heads,
-        float(rate), torch.cuda.current_stream(qkv.device).cuda_stream,
+        float(rate), _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_train_fwd")
     mha_train_forward.launches += 1
@@ -199,7 +199,7 @@ def mha_train_backward(qkv, out, stats, dout, lengths, seed, heads: int, rate: f
     status = _build.load().thunder_mha_train_bwd(
         qkv.data_ptr(), lengths.data_ptr(), seed.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
         delta.data_ptr(), dqkv.data_ptr(), batch, t, heads, float(rate),
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_train_bwd")
     mha_train_backward.launches += 2

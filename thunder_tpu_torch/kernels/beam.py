@@ -273,7 +273,7 @@ def beam_scan(logp, lengths, floor, *, blank: int, beam_width: int, k_tokens: in
         lens.data_ptr(), float(np.float32(floor)), pb0.data_ptr(), pnb0.data_ptr(), h10.data_ptr(), h20.data_ptr(),
         last0.data_ptr(), parents.data_ptr(), exts.data_ptr(), total.data_ptr(), pb.data_ptr(), pnb.data_ptr(),
         h1.data_ptr(), h2.data_ptr(), last.data_ptr(), batch, frames, vocab, K, W, int(blank),
-        0 if workspace is None else workspace.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        0 if workspace is None else workspace.data_ptr(), _build.stream(logp),
     )
     _build.check(status, "thunder_beam_scan")
     beam_scan.launches += 1
@@ -359,7 +359,7 @@ def beam_backtrace(parents, exts, slots0):
     origin = torch.empty((batch, n_out), dtype=torch.int32, device=dev)
     status = _build.load().thunder_beam_backtrace(
         parents.data_ptr(), exts.data_ptr(), slots0.data_ptr(), toks.data_ptr(), origin.data_ptr(),
-        batch, frames, W, n_out, torch.cuda.current_stream(dev).cuda_stream,
+        batch, frames, W, n_out, _build.stream(parents),
     )
     _build.check(status, "thunder_beam_backtrace")
     beam_backtrace.launches += 1

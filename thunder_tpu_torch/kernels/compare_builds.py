@@ -63,7 +63,17 @@ falls on both. Each process times, with CUDA events:
   median of 5 on the host clock, from numpy audio to transcripts) and a
   training step at 16 × 15 s (SpecAugment,
   dropout 0.1, bf16, AdamW), as ``chip_smoke.py`` runs them, on noise audio
-  from numpy seed 0.
+  from numpy seed 0;
+- one Citrinet-256 greedy forward at 64 × 15 s (80 mels, 1,024 tokens and
+  the blank, random weights from generator seed 0, as ``chip_smoke.py``'s
+  ``citrinet_create``; 20 iterations; its launches and logits' SHA-256 too),
+  on noise audio from numpy seed 1;
+- QuartzNet15x5's forward at 64 × 15 s one synchronized request at a time
+  (``sync_step``, as ``chip_smoke.py``'s profiling phase times it): in each of
+  ``SYNC_STEP_ROUNDS`` rounds the forward back to back, ``StepTimer``'s RTF
+  over 10 synchronized forwards against it, the host's time to queue one
+  forward and the device time to the end of the frontend in a synchronized
+  step (its launches and logits' SHA-256 too).
 
 Every number is a mean over its iterations in milliseconds; the last line is
 one JSON object with both sides' four runs. Only the API both checkouts share
@@ -73,7 +83,7 @@ substring of its mangled name on this side and, after ``=``, on the other;
 one name where both sides share it): the instructions each has and how many
 differ, addresses and encodings left out. ``--parts`` limits each process to some of the groups
 (``attention``, ``ctc``, ``separable``, ``log_mel``, ``beam``, ``add_ln``,
-``wav2vec2``, ``quartznet``).
+``wav2vec2``, ``quartznet``, ``citrinet``, ``sync_step``).
 """
 
 from __future__ import annotations
@@ -89,7 +99,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-PARTS = ("attention", "ctc", "separable", "log_mel", "beam", "add_ln", "wav2vec2", "quartznet")
+PARTS = ("attention", "ctc", "separable", "log_mel", "beam", "add_ln", "wav2vec2", "quartznet", "citrinet",
+         "sync_step")
+#: rounds of the synchronized-step timing (``sync_step``)
+SYNC_STEP_ROUNDS = 3
 #: QuartzNet15x5's separable repeats in one forward at 64 x 15 s (T = 1501 log-mel frames, 751 after the stem):
 #: (t_in, C_in, C_out, k, stride, dilation) -> launches
 QUARTZNET_SEPARABLE_SHAPES = {
@@ -453,6 +466,10 @@ def measure(parts=PARTS) -> dict:
         _measure_wav2vec2(out, vocab, audio, audio_lens, step_gen)
     if "quartznet" in parts:
         _measure_quartznet(out, rng, step_gen)
+    if "citrinet" in parts:
+        _measure_citrinet(out)
+    if "sync_step" in parts:
+        _measure_sync_step(out)
     return out
 
 
@@ -618,6 +635,92 @@ def _measure_quartznet(out: dict, rng, step_gen) -> None:
     for _ in range(2):
         step(*batch, step_gen)
     out["quartznet_train_step_ms"] = _cuda_ms(lambda: step(*batch, step_gen), 5)
+
+
+def _measure_citrinet(out: dict) -> None:
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import CitrinetEncoder, Conv1dDecoder
+    from thunder_tpu_torch.models.citrinet import CITRINET_256_FILTERS, CITRINET_256_KERNELS, CITRINET_256_STRIDES
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    vocab = [chr(0x4E00 + i) for i in range(1024)]
+    encoder = CitrinetEncoder(CITRINET_256_FILTERS, CITRINET_256_KERNELS, CITRINET_256_STRIDES, feat_in=80)
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(nfilt=80, dither=0.0), encoder,
+                              Conv1dDecoder(len(vocab) + 1), BatchTextTransformer(vocab), device="cuda")
+    engine = InferenceEngine(module)
+    rng = np.random.default_rng(1)
+    audio = torch.as_tensor((rng.standard_normal((64, 240000)) * 0.1).astype(np.float32), device="cuda")
+    lengths = torch.full((64,), 240000, dtype=torch.int32, device="cuda")
+    out.update(_forward_fingerprint("citrinet", engine, audio, lengths))
+    out["citrinet_forward_ms"] = _cuda_ms(lambda: engine.infer(audio, lengths), 20)
+
+
+def _measure_sync_step(out: dict) -> None:
+    """QuartzNet15x5's greedy forward at 64 x 15 s taken one request at a time, each ended by a synchronize, as
+    ``chip_smoke.py``'s profiling phase times it, in ``SYNC_STEP_ROUNDS`` rounds. A round's numbers, after a
+    ``gc.collect()``: the forward back to back (CUDA events over 10, the mean of one taken before and one after the
+    steps), ``StepTimer``'s RTF over 10 synchronized
+    forwards over the RTF of that forward (``timer_ratio``; the collections of each generation in those steps), the
+    host's time to queue one forward (median of 10, from a synchronized card), and
+    the device time from a synchronized step's start to the end of its frontend (median of 20, CUDA events)."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.profiling import StepTimer
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    chars = BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '"))
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(repeat_blocks=3),
+                              Conv1dDecoder(29), chars, device="cuda")
+    engine = InferenceEngine(module)
+    rng = np.random.default_rng(0)
+    batch, samples = 64, 240000
+    audio = torch.as_tensor((rng.standard_normal((batch, samples)) * 0.1).astype(np.float32), device="cuda")
+    lengths = torch.full((batch,), samples, dtype=torch.int32, device="cuda")
+    out.update(_forward_fingerprint("sync_step", engine, audio, lengths))
+    forward = lambda: engine.infer(audio, lengths)  # noqa: E731
+    rounds = []
+    for _ in range(SYNC_STEP_ROUNDS):
+        gc.collect()
+        forward_ms = _cuda_ms(forward, 10)
+        timer, collections = StepTimer(), gc.get_stats()
+        for _ in range(10):
+            with timer.step(batch * samples):
+                forward()
+                torch.cuda.synchronize()
+        collections = [b["collections"] - a["collections"] for a, b in zip(collections, gc.get_stats())]
+        forward_ms = (forward_ms + _cuda_ms(forward, 10)) / 2
+        queue_ms, frontend_ms = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            queue_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(20):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            engine.frontend(audio, lengths)
+            end.record()
+            torch.cuda.synchronize()
+            frontend_ms.append(start.elapsed_time(end))
+        rounds.append({"forward_ms": forward_ms, "step_ms": [t * 1e3 for t in timer.times],
+                       "collections_in_steps": collections,
+                       "timer_ratio": timer.summary()["rtf"] / (batch * samples / 16000 / (forward_ms / 1e3)),
+                       "queue_ms": statistics.median(queue_ms), "frontend_ms": statistics.median(frontend_ms)})
+    out["sync_step"] = rounds
 
 
 def _library(root: Path) -> Path:

@@ -211,7 +211,7 @@ def ctc_alpha(lp_z, skip_ok, logit_lengths, target_lengths) -> torch.Tensor:
     alpha = torch.empty_like(lp_z)
     status = _build.load().thunder_ctc_alpha(
         lp_z.data_ptr(), skip_ok.data_ptr(), lens.data_ptr(), tls.data_ptr(), alpha.data_ptr(),
-        t_total, batch, s_dim, torch.cuda.current_stream(lp_z.device).cuda_stream,
+        t_total, batch, s_dim, _build.stream(lp_z),
     )
     _build.check(status, "thunder_ctc_alpha")
     ctc_alpha.launches += 1
@@ -232,7 +232,7 @@ def ctc_beta(lp_z, alpha, skip_ok, logit_lengths, target_lengths, ll, ghat) -> t
     dlp = torch.empty_like(lp_z)
     status = _build.load().thunder_ctc_beta(
         lp_z.data_ptr(), alpha.data_ptr(), skip_ok.data_ptr(), lens.data_ptr(), tls.data_ptr(), ll.data_ptr(),
-        ghat.data_ptr(), dlp.data_ptr(), t_total, batch, s_dim, torch.cuda.current_stream(lp_z.device).cuda_stream,
+        ghat.data_ptr(), dlp.data_ptr(), t_total, batch, s_dim, _build.stream(lp_z),
     )
     _build.check(status, "thunder_ctc_beta")
     ctc_beta.launches += 1

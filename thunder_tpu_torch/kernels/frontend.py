@@ -166,7 +166,7 @@ def fused_log_mel(
         audio.data_ptr(), tables.data_ptr(), 0 if basis is None else basis.data_ptr(),
         0 if power is None else power.data_ptr(), out.data_ptr(), batch, time, n_frames, n_fft, hop_length,
         win_length, n_mels, tables.numel(), slice_rows, float(preemph),
-        torch.cuda.current_stream(audio.device).cuda_stream,
+        _build.stream(audio),
     )
     _build.check(status, "thunder_log_mel")
     fused_log_mel.launches += -(-batch // slice_rows) * (2 if wide else 1)

@@ -44,6 +44,7 @@ __all__ = ["fused_separable_repeat", "separable_repeat_reference", "output_lengt
            "pad_channels"]
 
 
+@functools.lru_cache(maxsize=None)
 def output_length(time: int, kernel_size: int, stride: int = 1, dilation: int = 1) -> int:
     """Frames out of a same-padded conv over ``time`` frames."""
     pad = get_same_padding(kernel_size, stride, dilation)
@@ -155,8 +156,9 @@ def fused_separable_repeat(
         raise ValueError("the separable repeat kernel takes bfloat16 x, dw and pw")
     if bias.dtype != torch.float32 or out_lengths.dtype != torch.int32:
         raise ValueError("the separable repeat kernel takes float32 bias and int32 out_lengths")
+    device = x.get_device()
     for name, t in (("x", x), ("dw", dw), ("pw", pw), ("bias", bias), ("out_lengths", out_lengths)):
-        if t.device != x.device or not t.is_contiguous():
+        if t.get_device() != device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {x.device}")
         if name in ("x", "dw", "pw") and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel loads it 16 bytes at a time)")
@@ -184,7 +186,7 @@ def fused_separable_repeat(
     status = lib.thunder_separable_repeat(
         x.data_ptr(), dw.data_ptr(), pw.data_ptr(), bias.data_ptr(), out_lengths.data_ptr(), out.data_ptr(),
         0 if partial is None else partial.data_ptr(), 0 if dw_sum is None else dw_sum.data_ptr(), batch, time, t_out,
-        c_in, c_out, kernel_size, stride, dilation, pad, int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        c_in, c_out, kernel_size, stride, dilation, pad, int(relu), _build.stream(x),
     )
     _build.check(status, "thunder_separable_repeat")
     fused_separable_repeat.launches += plan["launches"]

@@ -1,7 +1,7 @@
 """CTCModule: the user-facing model container.
 
 Port of ``CTCModel``, ``CTCModule.create``/``forward``/``predict``/
-``predict_long``/``loss``/``with_variables``, ``pad_to_bucket``, the beam
+``predict_long``/``align``/``loss``/``with_variables``, ``pad_to_bucket``, the beam
 decoding tail (``check_beam_args``, ``check_device_beam_kwargs``,
 ``run_beam_decode``) and the long-audio chunking (``trim_chunk_ids``,
 ``chunked_transcribe``) from ``thunder_tpu/module.py``. The
@@ -28,7 +28,7 @@ from torch import nn
 
 from thunder_tpu_torch.data.collate import bucket_length
 from thunder_tpu_torch.models.layers import init_parameters
-from thunder_tpu_torch.ops.ctc import calculate_ctc, collapse_ctc, greedy_decode
+from thunder_tpu_torch.ops.ctc import alignment_segments, calculate_ctc, collapse_ctc, ctc_forced_align, greedy_decode
 from thunder_tpu_torch.text.transform import BatchTextTransformer
 
 __all__ = ["CTCModel", "CTCModule", "pad_to_bucket", "require_device", "chunked_transcribe", "run_beam_decode"]
@@ -386,6 +386,45 @@ class CTCModule:
             raise ValueError("predict_long requires a text_transform")
         return long_transcribe(self, self.infer, self.predict, audio, chunk_seconds, overlap_seconds, sample_rate,
                                beam_width, beam_kwargs)
+
+    @torch.inference_mode()
+    def align(self, audio, texts, lengths=None, sample_rate: int = 16000):
+        """Forced alignment: time spans for known transcripts.
+
+        The model's forward on the module's device, ``log_softmax`` in float32
+        there, then :func:`~thunder_tpu_torch.ops.ctc.ctc_forced_align` of each
+        transcript against its CTC lattice, batched; the spans and the
+        frame-to-seconds conversion on the host.
+
+        Args:
+            audio: ``(batch, time)`` padded waveforms (or a single 1-D clip).
+            texts: the known transcripts, one per sample.
+            lengths: valid samples per clip (defaults to full length).
+            sample_rate: for the frame -> seconds conversion.
+
+        Returns:
+            ``(spans, scores)``: per sample a list of ``(token, start_seconds,
+            end_seconds)`` covering its transcript tokens in order, and the
+            best-path log-prob per sample as a numpy array (``-inf`` = the
+            transcript cannot align, e.g. audio too short).
+        """
+        if self.text_transform is None:
+            raise ValueError("align requires a text_transform (checkpoint had no tokenizer)")
+        audio, lengths = host_batch(audio, lengths, self.pad_multiple)
+        targets, target_lengths = self.text_transform.encode(list(texts))
+        logits, _, out_lengths = self.infer(audio, lengths)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        states, _, scores = ctc_forced_align(logp, out_lengths, to_device(targets, torch.int32, self.device),
+                                             to_device(target_lengths, torch.int32, self.device), self.blank_idx)
+        out_lengths = out_lengths.cpu().numpy()
+        segments = alignment_segments(states, out_lengths, target_lengths)
+        itos = self.text_transform.vocab.itos
+        spans = []
+        for b, segs in enumerate(segments):
+            sec_per_frame = (lengths[b] / sample_rate) / max(int(out_lengths[b]), 1)
+            spans.append([(itos[int(targets[b, i])], start * sec_per_frame, end * sec_per_frame)
+                          for i, (start, end) in enumerate(segs)])
+        return spans, scores.cpu().numpy()
 
 
 def transcribe(module: CTCModule, infer, pad_multiple: int, audio, lengths, beam_width, prune_logp, lm, lm_weight,

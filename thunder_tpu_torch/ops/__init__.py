@@ -1,9 +1,11 @@
-"""Tensor ops of the port: masking, conv arithmetic, spectral features, SpecAugment, CTC loss and decode."""
+"""Tensor ops of the port: masking, conv arithmetic, spectral features, SpecAugment, CTC loss, decode and forced alignment."""
 
 from thunder_tpu_torch.ops.conv import conv1d, conv_output_length, get_same_padding  # noqa: F401
 from thunder_tpu_torch.ops.ctc import (  # noqa: F401
+    alignment_segments,
     calculate_ctc,
     collapse_ctc,
+    ctc_forced_align,
     ctc_forward_scores,
     ctc_loss,
     greedy_decode,

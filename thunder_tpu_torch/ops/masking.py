@@ -27,16 +27,26 @@ def apply_mask(x: torch.Tensor, lengths: torch.Tensor, *, time_axis: int = 1, fi
     return torch.where(mask.reshape(shape), x, torch.full((), fill_value, dtype=x.dtype, device=x.device))
 
 
-def masked_mean_std(x: torch.Tensor, mask: torch.Tensor | None, axis, div_guard: float = 1e-7):
+def masked_mean_std(x: torch.Tensor, mask: torch.Tensor | None, axis, div_guard: float = 1e-7,
+                    sum_dtype: torch.dtype | None = None):
     """Mean and population std over ``axis`` restricted to ``mask`` (keepdim).
 
     Without a mask: mean and ``sqrt(var_ddof1 + div_guard)``, as the JAX
     function does. Statistics are detached, like its ``stop_gradient``.
+
+    ``sum_dtype`` (masked only): accumulate the sums in this dtype and round
+    the statistics to ``x``'s. The serving engine's ``batch_invariant`` mode
+    passes float64: on the card a float32 sum over the strided time axis
+    changes its order with the number of rows reduced together, and the
+    rounded float64 statistics of a row were measured not to.
     """
     if mask is None:
         mean = x.mean(dim=axis, keepdim=True).detach()
         var = x.var(dim=axis, correction=1, keepdim=True).detach()
         return mean, torch.sqrt(var + div_guard)
+    if sum_dtype is not None and sum_dtype != x.dtype:
+        mean, std = masked_mean_std(x.detach().to(sum_dtype), mask, axis)
+        return mean.to(x.dtype), std.to(x.dtype)
     mask = mask.to(x.dtype)
     x = x * mask
     n = mask.sum(dim=axis, keepdim=True).detach().clamp_min(1.0)
@@ -45,17 +55,27 @@ def masked_mean_std(x: torch.Tensor, mask: torch.Tensor | None, axis, div_guard:
     return mean, torch.sqrt(sq / n)
 
 
-def normalize_tensor(x: torch.Tensor, mask: torch.Tensor | None = None, div_guard: float = 1e-7, axis: int = -1) -> torch.Tensor:
+def normalize_tensor(x: torch.Tensor, mask: torch.Tensor | None = None, div_guard: float = 1e-7, axis: int = -1,
+                     sum_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Masked zero-mean/unit-std normalization.
 
     With a mask: population std over the valid region, ``(x - mean) / (std +
     div_guard)`` (the guard is added to the std, not the variance), invalid
-    region zeroed. Without: ``(x - mean) / sqrt(var_ddof1 + div_guard)``.
+    region zeroed; ``sum_dtype`` as in :func:`masked_mean_std`. Without:
+    ``(x - mean) / sqrt(var_ddof1 + div_guard)``.
     """
     if mask is not None:
         maskf = mask.to(x.dtype)
         x = x * maskf
-        mean, std = masked_mean_std(x, mask, axis=axis, div_guard=div_guard)
-        return (x - mean) / (std + div_guard) * maskf
+        if sum_dtype is not None and sum_dtype != x.dtype:
+            mean, std = masked_mean_std(x, mask, axis=axis, div_guard=div_guard, sum_dtype=sum_dtype)
+            return (x - mean) / (std + div_guard) * maskf
+        # masked_mean_std's sums over the masked x, bit for bit, in fewer launches: ``centred`` is both the
+        # variance's term and the output's numerator (zero beyond the mask, as ``* maskf`` leaves it)
+        n = maskf.sum(dim=axis, keepdim=True).clamp_min(1.0)
+        mean = x.detach().sum(dim=axis, keepdim=True) / n
+        centred = (x - mean) * maskf
+        std = torch.sqrt(centred.detach().square().sum(dim=axis, keepdim=True) / n)
+        return centred / (std + div_guard)
     mean, std = masked_mean_std(x, None, axis=axis, div_guard=div_guard)
     return (x - mean) / std

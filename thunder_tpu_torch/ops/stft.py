@@ -142,7 +142,7 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, center: 
 def power_spectrum_lengths(lengths: torch.Tensor, hop_length: int) -> torch.Tensor:
     """Frame count of the valid samples: ``len // hop + 1``, and 0 for a length of 0."""
     lengths = lengths.to(torch.int32)
-    return torch.where(lengths > 0, torch.div(lengths, hop_length, rounding_mode="floor") + 1, 0).to(torch.int32)
+    return (torch.div(lengths, hop_length, rounding_mode="floor") + 1) * (lengths > 0)
 
 
 def power_spectrum(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
