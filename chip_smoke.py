@@ -358,7 +358,44 @@ Phases, each of which fails the run:
     manifest the in-process WER and CER, ``train`` one epoch and exit 0,
     ``export`` a bundle that serves the source module's logits bit for bit;
     with ``CUDA_VISIBLE_DEVICES=`` the CLI must exit non-zero
-    (``cli_launches``, counted in each subprocess).
+    (``cli_launches``, counted in each subprocess);
+29. ``mesh``: a one-rank mesh (``thunder_tpu_torch.parallel.make_mesh``)
+    over an NCCL process group set up through ``init_process_group`` with a
+    ``FileStore`` under ``smoke_out/``: ``Trainer(mesh=...)`` trains
+    QuartzNet15x5 (the training phase's configuration: dropout 0.1, dither,
+    SpecAugment) for 3 steps at 16 x 15 s; each loss, every parameter and
+    every running statistic must equal the meshless trainer's from the same
+    state and generator bit for bit, with the same launches (1 log-mel, 1
+    ``ctc_alpha``, 1 ``ctc_beta`` a step). Both trainers run with
+    deterministic algorithms (``deterministic_algorithms``): with PyTorch's
+    defaults two meshless runs differ (cuDNN's backward and the gathers'
+    scatter-adds sum in no fixed order); ``InferenceEngine(mesh=...)`` on
+    phase 4's module and batch (64 x 15 s), greedy and with the device beam
+    (W = 16), must give the meshless engine's transcripts and logits (SHA-256)
+    with the same launches (1 + 77, + 1 scan + 1 backtrace); the train step
+    and the forward are timed against the meshless ones (CUDA events, mean of
+    5, in turns: meshless, mesh, mesh, meshless) (``mesh_launches``);
+30. ``row_offsets``: the training kernels at the wav2vec2 step's shape (8 x
+    749, 12 heads, D 768, rate 0.1) on 2 and 4 slices of the batch, each with
+    its rows' offset, against the whole batch's launches: the keep mask, the
+    add + dropout + LayerNorm output, dx and dy, the attention output, its
+    statistics and the packed dqkv bit for bit, the slices' summed dscale and
+    dbias within 1 %, and each slice within ``TRAIN_KERNEL_ULP`` of the plain
+    versions with the same offsets;
+31. ``citrinet_batch_invariance``: Citrinet-256 (phase 12's weights) on an
+    engine built ``batch_invariant``: a row of a 64 x 1 s forward must be
+    bit-equal to the same row alone, stage by stage (the log-mel, the
+    frontend, every separable repeat, the squeeze-excite gates, the strided
+    1x1 residuals, the decoder: ``citrinet_streaming_batch_invariance``, which
+    also prints the default engine's parting rows and times both engines at
+    64 x 15 s in turns); a ``StreamingPool(batch_size=64)`` of 64 streams of
+    60 s over 8 clips at (2, 0.5) s, greedy and with the device beam (W =
+    16), must give each stream its lone stream's text, with 1 log-mel + 107
+    separable launches a forward (``citrinet_pool_launches``);
+32. ``parting_rows``: at 64 x 1 s, the rows of a batch that part from the same
+    row served alone, and their argmax flips, on the wav2vec2-base engine and
+    on phase 4's QuartzNet ``CTCModule`` (the module predictor of a pool):
+    counted and printed, not checked.
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -1133,6 +1170,12 @@ def run() -> int:
     add_launches(kernels, "align_launches", align_phase(card))
     add_launches(kernels, "profiling_launches", profiling_phase(card))
     add_launches(kernels, "cli_launches", cli_phase(card))
+
+    # ---- the device mesh, the training kernels' row offsets, Citrinet's batch invariance, the parting rows
+    add_launches(kernels, "mesh_launches", mesh_phase(card))
+    row_offset_phase(card)
+    add_launches(kernels, "citrinet_pool_launches", citrinet_invariance_phase(card))
+    parting_rows_phase(card)
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -4211,22 +4254,43 @@ def pool_run(predictor, clips: list, grid: tuple, beam: dict, threads: int, devi
     return {"texts": texts, "drain_pushes": drain_pushes, "wall_s": wall, "forwards": counted.calls}
 
 
-def batch_invariance(card: str, engine, clips: list, served: np.ndarray, device) -> None:
+def rows_parting(predictor, audio, lengths) -> tuple:
+    """``(rows, flips)``: the rows of ``predictor.infer(audio, lengths)`` whose logits differ from the same row
+    served alone, and the frames where their argmax differs."""
+    import torch
+
+    logits, preds, out_lengths = predictor.infer(audio, lengths)
+    alone = [predictor.infer(audio[r: r + 1], lengths[r: r + 1]) for r in range(audio.shape[0])]
+    whole = sum(not torch.equal(logits[r: r + 1], alone[r][0]) for r in range(audio.shape[0]))
+    flips = sum(int((preds[r, : int(out_lengths[r])] != alone[r][1][0, : int(out_lengths[r])]).sum())
+                for r in range(audio.shape[0]))
+    return whole, flips
+
+
+def one_second_rows(clips: list, device):
+    """The first second of each clip as a batch on ``device``, the last row cut to a third of it."""
+    import torch
+
+    audio = torch.as_tensor(np.stack([c[:SAMPLE_RATE] for c in clips]), device=device)
+    lengths = torch.full((audio.shape[0],), SAMPLE_RATE, dtype=torch.int32, device=device)
+    lengths[-1] = SAMPLE_RATE // 3  # a row shorter than its window
+    return audio, lengths
+
+
+def batch_invariance(card: str, engine, clips: list, served: np.ndarray, device, phase: str = "streaming") -> None:
     """Whether a row of a ``(POOL_BATCH, 1 s)`` forward of the ``batch_invariant`` engine is bit-equal to the same
-    row served alone: each stage on the same input (the log-mel kernel, the frontend, every repeat of the plan on
-    rows 0-7, the decoder) and the whole forward on every row; beside them the default engine's frontend, decoder
-    and whole forward, whose float32 sums the option replaces, and the forward of both engines on ``served`` (phase
-    4's 64 x 15 s batch), in turns (default, invariant, invariant, default)."""
+    row served alone: each stage on the same input (the log-mel kernel, the frontend, every repeat of the plan,
+    the squeeze-excite gates and the residuals on rows 0-7, the decoder) and the whole forward on every row;
+    beside them the default engine's frontend, decoder and whole forward, whose float32 sums the option replaces,
+    and the forward of both engines on ``served`` (a 64 x 15 s batch), in turns (default, invariant, invariant,
+    default). Prints ``{phase}_batch_invariance``."""
     import torch
 
     from thunder_tpu_torch.engine import InferenceEngine
     from thunder_tpu_torch.kernels.frontend import fused_log_mel
 
     rows = range(min(8, len(clips)))
-    samples = SAMPLE_RATE
-    audio = torch.as_tensor(np.stack([c[:samples] for c in clips]), device=device)
-    lengths = torch.full((audio.shape[0],), samples, dtype=torch.int32, device=device)
-    lengths[-1] = samples // 3  # a row shorter than its window
+    audio, lengths = one_second_rows(clips, device)
     default = InferenceEngine(engine.module)
 
     def differing(batch_fn, row_fn) -> int:
@@ -4234,12 +4298,7 @@ def batch_invariance(card: str, engine, clips: list, served: np.ndarray, device)
         return sum(not torch.equal(full[r: r + 1], row_fn(r)) for r in rows)
 
     def whole_forward(eng) -> tuple:
-        logits, preds, out_lengths = eng.infer(audio, lengths)
-        alone = [eng.infer(audio[r: r + 1], lengths[r: r + 1]) for r in range(audio.shape[0])]
-        whole = sum(not torch.equal(logits[r: r + 1], alone[r][0]) for r in range(audio.shape[0]))
-        flips = sum(int((preds[r, : int(out_lengths[r])] != alone[r][1][0, : int(out_lengths[r])]).sum())
-                    for r in range(audio.shape[0]))
-        return whole, flips
+        return rows_parting(eng, audio, lengths)
 
     def frontend(eng):
         return differing(lambda: eng.frontend(audio, lengths, sum_dtype=eng._sum_dtype)[0],
@@ -4249,10 +4308,15 @@ def batch_invariance(card: str, engine, clips: list, served: np.ndarray, device)
               "frontend": frontend(engine)}
     x, x_lengths = engine.frontend(audio, lengths, sum_dtype=engine._sum_dtype)
     x = x.to(engine.dtype)
-    repeats = {"separable": 0, "dense": 0}
+    repeats = {"separable": 0, "dense": 0, "se": 0}
     for block in engine._plan:
         inp, inp_lengths = x, x_lengths
         for rp in block.repeats + ([block.res] if block.res is not None else []):
+            if rp is block.res and block.se is not None:  # the gate, after the repeats and before the residual
+                gated = engine._apply_se(block.se, x, x_lengths)
+                repeats["se"] += differing(lambda: gated, lambda r: engine._apply_se(block.se, x[r: r + 1],
+                                                                                     x_lengths[r: r + 1]))
+                x = gated
             src, src_lengths = (inp, inp_lengths) if rp is block.res else (x, x_lengths)
             out, out_lengths = engine._apply_repeat(rp, src, src_lengths, {})
             repeats[rp.kind] += differing(lambda: out, lambda r: engine._apply_repeat(rp, src[r: r + 1],
@@ -4261,8 +4325,13 @@ def batch_invariance(card: str, engine, clips: list, served: np.ndarray, device)
                 x = x + out
             else:
                 x, x_lengths = out, out_lengths
+        if block.res is None and block.se is not None:
+            gated = engine._apply_se(block.se, x, x_lengths)
+            repeats["se"] += differing(lambda: gated, lambda r: engine._apply_se(block.se, x[r: r + 1],
+                                                                                 x_lengths[r: r + 1]))
+            x = gated
         x = torch.relu(x)
-    stages.update({f"{kind}_repeats": n for kind, n in repeats.items()})
+    stages.update({f"{kind}_repeats" if kind != "se" else "se_gates": n for kind, n in repeats.items()})
     stages["decoder"] = differing(lambda: engine._decode(x)[0], lambda r: engine._decode(x[r: r + 1])[0])
     whole, flips = whole_forward(engine)
     default_whole, default_flips = whole_forward(default)
@@ -4274,7 +4343,7 @@ def batch_invariance(card: str, engine, clips: list, served: np.ndarray, device)
     for name, eng in (("default", default), ("batch_invariant", engine), ("batch_invariant", engine),
                       ("default", default)):
         forward_ms[name].append(cuda_ms(lambda: eng.infer(audio_s, lengths_s), 20))
-    emit({"phase": "streaming_batch_invariance", "batch": int(audio.shape[0]), "seconds": 1.0,
+    emit({"phase": f"{phase}_batch_invariance", "batch": int(audio.shape[0]), "seconds": 1.0,
           "rows_differing_of_8": stages, "whole_forward_rows_differing": whole, "whole_forward_argmax_flips": flips,
           "default_engine": {"rows_differing_of_8": default_stages, "whole_forward_rows_differing": default_whole,
                              "whole_forward_argmax_flips": default_flips},
@@ -4752,6 +4821,234 @@ def cli_phase(card: str, device="cuda") -> dict:
     check(no_card.returncode != 0 and "no CUDA device is available" in no_card_err,
           f"the CLI without a card exited {no_card.returncode}: {no_card_err[-500:]}")
     return runs
+
+
+# ---- phases 29-32: the device mesh, the training kernels' row offsets, Citrinet's batch invariance
+
+MESH_STEPS = 3  # Trainer.fit steps of the mesh and the meshless trainer
+MESH_TIMED = 5
+MESH_STORE = "smoke_out/mesh"  # under the checkout: the FileStore of the one-rank process group
+CITRINET_POOL_GRID = (2.0, 0.5)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms (no benchmark) and ``torch.use_deterministic_algorithms`` in the block; the
+    settings before it afterwards."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def mesh_phase(card: str, device="cuda") -> dict:
+    """Phase 29 of the module docstring: a one-rank mesh against the meshless path, training and serving. Returns
+    the launches of its runs, by run."""
+    import hashlib
+    import shutil
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import Trainer, TrainStep, _device_batch
+
+    store = Path(MESH_STORE)
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(str(store / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device=device)
+        runs = {}
+        dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+        tt = BatchTextTransformer(VOCAB)
+
+        def create():
+            # the training phase's configuration: dropout 0.1, the default dither, 2 + 2 SpecAugment masks
+            return CTCModule.create(torch.Generator().manual_seed(0),
+                                    FilterbankFeatures(num_time_masks=2, num_freq_masks=2),
+                                    QuartznetEncoder(**QN15X5, dropout=0.1, dtype=dtype),
+                                    Conv1dDecoder(len(VOCAB) + 1, dtype=dtype), tt, device=device)
+
+        samples = int(TRAIN_SECONDS * SAMPLE_RATE)
+        rng = np.random.default_rng(29)
+        loader = [((rng.standard_normal((TRAIN_BATCH, samples)) * 0.1).astype(np.float32),
+                   np.full((TRAIN_BATCH,), samples, np.int32), [TRAIN_TEXT] * TRAIN_BATCH) for _ in range(MESH_STEPS)]
+        trained = {}
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            reset_launch_counts()
+            trainer = Trainer(seed=0, log_every=1, device=device, mesh=m)
+            with deterministic_algorithms():
+                fitted = trainer.fit(create(), loader)
+                sync(device)
+            runs[f"train_{name}"] = launch_counts()
+            trained[name] = ([e["loss/train_loss"] for e in trainer.logs if "loss/train_loss" in e],
+                             {k: v.detach().clone() for k, v in fitted.model.state_dict().items()})
+        losses, states = {n: t[0] for n, t in trained.items()}, {n: t[1] for n, t in trained.items()}
+        parting = sorted(k for k in states["meshless"] if not torch.equal(states["meshless"][k], states["mesh"][k]))
+        expect_train = expected_counts(fused_log_mel=MESH_STEPS, ctc_alpha=MESH_STEPS, ctc_beta=MESH_STEPS)
+
+        # one train step timed: meshless, mesh, mesh, meshless (CUDA events, mean of MESH_TIMED)
+        step_ms = {"meshless": [], "mesh": []}
+        steppers = {}
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            module = create()
+            step = TrainStep(module.model, adamw(module.model.parameters(), learning_rate=1e-4), module.blank_idx,
+                             mesh=m)
+            batch = _device_batch(module, *loader[0], m)
+            args, weights = (batch, None) if m is None else batch
+            generator = torch.Generator(device=device).manual_seed(0)
+            step(*args, generator, sample_weights=weights)  # warm
+            steppers[name] = lambda step=step, args=args, g=generator, w=weights: step(*args, g, sample_weights=w)
+        for name in ("meshless", "mesh", "mesh", "meshless"):
+            step_ms[name].append(cuda_ms(steppers[name], MESH_TIMED))
+        del steppers
+
+        # serving: phase 4's module and batch, the meshless and the mesh engine
+        module, engine, rows = served_quartznet(device)
+        engines = {"meshless": engine, "mesh": InferenceEngine(module, mesh=mesh)}
+        lengths = np.full((len(rows),), rows.shape[1], np.int32)
+        audio_d, lengths_d = torch.as_tensor(rows, device=device), torch.as_tensor(lengths, device=device)
+        served = {}
+        for name, eng in engines.items():
+            eng.warmup([len(rows)], [SECONDS])
+            reset_launch_counts()
+            texts = eng.predict(rows, lengths)
+            sync(device)
+            runs[f"serve_{name}"] = launch_counts()
+            reset_launch_counts()
+            beam_texts = eng.predict(rows, lengths, beam_width=16, beam_backend="device")
+            sync(device)
+            runs[f"serve_beam_{name}"] = launch_counts()
+            logits = eng.infer(audio_d, lengths_d)[0]
+            served[name] = (texts, beam_texts, hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest())
+        forward_ms = {"meshless": [], "mesh": []}
+        for name in ("meshless", "mesh", "mesh", "meshless"):
+            forward_ms[name].append(cuda_ms(lambda: engines[name].infer(audio_d, lengths_d), MESH_TIMED))
+        expect_serve = expected_counts(fused_log_mel=1, fused_separable_repeat=QN_SEPARABLE)
+        expect_beam = expected_counts(fused_log_mel=1, fused_separable_repeat=QN_SEPARABLE, beam_scan=1,
+                                      beam_backtrace=1)
+        emit({"phase": "mesh", "backend": backend, "mesh": mesh.shape, "train_batch": TRAIN_BATCH,
+              "train_seconds": TRAIN_SECONDS, "steps": MESH_STEPS, "losses": losses,
+              "losses_equal": losses["mesh"] == losses["meshless"], "state_entries": len(states["mesh"]),
+              "state_entries_differing": parting, "step_ms": step_ms, "serve_batch": len(rows),
+              "serve_seconds": SECONDS, "transcripts_equal": served["mesh"][0] == served["meshless"][0],
+              "beam_transcripts_equal": served["mesh"][1] == served["meshless"][1],
+              "logits_sha256": {n: s[2] for n, s in served.items()}, "forward_ms": forward_ms,
+              "launches": {n: {k: v for k, v in c.items() if v} for n, c in runs.items()}, "card": card})
+        check(len(losses["mesh"]) == MESH_STEPS and losses["mesh"] == losses["meshless"],
+              f"the mesh trainer's losses {losses['mesh']} differ from the meshless {losses['meshless']}")
+        check(not parting, f"after {MESH_STEPS} steps the mesh trainer's state differs in {parting[:5]}")
+        check(runs["train_mesh"] == runs["train_meshless"] == expect_train,
+              f"mesh training launched {runs['train_mesh']}, meshless {runs['train_meshless']}, expected "
+              f"{expect_train}")
+        check(runs["serve_mesh"] == runs["serve_meshless"] == expect_serve,
+              f"the mesh engine launched {runs['serve_mesh']}, expected {expect_serve}")
+        check(runs["serve_beam_mesh"] == runs["serve_beam_meshless"] == expect_beam,
+              f"the mesh engine's device beam launched {runs['serve_beam_mesh']}, expected {expect_beam}")
+        check(served["mesh"] == served["meshless"], "the mesh engine's transcripts or logits differ from the meshless")
+        return runs
+    finally:
+        dist.destroy_process_group()
+
+
+def row_offset_phase(card: str, device="cuda") -> None:
+    """Phase 30 of the module docstring: the training kernels on slices of the wav2vec2 step's batch, each with
+    its rows' offset, against the whole batch's launches and the plain versions."""
+    from thunder_tpu_torch.kernels.selftest import row_offset_check
+
+    t = 749  # wav2vec2's frames at 15 s
+    for parts in (2, 4):
+        t0 = time.perf_counter()
+        result = row_offset_check(parts, W2V_TRAIN_BATCH, t, 12, 0.1, device)
+        emit({"phase": "row_offsets", "parts": parts, "batch": W2V_TRAIN_BATCH, "T": t, "heads": 12, "D": 768,
+              "rate": 0.1, **result, "ulp_bound": TRAIN_KERNEL_ULP, "seconds": time.perf_counter() - t0, "card": card})
+        bits = [k for k in ("mask_bits", "add_ln_bits", "dx_dy_bits", "attn_bits", "stats_bits", "dqkv_bits",
+                            "mask_vs_plain_bits") if not result[k]]
+        check(not bits, f"{parts} slices with their row offsets differ from the whole batch's launch in {bits}")
+        check(result["vs_plain"] <= TRAIN_KERNEL_ULP and result["dparams_rel"] <= 0.01,
+              f"row offsets: {result['vs_plain']} bf16 ULP from the plain versions, dscale/dbias off by "
+              f"{result['dparams_rel']}")
+
+
+def citrinet_invariance_phase(card: str, device="cuda") -> dict:
+    """Phase 31 of the module docstring: Citrinet-256 on a ``batch_invariant`` engine, stage by stage, then a pool
+    of 64 streams against their lone streams. Returns the launches of the pool's runs, by run."""
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+
+    module = citrinet_create(device)
+    engine = InferenceEngine(module, batch_invariant=True)
+    rng = np.random.default_rng(31)
+    samples = int(SECONDS * SAMPLE_RATE)
+    base = speech_like(samples, rng)
+    served = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(BATCH)]).astype(np.float32)
+    distinct = stream_clips(POOL_BATCH, STREAM_SECONDS, seed=31)
+    batch_invariance(card, engine, distinct, served, device, phase="citrinet_streaming")
+
+    runs = {}
+    clips = [distinct[k % POOL_CLIPS] for k in range(POOL_BATCH)]
+    grid = CITRINET_POOL_GRID
+    windows = grid_windows(int(STREAM_SECONDS * SAMPLE_RATE), *grid)
+    for dname, beam in (("greedy", {}), ("device_beam", STREAM_BEAM)):
+        lone = [lone_reference(engine, c, grid, beam) for c in distinct[:POOL_CLIPS]]
+        tag = f"citrinet_pool_{dname}_{grid[0]:g}s"
+        reset_launch_counts()
+        run = pool_run(engine, clips, grid, beam, 1, device)
+        runs[tag] = launch_counts()
+        beam_launches = windows * POOL_BATCH if beam else 0
+        expect = expected_counts(fused_log_mel=run["forwards"],
+                                 fused_separable_repeat=CITRINET_SEPARABLE * run["forwards"],
+                                 beam_scan=beam_launches, beam_backtrace=beam_launches)
+        differing = [k for k, text in enumerate(run["texts"]) if text != lone[k % POOL_CLIPS]]
+        emit({"phase": "citrinet_streaming_pool", "decode": dname, "chunk_s": grid[0], "overlap_s": grid[1],
+              "streams": POOL_BATCH, "clips": POOL_CLIPS, "seconds": STREAM_SECONDS, "windows_per_stream": windows,
+              "forwards": run["forwards"], "launches": {k: v for k, v in runs[tag].items() if v},
+              "streams_differing": differing, "text_chars": [len(t) for t in lone],
+              "drain_push_latency": percentiles_ms(run["drain_pushes"]), "wall_s": run["wall_s"],
+              "rtf": POOL_BATCH * STREAM_SECONDS / run["wall_s"], "card": card})
+        check(runs[tag] == expect, f"{tag}: launched {runs[tag]}, expected {expect}")
+        check(not differing, f"{tag}: streams {differing} differ from their lone streams")
+    return runs
+
+
+def parting_rows_phase(card: str, device="cuda") -> None:
+    """Phase 32 of the module docstring: the rows of a 64 x 1 s batch that part from the same row alone on the
+    wav2vec2-base engine and on phase 4's QuartzNet module (counted, not checked)."""
+    import torch
+
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    audio, lengths = one_second_rows(stream_clips(POOL_BATCH, 1.0, seed=32), device)
+    tt = BatchTextTransformer(W2V_VOCAB)
+    w2v = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                           Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(tt.num_tokens), tt, device=device)
+    counted = {"wav2vec2_engine": rows_parting(InferenceEngine(w2v), audio, lengths)}
+    del w2v
+    module, _, _ = served_quartznet(device)
+    counted["quartznet_module"] = rows_parting(module, audio, lengths)
+    emit({"phase": "parting_rows", "batch": int(audio.shape[0]), "seconds": 1.0,
+          **{name: {"rows_differing": r, "argmax_flips": f} for name, (r, f) in counted.items()}, "card": card})
 
 
 if __name__ == "__main__":

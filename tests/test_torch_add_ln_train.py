@@ -244,3 +244,32 @@ def test_backward_plan_fills_the_card_at_the_train_step():
     assert plan["workspace_bytes"] <= 2 * 2**20
     assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024 and plan["rows_a_warp"] == 3
     assert backward_plan(5992, 2056, 132)["smem_bytes"] == 0  # the width the register rows do not take
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_slices_with_their_row_offsets_equal_the_whole_input_bit_for_bit(parts):
+    # a data-parallel rank's rows: each slice of a (B, T, D) input, with the flattened index of its first row as
+    # its offset, gets the whole input's mask, forward and gradients bit for bit
+    x, y, scale, bias, ct = _case(7, (8, 9), 48)
+    rate = 0.1
+    whole_mask = dropout_keep_mask((8, 9, 48), SEED, rate)
+    whole_out, whole_grads = _port_value_and_grads(x, y, scale, bias, ct, rate, torch.bfloat16)
+    rows = 8 // parts
+    dscale = dbias = 0
+    for p in range(parts):
+        sl = slice(p * rows, (p + 1) * rows)
+        offset = p * rows * 9
+        assert torch.equal(dropout_keep_mask((rows, 9, 48), SEED, rate, row_offset=offset), whole_mask[sl])
+        assert torch.equal(dropout_keep_mask_reference((rows, 9, 48), SEED, rate, offset), whole_mask[sl])
+        leaves = [torch.tensor(a[sl]).to(torch.bfloat16).requires_grad_(True) for a in (x, y)]
+        leaves += [torch.tensor(a).requires_grad_(True) for a in (scale, bias)]
+        out = add_ln_dropout_train(*leaves, SEED, rate, row_offset=offset)
+        out.backward(torch.tensor(ct[sl]).to(torch.bfloat16))
+        assert torch.equal(out.detach(), whole_out[sl])
+        assert torch.equal(leaves[0].grad, whole_grads[0][sl]) and torch.equal(leaves[1].grad, whole_grads[1][sl])
+        dscale, dbias = dscale + leaves[2].grad, dbias + leaves[3].grad
+    # the parameters' gradients are the sums of the slices' (to float32 order)
+    torch.testing.assert_close(dscale, whole_grads[2], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dbias, whole_grads[3], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="row_offset"):
+        dropout_keep_mask((2, 48), SEED, rate, row_offset=-1)

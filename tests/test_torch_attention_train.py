@@ -212,3 +212,24 @@ def test_wrappers_raise_on_bad_arguments_and_launch_nothing_on_the_cpu():
         mha_train_backward(qkv, out, stats, ct[:, :3], lengths, SEED, 2)
     with pytest.raises(ValueError, match="cuda or cpu"):
         mha_train_forward(qkv.to("meta"), lengths.to("meta"), SEED.to("meta"), 2)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_slices_with_their_row_offsets_equal_the_whole_batch_bit_for_bit(parts):
+    # a data-parallel rank's rows: each slice of the batch, with its first row's global index as its offset,
+    # gets the whole batch's mask (stream = global row * heads + head), output and gradient bit for bit
+    qkv, lengths, ct = _case(5, 8, 37, 2, [37, 30, 1, 37, 12, 37, 36, 20])
+    rate = 0.1
+    whole_out, whole_grad = _port(qkv, lengths, ct, 2, rate, torch.bfloat16)
+    whole_mask = attention_keep_mask(SEED, 8, 2, 37, rate)
+    rows = 8 // parts
+    for p in range(parts):
+        sl = slice(p * rows, (p + 1) * rows)
+        assert torch.equal(attention_keep_mask(SEED, rows, 2, 37, rate, row_offset=p * rows), whole_mask[sl])
+        leaf = torch.tensor(qkv[sl]).to(torch.bfloat16).requires_grad_(True)
+        out = mha_train(leaf, torch.tensor(lengths[sl]), SEED, 2, rate, row_offset=p * rows)
+        out.backward(torch.tensor(ct[sl]).to(torch.bfloat16))
+        assert torch.equal(out.detach(), whole_out[sl])
+        assert torch.equal(leaf.grad, whole_grad[sl])
+    with pytest.raises(ValueError, match="row_offset"):
+        mha_train_forward(torch.zeros(1, 4, 192), torch.tensor([4]), SEED, 1, rate, row_offset=-1)

@@ -41,7 +41,9 @@ to 2048), with the packed ``dqkv`` and ``dscale``/``dbias`` equal bit for bit
 from run to run; the Python mirror of the add + LayerNorm backward's plan is
 held to the kernel's on this card; their ``autograd.Function``s give the plain
 backward's gradients; and one small wav2vec2 train step launches them as
-counted.
+counted. On slices of a batch, each with its rows' offset (a data-parallel
+rank's rows), they give the whole batch's masks, outputs and gradients bit for
+bit.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -868,6 +870,21 @@ def test_add_ln_train_kernels_edge_shapes(cuda, rows, d, rate):
     for g, w in zip(got[3:], want[3:]):
         assert (g - w).abs().max().item() <= 0.01 * max(w.abs().max().item(), 1e-9)
     assert torch.equal(dropout_keep_mask(x.shape, seed, rate), dropout_keep_mask_reference(x.shape, seed, rate))
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("t", [31, 749])
+def test_training_kernels_with_row_offsets_equal_the_whole_batch_on_card(cuda, parts, t):
+    """A data-parallel rank's rows: the training kernels on each slice of a batch, with its rows' offset, give the
+    whole batch's keep mask, add + dropout + LayerNorm output, dx, dy, attention output, statistics and packed
+    dqkv bit for bit (the slices' dscale and dbias sum to the whole's within float32 order), and the plain
+    versions with the same offsets within the existing 8 bf16 ULP."""
+    from thunder_tpu_torch.kernels.selftest import row_offset_check
+
+    result = row_offset_check(parts, 8, t, 12, 0.1, "cuda")
+    assert all(result[k] for k in ("mask_bits", "add_ln_bits", "dx_dy_bits", "attn_bits", "stats_bits", "dqkv_bits",
+                                   "mask_vs_plain_bits")), result
+    assert result["vs_plain"] <= 8.0 and result["dparams_rel"] <= 1e-5, result
 
 
 def test_training_autograd_functions_give_the_plain_backward_on_card(cuda):

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert len(MODULES) >= 20
-    assert {"thunder_tpu_torch.streaming", "thunder_tpu_torch.profiling", "thunder_tpu_torch.__main__"} <= set(MODULES)
+    assert {"thunder_tpu_torch.streaming", "thunder_tpu_torch.profiling", "thunder_tpu_torch.__main__",
+            "thunder_tpu_torch.parallel", "thunder_tpu_torch.parallel.mesh", "thunder_tpu_torch.parallel.spmd"} <= set(MODULES)
 
 
 def test_cli_without_a_card_exits_with_the_device_error():

@@ -144,13 +144,13 @@ def test_recompute_runs_the_training_kernels_again(monkeypatch):
     calls = {"attention": [], "add_ln": []}
     mha_ref, add_ln_ref = attention_train.mha_train_forward_reference, add_ln_train.add_ln_train_forward_reference
 
-    def mha_spy(qkv, lengths, seed, heads, rate=0.0):
+    def mha_spy(qkv, lengths, seed, heads, rate=0.0, row_offset=0):
         calls["attention"].append((int(seed), recomputing()))
-        return mha_ref(qkv, lengths, seed, heads, rate)
+        return mha_ref(qkv, lengths, seed, heads, rate, row_offset)
 
-    def add_ln_spy(x, y, scale, bias, seed, rate=0.0, eps=1e-5):
+    def add_ln_spy(x, y, scale, bias, seed, rate=0.0, eps=1e-5, row_offset=0):
         calls["add_ln"].append((int(seed), recomputing()))
-        return add_ln_ref(x, y, scale, bias, seed, rate, eps)
+        return add_ln_ref(x, y, scale, bias, seed, rate, eps, row_offset)
 
     monkeypatch.setattr(attention_train, "mha_train_forward_reference", mha_spy)
     monkeypatch.setattr(add_ln_train, "add_ln_train_forward_reference", add_ln_spy)

@@ -14,8 +14,9 @@ same numpy-seeded audio and the same pushes. Texts are compared exactly:
   each stream's text equal to a lone stream's and to the JAX pool's; the greedy pool never touches the logits;
 - the argument and lifecycle errors of the JAX package, word for word where it has words;
 - the engine's ``batch_invariant`` mode (a port option): its float64 statistics and decoder sums within 1e-5 of
-  the default float32 ones, its pool streams equal to its lone streams and to the JAX pool's, and the mode
-  refused for any encoder but QuartzNet.
+  the default float32 ones, its pool streams equal to its lone streams and to the JAX pool's; on a small
+  Citrinet (the squeeze-excite gates in float64 too) within 1e-5 of the default engine, a row bit-equal to the
+  row alone, and a pool equal to its lone streams; the mode refused for wav2vec2.
 """
 
 import threading
@@ -374,9 +375,43 @@ def test_masked_statistics_in_float64_round_to_the_input_dtype():
     torch.testing.assert_close(std, want_std, rtol=1e-6, atol=1e-6)
 
 
+def _citrinet():
+    return CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(nfilt=80),
+                            CitrinetEncoder(filters=(64, 64), kernel_sizes=(11, 13), strides=(1, 2), repeat=2),
+                            Conv1dDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
+
+
 def test_batch_invariant_is_a_quartznet_mode():
-    citrinet = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(nfilt=80),
-                                CitrinetEncoder(filters=(64, 64), kernel_sizes=(11, 13), strides=(1, 2), repeat=2),
-                                Conv1dDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
-    with pytest.raises(ValueError, match="batch_invariant is a QuartzNet serving mode"):
-        InferenceEngine(citrinet, batch_invariant=True)
+    # QuartzNet's and Citrinet's: wav2vec2 is refused
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+
+    assert InferenceEngine(_citrinet(), batch_invariant=True).batch_invariant
+    w2v = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(),
+                           Wav2Vec2Encoder(Wav2Vec2Config(hidden_size=64, num_hidden_layers=1, num_attention_heads=1,
+                                                          intermediate_size=64, conv_dim=(32,), conv_kernel=(10,),
+                                                          conv_stride=(5,), num_conv_pos_embeddings=16,
+                                                          num_conv_pos_embedding_groups=4)),
+                           LinearDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
+    with pytest.raises(ValueError, match="batch_invariant is a QuartzNet and Citrinet serving mode"):
+        InferenceEngine(w2v, batch_invariant=True)
+
+
+def test_batch_invariant_citrinet_pool_matches_lone_streams():
+    """Citrinet's float64 squeeze-excite gates change the logits by rounding only (1e-5 against the default
+    engine); a row of a batch is bit-equal to the row alone, and a pool equals its lone streams."""
+    citrinet = _citrinet()
+    engine, default = InferenceEngine(citrinet, batch_invariant=True), InferenceEngine(citrinet)
+    audio = np.stack([_audio(2.0, 31 + k) for k in range(3)])
+    lengths = np.array([32000, 20000, 7000], np.int32)
+    got, want = engine.infer(audio, lengths), default.infer(audio, lengths)
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    assert torch.equal(got[2], want[2])
+    for row in range(3):
+        alone = engine.infer(audio[row: row + 1], lengths[row: row + 1])[0]
+        assert torch.equal(alone[0], got[0][row])
+    kw = dict(chunk_seconds=2.0, overlap_seconds=0.5)
+    feeds = [_audio(s, 41 + k) for k, s in enumerate((3.4, 4.9, 2.2))]
+    lone = [_feed(StreamingTranscriber(engine, **kw), f, [f.size])[1] for f in feeds]
+    pool = StreamingPool(engine, batch_size=3, **kw)
+    assert _interleaved(pool, [pool.open() for _ in feeds], feeds, [4100, 16000, 7000]) == lone

@@ -11,7 +11,8 @@ valid frames -> SpecCutout or SpecAugment (train only). Output is
 channels-last ``(batch, frames, nfilt)`` float32.
 
 Train mode draws the dither noise and the masks' uniforms from the
-``generator`` it is given, on the audio's device. The log-mel kernel has no
+``generator`` it is given, on the audio's device (in a data-parallel step the
+dither is this rank's rows of the global batch's draw). The log-mel kernel has no
 backward, so nothing upstream of the features takes a gradient.
 """
 
@@ -26,6 +27,7 @@ from thunder_tpu_torch.kernels.frontend import fused_log_mel
 from thunder_tpu_torch.ops.masking import lengths_to_mask, normalize_tensor
 from thunder_tpu_torch.ops.specaugment import spec_augment, spec_cutout
 from thunder_tpu_torch.ops.stft import next_pow2, power_spectrum_lengths
+from thunder_tpu_torch.parallel import spmd
 
 __all__ = ["FilterbankFeatures", "Wav2Vec2Preprocess"]
 
@@ -89,7 +91,9 @@ class FilterbankFeatures(nn.Module):
         """``sum_dtype``: the normalization's sums, as in :func:`~thunder_tpu_torch.ops.masking.masked_mean_std`."""
         x = audio.float()
         if train and self.dither > 0:
-            x = x + self.dither * torch.randn(x.shape, generator=_required(generator), device=x.device)
+            noise = spmd.draw_rows(lambda shape: torch.randn(shape, generator=_required(generator), device=x.device),
+                                   x.shape)
+            x = x + self.dither * noise
         # the log-mel kernel goes first: the card starts on it while the host queues the lengths' small ops
         mel = fused_log_mel(
             x.contiguous(),

@@ -4,7 +4,7 @@
 // Replaces: thunder_tpu/kernels/add_ln_train.py::add_ln_dropout_train (forward
 // and backward Pallas TPU kernels) and ::dropout_keep_mask.
 // Forward, for rows of D features:
-//   yd  = keep ? float(y) / (1 - rate) : 0            (keep: dropout_hash.cuh, stream 0)
+//   yd  = keep ? float(y) / (1 - rate) : 0            (keep: dropout_hash.cuh, stream 0, row + row_offset)
 //   s   = float(x) + yd
 //   out = bf16( (s - mean) * (rsqrt(max(E[s^2] - mean^2, 0) + eps) * g) + b )
 // It saves no statistics. Backward re-reads x and y, regenerates the mask,
@@ -123,12 +123,12 @@ __device__ inline unsigned keep_bits(uint32_t key, int c, float rate, uint32_t t
 // s = x + dropout(y) of one row into registers; returns the keep bits of each vector
 template <int VECS>
 __device__ inline void load_sum(const bf16* __restrict__ x, const bf16* __restrict__ y, int row, int d, int lane,
-                                uint32_t seed, float rate, float inv_keep, float (&s)[VECS][8], unsigned (&kept)[VECS],
-                                float& sum, float& sq) {
+                                uint32_t seed, uint32_t row_offset, float rate, float inv_keep, float (&s)[VECS][8],
+                                unsigned (&kept)[VECS], float& sum, float& sq) {
   const int nvec = d / 8;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * d);
   const uint4* yr = reinterpret_cast<const uint4*>(y + (size_t)row * d);
-  const uint32_t key = thunder_dropout::row_key(seed, 0u, (uint32_t)row);
+  const uint32_t key = thunder_dropout::row_key(seed, 0u, (uint32_t)row + row_offset);
   sum = 0.f;
   sq = 0.f;
 #pragma unroll
@@ -170,7 +170,7 @@ template <int VECS>
 __global__ void __launch_bounds__(WARPS * 32)
     add_ln_train_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
                             const float* __restrict__ b, const int* __restrict__ seed, bf16* __restrict__ out, int rows,
-                            int d, float rate, float eps) {
+                            int d, float rate, float eps, uint32_t row_offset) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * WARPS + threadIdx.x / 32;
   if (row >= rows) return;
@@ -179,7 +179,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   float s[VECS][8];
   unsigned kept[VECS];
   float sum, sq;
-  load_sum<VECS>(x, y, row, d, lane, (uint32_t)seed[0], rate, inv_keep, s, kept, sum, sq);
+  load_sum<VECS>(x, y, row, d, lane, (uint32_t)seed[0], row_offset, rate, inv_keep, s, kept, sum, sq);
   const float mean = sum / d;
   const float rstd = rsqrtf(fmaxf(sq / d - mean * mean, 0.f) + eps);
   uint4* orow = reinterpret_cast<uint4*>(out + (size_t)row * d);
@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(WARPS * 32, VECS <= 4 ? 2 : 1)
     add_ln_train_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
                             const int* __restrict__ seed, const bf16* __restrict__ dout, bf16* __restrict__ dx,
                             bf16* __restrict__ dy, float* __restrict__ part_g, float* __restrict__ part_b, int rows,
-                            int d, float rate, float eps) {
+                            int d, float rate, float eps, uint32_t row_offset) {
   constexpr bool KEEP_S = VECS <= 3;  // the row's shat stays in registers; wider rows re-read x and y from the ring
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x % 32;
@@ -279,7 +279,7 @@ __global__ void __launch_bounds__(WARPS * 32, VECS <= 4 ? 2 : 1)
     const uint4* sx = ring + stage * 3 * nvec;
     const uint4* sy = sx + nvec;
     const uint4* sdo = sx + 2 * nvec;
-    const uint32_t key = thunder_dropout::row_key(sd, 0u, (uint32_t)row);
+    const uint32_t key = thunder_dropout::row_key(sd, 0u, (uint32_t)row + row_offset);
     unsigned kept[VECS];
     float s[KEEP_S ? VECS : 1][8];
     float sum = 0.f, sq = 0.f;
@@ -409,9 +409,10 @@ struct AnyRow {
   }
 };
 
-__device__ inline AnyRow any_row(const bf16* x, const bf16* y, int row, int d, uint32_t seed, float rate) {
-  return {x + (size_t)row * d, y + (size_t)row * d, thunder_dropout::row_key(seed, 0u, (uint32_t)row), rate,
-          1.f / (1.f - rate)};
+__device__ inline AnyRow any_row(const bf16* x, const bf16* y, int row, int d, uint32_t seed, uint32_t row_offset,
+                                 float rate) {
+  return {x + (size_t)row * d, y + (size_t)row * d, thunder_dropout::row_key(seed, 0u, (uint32_t)row + row_offset),
+          rate, 1.f / (1.f - rate)};
 }
 
 // (mean, rstd) of one row, a pass over it
@@ -429,11 +430,11 @@ __device__ inline void any_stats(const AnyRow& s, int d, int lane, float eps, fl
 __global__ void __launch_bounds__(WARPS * 32)
     add_ln_train_fwd_any_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
                                 const float* __restrict__ b, const int* __restrict__ seed, bf16* __restrict__ out,
-                                int rows, int d, float rate, float eps) {
+                                int rows, int d, float rate, float eps, uint32_t row_offset) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * WARPS + threadIdx.x / 32;
   if (row >= rows) return;
-  const AnyRow s = any_row(x, y, row, d, (uint32_t)seed[0], rate);
+  const AnyRow s = any_row(x, y, row, d, (uint32_t)seed[0], row_offset, rate);
   float mean, rstd;
   any_stats(s, d, lane, eps, mean, rstd);
   bf16* orow = out + (size_t)row * d;
@@ -466,7 +467,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     add_ln_train_bwd_any_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, const float* __restrict__ g,
                                 const int* __restrict__ seed, const bf16* __restrict__ dout, bf16* __restrict__ dx,
                                 bf16* __restrict__ dy, float* __restrict__ part_g, float* __restrict__ part_b,
-                                int rows, int d, float rate, float eps) {
+                                int rows, int d, float rate, float eps, uint32_t row_offset) {
   __shared__ float red[2][WARPS];
   const int tid = threadIdx.x, nt = blockDim.x;
   int lo, hi;
@@ -474,7 +475,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   float* pg = part_g + (size_t)blockIdx.x * d;
   float* pb = part_b + (size_t)blockIdx.x * d;
   for (int row = lo; row < hi; ++row) {
-    const AnyRow s = any_row(x, y, row, d, (uint32_t)seed[0], rate);
+    const AnyRow s = any_row(x, y, row, d, (uint32_t)seed[0], row_offset, rate);
     float sum = 0.f, sq = 0.f;
     for (int c = tid; c < d; c += nt) {
       const float v = s(c);
@@ -544,11 +545,12 @@ __global__ void __launch_bounds__(RED_X * RED_Y)
 // are 16-byte aligned (d % 4 == 0 and an aligned mask), a value a lane otherwise.
 __global__ void __launch_bounds__(WARPS * 32) dropout_keep_mask_kernel(const int* __restrict__ seed,
                                                                        float* __restrict__ mask, int rows, int d,
-                                                                       uint32_t threshold, bool vec4) {
+                                                                       uint32_t threshold, bool vec4,
+                                                                       uint32_t row_offset) {
   const int lane = threadIdx.x & 31;
   const uint32_t s = (uint32_t)__ldg(seed);
   for (int row = blockIdx.x * WARPS + (threadIdx.x >> 5); row < rows; row += gridDim.x * WARPS) {
-    const uint32_t key = thunder_dropout::row_key(s, 0u, (uint32_t)row);
+    const uint32_t key = thunder_dropout::row_key(s, 0u, (uint32_t)row + row_offset);
     float* out = mask + (size_t)row * d;
     if (vec4) {
       for (int c = 4 * lane; c < d; c += 128) {
@@ -605,20 +607,23 @@ size_t bwd_smem(int d) { return (size_t)(d / 8) * 16 * (2 + (size_t)WARPS * 6); 
 }  // namespace
 
 // x, y, out: (rows, d) bf16; g, b: (d,) f32; seed: one int32 on the device; any d >= 1 (vectorised() picks the
-// kernel); 0 <= rate < 1. Returns cudaGetLastError().
+// kernel); 0 <= rate < 1; row_offset: added to each row's index in the dropout hash, the first row's index in a
+// larger (rows, d) input (0 for a whole one). Returns cudaGetLastError().
 extern "C" int thunder_add_ln_train_fwd(const void* x, const void* y, const float* g, const float* b, const int* seed,
-                                        void* out, int rows, int d, float rate, float eps, void* stream) {
+                                        void* out, int rows, int d, float rate, float eps, unsigned row_offset,
+                                        void* stream) {
   if (bad_shape(rows, d) || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + WARPS - 1) / WARPS;
   if (!vectorised(d, {x, y, g, b, out})) {
     add_ln_train_fwd_any_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, b, seed, static_cast<bf16*>(out), rows, d, rate,
-        eps);
+        eps, row_offset);
     return (int)cudaGetLastError();
   }
-#define CALL(V)                                                                                          \
-  add_ln_train_fwd_kernel<V><<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(              \
-      static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, b, seed, static_cast<bf16*>(out), rows, d, rate, eps)
+#define CALL(V)                                                                                             \
+  add_ln_train_fwd_kernel<V><<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(                 \
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, b, seed, static_cast<bf16*>(out), rows, d, rate, \
+      eps, row_offset)
   DISPATCH_VECS(d, CALL);
 #undef CALL
   return (int)cudaGetLastError();
@@ -639,11 +644,11 @@ extern "C" int thunder_add_ln_train_plan(int rows, int d, int* out) {
 }
 
 // dout, dx, dy: (rows, d) bf16, any d >= 1 as the forward; part_g, part_b: (blocks, d) f32 scratch, blocks from
-// thunder_add_ln_train_plan; dg, db: (d,) f32. Launches the backward and the sum of the partials. Returns
-// cudaGetLastError().
+// thunder_add_ln_train_plan; dg, db: (d,) f32; row_offset as the forward's. Launches the backward and the sum of
+// the partials. Returns cudaGetLastError().
 extern "C" int thunder_add_ln_train_bwd(const void* x, const void* y, const float* g, const int* seed, const void* dout,
                                         void* dx, void* dy, float* part_g, float* part_b, float* dg, float* db,
-                                        int rows, int d, float rate, float eps, void* stream) {
+                                        int rows, int d, float rate, float eps, unsigned row_offset, void* stream) {
   if (bad_shape(rows, d) || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   const int blocks = bwd_blocks(rows, sm_count());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -655,13 +660,13 @@ extern "C" int thunder_add_ln_train_bwd(const void* x, const void* y, const floa
   if (err != cudaSuccess) return (int)err;                                                                       \
   add_ln_train_bwd_kernel<V><<<blocks, WARPS * 32, smem, st>>>(                                                  \
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, seed, static_cast<const bf16*>(dout),        \
-      static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps)
+      static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps, row_offset)
     DISPATCH_VECS(d, CALL);
 #undef CALL
   } else {
     add_ln_train_bwd_any_kernel<<<blocks, WARPS * 32, 0, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(y), g, seed, static_cast<const bf16*>(dout),
-        static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps);
+        static_cast<bf16*>(dx), static_cast<bf16*>(dy), part_g, part_b, rows, d, rate, eps, row_offset);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -681,13 +686,14 @@ extern "C" int thunder_add_ln_train_bwd(const void* x, const void* y, const floa
   return (int)cudaGetLastError();
 }
 
-// mask: (rows, d) f32, 1 where add_ln_train keeps y under this seed and rate, else 0.
-extern "C" int thunder_dropout_keep_mask(const int* seed, float* mask, int rows, int d, float rate, void* stream) {
+// mask: (rows, d) f32, 1 where add_ln_train keeps y under this seed, rate and row_offset, else 0.
+extern "C" int thunder_dropout_keep_mask(const int* seed, float* mask, int rows, int d, float rate, unsigned row_offset,
+                                         void* stream) {
   if (rows < 1 || d < 1 || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   const int need = (rows + WARPS - 1) / WARPS;
   const int blocks = need < MASK_BLOCKS_PER_SM * sm_count() ? need : MASK_BLOCKS_PER_SM * sm_count();
   const bool vec4 = d % 4 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
   dropout_keep_mask_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      seed, mask, rows, d, thunder_dropout::threshold(rate), vec4);
+      seed, mask, rows, d, thunder_dropout::threshold(rate), vec4, row_offset);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@
 //   keep = (bits >> 9) * 2^-23 >= rate
 //
 // stream is (batch row * heads + head) for the attention probabilities (row =
-// query, col = key) and 0 for the add + LayerNorm branch. The same function in
+// query, col = key) and 0 for the add + LayerNorm branch, with batch rows and
+// flattened rows counted in the global batch (a launch on a slice of it adds
+// its offset). The same function in
 // PyTorch integer arithmetic is thunder_tpu_torch/kernels/dropout_hash.py; the
 // two must stay equal bit for bit.
 

@@ -13,7 +13,7 @@
 // The mask is added, never -inf: a row of length 0 averages every key and stays
 // finite, and padded query rows attend the valid keys like any other row.
 // With TRAIN, the rounded probabilities that the dropout mask (dropout_hash.cuh,
-// stream b * heads + h, row t, column j) drops are zeroed, the division becomes
+// stream b * heads + h plus the launch's stream offset, row t, column j) drops are zeroed, the division becomes
 // / (z * (1 - rate)) with z still the sum of the undropped exponentials, and m
 // and z of every row are written for the backward as (2, B, heads, T) float32.
 //
@@ -87,7 +87,7 @@ template <bool TRAIN>
 __global__ void __launch_bounds__(THREADS, 2)
     mha_forward_kernel(const __grid_constant__ CUtensorMap qkv_map, const int* __restrict__ lengths,
                        bf16* __restrict__ out, float* __restrict__ stats, const int* __restrict__ seed, float rate,
-                       int t, int heads) {
+                       int t, int heads, uint32_t stream_offset) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t base = smem_u32(smem);
@@ -155,7 +155,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (drop) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      key[r] = thunder_dropout::row_key((uint32_t)seed[0], (uint32_t)(b * heads + head), (uint32_t)(grow0 + 8 * r));
+      key[r] = thunder_dropout::row_key((uint32_t)seed[0], (uint32_t)(b * heads + head) + stream_offset,
+                                        (uint32_t)(grow0 + 8 * r));
   }
   float o[32];
 #pragma unroll
@@ -282,10 +283,11 @@ inline int encode_rows(CUtensorMap* map, const void* p, int width, int t, int ba
 }
 
 // Launch the forward over (batch, t, heads): a tensor map of qkv encoded for this call, one block per 128
-// queries, head and batch row. Returns a cudaError_t.
+// queries, head and batch row. stream_offset is added to each (batch row * heads + head) dropout stream: the
+// first batch row's global index times heads when the rows are a slice of a larger batch. Returns a cudaError_t.
 template <bool TRAIN>
 inline int launch(const void* qkv, const int* lengths, void* out, float* stats, const int* seed, float rate, int batch,
-                  int t, int heads, void* stream) {
+                  int t, int heads, uint32_t stream_offset, void* stream) {
   if (batch < 1 || batch > 65535 || t < 1 || heads < 1 || heads > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   const int status = encode_rows(&map, qkv, 3 * heads * DH, t, batch);
@@ -295,7 +297,7 @@ inline int launch(const void* qkv, const int* lengths, void* out, float* stats, 
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t + BM * CONSUMERS - 1) / (BM * CONSUMERS), heads, batch);
   mha_forward_kernel<TRAIN><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      map, lengths, static_cast<bf16*>(out), stats, seed, rate, t, heads);
+      map, lengths, static_cast<bf16*>(out), stats, seed, rate, t, heads, stream_offset);
   return (int)cudaGetLastError();
 }
 

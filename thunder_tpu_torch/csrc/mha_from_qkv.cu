@@ -27,5 +27,5 @@
 // out: (batch, t, heads * 64) bf16. Returns cudaGetLastError().
 extern "C" int thunder_mha_from_qkv(const void* qkv, const int* lengths, void* out, int batch, int t, int heads,
                                     void* stream) {
-  return mha_fwd::launch<false>(qkv, lengths, out, nullptr, nullptr, 0.f, batch, t, heads, stream);
+  return mha_fwd::launch<false>(qkv, lengths, out, nullptr, nullptr, 0.f, batch, t, heads, 0u, stream);
 }

@@ -12,7 +12,7 @@
 // statistics because of its lane layout; here they spare the backward a second
 // softmax pass over the keys and let it stream the keys at any T.
 // Backward, per head, with qh = bf16(q * 0.125), e = exp(s - m), keep the
-// forward's mask (dropout_hash.cuh: stream b * heads + head, row = query, column
+// forward's mask (dropout_hash.cuh: stream b * heads + head plus the launch's stream offset, row = query, column
 // = key), inv_keep = 1 / (1 - rate):
 //   delta = rowsum(f32(dO) * f32(O))                 (the saved bf16 output)
 //   dP    = dO V^T, masked and scaled: keep ? dP * inv_keep : 0
@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     mha_train_dq_kernel(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap do_map,
                         const int* __restrict__ lengths, const bf16* __restrict__ o, const bf16* __restrict__ dout,
                         const float* __restrict__ stats, const int* __restrict__ seed, float rate,
-                        bf16* __restrict__ dqkv, float* __restrict__ delta, int t, int heads) {
+                        bf16* __restrict__ dqkv, float* __restrict__ delta, int t, int heads, uint32_t stream_offset) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -228,7 +228,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const bool in = g < t;
     m[r] = in ? stats[at0 + g] : 0.f;
     invz[r] = in ? 1.f / stats[plane + at0 + g] : 0.f;
-    key[r] = drop ? thunder_dropout::row_key((uint32_t)seed[0], (uint32_t)(b * heads + head), (uint32_t)g) : 0u;
+    key[r] = drop ? thunder_dropout::row_key((uint32_t)seed[0], (uint32_t)(b * heads + head) + stream_offset,
+                                             (uint32_t)g)
+                  : 0u;
     float acc = 0.f;
     if (in) {
       const size_t at = ((size_t)b * t + g) * h + head * DH + 16 * (lane % 4);
@@ -308,7 +310,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     mha_train_dkv_kernel(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap do_map,
                          const int* __restrict__ lengths, const float* __restrict__ stats,
                          const float* __restrict__ delta, const int* __restrict__ seed, float rate,
-                         bf16* __restrict__ dqkv, int t, int heads) {
+                         bf16* __restrict__ dqkv, int t, int heads, uint32_t stream_offset) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -384,7 +386,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         v.x = in ? stats[at0 + g] : INFINITY;
         v.y = in ? 1.f / stats[plane + at0 + g] : 0.f;
         v.z = in ? delta[at0 + g] : 0.f;
-        v.w = __uint_as_float(drop ? thunder_dropout::row_key(sd, (uint32_t)(b * heads + head), (uint32_t)g) : 0u);
+        v.w = __uint_as_float(drop ? thunder_dropout::row_key(sd, (uint32_t)(b * heads + head) + stream_offset,
+                                                              (uint32_t)g)
+                                   : 0u);
         st[r] = v;
       }
       __syncwarp();
@@ -492,19 +496,20 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // qkv: (batch, t, 3 * heads * 64) bf16, 16-byte aligned; lengths: (batch,) int32; seed: one int32 on the
 // device (not read at rate 0); out: (batch, t, heads * 64) bf16; stats: (2, batch, heads, t) f32, the row
-// maxima and row sums. Returns cudaGetLastError().
+// maxima and row sums; stream_offset: added to every dropout stream (b * heads + head), the first row's index in
+// a larger batch times heads (0 for a whole batch). Returns cudaGetLastError().
 extern "C" int thunder_mha_train_fwd(const void* qkv, const int* lengths, const int* seed, void* out, float* stats,
-                                     int batch, int t, int heads, float rate, void* stream) {
+                                     int batch, int t, int heads, float rate, unsigned stream_offset, void* stream) {
   if (!(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
-  return mha_fwd::launch<true>(qkv, lengths, out, stats, seed, rate, batch, t, heads, stream);
+  return mha_fwd::launch<true>(qkv, lengths, out, stats, seed, rate, batch, t, heads, stream_offset, stream);
 }
 
 // o, dout: (batch, t, heads * 64) bf16, 16-byte aligned; stats from the forward; delta: (batch, heads, t) f32
 // scratch; dqkv: (batch, t, 3 * heads * 64) bf16, every element written. Launches the dq kernel, then the
-// dk/dv kernel (which reads the dq kernel's delta). Returns cudaGetLastError().
+// dk/dv kernel (which reads the dq kernel's delta); stream_offset as the forward's. Returns cudaGetLastError().
 extern "C" int thunder_mha_train_bwd(const void* qkv, const int* lengths, const int* seed, const void* o,
                                      const void* dout, const float* stats, float* delta, void* dqkv, int batch, int t,
-                                     int heads, float rate, void* stream) {
+                                     int heads, float rate, unsigned stream_offset, void* stream) {
   if (batch < 1 || batch > 65535 || t < 1 || heads < 1 || heads > 65535 || !(rate >= 0.f && rate < 1.f))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qkv_map, do_map;
@@ -520,10 +525,10 @@ extern "C" int thunder_mha_train_bwd(const void* qkv, const int* lengths, const 
   const dim3 grid((t + BM * CONSUMERS - 1) / (BM * CONSUMERS), heads, batch);
   mha_train_dq_kernel<<<grid, THREADS, DQ_SMEM, st>>>(qkv_map, do_map, lengths, static_cast<const bf16*>(o),
                                                       static_cast<const bf16*>(dout), stats, seed, rate,
-                                                      static_cast<bf16*>(dqkv), delta, t, heads);
+                                                      static_cast<bf16*>(dqkv), delta, t, heads, stream_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mha_train_dkv_kernel<<<grid, THREADS, KV_SMEM, st>>>(qkv_map, do_map, lengths, stats, delta, seed, rate,
-                                                       static_cast<bf16*>(dqkv), t, heads);
+                                                       static_cast<bf16*>(dqkv), t, heads, stream_offset);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,8 @@
 
 Port of ``thunder_tpu/engine.py::InferenceEngine`` for QuartzNet, Citrinet
 and wav2vec2, with its serving modes (``int8_weights``, ``int8_compute``,
-``posconv_dense``; the JAX engine's ``mesh`` and ``use_pallas`` are not taken:
-the port serves one card and always runs its kernels). The conv path (QuartzNet and Citrinet), planned
+``posconv_dense``) and its ``mesh`` (the JAX engine's ``use_pallas`` is not
+taken: the port always runs its kernels). The conv path (QuartzNet and Citrinet), planned
 from the encoder's blocks:
 
 - batch norm folded into the pointwise weights and a float32 bias at build
@@ -49,16 +49,18 @@ for wav2vec2):
   ``q * scale`` (the scale pre-cast once, which gives the same values); the
   separable-repeat kernel then runs on the dequantized weights. The decoder
   kernel is quantized in every int8 mode.
-- ``batch_invariant`` (QuartzNet only; any other encoder raises
+- ``batch_invariant`` (QuartzNet and Citrinet; any other encoder raises
   ``ValueError``; off by default, a port option without a JAX counterpart):
-  the frontend's masked statistics and the decoder's product accumulate in
-  float64 and round to float32. On the card their float32 sums change their
-  order with the number of rows, so a row's logits could differ in their last
-  bits between a batch and the row alone; with the option a row of a
-  ``(64, 1 s)`` batch was measured bit-equal to the row alone, stage by stage
-  (``chip_smoke.py``'s ``batch_invariance``), which a ``StreamingPool`` needs
-  for its rows to equal a lone stream's. Citrinet's squeeze-excite gates and
-  wav2vec2's layers are not made so.
+  the frontend's masked statistics, the decoder's product and Citrinet's
+  squeeze-excite gates (the pooled sum over time and the ``fc1``/``fc2``
+  products, whose M is the row count) accumulate in float64 and round to
+  float32 where the float path rounds. On the card their float32 sums change
+  their order with the number of rows, so a row's logits could differ in
+  their last bits between a batch and the row alone; with the option a row
+  of a ``(64, 1 s)`` batch was measured bit-equal to the row alone, stage by
+  stage (``chip_smoke.py``'s ``batch_invariance``: QuartzNet, and Citrinet
+  with its strided 1x1 residuals), which a ``StreamingPool`` needs for its
+  rows to equal a lone stream's. wav2vec2's layers are not made so.
 
 The JAX engine keeps the unquantized weights of its int8 modes in float32 and
 rounds them to the compute dtype in each call; the port stores them as its
@@ -71,6 +73,16 @@ Any other encoder is served through the module's eval forward (the JAX
 engine's generic fallback): its dtype, no BN folding, no kernels of its own.
 A module without a decoder (an encoder-only checkpoint) serves the encoder's
 output as float32 logits.
+
+With a ``mesh`` (:mod:`thunder_tpu_torch.parallel`; data-parallel serving, the
+JAX engine's): batches shard over its ``data`` axis and the weights stay
+whole on every rank (model ranks repeat their data index's work, as in the
+JAX engine). Every call pads the batch to a multiple of the data size (rows
+of zeros, length 1), each rank runs its rows through the forward above, and
+the logits, ids and lengths are all-gathered over the data group, so every
+rank returns the whole, unpadded result; ``predict`` with the device beam
+searches each rank's rows of the padded batch (``beam_search_device(mesh=...)``)
+and drops the padding rows.
 
 Decoding is greedy by default, on the argmax ids the forward computed;
 ``predict(beam_width=...)`` runs the prefix beam search on the host (the C++ runtime)
@@ -111,6 +123,7 @@ from thunder_tpu_torch.module import (
 from thunder_tpu_torch.ops.conv import conv_output_length, get_same_padding
 from thunder_tpu_torch.ops.ctc import greedy_decode
 from thunder_tpu_torch.ops.masking import lengths_to_mask
+from thunder_tpu_torch.parallel import batch_sharding, spmd
 from thunder_tpu_torch.quantization import quantize_array
 
 __all__ = ["InferenceEngine"]
@@ -177,11 +190,15 @@ class InferenceEngine:
     other encoder through the module's eval forward)."""
 
     def __init__(self, module: CTCModule, compute_dtype: Optional[torch.dtype] = None, device=None,
-                 pad_multiple: int = 16000, int8_weights: bool = False, int8_compute: bool = False,
+                 pad_multiple: int = 16000, mesh=None, int8_weights: bool = False, int8_compute: bool = False,
                  posconv_dense: Optional[bool] = None, batch_invariant: bool = False):
         """``int8_weights``, ``int8_compute`` and ``posconv_dense`` are the JAX engine's serving modes, with its
         defaults (see the module docstring); ``int8_compute`` raises ``ValueError`` for any encoder but wav2vec2,
-        ``batch_invariant`` for any but QuartzNet."""
+        ``batch_invariant`` for any but QuartzNet and Citrinet. ``mesh``: serve data-parallel over its ``data``
+        axis, on the mesh's device."""
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         self.device = require_device(device if device is not None else module.device)
         on_cuda = self.device.type == "cuda"
         self.dtype = compute_dtype or (torch.bfloat16 if on_cuda else torch.float32)
@@ -191,10 +208,11 @@ class InferenceEngine:
         self.int8_weights, self.int8_compute = bool(int8_weights), bool(int8_compute)
         if self.int8_compute and not isinstance(encoder, Wav2Vec2Encoder):
             raise ValueError("int8_compute is a wav2vec2 serving mode")
-        if batch_invariant and not isinstance(encoder, QuartznetEncoder):
-            raise ValueError("batch_invariant is a QuartzNet serving mode")
+        if batch_invariant and not isinstance(encoder, (QuartznetEncoder, CitrinetEncoder)):
+            raise ValueError("batch_invariant is a QuartzNet and Citrinet serving mode")
         self.batch_invariant = bool(batch_invariant)
-        self._sum_dtype = torch.float64 if self.batch_invariant else torch.float32  # statistics and decoder
+        # statistics, squeeze-excite gates and decoder
+        self._sum_dtype = torch.float64 if self.batch_invariant else torch.float32
         self.module = module
         self.pad_multiple = pad_multiple
         self.frontend = module.model.audio_transform.to(self.device)
@@ -262,8 +280,9 @@ class InferenceEngine:
                 _check_residual_lengths(repeats, res, b)
             se = None
             if block.se is not None:
-                # float32 copies of the compute-dtype weights: the products accumulate in float32
-                se = tuple(fc.kernel.detach().to(self.device, self.dtype).float()
+                # float32 (float64 with batch_invariant) copies of the compute-dtype weights: the products
+                # accumulate in that type
+                se = tuple(fc.kernel.detach().to(self.device, self.dtype).to(self._sum_dtype)
                            for fc in (block.se.fc1, block.se.fc2))
             plan.append(_BlockPlan(repeats, res, se))
         return plan
@@ -295,12 +314,14 @@ class InferenceEngine:
 
     def _apply_se(self, se, x, lengths):
         """Squeeze-excite gate of ``x``, which is zero beyond ``lengths``: its masked mean is its sum over
-        the frames (float32) over the valid count, at least 1."""
+        the frames over the valid count, at least 1. The sum and the two products accumulate in float32 (float64
+        with ``batch_invariant``, each rounded to float32 where the float32 path's result is)."""
         fc1, fc2 = se
+        acc = self._sum_dtype
         count = lengths.clamp(1, x.shape[1]).to(torch.float32)[:, None]
-        pooled = (x.sum(dim=1, dtype=torch.float32) / count).to(self.dtype)
-        y = torch.relu(torch.matmul(pooled.float(), fc1)).to(self.dtype)
-        y = torch.matmul(y.float(), fc2)
+        pooled = (x.sum(dim=1, dtype=acc).float() / count).to(self.dtype)
+        y = torch.relu(torch.matmul(pooled.to(acc), fc1).float()).to(self.dtype)
+        y = torch.matmul(y.to(acc), fc2).float()
         return x * torch.sigmoid(y).to(x.dtype)[:, None, :]
 
     def _decode(self, x: torch.Tensor):
@@ -342,7 +363,24 @@ class InferenceEngine:
     @torch.inference_mode()
     def infer(self, audio, lengths):
         """Padded audio ``(B, T)`` and lengths -> ``(logits, preds, out_lengths)`` on the device."""
+        if self.mesh is not None:
+            n = len(lengths)
+            return tuple(x[:n] for x in self._infer_padded(audio, lengths))
         return self._forward(to_device(audio, torch.float32, self.device), to_device(lengths, torch.int32, self.device))
+
+    @torch.inference_mode()
+    def _infer_padded(self, audio, lengths):
+        """:meth:`infer` on a mesh, for the batch padded to a multiple of the data size (rows of zeros of length
+        1): each rank's rows through the forward, then every row's results all-gathered over the data group."""
+        audio = to_device(audio, torch.float32, self.device)
+        lengths = to_device(lengths, torch.int32, self.device)
+        extra = -audio.shape[0] % self.mesh.data_size
+        if extra:
+            audio = torch.nn.functional.pad(audio, (0, 0, 0, extra))
+            lengths = torch.nn.functional.pad(lengths, (0, extra), value=1)
+        shard = batch_sharding(self.mesh)
+        outputs = self._forward(shard(audio), shard(lengths))
+        return tuple(spmd.all_gather_rows(x, self.mesh.data_group) for x in outputs)
 
     # ------------------------------------------------------------------
     # public API
@@ -390,6 +428,10 @@ class InferenceEngine:
         kernels on the forward's logits, which stay on the device; an ``lm`` ranks
         the surviving beam on the host). With ``nbest=k``, returns per sample the
         top-k ``(text, log_prob)`` pairs instead of one string."""
+        if self.mesh is not None and beam_width and beam_backend == "device":
+            # the whole padded batch, each rank searching its rows; the padding rows are dropped
+            return transcribe(self.module, self._infer_padded, self.pad_multiple, audio, lengths, beam_width,
+                              prune_logp, lm, lm_weight, nbest, beam_backend, beam_kwargs, mesh=self.mesh)
         return transcribe(self.module, self.infer, self.pad_multiple, audio, lengths, beam_width, prune_logp, lm,
                           lm_weight, nbest, beam_backend, beam_kwargs)
 

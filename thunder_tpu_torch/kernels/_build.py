@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 #: C signature of every entry point: name -> argtypes (all return int)
 SIGNATURES = {
     "thunder_log_mel": [_P, _P, _P, _P, _P, *[_I] * 9, _F, _P],
@@ -48,12 +49,12 @@ SIGNATURES = {
     "thunder_ctc_lse3_chain": [_P, _I, _F, _F, _P],
     "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],
     "thunder_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "thunder_add_ln_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "thunder_add_ln_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _U, _P],
     "thunder_add_ln_train_plan": [_I, _I, _P],
-    "thunder_add_ln_train_bwd": [*[_P] * 11, _I, _I, _F, _F, _P],
-    "thunder_dropout_keep_mask": [_P, _P, _I, _I, _F, _P],
-    "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _F, _P],
+    "thunder_add_ln_train_bwd": [*[_P] * 11, _I, _I, _F, _F, _U, _P],
+    "thunder_dropout_keep_mask": [_P, _P, _I, _I, _F, _U, _P],
+    "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _P],
+    "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _F, _U, _P],
     "thunder_beam_scan_plan": [_I, _I, _P],
     "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P, _P],
     "thunder_beam_backtrace_plan": [_I, _I, _I, _P],

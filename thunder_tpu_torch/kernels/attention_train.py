@@ -27,7 +27,11 @@ The mask is the stateless hash of ``kernels/dropout_hash.py`` (stream ``b *
 heads + head``, row = query, column = key) under an int32 ``seed`` tensor of
 one element that stays on the device; it is not the TPU kernel's Mosaic-PRNG
 mask, whose bits are the TPU's own, and it is never stored: the backward
-regenerates it. Unlike the TPU kernel, the forward saves each row's ``m`` and
+regenerates it. With ``row_offset`` the rows are a slice of a larger batch that
+starts at that global row: the streams are the global rows' (``(row_offset + b) *
+heads + head``; the wrapper passes ``row_offset * heads`` to the kernels), so
+the slices of a batch, each with its offset, drop what the whole batch drops.
+Unlike the TPU kernel, the forward saves each row's ``m`` and
 ``z`` (``stats``, ``(2, B, heads, T)`` float32), so that the backward streams
 the keys with no second softmax pass and holds no key panel. The TPU kernel's
 head-pair lane packing, ``T % 128`` and 1536-frame cap were Mosaic's: here the
@@ -58,12 +62,14 @@ __all__ = [
 ]
 
 
-def attention_keep_mask(seed: torch.Tensor, batch: int, heads: int, t: int, rate: float, rows=None) -> torch.Tensor:
+def attention_keep_mask(seed: torch.Tensor, batch: int, heads: int, t: int, rate: float, rows=None,
+                        row_offset: int = 0) -> torch.Tensor:
     """The keep mask of the attention probabilities, ``(B, heads, rows, T)`` bool on ``seed``'s device;
-    ``rows`` (default all ``T`` queries) is any 1-D tensor of query indices."""
+    ``rows`` (default all ``T`` queries) is any 1-D tensor of query indices, ``row_offset`` the first batch
+    row's index in the global batch."""
     dev = seed.device
     rows = torch.arange(t, device=dev) if rows is None else rows.to(dev)
-    streams = torch.arange(batch * heads, device=dev).reshape(batch, heads, 1, 1)
+    streams = (torch.arange(batch * heads, device=dev) + row_offset * heads).reshape(batch, heads, 1, 1)
     return dropout_hash.keep_mask(seed, streams, rows[None, None, :, None], torch.arange(t, device=dev), rate)
 
 
@@ -91,7 +97,7 @@ def _scores(qkv: torch.Tensor, lengths: torch.Tensor, heads: int):
     return q, k, v, s
 
 
-def mha_train_forward_reference(qkv, lengths, seed, heads: int, rate: float = 0.0):
+def mha_train_forward_reference(qkv, lengths, seed, heads: int, rate: float = 0.0, row_offset: int = 0):
     """Plain PyTorch version of the forward kernel, with its rounding points: ``(out, stats)``."""
     _, _, v, s = _scores(qkv, lengths, heads)
     m = s.amax(dim=-1, keepdim=True)
@@ -100,13 +106,15 @@ def mha_train_forward_reference(qkv, lengths, seed, heads: int, rate: float = 0.
     p = e.to(qkv.dtype).float()
     denom = z
     if rate > 0.0:
-        p = torch.where(attention_keep_mask(seed, qkv.shape[0], heads, qkv.shape[1], rate), p, 0.0)
+        p = torch.where(attention_keep_mask(seed, qkv.shape[0], heads, qkv.shape[1], rate, row_offset=row_offset), p,
+                        0.0)
         denom = z * (1.0 - torch.tensor(rate, dtype=torch.float32, device=qkv.device))
     out = _merge(torch.matmul(p, v) / denom).to(qkv.dtype)
     return out, torch.stack([m[..., 0], z[..., 0]])
 
 
-def mha_train_backward_reference(qkv, out, stats, dout, lengths, seed, heads: int, rate: float = 0.0) -> torch.Tensor:
+def mha_train_backward_reference(qkv, out, stats, dout, lengths, seed, heads: int, rate: float = 0.0,
+                                 row_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the backward kernels, step by step with their rounding points:
     the packed ``[dq | dk | dv]`` in ``qkv``'s dtype."""
     dt = qkv.dtype
@@ -121,7 +129,7 @@ def mha_train_backward_reference(qkv, out, stats, dout, lengths, seed, heads: in
     pd = e.to(dt).float()
     inv_keep = torch.ones((), dtype=torch.float32, device=qkv.device)
     if rate > 0.0:
-        keep = attention_keep_mask(seed, qkv.shape[0], heads, qkv.shape[1], rate)
+        keep = attention_keep_mask(seed, qkv.shape[0], heads, qkv.shape[1], rate, row_offset=row_offset)
         inv_keep = 1.0 / (1.0 - torch.tensor(rate, dtype=torch.float32, device=qkv.device))
         dp = torch.where(keep, dp * inv_keep, 0.0)
         pd = torch.where(keep, pd, 0.0)
@@ -133,7 +141,7 @@ def mha_train_backward_reference(qkv, out, stats, dout, lengths, seed, heads: in
     return torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1).to(dt)
 
 
-def _check(qkv, lengths, seed, heads, rate):
+def _check(qkv, lengths, seed, heads, rate, row_offset=0):
     if qkv.ndim != 3 or qkv.shape[-1] % 3 or heads < 1 or (qkv.shape[-1] // 3) % heads:
         raise ValueError(f"mha_train takes a packed (B, T, 3 * heads * dh) qkv, got {tuple(qkv.shape)}, heads={heads}")
     if lengths.shape != (qkv.shape[0],):
@@ -142,6 +150,8 @@ def _check(qkv, lengths, seed, heads, rate):
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     if seed.shape != (1,) or seed.dtype != torch.int32:
         raise ValueError(f"seed must be an int32 tensor of shape (1,), got {tuple(seed.shape)} {seed.dtype}")
+    if row_offset < 0:
+        raise ValueError(f"row_offset must be >= 0, got {row_offset}")
 
 
 def _device_args(qkv, heads, bf16_tensors, other_tensors):
@@ -162,35 +172,36 @@ def _device_args(qkv, heads, bf16_tensors, other_tensors):
             raise ValueError(f"{name} must be a contiguous, aligned tensor on {qkv.device}")
 
 
-def mha_train_forward(qkv, lengths, seed, heads: int, rate: float = 0.0):
+def mha_train_forward(qkv, lengths, seed, heads: int, rate: float = 0.0, row_offset: int = 0):
     """``(out (B, T, H), stats (2, B, heads, T) float32)``: the forward kernel on the card, its
     plain version on the CPU."""
-    _check(qkv, lengths, seed, heads, rate)
+    _check(qkv, lengths, seed, heads, rate, row_offset)
     if qkv.device.type == "cpu":
-        return mha_train_forward_reference(qkv, lengths, seed, heads, rate)
+        return mha_train_forward_reference(qkv, lengths, seed, heads, rate, row_offset)
     _device_args(qkv, heads, {"qkv": qkv}, {"lengths": lengths, "seed": seed})
     batch, t, h3 = qkv.shape
     out = torch.empty((batch, t, h3 // 3), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((2, batch, heads, t), dtype=torch.float32, device=qkv.device)
     status = _build.load().thunder_mha_train_fwd(
         qkv.data_ptr(), lengths.data_ptr(), seed.data_ptr(), out.data_ptr(), stats.data_ptr(), batch, t, heads,
-        float(rate), _build.stream(qkv),
+        float(rate), (row_offset * heads) & 0xFFFFFFFF, _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_train_fwd")
     mha_train_forward.launches += 1
     return out, stats
 
 
-def mha_train_backward(qkv, out, stats, dout, lengths, seed, heads: int, rate: float = 0.0) -> torch.Tensor:
+def mha_train_backward(qkv, out, stats, dout, lengths, seed, heads: int, rate: float = 0.0,
+                       row_offset: int = 0) -> torch.Tensor:
     """The packed ``[dq | dk | dv]`` ``(B, T, 3H)``: the dq kernel and the dk/dv kernel on the card
     (two launches), the plain version on the CPU."""
-    _check(qkv, lengths, seed, heads, rate)
+    _check(qkv, lengths, seed, heads, rate, row_offset)
     batch, t, h3 = qkv.shape
     if out.shape != (batch, t, h3 // 3) or dout.shape != out.shape or stats.shape != (2, batch, heads, t):
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, stats {tuple(stats.shape)} do not fit qkv "
                          f"{tuple(qkv.shape)}")
     if qkv.device.type == "cpu":
-        return mha_train_backward_reference(qkv, out, stats, dout, lengths, seed, heads, rate)
+        return mha_train_backward_reference(qkv, out, stats, dout, lengths, seed, heads, rate, row_offset)
     if stats.dtype != torch.float32:
         raise ValueError(f"stats must be float32, got {stats.dtype}")
     _device_args(qkv, heads, {"qkv": qkv, "out": out, "dout": dout}, {"lengths": lengths, "seed": seed, "stats": stats})
@@ -198,7 +209,7 @@ def mha_train_backward(qkv, out, stats, dout, lengths, seed, heads: int, rate: f
     delta = torch.empty((batch, heads, t), dtype=torch.float32, device=qkv.device)
     status = _build.load().thunder_mha_train_bwd(
         qkv.data_ptr(), lengths.data_ptr(), seed.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), batch, t, heads, float(rate),
+        delta.data_ptr(), dqkv.data_ptr(), batch, t, heads, float(rate), (row_offset * heads) & 0xFFFFFFFF,
         _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_train_bwd")
@@ -214,21 +225,23 @@ class MHATrain(torch.autograd.Function):
     """``qkv (B, T, 3H) -> out (B, T, H)``; the backward is the kernel pair."""
 
     @staticmethod
-    def forward(ctx, qkv, lengths, seed, heads, rate):
+    def forward(ctx, qkv, lengths, seed, heads, rate, row_offset=0):
         qkv = qkv.contiguous()
-        out, stats = mha_train_forward(qkv, lengths, seed, heads, rate)
+        out, stats = mha_train_forward(qkv, lengths, seed, heads, rate, row_offset)
         ctx.save_for_backward(qkv, out, stats, lengths, seed)
-        ctx.heads, ctx.rate = heads, rate
+        ctx.heads, ctx.rate, ctx.row_offset = heads, rate, row_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         qkv, out, stats, lengths, seed = ctx.saved_tensors
-        return mha_train_backward(qkv, out, stats, dout.contiguous(), lengths, seed, ctx.heads, ctx.rate), None, None, None, None
+        dqkv = mha_train_backward(qkv, out, stats, dout.contiguous(), lengths, seed, ctx.heads, ctx.rate,
+                                  ctx.row_offset)
+        return dqkv, None, None, None, None, None
 
 
 def mha_train(qkv: torch.Tensor, lengths: torch.Tensor, seed: torch.Tensor, heads: int,
-              dropout_rate: float = 0.0) -> torch.Tensor:
+              dropout_rate: float = 0.0, row_offset: int = 0) -> torch.Tensor:
     """Differentiable multi-head attention over a packed ``[q | k | v]`` tensor.
 
     Args:
@@ -238,8 +251,10 @@ def mha_train(qkv: torch.Tensor, lengths: torch.Tensor, seed: torch.Tensor, head
         seed: int32 ``(1,)`` on ``qkv``'s device, fresh for each layer and step;
             not read at ``dropout_rate == 0``.
         heads: number of heads.
+        row_offset: the first row's index in the global batch when ``qkv`` holds a slice of it (a
+            data-parallel rank's rows); the dropout mask is then the global batch's for those rows.
 
     Returns:
         ``(B, T, H)`` in ``qkv.dtype``; its cotangent is the packed ``[dq | dk | dv]``.
     """
-    return MHATrain.apply(qkv, lengths, seed, heads, float(dropout_rate))
+    return MHATrain.apply(qkv, lengths, seed, heads, float(dropout_rate), int(row_offset))

@@ -17,7 +17,9 @@ with ``mix32`` a 32-bit finalizer (two multiply-xorshift rounds) and every
 product taken modulo 2**32. ``stream`` is ``batch row * heads + head`` for the
 attention probabilities (``row`` the query, ``col`` the key) and 0 for the add
 + LayerNorm branch (``row`` and ``col`` of the flattened ``(rows, D)`` input).
-Stream, row and column sit in separate words, so no flat index can wrap.
+Batch rows and flattened rows are the global batch's: a slice of a batch (a
+data-parallel rank's rows) passes its first row's index as the wrappers'
+``row_offset``. Stream, row and column sit in separate words, so no flat index can wrap.
 
 The kernels test ``keep`` as an integer compare: ``u >= rate``, both sides
 exact in float32, is ``bits >> 9 >= threshold(rate) = ceil(rate * 2**23)``

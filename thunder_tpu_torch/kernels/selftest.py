@@ -134,7 +134,7 @@ from thunder_tpu_torch.kernels.separable_conv import (
 )
 
 __all__ = ["run_selftests", "KERNEL_CHECKS", "SEPARABLE_EDGES", "SEPARABLE_CITRINET", "LOG_MEL_EDGES", "ADD_LN_WIDTHS",
-           "ulp_bf16_error", "exact_float32"]
+           "ulp_bf16_error", "exact_float32", "row_offset_check"]
 
 
 def exact_float32() -> None:
@@ -449,6 +449,57 @@ def add_ln_train_case(seed, rows_shape, d, device):
     bias = torch.as_tensor(rng.standard_normal(d).astype(np.float32), device=device)
     ct = bf(rng.standard_normal((*rows_shape, d)))
     return x, y, scale, bias, ct
+
+
+def row_offset_check(parts: int, b: int, t: int, heads: int, rate: float, device, seed: int = 20260821) -> Dict:
+    """The training kernels on ``parts`` equal slices of a batch, each with its rows' offset (a data-parallel
+    rank's rows: the attention's first batch row, the add + LayerNorm's first flattened row), against the
+    whole batch's launches and the plain versions with the same offsets.
+
+    Returns the flags ``*_bits`` (each slice equal to the whole launch's rows bit for bit: the keep mask,
+    the add + dropout + LayerNorm output, dx and dy, the attention output, its statistics and the packed
+    ``[dq | dk | dv]``), ``dparams_rel`` (the slices' summed dscale and dbias against the whole launch's,
+    relative: sums in another order), and ``vs_plain`` (the slices' largest error against the plain versions
+    with the offsets, in bf16 ULP; the keep masks bit for bit).
+    """
+    rows = b // parts
+    lengths = [t - (i * 37) % max(t // 2, 1) for i in range(b)]
+    qkv, lens, ct = attention_train_case(seed, b, t, heads, lengths, device)
+    x, y, scale, bias, ct_ln = add_ln_train_case(seed + 1, (b, t), heads * 64, device)
+    sd = torch.tensor([seed], dtype=torch.int32, device=device)
+    out_w, stats_w = mha_train_forward(qkv, lens, sd, heads, rate)
+    dqkv_w = mha_train_backward(qkv, out_w, stats_w, ct, lens, sd, heads, rate)
+    ln_w = add_ln_train_forward(x, y, scale, bias, sd, rate)
+    dx_w, dy_w, dg_w, db_w = add_ln_train_backward(x, y, scale, sd, ct_ln, rate)
+    mask_w = dropout_keep_mask(x.shape, sd, rate)
+    flags = {k: True for k in ("mask_bits", "add_ln_bits", "dx_dy_bits", "attn_bits", "stats_bits", "dqkv_bits")}
+    vs_plain, mask_plain, dg, db = 0.0, True, 0.0, 0.0
+    for p in range(parts):
+        sl = slice(p * rows, (p + 1) * rows)
+        flat = p * rows * t
+        out, stats = mha_train_forward(qkv[sl], lens[sl], sd, heads, rate, row_offset=p * rows)
+        dqkv = mha_train_backward(qkv[sl], out, stats, ct[sl], lens[sl], sd, heads, rate, row_offset=p * rows)
+        ln = add_ln_train_forward(x[sl], y[sl], scale, bias, sd, rate, row_offset=flat)
+        dx, dy, dg_p, db_p = add_ln_train_backward(x[sl], y[sl], scale, sd, ct_ln[sl], rate, row_offset=flat)
+        mask = dropout_keep_mask(x[sl].shape, sd, rate, row_offset=flat)
+        flags["mask_bits"] &= torch.equal(mask, mask_w[sl])
+        flags["add_ln_bits"] &= torch.equal(ln, ln_w[sl])
+        flags["dx_dy_bits"] &= torch.equal(dx, dx_w[sl]) and torch.equal(dy, dy_w[sl])
+        flags["attn_bits"] &= torch.equal(out, out_w[sl])
+        flags["stats_bits"] &= torch.equal(stats, stats_w[:, sl])
+        flags["dqkv_bits"] &= torch.equal(dqkv, dqkv_w[sl])
+        dg, db = dg + dg_p, db + db_p
+        mask_plain &= torch.equal(mask, dropout_keep_mask_reference(x[sl].shape, sd, rate, flat))
+        plain = [(out, mha_train_forward_reference(qkv[sl], lens[sl], sd, heads, rate, p * rows)[0]),
+                 (dqkv, mha_train_backward_reference(qkv[sl], out, stats, ct[sl], lens[sl], sd, heads, rate,
+                                                     p * rows)),
+                 (ln, add_ln_train_forward_reference(x[sl], y[sl], scale, bias, sd, rate, row_offset=flat)),
+                 *zip((dx, dy), add_ln_train_backward_reference(x[sl], y[sl], scale, sd, ct_ln[sl], rate,
+                                                                 row_offset=flat)[:2])]
+        vs_plain = max(vs_plain, *(ulp_bf16_error(g, w) for g, w in plain))
+    rel = lambda g, w: (g - w).abs().max().item() / max(w.abs().max().item(), 1e-9)  # noqa: E731
+    return {**flags, "mask_vs_plain_bits": mask_plain, "vs_plain": vs_plain,
+            "dparams_rel": max(rel(dg, dg_w), rel(db, db_w))}
 
 
 def add_ln_f32_reference(x, y, scale, bias, mask, rate, eps=1e-5):

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from thunder_tpu_torch.models.layers import Dense, dropout
+from thunder_tpu_torch.parallel import spmd
 
 __all__ = ["Conv1dDecoder", "LinearDecoder"]
 
@@ -35,8 +36,11 @@ class Conv1dDecoder(nn.Module):
         self.kernel = nn.Parameter(torch.empty(1, in_features, self.num_classes))
         self.bias = nn.Parameter(torch.zeros(self.num_classes))
 
+    def _product(self, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x.to(self.dtype), kernel[0].to(self.dtype)) + bias.to(self.dtype)
+
     def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype), self.kernel[0].to(self.dtype)) + self.bias.to(self.dtype)
+        return spmd.column_parallel(self._product, x, self.kernel, self.bias)
 
 
 class LinearDecoder(nn.Module):

@@ -47,6 +47,7 @@ from torch import nn
 
 from thunder_tpu_torch.ops.conv import conv1d, conv_output_length, get_same_padding
 from thunder_tpu_torch.ops.masking import apply_mask, lengths_to_mask
+from thunder_tpu_torch.parallel import spmd
 
 __all__ = [
     "BN_EPS", "InitMode", "weight_init", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "SqueezeExcite",
@@ -65,12 +66,14 @@ def apply_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Ten
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
     """Keep each value with probability ``1 - rate`` (mask drawn from ``generator``
-    on ``x``'s device; ``F.dropout`` takes no generator)."""
+    on ``x``'s device; ``F.dropout`` takes no generator). In a data-parallel step the mask is
+    this rank's rows of the global batch's (:func:`~thunder_tpu_torch.parallel.spmd.draw_rows`)."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode draws from an explicit torch.Generator; pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    uniform = spmd.draw_rows(lambda shape: torch.rand(shape, generator=generator, device=x.device), x.shape)
+    keep = uniform < (1.0 - rate)
     return apply_dropout(x, keep, rate)
 
 
@@ -96,9 +99,11 @@ def checkpointed(block: nn.Module, *args, generator: torch.Generator | None = No
       running statistics a second time (flax's ``nn.remat`` keeps the forward's ``batch_stats`` update only).
 
     A generator's ``get_state``/``set_state`` are host operations (a CUDA generator's state is its seed and
-    offset), so this adds no device synchronisation.
+    offset), so this adds no device synchronisation. The recompute also runs in the forward's data-parallel
+    step (:func:`~thunder_tpu_torch.parallel.spmd.rows`), which the backward may run outside of.
     """
     entry = generator.get_state() if generator is not None else None
+    step_rows = spmd.current_rows()
     runs = 0
 
     def run(*inputs):
@@ -111,7 +116,8 @@ def checkpointed(block: nn.Module, *args, generator: torch.Generator | None = No
             generator.set_state(entry)
         token = _RECOMPUTING.set(True)
         try:
-            return block(*inputs, generator=generator, **kwargs)
+            with spmd.rows(step_rows):
+                return block(*inputs, generator=generator, **kwargs)
         finally:
             _RECOMPUTING.reset(token)
             if generator is not None:
@@ -222,7 +228,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.kernel, self.bias, self.dtype)
+        return spmd.column_parallel(dense, x, self.kernel, self.bias, self.dtype)
 
 
 def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
@@ -242,6 +248,14 @@ class TorchBatchNorm(nn.Module):
     frames). In bfloat16 both modes take the one-pass fast path of the JAX
     module: E[x] and E[x^2] in float32 from bf16 reads, the variance clipped
     at 0, and normalisation and affine folded into ``x * a + b``.
+
+    In a data-parallel step (:func:`~thunder_tpu_torch.parallel.spmd.rows`)
+    the batch statistics are the global batch's: the sums go through one
+    autograd-aware sum over the data group a pass (float32: ``(n, sum x)``,
+    then ``sum (x - mean)^2``; bfloat16: ``(n, sum x, sum x^2)`` at once), so
+    the running statistics move alike on every rank. Channel-sharded
+    parameters and statistics are gathered at their use, and each rank moves
+    its own slice of the running statistics.
     """
 
     def __init__(self, features: int, epsilon: float = BN_EPS, dtype=torch.float32):
@@ -254,21 +268,33 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def _batch_statistics(self, x: torch.Tensor, mask: torch.Tensor | None, fast: bool):
-        """``(n, mean, var)`` over every axis but the last, restricted to ``mask`` (all of ``x`` without one)."""
+        """``(n, mean, var)`` over every axis but the last, restricted to ``mask`` (all of ``x`` without one), and
+        over the global batch in a data-parallel step."""
         dims = tuple(range(x.ndim - 1))
         if mask is None:
             mask = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
-        n = mask.sum(dtype=torch.float32).clamp_min(1.0)
+        count = mask.sum(dtype=torch.float32)
         if fast:
             x = torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-            mean = x.sum(dim=dims, dtype=torch.float32) / n
-            return n, mean, (x.square().sum(dim=dims, dtype=torch.float32) / n - mean.square()).clamp_min(0.0)
+            sums = (x.sum(dim=dims, dtype=torch.float32), x.square().sum(dim=dims, dtype=torch.float32))
+            if spmd.current_rows() is not None:
+                count, *sums = spmd.data_sum(torch.cat([count[None], *sums])).split([1, x.shape[-1], x.shape[-1]])
+                count = count[0]
+            n = count.clamp_min(1.0)
+            mean = sums[0] / n
+            return n, mean, (sums[1] / n - mean.square()).clamp_min(0.0)
         xf, m = x.float(), mask.float()[..., None]
-        mean = (xf * m).sum(dim=dims) / n
-        return n, mean, ((xf - mean).square() * m).sum(dim=dims) / n
+        total = (xf * m).sum(dim=dims)
+        if spmd.current_rows() is not None:
+            count, total = spmd.data_sum(torch.cat([count[None], total])).split([1, x.shape[-1]])
+            count = count[0]
+        n = count.clamp_min(1.0)
+        mean = total / n
+        return n, mean, spmd.data_sum(((xf - mean).square() * m).sum(dim=dims)) / n
 
     def forward(self, x: torch.Tensor, train: bool = False, mask: torch.Tensor | None = None) -> torch.Tensor:
         fast = self.dtype == torch.bfloat16
+        scale, bias = spmd.gathered(self.scale), spmd.gathered(self.bias)
         if train:
             n, mean, var = self._batch_statistics(x, mask, fast)
             # in place, PyTorch's counterpart of flax's mutable=["batch_stats"]; once a step, not again in a
@@ -276,16 +302,21 @@ class TorchBatchNorm(nn.Module):
             if not recomputing():
                 with torch.no_grad():
                     unbiased = var * (n / (n - 1).clamp_min(1.0))
-                    self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean)
+                    shard = spmd.shard_of(self.mean)
+                    if shard is not None:
+                        mean_l, unbiased = spmd.local_slice(mean, shard), spmd.local_slice(unbiased, shard)
+                    else:
+                        mean_l = mean
+                    self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean_l)
                     self.var.copy_((1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased)
         else:
-            mean, var = self.mean, self.var
+            mean, var = spmd.gathered(self.mean), spmd.gathered(self.var)
         if fast:
-            a = self.scale * torch.rsqrt(var + self.epsilon)
-            b = self.bias - mean * a
+            a = scale * torch.rsqrt(var + self.epsilon)
+            b = bias - mean * a
             return x * a.to(self.dtype) + b.to(self.dtype)
         y = (x.float() - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).to(self.dtype)
+        return (y * scale + bias).to(self.dtype)
 
 
 class MaskedConv1d(nn.Module):
@@ -314,11 +345,17 @@ class MaskedConv1d(nn.Module):
         self.kernel = nn.Parameter(torch.empty(kernel_size, in_features // groups, features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
+    def _conv(self, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        bias = None if bias is None else bias.to(self.dtype)
+        return conv1d(x, kernel.to(self.dtype), bias, stride=self.stride, padding=self.padding,
+                      dilation=self.dilation, groups=self.groups)
+
     def forward(self, x: torch.Tensor, lengths: torch.Tensor):
         x = apply_mask(x, lengths).to(self.dtype)
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        y = conv1d(x, self.kernel.to(self.dtype), bias, stride=self.stride, padding=self.padding,
-                   dilation=self.dilation, groups=self.groups)
+        if self.groups == 1:  # a dense conv: column-parallel over sharded output channels
+            y = spmd.column_parallel(self._conv, x, self.kernel, self.bias)
+        else:
+            y = self._conv(x, spmd.gathered(self.kernel), spmd.gathered(self.bias))
         return y, conv_output_length(lengths, self.kernel_size, self.stride, self.padding, self.dilation)
 
 

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import copy as _copy
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -60,6 +61,7 @@ from thunder_tpu_torch.kernels.dropout_hash import new_seed
 from thunder_tpu_torch.models.layers import Dense, dense, dropout, run_block
 from thunder_tpu_torch.ops.conv import conv1d
 from thunder_tpu_torch.ops.masking import lengths_to_mask
+from thunder_tpu_torch.parallel import spmd
 from thunder_tpu_torch.quantization import (
     SCALE,
     VALUES,
@@ -251,7 +253,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _layer_norm_f32(x.float(), self.scale, self.bias, self.epsilon).to(self.dtype)
+        scale, bias = spmd.gathered(self.scale), spmd.gathered(self.bias)
+        return _layer_norm_f32(x.float(), scale, bias, self.epsilon).to(self.dtype)
 
 
 class _AddLayerNorm(nn.Module):
@@ -274,14 +277,16 @@ class _AddLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, train: bool = False, dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        scale, bias = spmd.gathered(self.scale), spmd.gathered(self.bias)
         if self.dtype == torch.bfloat16 and train:
             seed = new_seed(generator, x.device, dropout_rate)
-            return add_ln_dropout_train(x, y, self.scale, self.bias, seed, dropout_rate, self.epsilon)
+            first = spmd.row_offset() * math.prod(x.shape[1:-1])  # the first flattened row in the global batch's
+            return add_ln_dropout_train(x, y, scale, bias, seed, dropout_rate, self.epsilon, row_offset=first)
         if train:
             y = dropout(y, dropout_rate, generator)
         if self.dtype == torch.bfloat16:
-            return add_layer_norm(x.contiguous(), y.contiguous(), self.scale.float(), self.bias.float(), self.epsilon)
-        return _layer_norm_f32((x + y).float(), self.scale, self.bias, self.epsilon).to(self.dtype)
+            return add_layer_norm(x.contiguous(), y.contiguous(), scale.float(), bias.float(), self.epsilon)
+        return _layer_norm_f32((x + y).float(), scale, bias, self.epsilon).to(self.dtype)
 
 
 class _MaskedInstanceNorm(nn.Module):
@@ -307,8 +312,8 @@ class _MaskedInstanceNorm(nn.Module):
         mean = xm.sum(dim=1, keepdim=True) / n
         var = ((xm * xf).sum(dim=1, keepdim=True) / n - mean * mean).clamp_min(0.0)
         del xm
-        a = self.scale.float() * torch.rsqrt(var + self.epsilon)
-        b = self.bias.float() - mean * a
+        a = spmd.gathered(self.scale).float() * torch.rsqrt(var + self.epsilon)
+        b = spmd.gathered(self.bias).float() - mean * a
         return torch.addcmul(b, xf, a).to(self.dtype)
 
 
@@ -327,10 +332,15 @@ class _Conv(nn.Module):
         self.kernel = nn.Parameter(torch.empty(kernel_size, in_features // groups, features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return conv1d(x.to(self.dtype), self.kernel.to(self.dtype), bias, stride=self.stride, padding=self.padding,
+    def _conv(self, x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        bias = None if bias is None else bias.to(self.dtype)
+        return conv1d(x.to(self.dtype), kernel.to(self.dtype), bias, stride=self.stride, padding=self.padding,
                       groups=self.groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.groups == 1:  # the extractor's convs: column-parallel over sharded output channels
+            return spmd.column_parallel(self._conv, x, self.kernel, self.bias)
+        return self._conv(x, spmd.gathered(self.kernel), spmd.gathered(self.bias))  # the grouped positional conv
 
 
 class _FeatureExtractor(nn.Module):
@@ -404,7 +414,9 @@ class _Attention(nn.Module):
             if not train:
                 return self.out_proj(mha_from_qkv(qkv, lengths.to(torch.int32), heads))
             rate = cfg.attention_dropout
-            return self.out_proj(mha_train(qkv, lengths.to(torch.int32), new_seed(generator, x.device, rate), heads, rate))
+            seed = new_seed(generator, x.device, rate)
+            out = mha_train(qkv, lengths.to(torch.int32), seed, heads, rate, row_offset=spmd.row_offset())
+            return self.out_proj(out)
         q, k, v = qkv.split(h, dim=-1)
         q = q * dh**-0.5  # HF scales the query projection
         per_head = lambda a: a.reshape(b, t, heads, dh)  # noqa: E731

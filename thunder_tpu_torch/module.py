@@ -122,7 +122,7 @@ def check_device_beam_kwargs(backend, lm, beam_kwargs, allowed=("max_tokens_per_
 
 def run_beam_decode(logits, out_lengths, *, blank: int, text_transform, beam_width: int, nbest: Optional[int],
                     prune_logp: float, lm, lm_weight: float, backend: Optional[str] = None,
-                    beam_kwargs: Optional[dict] = None):
+                    beam_kwargs: Optional[dict] = None, mesh=None, data_axis: str = "data"):
     """Shared beam-decode tail for :meth:`CTCModule.predict` and the serving
     engine's ``predict``: logits -> transcriptions (or, with ``nbest``,
     ranked ``(text, log_prob)`` pairs per sample).
@@ -134,7 +134,8 @@ def run_beam_decode(logits, out_lengths, *, blank: int, text_transform, beam_wid
       shallow fusion;
     - ``"device"``: :func:`thunder_tpu_torch.ops.ctc_beam_device.beam_search_device`
       on the logits where they lie (the beam kernels on the card); with
-      ``lm``, the full surviving beam is LM-ranked on the host.
+      ``lm``, the full surviving beam is LM-ranked on the host. With ``mesh``
+      each rank searches its rows along ``data_axis`` and gets every row's result.
     """
     kw = dict(beam_kwargs or {})
     check_device_beam_kwargs(backend, lm, kw)
@@ -142,7 +143,7 @@ def run_beam_decode(logits, out_lengths, *, blank: int, text_transform, beam_wid
         from thunder_tpu_torch.ops.ctc_beam_device import beam_search_device
 
         hyps = beam_search_device(logits, out_lengths, blank=blank, beam_width=beam_width, prune_logp=prune_logp,
-                                  nbest=nbest, lm=lm, lm_weight=lm_weight, **kw)
+                                  nbest=nbest, lm=lm, lm_weight=lm_weight, mesh=mesh, data_axis=data_axis, **kw)
     else:
         from thunder_tpu_torch.ops.ctc_beam import beam_search_decode, beam_search_nbest
 
@@ -428,10 +429,12 @@ class CTCModule:
 
 
 def transcribe(module: CTCModule, infer, pad_multiple: int, audio, lengths, beam_width, prune_logp, lm, lm_weight,
-               nbest, beam_backend, beam_kwargs) -> List[str]:
+               nbest, beam_backend, beam_kwargs, mesh=None) -> List[str]:
     """``predict`` of a module or an engine: the audio padded to a multiple of ``pad_multiple`` samples,
     ``infer(padded, lengths) -> (logits, argmax ids, out_lengths)`` on the device, then the greedy decode of
-    those ids or :func:`run_beam_decode` of the logits."""
+    those ids or :func:`run_beam_decode` of the logits. With ``mesh`` (an engine's device beam on a mesh)
+    ``infer`` gives the batch padded to divide the data axis, the search runs sharded over it, and the padding
+    rows are dropped from the result."""
     if module.text_transform is None:
         raise ValueError("predict requires a text_transform")
     if nbest is not None and not beam_width:
@@ -446,7 +449,8 @@ def transcribe(module: CTCModule, infer, pad_multiple: int, audio, lengths, beam
             logits, out_lengths, blank=module.blank_idx, text_transform=module.text_transform, beam_width=beam_width,
             nbest=nbest, prune_logp=-12.0 if prune_logp is _BEAM_UNSET else prune_logp, lm=lm,
             lm_weight=0.5 if lm_weight is _BEAM_UNSET else lm_weight, backend=beam_backend, beam_kwargs=beam_kwargs,
-        )
+            mesh=mesh,
+        )[: audio.shape[0]]
     return decode_greedy(module.text_transform, preds, out_lengths)
 
 

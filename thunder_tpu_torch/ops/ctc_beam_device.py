@@ -17,8 +17,11 @@ asks for the CPU).
 
 An ``lm`` never enters the device search: every surviving beam is LM-ranked
 on the host (:func:`lm_prefix_score`, ``DeviceBeamState.best_ranked``), the
-on-the-fly rescoring of the JAX package's device backend. Its ``use_pallas``,
-``mesh`` and ``data_axis`` arguments are not ported.
+on-the-fly rescoring of the JAX package's device backend. Its ``use_pallas``
+argument is not ported. With a ``mesh`` (:mod:`thunder_tpu_torch.parallel`)
+each rank searches its own rows of the batch along ``data_axis`` with the same
+kernels, and the token matrices and scores are all-gathered over that axis, the
+JAX package's ``shard_map`` of the search.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch.kernels.beam import MAX_CANDIDATES, beam_backtrace, beam_scan
+from thunder_tpu_torch.parallel.spmd import all_gather_rows
 
 __all__ = ["beam_search_device", "beam_search_device_stream", "DeviceBeamState", "lm_prefix_score"]
 
@@ -65,6 +69,8 @@ def beam_search_device(
     lm=None,
     lm_weight: float = 0.0,
     device="cuda",
+    mesh=None,
+    data_axis: str = "data",
 ):
     """Batched prefix beam search over ``(B, T, V)`` logits on their device.
 
@@ -76,9 +82,24 @@ def beam_search_device(
     runs in float32 on log-softmax of the logits; ``K = min(max_tokens_per_step,
     V)`` and ``beam_width`` may be any size (past 2,901 beams the scan keeps its
     arrays in device memory, :func:`~thunder_tpu_torch.kernels.beam.scan_plan`).
+
+    With ``mesh`` every rank holds the whole batch, searches its contiguous block of rows along ``data_axis``,
+    and gets every row's result; ``B`` must divide the axis size.
     """
+    if mesh is not None and not isinstance(logits, torch.Tensor):
+        device = mesh.device
     logits, lengths = _inputs(logits, lengths, device)
     batch, frames, vocab = logits.shape
+    group = None
+    if mesh is not None:
+        group, index, d = mesh.axis(data_axis)
+        if batch % d:
+            raise ValueError(
+                f"batch {batch} must divide the mesh's {data_axis!r} axis ({d}) "
+                "for sharded beam decoding (pad the batch like the engine does)"
+            )
+        per = batch // d
+        logits, lengths = logits[index * per: (index + 1) * per], lengths[index * per: (index + 1) * per]
     if blank is None:
         blank = vocab - 1
     k = _k_tokens(max_tokens_per_step, vocab)
@@ -95,8 +116,11 @@ def beam_search_device(
                                             k_tokens=k)
         slots0 = torch.argsort(-total, dim=1, stable=True)[:, :n_out]  # ties -> lower slot
         toks, _ = beam_backtrace(parents, exts, slots0.to(torch.int32))
+        scores = total.gather(1, slots0)
+        if group is not None:  # every rank's rows, in rank order
+            toks, scores = all_gather_rows(toks, group), all_gather_rows(scores, group)
         toks = toks.cpu().numpy()  # (B, n_out, T), -1 = no emission
-        scores = total.gather(1, slots0).cpu().numpy()
+        scores = scores.cpu().numpy()
     if lm is not None:
         ranked = []
         for b, row in enumerate(toks):

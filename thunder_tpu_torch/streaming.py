@@ -20,10 +20,14 @@ across streams, run through the model in groups of exactly ``batch_size``
 rows. The predictor is a ``CTCModule`` or an ``InferenceEngine``; both give
 ``infer(padded, lengths) -> (logits, argmax ids, out_lengths)`` on their
 device. A pool's stream equals the same stream served alone only where a
-row's forward does not depend on the rows beside it: on the card that was
-measured for ``InferenceEngine(QuartzNet module, batch_invariant=True)``
-(``chip_smoke.py``'s ``batch_invariance`` and pool phases); elsewhere float32
-sums may round otherwise in a batch and part a stream at a near-tie.
+row's forward does not depend on the rows beside it: on the card that is
+checked for ``InferenceEngine(module, batch_invariant=True)`` on QuartzNet and
+Citrinet modules (``chip_smoke.py``'s ``streaming_batch_invariance``,
+``citrinet_streaming_batch_invariance`` and pool phases). Elsewhere float32
+sums may round otherwise in a batch and part a stream at a near-tie: on the
+card every row of a 64 x 1 s batch parts from the row alone on the default
+engines, the wav2vec2 engine and a ``CTCModule`` predictor
+(``chip_smoke.py``'s ``parting_rows``).
 """
 
 from __future__ import annotations
@@ -263,7 +267,7 @@ class StreamingPool:
     padded ``(batch_size, chunk)`` call instead of one call per chunk. Greedy
     pools move only the argmax ids to the host; with the device beam each
     stream searches its row of the logits on the device. For streams equal to
-    lone ones on the card, serve a QuartzNet engine built with
+    lone ones on the card, serve a QuartzNet or Citrinet engine built with
     ``batch_invariant=True`` (see the module docstring).
 
     Args:

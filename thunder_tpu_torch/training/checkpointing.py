@@ -15,7 +15,11 @@ Port of ``thunder_tpu/training/checkpointing.py``:
   state). The JAX trainer derives each step's randomness from the step, so a
   resumed run replays the uninterrupted one; the port draws every dither,
   mask, dropout and kernel seed from one generator, so it saves that
-  generator's state;
+  generator's state. A model whose tensors are channel-sharded over a mesh's
+  model axis (``parallel.shard_variables``) saves the whole tensors (its
+  weights, the optimizer state of its sharded parameters and their pending
+  gradients, gathered over the model group) and loads a whole state into its
+  slices, so a state moves between meshes and the meshless trainer;
 - ``migrate_fused_qkv`` is pure numpy on nested dicts, lists, tuples and
   namedtuples, so a parameter or optimizer-moment tree saved by either
   package goes through it; a restore whose parameter names do not fit goes
@@ -29,6 +33,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from thunder_tpu_torch.parallel.mesh import full_state, gather_whole
+from thunder_tpu_torch.parallel.spmd import local_slice, shard_of
 
 __all__ = [
     "save_checkpoint",
@@ -112,17 +119,36 @@ def _parameter_names(model, optimizer) -> list:
     return [name_of[id(p)] for p in _optimizer_params(optimizer)]
 
 
+def _whole(t, param):
+    """A tensor shaped like a sharded ``param`` (its optimizer state, its gradient) gathered to the whole one."""
+    shard = shard_of(param)
+    if shard is None or not isinstance(t, torch.Tensor) or t.shape != param.shape:
+        return t
+    return gather_whole(t, shard)
+
+
+def _local(t, param):
+    """This rank's slice of a whole tensor for a sharded ``param`` (any other tensor is kept)."""
+    shard = shard_of(param)
+    if shard is None or not isinstance(t, torch.Tensor) or t.ndim == 0 or t.shape[-1] != param.shape[-1] * shard.size:
+        return t
+    return local_slice(t.to(param.device), shard).clone()
+
+
 def train_state(train_step, generator: torch.Generator) -> dict:
-    """The train state of a ``TrainStep`` and the training generator, on the host (see the module docstring)."""
+    """The train state of a ``TrainStep`` and the training generator, on the host (see the module docstring).
+    With sharded tensors every rank of the model group must call it."""
     model, optimizer = train_step.model, train_step.optimizer
     names = _parameter_names(model, optimizer)
+    params = dict(model.named_parameters())
     opt = optimizer.state_dict()
     plateau = getattr(optimizer, "plateau_state", None)
     pending = train_step.calls % train_step.accumulate != 0
     return _cpu({
-        "model": model.state_dict(),
+        "model": full_state(model),
         "optimizer": {
-            "state": {names[i]: dict(s) for i, s in opt["state"].items()},
+            "state": {names[i]: {k: _whole(v, params[names[i]]) for k, v in s.items()}
+                      for i, s in opt["state"].items()},
             "param_groups": [{**g, "params": [names[i] for i in g["params"]]} for g in opt["param_groups"]],
         },
         "step": int(train_step.steps),
@@ -130,17 +156,19 @@ def train_state(train_step, generator: torch.Generator) -> dict:
         "plateau": None if plateau is None else {k: v.item() if isinstance(v, np.generic) else v
                                                  for k, v in plateau._asdict().items()},
         "generator": generator.get_state(),
-        "grads": {n: p.grad for n, p in model.named_parameters() if pending and p.grad is not None},
+        "grads": {n: _whole(p.grad, p) for n, p in model.named_parameters() if pending and p.grad is not None},
     })
 
 
 def load_train_state(payload: dict, train_step, generator: torch.Generator) -> None:
     """Put a train state (from :func:`train_state` or :func:`restore_checkpoint`) into a ``TrainStep`` built
-    as the saved one was and into the training generator."""
+    as the saved one was and into the training generator; a sharded model takes its slices of the whole
+    tensors."""
     from thunder_tpu_torch.training.optim import PlateauState
 
     model, optimizer = train_step.model, train_step.optimizer
-    model.load_state_dict(payload["model"])
+    tensors = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    model.load_state_dict({k: _local(v, tensors.get(k)) for k, v in payload["model"].items()})
     names = _parameter_names(model, optimizer)
     index = {n: i for i, n in enumerate(names)}
     saved = payload["optimizer"]
@@ -149,7 +177,7 @@ def load_train_state(payload: dict, train_step, generator: torch.Generator) -> N
         raise ValueError(f"the checkpoint has {len(saved['param_groups'])} parameter groups, the optimizer "
                          f"{len(groups)}")
     optimizer.load_state_dict({
-        "state": {index[n]: s for n, s in saved["state"].items()},
+        "state": {index[n]: {k: _local(v, tensors[n]) for k, v in s.items()} for n, s in saved["state"].items()},
         "param_groups": [{**s, "params": g["params"]} for g, s in zip(groups, saved["param_groups"])],
     })
     train_step.steps, train_step.calls = int(payload["step"]), int(payload["calls"])
@@ -163,7 +191,7 @@ def load_train_state(payload: dict, train_step, generator: torch.Generator) -> N
     for p in params.values():
         p.grad = None
     for n, g in payload["grads"].items():
-        params[n].grad = g.to(params[n].device)
+        params[n].grad = _local(g, params[n]).to(params[n].device)
 
 
 def save_checkpoint(directory: str, state: dict, step: Optional[int] = None) -> str:

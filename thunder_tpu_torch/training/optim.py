@@ -47,6 +47,9 @@ from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Se
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from thunder_tpu_torch.parallel.spmd import shard_of
 
 __all__ = [
     "adamw",
@@ -312,10 +315,21 @@ def finetune_schedule_transform(optimizer: torch.optim.Optimizer, unfreeze_encod
     return optimizer
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, shards: Optional[Sequence] = None) -> None:
     """optax's ``clip_by_global_norm``, in place: unchanged below ``max_norm``,
-    else ``g / norm * max_norm``. Stays on the device (no host sync)."""
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    else ``g / norm * max_norm``. Stays on the device (no host sync).
+
+    ``shards`` (one per gradient, :func:`~thunder_tpu_torch.parallel.spmd.shard_of` its parameter) marks the
+    gradients that are a rank's slice of a channel-sharded parameter: their squares are summed over the model
+    group, the whole ones counted once, so every rank clips by the global norm."""
+    sharded = [(g, s) for g, s in zip(grads, shards or ()) if s is not None]
+    if not sharded:
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    else:
+        part = sum(g.float().square().sum() for g, _ in sharded)
+        dist.all_reduce(part, group=sharded[0][1].group)
+        whole = [g for g, s in zip(grads, shards) if s is None]
+        norm = torch.sqrt(part + sum(g.float().square().sum() for g in whole))
     for g in grads:
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
@@ -350,7 +364,7 @@ def optimizer_step(optimizer: torch.optim.Optimizer, step: int, gradient_clip_va
         for g in grads:
             g.clamp_(-gradient_clip_value, gradient_clip_value)
     if gradient_clip_norm is not None:
-        clip_by_global_norm_(grads, gradient_clip_norm)
+        clip_by_global_norm_(grads, gradient_clip_norm, [shard_of(p) for p in params])
     schedule = getattr(optimizer, "lr_schedule", None)
     plateau = getattr(optimizer, "plateau_state", None)
     for group in groups:
