@@ -395,7 +395,37 @@ Phases, each of which fails the run:
 32. ``parting_rows``: at 64 x 1 s, the rows of a batch that part from the same
     row served alone, and their argmax flips, on the wav2vec2-base engine and
     on phase 4's QuartzNet ``CTCModule`` (the module predictor of a pool):
-    counted and printed, not checked.
+    counted and printed, not checked; then ``w2v2_batch_invariance``: on
+    wav2vec2-base and WavLM engines built ``batch_invariant`` (a forward one
+    row at a time) no row may part, and each is timed against the default
+    engine at 64 x 1 s (CUDA events, in turns: default, invariant, invariant,
+    default); a ``StreamingPool(batch_size=64)`` of 64 streams over 8 clips on
+    the wav2vec2-base engine, greedy and with the device beam (W = 16), must
+    give each stream its lone stream's text, with 12 attention + 25 add +
+    LayerNorm launches a window's row, none for the forwards' padding rows
+    (``w2v2_pool_launches``);
+33. ``w2v2_variant``: the wav2vec2 family's variants at their published
+    widths with random weights (seed 22), each on a bf16 ``InferenceEngine``
+    at 16 x 15 s of speech-like audio: WavLM (``transformers.WavLMConfig()``:
+    12 x 768, 320 buckets, distance 800, group norm, post-LN), data2vec-audio
+    (``Data2VecAudioConfig()``: 5 positional convs of kernel 19 in 16 groups,
+    a layer-norm extractor), SEW (``SEWConfig()``: squeeze 2, its 13-conv
+    extractor), the conv adapter on wav2vec2-base's width (3 GLU convs of
+    stride 2) and MMS-1b-all's width (1,280 hidden, 16 heads of 80, FFN
+    5,120, stable LN, a layer-norm extractor, attention adapters of 16; its
+    48 layers). One forward must launch the add + LayerNorm and attention
+    kernels the code predicts (``variant_launches``: 2 a post-LN layer + 1,
+    SEW's plain encoder LayerNorm aside; one attention a layer where dh is 64
+    and no position bias); the logits must be finite, of the expected shape
+    (the adapter's frames ``(L - 1) // 2 + 1`` three times), within
+    ``LOGIT_BOUND`` of the same engine under ``plain_wav2vec2`` and, on rows
+    0-1, of the module's float32 forward on the card; the forward's ms (CUDA
+    events, mean of 3), peak memory and one forward's device profile are
+    printed (``variants_launches``);
+34. ``w2v2_variant_kernel_shape``: the attention and add + LayerNorm kernels
+    on the inputs SEW's and the conv-adapter model's forwards give layer 0
+    (SEW's at the squeezed length), against their plain versions (4 and 2
+    bf16 ULP) and timed with them in turns (host-paced).
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -1175,7 +1205,14 @@ def run() -> int:
     add_launches(kernels, "mesh_launches", mesh_phase(card))
     row_offset_phase(card)
     add_launches(kernels, "citrinet_pool_launches", citrinet_invariance_phase(card))
-    parting_rows_phase(card)
+    add_launches(kernels, "w2v2_pool_launches", parting_rows_phase(card))
+
+    # ---- the wav2vec2 family's variants at their published widths, and the kernels at their shapes
+    variant_runs, variant_shapes = variants_phase(card)
+    add_launches(kernels, "variants_launches", variant_runs)
+    for entry in kernels:
+        if entry["name"] in variant_shapes:
+            entry["variant_shapes"] = variant_shapes[entry["name"]]
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -5028,27 +5065,262 @@ def citrinet_invariance_phase(card: str, device="cuda") -> dict:
     return runs
 
 
-def parting_rows_phase(card: str, device="cuda") -> None:
-    """Phase 32 of the module docstring: the rows of a 64 x 1 s batch that part from the same row alone on the
-    wav2vec2-base engine and on phase 4's QuartzNet module (counted, not checked)."""
+W2V_POOL_SECONDS = 10.0  # 7 windows a stream; the invariant engine runs each window's row alone
+W2V_POOL_GRID = (2.0, 0.5)
+WAVLM = dict(rel_pos_buckets=320, rel_pos_max_distance=800)  # transformers.WavLMConfig()'s buckets
+
+
+def w2v2_create(config, device, seed: int = 0):
+    """A wav2vec2-family ``CTCModule`` (``Wav2Vec2Preprocess(mask_input=True)``, a ``LinearDecoder`` over
+    ``W2V_VOCAB``) with random weights from ``seed``."""
     import torch
 
     from thunder_tpu_torch.audio import Wav2Vec2Preprocess
-    from thunder_tpu_torch.engine import InferenceEngine
-    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Encoder
     from thunder_tpu_torch.module import CTCModule
     from thunder_tpu_torch.text import BatchTextTransformer
 
-    audio, lengths = one_second_rows(stream_clips(POOL_BATCH, 1.0, seed=32), device)
     tt = BatchTextTransformer(W2V_VOCAB)
-    w2v = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
-                           Wav2Vec2Encoder(Wav2Vec2Config()), LinearDecoder(tt.num_tokens), tt, device=device)
+    return CTCModule.create(torch.Generator().manual_seed(seed), Wav2Vec2Preprocess(mask_input=True),
+                            Wav2Vec2Encoder(config),
+                            LinearDecoder(tt.num_tokens), tt, device=device)
+
+
+def parting_rows_phase(card: str, device="cuda") -> dict:
+    """Phase 32 of the module docstring: the rows of a 64 x 1 s batch that part from the same row alone on the
+    wav2vec2-base engine and on phase 4's QuartzNet module (counted, not checked); then C19 on the wav2vec2
+    engine: the ``batch_invariant`` engines of wav2vec2-base and WavLM (no row may part; timed against the default
+    engine) and a pool of 64 streams on the base one against their lone streams. Returns the pool runs' launches,
+    by run."""
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Wav2Vec2Config
+
+    audio, lengths = one_second_rows(stream_clips(POOL_BATCH, 1.0, seed=32), device)
+    w2v = w2v2_create(Wav2Vec2Config(), device)
     counted = {"wav2vec2_engine": rows_parting(InferenceEngine(w2v), audio, lengths)}
-    del w2v
     module, _, _ = served_quartznet(device)
     counted["quartznet_module"] = rows_parting(module, audio, lengths)
+    del module
     emit({"phase": "parting_rows", "batch": int(audio.shape[0]), "seconds": 1.0,
           **{name: {"rows_differing": r, "argmax_flips": f} for name, (r, f) in counted.items()}, "card": card})
+
+    for name, config in (("wav2vec2_base", Wav2Vec2Config()), ("wavlm", Wav2Vec2Config(**WAVLM))):
+        module = w2v if name == "wav2vec2_base" else w2v2_create(config, device)
+        default, invariant = InferenceEngine(module), InferenceEngine(module, batch_invariant=True)
+        rows, flips = rows_parting(invariant, audio, lengths)
+        logits, _, out_lengths = invariant.infer(audio, lengths)
+        plain = default.infer(audio, lengths)[0]
+        valid = lengths_valid(logits, out_lengths)
+        dev = ((logits - plain).abs()[valid].max() / plain.abs()[valid].max()).item()
+        forward_ms = {"default": [], "batch_invariant": []}
+        for tag, eng in (("default", default), ("batch_invariant", invariant), ("batch_invariant", invariant),
+                         ("default", default)):
+            forward_ms[tag].append(cuda_ms(lambda: eng.infer(audio, lengths), 3))
+        emit({"phase": "w2v2_batch_invariance", "model": name, "batch": int(audio.shape[0]), "seconds": 1.0,
+              "rows_differing": rows, "argmax_flips": flips, "max_rel_dev_vs_default_engine": dev,
+              "forward_ms_64x1s": forward_ms, "card": card})
+        check(rows == 0, f"{name}: {rows} rows of the batch_invariant engine part from the same row alone")
+        check(dev < LOGIT_BOUND, f"{name}: the batch_invariant engine's logits {dev} from the default engine's")
+
+    engine = InferenceEngine(w2v, batch_invariant=True)
+    distinct = stream_clips(POOL_BATCH, W2V_POOL_SECONDS, seed=33)
+    clips = [distinct[k % POOL_CLIPS] for k in range(POOL_BATCH)]
+    grid = W2V_POOL_GRID
+    windows = grid_windows(int(W2V_POOL_SECONDS * SAMPLE_RATE), *grid)
+    layers = w2v.model.encoder.config.num_hidden_layers
+    runs = {}
+    for dname, beam in (("greedy", {}), ("device_beam", STREAM_BEAM)):
+        lone = [lone_reference(engine, c, grid, beam) for c in distinct[:POOL_CLIPS]]
+        tag = f"w2v2_pool_{dname}_{grid[0]:g}s"
+        reset_launch_counts()
+        run = pool_run(engine, clips, grid, beam, 1, device)
+        runs[tag] = launch_counts()
+        rows_run = windows * POOL_BATCH  # the invariant engine runs each window's row alone, and no padding row
+        beam_launches = windows * POOL_BATCH if beam else 0
+        expect = expected_counts(mha_from_qkv=layers * rows_run, add_layer_norm=(2 * layers + 1) * rows_run,
+                                 beam_scan=beam_launches, beam_backtrace=beam_launches)
+        differing = [k for k, text in enumerate(run["texts"]) if text != lone[k % POOL_CLIPS]]
+        emit({"phase": "w2v2_streaming_pool", "decode": dname, "chunk_s": grid[0], "overlap_s": grid[1],
+              "streams": POOL_BATCH, "clips": POOL_CLIPS, "seconds": W2V_POOL_SECONDS, "windows_per_stream": windows,
+              "forwards": run["forwards"], "launches": {k: v for k, v in runs[tag].items() if v},
+              "streams_differing": differing, "text_chars": [len(t) for t in lone],
+              "drain_push_latency": percentiles_ms(run["drain_pushes"]), "wall_s": run["wall_s"],
+              "rtf": POOL_BATCH * W2V_POOL_SECONDS / run["wall_s"], "card": card})
+        check(runs[tag] == expect, f"{tag}: launched {runs[tag]}, expected {expect}")
+        check(not differing, f"{tag}: streams {differing} differ from their lone streams")
+    return runs
+
+
+def lengths_valid(logits, out_lengths):
+    """``(B, T)`` True on each row's valid frames."""
+    import torch
+
+    return torch.arange(logits.shape[1], device=logits.device)[None, :] < out_lengths[:, None]
+
+
+# ---- phases 33-34: the wav2vec2 family's variants
+
+SEW_EXTRACTOR = dict(conv_dim=(64, 128, 128, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512),
+                     conv_kernel=(10, 3, 1, 3, 1, 3, 1, 3, 1, 2, 1, 2, 1),
+                     conv_stride=(5, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1))  # transformers.SEWConfig()'s
+MMS_LAYERS = 48  # MMS-1b-all's depth
+W2V_VARIANTS = {  # each published config's widths, written out: the card's machine reads no transformers config
+    "wavlm": dict(**WAVLM),
+    "data2vec_audio": dict(feat_extract_norm="layer", pos_conv_stack=True, num_conv_pos_embeddings=5,
+                           conv_pos_kernel_size=19),
+    "sew": dict(sew_style=True, squeeze_factor=2, **SEW_EXTRACTOR),
+    "conv_adapter": dict(add_adapter=True, num_adapter_layers=3, adapter_stride=2),
+    "mms_1b": dict(hidden_size=1280, num_hidden_layers=MMS_LAYERS, num_attention_heads=16, intermediate_size=5120,
+                   feat_extract_norm="layer", do_stable_layer_norm=True, conv_bias=True, adapter_attn_dim=16),
+}
+VARIANT_SHAPES = ("sew", "conv_adapter")  # the kernels against their plain versions at these forwards' inputs
+
+
+def variant_launches(config) -> dict:
+    """The add + LayerNorm and attention kernel launches one serving forward of ``config`` makes, from the code:
+    two add + LayerNorms a post-LN layer and one after the positional embedding (SEW's encoder LayerNorm is
+    plain), none for stable LN; one attention a layer where the heads are 64 wide and no position bias is
+    added."""
+    post_ln = not config.do_stable_layer_norm
+    add_ln = (2 * config.num_hidden_layers + (0 if config.sew_style else 1)) if post_ln else 0
+    fused = config.hidden_size // config.num_attention_heads == 64 and not config.rel_pos_buckets
+    return {"add_layer_norm": add_ln, "mha_from_qkv": config.num_hidden_layers if fused else 0}
+
+
+def variant_frames(config, samples: int) -> int:
+    from thunder_tpu_torch.models.wav2vec2 import feat_extract_output_lengths
+
+    frames = feat_extract_output_lengths(samples, config.conv_kernel, config.conv_stride)
+    for _ in range(config.num_adapter_layers if config.add_adapter else 0):
+        frames = (frames - 1) // config.adapter_stride + 1
+    return frames
+
+
+def variant_kernel_shapes(name: str, engine, audio_d, lengths_d) -> dict:
+    """Phase 34 for one variant: the attention and add + LayerNorm kernels on layer 0's inputs of one forward,
+    against their plain versions, timed in turns with them. Returns each kernel's shape line."""
+    import torch
+
+    from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+    from thunder_tpu_torch.kernels.selftest import KERNEL_CHECKS, ulp_bf16_error
+
+    captured = {}
+
+    def keep(name, value) -> None:  # a forward hook that returns None leaves the output as it is
+        captured[name] = value
+
+    layer0 = engine._encoder.layer0
+    hooks = [layer0.attention.qkv_proj.register_forward_hook(lambda m, a, out: keep("qkv", out)),
+             layer0.attention.register_forward_hook(lambda m, a, out: keep("lengths", a[1])),
+             layer0.layer_norm.register_forward_hook(lambda m, a, out: keep("add_ln", a))]
+    try:
+        engine.infer(audio_d, lengths_d)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    cfg = engine._encoder.config
+    qkv, lens, heads = captured["qkv"], captured["lengths"].to(torch.int32), cfg.num_attention_heads
+    b, t = qkv.shape[:2]
+    got, want = mha_from_qkv(qkv, lens, heads), mha_from_qkv_reference(qkv, lens, heads)
+    a_err, a_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
+    a_ms, a_plain = paired_ms(lambda: mha_from_qkv(qkv, lens, heads), lambda: mha_from_qkv_reference(qkv, lens, heads),
+                              10)
+    x, y = (v.contiguous() for v in captured["add_ln"][:2])
+    ln = layer0.layer_norm
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    got, want = add_layer_norm(x, y, ln.scale, ln.bias), add_layer_norm_reference(x, y, ln.scale, ln.bias)
+    n_err, n_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
+    n_ms, n_plain = paired_ms(lambda: add_layer_norm(x, y, ln.scale, ln.bias),
+                              lambda: add_layer_norm_reference(x, y, ln.scale, ln.bias), 50)
+    lines = {
+        "mha_from_qkv": {"variant": name, "B": b, "T": t, "heads": heads, "ms": a_ms, "plain_ms": a_plain,
+                         "max_abs_err": a_err, "ulp": a_ulp, **attention_bound(b, t, heads),
+                         "ms_is": "one launch on layer 0's qkv, host-paced, in turns with the plain version"},
+        "add_layer_norm": {"variant": name, "rows": rows, "D": d, "ms": n_ms, "plain_ms": n_plain, "max_abs_err": n_err,
+                           "ulp": n_ulp, **add_ln_bound(rows, d),
+                           "ms_is": "one launch on layer 0's first add + LayerNorm, host-paced, in turns with the "
+                                    "plain version"},
+    }
+    for kernel, line in lines.items():
+        emit({"phase": "w2v2_variant_kernel_shape", "kernel": kernel, **line})
+    check(a_ulp <= KERNEL_CHECKS["attn_onepanel"][1], f"{name}: attention off by {a_ulp} bf16 ULP")
+    check(n_ulp <= KERNEL_CHECKS["add_ln"][1], f"{name}: add + LayerNorm off by {n_ulp} bf16 ULP")
+    return lines
+
+
+def variants_phase(card: str, device="cuda") -> tuple:
+    """Phases 33-34 of the module docstring. Returns the forwards' launches by variant and the kernels' lines at the
+    variants' shapes by kernel."""
+    import torch
+
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Wav2Vec2Config
+
+    samples = int(W2V_SECONDS * SAMPLE_RATE)
+    rng = np.random.default_rng(22)
+    base = speech_like(samples, rng)
+    audio = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(W2V_BATCH)]).astype(np.float32)
+    lengths = np.full((W2V_BATCH,), samples, dtype=np.int32)
+    audio_d, lengths_d = torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device)
+    runs, shapes = {}, {"mha_from_qkv": [], "add_layer_norm": []}
+    for name, overrides in W2V_VARIANTS.items():
+        t_start = time.perf_counter()
+        config = Wav2Vec2Config(**overrides)
+        module = w2v2_create(config, device, seed=22)
+        engine = InferenceEngine(module)
+        create_s = time.perf_counter() - t_start
+        engine.infer(audio_d, lengths_d)
+        sync(device)
+        reset_launch_counts()
+        logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+        sync(device)
+        runs[name] = launch_counts()
+        want = expected_counts(**variant_launches(config))
+        frames = variant_frames(config, samples)
+        shape = (W2V_BATCH, frames, len(W2V_VOCAB) + 1)
+        check(runs[name] == want, f"{name}: one forward launched {runs[name]}, expected {want}")
+        check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == shape,
+              f"{name}: logits not finite or of shape {tuple(logits.shape)}, expected {shape}")
+        with plain_wav2vec2():
+            plain = engine.infer(audio_d, lengths_d)[0]
+        valid = lengths_valid(logits, out_lengths)
+        plain_rel = ((logits - plain).abs()[valid].max() / plain.abs()[valid].max()).item()
+        plain_agree = (logits.argmax(-1) == plain.argmax(-1))[valid].float().mean().item()
+        t0 = time.perf_counter()
+        f32, f32_lengths = module.forward(audio[:2], lengths[:2])  # the port's float32 path, on the card
+        f32_s = time.perf_counter() - t0
+        check(torch.equal(f32_lengths, out_lengths[:2]), f"{name}: the float32 path's lengths differ")
+        ok = valid[:2]
+        f32_rel = ((logits[:2] - f32).abs()[ok].max() / f32.abs()[ok].max()).item()
+        f32_agree = (logits[:2].argmax(-1) == f32.argmax(-1))[ok].float().mean().item()
+        del plain, f32
+        torch.cuda.reset_peak_memory_stats()
+        forward_ms = cuda_ms(lambda: engine.infer(audio_d, lengths_d), 3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if device == "cuda":
+            emit({"phase": "w2v2_variant_profile", "variant": name,
+                  **device_profile(lambda: engine.infer(audio_d, lengths_d))})
+        emit({"phase": "w2v2_variant", "variant": name, "batch": W2V_BATCH, "seconds": W2V_SECONDS,
+              "hidden": config.hidden_size, "layers": config.num_hidden_layers, "heads": config.num_attention_heads,
+              "frames": frames, "launches": {k: v for k, v in runs[name].items() if v},
+              "predicted": variant_launches(config),
+              "max_rel_dev_vs_plain": plain_rel, "argmax_agreement_vs_plain": plain_agree,
+              "rows01_max_rel_dev_vs_f32_card": f32_rel, "rows01_argmax_agreement_vs_f32": f32_agree,
+              "bound": LOGIT_BOUND, "forward_ms": forward_ms, "rtf": W2V_BATCH * W2V_SECONDS / (forward_ms / 1e3),
+              "peak_mem_gb": peak_gb, "create_s": create_s, "f32_rows01_s": f32_s,
+              "phase_s": time.perf_counter() - t_start, "card": card})
+        check(plain_rel < LOGIT_BOUND, f"{name}: kernels vs plain versions deviate by {plain_rel}")
+        check(f32_rel < LOGIT_BOUND, f"{name}: bf16 engine vs float32 on the card deviate by {f32_rel}")
+        if name in VARIANT_SHAPES:
+            for kernel, line in variant_kernel_shapes(name, engine, audio_d, lengths_d).items():
+                shapes[kernel].append(line)
+        del engine, module, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs, shapes
 
 
 if __name__ == "__main__":

@@ -19,8 +19,8 @@
 - HuggingFace: tiny wav2vec2 (both norms) and HuBERT models with random
   weights, saved with ``save_pretrained``, load with logits within 1e-4 of
   the JAX loader's and of HF's own torch model (float32 sums in other
-  orders); WavLM and data2vec-audio raise ``NotImplementedError``; the
-  module carries ``frozen_paths``.
+  orders); the module carries ``frozen_paths`` (the variants' families:
+  ``tests/test_torch_hf_families.py``).
 - The registry: JAX's names; the dispatch rules; ``download_checkpoint``
   returns a file already in the cache folder.
 """
@@ -501,22 +501,6 @@ def test_hf_fold_weight_norm_matches_jax():
     rng = np.random.default_rng(0)
     g, v = rng.standard_normal((1, 1, 7)).astype(np.float32), rng.standard_normal((8, 4, 7)).astype(np.float32)
     np.testing.assert_array_equal(port_hf._fold_weight_norm(g, v), jax_fold(g, v))
-
-
-@pytest.mark.parametrize("family", ["wavlm", "data2vec-audio"])
-def test_hf_families_the_encoder_does_not_run_raise(family, tmp_path):
-    from transformers import Data2VecAudioConfig, Data2VecAudioForCTC, WavLMConfig, WavLMForCTC
-
-    torch.manual_seed(0)
-    if family == "wavlm":
-        ref = WavLMForCTC(WavLMConfig(**HF_COMMON, feat_extract_norm="group", conv_bias=False, num_buckets=32,
-                                      max_bucket_distance=64)).eval()
-    else:
-        ref = Data2VecAudioForCTC(Data2VecAudioConfig(**{**HF_COMMON, "num_conv_pos_embeddings": 3},
-                                                      conv_bias=False, conv_pos_kernel_size=7)).eval()
-    d = save_hf(tmp_path / family, ref)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        registry.load_pretrained(d, device="cpu")
 
 
 def test_wav2vec2_config_from_hf_matches_jax():

@@ -381,8 +381,17 @@ def _citrinet():
                             Conv1dDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
 
 
+class _PassThrough(torch.nn.Module):
+    """An encoder the engine has no plan for: it serves it through the module's forward."""
+
+    final_dimension = 64
+
+    def forward(self, x, lengths, train=False, generator=None):
+        return x, lengths
+
+
 def test_batch_invariant_is_a_quartznet_mode():
-    # QuartzNet's and Citrinet's: wav2vec2 is refused
+    # QuartzNet's, Citrinet's and wav2vec2's (a row at a time): any other encoder is refused
     from thunder_tpu_torch.audio import Wav2Vec2Preprocess
     from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
 
@@ -393,8 +402,11 @@ def test_batch_invariant_is_a_quartznet_mode():
                                                           conv_stride=(5,), num_conv_pos_embeddings=16,
                                                           num_conv_pos_embedding_groups=4)),
                            LinearDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
-    with pytest.raises(ValueError, match="batch_invariant is a QuartzNet and Citrinet serving mode"):
-        InferenceEngine(w2v, batch_invariant=True)
+    assert InferenceEngine(w2v, batch_invariant=True).batch_invariant
+    other = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(nfilt=64), _PassThrough(),
+                             Conv1dDecoder(len(TOKENS) + 1), BatchTextTransformer(TOKENS), device="cpu")
+    with pytest.raises(ValueError, match="batch_invariant is a QuartzNet, Citrinet and wav2vec2 serving mode"):
+        InferenceEngine(other, batch_invariant=True)
 
 
 def test_batch_invariant_citrinet_pool_matches_lone_streams():

@@ -315,16 +315,6 @@ def test_serving_copy_rounds_like_the_jax_engine(slice_pair):
             assert value.dtype == torch.bfloat16 and torch.equal(value, original.to(torch.bfloat16)), key
 
 
-@pytest.mark.parametrize(
-    "flag", [dict(sew_style=True), dict(add_adapter=True), dict(adapter_attn_dim=16), dict(pos_conv_stack=True),
-             dict(rel_pos_buckets=320)],
-    ids=lambda d: next(iter(d)),
-)
-def test_unported_config_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL, **flag))
-
-
 def test_unported_modes_raise():
     encoder = w2v.Wav2Vec2Encoder(w2v.Wav2Vec2Config(**SMALL))
     # remat is ported (tests/test_torch_remat.py): it builds, with or without the frozen extractor, and keeps
@@ -338,7 +328,5 @@ def test_unported_modes_raise():
         encoder(audio, lengths, train=True)
     with pytest.raises(ValueError, match="generator"):
         encoder.layer0.layer_norm(torch.zeros(1, 2, 128), torch.zeros(1, 2, 128), train=True, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="WavLM"):
-        encoder.layer0.attention(torch.zeros(1, 2, 128), torch.tensor([2]), position_bias=torch.zeros(2, 2, 2))
     with pytest.raises(ValueError, match="feat_extract_norm"):
         w2v.Wav2Vec2Config(feat_extract_norm="batch")

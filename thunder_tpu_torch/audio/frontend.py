@@ -8,7 +8,17 @@
 only) -> preemphasis -> power spectrum -> mel -> log (one launch of the fused
 log-mel kernel on the card) -> masked per-feature normalization over the
 valid frames -> SpecCutout or SpecAugment (train only). Output is
-channels-last ``(batch, frames, nfilt)`` float32.
+channels-last ``(batch, frames, nfilt)`` in ``dtype`` (float32 by default).
+
+Its fields are the JAX module's. ``use_fused_kernel``: ``None`` (the
+default) or ``True`` runs the log-mel kernel's wrapper, the kernel for a CUDA
+tensor (on a CPU tensor its plain version, as every wrapper of the port);
+``False`` runs the plain ``preemphasis`` + ``mel_features`` path on whatever
+device the audio is on, the caller's explicit choice, with ``stft_method``
+(``"matmul"`` or ``"fft"``) for its DFT. ``dft_precision`` is validated as
+the JAX module validates it (``auto|3x|highest``) and changes nothing here:
+it picks the TPU kernel's bf16 passes, and the port's log-mel kernel
+computes its DFT in float32.
 
 Train mode draws the dither noise and the masks' uniforms from the
 ``generator`` it is given, on the audio's device (in a data-parallel step the
@@ -26,7 +36,7 @@ from torch import nn
 from thunder_tpu_torch.kernels.frontend import fused_log_mel
 from thunder_tpu_torch.ops.masking import lengths_to_mask, normalize_tensor
 from thunder_tpu_torch.ops.specaugment import spec_augment, spec_cutout
-from thunder_tpu_torch.ops.stft import next_pow2, power_spectrum_lengths
+from thunder_tpu_torch.ops.stft import mel_features, next_pow2, power_spectrum_lengths, preemphasis
 from thunder_tpu_torch.parallel import spmd
 
 __all__ = ["FilterbankFeatures", "Wav2Vec2Preprocess"]
@@ -55,11 +65,19 @@ class FilterbankFeatures(nn.Module):
         num_freq_masks: int = 0,
         mask_time_width: int = 50,
         mask_freq_width: int = 20,
+        stft_method: str = "matmul",
+        use_fused_kernel: Optional[bool] = None,
+        dft_precision: str = "auto",
         div_guard: float = 1e-5,
+        dtype=torch.float32,
     ):
         super().__init__()
         if num_cutout_masks > 0 and (num_freq_masks + num_time_masks > 0):
             raise ValueError("Cutout and SpecAugment can't be used at the same time.")
+        if dft_precision not in ("auto", "3x", "highest"):
+            raise ValueError(f"dft_precision must be auto|3x|highest, got {dft_precision!r}")
+        if stft_method not in ("matmul", "fft"):
+            raise ValueError(f"stft_method is 'matmul' or 'fft', got {stft_method!r}")
         if n_window_size <= 0 or n_window_stride <= 0:
             raise ValueError(
                 "FilterbankFeatures got an invalid value for either n_window_size "
@@ -77,7 +95,11 @@ class FilterbankFeatures(nn.Module):
         self.num_freq_masks = num_freq_masks
         self.mask_time_width = mask_time_width
         self.mask_freq_width = mask_freq_width
+        self.stft_method = stft_method
+        self.use_fused_kernel = use_fused_kernel
+        self.dft_precision = dft_precision
         self.div_guard = div_guard
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype  # a bundle's config.json names it
 
     @property
     def fft_size(self) -> int:
@@ -94,16 +116,19 @@ class FilterbankFeatures(nn.Module):
             noise = spmd.draw_rows(lambda shape: torch.randn(shape, generator=_required(generator), device=x.device),
                                    x.shape)
             x = x + self.dither * noise
-        # the log-mel kernel goes first: the card starts on it while the host queues the lengths' small ops
-        mel = fused_log_mel(
-            x.contiguous(),
-            sample_rate=self.sample_rate,
-            n_fft=self.fft_size,
-            hop_length=self.n_window_stride,
-            win_length=self.n_window_size,
-            n_mels=self.nfilt,
-            preemph=self.preemph,
-        )
+        if self.use_fused_kernel is False:
+            mel = mel_features(preemphasis(x, self.preemph), self.sample_rate, self.fft_size, self.n_window_stride,
+                               self.n_window_size, self.nfilt, method=self.stft_method)
+        else:  # the log-mel kernel goes first: the card starts on it while the host queues the lengths' small ops
+            mel = fused_log_mel(
+                x.contiguous(),
+                sample_rate=self.sample_rate,
+                n_fft=self.fft_size,
+                hop_length=self.n_window_stride,
+                win_length=self.n_window_size,
+                n_mels=self.nfilt,
+                preemph=self.preemph,
+            )
         out_lengths = self.output_lengths(lengths)
         mask = lengths_to_mask(out_lengths, mel.shape[1])[:, :, None]
         feats = normalize_tensor(mel, mask, div_guard=self.div_guard, axis=1, sum_dtype=sum_dtype)
@@ -115,7 +140,7 @@ class FilterbankFeatures(nn.Module):
             draws = torch.rand(2 * n_augment, generator=_required(generator), device=feats.device)
             feats = spec_augment(feats, draws, self.num_time_masks, self.num_freq_masks, self.mask_time_width,
                                  self.mask_freq_width)
-        return feats, out_lengths
+        return feats.to(self.dtype), out_lengths
 
 
 class Wav2Vec2Preprocess(nn.Module):

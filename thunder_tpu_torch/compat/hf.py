@@ -8,10 +8,11 @@ folder), maps its weights onto the flax paths of the JAX package's
 builds the text transform from the tokenizer's vocabulary, and copies
 ``lm_head`` into a ``LinearDecoder``.
 
-wav2vec2 (both norms) and HuBERT load. WavLM, data2vec-audio and SEW raise
-the encoder's ``NotImplementedError`` until their encoder options are ported.
-The weight-normed positional conv (``weight_g``/``weight_v`` or
-``parametrizations.weight.original{0,1}``) is folded into a plain kernel.
+wav2vec2 (both norms, with the conv adapter and MMS's attention adapters),
+HuBERT, UniSpeech, UniSpeechSat, WavLM, data2vec-audio and SEW load. The
+weight-normed positional conv (``weight_g``/``weight_v`` or
+``parametrizations.weight.original{0,1}``) is folded into a plain kernel;
+data2vec-audio's positional convs are plain.
 
 ``transformers`` is imported inside :func:`load_huggingface_checkpoint`
 only; nothing else of the port needs it.
@@ -91,8 +92,10 @@ def _nest(flat: Dict[tuple, np.ndarray]) -> Dict[str, Any]:
 def hf_state_to_variables(state: Dict[str, np.ndarray], config: Wav2Vec2Config) -> Dict[str, Any]:
     """HF ``Wav2Vec2Model`` state dict (numpy) -> the encoder's flax params tree (nested dicts of numpy).
 
-    Covers the variants the port's encoder runs: both feature-extractor norms,
-    pre- and post-LN layers, HuBERT's optional feature-projection LayerNorm.
+    Every mapping of the JAX package's: both feature-extractor norms, pre- and post-LN layers, HuBERT's
+    optional feature-projection LayerNorm, SEW's extractor LayerNorm, projection and upsample,
+    data2vec-audio's positional conv stack, WavLM's bias table (layer 0's) and gates, MMS's attention
+    adapters and the conv adapter.
     """
     p: Dict[tuple, np.ndarray] = {}
 
@@ -105,6 +108,10 @@ def hf_state_to_variables(state: Dict[str, np.ndarray], config: Wav2Vec2Config) 
         p[dst + ("scale",)] = state[src + ".weight"]
         p[dst + ("bias",)] = state[src + ".bias"]
 
+    def conv(src: str, dst: tuple):
+        p[dst + ("kernel",)] = _conv_t(state[f"{src}.weight"])
+        p[dst + ("bias",)] = state[f"{src}.bias"]
+
     for i in range(len(config.conv_dim)):
         base = f"feature_extractor.conv_layers.{i}"
         p[("feature_extractor", f"conv{i}", "kernel")] = _conv_t(state[f"{base}.conv.weight"])
@@ -115,18 +122,33 @@ def hf_state_to_variables(state: Dict[str, np.ndarray], config: Wav2Vec2Config) 
         elif config.feat_extract_norm == "layer":
             norm(f"{base}.layer_norm", ("feature_extractor", f"ln{i}"))
 
-    if config.feat_proj_layer_norm:
-        norm("feature_projection.layer_norm", ("fp_layer_norm",))
-    dense("feature_projection.projection", ("fp_projection",))
-
-    pc = "encoder.pos_conv_embed.conv"
-    if f"{pc}.weight_g" in state:
-        g, v = state[f"{pc}.weight_g"], state[f"{pc}.weight_v"]
+    if config.sew_style:
+        # SEW: a LayerNorm on the extractor's output, a bare projection (only when conv_dim[-1] != hidden) and
+        # the upsample projection after the transformer
+        norm("layer_norm", ("sew_extract_ln",))
+        if "feature_projection.weight" in state:
+            dense("feature_projection", ("fp_projection",))
+        dense("encoder.upsample.projection", ("upsample_projection",))
     else:
-        g = state[f"{pc}.parametrizations.weight.original0"]
-        v = state[f"{pc}.parametrizations.weight.original1"]
-    p[("pos_conv", "kernel")] = _conv_t(_fold_weight_norm(np.asarray(g), np.asarray(v)))
-    p[("pos_conv", "bias")] = state[f"{pc}.bias"]
+        if config.feat_proj_layer_norm:
+            norm("feature_projection.layer_norm", ("fp_layer_norm",))
+        dense("feature_projection.projection", ("fp_projection",))
+
+    if config.pos_conv_stack:  # data2vec-audio: plain grouped convs
+        for i in range(config.num_conv_pos_embeddings):
+            conv(f"encoder.pos_conv_embed.layers.{i}.conv", (f"pos_conv{i}",))
+    else:
+        pc = "encoder.pos_conv_embed.conv"
+        if f"{pc}.weight_g" in state:
+            g, v = state[f"{pc}.weight_g"], state[f"{pc}.weight_v"]
+        else:
+            g = state[f"{pc}.parametrizations.weight.original0"]
+            v = state[f"{pc}.parametrizations.weight.original1"]
+        p[("pos_conv", "kernel")] = _conv_t(_fold_weight_norm(np.asarray(g), np.asarray(v)))
+        p[("pos_conv", "bias")] = state[f"{pc}.bias"]
+
+    if config.rel_pos_buckets:  # WavLM: the table lives on layer 0; the encoder owns it
+        p[("rel_attn_embed",)] = state["encoder.layers.0.attention.rel_attn_embed.weight"]
 
     norm("encoder.layer_norm", ("enc_layer_norm",))
     for i in range(config.num_hidden_layers):
@@ -142,10 +164,24 @@ def hf_state_to_variables(state: Dict[str, np.ndarray], config: Wav2Vec2Config) 
             [state[f"{base}.attention.{proj}.bias"] for proj in ("q_proj", "k_proj", "v_proj")]
         )
         dense(f"{base}.attention.out_proj", dst + ("attention", "out_proj"))
+        if config.rel_pos_buckets:
+            dense(f"{base}.attention.gru_rel_pos_linear", dst + ("attention", "gru_rel_pos_linear"))
+            p[dst + ("attention", "gru_rel_pos_const")] = state[f"{base}.attention.gru_rel_pos_const"]
         norm(f"{base}.layer_norm", dst + ("layer_norm",))
         dense(f"{base}.feed_forward.intermediate_dense", dst + ("intermediate_dense",))
         dense(f"{base}.feed_forward.output_dense", dst + ("output_dense",))
         norm(f"{base}.final_layer_norm", dst + ("final_layer_norm",))
+        if config.adapter_attn_dim and f"{base}.adapter_layer.norm.weight" in state:  # MMS's attention adapter
+            norm(f"{base}.adapter_layer.norm", dst + ("adapter_norm",))
+            dense(f"{base}.adapter_layer.linear_1", dst + ("adapter_dense1",))
+            dense(f"{base}.adapter_layer.linear_2", dst + ("adapter_dense2",))
+
+    if config.add_adapter:  # the conv adapter: the optional projection, then the strided GLU convs
+        if "adapter.proj.weight" in state:
+            dense("adapter.proj", ("adapter_proj",))
+            norm("adapter.proj_layer_norm", ("adapter_proj_ln",))
+        for i in range(config.num_adapter_layers):
+            conv(f"adapter.layers.{i}.conv", (f"adapter_conv{i}",))
 
     return _nest(p)
 

@@ -49,18 +49,22 @@ for wav2vec2):
   ``q * scale`` (the scale pre-cast once, which gives the same values); the
   separable-repeat kernel then runs on the dequantized weights. The decoder
   kernel is quantized in every int8 mode.
-- ``batch_invariant`` (QuartzNet and Citrinet; any other encoder raises
-  ``ValueError``; off by default, a port option without a JAX counterpart):
-  the frontend's masked statistics, the decoder's product and Citrinet's
-  squeeze-excite gates (the pooled sum over time and the ``fc1``/``fc2``
-  products, whose M is the row count) accumulate in float64 and round to
-  float32 where the float path rounds. On the card their float32 sums change
-  their order with the number of rows, so a row's logits could differ in
-  their last bits between a batch and the row alone; with the option a row
-  of a ``(64, 1 s)`` batch was measured bit-equal to the row alone, stage by
-  stage (``chip_smoke.py``'s ``batch_invariance``: QuartzNet, and Citrinet
-  with its strided 1x1 residuals), which a ``StreamingPool`` needs for its
-  rows to equal a lone stream's. wav2vec2's layers are not made so.
+- ``batch_invariant`` (QuartzNet, Citrinet and wav2vec2; any other encoder
+  raises ``ValueError``; off by default, a port option without a JAX
+  counterpart): on the conv path the frontend's masked statistics, the
+  decoder's product and Citrinet's squeeze-excite gates (the pooled sum over
+  time and the ``fc1``/``fc2`` products, whose M is the row count) accumulate
+  in float64 and round to float32 where the float path rounds. On the card
+  their float32 sums change their order with the number of rows, so a row's
+  logits could differ in their last bits between a batch and the row alone;
+  with the option a row of a ``(64, 1 s)`` batch was measured bit-equal to
+  the row alone, stage by stage (``chip_smoke.py``'s ``batch_invariance``:
+  QuartzNet, and Citrinet with its strided 1x1 residuals), which a
+  ``StreamingPool`` needs for its rows to equal a lone stream's. wav2vec2
+  (every variant) runs its forward one row at a time instead, each row at a
+  lone row's shapes: its products, instance norm, LayerNorms and attention
+  take M = rows x T, which no float64 sum would fix. A row of length 0 (a
+  pool's padding) carries no frame and is not run: its logits are zeros.
 
 The JAX engine keeps the unquantized weights of its int8 modes in float32 and
 rounds them to the compute dtype in each call; the port stores them as its
@@ -194,8 +198,8 @@ class InferenceEngine:
                  posconv_dense: Optional[bool] = None, batch_invariant: bool = False):
         """``int8_weights``, ``int8_compute`` and ``posconv_dense`` are the JAX engine's serving modes, with its
         defaults (see the module docstring); ``int8_compute`` raises ``ValueError`` for any encoder but wav2vec2,
-        ``batch_invariant`` for any but QuartzNet and Citrinet. ``mesh``: serve data-parallel over its ``data``
-        axis, on the mesh's device."""
+        ``batch_invariant`` for any but QuartzNet, Citrinet and wav2vec2. ``mesh``: serve data-parallel over its
+        ``data`` axis, on the mesh's device."""
         self.mesh = mesh
         if mesh is not None:
             device = mesh.device
@@ -208,8 +212,8 @@ class InferenceEngine:
         self.int8_weights, self.int8_compute = bool(int8_weights), bool(int8_compute)
         if self.int8_compute and not isinstance(encoder, Wav2Vec2Encoder):
             raise ValueError("int8_compute is a wav2vec2 serving mode")
-        if batch_invariant and not isinstance(encoder, (QuartznetEncoder, CitrinetEncoder)):
-            raise ValueError("batch_invariant is a QuartzNet and Citrinet serving mode")
+        if batch_invariant and not isinstance(encoder, (QuartznetEncoder, CitrinetEncoder, Wav2Vec2Encoder)):
+            raise ValueError("batch_invariant is a QuartzNet, Citrinet and wav2vec2 serving mode")
         self.batch_invariant = bool(batch_invariant)
         # statistics, squeeze-excite gates and decoder
         self._sum_dtype = torch.float64 if self.batch_invariant else torch.float32
@@ -352,9 +356,23 @@ class InferenceEngine:
         return (*self._decode(x), out_lengths)
 
     def _forward_wav2vec2(self, audio: torch.Tensor, lengths: torch.Tensor):
+        if self.batch_invariant:  # each row at a lone row's shapes
+            rows = [self._forward_wav2vec2_rows(audio[r: r + 1], lengths[r: r + 1]) if n > 0
+                    else self._empty_row(audio.shape[1], lengths[r: r + 1]) for r, n in enumerate(lengths.tolist())]
+            return tuple(torch.cat(parts) for parts in zip(*rows))
+        return self._forward_wav2vec2_rows(audio, lengths)
+
+    def _forward_wav2vec2_rows(self, audio: torch.Tensor, lengths: torch.Tensor):
         feats, feat_lengths = self.frontend(audio, lengths)
         h, out_lengths = self._encoder(feats, feat_lengths)
         return (*self._decode(h), out_lengths)
+
+    def _empty_row(self, samples: int, lengths: torch.Tensor):
+        """``batch_invariant``'s output for a row of length 0 (a pool's padding), which carries no frame: zero
+        logits and ids, not run."""
+        width = self._encoder.final_dimension if self._dec_kernel is None else self._dec_kernel.shape[1]
+        logits = torch.zeros((1, int(self._encoder.output_lengths(samples)), width), device=self.device)
+        return logits, greedy_decode(logits), self._encoder.output_lengths(lengths.to(torch.int32))
 
     def _forward_module(self, audio: torch.Tensor, lengths: torch.Tensor):
         logits, out_lengths = self._model(audio, lengths)

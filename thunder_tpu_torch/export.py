@@ -7,22 +7,27 @@ Port of ``save_inference_bundle`` / ``load_inference_bundle`` from
   JAX package's schema;
 - ``tokenizer.model`` when the text transform is a sentencepiece one;
 - ``module.pt``: the model's ``state_dict`` (where the JAX package writes an
-  Orbax checkpoint).
+  Orbax checkpoint, ``module/``).
 
 ``load_inference_bundle`` rebuilds the whole ``CTCModule``, host-side text
 decoding included, on ``device`` (the card unless the caller asks for the
-CPU). ``aot_export`` / ``aot_load`` are not ported yet.
+CPU), from either package's bundle: a JAX-written one's Orbax checkpoint
+(OCDBT of zarr arrays) is read through ``tensorstore``, imported by that
+reader only, and goes through the bridge. ``aot_export`` / ``aot_load`` are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from thunder_tpu_torch.audio.frontend import FilterbankFeatures, Wav2Vec2Preprocess
+from thunder_tpu_torch.bridge import from_flax_variables
 from thunder_tpu_torch.models.citrinet import CitrinetEncoder
 from thunder_tpu_torch.models.decoders import Conv1dDecoder, LinearDecoder
 from thunder_tpu_torch.models.quartznet import QuartznetEncoder
@@ -30,9 +35,39 @@ from thunder_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 from thunder_tpu_torch.module import CTCModule
 from thunder_tpu_torch.text.tokenizer import BPETokenizer
 from thunder_tpu_torch.text.transform import BatchTextTransformer
-from thunder_tpu_torch.training.checkpointing import MODULE_FILE, restore_module_variables, save_module
+from thunder_tpu_torch.training.checkpointing import (
+    MODULE_FILE,
+    migrate_fused_qkv,
+    restore_module_variables,
+    save_module,
+)
 
 __all__ = ["save_inference_bundle", "load_inference_bundle"]
+
+#: the JAX package's bundle keeps its variables in this Orbax checkpoint folder
+JAX_MODULE_DIR = "module"
+
+
+def read_orbax_variables(path) -> Dict[str, Any]:
+    """The JAX package's ``save_module`` checkpoint (Orbax's ``StandardCheckpointer``: an OCDBT store of one zarr
+    array a leaf, keyed by the leaf's path joined with ".") -> the variables as nested dicts of numpy arrays, with
+    pre-fusion q/k/v projections fused (:func:`migrate_fused_qkv`)."""
+    import tensorstore as ts
+
+    base = {"driver": "ocdbt", "base": f"file://{Path(path).absolute()}/"}
+    tree: Dict[str, Any] = {}
+    for key in ts.KvStore.open(base).result().list().result():
+        name = key.decode()
+        if not name.endswith("/.zarray"):
+            continue
+        leaf = name[: -len("/.zarray")]
+        array = ts.open({"driver": "zarr", "kvstore": {**base, "path": leaf + "/"}}).result().read().result()
+        *parents, last = leaf.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = np.asarray(array)
+    return migrate_fused_qkv(tree)[0]
 
 
 def _encoder_config(encoder) -> dict:
@@ -126,7 +161,8 @@ def save_inference_bundle(directory: str, module: CTCModule) -> str:
 
 
 def load_inference_bundle(directory: str, device="cuda") -> CTCModule:
-    """Rebuild a CTCModule on ``device`` from :func:`save_inference_bundle`'s folder."""
+    """Rebuild a CTCModule on ``device`` from :func:`save_inference_bundle`'s folder or the JAX package's (its
+    Orbax ``module/`` read by :func:`read_orbax_variables`)."""
     directory = Path(directory)
     config = json.loads((directory / "config.json").read_text())
 
@@ -169,4 +205,6 @@ def load_inference_bundle(directory: str, device="cuda") -> CTCModule:
 
     module = CTCModule.create(torch.Generator().manual_seed(0), frontend, encoder, decoder, text_transform,
                               device=device)
+    if not (directory / MODULE_FILE).exists() and (directory / JAX_MODULE_DIR).is_dir():  # the JAX package's
+        return module.with_state(from_flax_variables(read_orbax_variables(directory / JAX_MODULE_DIR)))
     return restore_module_variables(str(directory / MODULE_FILE), module)

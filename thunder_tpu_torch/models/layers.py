@@ -195,10 +195,15 @@ def weight_init(mode: str = InitMode.xavier_uniform):
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every kernel in registration order (each with its module's
-    ``kernel_init``, xavier uniform by default); zero biases, unit BN scales and
-    identity running statistics. Norm layers keep the ones and zeros they are
-    built with."""
+    ``kernel_init``, xavier uniform by default) and each parameter a module
+    names in ``normal_parameters`` (from a standard normal); zero biases, unit
+    BN scales and identity running statistics. Norm layers keep the ones and
+    zeros they are built with."""
     for m in module.modules():
+        for name in getattr(m, "normal_parameters", ()):
+            if getattr(m, name, None) is not None:
+                with torch.no_grad():
+                    getattr(m, name).normal_(generator=generator)
         if hasattr(m, "kernel"):
             _initializer(getattr(m, "kernel_init", InitMode.xavier_uniform))(m.kernel, generator)
             if getattr(m, "bias", None) is not None:

@@ -36,10 +36,31 @@ and the extractor convs of at least 64 input channels as W8A8 products
 ``_ExtractorConv`` int8 branches); ``int8_weights`` keeps the other Dense
 kernels in int8 and dequantizes them in the compute dtype at each call.
 
-Not ported (they raise ``NotImplementedError``): SEW, the MMS
-adapters, data2vec-audio's positional conv stack and WavLM's relative
-position bias. ``Wav2Vec2Config.from_hf`` reads every family's config, so
-those families raise when the encoder is built from it.
+The family's variants, each after the JAX module:
+
+- WavLM (``rel_pos_buckets``): the bucketed relative position bias
+  (:func:`_wavlm_position_bias`) from the encoder's ``rel_attn_embed``,
+  computed once a forward in float32 and shared by every layer, each layer's
+  attention scaling it by its gate (``gru_rel_pos_linear``, a float32 Dense
+  on the attention's input by heads, and ``gru_rel_pos_const``). A biased
+  attention takes the unfused path, as the JAX module's (both of its kernel
+  routes need ``position_bias is None``); the bias is cast to the scores'
+  type (bf16 scores when serving in bf16, float32 in train mode);
+- data2vec-audio (``pos_conv_stack``): ``num_conv_pos_embeddings`` grouped
+  convs ``pos_conv{i}`` of kernel ``conv_pos_kernel_size``, each followed by
+  a parameter-free LayerNorm (eps 1e-5) and gelu;
+- SEW (``sew_style``): ``sew_extract_ln`` on the extractor's output (and a
+  projection when ``conv_dim[-1] != hidden_size``), the transformer on an
+  average-pooled sequence plus a stride-``squeeze_factor`` positional conv,
+  then ``upsample_projection`` back to the extractor's frame rate; the CTC
+  lengths stay the extractor's;
+- the conv adapter (``add_adapter``): ``adapter_proj`` + ``adapter_proj_ln``
+  when ``output_hidden_size`` differs, then ``num_adapter_layers`` strided GLU
+  convs ``adapter_conv{i}``, whose lengths ``(L - 1) // stride + 1`` the CTC
+  head then runs at;
+- the MMS attention adapter (``adapter_attn_dim``): a residual
+  ``adapter_norm`` -> ``adapter_dense1`` -> ReLU -> ``adapter_dense2`` at the
+  tail of every stable-LN layer.
 """
 
 from __future__ import annotations
@@ -115,12 +136,7 @@ def gelu(x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
 
 class Wav2Vec2Config:
     """The JAX package's ``Wav2Vec2Config``, field for field (defaults = base; the dropout rates are HF's
-    defaults and act in train mode only).
-
-    The fields of the variants the port does not run yet (``sew_style``, ``add_adapter``, ``adapter_attn_dim``,
-    ``pos_conv_stack``, ``rel_pos_buckets`` and their sizes) are kept so that :class:`Wav2Vec2Encoder` can
-    refuse them and an inference bundle's ``config.json`` has the JAX package's keys.
-    """
+    defaults and act in train mode only), the variants' fields included (see the module docstring)."""
 
     def __init__(
         self,
@@ -240,6 +256,35 @@ def _layer_norm_f32(f: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, ep
     mu = f.mean(dim=-1, keepdim=True)
     var = ((f * f).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
     return (f - mu) * (torch.rsqrt(var + eps) * scale.float()) + bias.float()
+
+
+def _plain_layer_norm(x: torch.Tensor, eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``nn.LayerNorm(use_scale=False, use_bias=False)``: :func:`_layer_norm_f32`'s statistics, no
+    parameters, output in ``dtype``."""
+    f = x.float()
+    mu = f.mean(dim=-1, keepdim=True)
+    var = ((f * f).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return ((f - mu) * torch.rsqrt(var + eps)).to(dtype)
+
+
+def _wavlm_buckets(t: int, num_buckets: int, max_distance: int, device=None) -> torch.Tensor:
+    """WavLM's T5-style bidirectional buckets ``(T, T)`` int64 of ``key - query``: half the buckets for the
+    sign, half of those for the exact small distances, the rest log-spaced up to ``max_distance`` (float32
+    arithmetic, as the JAX function's)."""
+    nb = num_buckets // 2
+    pos = torch.arange(t, dtype=torch.int32, device=device)
+    rel = pos[None, :] - pos[:, None]
+    buckets = (rel > 0).to(torch.int32) * nb
+    dist = rel.abs()
+    max_exact = nb // 2
+    scaled = torch.log(dist.clamp_min(1).float() / max_exact) / math.log(max_distance / max_exact) * (nb - max_exact)
+    large = (max_exact + scaled.to(torch.int32)).clamp_max(nb - 1)
+    return (buckets + torch.where(dist < max_exact, dist, large)).long()
+
+
+def _wavlm_position_bias(embed: torch.Tensor, t: int, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """WavLM's relative position bias: the ``(num_buckets, H)`` table -> ``(H, T, T)`` float32."""
+    return embed.float()[_wavlm_buckets(t, num_buckets, max_distance, embed.device)].permute(2, 0, 1)
 
 
 class LayerNorm(nn.Module):
@@ -383,34 +428,50 @@ class _FeatureExtractor(nn.Module):
 class _Attention(nn.Module):
     """Self-attention with a fused ``qkv_proj`` (one ``(h, 3h)`` GEMM) and ``out_proj``.
 
-    bfloat16 with dh = 64 runs the attention kernels on the packed GEMM output
-    at every length: ``kernels.attention.mha_from_qkv`` in eval mode,
-    ``kernels.attention_train.mha_train`` in train mode, with
+    bfloat16 with dh = 64 and no position bias runs the attention kernels on
+    the packed GEMM output at every length: ``kernels.attention.mha_from_qkv``
+    in eval mode, ``kernels.attention_train.mha_train`` in train mode, with
     ``attention_dropout`` inside the kernel under a fresh seed from
     ``generator``. Every other case runs the JAX module's unfused path: the
-    scores in the compute dtype (float32 in train mode), the key mask at that
-    dtype's minimum, the softmax in float32, and in train mode dropout on the
-    probabilities.
+    scores in the compute dtype (float32 in train mode), WavLM's gated bias
+    added in that type, the key mask at its minimum, the softmax in float32,
+    and in train mode dropout on the probabilities.
+
+    With ``rel_pos_buckets`` the module holds WavLM's gate: ``gru_rel_pos_linear``
+    (a float32 ``Dense(dh, 8)`` over the input by heads) and ``gru_rel_pos_const``
+    (``(1, heads, 1, 1)``); the gate scales the shared ``position_bias`` by
+    batch, head and query.
     """
 
     def __init__(self, config: Wav2Vec2Config, dtype=torch.float32):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        h = config.hidden_size
+        h, heads = config.hidden_size, config.num_attention_heads
         self.qkv_proj = Dense(h, 3 * h, dtype=dtype)
         self.out_proj = Dense(h, h, dtype=dtype)
+        if config.rel_pos_buckets:
+            self.gru_rel_pos_linear = Dense(h // heads, 8, dtype=torch.float32)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, heads, 1, 1))
+
+    def _gated_bias(self, x: torch.Tensor, position_bias: torch.Tensor) -> torch.Tensor:
+        """``gate (B, H, T, 1) * position_bias (H, T, T)`` in float32 (``modeling_wavlm.WavLMAttention``)."""
+        b, t, h = x.shape
+        heads = self.config.num_attention_heads
+        g = x.reshape(b, t, heads, h // heads).transpose(1, 2).float()
+        gates = torch.sigmoid(self.gru_rel_pos_linear(g).reshape(b, heads, t, 2, 4).sum(-1))
+        const = spmd.gathered(self.gru_rel_pos_const).float()[:, :, :, 0]
+        gate_out = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
+        return gate_out[..., None] * position_bias[None]
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, position_bias: Optional[torch.Tensor] = None,
                 train: bool = False, generator: Optional[torch.Generator] = None):
-        if position_bias is not None:
-            raise NotImplementedError("WavLM's relative position bias is not ported yet")
         cfg = self.config
         b, t, h = x.shape
         heads = cfg.num_attention_heads
         dh = h // heads
         qkv = self.qkv_proj(x)
-        if self.dtype == torch.bfloat16 and dh == HEAD_DIM:
+        if self.dtype == torch.bfloat16 and dh == HEAD_DIM and position_bias is None:
             if not train:
                 return self.out_proj(mha_from_qkv(qkv, lengths.to(torch.int32), heads))
             rate = cfg.attention_dropout
@@ -422,6 +483,8 @@ class _Attention(nn.Module):
         per_head = lambda a: a.reshape(b, t, heads, dh)  # noqa: E731
         score_t = torch.float32 if train else self.dtype
         scores = torch.einsum("bqhd,bkhd->bhqk", per_head(q).to(score_t), per_head(k).to(score_t))
+        if position_bias is not None:
+            scores = scores + self._gated_bias(x, position_bias).to(scores.dtype)
         key_mask = lengths_to_mask(lengths, t)[:, None, None, :]
         scores = torch.where(key_mask, scores, torch.finfo(scores.dtype).min)
         probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
@@ -433,9 +496,11 @@ class _Attention(nn.Module):
 
 class _EncoderLayer(nn.Module):
     """One transformer layer: post-LN (``LayerNorm(x + attn(x))``, then ``LayerNorm(x + ffn(x))``,
-    both fused add + LayerNorm) or, with ``do_stable_layer_norm``, pre-LN with plain LayerNorms.
-    In train mode ``hidden_dropout`` acts on both residual branches: inside the add + LayerNorm
-    for post-LN, around each branch for pre-LN."""
+    both fused add + LayerNorm) or, with ``do_stable_layer_norm``, pre-LN with plain LayerNorms
+    and, with ``adapter_attn_dim``, the MMS attention adapter at the tail. In train mode
+    ``hidden_dropout`` acts on both residual branches: inside the add + LayerNorm for post-LN,
+    around each branch for pre-LN. ``position_bias`` is WavLM's shared bias, passed to the
+    attention."""
 
     def __init__(self, config: Wav2Vec2Config, dtype=torch.float32):
         super().__init__()
@@ -448,17 +513,24 @@ class _EncoderLayer(nn.Module):
         self.intermediate_dense = Dense(h, config.intermediate_size, dtype=dtype)
         self.output_dense = Dense(config.intermediate_size, h, dtype=dtype)
         self.final_layer_norm = norm(h, eps, dtype=dtype)
+        if config.do_stable_layer_norm and config.adapter_attn_dim:
+            self.adapter_norm = LayerNorm(h, eps, dtype=dtype)
+            self.adapter_dense1 = Dense(h, config.adapter_attn_dim, dtype=dtype)
+            self.adapter_dense2 = Dense(config.adapter_attn_dim, h, dtype=dtype)
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         return self.output_dense(gelu(self.intermediate_dense(x), self.dtype))
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, position_bias: Optional[torch.Tensor] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         rate = self.config.hidden_dropout if train else 0.0
-        attend = lambda a: self.attention(a, lengths, train=train, generator=generator)  # noqa: E731
+        attend = lambda a: self.attention(a, lengths, position_bias, train=train, generator=generator)  # noqa: E731
         if self.config.do_stable_layer_norm:
             x = x + dropout(attend(self.layer_norm(x)), rate, generator)
-            return x + dropout(self._ffn(self.final_layer_norm(x)), rate, generator)
+            x = x + dropout(self._ffn(self.final_layer_norm(x)), rate, generator)
+            if self.config.adapter_attn_dim:
+                x = x + self.adapter_dense2(torch.relu(self.adapter_dense1(self.adapter_norm(x))))
+            return x
         x = self.layer_norm(x, attend(x), train=train, dropout_rate=rate, generator=generator)
         return self.final_layer_norm(x, self._ffn(x), train=train, dropout_rate=rate, generator=generator)
 
@@ -487,44 +559,91 @@ class Wav2Vec2Encoder(nn.Module):
     with the same seeds, so the loss and gradients are those without it.
     """
 
+    #: drawn from N(0, 1) by ``init_parameters`` (flax's ``normal(stddev=1.0)``)
+    normal_parameters = ("rel_attn_embed",)
+
     def __init__(self, config: Optional[Wav2Vec2Config] = None, dtype=torch.float32, remat: bool = False,
                  freeze_feature_extractor: bool = False, mask_input: bool = True):
         super().__init__()
         config = config or Wav2Vec2Config()
-        unported = {
-            "sew_style": config.sew_style,
-            "add_adapter": config.add_adapter,
-            "adapter_attn_dim": config.adapter_attn_dim,
-            "pos_conv_stack": config.pos_conv_stack,
-            "rel_pos_buckets": config.rel_pos_buckets,
-        }
-        for flag, value in unported.items():
-            if value:
-                raise NotImplementedError(f"Wav2Vec2Encoder: {flag}={value!r} is not ported to thunder_tpu_torch yet")
         self.config = config
         self.dtype = dtype
         self.remat = remat
         self.freeze_feature_extractor = freeze_feature_extractor
         self.mask_input = mask_input
-        h, eps, k = config.hidden_size, config.layer_norm_eps, config.num_conv_pos_embeddings
+        h, eps, groups = config.hidden_size, config.layer_norm_eps, config.num_conv_pos_embedding_groups
         self.feature_extractor = _FeatureExtractor(config, dtype=dtype)
-        if config.feat_proj_layer_norm:
+        if config.sew_style:
+            self.sew_extract_ln = LayerNorm(config.conv_dim[-1], eps, dtype=dtype)
+        elif config.feat_proj_layer_norm:
             self.fp_layer_norm = LayerNorm(config.conv_dim[-1], eps, dtype=dtype)
-        self.fp_projection = Dense(config.conv_dim[-1], h, dtype=dtype)
-        self.pos_conv = _Conv(h, h, k, padding=k // 2, groups=config.num_conv_pos_embedding_groups, dtype=dtype)
-        self.enc_layer_norm = (LayerNorm if config.do_stable_layer_norm else _AddLayerNorm)(h, eps, dtype=dtype)
+        if not config.sew_style or config.conv_dim[-1] != h:
+            self.fp_projection = Dense(config.conv_dim[-1], h, dtype=dtype)
+        if config.pos_conv_stack:
+            k = config.conv_pos_kernel_size
+            for i in range(config.num_conv_pos_embeddings):
+                self.add_module(f"pos_conv{i}", _Conv(h, h, k, padding=k // 2, groups=groups, dtype=dtype))
+        else:
+            k, stride = config.num_conv_pos_embeddings, config.squeeze_factor if config.sew_style else 1
+            self.pos_conv = _Conv(h, h, k, stride=stride, padding=k // 2, groups=groups, dtype=dtype)
+        if config.rel_pos_buckets:
+            self.rel_attn_embed = nn.Parameter(torch.zeros(config.rel_pos_buckets, config.num_attention_heads))
+        plain_ln = config.do_stable_layer_norm or config.sew_style
+        self.enc_layer_norm = (LayerNorm if plain_ln else _AddLayerNorm)(h, eps, dtype=dtype)
         for i in range(config.num_hidden_layers):
             self.add_module(f"layer{i}", _EncoderLayer(config, dtype=dtype))
+        if config.sew_style:
+            self.upsample_projection = Dense(h, h * config.squeeze_factor, dtype=dtype)
+        if config.add_adapter:
+            out = config.output_hidden_size
+            if out != h:
+                self.adapter_proj = Dense(h, out, dtype=dtype)
+                self.adapter_proj_ln = LayerNorm(out, 1e-5, dtype=dtype)  # HF builds it with torch's eps
+            for i in range(config.num_adapter_layers):
+                self.add_module(f"adapter_conv{i}", _Conv(out, 2 * out, config.adapter_kernel_size,
+                                                          stride=config.adapter_stride, padding=1, dtype=dtype))
 
     @property
     def final_dimension(self) -> int:
-        return self.config.hidden_size
+        return self.config.output_hidden_size if self.config.add_adapter else self.config.hidden_size
+
+    def output_lengths(self, lengths):
+        """Frames out of the encoder for ``lengths`` samples (an int or a tensor): the extractor's convs, then the
+        adapter's by HF's ``add_adapter`` formula, ``(L - 1) // stride + 1`` a conv."""
+        cfg = self.config
+        frames = feat_extract_output_lengths(lengths, cfg.conv_kernel, cfg.conv_stride)
+        for _ in range(cfg.num_adapter_layers if cfg.add_adapter else 0):
+            frames = (frames - 1) // cfg.adapter_stride + 1
+        return frames
+
+    def _layers(self, h: torch.Tensor, lengths: torch.Tensor, position_bias, train: bool, generator) -> torch.Tensor:
+        for i in range(self.config.num_hidden_layers):
+            h = run_block(getattr(self, f"layer{i}"), h, lengths, position_bias, remat=self.remat, train=train,
+                          generator=generator)
+        return h
+
+    def _positional(self, h: torch.Tensor) -> torch.Tensor:
+        """The convolutional positional embedding of ``h``: data2vec-audio's stack or the one grouped conv; an
+        even kernel's trailing frame dropped (HF's ``SamePad``)."""
+        cfg, t = self.config, h.shape[1]
+        if not cfg.pos_conv_stack:
+            pos = self.pos_conv(h)
+            return gelu(pos[:, :t] if cfg.num_conv_pos_embeddings % 2 == 0 else pos, self.dtype)
+        pos = h
+        for i in range(cfg.num_conv_pos_embeddings):
+            pos = getattr(self, f"pos_conv{i}")(pos)
+            if cfg.conv_pos_kernel_size % 2 == 0:
+                pos = pos[:, :t]
+            pos = gelu(_plain_layer_norm(pos, 1e-5, self.dtype), self.dtype)
+        return pos
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False, generator=None):
         cfg = self.config
         with torch.no_grad() if self.freeze_feature_extractor else contextlib.nullcontext():
             feats = self.feature_extractor(x, lengths)
         out_lengths = feat_extract_output_lengths(lengths.to(torch.int32), cfg.conv_kernel, cfg.conv_stride)
+        if cfg.sew_style:
+            return self._sew_encode(feats, out_lengths, train, generator)
         h = feats
         if cfg.feat_proj_layer_norm:
             h = self.fp_layer_norm(h)
@@ -533,44 +652,87 @@ class Wav2Vec2Encoder(nn.Module):
             h = dropout(h, cfg.feat_proj_dropout, generator)
         # padding is masked out of attention and zeroed before the transformer
         h = torch.where(lengths_to_mask(out_lengths, h.shape[1])[:, :, None], h, 0.0)
-        pos = self.pos_conv(h)
-        if cfg.num_conv_pos_embeddings % 2 == 0:  # HF SamePad drops the trailing frame of an even kernel
-            pos = pos[:, : h.shape[1]]
-        pos = gelu(pos, self.dtype)
+        pos = self._positional(h)
         if cfg.do_stable_layer_norm:
             h = h + pos
         else:
             h = self.enc_layer_norm(h, pos, train=train)
         if train:  # HF's encoder-level dropout, after the positional embedding (and its LayerNorm)
             h = dropout(h, cfg.hidden_dropout, generator)
-        for i in range(cfg.num_hidden_layers):
-            h = run_block(getattr(self, f"layer{i}"), h, out_lengths, remat=self.remat, train=train, generator=generator)
+        position_bias = None
+        if cfg.rel_pos_buckets:  # WavLM: one bias for every layer, each layer gating it
+            position_bias = _wavlm_position_bias(spmd.gathered(self.rel_attn_embed), h.shape[1],
+                                                 cfg.rel_pos_buckets, cfg.rel_pos_max_distance)
+        h = self._layers(h, out_lengths, position_bias, train, generator)
         if cfg.do_stable_layer_norm:
             h = self.enc_layer_norm(h)
+        if cfg.add_adapter:
+            return self._adapter(h), self.output_lengths(lengths.to(torch.int32))
         return h, out_lengths
+
+    def _adapter(self, h: torch.Tensor) -> torch.Tensor:
+        """HF ``Wav2Vec2Adapter``: the optional projection and its LayerNorm, then the strided GLU convs."""
+        cfg = self.config
+        if cfg.output_hidden_size != cfg.hidden_size:
+            h = self.adapter_proj_ln(self.adapter_proj(h))
+        for i in range(cfg.num_adapter_layers):
+            a, b = getattr(self, f"adapter_conv{i}")(h).chunk(2, dim=-1)
+            h = a * torch.sigmoid(b)
+        return h
+
+    def _sew_encode(self, feats: torch.Tensor, out_lengths: torch.Tensor, train: bool, generator):
+        """SEW (``modeling_sew.SEWModel``/``SEWEncoder``): LayerNorm on the extractor's output (and the
+        projection), the average pool by ``squeeze_factor`` (the remainder dropped) plus the strided positional
+        conv (an even kernel drops its *last* frame), a plain LayerNorm, the post-LN layers on the short
+        sequence with key lengths ``out_lengths // s``, then the upsample projection, gelu and a reshape back
+        to the extractor's frames, zeros past the upsampled tail. The CTC lengths stay the extractor's."""
+        cfg = self.config
+        h = self.sew_extract_ln(feats)
+        if cfg.conv_dim[-1] != cfg.hidden_size:
+            h = self.fp_projection(h)
+        if train:
+            h = dropout(h, cfg.feat_proj_dropout, generator)
+        h = torch.where(lengths_to_mask(out_lengths, h.shape[1])[:, :, None], h, 0.0)
+        s, (b, t_in, hidden) = cfg.squeeze_factor, h.shape
+        pos = self.pos_conv(h)
+        if cfg.num_conv_pos_embeddings % 2 == 0:
+            pos = pos[:, :-1]
+        pos = gelu(pos, self.dtype)
+        pooled = h[:, : t_in // s * s].reshape(b, t_in // s, s, hidden).sum(dim=2) / s
+        m = min(pos.shape[1], pooled.shape[1])
+        hq = self.enc_layer_norm(pooled[:, :m] + pos[:, :m])
+        if train:
+            hq = dropout(hq, cfg.hidden_dropout, generator)
+        hq = self._layers(hq, torch.div(out_lengths, s, rounding_mode="floor"), None, train, generator)
+        up = gelu(self.upsample_projection(hq), self.dtype).reshape(b, m * s, hidden)
+        if up.shape[1] < t_in:
+            up = F.pad(up, (0, 0, 0, t_in - up.shape[1]))
+        return up[:, :t_in], out_lengths
 
 
 class _Int8Dense(nn.Module):
     """A Dense served from int8: ``kernel_q8`` (int8, ``(in, out)``) and ``kernel_scale`` (float32, one a
     column) as buffers, with the bias.
 
-    ``compute=False`` (the engine's ``int8_weights``): the kernel is dequantized in the compute dtype at each
-    call, ``q.to(dtype) * scale.to(dtype)``, and :class:`Dense`'s math runs on it. ``compute=True``
+    ``compute=False`` (the engine's ``int8_weights``): the kernel is dequantized in ``weight_dtype`` (the
+    engine's compute dtype) at each call, ``q.to(weight_dtype) * scale.to(weight_dtype)``, and :class:`Dense`'s
+    math runs on it in ``dtype`` (float32 for WavLM's gate, as the JAX module promotes). ``compute=True``
     (``int8_compute``, the JAX module's ``_Dense`` int8 branch): :func:`dynamic_int8_matmul` over the flattened
     rows, the bias added in float32, then a cast to ``dtype``; the kernel is kept in :func:`column_major`
     order, which the card's int8 product takes fastest."""
 
     def __init__(self, kernel_q8: torch.Tensor, kernel_scale: torch.Tensor, bias: Optional[torch.Tensor],
-                 dtype: torch.dtype, compute: bool):
+                 dtype: torch.dtype, compute: bool, weight_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.dtype, self.compute = dtype, compute
+        self.dtype, self.compute, self.weight_dtype = dtype, compute, weight_dtype or dtype
         self.register_buffer("kernel_q8", column_major(kernel_q8) if compute else kernel_q8)
         self.register_buffer("kernel_scale", kernel_scale.reshape(-1))
         self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.compute:
-            return dense(x, self.kernel_q8.to(self.dtype) * self.kernel_scale.to(self.dtype), self.bias, self.dtype)
+            wdt = self.weight_dtype
+            return dense(x, self.kernel_q8.to(wdt) * self.kernel_scale.to(wdt), self.bias, self.dtype)
         y = dynamic_int8_matmul(x.reshape(-1, x.shape[-1]), self.kernel_q8, self.kernel_scale)
         if self.bias is not None:
             y = y + self.bias.float()
@@ -578,19 +740,25 @@ class _Int8Dense(nn.Module):
 
 
 class _Int8Conv(nn.Module):
-    """An extractor conv (VALID, one group) served W8A8, the JAX module's ``_ExtractorConv`` int8 branch:
-    :func:`dynamic_int8_conv`, the bias added in float32, then a cast to ``dtype``; the kernel in
-    :func:`column_major` order."""
+    """A conv served from int8. ``compute=True`` (``int8_compute``): an extractor conv (VALID, one group) W8A8,
+    the JAX module's ``_ExtractorConv`` int8 branch: :func:`dynamic_int8_conv`, the bias added in float32, then
+    a cast to ``dtype``; the kernel in :func:`column_major` order. ``compute=False`` (``int8_weights``, which
+    takes the kernels of size 1, such as SEW's extractor's): the kernel dequantized in ``dtype`` at each call
+    and :class:`_Conv`'s math on it."""
 
     def __init__(self, kernel_q8: torch.Tensor, kernel_scale: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, compute: bool = True, padding: int = 0, groups: int = 1):
         super().__init__()
-        self.stride, self.dtype = stride, dtype
-        self.register_buffer("kernel_q8", column_major(kernel_q8))
+        self.stride, self.dtype, self.compute, self.padding, self.groups = stride, dtype, compute, padding, groups
+        self.register_buffer("kernel_q8", column_major(kernel_q8) if compute else kernel_q8)
         self.register_buffer("kernel_scale", kernel_scale)
         self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.compute:
+            kernel = self.kernel_q8.to(self.dtype) * self.kernel_scale.to(self.dtype)
+            bias = None if self.bias is None else self.bias.to(self.dtype)
+            return conv1d(x.to(self.dtype), kernel, bias, stride=self.stride, padding=self.padding, groups=self.groups)
         y = dynamic_int8_conv(x, self.kernel_q8, self.kernel_scale, self.stride)
         if self.bias is not None:
             y = y + self.bias.float()
@@ -626,13 +794,14 @@ def serving_copy(encoder: Wav2Vec2Encoder, dtype: torch.dtype, posconv_dense: bo
     masked instance norm's, which apply in float32. Conv and dense weights are stored in
     ``dtype``; norm parameters keep float32 storage (the add + LayerNorm kernel's type)
     with their values rounded through ``dtype``, as the JAX engine's bf16 copies promote.
+    WavLM's ``rel_attn_embed`` and gate parameters are rounded too and still apply in float32.
 
     The engine's modes, in the JAX engine's order: ``posconv_dense`` (:func:`fold_pos_conv`), then
     ``int8_compute`` (:func:`quantize_tree_compute`: each selected Dense becomes an :class:`_Int8Dense`
     with ``compute=True`` and each selected extractor conv an :class:`_Int8Conv`, both with the float32
-    bias), then ``int8_weights`` (:func:`quantize_tree` over what is left: each selected Dense becomes an
-    :class:`_Int8Dense` with ``compute=False``, the bias as in float mode). Quantization starts from
-    ``encoder``'s float32 weights."""
+    bias), then ``int8_weights`` (:func:`quantize_tree` over what is left: every 2-D kernel's Dense becomes an
+    :class:`_Int8Dense` with ``compute=False``, the bias as in float mode, and every conv of kernel size 1 an
+    :class:`_Int8Conv` with ``compute=False``). Quantization starts from ``encoder``'s float32 weights."""
     config, state = encoder.config, {k: v.detach().float().cpu() for k, v in encoder.state_dict().items()}
     if posconv_dense:
         config, state = fold_pos_conv(config, state)
@@ -658,9 +827,11 @@ def serving_copy(encoder: Wav2Vec2Encoder, dtype: torch.dtype, posconv_dense: bo
         for name in [k for k in tree if k.endswith(f".kernel.{VALUES}")]:
             path = name[: -len(f".kernel.{VALUES}")]
             old = copy.get_submodule(path)
-            if not isinstance(old, Dense):
-                raise NotImplementedError(f"int8_weights: {path} is a {type(old).__name__}; only Dense kernels are "
-                                          "served from int8 storage")
             bias = None if old.bias is None else old.bias.detach()
-            _replace(copy, path, _Int8Dense(tree[name], tree[f"{path}.kernel.{SCALE}"], bias, dtype, compute=False))
+            q, scale = tree[name], tree[f"{path}.kernel.{SCALE}"]
+            if isinstance(old, Dense):
+                _replace(copy, path, _Int8Dense(q, scale, bias, old.dtype, compute=False, weight_dtype=dtype))
+            else:  # a conv of kernel size 1
+                _replace(copy, path, _Int8Conv(q, scale, bias, old.stride, dtype, compute=False, padding=old.padding,
+                                               groups=old.groups))
     return copy.requires_grad_(False).eval()

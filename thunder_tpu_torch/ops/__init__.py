@@ -10,9 +10,16 @@ from thunder_tpu_torch.ops.ctc import (  # noqa: F401
     ctc_loss,
     greedy_decode,
 )
-from thunder_tpu_torch.ops.masking import apply_mask, lengths_to_mask, masked_mean_std, normalize_tensor  # noqa: F401
+from thunder_tpu_torch.ops.masking import (  # noqa: F401
+    apply_mask,
+    lengths_to_mask,
+    masked_feature_normalize,
+    masked_mean_std,
+    normalize_tensor,
+)
 from thunder_tpu_torch.ops.specaugment import spec_augment, spec_cutout  # noqa: F401
 from thunder_tpu_torch.ops.stft import (  # noqa: F401
+    convolution_stft,
     mel_features,
     power_spectrum,
     power_spectrum_lengths,

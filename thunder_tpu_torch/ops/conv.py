@@ -55,7 +55,17 @@ def conv1d(
 
     Returns:
         ``(batch, out_time, out_channels)``.
+
+    A bfloat16 convolution on the CPU runs in float32 and rounds its output to bfloat16: PyTorch's CPU bfloat16
+    convolution returns wrong values at some shapes (up to 8 input channels a group with a kernel of 16 or 32:
+    off by about the output's own scale in torch 2.13), where the float32 product with one rounding is what a
+    float32-accumulating convolution gives.
     """
     weight = kernel.permute(2, 1, 0)  # WIO -> torch's OIW
-    out = F.conv1d(x.transpose(1, 2), weight, bias, stride=stride, padding=padding, dilation=dilation, groups=groups)
+    conv = lambda a, w, b: F.conv1d(a.transpose(1, 2), w, b, stride=stride, padding=padding,  # noqa: E731
+                                    dilation=dilation, groups=groups)
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        out = conv(x.float(), weight.float(), None if bias is None else bias.float()).to(x.dtype)
+    else:
+        out = conv(x, weight, bias)
     return out.transpose(1, 2)

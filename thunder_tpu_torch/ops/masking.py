@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lengths_to_mask", "apply_mask", "masked_mean_std", "normalize_tensor"]
+__all__ = ["lengths_to_mask", "apply_mask", "masked_mean_std", "normalize_tensor", "masked_feature_normalize"]
 
 
 def lengths_to_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -79,3 +79,10 @@ def normalize_tensor(x: torch.Tensor, mask: torch.Tensor | None = None, div_guar
         return centred / (std + div_guard)
     mean, std = masked_mean_std(x, None, axis=axis, div_guard=div_guard)
     return (x - mean) / std
+
+
+def masked_feature_normalize(x: torch.Tensor, lengths: torch.Tensor, div_guard: float = 1e-5) -> torch.Tensor:
+    """Per-(row, feature) normalization of ``(batch, time, features)`` over each row's valid frames:
+    :func:`normalize_tensor` along time with the lengths' mask."""
+    mask = lengths_to_mask(lengths, x.shape[1])[:, :, None]
+    return normalize_tensor(x, mask, div_guard=div_guard, axis=1)

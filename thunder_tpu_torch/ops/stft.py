@@ -1,4 +1,4 @@
-"""Spectral ops: framing, STFT as a matmul, power spectrum, slaney mel filterbank.
+"""Spectral ops: framing, STFT (a windowed-basis matmul or an FFT), power spectrum, slaney mel filterbank.
 
 Port of ``thunder_tpu/ops/stft.py``. The numpy helpers (window, mel
 filterbank, real-DFT basis) are copied as they are, because the JAX package
@@ -26,6 +26,7 @@ __all__ = [
     "mel_filterbank",
     "frame_signal",
     "stft",
+    "convolution_stft",
     "power_spectrum",
     "power_spectrum_lengths",
     "mel_features",
@@ -129,14 +130,30 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int, center: bool = Tr
     return x.unfold(1, n_fft, hop_length)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, center: bool = True):
-    """Real and imaginary STFT ``(batch, frames, n_fft // 2 + 1)`` as a windowed-basis matmul over the window's
-    samples of each frame (the basis is zero outside them, so a large ``n_fft`` with a short window stays small)."""
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, center: bool = True,
+         method: str = "matmul"):
+    """Real and imaginary STFT ``(batch, frames, n_fft // 2 + 1)``.
+
+    ``method="matmul"``: a windowed-basis matmul over the window's samples of each frame (the basis is zero
+    outside them, so a large ``n_fft`` with a short window stays small). ``"fft"``: ``torch.fft.rfft`` of the
+    windowed frames, the JAX package's numerical reference.
+    """
+    if method == "fft":
+        window = torch.as_tensor(_padded_window(hann_window(win_length), n_fft), device=x.device)
+        spec = torch.fft.rfft(frame_signal(x.float(), n_fft, hop_length, center=center) * window, n=n_fft, dim=-1)
+        return spec.real, spec.imag
+    if method != "matmul":
+        raise ValueError(f"stft method is 'matmul' or 'fft', got {method!r}")
     n_freqs = n_fft // 2 + 1
     under = slice((n_fft - win_length) // 2, (n_fft - win_length) // 2 + win_length)
     basis = torch.as_tensor(windowed_basis(n_fft, win_length, under), device=x.device)
     spec = torch.matmul(frame_signal(x.float(), n_fft, hop_length, center=center)[..., under], basis)
     return spec[..., :n_freqs], spec[..., n_freqs:]
+
+
+def convolution_stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int, center: bool = True):
+    """The FFT-free STFT (a windowed DFT matmul): ``stft(..., method="matmul")``; returns ``(real, imag)``."""
+    return stft(x, n_fft, hop_length, win_length, center=center, method="matmul")
 
 
 def power_spectrum_lengths(lengths: torch.Tensor, hop_length: int) -> torch.Tensor:
@@ -145,9 +162,10 @@ def power_spectrum_lengths(lengths: torch.Tensor, hop_length: int) -> torch.Tens
     return (torch.div(lengths, hop_length, rounding_mode="floor") + 1) * (lengths > 0)
 
 
-def power_spectrum(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
-    """``|STFT|^2`` of ``(batch, time)`` audio -> ``(batch, frames, n_freqs)``."""
-    real, imag = stft(x, n_fft, hop_length, win_length, center=True)
+def power_spectrum(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+                   method: str = "matmul") -> torch.Tensor:
+    """``|STFT|^2`` of ``(batch, time)`` audio -> ``(batch, frames, n_freqs)``; ``method`` as :func:`stft`'s."""
+    real, imag = stft(x, n_fft, hop_length, win_length, center=True, method=method)
     return real * real + imag * imag
 
 
@@ -164,9 +182,11 @@ def mel_features(
     win_length: int,
     n_mels: int,
     log_scale: bool = True,
+    method: str = "matmul",
 ) -> torch.Tensor:
-    """Power spectrum -> mel -> log: ``(batch, time)`` -> ``(batch, frames, n_mels)``."""
-    power = power_spectrum(x, n_fft, hop_length, win_length)
+    """Power spectrum -> mel -> log: ``(batch, time)`` -> ``(batch, frames, n_mels)``; ``method`` as
+    :func:`stft`'s."""
+    power = power_spectrum(x, n_fft, hop_length, win_length, method=method)
     fb = torch.as_tensor(mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate), device=x.device)
     mel = torch.matmul(power, fb)
     if log_scale:

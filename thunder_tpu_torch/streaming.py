@@ -21,13 +21,13 @@ rows. The predictor is a ``CTCModule`` or an ``InferenceEngine``; both give
 ``infer(padded, lengths) -> (logits, argmax ids, out_lengths)`` on their
 device. A pool's stream equals the same stream served alone only where a
 row's forward does not depend on the rows beside it: on the card that is
-checked for ``InferenceEngine(module, batch_invariant=True)`` on QuartzNet and
-Citrinet modules (``chip_smoke.py``'s ``streaming_batch_invariance``,
-``citrinet_streaming_batch_invariance`` and pool phases). Elsewhere float32
-sums may round otherwise in a batch and part a stream at a near-tie: on the
-card every row of a 64 x 1 s batch parts from the row alone on the default
-engines, the wav2vec2 engine and a ``CTCModule`` predictor
-(``chip_smoke.py``'s ``parting_rows``).
+checked for ``InferenceEngine(module, batch_invariant=True)`` on QuartzNet,
+Citrinet and wav2vec2 modules (``chip_smoke.py``'s
+``streaming_batch_invariance``, ``citrinet_streaming_batch_invariance``,
+``w2v2_batch_invariance`` and pool phases). Elsewhere float32 sums may round
+otherwise in a batch and part a stream at a near-tie: on the card every row
+of a 64 x 1 s batch parts from the row alone on the default engines and a
+``CTCModule`` predictor (``chip_smoke.py``'s ``parting_rows``).
 """
 
 from __future__ import annotations
@@ -267,8 +267,8 @@ class StreamingPool:
     padded ``(batch_size, chunk)`` call instead of one call per chunk. Greedy
     pools move only the argmax ids to the host; with the device beam each
     stream searches its row of the logits on the device. For streams equal to
-    lone ones on the card, serve a QuartzNet or Citrinet engine built with
-    ``batch_invariant=True`` (see the module docstring).
+    lone ones on the card, serve a QuartzNet, Citrinet or wav2vec2 engine built
+    with ``batch_invariant=True`` (see the module docstring).
 
     Args:
         predictor: shared ``CTCModule`` or ``InferenceEngine``.
