@@ -123,9 +123,8 @@ Phases, each of which fails the run:
     one step under torch.profiler, every loss finite and the last below ``1 -
     W2V_LOSS_FALL`` times the first; one train-mode forward with every
     dropout rate 0, bf16 on the card against the port's float32 CPU path on
-    rows 0-1, within ``W2V_TRAIN_LOSS_BOUND``; two steps with the extractor
-    trained too (``--no-freeze``) at 2 rows x 15 s: finite losses, and every
-    extractor parameter receives a gradient;
+    rows 0-1, within ``W2V_TRAIN_LOSS_BOUND`` (the extractor trained too,
+    ``--no-freeze``, is phase 38);
 11. the training kernels at that step's own shapes (layer 0's packed qkv and
     the cotangent of its attention output, its first add + LayerNorm's inputs
     and cotangent, captured by hooks; each cotangent times the power of two
@@ -412,8 +411,8 @@ Phases, each of which fails the run:
     a layer-norm extractor), SEW (``SEWConfig()``: squeeze 2, its 13-conv
     extractor), the conv adapter on wav2vec2-base's width (3 GLU convs of
     stride 2) and MMS-1b-all's width (1,280 hidden, 16 heads of 80, FFN
-    5,120, stable LN, a layer-norm extractor, attention adapters of 16; its
-    48 layers). One forward must launch the add + LayerNorm and attention
+    5,120, stable LN, a layer-norm extractor, attention adapters of 16; 24
+    of its 48 layers, ``MMS_LAYERS``). One forward must launch the add + LayerNorm and attention
     kernels the code predicts (``variant_launches``: 2 a post-LN layer + 1,
     SEW's plain encoder LayerNorm aside; one attention a layer where dh is 64
     and no position bias); the logits must be finite, of the expected shape
@@ -425,7 +424,54 @@ Phases, each of which fails the run:
 34. ``w2v2_variant_kernel_shape``: the attention and add + LayerNorm kernels
     on the inputs SEW's and the conv-adapter model's forwards give layer 0
     (SEW's at the squeezed length), against their plain versions (4 and 2
-    bf16 ULP) and timed with them in turns (host-paced).
+    bf16 ULP) and timed with them in turns (host-paced), beside their PyTorch
+    calls (SDPA with the key mask; ``F.layer_norm``), timed only;
+35. ``w2v2_large_serving``: wav2vec2-large-960h (``W2V_LARGE``: 24 post-LN
+    layers of 1,024 in 16 heads of 64, FFN 4,096, the group-norm extractor
+    without conv biases, 32 classes; random weights, seed ``W2V_CELL_SEED``)
+    on a bf16 ``InferenceEngine`` at 16 x 15 s (T 749) and 8 x 30 s (T
+    1499) of speech-like audio: one forward must launch 24 attention and 49
+    add + LayerNorm kernels, its logits finite and of their shape, rows 0-1
+    within ``LOGIT_BOUND`` of the module's float32 forward on the card; the
+    forward's ms (CUDA events, mean of ``W2V_CELL_TIMED``), peak memory,
+    model FLOPs (``flops.wav2vec2_forward_flops``) and MFU against
+    ``flops.peak_flops()`` (which must be 989e12 on "NVIDIA H100 80GB HBM3");
+    one profiled forward at 16 x 15 s; both kernels on layer 0's inputs at
+    each shape against their plain versions (4 and 2 bf16 ULP), timed beside
+    them and their PyTorch calls (the attention at 16 x 749 and 8 x 1499, 16
+    heads; the add + LayerNorm at 11,984 and 11,992 x 1,024);
+36. ``w2v2_serving_30s``: wav2vec2-base through the same checks at 8 x 30 s
+    (12 + 25 launches);
+37. ``w2v2_large_training``: wav2vec2-large-960h's widths in CTC training at
+    8 x 15 s (``w2v2_train_create``: the extractor frozen, dropout 0.1, bf16
+    compute, AdamW lr 1e-4, phase 10's noise audio and text): one
+    ``Trainer.fit`` step must launch 24 + 48 ``mha_train``, 49 + 98 add +
+    dropout + LayerNorm, 1 ``ctc_alpha`` and 1 ``ctc_beta``; 8 steps, the last
+    5 timed (CUDA events), every loss finite and the 8th below ``1 -
+    W2V_LOSS_FALL`` times the first; the extractor decays by lr x wd a step;
+    one profiled step; the train-mode loss with every dropout rate 0, bf16 on
+    the card, within ``W2V_TRAIN_LOSS_BOUND`` of float32 on the CPU on rows
+    0-1; step ms, peak memory, model FLOPs (``flops.wav2vec2_train_flops``,
+    ``frozen_extractor=True``) and MFU; the training kernels on layer 0's
+    inputs of a step (8 x 749, 16 heads; 5,992 x 1,024) against their plain
+    versions (8 bf16 ULP; 1 % for dscale and dbias), timed beside them and
+    their PyTorch calls;
+38. ``w2v2_training_no_freeze``: wav2vec2-base with the extractor trained
+    (``--no-freeze``) at 8 x 15 s through phase 37's checks (12 + 24, 25 +
+    50, 1 + 1 launches; the 8th loss below ``1 - W2V_NO_FREEZE_LOSS_FALL``
+    times the first), and every extractor parameter must receive a nonzero
+    gradient and move past the weight decay at the optimizer step; MFU with
+    ``frozen_extractor=False``;
+39. ``aot_export``: ``export.aot_export`` on the card of phase 4's
+    QuartzNet15x5 module (float32) and of a wav2vec2-base module with a
+    bf16 encoder, at ``AOT_BATCH`` x ``AOT_SECONDS``, both loaded in one
+    fresh ``python3`` by ``aot_load`` alone (``AOT_RUNNER``, float32 in full
+    as this process runs it) to serve the phase's audio: ``preds`` and lengths bit-equal (SHA-256) to the live module's
+    ``infer``, with its launches per call (1 log-mel; 12 + 25); export
+    seconds, artifact bytes, load seconds, a call's ms beside the live
+    module's (synchronized calls, host clock). The kernels line's entries
+    give their launches in phases 35-39 (``w2v2_cells_launches``) and their
+    lines at phase 35's and 37's shapes (``large_shapes``).
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -1214,6 +1260,14 @@ def run() -> int:
         if entry["name"] in variant_shapes:
             entry["variant_shapes"] = variant_shapes[entry["name"]]
 
+    # ---- wav2vec2-large-960h served and trained, wav2vec2-base at 8 x 30 s and with its extractor trained, and
+    # the exported predict graph loaded in a fresh process
+    cell_runs, cell_shapes = w2v2_cells(card)
+    add_launches(kernels, "w2v2_cells_launches", cell_runs)
+    for entry in kernels:
+        if entry["name"] in cell_shapes:
+            entry["large_shapes"] = cell_shapes[entry["name"]]
+
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1564,7 +1618,6 @@ def wav2vec2_training_phase(card: str) -> list:
     import torch
     import torch.nn.functional as F
 
-    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
     from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
     from thunder_tpu_torch.kernels.add_ln_train import (
         add_ln_train_backward,
@@ -1582,8 +1635,6 @@ def wav2vec2_training_phase(card: str) -> list:
     )
     from thunder_tpu_torch.kernels.compare_builds import COLD_SETS, cold_ms, device_ms_by_kernel, flushed_kernel_ms
     from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
-    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
-    from thunder_tpu_torch.module import CTCModule
     from thunder_tpu_torch.text import BatchTextTransformer
     from thunder_tpu_torch.training.optim import adamw
     from thunder_tpu_torch.training.trainer import Trainer, TrainStep, _encode_targets
@@ -1592,12 +1643,8 @@ def wav2vec2_training_phase(card: str) -> list:
     bf16 = torch.bfloat16
     rate = 0.1
 
-    def create(device, dtype, dropout: float, freeze: bool = True) -> CTCModule:
-        """The same weights (generator seed 0) whatever the device, dtype and dropout rates."""
-        cfg = Wav2Vec2Config(hidden_dropout=dropout, attention_dropout=dropout, feat_proj_dropout=dropout)
-        encoder = Wav2Vec2Encoder(cfg, dtype=dtype, freeze_feature_extractor=freeze)
-        return CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False), encoder,
-                                LinearDecoder(tt.num_tokens, dtype=dtype), tt, device=device)
+    def create(device, dtype, dropout: float):
+        return w2v2_train_create({}, device, dtype, dropout, freeze=True)
 
     b = W2V_TRAIN_BATCH
     samples = int(W2V_SECONDS * SAMPLE_RATE)
@@ -1672,45 +1719,8 @@ def wav2vec2_training_phase(card: str) -> list:
 
     # ---- the shapes of the step: layer 0's packed qkv, its attention output's cotangent, its first
     # add + LayerNorm's inputs and cotangent
-    captured = {}
-
-    def grad_of(name, tensor) -> None:
-        tensor.register_hook(lambda g: captured.__setitem__(name, g.detach()))
-
-    def on_out_proj(mod, args) -> None:
-        grad_of("attn_dout", args[0])
-
-    def on_qkv(mod, args, out) -> None:
-        captured["qkv"] = out.detach()
-
-    def on_add_ln(mod, args, out) -> None:
-        captured["add_ln"] = tuple(a.detach().contiguous() for a in args[:2])
-        grad_of("add_ln_dout", out)
-
+    captured = layer0_step_inputs(model, step, batch, generator)
     layer0 = model.encoder.layer0
-    hooks = [layer0.attention.qkv_proj.register_forward_hook(on_qkv),
-             layer0.attention.out_proj.register_forward_pre_hook(on_out_proj),
-             layer0.layer_norm.register_forward_hook(on_add_ln)]
-    step(*batch, generator)
-    for hook in hooks:
-        hook.remove()
-    torch.cuda.synchronize()
-
-    # ---- the extractor trained too, two steps at 2 rows
-    unfrozen = create("cuda", bf16, rate, freeze=False)
-    small = tuple(a[:2] for a in batch)
-    probe = TrainStep(unfrozen.model, adamw(unfrozen.model.parameters(), learning_rate=1e-4), unfrozen.blank_idx,
-                      accumulate_grad_batches=3)  # no optimizer step: the gradients stay to be read
-    t0 = time.perf_counter()
-    unfrozen_losses = [probe(*small, generator).item() for _ in range(2)]
-    torch.cuda.synchronize()
-    no_grad = [n for n, p in unfrozen.model.encoder.feature_extractor.named_parameters()
-               if p.grad is None or not bool(p.grad.abs().sum() > 0)]
-    emit({"phase": "w2v2_training_no_freeze", "batch": 2, "losses": unfrozen_losses,
-          "step_ms_host_clock": (time.perf_counter() - t0) * 1e3 / 2, "extractor_parameters_without_gradient": no_grad})
-    check(all(np.isfinite(unfrozen_losses)) and not no_grad,
-          f"unfrozen wav2vec2 training: losses {unfrozen_losses}, extractor parameters without a gradient {no_grad}")
-    del unfrozen, probe
 
     # ---- phase 11: the attention kernels at the step's shape
     qkv, raw_dout = captured["qkv"].contiguous(), captured["attn_dout"].contiguous()
@@ -5070,9 +5080,10 @@ W2V_POOL_GRID = (2.0, 0.5)
 WAVLM = dict(rel_pos_buckets=320, rel_pos_max_distance=800)  # transformers.WavLMConfig()'s buckets
 
 
-def w2v2_create(config, device, seed: int = 0):
+def w2v2_create(config, device, seed: int = 0, dtype=None):
     """A wav2vec2-family ``CTCModule`` (``Wav2Vec2Preprocess(mask_input=True)``, a ``LinearDecoder`` over
-    ``W2V_VOCAB``) with random weights from ``seed``."""
+    ``W2V_VOCAB``) with random weights from ``seed``; ``dtype`` the encoder's and decoder's compute type (float32
+    by default)."""
     import torch
 
     from thunder_tpu_torch.audio import Wav2Vec2Preprocess
@@ -5081,9 +5092,10 @@ def w2v2_create(config, device, seed: int = 0):
     from thunder_tpu_torch.text import BatchTextTransformer
 
     tt = BatchTextTransformer(W2V_VOCAB)
+    dtype = dtype or torch.float32
     return CTCModule.create(torch.Generator().manual_seed(seed), Wav2Vec2Preprocess(mask_input=True),
-                            Wav2Vec2Encoder(config),
-                            LinearDecoder(tt.num_tokens), tt, device=device)
+                            Wav2Vec2Encoder(config, dtype=dtype), LinearDecoder(tt.num_tokens, dtype=dtype), tt,
+                            device=device)
 
 
 def parting_rows_phase(card: str, device="cuda") -> dict:
@@ -5164,7 +5176,7 @@ def lengths_valid(logits, out_lengths):
 SEW_EXTRACTOR = dict(conv_dim=(64, 128, 128, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512),
                      conv_kernel=(10, 3, 1, 3, 1, 3, 1, 3, 1, 2, 1, 2, 1),
                      conv_stride=(5, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1))  # transformers.SEWConfig()'s
-MMS_LAYERS = 48  # MMS-1b-all's depth
+MMS_LAYERS = 24  # MMS-1b-all's 48 layers cut to 24: the whole run's time, which phases 35-39 grow
 W2V_VARIANTS = {  # each published config's widths, written out: the card's machine reads no transformers config
     "wavlm": dict(**WAVLM),
     "data2vec_audio": dict(feat_extract_norm="layer", pos_conv_stack=True, num_conv_pos_embeddings=5,
@@ -5198,9 +5210,12 @@ def variant_frames(config, samples: int) -> int:
 
 
 def variant_kernel_shapes(name: str, engine, audio_d, lengths_d) -> dict:
-    """Phase 34 for one variant: the attention and add + LayerNorm kernels on layer 0's inputs of one forward,
-    against their plain versions, timed in turns with them. Returns each kernel's shape line."""
+    """Phase 34 for one variant (and phases 35-36 for a served shape): the attention and add + LayerNorm kernels
+    on layer 0's inputs of one forward, against their plain versions, timed in turns with them, and beside their
+    PyTorch calls (the split into heads + ``F.scaled_dot_product_attention`` with the key mask; ``F.layer_norm``
+    of the float32 sum), timed only. Returns each kernel's shape line."""
     import torch
+    import torch.nn.functional as F
 
     from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference
     from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
@@ -5227,6 +5242,14 @@ def variant_kernel_shapes(name: str, engine, audio_d, lengths_d) -> dict:
     a_err, a_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
     a_ms, a_plain = paired_ms(lambda: mha_from_qkv(qkv, lens, heads), lambda: mha_from_qkv_reference(qkv, lens, heads),
                               10)
+    h = qkv.shape[-1] // 3
+    key_mask = (torch.arange(t, device=qkv.device)[None, :] < lens[:, None])[:, None, None, :]
+
+    def attention_library():
+        q, k, v = (a.reshape(b, t, heads, h // heads).transpose(1, 2) for a in qkv.split(h, dim=-1))
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask).transpose(1, 2).reshape(b, t, h)
+
+    _, a_lib = paired_ms(lambda: mha_from_qkv(qkv, lens, heads), attention_library, 10)
     x, y = (v.contiguous() for v in captured["add_ln"][:2])
     ln = layer0.layer_norm
     rows, d = x.numel() // x.shape[-1], x.shape[-1]
@@ -5234,12 +5257,13 @@ def variant_kernel_shapes(name: str, engine, audio_d, lengths_d) -> dict:
     n_err, n_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
     n_ms, n_plain = paired_ms(lambda: add_layer_norm(x, y, ln.scale, ln.bias),
                               lambda: add_layer_norm_reference(x, y, ln.scale, ln.bias), 50)
+    n_lib = cuda_ms(lambda: F.layer_norm(x.float() + y.float(), (d,), ln.scale, ln.bias, ln.epsilon).to(x.dtype), 50)
     lines = {
         "mha_from_qkv": {"variant": name, "B": b, "T": t, "heads": heads, "ms": a_ms, "plain_ms": a_plain,
-                         "max_abs_err": a_err, "ulp": a_ulp, **attention_bound(b, t, heads),
+                         "library_ms": a_lib, "max_abs_err": a_err, "ulp": a_ulp, **attention_bound(b, t, heads),
                          "ms_is": "one launch on layer 0's qkv, host-paced, in turns with the plain version"},
-        "add_layer_norm": {"variant": name, "rows": rows, "D": d, "ms": n_ms, "plain_ms": n_plain, "max_abs_err": n_err,
-                           "ulp": n_ulp, **add_ln_bound(rows, d),
+        "add_layer_norm": {"variant": name, "rows": rows, "D": d, "ms": n_ms, "plain_ms": n_plain,
+                           "library_ms": n_lib, "max_abs_err": n_err, "ulp": n_ulp, **add_ln_bound(rows, d),
                            "ms_is": "one launch on layer 0's first add + LayerNorm, host-paced, in turns with the "
                                     "plain version"},
     }
@@ -5321,6 +5345,547 @@ def variants_phase(card: str, device="cuda") -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
     return runs, shapes
+
+
+# ---- phases 35-39: wav2vec2-large-960h served and trained, wav2vec2-base at 8 x 30 s, the extractor trained at
+# 8 x 15 s, the exported predict graph
+
+#: ``facebook/wav2vec2-large-960h``'s published config, written out (the card's machine reads no transformers config);
+#: the rest is ``Wav2Vec2Config``'s defaults, which are that checkpoint's: a group-norm extractor of seven 512-channel
+#: convs without biases, post-LN layers, the k=128 positional conv in 16 groups, 32 classes (``W2V_VOCAB`` + blank)
+W2V_LARGE = dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096)
+W2V_LARGE_SHAPES = ((16, 15.0), (8, 30.0))  # (rows, seconds) served: T 749 and 1499
+W2V_BASE_30S_SHAPES = ((8, 30.0),)
+W2V_CELL_TIMED = 5  # forwards and steps timed a cell (CUDA events, the mean)
+W2V_CELL_SEED = 23
+# the last of the 1 + W2V_TRAIN_WARMUP + W2V_TRAIN_TIMED = 8 losses of the extractor-trained step must be below
+# (1 - W2V_NO_FREEZE_LOSS_FALL) x the first; on the port's float32 CPU path of the card's machine
+# (``w2v2_cpu_loss_fall``) the same configuration at 4 x 3 s (hidden 128, 2 layers) and 2 x 6 s (hidden 256, 4 layers)
+# ended its 8th step at 0.373 and 0.375 of the first (0.397 and 0.396 with the extractor frozen)
+W2V_NO_FREEZE_LOSS_FALL = W2V_LOSS_FALL
+AOT_BATCH, AOT_SECONDS = 8, 15.0
+# runs in a fresh ``python3``, float32 in full as this process runs it (``exact_float32``: cuDNN's float32
+# convolutions would take TF32 by default): for each exported predict graph, ``aot_load``, one call on the saved
+# batch (its launches), then the median of W2V_CELL_TIMED synchronized calls on the host clock (``host_ms``'s way);
+# prints one line a graph, with the SHA-256 of what the call returns
+AOT_RUNNER = """import hashlib, json, sys, time
+import numpy as np
+import torch
+from thunder_tpu_torch.export import aot_load
+from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+from thunder_tpu_torch.kernels.selftest import exact_float32
+exact_float32()
+audio_path, lengths_path, timed, *paths = sys.argv[1:]
+for path in paths:
+    t0 = time.perf_counter()
+    loaded = aot_load(path)
+    load_s = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if loaded.device.type == "cuda" else (lambda: None)
+    audio = torch.as_tensor(np.load(audio_path), device=loaded.device)
+    lengths = torch.as_tensor(np.load(lengths_path), device=loaded.device)
+    loaded.call(audio, lengths)
+    sync()
+    reset_launch_counts()
+    preds, out_lengths = loaded.call(audio, lengths)
+    sync()
+    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    times = []
+    for _ in range(int(timed)):
+        t0 = time.perf_counter()
+        loaded.call(audio, lengths)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    sha = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    print("aot_result " + json.dumps({"path": path, "load_s": load_s, "launches": launches,
+                                      "preds_sha256": sha(preds), "lengths_sha256": sha(out_lengths),
+                                      "preds_dtype": str(preds.dtype), "call_ms": float(np.median(times))}), flush=True)
+"""
+
+
+def w2v2_flops_kwargs(config) -> dict:
+    """``wav2vec2_forward_flops``'s widths of ``config``, with the CTC head over ``W2V_VOCAB`` and the blank."""
+    return dict(hidden_size=config.hidden_size, num_hidden_layers=config.num_hidden_layers,
+                intermediate_size=config.intermediate_size, conv_dim=tuple(config.conv_dim),
+                conv_kernel=tuple(config.conv_kernel), conv_stride=tuple(config.conv_stride),
+                num_classes=len(W2V_VOCAB) + 1)
+
+
+def speech_batch(batch: int, seconds: float, seed: int) -> tuple:
+    """``batch`` rows of one speech-like signal at random gains, full length: ``(audio, lengths)``."""
+    samples = int(seconds * SAMPLE_RATE)
+    rng = np.random.default_rng(seed)
+    base = speech_like(samples, rng)
+    audio = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(batch)]).astype(np.float32)
+    return audio, np.full((batch,), samples, dtype=np.int32)
+
+
+def peak_check(card: str) -> float:
+    """``flops.peak_flops()`` on this card: 989e12 on the H100 SXM ("NVIDIA H100 80GB HBM3")."""
+    import torch
+
+    from thunder_tpu_torch.flops import peak_flops
+
+    peak = peak_flops()
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "peak_flops", "device_name": name, "peak_flops": peak, "card": card})
+    if name == "NVIDIA H100 80GB HBM3":
+        check(peak == 989e12, f"peak_flops() on {name} is {peak}, not 989e12")
+    return peak
+
+
+def w2v2_serving_cells_phase(card: str, phase: str, config, shapes, profile: bool, device="cuda") -> tuple:
+    """Phases 35 and 36 of the module docstring: a wav2vec2 ``CTCModule`` (random weights, seed
+    ``W2V_CELL_SEED``) on a bf16 ``InferenceEngine`` at each of ``shapes``: one forward's launches (an attention
+    a layer, two add + LayerNorms a layer and one more), the logits finite and of their shape, rows 0-1 within
+    ``LOGIT_BOUND`` of the module's float32 forward on the card, the forward's ms (CUDA events, mean of
+    ``W2V_CELL_TIMED``), peak memory, model FLOPs and MFU; both kernels on layer 0's inputs against their plain
+    versions (``variant_kernel_shapes``). Returns the forwards' launches by shape and the kernels' shape lines."""
+    import torch
+
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.flops import mfu, wav2vec2_forward_flops
+    from thunder_tpu_torch.kernels import reset_launch_counts
+
+    t_start = time.perf_counter()
+    module = w2v2_create(config, device, seed=W2V_CELL_SEED)
+    engine = InferenceEngine(module)
+    create_s = time.perf_counter() - t_start
+    layers = config.num_hidden_layers
+    want = expected_counts(mha_from_qkv=layers, add_layer_norm=2 * layers + 1)
+    runs, lines = {}, {"mha_from_qkv": [], "add_layer_norm": []}
+    for i, (batch, seconds) in enumerate(shapes):
+        tag = f"{batch}x{seconds:g}s"
+        audio, lengths = speech_batch(batch, seconds, W2V_CELL_SEED)
+        samples = audio.shape[1]
+        audio_d, lengths_d = torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device)
+        engine.infer(audio_d, lengths_d)
+        sync(device)
+        reset_launch_counts()
+        logits, _, out_lengths = engine.infer(audio_d, lengths_d)
+        sync(device)
+        runs[tag] = launch_counts()
+        frames = variant_frames(config, samples)
+        shape = (batch, frames, len(W2V_VOCAB) + 1)
+        check(runs[tag] == want, f"{phase} {tag}: one forward launched {runs[tag]}, expected {want}")
+        check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == shape,
+              f"{phase} {tag}: logits not finite or of shape {tuple(logits.shape)}, expected {shape}")
+        f32, f32_lengths = module.forward(audio[:2], lengths[:2])  # the port's float32 path, on the card
+        check(torch.equal(f32_lengths, out_lengths[:2]), f"{phase} {tag}: the float32 path's lengths differ")
+        ok = lengths_valid(f32, f32_lengths)
+        f32_rel = ((logits[:2] - f32).abs()[ok].max() / f32.abs()[ok].max()).item()
+        f32_agree = (logits[:2].argmax(-1) == f32.argmax(-1))[ok].float().mean().item()
+        del f32
+        torch.cuda.reset_peak_memory_stats()
+        forward_ms = cuda_ms(lambda: engine.infer(audio_d, lengths_d), W2V_CELL_TIMED)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model_flops = wav2vec2_forward_flops(samples, batch=batch, **w2v2_flops_kwargs(config))
+        if profile and i == 0:
+            emit({"phase": f"{phase}_profile", "shape": tag, **device_profile(lambda: engine.infer(audio_d, lengths_d))})
+        emit({"phase": phase, "shape": tag, "batch": batch, "seconds": seconds, "hidden": config.hidden_size,
+              "layers": layers, "heads": config.num_attention_heads, "frames": frames,
+              "launches": {k: v for k, v in runs[tag].items() if v}, "rows01_max_rel_dev_vs_f32_card": f32_rel,
+              "rows01_argmax_agreement_vs_f32": f32_agree, "bound": LOGIT_BOUND, "forward_ms": forward_ms,
+              "forward_ms_is": f"CUDA events, mean of {W2V_CELL_TIMED} forwards back to back",
+              "rtf": batch * seconds / (forward_ms / 1e3), "peak_mem_gb": peak_gb, "model_flops": model_flops,
+              "mfu": mfu(model_flops, forward_ms / 1e3), "create_s": create_s,
+              "phase_s": time.perf_counter() - t_start, "card": card})
+        check(f32_rel < LOGIT_BOUND, f"{phase} {tag}: bf16 engine vs float32 on the card deviate by {f32_rel}")
+        for kernel, line in variant_kernel_shapes(f"{phase}_{tag}", engine, audio_d, lengths_d).items():
+            lines[kernel].append(line)
+        del logits, audio_d
+    del engine, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, lines
+
+
+def w2v2_train_create(overrides: dict, device, dtype, dropout: float, freeze: bool):
+    """wav2vec2 for CTC training (``bench_train.py --model wav2vec2``'s: ``Wav2Vec2Preprocess(mask_input=False)``,
+    attention, hidden and feature-projection dropout at ``dropout``, the 29-token ``VOCAB``): the same weights
+    (generator seed 0) whatever the device, dtype and rates."""
+    import torch
+
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    tt = BatchTextTransformer(VOCAB)
+    cfg = Wav2Vec2Config(**overrides, hidden_dropout=dropout, attention_dropout=dropout, feat_proj_dropout=dropout)
+    encoder = Wav2Vec2Encoder(cfg, dtype=dtype, freeze_feature_extractor=freeze)
+    return CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False), encoder,
+                            LinearDecoder(tt.num_tokens, dtype=dtype), tt, device=device)
+
+
+def w2v2_cpu_loss_fall(batch: int, seconds: float, freeze: bool, **overrides) -> dict:
+    """A wav2vec2 training cell's 8 losses on the port's float32 CPU path (the plain versions of every kernel) at
+    ``batch`` x ``seconds`` and the widths ``overrides`` give, from which the cell's loss-fall margin is set;
+    needs no card: ``python3 -c "import chip_smoke; print(chip_smoke.w2v2_cpu_loss_fall(4, 3.0, False,
+    hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256))"``."""
+    import torch
+
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import TrainStep, _encode_targets
+
+    module = w2v2_train_create(overrides, "cpu", torch.float32, 0.1, freeze)
+    samples = int(seconds * SAMPLE_RATE)
+    audio = torch.as_tensor((np.random.default_rng(0).standard_normal((batch, samples)) * 0.1).astype(np.float32))
+    lengths = torch.full((batch,), samples, dtype=torch.int32)
+    targets, target_lengths = _encode_targets(module.text_transform, [TRAIN_TEXT] * batch)
+    step = TrainStep(module.model, adamw(module.model.parameters(), learning_rate=1e-4), module.blank_idx)
+    generator = torch.Generator().manual_seed(0)
+    losses = [step(audio, lengths, torch.as_tensor(targets), torch.as_tensor(target_lengths), generator).item()
+              for _ in range(1 + W2V_TRAIN_WARMUP + W2V_TRAIN_TIMED)]
+    return {"batch": batch, "seconds": seconds, "freeze": freeze, "widths": overrides, "losses": losses,
+            "last_over_first": losses[-1] / losses[0]}
+
+
+def layer0_step_inputs(model, step, batch: tuple, generator) -> dict:
+    """What one step of ``step`` gives wav2vec2's layer 0: its packed qkv (``"qkv"``), the cotangent of its
+    attention output (``"attn_dout"``), its first add + LayerNorm's inputs (``"add_ln"``) and that output's
+    cotangent (``"add_ln_dout"``), detached."""
+    captured = {}
+
+    def grad_of(name, tensor) -> None:
+        tensor.register_hook(lambda g: captured.__setitem__(name, g.detach()))
+
+    def on_add_ln(mod, args, out) -> None:
+        captured["add_ln"] = tuple(a.detach().contiguous() for a in args[:2])
+        grad_of("add_ln_dout", out)
+
+    layer0 = model.encoder.layer0
+    hooks = [layer0.attention.qkv_proj.register_forward_hook(lambda m, a, out: captured.__setitem__("qkv", out.detach())),
+             layer0.attention.out_proj.register_forward_pre_hook(lambda m, a: grad_of("attn_dout", a[0])),
+             layer0.layer_norm.register_forward_hook(on_add_ln)]
+    try:
+        step(*batch, generator)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    sync(batch[0].device)
+    return captured
+
+
+def train_kernel_shapes(phase: str, model, step, batch: tuple, generator, rate: float) -> dict:
+    """The training kernels on the inputs one step of ``step`` gives layer 0 (its packed qkv and the cotangent of
+    its attention output, its first add + LayerNorm's inputs and cotangent, each cotangent at unit scale):
+    forward and backward against their plain versions (``TRAIN_KERNEL_ULP``; dscale and dbias 1 %), timed in
+    turns with them, beside their PyTorch calls forward + backward (the split into heads +
+    ``F.scaled_dot_product_attention`` with the key mask and ``dropout_p``; ``F.dropout`` + ``F.layer_norm`` of the
+    float32 sum), timed only. Returns each kernel's line."""
+    import torch
+    import torch.nn.functional as F
+
+    from thunder_tpu_torch.kernels.add_ln_train import (
+        add_ln_train_backward,
+        add_ln_train_backward_reference,
+        add_ln_train_forward,
+        add_ln_train_forward_reference,
+    )
+    from thunder_tpu_torch.kernels.attention_train import (
+        mha_train_backward,
+        mha_train_backward_reference,
+        mha_train_forward,
+        mha_train_forward_reference,
+    )
+    from thunder_tpu_torch.kernels.selftest import ulp_bf16_error
+
+    captured = layer0_step_inputs(model, step, batch, generator)
+    layer0 = model.encoder.layer0
+    cfg = model.encoder.config
+    heads, h = cfg.num_attention_heads, cfg.hidden_size
+    qkv, dout = captured["qkv"].contiguous(), to_unit_scale(captured["attn_dout"].contiguous())
+    b, frames = qkv.shape[:2]
+    lens = torch.full((b,), frames, dtype=torch.int32, device=qkv.device)
+    seed = torch.tensor([20261018], dtype=torch.int32, device=qkv.device)
+    out, stats = mha_train_forward(qkv, lens, seed, heads, rate)
+    dqkv = mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate)
+    out_p, _ = mha_train_forward_reference(qkv, lens, seed, heads, rate)
+    dqkv_p = mha_train_backward_reference(qkv, out, stats, dout, lens, seed, heads, rate)
+    parts = dict(zip(("dq", "dk", "dv"), zip(dqkv.split(h, dim=-1), dqkv_p.split(h, dim=-1))))
+    a_ulp = {"fwd": ulp_bf16_error(out, out_p), **{n: ulp_bf16_error(g, w) for n, (g, w) in parts.items()}}
+    a_err = max((out.float() - out_p.float()).abs().max().item(), (dqkv.float() - dqkv_p.float()).abs().max().item())
+    del out_p, dqkv_p, parts
+    af_ms, af_plain = paired_ms(lambda: mha_train_forward(qkv, lens, seed, heads, rate),
+                                lambda: mha_train_forward_reference(qkv, lens, seed, heads, rate), 5)
+    ab_ms, ab_plain = paired_ms(lambda: mha_train_backward(qkv, out, stats, dout, lens, seed, heads, rate),
+                                lambda: mha_train_backward_reference(qkv, out, stats, dout, lens, seed, heads, rate), 5)
+    key_mask = (torch.arange(frames, device=qkv.device)[None, :] < lens[:, None])[:, None, None, :]
+    leaf = qkv.clone().requires_grad_(True)
+
+    def attention_library():
+        q, k, v = (a.reshape(b, frames, heads, h // heads).transpose(1, 2) for a in leaf.split(h, dim=-1))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask, dropout_p=rate)
+        return torch.autograd.grad(o.transpose(1, 2).reshape(b, frames, h), leaf, dout)
+
+    a_lib = cuda_ms(attention_library, 5)
+    check(max(a_ulp.values()) <= TRAIN_KERNEL_ULP, f"{phase}: training attention off by {a_ulp} bf16 ULP")
+
+    (x, y), n_dout = captured["add_ln"], to_unit_scale(captured["add_ln_dout"].contiguous())
+    ln = layer0.layer_norm
+    scale, bias = ln.scale.detach(), ln.bias.detach()
+    rows = x.numel() // h
+    got = (add_ln_train_forward(x, y, scale, bias, seed, rate), *add_ln_train_backward(x, y, scale, seed, n_dout, rate))
+    plain = (add_ln_train_forward_reference(x, y, scale, bias, seed, rate),
+             *add_ln_train_backward_reference(x, y, scale, seed, n_dout, rate))
+    n_ulp = {name: ulp_bf16_error(got[i], plain[i]) for i, name in enumerate(("fwd", "dx", "dy"))}
+    n_rel = {name: ((got[i] - plain[i]).abs().max() / plain[i].abs().max().clamp_min(1e-9)).item()
+             for i, name in ((3, "dscale"), (4, "dbias"))}
+    n_err = max((g.float() - q.float()).abs().max().item() for g, q in zip(got[:3], plain[:3]))
+    nf_ms, nf_plain = paired_ms(lambda: add_ln_train_forward(x, y, scale, bias, seed, rate),
+                                lambda: add_ln_train_forward_reference(x, y, scale, bias, seed, rate), 20)
+    nb_ms, nb_plain = paired_ms(lambda: add_ln_train_backward(x, y, scale, seed, n_dout, rate),
+                                lambda: add_ln_train_backward_reference(x, y, scale, seed, n_dout, rate), 20)
+    leaves = [a.clone().requires_grad_(True) for a in (x, y, scale, bias)]
+
+    def add_ln_library():
+        xl, yl, sl, bl = leaves
+        o = F.layer_norm(xl.float() + F.dropout(yl, rate, training=True).float(), (h,), sl, bl, ln.epsilon)
+        return torch.autograd.grad(o.to(xl.dtype), leaves, n_dout)
+
+    n_lib = cuda_ms(add_ln_library, 20)
+    check(max(n_ulp.values()) <= TRAIN_KERNEL_ULP and max(n_rel.values()) <= 0.01,
+          f"{phase}: add + dropout + LayerNorm off by {n_ulp} bf16 ULP, {n_rel} relative")
+    a_fwd_bound, a_bwd_bound = attention_train_bounds(b, frames, heads)
+    n_fwd_bound, n_bwd_bound = add_ln_train_bounds(rows, h)
+    lines = {
+        "mha_train": {"shape_of": phase, "B": b, "T": frames, "heads": heads, "rate": rate, "ms": af_ms + ab_ms,
+                      "fwd_ms": af_ms, "bwd_ms": ab_ms, "plain_ms": af_plain + ab_plain, "library_ms": a_lib,
+                      "max_abs_err": a_err, "ulp": a_ulp, **sum_bounds(a_fwd_bound, a_bwd_bound),
+                      "ms_is": "forward + backward on layer 0's qkv and cotangent, host-paced, in turns with the "
+                               "plain versions"},
+        "add_ln_dropout_train": {"shape_of": phase, "rows": rows, "D": h, "rate": rate, "ms": nf_ms + nb_ms,
+                                 "fwd_ms": nf_ms, "bwd_ms": nb_ms, "plain_ms": nf_plain + nb_plain,
+                                 "library_ms": n_lib, "max_abs_err": n_err, "ulp": n_ulp, "rel": n_rel,
+                                 **sum_bounds(n_fwd_bound, n_bwd_bound),
+                                 "ms_is": "forward + backward (with its partial sum) on layer 0's first add + "
+                                          "LayerNorm, host-paced, in turns with the plain versions"},
+    }
+    for kernel, line in lines.items():
+        emit({"phase": "w2v2_train_kernel_shape", "kernel": kernel, **line})
+    return lines
+
+
+def w2v2_training_cell(card: str, phase: str, overrides: dict, freeze: bool, loss_fall: float,
+                       kernel_shapes: bool = False, device="cuda") -> tuple:
+    """Phases 37 and 38 of the module docstring: wav2vec2 (``overrides``' widths) CTC training at
+    ``W2V_TRAIN_BATCH`` x ``W2V_SECONDS`` (``w2v2_train_create``: dropout 0.1, bf16 compute with float32
+    parameters, AdamW lr 1e-4, noise audio from numpy seed 0, the fixed text), the extractor frozen or trained:
+    one ``Trainer.fit`` step's launches; ``W2V_TRAIN_WARMUP`` + 1 steps, then ``W2V_TRAIN_TIMED`` timed (CUDA
+    events) with peak memory, model FLOPs and MFU; every loss finite and the last below ``1 - loss_fall`` times the
+    first; one profiled step; the frozen extractor decays by lr x wd a step, or every extractor parameter gets a
+    nonzero gradient and moves past the decay at the optimizer step; the train-mode loss with every dropout rate 0,
+    bf16 on the card, within ``W2V_TRAIN_LOSS_BOUND`` of float32 on the CPU on rows 0-1; with ``kernel_shapes``
+    the training kernels at the step's shapes (``train_kernel_shapes``). Returns one step's launches and the
+    kernels' lines."""
+    import torch
+
+    from thunder_tpu_torch.flops import mfu, wav2vec2_train_flops
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.training.optim import adamw
+    from thunder_tpu_torch.training.trainer import Trainer, TrainStep, _encode_targets
+
+    t_start = time.perf_counter()
+    bf16, rate, b = torch.bfloat16, 0.1, W2V_TRAIN_BATCH
+    samples = int(W2V_SECONDS * SAMPLE_RATE)
+    audio = (np.random.default_rng(0).standard_normal((b, samples)) * 0.1).astype(np.float32)
+    lengths = np.full((b,), samples, dtype=np.int32)
+    texts = [TRAIN_TEXT] * b
+    module = w2v2_train_create(overrides, device, bf16, rate, freeze)
+    cfg = module.model.encoder.config
+    layers = cfg.num_hidden_layers
+    Trainer(seed=0, device=device).fit(module, [(audio, lengths, texts)])  # warms up
+    reset_launch_counts()
+    trainer = Trainer(seed=0, log_every=1, device=device)
+    trainer.fit(module, [(audio, lengths, texts)])
+    sync(device)
+    counts = launch_counts()
+    want = expected_counts(mha_train_forward=layers, mha_train_backward=2 * layers,
+                           add_ln_train_forward=2 * layers + 1, add_ln_train_backward=2 * (2 * layers + 1),
+                           ctc_alpha=1, ctc_beta=1)
+    check(counts == want, f"{phase}: one train step must launch {want}, got {counts}")
+    check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"{phase}: Trainer.fit loss {trainer.logs[0]}")
+
+    targets, target_lengths = _encode_targets(module.text_transform, texts)
+    batch = tuple(torch.as_tensor(a, device=device) for a in (audio, lengths, targets, target_lengths))
+    model = module.model
+    lr, wd = 1e-4, 1e-2
+    step = TrainStep(model, adamw(model.parameters(), learning_rate=lr), module.blank_idx)
+    generator = torch.Generator(device=device).manual_seed(0)
+    extractor = dict(model.encoder.feature_extractor.named_parameters())
+    before = {n: p.detach().clone() for n, p in extractor.items()}
+    grads = {}
+    hooks = [] if freeze else [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: grads.__setitem__(n, float(p.grad.float().abs().sum()))) for n, p in extractor.items()]
+    losses = [step(*batch, generator)]
+    for hook in hooks:
+        hook.remove()
+    # a first AdamW step moves each weight with a gradient by about lr, past the decay lr * wd * w of one without
+    moved = {n: (p.detach() - before[n] * (1 - lr * wd)).abs().max().item() > 0.5 * lr for n, p in extractor.items()}
+    conv0 = extractor["conv0.kernel"]
+    norm_first = conv0.detach().double().norm().item() / before["conv0.kernel"].double().norm().item()
+    losses += [step(*batch, generator) for _ in range(W2V_TRAIN_WARMUP)]
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(W2V_TRAIN_TIMED):
+        losses.append(step(*batch, generator))
+    end.record()
+    sync(device)
+    step_ms = start.elapsed_time(end) / W2V_TRAIN_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [loss.item() for loss in losses]
+    shrink = conv0.detach().double().norm().item() / before["conv0.kernel"].double().norm().item()
+    model_flops = wav2vec2_train_flops(samples, batch=b, frozen_extractor=freeze, **w2v2_flops_kwargs(cfg))
+    profile = device_profile(lambda: step(*batch, generator))
+    emit({"phase": f"{phase}_profile", **profile})
+
+    with torch.no_grad():
+        card_loss, _ = w2v2_train_create(overrides, device, bf16, 0.0, freeze).loss(
+            audio[:2], lengths[:2], targets[:2], target_lengths[:2], train=True)
+        t0 = time.perf_counter()
+        cpu_loss, _ = w2v2_train_create(overrides, "cpu", torch.float32, 0.0, freeze).loss(
+            audio[:2], lengths[:2], targets[:2], target_lengths[:2], train=True)
+        cpu_s = time.perf_counter() - t0
+    rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    line = {"phase": phase, "batch": b, "seconds": W2V_SECONDS, "frames": variant_frames(cfg, samples),
+            "hidden": cfg.hidden_size,
+            "layers": layers, "heads": cfg.num_attention_heads, "freeze_feature_extractor": freeze,
+            "launches": {k: v for k, v in counts.items() if v}, "step_ms": step_ms,
+            "step_ms_is": f"CUDA events, mean of {W2V_TRAIN_TIMED} steps back to back",
+            "audio_s_per_s": b * W2V_SECONDS / (step_ms / 1e3), "peak_mem_gb": peak_gb, "losses": losses,
+            "loss_fall_limit": 1 - loss_fall, "model_flops": model_flops, "mfu": mfu(model_flops, step_ms / 1e3),
+            "card_loss_dropout0": card_loss.item(), "cpu_f32_loss_dropout0": cpu_loss.item(), "rel_dev": rel,
+            "rel_bound": W2V_TRAIN_LOSS_BOUND, "cpu_seconds": cpu_s, "phase_s": time.perf_counter() - t_start,
+            "card": card}
+    if freeze:
+        line["conv0_shrink"], line["conv0_shrink_want"] = shrink, (1 - lr * wd) ** len(losses)
+    else:
+        line["extractor_grad_abs_sum"] = grads
+        line["extractor_parameters_not_moved"] = [n for n, m in moved.items() if not m]
+        line["conv0_norm_ratio_first_step"] = norm_first
+    emit(line)
+    check(all(np.isfinite(losses)), f"{phase}: non-finite loss: {losses}")
+    check(losses[-1] < (1 - loss_fall) * losses[0],
+          f"{phase}: the loss did not fall by {loss_fall:.0%} over {len(losses)} steps: {losses[0]} -> {losses[-1]}")
+    check(rel < W2V_TRAIN_LOSS_BOUND, f"{phase}: bf16 card loss vs f32 CPU loss off by {rel} >= {W2V_TRAIN_LOSS_BOUND}")
+    if freeze:
+        check(abs(shrink - line["conv0_shrink_want"]) < 1e-6,
+              f"{phase}: the frozen extractor's conv0 shrank by {shrink}, expected {line['conv0_shrink_want']}")
+    else:
+        no_grad = sorted(set(extractor) - {n for n, g in grads.items() if g > 0})
+        check(not no_grad and not line["extractor_parameters_not_moved"],
+              f"{phase}: extractor parameters without a gradient {no_grad}, not moved past the decay "
+              f"{line['extractor_parameters_not_moved']}")
+    lines = train_kernel_shapes(phase, model, step, batch, generator, rate) if kernel_shapes else {}
+    del module, model, step, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, lines
+
+
+def w2v2_cells(card: str, device="cuda") -> tuple:
+    """Phases 35-39 of the module docstring, in order. Returns every run's launches, by run, and the kernels' lines
+    at wav2vec2-large's shapes, by kernel."""
+    from thunder_tpu_torch.models import Wav2Vec2Config
+
+    peak_check(card)
+    runs, lines = {}, {}
+    for phase, config, shapes, profile in (("w2v2_large_serving", Wav2Vec2Config(**W2V_LARGE), W2V_LARGE_SHAPES, True),
+                                           ("w2v2_serving_30s", Wav2Vec2Config(), W2V_BASE_30S_SHAPES, False)):
+        served, shape_lines = w2v2_serving_cells_phase(card, phase, config, shapes, profile, device)
+        runs.update({f"{phase}_{tag}": counts for tag, counts in served.items()})
+        if phase == "w2v2_large_serving":
+            lines.update(shape_lines)
+    runs["w2v2_large_training"], train_lines = w2v2_training_cell(card, "w2v2_large_training", W2V_LARGE, True,
+                                                                  W2V_LOSS_FALL, kernel_shapes=True, device=device)
+    lines.update({k: [v] for k, v in train_lines.items()})
+    runs["w2v2_training_no_freeze"], _ = w2v2_training_cell(card, "w2v2_training_no_freeze", {}, False,
+                                                            W2V_NO_FREEZE_LOSS_FALL, device=device)
+    runs.update({f"aot_{name}": counts for name, counts in aot_export_phase(card, device).items()})
+    return runs, lines
+
+
+def aot_export_phase(card: str, device="cuda") -> dict:
+    """Phase 39 of the module docstring: ``aot_export`` on the card of phase 4's QuartzNet15x5 module (float32)
+    and of a wav2vec2-base module with a bf16 encoder, each at ``AOT_BATCH`` x ``AOT_SECONDS``, written to a
+    temporary folder; both artifacts are loaded in one fresh ``python3`` by ``aot_load`` alone (``AOT_RUNNER``) and
+    serve the phase's audio there: its ``preds`` and lengths must be bit-equal (SHA-256) to the live module's
+    ``infer``, with the live forward's launches per call (1 log-mel; 12 + 25). Export seconds, artifact bytes, load
+    seconds and a call's ms beside the live module's (synchronized calls, host clock). Returns the launches of each
+    loaded call by model."""
+    import hashlib
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from thunder_tpu_torch.export import aot_export
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Wav2Vec2Config
+
+    sha = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()  # noqa: E731
+    quartznet, _, _ = served_quartznet(device)
+    w2v = w2v2_create(Wav2Vec2Config(), device, dtype=torch.bfloat16)
+    models = {"quartznet15x5": (quartznet, expected_counts(fused_log_mel=1)),
+              "wav2vec2_base_bf16": (w2v, expected_counts(mha_from_qkv=12, add_layer_norm=25))}
+    audio, lengths = speech_batch(AOT_BATCH, AOT_SECONDS, seed=39)
+    audio_d, lengths_d = torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device)
+    runs, lines = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(Path(tmp) / "audio.npy", audio)
+        np.save(Path(tmp) / "lengths.npy", lengths)
+        for name, (module, want) in models.items():
+            module.infer(audio_d, lengths_d)
+            sync(device)
+            reset_launch_counts()
+            _, preds, out_lengths = module.infer(audio_d, lengths_d)
+            sync(device)
+            live = launch_counts()
+            check(live == want, f"aot_export {name}: the live forward launched {live}, expected {want}")
+
+            def live_call():
+                module.infer(audio_d, lengths_d)
+                sync(device)
+
+            path = Path(tmp) / f"{name}.pt2"
+            t0 = time.perf_counter()
+            aot_export(module, AOT_BATCH, audio.shape[1], path=str(path))
+            lines[str(path)] = {"phase": "aot_export", "model": name, "batch": AOT_BATCH, "seconds": AOT_SECONDS,
+                                "export_s": time.perf_counter() - t0, "artifact_bytes": path.stat().st_size,
+                                "live_infer_ms": host_ms(live_call, W2V_CELL_TIMED),
+                                "live_launches": {k: v for k, v in live.items() if v},
+                                "live": (live, sha(preds), sha(out_lengths))}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", AOT_RUNNER, str(Path(tmp) / "audio.npy"),
+                               str(Path(tmp) / "lengths.npy"), str(W2V_CELL_TIMED), *lines],
+                              capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)})
+        process_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"aot_export: the loading process exited {proc.returncode}: {proc.stderr[-2000:]}")
+        loaded = [json.loads(ln.removeprefix("aot_result ")) for ln in proc.stdout.splitlines()
+                  if ln.startswith("aot_result ")]
+    check(len(loaded) == len(lines), f"aot_export: the loading process served {len(loaded)} of {len(lines)} graphs")
+    for got in loaded:
+        line = lines[got["path"]]
+        live, preds_sha, lengths_sha = line.pop("live")
+        name = line["model"]
+        runs[name] = got["launches"]
+        line.update({"load_s": got["load_s"], "loading_process_s": process_s, "call_ms": got["call_ms"],
+                     "ms_is": f"median of {W2V_CELL_TIMED} synchronized calls on the host clock",
+                     "launches": {k: v for k, v in runs[name].items() if v},
+                     "preds_equal": got["preds_sha256"] == preds_sha, "lengths_equal": got["lengths_sha256"] == lengths_sha,
+                     "preds_sha256": got["preds_sha256"], "card": card})
+        emit(line)
+        check(runs[name] == live, f"aot_export {name}: the loaded call launched {runs[name]}, the live one {live}")
+        check(line["preds_equal"] and line["lengths_equal"] and got["preds_dtype"] == "torch.int32",
+              f"aot_export {name}: the loaded graph's preds or lengths differ from the live module's")
+    del quartznet, w2v, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
 
 
 if __name__ == "__main__":

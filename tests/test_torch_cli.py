@@ -6,7 +6,8 @@ the device beam, the long-clip path past ``--chunk-seconds`` (greedy and both be
 and their spans rounded to milliseconds) and the LM flags (``--hotword``, ``--word-score``,
 ``--lm-transcripts``, ``--arpa``). ``eval`` prints the JAX CLI's utterances, audio seconds, WER and CER (its
 ``rtf`` is a clock reading); ``train`` runs an epoch; ``export`` writes a bundle that serves the fixture's
-transcripts. ``export --aot`` and a run without a card and without ``--device cpu`` exit with their errors.
+transcripts, and with ``--aot`` also ``predict.pt2``, whose ``aot_load`` serves the bundle's predictions. A run
+without a card and without ``--device cpu`` exits with its error.
 """
 
 import json
@@ -135,10 +136,20 @@ def test_export_writes_a_bundle_that_serves_the_fixture(clips, tmp_path, capsys)
     assert torch.equal(restored.forward(audio, [16000, 9000])[0], source.forward(audio, [16000, 9000])[0])
 
 
-def test_export_aot_is_refused_by_name(tmp_path):
-    with pytest.raises(SystemExit, match="aot_export"):
-        main(["export", "--checkpoint", FIXTURE, "--output", str(tmp_path / "bundle"), "--aot", *CPU])
-    assert not (tmp_path / "bundle").exists()
+def test_export_aot_writes_a_predict_graph_that_serves_the_fixture(tmp_path, capsys):
+    from thunder_tpu_torch import load_inference_bundle
+    from thunder_tpu_torch.export import aot_load
+
+    bundle = tmp_path / "bundle"
+    main(["export", "--checkpoint", FIXTURE, "--output", str(bundle), "--aot", "--batch-size", "2", "--seconds", "1",
+          *CPU])
+    out = capsys.readouterr().out
+    assert f"aot: {bundle}/predict.pt2" in out and (bundle / "predict.pt2").exists() and (bundle / "config.json").exists()
+    audio = (np.random.default_rng(1).standard_normal((2, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 9000], np.int32)
+    preds, out_lengths = aot_load(str(bundle / "predict.pt2")).call(audio, lengths)
+    _, want, want_lengths = load_inference_bundle(str(bundle), device="cpu").infer(audio, lengths)
+    assert torch.equal(preds, want) and torch.equal(out_lengths, want_lengths)
 
 
 def test_no_card_and_no_device_cpu_refuses(clips, monkeypatch):

@@ -19,7 +19,9 @@ the scan's plan held to the kernel's, and a beam
 ``predict`` on the card makes one launch of each; the backtrace is held to the
 plain walk at its edges (slots outside [0, W), T = 0, 200 rows, spans off 16
 bytes, rows past one span) with the mirror of its plan held to the kernel's;
-the keep mask to its plain version at d = 1, 36, 768, 2056. The engine's
+the keep mask to its plain version at d = 1, 36, 768, 2056. The conv engine's
+CUDA graphs of its frontend after the log-mel give the eager frontend's
+features bit for bit. The engine's
 serving modes run on a small wav2vec2 (each mode) and QuartzNet
 (``int8_weights``) against the same mode on the CPU; ``int8_mm`` and the
 dynamic int8 products equal their plain versions and the CPU's bit for bit;
@@ -43,7 +45,9 @@ held to the kernel's on this card; their ``autograd.Function``s give the plain
 backward's gradients; and one small wav2vec2 train step launches them as
 counted. On slices of a batch, each with its rows' offset (a data-parallel
 rank's rows), they give the whole batch's masks, outputs and gradients bit for
-bit.
+bit. The three custom ops of an exported predict graph equal their wrappers and pass ``torch.library.opcheck``
+on the card, and a tiny bf16 wav2vec2 exported by ``aot_export`` serves through ``aot_load`` on the card with the
+live module's predictions and launches.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -100,6 +104,58 @@ def test_small_quartznet_on_card_matches_cpu(cuda):
     valid = torch.arange(want.shape[1])[None, :] < want_lens[:, None]
     dev = (got.float().cpu() - want).abs()[valid].max() / want.abs()[valid].max()
     assert dev < 0.1  # bf16 on the card against float32 on the CPU
+
+
+@pytest.mark.parametrize("batch_invariant", [False, True])
+def test_conv_engine_frontend_graph_is_bit_equal_to_the_eager_frontend_on_card(cuda, batch_invariant):
+    """The conv engine's CUDA graphs of its frontend after the log-mel: at every shape, on a second call, on
+    another stream and past ``FRONTEND_GRAPHS`` shapes (eager there), the features and lengths of the eager
+    frontend bit for bit; an earlier call's result outlives a later call; the engine's logits equal those of the
+    same engine with the eager frontend."""
+    from thunder_tpu_torch import engine as engine_module
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(),
+                              QuartznetEncoder(repeat=2, filters=(256,), kernel_sizes=(33,)), Conv1dDecoder(29),
+                              device="cuda")
+    engine = InferenceEngine(module, batch_invariant=batch_invariant)
+    rng = np.random.default_rng(1)
+
+    def inputs(batch, samples):
+        audio = torch.as_tensor(rng.standard_normal((batch, samples)).astype(np.float32) * 0.2, device="cuda")
+        lengths = torch.as_tensor(rng.integers(samples // 3, samples + 1, batch).astype(np.int32), device="cuda")
+        return audio, lengths
+
+    @torch.inference_mode()
+    def both(audio, lengths):
+        got = engine._frontend_tail(engine.frontend.log_mel(audio), lengths)
+        feats, out_lengths = engine.frontend(audio, lengths, sum_dtype=engine._sum_dtype)
+        return got, (feats.to(engine.dtype), out_lengths)
+
+    shapes = [(b, s) for b in (1, 2, 3) for s in (8000, 16000, 24000)]
+    assert len(shapes) > engine_module.FRONTEND_GRAPHS
+    first = None
+    for batch, samples in shapes + shapes[:2]:
+        got, want = both(*inputs(batch, samples))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (batch, samples)
+        if first is None:
+            first, first_want = got, [t.clone() for t in want]
+    assert all(torch.equal(g, w) for g, w in zip(first, first_want))  # after later replays of its graph
+    assert len(engine._frontend_tail._graphs) == engine_module.FRONTEND_GRAPHS
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        got, want = both(*inputs(*shapes[0]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    audio, lengths = inputs(2, 16000)
+    graphed = engine.infer(audio, lengths)
+    engine._frontend_tail = None
+    eager = engine.infer(audio, lengths)
+    assert all(torch.equal(g, e) for g, e in zip(graphed, eager))
 
 
 def test_small_citrinet_on_card_matches_cpu_and_trains(cuda):
@@ -1351,3 +1407,61 @@ def test_align_on_card_equals_its_cpu_run(cuda):
     for got, want in zip(card, cpu):
         assert torch.equal(got.cpu(), want)
     np.testing.assert_array_equal(scores, cpu[2].numpy())
+
+
+def test_custom_ops_equal_their_wrappers_on_card(cuda):
+    """The three ops an exported predict graph calls (``thunder_tpu::fused_log_mel``, ``mha_from_qkv``,
+    ``add_layer_norm``): each op's output equals its wrapper's bit for bit on the card, each call launches its
+    kernel once, and ``torch.library.opcheck`` passes on card tensors."""
+    from thunder_tpu_torch.kernels import add_layer_norm, fused_log_mel, mha_from_qkv, reset_launch_counts
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    audio = torch.randn((2, 16000), device="cuda", generator=gen) * 0.2
+    qkv = torch.randn((2, 49, 3 * 1024), device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor([49, 30], dtype=torch.int32, device="cuda")
+    x, y = (torch.randn((2, 49, 1024), device="cuda", generator=gen).to(torch.bfloat16) for _ in range(2))
+    scale, bias = torch.rand(1024, device="cuda", generator=gen) + 0.5, torch.randn(1024, device="cuda", generator=gen)
+    cases = [(fused_log_mel, torch.ops.thunder_tpu.fused_log_mel.default, (audio,), (audio, 16000, 512, 160, 320, 64, 0.97)),
+             (mha_from_qkv, torch.ops.thunder_tpu.mha_from_qkv.default, (qkv, lens, 16), (qkv, lens, 16)),
+             (add_layer_norm, torch.ops.thunder_tpu.add_layer_norm.default, (x, y, scale, bias),
+              (x, y, scale, bias, 1e-5))]
+    for wrapper, op, wrapper_args, op_args in cases:
+        reset_launch_counts()
+        got, want = op(*op_args), wrapper(*wrapper_args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), op
+        assert wrapper.launches == 2, (op, wrapper.launches)
+        torch.library.opcheck(op, op_args)
+
+
+def test_exported_tiny_wav2vec2_serves_on_card(cuda, tmp_path):
+    """``aot_export`` on the card of a bf16 wav2vec2 of hidden 128 in 2 heads of 64 (2 layers), loaded back by
+    ``aot_load`` from its file: ``preds`` and lengths equal the live module's, and a call launches what the live
+    forward launches (2 attention, 5 add + LayerNorm)."""
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.export import aot_export, aot_load
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+
+    cfg = Wav2Vec2Config(hidden_size=128, num_hidden_layers=2, num_attention_heads=2, intermediate_size=256,
+                         conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+                         num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    module = CTCModule.create(torch.Generator().manual_seed(3), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(cfg, dtype=torch.bfloat16), LinearDecoder(5, dtype=torch.bfloat16),
+                              device="cuda")
+    rng = np.random.default_rng(4)
+    audio = (rng.standard_normal((2, 4000)) * 0.3).astype(np.float32)
+    lengths = np.array([4000, 2900], np.int32)
+    path = tmp_path / "predict.pt2"
+    aot_export(module, 2, 4000, path=str(path))
+    loaded = aot_load(path)
+    counts = lambda: {w.__name__: w.launches for w in KERNEL_WRAPPERS}  # noqa: E731
+    reset_launch_counts()
+    _, want, want_lengths = module.infer(audio, lengths)
+    live = counts()
+    reset_launch_counts()
+    preds, out_lengths = loaded.call(audio, lengths)
+    torch.cuda.synchronize()
+    assert counts() == live and live["mha_from_qkv"] == 2 and live["add_layer_norm"] == 5
+    assert preds.device.type == "cuda" and torch.equal(preds, want) and torch.equal(out_lengths, want_lengths)

@@ -6,12 +6,15 @@ runs on the card unless ``--device cpu`` asks for the CPU:
     python -m thunder_tpu_torch transcribe clip.wav --checkpoint model.nemo
     python -m thunder_tpu_torch eval --checkpoint model.nemo --manifest test.json
     python -m thunder_tpu_torch train --checkpoint ... --train-manifest ... --val-manifest ...
-    python -m thunder_tpu_torch export --checkpoint ... --output bundle/
+    python -m thunder_tpu_torch export --checkpoint ... --output bundle/ [--aot]
 
 Without a card, and without ``--device cpu``, every command exits with the
-error of :func:`thunder_tpu_torch.module.require_device`. ``export --aot`` is
-refused: ``aot_export`` is not ported yet. On the card, float32 matmuls and
-cuDNN convolutions run in full float32 (no TF32), as on the CPU.
+error of :func:`thunder_tpu_torch.module.require_device`. ``export --aot``
+also writes ``predict.pt2`` beside the bundle: the predict graph at
+``--batch-size`` x ``--seconds`` of 16 kHz audio
+(:func:`thunder_tpu_torch.export.aot_export`), which
+:func:`thunder_tpu_torch.export.aot_load` serves. On the card, float32
+matmuls and cuDNN convolutions run in full float32 (no TF32), as on the CPU.
 """
 
 from __future__ import annotations
@@ -177,13 +180,15 @@ def cmd_train(args):
 
 
 def cmd_export(args):
-    from thunder_tpu_torch.export import save_inference_bundle
+    from thunder_tpu_torch.export import aot_export, save_inference_bundle
 
-    if args.aot:
-        raise SystemExit("export --aot: aot_export (an ahead-of-time artifact) is not ported to thunder_tpu_torch "
-                         "yet; export without --aot writes the inference bundle")
-    out = save_inference_bundle(args.output, _load(args))
+    module = _load(args)
+    out = save_inference_bundle(args.output, module)
     print(f"bundle: {out}")
+    if args.aot:
+        path = f"{args.output}/predict.pt2"
+        aot_export(module, batch_size=args.batch_size, num_samples=int(args.seconds * 16000), path=path)
+        print(f"aot: {path}")
 
 
 def _add_lm_args(p):
@@ -253,10 +258,12 @@ def main(argv=None):
     _add_device_arg(p)
     p.set_defaults(fn=cmd_train)
 
-    p = sub.add_parser("export", help="write an inference bundle")
+    p = sub.add_parser("export", help="write an inference bundle (+ optional AOT artifact)")
     p.add_argument("--checkpoint", required=True)
     p.add_argument("--output", required=True)
-    p.add_argument("--aot", action="store_true", help="also an ahead-of-time artifact (not ported: refused)")
+    p.add_argument("--aot", action="store_true", help="also write predict.pt2, the exported predict graph")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--seconds", type=float, default=15.0)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_export)
 

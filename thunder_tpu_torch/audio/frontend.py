@@ -108,6 +108,24 @@ class FilterbankFeatures(nn.Module):
     def output_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
         return power_spectrum_lengths(lengths, self.n_window_stride)
 
+    def log_mel(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 ``(batch, time)`` audio -> ``(batch, frames, nfilt)`` log-mel: one launch of the fused kernel,
+        or the plain path where ``use_fused_kernel`` is ``False``."""
+        if self.use_fused_kernel is False:
+            return mel_features(preemphasis(x, self.preemph), self.sample_rate, self.fft_size, self.n_window_stride,
+                                self.n_window_size, self.nfilt, method=self.stft_method)
+        # the log-mel kernel goes first: the card starts on it while the host queues the lengths' small ops
+        return fused_log_mel(x.contiguous(), sample_rate=self.sample_rate, n_fft=self.fft_size,
+                             hop_length=self.n_window_stride, win_length=self.n_window_size, n_mels=self.nfilt,
+                             preemph=self.preemph)
+
+    def normalize(self, mel: torch.Tensor, lengths: torch.Tensor, sum_dtype: Optional[torch.dtype] = None):
+        """The log-mel's valid frame counts from the audio ``lengths``, and its per-feature normalization over
+        them -> ``(features, frame lengths)``."""
+        out_lengths = self.output_lengths(lengths)
+        mask = lengths_to_mask(out_lengths, mel.shape[1])[:, :, None]
+        return normalize_tensor(mel, mask, div_guard=self.div_guard, axis=1, sum_dtype=sum_dtype), out_lengths
+
     def forward(self, audio: torch.Tensor, lengths: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None, sum_dtype: Optional[torch.dtype] = None):
         """``sum_dtype``: the normalization's sums, as in :func:`~thunder_tpu_torch.ops.masking.masked_mean_std`."""
@@ -116,22 +134,7 @@ class FilterbankFeatures(nn.Module):
             noise = spmd.draw_rows(lambda shape: torch.randn(shape, generator=_required(generator), device=x.device),
                                    x.shape)
             x = x + self.dither * noise
-        if self.use_fused_kernel is False:
-            mel = mel_features(preemphasis(x, self.preemph), self.sample_rate, self.fft_size, self.n_window_stride,
-                               self.n_window_size, self.nfilt, method=self.stft_method)
-        else:  # the log-mel kernel goes first: the card starts on it while the host queues the lengths' small ops
-            mel = fused_log_mel(
-                x.contiguous(),
-                sample_rate=self.sample_rate,
-                n_fft=self.fft_size,
-                hop_length=self.n_window_stride,
-                win_length=self.n_window_size,
-                n_mels=self.nfilt,
-                preemph=self.preemph,
-            )
-        out_lengths = self.output_lengths(lengths)
-        mask = lengths_to_mask(out_lengths, mel.shape[1])[:, :, None]
-        feats = normalize_tensor(mel, mask, div_guard=self.div_guard, axis=1, sum_dtype=sum_dtype)
+        feats, out_lengths = self.normalize(self.log_mel(x), lengths, sum_dtype)
         if train and self.num_cutout_masks > 0:
             draws = torch.rand(4 * self.num_cutout_masks, generator=_required(generator), device=feats.device)
             feats = spec_cutout(feats, draws, self.num_cutout_masks, self.mask_time_width, self.mask_freq_width)

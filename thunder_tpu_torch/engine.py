@@ -23,7 +23,14 @@ from the encoder's blocks:
   to the compute dtype, ``fc2`` with float32 accumulation, the sigmoid cast
   to the activations' dtype, and the gate; after the repeats, before the
   residual add;
-- the log-mel frontend is one launch of the fused log-mel kernel.
+- the log-mel frontend is one launch of the fused log-mel kernel. On the
+  card what follows it (the frame lengths, the mask, the masked per-feature
+  normalize and the cast to the compute dtype: about 25 small launches)
+  replays as one CUDA graph a shape (:class:`_GraphedTail`): a forward taken
+  one request at a time waits for the host through its first launches, and
+  each small launch costs the host more time than the card there. The
+  graph runs the same kernels on the same values, so the features are
+  bit-equal to the eager path's.
 
 The wav2vec2 path (after the JAX engine's wav2vec2 branch): the waveform
 normalization in float32, then a copy of the encoder whose weights are
@@ -103,12 +110,15 @@ pads it.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from thunder_tpu_torch.audio.frontend import FilterbankFeatures
+from thunder_tpu_torch.kernels import _build
 from thunder_tpu_torch.kernels.separable_conv import fused_separable_repeat
 from thunder_tpu_torch.models.citrinet import CitrinetEncoder
 from thunder_tpu_torch.models.decoders import Conv1dDecoder, LinearDecoder
@@ -131,6 +141,9 @@ from thunder_tpu_torch.parallel import batch_sharding, spmd
 from thunder_tpu_torch.quantization import quantize_array
 
 __all__ = ["InferenceEngine"]
+
+#: input shapes a conv engine keeps a CUDA graph of its frontend's tail for; later shapes run it eagerly
+FRONTEND_GRAPHS = 8
 
 
 def _fold_bn(bn) -> tuple[np.ndarray, np.ndarray]:
@@ -189,6 +202,56 @@ def _check_residual_lengths(repeats: List[_RepeatPlan], res: _RepeatPlan, block:
                                   f"stride {res.stride}, repeat strides {[rp.stride for rp in repeats]})")
 
 
+class _GraphedTail:
+    """``fn(mel, lengths) -> (features, lengths)`` on CUDA tensors, replayed as one CUDA graph a shape.
+
+    The graph of a shape is captured at its first call, up to ``FRONTEND_GRAPHS`` shapes (later shapes run
+    ``fn`` eagerly), on a side stream after one eager run there. A call copies its inputs into the graph's,
+    replays it on the current stream and returns copies of its outputs, so that a result outlives the next
+    call. Calls hold a lock, and a call on another stream than the last one waits for that stream first: the
+    graph's buffers are never written while an earlier replay may still read them."""
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+        self._graphs: Dict[tuple, tuple] = {}
+        self._lock = threading.Lock()
+        self._stream, self._raw_stream = None, None
+
+    def __call__(self, mel: torch.Tensor, lengths: torch.Tensor):
+        key = (tuple(mel.shape), mel.dtype, tuple(lengths.shape), lengths.dtype, mel.device)
+        with self._lock:
+            raw = _build.stream(mel)
+            if raw != self._raw_stream:
+                if self._stream is not None:
+                    self._stream.synchronize()
+                self._stream, self._raw_stream = torch.cuda.current_stream(mel.device), raw
+            entry = self._graphs.get(key)
+            if entry is None:
+                if len(self._graphs) >= FRONTEND_GRAPHS:
+                    return self._fn(mel, lengths)
+                entry = self._graphs[key] = self._capture(mel, lengths)
+            graph, inputs, outputs = entry
+            for static, t in zip(inputs, (mel, lengths)):
+                static.copy_(t)
+            graph.replay()
+            return tuple(t.clone() for t in outputs)
+
+    def _capture(self, mel: torch.Tensor, lengths: torch.Tensor) -> tuple:
+        inputs = (mel.clone(), lengths.clone())
+        graph = torch.cuda.CUDAGraph()
+        current, side = torch.cuda.current_stream(mel.device), torch.cuda.Stream(mel.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._fn(*inputs)  # the first run of each kernel stays outside the capture
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = self._fn(*inputs)
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+        return graph, inputs, outputs
+
+
 class InferenceEngine:
     """CTC inference over a ``CTCModule``'s weights (QuartzNet and Citrinet with BN folded, wav2vec2, or any
     other encoder through the module's eval forward)."""
@@ -228,6 +291,8 @@ class InferenceEngine:
         elif isinstance(encoder, (QuartznetEncoder, CitrinetEncoder)):
             self._plan = self._build_plan(encoder)
             self._forward = self._forward_conv
+            graphed = on_cuda and isinstance(self.frontend, FilterbankFeatures)
+            self._frontend_tail = _GraphedTail(self._features_tail) if graphed else None
         else:
             self._model = module.to(self.device).model if self.device != module.device else module.model
             self._forward = self._forward_module
@@ -339,9 +404,17 @@ class InferenceEngine:
             logits = torch.matmul(x.to(acc), kernel.to(acc)).float() + self._dec_bias
         return logits, greedy_decode(logits)
 
+    def _features_tail(self, mel: torch.Tensor, lengths: torch.Tensor):
+        """The mel frontend's eval forward after its log-mel, then the cast to the compute dtype."""
+        feats, out_lengths = self.frontend.normalize(mel, lengths, self._sum_dtype)
+        return feats.to(self.frontend.dtype).to(self.dtype), out_lengths
+
     def _forward_conv(self, audio: torch.Tensor, lengths: torch.Tensor):
-        feats, out_lengths = self.frontend(audio, lengths, sum_dtype=self._sum_dtype)
-        x = feats.to(self.dtype)
+        if self._frontend_tail is not None:
+            x, out_lengths = self._frontend_tail(self.frontend.log_mel(audio.float()), lengths)
+        else:
+            feats, out_lengths = self.frontend(audio, lengths, sum_dtype=self._sum_dtype)
+            x = feats.to(self.dtype)
         mask_cache: Dict[int, torch.Tensor] = {}
         for block in self._plan:
             inp, inp_lengths = x, out_lengths

@@ -1,7 +1,18 @@
-"""Inference bundles: a module's weights beside its architecture and vocabulary.
+"""Model export: an ahead-of-time predict graph, and inference bundles.
 
-Port of ``save_inference_bundle`` / ``load_inference_bundle`` from
-``thunder_tpu/export.py``. A bundle folder holds
+Port of ``thunder_tpu/export.py``.
+
+:func:`aot_export` / :func:`aot_load`: ``torch.export`` traces the whole
+predict function (the model's eval forward, then the argmax) at fixed padded
+shapes into an ``ExportedProgram``, saved with ``torch.export.save``: the
+weights ride inside it, and a process with no model code loads and serves it.
+The port's kernels appear in its graph as the custom ops ``thunder_tpu::*``
+(``kernels/frontend.py``, ``kernels/add_ln.py``, ``kernels/attention.py``), so
+a loaded artifact launches the same kernels as the live module, and counts
+them the same way.
+
+:func:`save_inference_bundle` / :func:`load_inference_bundle`: the module's
+weights beside its architecture and vocabulary. A bundle folder holds
 
 - ``config.json``: the encoder, frontend, decoder and text settings, in the
   JAX package's schema;
@@ -13,15 +24,15 @@ Port of ``save_inference_bundle`` / ``load_inference_bundle`` from
 decoding included, on ``device`` (the card unless the caller asks for the
 CPU), from either package's bundle: a JAX-written one's Orbax checkpoint
 (OCDBT of zarr arrays) is read through ``tensorstore``, imported by that
-reader only, and goes through the bridge. ``aot_export`` / ``aot_load`` are
-not ported yet.
+reader only, and goes through the bridge.
 """
 
 from __future__ import annotations
 
+import io
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +53,71 @@ from thunder_tpu_torch.training.checkpointing import (
     save_module,
 )
 
-__all__ = ["save_inference_bundle", "load_inference_bundle"]
+__all__ = ["aot_export", "aot_load", "AotPredict", "save_inference_bundle", "load_inference_bundle"]
 
 #: the JAX package's bundle keeps its variables in this Orbax checkpoint folder
 JAX_MODULE_DIR = "module"
+
+
+class _Predict(torch.nn.Module):
+    """The JAX package's ``predict_fn``: the model's eval forward, then int32 argmax ids and the logits' lengths."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, audio: torch.Tensor, lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits, out_lengths = self.model(audio, lengths)
+        return logits.argmax(dim=-1).to(torch.int32), out_lengths
+
+
+def aot_export(module: CTCModule, batch_size: int, num_samples: int, path: Optional[str] = None) -> bytes:
+    """Serialize the full predict graph (logits + argmax) for fixed shapes: float32 audio ``(batch_size,
+    num_samples)`` and int32 lengths ``(batch_size,)`` on the module's device.
+
+    Returns the serialized bytes (also written to ``path`` if given). The artifact embeds the weights: a pure
+    serving payload.
+    """
+    args = (torch.zeros((batch_size, num_samples), dtype=torch.float32, device=module.device),
+            torch.full((batch_size,), num_samples, dtype=torch.int32, device=module.device))
+    with torch.no_grad():
+        program = torch.export.export(_Predict(module.model.eval()), args)
+    buffer = io.BytesIO()
+    torch.export.save(program, buffer)
+    blob = buffer.getvalue()
+    if path is not None:
+        Path(path).write_bytes(blob)
+    return blob
+
+
+class AotPredict:
+    """A loaded predict graph; run it with :meth:`call`. It computes under the process's float32 settings, as a
+    live module does: the port's entry points run float32 in full on the card
+    (:func:`thunder_tpu_torch.kernels.selftest.exact_float32`), where cuDNN's float32 convolutions would otherwise
+    take TF32."""
+
+    def __init__(self, program: "torch.export.ExportedProgram"):
+        self.program = program
+        self._fn = program.module()
+        audio = next(n for n in program.graph.nodes if n.op == "placeholder"
+                     and n.name == program.graph_signature.user_inputs[0])
+        self.device = audio.meta["val"].device
+
+    def call(self, audio, lengths) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(preds, out_lengths)`` of a batch of the exported shapes (numpy arrays or tensors, moved to the
+        artifact's device)."""
+        with torch.no_grad():
+            return self._fn(torch.as_tensor(audio, dtype=torch.float32, device=self.device),
+                            torch.as_tensor(lengths, dtype=torch.int32, device=self.device))
+
+
+def aot_load(blob_or_path) -> AotPredict:
+    """Deserialize an exported predict graph; run it via ``.call(audio, lengths)``."""
+    import thunder_tpu_torch.kernels  # noqa: F401  (registers the thunder_tpu:: ops the graph calls)
+
+    if isinstance(blob_or_path, (str, Path)):
+        blob_or_path = Path(blob_or_path).read_bytes()
+    return AotPredict(torch.export.load(io.BytesIO(bytes(blob_or_path))))
 
 
 def read_orbax_variables(path) -> Dict[str, Any]:

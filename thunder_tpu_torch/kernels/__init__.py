@@ -1,7 +1,13 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
 The kernels are built from ``thunder_tpu_torch/csrc`` on first launch (see
-``_build``); importing these modules needs neither ``nvcc`` nor a GPU.
+``_build``); importing these modules needs neither ``nvcc`` nor a GPU. The
+three wrappers that a model's eval forward reaches (``fused_log_mel``,
+``mha_from_qkv``, ``add_layer_norm``) are also ``torch.library`` custom ops
+(``torch.ops.thunder_tpu.*``), which importing them registers: a traced call
+goes through the op, so that ``torch.export`` holds each as one node
+(``export.aot_export``); an eager call skips the op's dispatch, which costs
+tens of microseconds of host time a call.
 """
 
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm, add_layer_norm_reference  # noqa: F401

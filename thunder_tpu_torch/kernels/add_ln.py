@@ -12,8 +12,12 @@ kernel's documented deviation from the unfused path, which adds in the
 activation dtype before promoting. The kernel takes any width: a multiple of 8
 up to ``MAX_FEATURES`` keeps the row in registers, any other width re-reads it.
 
-The wrapper runs the kernel for a CUDA tensor and the plain version
-(:func:`add_layer_norm_reference`) only for a CPU tensor.
+The wrapper's implementation runs the kernel for a CUDA tensor and the plain
+version (:func:`add_layer_norm_reference`) only for a CPU tensor. A traced
+call (``torch.export``, ``torch.compile``) reaches it through the custom op
+``thunder_tpu::add_layer_norm``, whose fake implementation gives the output's
+shape and dtype, so that the trace holds the call as one node; an eager call
+runs it directly, without the op's dispatch.
 """
 
 from __future__ import annotations
@@ -51,14 +55,27 @@ def add_layer_norm(
     Returns:
         ``(..., D)`` in ``x.dtype``.
     """
+    run = _add_layer_norm_op if torch.compiler.is_compiling() else _add_layer_norm
+    return run(x, y, scale, bias, eps)
+
+
+add_layer_norm.launches = 0
+
+
+def _check(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
     d = x.shape[-1]
     if y.shape != x.shape or scale.shape != (d,) or bias.shape != (d,):
         raise ValueError(f"add_layer_norm shapes: x {tuple(x.shape)}, y {tuple(y.shape)}, "
                          f"scale {tuple(scale.shape)}, bias {tuple(bias.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"add_layer_norm runs on cuda or cpu tensors, got {x.device}")
+
+
+def _add_layer_norm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       eps: float) -> torch.Tensor:
+    _check(x, y, scale, bias)
     if x.device.type == "cpu":
         return add_layer_norm_reference(x, y, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"add_layer_norm runs on cuda or cpu tensors, got {x.device}")
     if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16:
         raise ValueError("the add + LayerNorm kernel takes bfloat16 x and y")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
@@ -66,6 +83,7 @@ def add_layer_norm(
     for name, t in (("x", x), ("y", y), ("scale", scale), ("bias", bias)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {x.device}")
+    d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
     if rows == 0:
@@ -79,4 +97,10 @@ def add_layer_norm(
     return out
 
 
-add_layer_norm.launches = 0
+_add_layer_norm_op = torch.library.custom_op("thunder_tpu::add_layer_norm", _add_layer_norm, mutates_args=())
+
+
+@_add_layer_norm_op.register_fake
+def _(x, y, scale, bias, eps):
+    _check(x, y, scale, bias)
+    return x.new_empty(x.shape)

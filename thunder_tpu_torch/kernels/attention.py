@@ -25,8 +25,12 @@ the kernel's shared memory does not depend on it. The limits are the
 launch's: ``T < 2**31`` (the tensor map's coordinates), batch and heads at
 most 65535 (the grid).
 
-The wrapper runs the kernel for a CUDA tensor and the plain version
-(:func:`mha_from_qkv_reference`) only for a CPU tensor.
+The wrapper's implementation runs the kernel for a CUDA tensor and the plain
+version (:func:`mha_from_qkv_reference`) only for a CPU tensor. A traced call
+(``torch.export``, ``torch.compile``) reaches it through the custom op
+``thunder_tpu::mha_from_qkv``, whose fake implementation gives the output's
+shape and dtype, so that the trace holds the call as one node; an eager call
+runs it directly, without the op's dispatch.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ def _check(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> None:
                          f"heads={heads}")
     if lengths.shape != (qkv.shape[0],):
         raise ValueError(f"lengths {tuple(lengths.shape)} do not fit a batch of {qkv.shape[0]}")
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mha_from_qkv runs on cuda or cpu tensors, got {qkv.device}")
 
 
 def check_launch_shape(name: str, batch: int, t: int, heads: int) -> None:
@@ -85,11 +91,17 @@ def mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.
     Returns:
         ``(B, T, H)`` in ``qkv.dtype``.
     """
+    run = _mha_from_qkv_op if torch.compiler.is_compiling() else _mha_from_qkv
+    return run(qkv, lengths, heads)
+
+
+mha_from_qkv.launches = 0
+
+
+def _mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.Tensor:
     _check(qkv, lengths, heads)
     if qkv.device.type == "cpu":
         return mha_from_qkv_reference(qkv, lengths, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"mha_from_qkv runs on cuda or cpu tensors, got {qkv.device}")
     batch, t, h3 = qkv.shape
     if qkv.dtype != torch.bfloat16 or lengths.dtype != torch.int32:
         raise ValueError("the attention kernel takes a bfloat16 qkv and int32 lengths")
@@ -111,4 +123,11 @@ def mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.
     return out
 
 
-mha_from_qkv.launches = 0
+_mha_from_qkv_op = torch.library.custom_op("thunder_tpu::mha_from_qkv", _mha_from_qkv, mutates_args=())
+
+
+@_mha_from_qkv_op.register_fake
+def _(qkv, lengths, heads):
+    _check(qkv, lengths, heads)
+    batch, t, h3 = qkv.shape
+    return qkv.new_empty((batch, t, h3 // 3))

@@ -22,10 +22,13 @@ on the fft path, each mel filter's non-zeros (:func:`mel_bands`); and the
 windowed basis on the dense path, the window on the wide path (which makes
 its basis in registers).
 
-The wrapper runs the kernel for a CUDA tensor and the plain version
-(:func:`log_mel_reference`) only for a CPU tensor. Neither has a backward,
-as the TPU kernel has none: audio that requires a gradient raises, so that a
-gradient is never cut silently.
+The wrapper's implementation runs the kernel for a CUDA tensor and the plain
+version (:func:`log_mel_reference`) only for a CPU tensor. A traced call
+(``torch.export``, ``torch.compile``) reaches it through the custom op
+``thunder_tpu::fused_log_mel``, whose fake implementation gives the output's
+shape and dtype, so that the trace holds the call as one node; an eager call
+runs it directly, without the op's dispatch. Neither has a backward, as the TPU kernel has none: audio that
+requires a gradient raises, so that a gradient is never cut silently.
 """
 
 from __future__ import annotations
@@ -136,14 +139,27 @@ def fused_log_mel(
     preemph: float = 0.97,
 ) -> torch.Tensor:
     """``(batch, time)`` float32 audio -> ``(batch, time // hop + 1, n_mels)`` float32 log-mel."""
+    run = _fused_log_mel_op if torch.compiler.is_compiling() else _fused_log_mel
+    return run(audio, sample_rate, n_fft, hop_length, win_length, n_mels, preemph)
+
+
+fused_log_mel.launches = 0
+
+
+def _check(audio: torch.Tensor) -> None:
     if audio.ndim != 2 or audio.dtype != torch.float32:
         raise ValueError(f"fused_log_mel takes (batch, time) float32 audio, got {tuple(audio.shape)} {audio.dtype}")
     if audio.requires_grad:
         raise ValueError("fused_log_mel has no backward; pass audio that does not require a gradient")
+    if audio.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_log_mel runs on cuda or cpu tensors, got {audio.device}")
+
+
+def _fused_log_mel(audio: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int, win_length: int,
+                      n_mels: int, preemph: float) -> torch.Tensor:
+    _check(audio)
     if audio.device.type == "cpu":
         return log_mel_reference(audio, sample_rate, n_fft, hop_length, win_length, n_mels, preemph)
-    if audio.device.type != "cuda":
-        raise ValueError(f"fused_log_mel runs on cuda or cpu tensors, got {audio.device}")
     batch, time = audio.shape
     plan = log_mel_plan(n_fft, hop_length, win_length, n_mels)
     if plan["smem_bytes"] == 0 or batch < 1:
@@ -173,4 +189,10 @@ def fused_log_mel(
     return out
 
 
-fused_log_mel.launches = 0
+_fused_log_mel_op = torch.library.custom_op("thunder_tpu::fused_log_mel", _fused_log_mel, mutates_args=())
+
+
+@_fused_log_mel_op.register_fake
+def _(audio, sample_rate, n_fft, hop_length, win_length, n_mels, preemph):
+    _check(audio)
+    return audio.new_empty((audio.shape[0], log_mel_frames(audio.shape[1], n_fft, hop_length), n_mels))
