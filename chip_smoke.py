@@ -472,6 +472,23 @@ Phases, each of which fails the run:
     module's (synchronized calls, host clock). The kernels line's entries
     give their launches in phases 35-39 (``w2v2_cells_launches``) and their
     lines at phase 35's and 37's shapes (``large_shapes``).
+40. ``train_scan``: ``Trainer(steps_per_execution=4).fit`` against
+    ``Trainer(steps_per_execution=1).fit`` from the same weights and
+    generator seed, under ``deterministic_algorithms()``, at full width
+    (AdamW lr 1e-4): QuartzNet15x5 at 16 x 15 s (8 batches of 15 s and one
+    of 12 s), the same with ``remat``, accumulation 2, the norm clip and
+    ``onecycle`` (4 batches), Citrinet-256 (4) and wav2vec2-base at 8 x 15 s
+    (frozen extractor, dropout 0.1; 4). Each graphed run must equal its K = 1
+    run bit for bit (per-step losses, parameters, running statistics,
+    optimizer state, generator state), replay every step past its kind's
+    first, and make the fixed launches a step (1 log-mel and 1 + 1 CTC; 12 +
+    24 ``mha_train``, 25 + 50 add + dropout + LayerNorm, 1 + 1 CTC), counted
+    through capture and replay (``train_scan_launches``). Then, with the
+    default algorithms, one chunk of 4 steps at K = 1 and K = 4 in turns
+    (1, 4, 4, 1) for QuartzNet15x5, Citrinet-256 and wav2vec2-base: step ms
+    (CUDA events over the chunk, over 4), host ms a step, peak memory
+    allocated and reserved, and one more chunk's idle share under the
+    profiler (``train_scan_timing``).
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -1267,6 +1284,9 @@ def run() -> int:
     for entry in kernels:
         if entry["name"] in cell_shapes:
             entry["large_shapes"] = cell_shapes[entry["name"]]
+
+    # ---- Trainer(steps_per_execution=4): K train steps a dispatch as CUDA graph replays, against K = 1
+    add_launches(kernels, "train_scan_launches", train_scan_phase(card))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -3766,18 +3786,22 @@ def _numpy_beam_row(job) -> tuple:
     return ids.tolist(), time.perf_counter() - t0
 
 
-def numpy_rows(logits: np.ndarray, lengths, blank: int, lines: list, use_lm: bool) -> tuple:
-    """The numpy search of rows 0 to ``NUMPY_ROWS`` - 1, one a spawned worker process: their ids, the sum of
-    the rows' seconds (one core each) and the wall seconds."""
+def numpy_pool(lines: list):
+    """NUMPY_ROWS spawned worker processes for :func:`numpy_rows`, each with the token LM fitted on ``lines``:
+    one pool for the phase's three searches, so that each worker imports the port once."""
     import concurrent.futures
     import multiprocessing
 
+    return concurrent.futures.ProcessPoolExecutor(NUMPY_ROWS, mp_context=multiprocessing.get_context("spawn"),
+                                                  initializer=_numpy_worker_init, initargs=(lines, VOCAB, LM_ORDER))
+
+
+def numpy_rows(pool, logits: np.ndarray, lengths, blank: int, use_lm: bool) -> tuple:
+    """The numpy search of rows 0 to ``NUMPY_ROWS`` - 1, one a worker of ``pool`` (:func:`numpy_pool`): their
+    ids, the sum of the rows' seconds (one core each) and the wall seconds."""
     t0 = time.perf_counter()
     jobs = [(np.asarray(logits[b], np.float32), int(lengths[b]), blank, use_lm) for b in range(NUMPY_ROWS)]
-    with concurrent.futures.ProcessPoolExecutor(NUMPY_ROWS, mp_context=multiprocessing.get_context("spawn"),
-                                                initializer=_numpy_worker_init,
-                                                initargs=(lines, VOCAB, LM_ORDER if use_lm else 0)) as pool:
-        results = list(pool.map(_numpy_beam_row, jobs))
+    results = list(pool.map(_numpy_beam_row, jobs))
     return [ids for ids, _ in results], sum(sec for _, sec in results), time.perf_counter() - t0
 
 
@@ -4015,26 +4039,29 @@ def lm_native_phase(card: str, device="cuda") -> dict:
                                     lm_weight=LM_WEIGHT)
     check(host_texts == [tt.decode_prediction(h[None], remove_repeated=False)[0] if len(h) else "" for h in served_ids],
           "the host predict's texts differ from the C++ beam on its own logits")
-    numpy_served, served_numpy_s, served_pool_s = numpy_rows(served, served_lengths, blank, lines, use_lm=True)
-    served_equal = [a.tolist() == b for a, b in zip(served_ids, numpy_served)]
-    peaked = peaked_logits(np.random.default_rng(0), BATCH, served.shape[1], served.shape[2], blank)
-    timings = {}
-    for name, lm in (("lm", ngram), ("no_lm", None)):
-        decode = lambda lm=lm, use_native=True: beam_search_decode(  # noqa: E731
-            peaked, blank=blank, beam_width=LM_WIDTH, lm=lm, lm_weight=LM_WEIGHT, use_native=use_native)
-        ids = decode()
-        numpy_ids, numpy_s, pool_s = numpy_rows(peaked, [peaked.shape[1]] * BATCH, blank, lines, use_lm=lm is not None)
-        lp = log_softmax(peaked[:NUMPY_ROWS])
-        native_lm = lm.native() if lm is not None else None
-        one_thread = lambda: native.native_ctc_beam_search_batch(  # noqa: E731
-            lp, [lp.shape[1]] * NUMPY_ROWS, blank, LM_WIDTH, -12.0, max_tokens_per_step=50, lm=native_lm,
-            lm_weight=LM_WEIGHT if native_lm is not None else 0.0, n_threads=1)
-        timings[name] = {"native_ms_64_rows_threaded": host_ms(decode),
-                         f"native_ms_{NUMPY_ROWS}_rows_one_thread": host_ms(one_thread),
-                         f"numpy_ms_{NUMPY_ROWS}_rows_one_core_each_summed": numpy_s * 1e3,
-                         "numpy_pool_wall_s": pool_s,
-                         "rows_equal": [a.tolist() == b for a, b in zip(ids, numpy_ids)],
-                         "native_equals_its_batch_on_rows": [a.tolist() == b.tolist() for a, b in zip(ids, one_thread())]}
+    with numpy_pool(lines) as pool:
+        numpy_served, served_numpy_s, served_pool_s = numpy_rows(pool, served, served_lengths, blank, use_lm=True)
+        served_equal = [a.tolist() == b for a, b in zip(served_ids, numpy_served)]
+        peaked = peaked_logits(np.random.default_rng(0), BATCH, served.shape[1], served.shape[2], blank)
+        timings = {}
+        for name, lm in (("lm", ngram), ("no_lm", None)):
+            decode = lambda lm=lm, use_native=True: beam_search_decode(  # noqa: E731
+                peaked, blank=blank, beam_width=LM_WIDTH, lm=lm, lm_weight=LM_WEIGHT, use_native=use_native)
+            ids = decode()
+            numpy_ids, numpy_s, pool_s = numpy_rows(pool, peaked, [peaked.shape[1]] * BATCH, blank,
+                                                    use_lm=lm is not None)
+            lp = log_softmax(peaked[:NUMPY_ROWS])
+            native_lm = lm.native() if lm is not None else None
+            one_thread = lambda: native.native_ctc_beam_search_batch(  # noqa: E731
+                lp, [lp.shape[1]] * NUMPY_ROWS, blank, LM_WIDTH, -12.0, max_tokens_per_step=50, lm=native_lm,
+                lm_weight=LM_WEIGHT if native_lm is not None else 0.0, n_threads=1)
+            timings[name] = {"native_ms_64_rows_threaded": host_ms(decode),
+                             f"native_ms_{NUMPY_ROWS}_rows_one_thread": host_ms(one_thread),
+                             f"numpy_ms_{NUMPY_ROWS}_rows_one_core_each_summed": numpy_s * 1e3,
+                             "numpy_pool_wall_s": pool_s,
+                             "rows_equal": [a.tolist() == b for a, b in zip(ids, numpy_ids)],
+                             "native_equals_its_batch_on_rows": [a.tolist() == b.tolist()
+                                                                 for a, b in zip(ids, one_thread())]}
     emit({"phase": "lm_native_host", "B": BATCH, "T": served.shape[1], "V": served.shape[2], "W": LM_WIDTH,
           "lm": f"NGramLM order {LM_ORDER} on {LM_LINES} seeded lines", "lm_weight": LM_WEIGHT, "fit_s": fit_s,
           "mirror_s": mirror_s, "predict_ms_host_clock": host_predict_ms, "served_rows_equal": served_equal,
@@ -5805,6 +5832,209 @@ def w2v2_cells(card: str, device="cuda") -> tuple:
                                                             W2V_NO_FREEZE_LOSS_FALL, device=device)
     runs.update({f"aot_{name}": counts for name, counts in aot_export_phase(card, device).items()})
     return runs, lines
+
+
+# ---- phase 40: Trainer(steps_per_execution=K), the whole train step as CUDA graph replays
+
+SCAN_K = 4  # steps a chunk
+SCAN_LR = 1e-4  # AdamW, ``bench_train.py``'s
+
+
+def scan_create(model: str, device="cuda"):
+    """The train-step models of phase 40 at their published widths, random weights from generator seed 0, in
+    ``bench_train.py``'s configurations (bf16 compute, dropout 0.1, SpecAugment 2 + 2 and dither on the conv
+    models; wav2vec2-base with its extractor frozen); ``quartznet15x5_remat`` with ``remat`` on."""
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    bf16 = torch.bfloat16
+    if model.startswith("quartznet15x5"):
+        encoder = QuartznetEncoder(repeat_blocks=3, dropout=0.1, dtype=bf16, remat=model.endswith("remat"))
+        return CTCModule.create(torch.Generator().manual_seed(0),
+                                FilterbankFeatures(num_time_masks=2, num_freq_masks=2), encoder,
+                                Conv1dDecoder(29, dtype=bf16), BatchTextTransformer(VOCAB), device=device)
+    if model == "citrinet256":
+        return citrinet_create(device, bf16, VOCAB, train_config=True, dropout=0.1)
+    return w2v2_train_create({}, device, bf16, 0.1, True)
+
+
+def scan_loader(rows: int, seconds: list, seed: int) -> list:
+    """``(audio, lengths, texts)`` batches of ``rows`` rows of noise, one a length in ``seconds``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in seconds:
+        n = int(s * SAMPLE_RATE)
+        out.append(((rng.standard_normal((rows, n)) * 0.1).astype(np.float32), np.full((rows,), n, np.int32),
+                    [TRAIN_TEXT] * rows))
+    return out
+
+
+def scan_kinds(loader: list, accumulate: int) -> int:
+    """The step kinds a graphed fit of one epoch over ``loader`` meets: (shape, whether the step updates)."""
+    return len({(loader[i][0].shape, (i + 1) % accumulate == 0) for i in range(len(loader))})
+
+
+def raw_profile(fn) -> dict:
+    """Device events, busy and span ms and the idle share of one call of ``fn`` under torch.profiler, as
+    :func:`device_profile` counts them, read from the profiler's raw events: parsing a conv training chunk's
+    50,000-70,000 device events into the profiler's event tree takes seconds each. Also whether the trace holds
+    every launch of the port's kernels that the launch counters saw (``records_complete``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = sum(launch_counts().values())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launched = sum(launch_counts().values()) - before
+    events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    own = sum(any(p in e.name() for p in OWN_KERNELS) for e in events)
+    if not events:
+        return {"device_events": 0, "idle_share": "not measured"}
+    span_ns = max(e.end_ns() for e in events) - min(e.start_ns() for e in events)
+    busy_ns = sum(e.duration_ns() for e in events)
+    return {"device_events": len(events), "span_ms": span_ns / 1e6, "busy_ms": busy_ns / 1e6,
+            "idle_share": max(0.0, 1.0 - busy_ns / span_ns), "own_kernel_launches": launched,
+            "own_kernel_events": own, "records_complete": own == launched}
+
+
+def scan_chunk_timing(card: str, name: str, module, kw: dict, loader: list, device="cuda") -> dict:
+    """One chunk of SCAN_K steps of ``module`` (a ``name`` of :func:`scan_create`) at K = 1 and K = SCAN_K in turns
+    (1, K, K, 1), PyTorch's default algorithms; each K's train step (on its own copy of the module) is built and
+    warmed up by one step once (at K = SCAN_K that step captures the graph: ``graph_pool_gb`` is what the capture
+    reserved). Each turn: the chunk's device ms by CUDA events over SCAN_K, its host ms (to a synchronize) over
+    SCAN_K and its peak allocated memory; then one more chunk of each K under the profiler (:func:`raw_profile`:
+    its idle share)."""
+    import copy
+
+    import torch
+
+    from thunder_tpu_torch.training.trainer import Trainer, _BATCH_DTYPES, _host_batch
+
+    chunk = [_host_batch(module, *b) for b in loader[:SCAN_K]]
+    stacked = [torch.as_tensor(np.stack([np.asarray(b[i]) for b, _ in chunk]), dtype=t, device=device)
+               for i, t in enumerate(_BATCH_DTYPES)]
+
+    def run(step, generator):
+        return [step(*(a[k] for a in stacked), generator) for k in range(SCAN_K)]
+
+    steps, out = {}, {}
+    for k, copied in ((1, module), (SCAN_K, copy.deepcopy(module))):
+        steps[k] = Trainer(device=device, seed=0, steps_per_execution=k, optimizer_kwargs={
+            "learning_rate": SCAN_LR}, **kw).train_step_for(copied, loader)[:2]
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        steps[k][0](*(a[0] for a in stacked), steps[k][1])  # the warm-up; at K > 1 the capture of the chunk's kind
+        torch.cuda.synchronize()
+        out[f"k{k}"] = {"step_ms": [], "host_ms_per_step": [], "peak_mem_gb": [],
+                        "graph_pool_gb": (torch.cuda.memory_reserved() - reserved) / 1e9 if k > 1 else 0.0}
+    for k in (1, SCAN_K, SCAN_K, 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        begin.record()
+        run(*steps[k])
+        end.record()
+        torch.cuda.synchronize()
+        line = out[f"k{k}"]
+        line["step_ms"].append(begin.elapsed_time(end) / SCAN_K)
+        line["host_ms_per_step"].append((time.perf_counter() - t0) * 1e3 / SCAN_K)
+        line["peak_mem_gb"].append(torch.cuda.max_memory_allocated() / 1e9)  # a replay allocates nothing
+    for k, (step, generator) in steps.items():
+        out[f"k{k}"]["profile"] = raw_profile(lambda: run(step, generator))
+        out[f"k{k}"]["replayed_steps"] = getattr(step, "replayed_steps", 0)
+    emit({"phase": "train_scan_timing", "model": name, "k": SCAN_K, "batch": len(loader[0][1]),
+          "seconds": float(loader[0][0].shape[1] / SAMPLE_RATE), **out, "card": card})
+    del steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_scan_phase(card: str, device="cuda") -> dict:
+    """Phase 40 of the module docstring: ``Trainer(steps_per_execution=SCAN_K).fit`` against
+    ``Trainer(steps_per_execution=1).fit`` from the same weights and generator seed, under
+    ``deterministic_algorithms()``, at full width: (a) QuartzNet15x5 at TRAIN_BATCH x TRAIN_SECONDS, 8 batches
+    of 15 s and one of 12 s (two full chunks, and a leftover that the epoch's end flushes); (b) the same with
+    ``remat``, ``accumulate_grad_batches=2``, ``gradient_clip_norm=1.0`` and ``onecycle`` through
+    ``total_steps_arg``, 4 batches (a micro step and an update step twice); (c) Citrinet-256, 4 batches; (d)
+    wav2vec2-base at W2V_TRAIN_BATCH x 15 s, extractor frozen, dropout 0.1, 4 batches. Each graphed run must
+    equal its K = 1 run bit for bit in the per-step losses, every parameter, the running statistics, the
+    optimizer's state and the generator's state (``Trainer.train_state``); every step past its kind's first must
+    come from a CUDA graph replay; each run's launches must be the fixed ones a step times its steps (QuartzNet and
+    Citrinet 1 log-mel and 1 + 1 CTC; wav2vec2-base 12 + 24 ``mha_train``, 25 + 50 add + dropout + LayerNorm and
+    1 + 1 CTC), counted through capture and replay. After the runs of (a), (c) and (d),
+    :func:`scan_chunk_timing` from the model's initial weights. Returns the launches of the graphed runs, by
+    model."""
+    import copy
+
+    import torch
+
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.training.optim import onecycle
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    layers = 12
+    conv = dict(fused_log_mel=1, ctc_alpha=1, ctc_beta=1)
+    w2v2 = dict(mha_train_forward=layers, mha_train_backward=2 * layers, add_ln_train_forward=2 * layers + 1,
+                add_ln_train_backward=2 * (2 * layers + 1), ctc_alpha=1, ctc_beta=1)
+    remat_kw = dict(accumulate_grad_batches=2, gradient_clip_norm=1.0, lr_scheduler_builder=onecycle,
+                    lr_scheduler_kwargs={"max_lr": SCAN_LR, "total_steps_arg": "total_steps"})
+    runs = {"quartznet15x5": (TRAIN_BATCH, [TRAIN_SECONDS] * 8 + [0.8 * TRAIN_SECONDS], {}, conv),
+            "quartznet15x5_remat": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, remat_kw, conv),
+            "citrinet256": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, {}, conv),
+            "wav2vec2_base": (W2V_TRAIN_BATCH, [W2V_SECONDS] * 4, {}, w2v2)}
+    launches = {}
+    for name, (rows, seconds, kw, per_step) in runs.items():
+        t0 = time.perf_counter()
+        loader = scan_loader(rows, seconds, seed=40)
+        want = expected_counts(**{w: n * len(loader) for w, n in per_step.items()})
+        base = scan_create(name, device)
+        results = {}
+        for k in (1, SCAN_K):
+            trainer = Trainer(seed=0, log_every=1, device=device, steps_per_execution=k,
+                              optimizer_kwargs={"learning_rate": SCAN_LR}, **kw)
+            module = copy.deepcopy(base)
+            with deterministic_algorithms():
+                reset_launch_counts()
+                trainer.fit(module, loader)
+                sync(device)
+                counts = launch_counts()
+            losses = [e["loss/train_loss"] for e in trainer.logs if "loss/train_loss" in e]
+            results[k] = (losses, trainer.train_state(), counts, (trainer.eager_steps, trainer.replayed_steps))
+            del trainer, module
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        (losses1, state1, counts1, _), (losses_k, state_k, counts_k, dispatch) = results[1], results[SCAN_K]
+        kinds = scan_kinds(loader, kw.get("accumulate_grad_batches", 1))
+        line = {"phase": "train_scan", "model": name, "batch": rows, "seconds": seconds, "k": SCAN_K,
+                "losses_k1": losses1, f"losses_k{SCAN_K}": losses_k, "losses_bit_equal": losses_k == losses1,
+                "state_bit_equal": same_tree(state_k, state1), "eager_steps": dispatch[0],
+                "replayed_steps": dispatch[1], "kinds": kinds, f"launches_k{SCAN_K}": counts_k,
+                "launches_k1": counts1, "seconds_taken": time.perf_counter() - t0, "card": card}
+        emit(line)
+        check(all(np.isfinite(losses1)) and len(losses1) == len(loader), f"{name}: K = 1 losses {losses1}")
+        check(line["losses_bit_equal"], f"{name}: K = {SCAN_K} losses {losses_k} != K = 1 losses {losses1}")
+        check(line["state_bit_equal"], f"{name}: the train state after K = {SCAN_K} differs from K = 1's (weights, "
+                                       "running statistics, optimizer state or generator state)")
+        if torch.device(device).type == "cuda":
+            check(dispatch == (kinds, len(loader) - kinds),
+                  f"{name}: {dispatch} (eager, replayed) steps, expected {kinds} eager and the rest replayed")
+            check(counts1 == want and counts_k == want,
+                  f"{name}: launches K = 1 {counts1}, K = {SCAN_K} {counts_k}, expected {want}")
+        launches[name] = counts_k
+        del results, state1, state_k
+        if name != "quartznet15x5_remat" and torch.device(device).type == "cuda":
+            scan_chunk_timing(card, name, base, {}, scan_loader(rows, seconds[:SCAN_K], seed=41), device)
+        del base
+    return launches
 
 
 def aot_export_phase(card: str, device="cuda") -> dict:

@@ -47,7 +47,11 @@ counted. On slices of a batch, each with its rows' offset (a data-parallel
 rank's rows), they give the whole batch's masks, outputs and gradients bit for
 bit. The three custom ops of an exported predict graph equal their wrappers and pass ``torch.library.opcheck``
 on the card, and a tiny bf16 wav2vec2 exported by ``aot_export`` serves through ``aot_load`` on the card with the
-live module's predictions and launches.
+live module's predictions and launches. ``Trainer(steps_per_execution=4)`` (the graphed train step) equals
+``steps_per_execution=1`` bit for bit under deterministic algorithms on a small QuartzNet (with remat,
+accumulation, the clip and a schedule) and a small wav2vec2 (with remat and the fine-tuning freeze), with their
+launches and every step past a kind's first replayed; past the graph bound, on another stream, with cleared
+gradients and a reloaded optimizer state too.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -1465,3 +1469,181 @@ def test_exported_tiny_wav2vec2_serves_on_card(cuda, tmp_path):
     torch.cuda.synchronize()
     assert counts() == live and live["mha_from_qkv"] == 2 and live["add_layer_norm"] == 5
     assert preds.device.type == "cuda" and torch.equal(preds, want) and torch.equal(out_lengths, want_lengths)
+
+
+# ---- Trainer(steps_per_execution=K): the graphed train step against the eager one
+
+
+def _small_quartznet_module(remat: bool = False):
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    return CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(num_time_masks=1, num_freq_masks=1),
+                            QuartznetEncoder(repeat=2, filters=(64, 64), kernel_sizes=(33, 33), dropout=0.1,
+                                             remat=remat),
+                            Conv1dDecoder(29), BatchTextTransformer(list("abcdefghijklmnopqrstuvwxyz '")),
+                            device="cuda")
+
+
+def _scan_loader(samples, seed: int = 0):
+    """Batches of 2 rows, one a length of ``samples``."""
+    rng = np.random.default_rng(seed)
+    return [((rng.standard_normal((2, n)) * 0.2).astype(np.float32), np.array([n, n * 3 // 4], np.int32),
+             ["hello world", "the cat"]) for n in samples]
+
+
+def _scan_fit(make, loader, k: int, epochs: int = 1, **kw):
+    """A ``fit`` under deterministic algorithms: ``(trainer, losses, train state, launches)``."""
+    from chip_smoke import deterministic_algorithms
+    from thunder_tpu_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(max_epochs=epochs, device="cuda", log_every=1, seed=0, steps_per_execution=k, **kw)
+    module = make()
+    with deterministic_algorithms():
+        reset_launch_counts()
+        trainer.fit(module, loader)
+        torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS if w.launches}
+    losses = [e["loss/train_loss"] for e in trainer.logs if "loss/train_loss" in e]
+    return trainer, losses, trainer.train_state(), counts
+
+
+def _assert_same_state(a, b, path="state"):
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b), path
+    elif isinstance(a, dict):
+        assert set(a) == set(b), path
+        for key in a:
+            _assert_same_state(a[key], b[key], f"{path}/{key}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_state(x, y, f"{path}/{i}")
+    else:
+        assert a == b, path
+
+
+def _kinds(loader, accumulate: int = 1, frozen_steps: int = 0) -> int:
+    """The step kinds a graphed fit meets: (shape, update, frozen)."""
+    kinds = set()
+    for i, (audio, _, _) in enumerate(loader):
+        update = (i + 1) % accumulate == 0
+        kinds.add((audio.shape, update, update and i // accumulate < frozen_steps))
+    return len(kinds)
+
+
+SCAN_CASES = {
+    "quartznet": (_small_quartznet_module, {}),
+    "quartznet_remat_accumulate": (lambda: _small_quartznet_module(remat=True),
+                                   dict(accumulate_grad_batches=2, gradient_clip_norm=1.0,
+                                        lr_scheduler_kwargs={"max_lr": 1e-3, "total_steps_arg": "total_steps"})),
+    "wav2vec2": (lambda: _small_w2v2_module(remat=False), {}),
+    "wav2vec2_remat_finetune": (lambda: _small_w2v2_module(remat=True), {"finetune": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_graphed_train_steps_on_card_are_bit_equal_to_eager_steps(cuda, case):
+    """``steps_per_execution=4`` against 1 from the same weights and seed: per-step losses, every parameter and
+    running statistic, the optimizer's state and the generator's state bit-equal; the same launches (the
+    replays add their capture's); every step past its kind's first replays a graph."""
+    from thunder_tpu_torch.training.optim import onecycle
+    from thunder_tpu_torch.training.trainer import FinetuneEncoderDecoder
+
+    make, kw = SCAN_CASES[case]
+    kw = dict(kw)
+    frozen_steps = 0
+    if kw.pop("finetune", False):
+        kw["callbacks"] = [FinetuneEncoderDecoder(unfreeze_encoder_at_epoch=1)]
+    if "lr_scheduler_kwargs" in kw:
+        kw["lr_scheduler_builder"] = onecycle
+    loader = _scan_loader([16000] * 5 + [12000] + [16000] * 2)
+    epochs = 2 if "callbacks" in kw else 1
+    if epochs == 2:
+        frozen_steps = len(loader)
+    _, losses1, state1, counts1 = _scan_fit(make, loader, 1, epochs, **kw)
+    trainer, losses4, state4, counts4 = _scan_fit(make, loader, 4, epochs, **kw)
+    assert losses4 == losses1 and all(np.isfinite(losses1))
+    _assert_same_state(state4, state1)
+    assert counts4 == counts1 and counts1
+    kinds = _kinds(loader * epochs, kw.get("accumulate_grad_batches", 1), frozen_steps)
+    assert (trainer.eager_steps, trainer.replayed_steps) == (kinds, len(loader) * epochs - kinds)
+
+
+def test_graphed_train_step_past_the_bound_runs_eagerly_and_counts(cuda, monkeypatch):
+    from thunder_tpu_torch.training import trainer as trainer_module
+
+    monkeypatch.setattr(trainer_module, "TRAIN_GRAPHS", 1)
+    loader = _scan_loader([16000, 16000, 12000, 12000, 16000, 12000])
+    _, losses1, state1, _ = _scan_fit(_small_quartznet_module, loader, 1)
+    trainer, losses2, state2, _ = _scan_fit(_small_quartznet_module, loader, 2)
+    assert losses2 == losses1
+    _assert_same_state(state2, state1)
+    assert (trainer.eager_steps, trainer.replayed_steps) == (1 + 3, 2)  # 16000 graphed; each 12000 step eager
+
+
+def test_graphed_train_step_replays_after_a_call_on_another_stream(cuda):
+    """Steps of a ``GraphedTrainStep`` on the default stream, then on a second stream, then back: the losses and
+    weights of the same steps of a ``TrainStep`` on the default stream, and the generator's state too."""
+    from chip_smoke import deterministic_algorithms
+    from thunder_tpu_torch.training.trainer import GraphedTrainStep, TrainStep, _device_batch, Trainer
+
+    loader = _scan_loader([16000] * 5, seed=1)
+    results = []
+    for k in (1, 2):
+        module = _small_quartznet_module()
+        step, generator, _ = Trainer(device="cuda", steps_per_execution=k).train_step_for(module, loader)
+        assert isinstance(step, GraphedTrainStep if k == 2 else TrainStep)
+        other = torch.cuda.Stream()
+        losses = []
+        with deterministic_algorithms():
+            for i, (audio, lengths, texts) in enumerate(loader):
+                batch = _device_batch(module, audio, lengths, texts)
+                if i in (2, 3):  # the graphed step orders itself after the last stream's work; the eager one not
+                    if k == 1:
+                        other.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(other):
+                        losses.append(step(*batch, generator))
+                    if k == 1:
+                        torch.cuda.current_stream().wait_stream(other)
+                else:
+                    losses.append(step(*batch, generator))
+            torch.cuda.synchronize()
+        results.append(([loss.item() for loss in losses], {k: v.clone() for k, v in module.model.state_dict().items()},
+                        generator.get_state(), getattr(step, "replayed_steps", 0)))
+    (losses1, weights1, gen1, _), (losses2, weights2, gen2, replayed) = results
+    assert losses2 == losses1 and torch.equal(gen2, gen1) and replayed == 4
+    assert all(torch.equal(weights2[name], value) for name, value in weights1.items())
+
+
+def test_graphed_train_step_survives_cleared_gradients_and_a_loaded_optimizer_state(cuda):
+    """With accumulation 2, the gradients cleared (``zero_grad(set_to_none=True)``) between a micro step and its
+    update, and the optimizer's state loaded from itself later: the graphed step's losses, weights and generator
+    equal the eager step's under the same calls, and the load makes the next step of each kind eager again."""
+    from chip_smoke import deterministic_algorithms
+    from thunder_tpu_torch.training.trainer import Trainer, _device_batch
+
+    loader = _scan_loader([16000] * 8, seed=2)
+    results = []
+    for k in (1, 2):
+        module = _small_quartznet_module()
+        step, generator, _ = Trainer(device="cuda", steps_per_execution=k, accumulate_grad_batches=2).train_step_for(
+            module, loader)
+        losses = []
+        with deterministic_algorithms():
+            for i, (audio, lengths, texts) in enumerate(loader):
+                if i == 5:  # mid-accumulation: the update sees this batch's gradient alone
+                    module.model.zero_grad(set_to_none=True)
+                if i == 6:
+                    step.optimizer.load_state_dict(step.optimizer.state_dict())
+                losses.append(step(*_device_batch(module, audio, lengths, texts), generator))
+            torch.cuda.synchronize()
+        results.append(([loss.item() for loss in losses], {n: v.clone() for n, v in module.model.state_dict().items()},
+                        generator.get_state(), (step.eager_steps, getattr(step, "replayed_steps", 0))))
+    (losses1, weights1, gen1, _), (losses2, weights2, gen2, dispatch) = results
+    assert losses2 == losses1 and torch.equal(gen2, gen1)
+    assert all(torch.equal(weights2[name], value) for name, value in weights1.items())
+    assert dispatch == (4, 4)  # micro and update kinds eager at steps 0-1 and again at 6-7, after the load

@@ -180,6 +180,14 @@ def _case(case: dict, rank: int, world: int, out_dir: Path):
         out["clipped"] = [gather_whole(g, s) if s is not None else g for g, s in zip(local, shards)]
     elif kind == "checkpoint":
         out = _checkpoint_case(case, mesh, out_dir)
+    elif kind == "fit":
+        from thunder_tpu_torch.training.trainer import Trainer
+
+        trainer = Trainer(mesh=mesh, device="cpu", **case["trainer"])
+        fitted = trainer.fit(build(case["model"], case["state"]), case["loader"])
+        out = {"losses": [e["loss/train_loss"] for e in trainer.logs if "loss/train_loss" in e],
+               "state": {k: v.clone() for k, v in fitted.model.state_dict().items()},
+               "steps": (trainer.eager_steps, trainer.replayed_steps)}
     elif kind == "validate":
         from thunder_tpu_torch.training.trainer import Trainer
 

@@ -28,7 +28,8 @@ each block, with flax's semantics.
 activations are recomputed in the backward, with the same dropout masks and
 kernel seeds (the explicit generator is replayed) and without moving the
 running statistics a second time, so it changes no loss, gradient or
-statistic.
+statistic. It also runs inside a CUDA graph of the train step
+(:class:`RematStates`).
 
 ``EncoderBlock`` is the QuartzNet and Citrinet block: Citrinet's options
 (the stride on the last repeat only, :class:`SqueezeExcite` after the conv
@@ -38,6 +39,7 @@ flags, off by default.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import math
 
@@ -52,7 +54,7 @@ from thunder_tpu_torch.parallel import spmd
 __all__ = [
     "BN_EPS", "InitMode", "weight_init", "TorchBatchNorm", "MaskedConv1d", "ConvBnAct", "SqueezeExcite",
     "EncoderBlock", "Dense", "dense", "init_parameters", "dropout", "apply_dropout", "checkpointed", "recomputing",
-    "run_block",
+    "run_block", "RematStates", "remat_states",
 ]
 
 BN_EPS = 1e-3
@@ -78,11 +80,47 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
 
 
 _RECOMPUTING = contextvars.ContextVar("thunder_tpu_torch_recomputing", default=False)
+_REMAT_STATES = contextvars.ContextVar("thunder_tpu_torch_remat_states", default=None)
 
 
 def recomputing() -> bool:
     """Whether the running code is a :func:`checkpointed` block's recompute in the backward."""
     return _RECOMPUTING.get()
+
+
+class RematStates:
+    """The generator states that the :func:`checkpointed` blocks of one train step rewind to, for a CUDA graph of
+    the step.
+
+    A generator's host state cannot be read or set while a graph is captured, and a replay moves it without the
+    host. So the graph's owner runs the step once eagerly under :func:`remat_states` with an empty
+    ``RematStates``, which records in ``offsets`` the step generator's offset at each block's entry; then it
+    captures the step with ``RematStates(generators)``: one generator a block, in the blocks' order, registered
+    with the graph, whose state it sets before each replay to the step generator's at that block's entry (the
+    seed, and the offset at the replay's start plus the block's share of the eager step's). A block's recompute
+    draws from its generator through ``graphsafe_set_state``, so the step generator's own state moves as in the
+    eager step."""
+
+    def __init__(self, generators=()):
+        self.offsets: list = []
+        self._generators = iter(generators)
+
+    def next_generator(self) -> torch.Generator:
+        generator = next(self._generators, None)
+        if generator is None:
+            raise RuntimeError("more checkpointed blocks under capture than the eager step recorded")
+        return generator
+
+
+@contextlib.contextmanager
+def remat_states(states: RematStates | None):
+    """``with remat_states(states):`` the :func:`checkpointed` blocks of the step in the block record into, or draw
+    their generators from, ``states``."""
+    token = _REMAT_STATES.set(states)
+    try:
+        yield states
+    finally:
+        _REMAT_STATES.reset(token)
 
 
 def checkpointed(block: nn.Module, *args, generator: torch.Generator | None = None, **kwargs):
@@ -99,10 +137,21 @@ def checkpointed(block: nn.Module, *args, generator: torch.Generator | None = No
       running statistics a second time (flax's ``nn.remat`` keeps the forward's ``batch_stats`` update only).
 
     A generator's ``get_state``/``set_state`` are host operations (a CUDA generator's state is its seed and
-    offset), so this adds no device synchronisation. The recompute also runs in the forward's data-parallel
-    step (:func:`~thunder_tpu_torch.parallel.spmd.rows`), which the backward may run outside of.
+    offset), so this adds no device synchronisation. Under CUDA graph capture the entry state is the block's
+    generator of :class:`RematStates` and the swaps are ``graphsafe_get_state``/``graphsafe_set_state``. The
+    recompute also runs in the forward's data-parallel step (:func:`~thunder_tpu_torch.parallel.spmd.rows`),
+    which the backward may run outside of.
     """
-    entry = generator.get_state() if generator is not None else None
+    states = _REMAT_STATES.get()
+    captured = generator is not None and generator.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if captured:
+        if states is None:
+            raise RuntimeError("a checkpointed block under CUDA graph capture needs remat_states(RematStates(...))")
+        entry = states.next_generator()
+    else:
+        entry = generator.get_state() if generator is not None else None
+        if states is not None and generator is not None:
+            states.offsets.append(generator.get_offset())
     step_rows = spmd.current_rows()
     runs = 0
 
@@ -111,16 +160,22 @@ def checkpointed(block: nn.Module, *args, generator: torch.Generator | None = No
         runs += 1
         if runs == 1:
             return block(*inputs, generator=generator, **kwargs)
-        resume = generator.get_state() if generator is not None else None
-        if generator is not None:
-            generator.set_state(entry)
+        if captured:
+            resume = generator.graphsafe_get_state()
+            generator.graphsafe_set_state(entry)
+        else:
+            resume = generator.get_state() if generator is not None else None
+            if generator is not None:
+                generator.set_state(entry)
         token = _RECOMPUTING.set(True)
         try:
             with spmd.rows(step_rows):
                 return block(*inputs, generator=generator, **kwargs)
         finally:
             _RECOMPUTING.reset(token)
-            if generator is not None:
+            if captured:
+                generator.graphsafe_set_state(resume)
+            elif generator is not None:
                 generator.set_state(resume)
 
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)

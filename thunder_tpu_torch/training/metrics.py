@@ -59,6 +59,10 @@ class ErrorRate:
     def compute(self) -> float:
         return self.errors / max(self.total, 1)
 
+    def reset(self):
+        self.errors = 0
+        self.total = 0
+
     def __call__(self, predictions: List[str], references: List[str]) -> float:
         self.update(predictions, references)
         return self.compute()

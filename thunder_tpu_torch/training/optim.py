@@ -5,14 +5,20 @@ parameter groups) first and returns a ``torch.optim.Optimizer``:
 
 - ``optax.adamw`` (decoupled weight decay on every parameter, bias-corrected
   moments, ``eps`` added outside the square root) is ``torch.optim.AdamW``
-  with the same ``b1``, ``b2``, ``eps`` and ``weight_decay``;
+  with the same ``b1``, ``b2``, ``eps`` and ``weight_decay``; on the card it
+  is built ``capturable`` (its step counts on the device, each group's
+  learning rate a device tensor that :func:`set_learning_rates` writes), so
+  that a CUDA graph of the whole train step can hold its update, and an
+  eager step computes with the same arithmetic as a replayed one;
 - ``optax.sgd`` (a momentum trace started at zero) is ``torch.optim.SGD``.
 
 Schedules follow optax, not ``torch.optim.lr_scheduler``: a schedule is a
 function of the optimizer step (0 for the first update) that gives the
 learning rate that step uses. A factory given a schedule for
 ``learning_rate`` keeps it as the optimizer's ``lr_schedule``, and
-:func:`optimizer_step` sets every group's ``lr`` from it before each update.
+:func:`set_learning_rates` sets every group's ``lr`` from it before each
+update (:func:`optimizer_step` is :func:`set_learning_rates`, then
+:func:`apply_update`, the part that a graph captures).
 
 optax's wrappers are attributes of the optimizer that :func:`optimizer_step`
 applies in optax's order:
@@ -68,6 +74,10 @@ __all__ = [
     "finetune_schedule_transform",
     "trainable_parameters",
     "clip_by_global_norm_",
+    "set_learning_rates",
+    "learning_rate",
+    "encoder_frozen",
+    "apply_update",
     "optimizer_step",
 ]
 
@@ -102,11 +112,24 @@ def _initial(learning_rate) -> float:
     return float(learning_rate(0)) if callable(learning_rate) else float(learning_rate)
 
 
+def _on_cuda(params: list) -> bool:
+    """Whether the first parameter of ``params`` (tensors, or groups of them) lies on a CUDA device."""
+    for item in params:
+        tensors = item["params"] if isinstance(item, dict) else [item]
+        for t in tensors:
+            return t.device.type == "cuda"
+    return False
+
+
 def adamw(params: Iterable, learning_rate=1e-3, weight_decay: float = 1e-2, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8) -> torch.optim.AdamW:
-    """``optax.adamw``; ``learning_rate`` is a number or a schedule."""
+    """``optax.adamw``; ``learning_rate`` is a number or a schedule. Capturable on the card."""
+    params = list(params)
+    capturable = _on_cuda(params)
     optimizer = torch.optim.AdamW(params, lr=_initial(learning_rate), betas=(b1, b2), eps=eps,
-                                  weight_decay=weight_decay)
+                                  weight_decay=weight_decay, capturable=capturable)
+    # eager steps of a capturable optimizer are meant (K = 1 shares the graphed step's arithmetic): no warning
+    optimizer._warned_capturable_if_run_uncaptured = capturable
     return _with_learning_rate(optimizer, learning_rate)
 
 
@@ -334,27 +357,64 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, shards: Opt
         g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
 
 
-def optimizer_step(optimizer: torch.optim.Optimizer, step: int, gradient_clip_value: Optional[float] = None,
-                   gradient_clip_norm: Optional[float] = None) -> None:
-    """Apply the optimizer to its parameters' gradients as the JAX trainer's optax chain does, as its
-    ``step``-th update (0 for the first):
+def encoder_frozen(optimizer: torch.optim.Optimizer, step: int) -> bool:
+    """Whether the fine-tuning freeze (:func:`finetune_schedule_transform`) holds the encoder at update ``step``."""
+    finetune: Optional[FinetuneSchedule] = getattr(optimizer, "finetune", None)
+    return finetune is not None and finetune.frozen(step)
+
+
+def learning_rate(group: Dict[str, Any]) -> float:
+    """A parameter group's learning rate at its latest update, from the host (never a device read)."""
+    return group["host_lr"] if isinstance(group["lr"], torch.Tensor) else group["lr"]
+
+
+def set_learning_rates(optimizer: torch.optim.Optimizer, step: int) -> None:
+    """Each group's learning rate for update number ``step``: the schedule at ``step`` (else the group's own),
+    times the plateau scale, times the fine-tuning factor for the encoder group.
+
+    A capturable optimizer's group (on the card) takes the rate as a float32 tensor on the parameters' device,
+    written in place by a fill on the current stream: a captured update reads it there,
+    and the host keeps the number as ``group["host_lr"]``. Run it outside any capture, before each update."""
+    schedule = getattr(optimizer, "lr_schedule", None)
+    plateau = getattr(optimizer, "plateau_state", None)
+    finetune: Optional[FinetuneSchedule] = getattr(optimizer, "finetune", None)
+    for group in optimizer.param_groups:
+        if schedule is None and "base_lr" not in group:
+            group["base_lr"] = learning_rate(group)
+        lr = schedule(step) if schedule is not None else group["base_lr"]
+        if plateau is not None:
+            lr = lr * float(plateau.scale)
+        if finetune is not None and group.get("encoder"):
+            lr = lr * finetune.encoder_scale(step)
+        if not group.get("capturable"):
+            group["lr"] = lr
+            continue
+        device = group["params"][0].device
+        held = group["lr"]
+        if not isinstance(held, torch.Tensor) or held.device != device:  # a number, or loaded to the host
+            group["lr"] = held = torch.zeros((), dtype=torch.float32, device=device)
+        held.fill_(lr)
+        group["host_lr"] = lr
+
+
+def apply_update(optimizer: torch.optim.Optimizer, frozen: bool = False, gradient_clip_value: Optional[float] = None,
+                 gradient_clip_norm: Optional[float] = None) -> None:
+    """The device part of an update, with the learning rates already set (:func:`set_learning_rates`):
 
     1. a parameter without a gradient gets zeros (a frozen feature extractor, which JAX's stop_gradient
        gives zeros: optax's AdamW still decays its weights; and the frozen encoder, see below);
-    2. the fine-tuning freeze sets the encoder group's gradients to zero;
+    2. ``frozen`` (the fine-tuning freeze, :func:`encoder_frozen`) sets the encoder group's gradients to zero;
     3. the element-wise clip by ``gradient_clip_value``, then the global-norm clip by
        ``gradient_clip_norm``;
-    4. each group's learning rate: the schedule at ``step`` (else the group's own), times the plateau
-       scale, times the fine-tuning factor for the encoder group;
-    5. the optimizer's update.
-    """
+    4. the optimizer's update.
+
+    With every gradient in place it reads nothing on the host, so a CUDA graph can capture it."""
     groups = optimizer.param_groups
     params = [p for group in groups for p in group["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    finetune: Optional[FinetuneSchedule] = getattr(optimizer, "finetune", None)
-    if finetune is not None and finetune.frozen(step):
+    if frozen:
         for group in groups:
             if group.get("encoder"):
                 for p in group["params"]:
@@ -365,13 +425,13 @@ def optimizer_step(optimizer: torch.optim.Optimizer, step: int, gradient_clip_va
             g.clamp_(-gradient_clip_value, gradient_clip_value)
     if gradient_clip_norm is not None:
         clip_by_global_norm_(grads, gradient_clip_norm, [shard_of(p) for p in params])
-    schedule = getattr(optimizer, "lr_schedule", None)
-    plateau = getattr(optimizer, "plateau_state", None)
-    for group in groups:
-        lr = schedule(step) if schedule is not None else group.setdefault("base_lr", group["lr"])
-        if plateau is not None:
-            lr = lr * float(plateau.scale)
-        if finetune is not None and group.get("encoder"):
-            lr = lr * finetune.encoder_scale(step)
-        group["lr"] = lr
     optimizer.step()
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, step: int, gradient_clip_value: Optional[float] = None,
+                   gradient_clip_norm: Optional[float] = None) -> None:
+    """Apply the optimizer to its parameters' gradients as the JAX trainer's optax chain does, as its
+    ``step``-th update (0 for the first): :func:`set_learning_rates`, then :func:`apply_update` with the
+    fine-tuning freeze of that step."""
+    set_learning_rates(optimizer, step)
+    apply_update(optimizer, encoder_frozen(optimizer, step), gradient_clip_value, gradient_clip_norm)

@@ -14,6 +14,10 @@ Port of the single-device path of ``thunder_tpu/training/trainer.py``:
   parameters out of the optimizer and the clip
   (:func:`~thunder_tpu_torch.training.optim.trainable_parameters`): they
   are not updated at all;
+- :class:`GraphedTrainStep` is ``make_train_scan_step``: K steps a dispatch
+  as replays of one CUDA graph of the whole step a step kind, which
+  ``Trainer(steps_per_execution=K)`` drives over chunks of K same-shape
+  batches, as the JAX ``fit`` groups them;
 - :func:`eval_step` is ``make_eval_step``;
 - :class:`FinetuneEncoderDecoder` and :class:`EarlyStopping` are the JAX
   callbacks;
@@ -45,40 +49,64 @@ single-device step on the global batch, as the JAX trainer's SPMD step is:
   each rank's rows and sums the metrics' counts over the data group; ``fit``
   returns the module with whole tensors.
 
-Not ported (``ROADMAP.md``): ``steps_per_execution`` (a CUDA graph of the train
-step), and ``prng_impl``, which has no counterpart.
+With ``steps_per_execution`` K > 1 on a mesh, a chunk of K batches is stacked
+and sharded on its batch axis (``stacked_batch_sharding``), and its steps run
+one after another eagerly, with the losses read once a chunk: no collective is
+captured in a graph (``ROADMAP.md``).
+
+``prng_impl`` has no counterpart: it picks a TPU random-bit generator.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from thunder_tpu_torch.kernels import KERNEL_WRAPPERS
+from thunder_tpu_torch.models.layers import RematStates, remat_states
 from thunder_tpu_torch.module import CTCModule, decode_greedy, require_device, to_device
 from thunder_tpu_torch.ops.ctc import calculate_ctc, greedy_decode
-from thunder_tpu_torch.parallel import DATA_AXIS, batch_sharding, make_mesh, shard_variables, spmd, unshard_variables
+from thunder_tpu_torch.parallel import (
+    DATA_AXIS,
+    batch_sharding,
+    make_mesh,
+    shard_variables,
+    spmd,
+    stacked_batch_sharding,
+    unshard_variables,
+)
 from thunder_tpu_torch.training.checkpointing import load_train_state, restore_checkpoint, save_checkpoint, train_state
 from thunder_tpu_torch.training.metrics import CharErrorRate, WordErrorRate
 from thunder_tpu_torch.training.optim import (
     adamw,
+    apply_update,
     build_optimizer,
     clip_by_global_norm_,
+    encoder_frozen,
     finetune_param_groups,
     finetune_schedule_transform,
     get_plateau_state,
+    learning_rate,
     optimizer_step,
     plateau_schedule_transform,
     plateau_update,
     replace_plateau_state,
+    set_learning_rates,
     trainable_parameters,
 )
 
-__all__ = ["TrainStep", "Trainer", "FinetuneEncoderDecoder", "EarlyStopping", "eval_step", "clip_by_global_norm_"]
+__all__ = ["TrainStep", "GraphedTrainStep", "TRAIN_GRAPHS", "Trainer", "FinetuneEncoderDecoder", "EarlyStopping",
+           "eval_step", "clip_by_global_norm_", "chunk_batches"]
+
+#: the most step kinds (shapes, update or not, frozen encoder or not) a :class:`GraphedTrainStep` captures; a step
+#: of a later kind runs eagerly
+TRAIN_GRAPHS = 8
 
 
 @dataclass
@@ -185,14 +213,14 @@ class TrainStep:
     call also applies the optimizer (:func:`optimizer_step`, as update number
     ``steps``). Only the optimizer's parameters are clipped and stepped. The
     batch-norm running statistics move in place on every call. Returns the
-    loss, detached, on the device.
+    loss, detached, on the device. ``eager_steps`` counts the calls.
 
     With a ``mesh`` the arguments are the global batch (padded to divide the
     data axis, with its ``sample_weights`` on the host, see
     :func:`_pad_batch_for_mesh`): the rank runs its rows as a data-parallel step
-    (:func:`~thunder_tpu_torch.parallel.spmd.rows`), backpropagates its share of
-    the global loss, and the gradients are summed over the data group before
-    each update. The returned loss is the global one on every rank.
+    (:meth:`rows_step`), backpropagates its share of the global loss, and the
+    gradients are summed over the data group before each update. The returned
+    loss is the global one on every rank.
     """
 
     def __init__(self, model, optimizer: torch.optim.Optimizer, blank_idx: int, accumulate_grad_batches: int = 1,
@@ -206,33 +234,43 @@ class TrainStep:
         self.mesh = mesh
         self.calls = 0  # micro-batches
         self.steps = 0  # optimizer updates
+        self.eager_steps = 0
 
     def _loss(self, audio, audio_lengths, targets, target_lengths, generator, sample_weights):
-        """The loss to backpropagate and the loss to report."""
+        """The meshless step's loss."""
+        logits, out_lengths = self.model(audio, audio_lengths, train=True, generator=generator)
+        return calculate_ctc(logits, targets, out_lengths, target_lengths, self.blank_idx,
+                             sample_weights=sample_weights)
+
+    def __call__(self, audio, audio_lengths, targets, target_lengths, generator: torch.Generator,
+                 sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.mesh is None:
-            logits, out_lengths = self.model(audio, audio_lengths, train=True, generator=generator)
-            loss = calculate_ctc(logits, targets, out_lengths, target_lengths, self.blank_idx,
-                                 sample_weights=sample_weights)
-            return loss, loss.detach()
+            loss = self._loss(audio, audio_lengths, targets, target_lengths, generator, sample_weights)
+            return self._apply(loss, loss.detach())
         total = audio.shape[0]
         weights = (np.ones(total, np.float32) if sample_weights is None
                    else torch.as_tensor(sample_weights).float().cpu().numpy())
         shard = batch_sharding(self.mesh)
-        audio, audio_lengths, targets, target_lengths = (shard(t) for t in (audio, audio_lengths, targets,
-                                                                             target_lengths))
-        local_w = shard(weights)
-        rows = spmd.Rows(self.mesh.data_rank * audio.shape[0], total, self.mesh.data_group)
+        batch = tuple(shard(t) for t in (audio, audio_lengths, targets, target_lengths))
+        return self.rows_step(batch, shard(weights), float(weights.sum()), total, generator)
+
+    def rows_step(self, batch: tuple, local_weights: np.ndarray, total_weight: float, total_rows: int,
+                  generator: torch.Generator) -> torch.Tensor:
+        """One step on a mesh from this rank's rows of a global batch of ``total_rows`` rows: ``batch`` (audio,
+        lengths, targets, target lengths) and their ``local_weights`` on the host, whose sum over the global batch
+        is ``total_weight``. Returns the global loss."""
+        audio, audio_lengths, targets, target_lengths = batch
+        rows = spmd.Rows(self.mesh.data_rank * audio.shape[0], total_rows, self.mesh.data_group)
         with spmd.rows(rows):
             logits, out_lengths = self.model(audio, audio_lengths, train=True, generator=generator)
         # rows of weight 1 take the unweighted mean, the meshless step's
-        w = None if np.all(local_w == 1.0) else torch.as_tensor(local_w, device=logits.device)
+        w = None if np.all(local_weights == 1.0) else torch.as_tensor(local_weights, device=logits.device)
         local = calculate_ctc(logits, targets, out_lengths, target_lengths, self.blank_idx, sample_weights=w)
-        share = spmd.loss_share(local, float(local_w.sum()), float(weights.sum()))
-        return share, _data_sum_(share.detach().clone(), self.mesh)
+        share = spmd.loss_share(local, float(local_weights.sum()), total_weight)
+        return self._apply(share, _data_sum_(share.detach().clone(), self.mesh))
 
-    def __call__(self, audio, audio_lengths, targets, target_lengths, generator: torch.Generator,
-                 sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        loss, reported = self._loss(audio, audio_lengths, targets, target_lengths, generator, sample_weights)
+    def _apply(self, loss: torch.Tensor, reported: torch.Tensor) -> torch.Tensor:
+        """Backpropagate ``loss`` and, at the end of an accumulation, update; returns ``reported``."""
         (loss / self.accumulate).backward()
         self.calls += 1
         if self.calls % self.accumulate == 0:
@@ -241,7 +279,167 @@ class TrainStep:
             optimizer_step(self.optimizer, self.steps, self.gradient_clip_value, self.gradient_clip_norm)
             self.optimizer.zero_grad(set_to_none=True)
             self.steps += 1
+        self.eager_steps += 1
         return reported
+
+
+@dataclass
+class _StepGraph:
+    """One captured step: the graph, its input buffers and loss, the launches its capture saw by wrapper, the
+    generators of its checkpointed blocks with each block's entry offset relative to the step's start, and the
+    ``(parameter, gradient)`` pairs whose gradients it accumulates into."""
+
+    graph: Any
+    inputs: tuple
+    loss: torch.Tensor
+    launches: dict
+    remat: list
+    grads: list
+
+
+class GraphedTrainStep(TrainStep):
+    """A :class:`TrainStep` whose steps replay CUDA graphs of the whole step: the counterpart of the JAX package's
+    ``make_train_scan_step``, which ``Trainer(steps_per_execution=K)`` drives. It computes what the eager step
+    computes, bit for bit where the algorithms are deterministic.
+
+    A step's kind is its batch's shapes and dtypes, whether it ends in an optimizer update, and whether the
+    fine-tuning freeze holds at that update. The first step of a kind runs eagerly on the step's side stream (it
+    is that batch's real step); then the whole step is captured there as one CUDA graph, which runs nothing: the
+    train-mode forward with its random draws (dither, masks, dropout, the training kernels' seeds), the loss, the
+    backward and :func:`~thunder_tpu_torch.training.optim.apply_update` (the freeze, the clips, the optimizer),
+    and the gradients zeroed in place after an update. A later step of the kind copies its batch into the graph's
+    input buffers, writes the learning rates (:func:`~thunder_tpu_torch.training.optim.set_learning_rates`) and
+    the generator states of the checkpointed blocks (:class:`~thunder_tpu_torch.models.layers.RematStates`), and
+    replays the graph on the current stream: no Python and no kernel launches on the host.
+
+    - Everything that outlives a step lies outside the graphs' memory pool: parameters, gradients (zeroed in
+      place, never freed), optimizer state, running statistics, the learning-rate tensors and the input buffers.
+      So the graphs of all kinds share one pool and replay in any order.
+    - The training generator is registered with every graph: a replay moves its offset as an eager step does.
+    - A replay adds the launches its capture saw to each kernel wrapper's ``launches`` (the capture's own are
+      taken back: it launched nothing on the card), and counts in ``replayed_steps``.
+    - A step runs eagerly, counted in ``eager_steps``, on the CPU, on a mesh (no collective is captured), with
+      an optimizer that is not capturable (``SGD``), and for a kind past :data:`TRAIN_GRAPHS`.
+    - A step on another stream than the last one first waits for that stream.
+    - A gradient cleared (``zero_grad(set_to_none=True)``) or replaced between steps goes back into the tensor
+      the graphs accumulate into; an optimizer state replaced (``load_state_dict``) drops the graphs, and each
+      kind is captured again after its next eager step.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.replayed_steps = 0
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._pool = None
+        self._side = None
+        self._stream = None
+        self._optimizer_state = self.optimizer.state
+
+    def _graphable(self, audio: torch.Tensor) -> bool:
+        return (audio.device.type == "cuda" and self.mesh is None
+                and all(group.get("capturable") for group in self.optimizer.param_groups))
+
+    def _body(self, batch: tuple, generator: torch.Generator, update: bool, frozen: bool) -> torch.Tensor:
+        """The step as a graph holds it: no host read, no tensor that outlives it allocated."""
+        sample_weights = batch[4] if len(batch) > 4 else None
+        loss = self._loss(*batch[:4], generator, sample_weights)
+        (loss / self.accumulate).backward()
+        if update:
+            apply_update(self.optimizer, frozen, self.gradient_clip_value, self.gradient_clip_norm)
+            self.optimizer.zero_grad(set_to_none=False)
+        return loss.detach()
+
+    def __call__(self, audio, audio_lengths, targets, target_lengths, generator: torch.Generator,
+                 sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self._graphable(audio):
+            return super().__call__(audio, audio_lengths, targets, target_lengths, generator, sample_weights)
+        batch = (audio, audio_lengths, targets, target_lengths)
+        if sample_weights is not None:
+            batch += (torch.as_tensor(sample_weights, dtype=torch.float32, device=audio.device),)
+        update = (self.calls + 1) % self.accumulate == 0
+        frozen = update and encoder_frozen(self.optimizer, self.steps)
+        key = (tuple((tuple(t.shape), t.dtype) for t in batch), update, frozen)
+        current = torch.cuda.current_stream(audio.device)
+        if self._stream is not None and self._stream != current:
+            current.wait_stream(self._stream)
+        self._stream = current
+        if self.optimizer.state is not self._optimizer_state:  # load_state_dict: the graphs hold the old state
+            self._graphs.clear()
+            self._pool = None  # freed with its last graph
+            self._optimizer_state = self.optimizer.state
+        entry = self._graphs.get(key)
+        if update:
+            set_learning_rates(self.optimizer, self.steps)
+        if entry is None:
+            loss = self._first(key, batch, generator, update, frozen)
+        else:
+            loss = self._replay(entry, batch, generator)
+        self.calls += 1
+        self.steps += int(update)
+        return loss
+
+    def _first(self, key: tuple, batch: tuple, generator: torch.Generator, update: bool, frozen: bool):
+        """The eager step of a new kind on the side stream, then its capture there (up to TRAIN_GRAPHS kinds)."""
+        device = batch[0].device
+        if self._side is None:
+            self._side = torch.cuda.Stream(device)
+        current, side = torch.cuda.current_stream(device), self._side
+        side.wait_stream(current)
+        start = generator.get_offset()
+        states = RematStates()
+        with torch.cuda.stream(side):
+            with remat_states(states):
+                loss = self._body(batch, generator, update, frozen)
+            self.eager_steps += 1
+            if len(self._graphs) < TRAIN_GRAPHS:
+                offsets = [offset - start for offset in states.offsets]
+                self._graphs[key] = self._capture(batch, generator, update, frozen, offsets)
+        current.wait_stream(side)
+        loss.record_stream(current)  # made on the side stream, read on the current one
+        return loss
+
+    def _capture(self, batch: tuple, generator: torch.Generator, update: bool, frozen: bool,
+                 offsets: list) -> _StepGraph:
+        inputs = tuple(t.clone() for t in batch)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        remat = [torch.Generator(device=generator.device) for _ in offsets]
+        for block_generator in remat:
+            graph.register_generator_state(block_generator)
+        before = {w: w.launches for w in KERNEL_WRAPPERS}
+        try:
+            with remat_states(RematStates(remat)):
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    loss = self._body(inputs, generator, update, frozen)
+                finally:
+                    graph.capture_end()
+        finally:
+            launched = {w: w.launches - n for w, n in before.items() if w.launches != n}
+            for w, n in before.items():
+                w.launches = n
+        grads = [(p, p.grad) for p in self.model.parameters() if p.grad is not None]
+        return _StepGraph(graph, inputs, loss, launched, list(zip(remat, offsets)), grads)
+
+    def _replay(self, entry: _StepGraph, batch: tuple, generator: torch.Generator) -> torch.Tensor:
+        for p, g in entry.grads:  # a gradient cleared or replaced since the capture goes back into the graph's
+            if p.grad is not g:
+                g.zero_() if p.grad is None else g.copy_(p.grad)
+                p.grad = g
+        for static, t in zip(entry.inputs, batch):
+            static.copy_(t)
+        if entry.remat:
+            seed, start = generator.initial_seed(), generator.get_offset()
+            for block_generator, offset in entry.remat:
+                block_generator.manual_seed(seed)
+                block_generator.set_offset(start + offset)
+        entry.graph.replay()
+        for w, n in entry.launches.items():
+            w.launches += n
+        self.replayed_steps += 1
+        return entry.loss.clone()
 
 
 @torch.no_grad()
@@ -252,23 +450,60 @@ def eval_step(model, blank_idx: int, audio, audio_lengths, targets, target_lengt
     return loss, logits, greedy_decode(logits), out_lengths
 
 
+_BATCH_DTYPES = (torch.float32, torch.int32, torch.int32, torch.int32)
+
+
+def _host_batch(module: CTCModule, audio, audio_lengths, texts, mesh=None) -> tuple:
+    """``(batch, sample_weights)``: the batch with its targets encoded, and on a ``mesh`` padded to divide the data
+    axis with its weights (:func:`_pad_batch_for_mesh`; None without a mesh)."""
+    targets, target_lengths = _encode_targets(module.text_transform, texts)
+    batch = (audio, audio_lengths, targets, target_lengths)
+    if mesh is None:
+        return batch, None
+    return _pad_batch_for_mesh(batch, mesh)
+
+
 def _device_batch(module: CTCModule, audio, audio_lengths, texts, mesh=None):
     """The batch on the module's device with its targets encoded; on a ``mesh`` ``(batch, sample_weights)``, the
     batch padded to divide the data axis (:func:`_pad_batch_for_mesh`)."""
-    targets, target_lengths = _encode_targets(module.text_transform, texts)
-    batch = (audio, audio_lengths, targets, target_lengths)
-    if mesh is not None:
-        batch, weights = _pad_batch_for_mesh(batch, mesh)
-    d = module.device
-    batch = tuple(to_device(b, t, d) for b, t in zip(batch, (torch.float32, torch.int32, torch.int32, torch.int32)))
+    batch, weights = _host_batch(module, audio, audio_lengths, texts, mesh)
+    batch = tuple(to_device(b, t, module.device) for b, t in zip(batch, _BATCH_DTYPES))
     return batch if mesh is None else (batch, weights)
+
+
+def _batch_key(item: tuple) -> tuple:
+    """The JAX ``fit``'s grouping key of a ``(batch, sample_weights)`` pair: the arrays' shapes, and whether the
+    batch carries weights."""
+    batch, weights = item
+    return tuple(tuple(np.shape(b)) for b in batch) + (weights is None,)
+
+
+def chunk_batches(items: Iterable, k: int) -> Iterator[list]:
+    """Consecutive ``(batch, sample_weights)`` items in groups, as the JAX ``Trainer.fit`` groups batches for
+    ``steps_per_execution=k``: a group ends when it holds ``k`` items, before an item whose key (the arrays'
+    shapes, and whether it carries weights) differs from the group's, and at the end of ``items`` (an epoch).
+    ``fit`` runs a group of ``k`` as one chunk and a shorter one a step at a time."""
+    pending: list = []
+    pending_key = None
+    for item in items:
+        item_key = _batch_key(item)
+        if pending and item_key != pending_key:
+            yield pending
+            pending = []
+        pending_key = item_key
+        pending.append(item)
+        if len(pending) == k:
+            yield pending
+            pending = []
+    if pending:
+        yield pending
 
 
 @dataclass
 class Trainer:
     """fit/validate loop over ``(audio, audio_lengths, texts)`` batches, with the JAX ``Trainer``'s knobs:
     optimizer and scheduler builders with the ``total_steps_arg`` convention, callbacks, checkpoints and
-    resuming, beam-decoded validation, epochs, ``fast_dev_run``."""
+    resuming, beam-decoded validation, epochs, ``fast_dev_run``, ``steps_per_execution``."""
 
     max_epochs: int = 1
     optimizer_builder: Callable = adamw
@@ -302,9 +537,17 @@ class Trainer:
     #: average gradients over this many batches before each optimizer step; schedules and epoch-based
     #: callbacks count optimizer steps
     accumulate_grad_batches: int = 1
+    #: run up to K optimizer steps a dispatch: consecutive same-shape batches are grouped in chunks of K, each
+    #: chunk copied to the device once and run as K replays of one CUDA graph of the whole step
+    #: (:class:`GraphedTrainStep`); leftovers run one step a dispatch, and the loss is still logged per step.
+    #: Computes what K = 1 computes. 1 = one dispatch a batch, Lightning's behaviour
+    steps_per_execution: int = 1
     device: Any = "cuda"
 
     logs: List[Dict[str, float]] = field(default_factory=list)
+    #: the latest ``fit``'s steps that ran as CUDA graph replays, and eagerly
+    replayed_steps: int = field(default=0, init=False)
+    eager_steps: int = field(default=0, init=False)
 
     def _log(self, entry: Dict[str, float]):
         self.logs.append(entry)
@@ -334,8 +577,9 @@ class Trainer:
             optimizer = cb.wrap(optimizer, steps_per_epoch)
         if plateau_kwargs is not None:
             optimizer = plateau_schedule_transform(optimizer, **plateau_kwargs)
-        train_step = TrainStep(module.model, optimizer, module.blank_idx, accum, self.gradient_clip_norm,
-                               self.gradient_clip_value, mesh=mesh)
+        step_class = GraphedTrainStep if self.steps_per_execution > 1 else TrainStep
+        train_step = step_class(module.model, optimizer, module.blank_idx, accum, self.gradient_clip_norm,
+                                self.gradient_clip_value, mesh=mesh)
         generator = torch.Generator(device=module.device).manual_seed(self.seed)
         return train_step, generator, plateau_kwargs
 
@@ -364,9 +608,11 @@ class Trainer:
             payload = restore_checkpoint(self.resume_from, {"model": module.model.state_dict()})
             load_train_state(payload, train_step, generator)
 
+        self._state = lambda: train_state(train_step, generator)
+
         def checkpoint():
             # every rank takes part (the state's sharded tensors are gathered); rank 0 writes
-            state = train_state(train_step, generator)
+            state = self.train_state()
             if mesh is None or dist.get_rank() == 0:
                 save_checkpoint(self.checkpoint_dir, state, step=step)
             if mesh is not None:
@@ -379,21 +625,60 @@ class Trainer:
 
         step = 0
         best_monitored: Optional[float] = None  # checkpoint_monitor's best
+        exec_k = max(int(self.steps_per_execution), 1)
         t0 = time.perf_counter()
-        for epoch in range(self.max_epochs):
-            for audio, audio_lengths, texts in train_loader:
-                if mesh is None:
-                    loss = train_step(*_device_batch(module, audio, audio_lengths, texts), generator)
-                else:
-                    batch, weights = _device_batch(module, audio, audio_lengths, texts, mesh)
-                    loss = train_step(*batch, generator, sample_weights=weights)
+
+        def log_steps(losses: torch.Tensor, lrs: List[float], epoch: int) -> None:
+            """Count the steps of ``losses`` (their losses on the device, read back once if one is logged) and log
+            every ``log_every``-th with its learning rate from the host."""
+            nonlocal step
+            values = None
+            for i, lr in enumerate(lrs):
                 step += 1
                 if step % self.log_every == 0 or self.fast_dev_run:
-                    self._log({"step": step, "epoch": epoch, "loss/train_loss": float(loss),
-                               "lr": optimizer.param_groups[-1]["lr"],
+                    values = losses.tolist() if values is None else values
+                    self._log({"step": step, "epoch": epoch, "loss/train_loss": values[i], "lr": lr,
                                "steps_per_sec": step / (time.perf_counter() - t0)})
-                if self.fast_dev_run:
-                    break
+            self.replayed_steps = getattr(train_step, "replayed_steps", 0)
+            self.eager_steps = train_step.eager_steps
+
+        def run_step(batch: tuple, weights) -> torch.Tensor:
+            batch = tuple(to_device(b, t, device) for b, t in zip(batch, _BATCH_DTYPES))
+            if mesh is None:
+                return train_step(*batch, generator)
+            return train_step(*batch, generator, sample_weights=weights)
+
+        def run_chunk(chunk: list) -> tuple:
+            """K steps from one stacked copy of each of the chunk's arrays: their ``(K,)`` losses on the device and
+            the learning rate after each. On a mesh the stack is sharded on its batch axis and the steps run this
+            rank's rows."""
+            arrays = [np.stack([np.asarray(batch[i]) for batch, _ in chunk]) for i in range(4)]
+            losses, lrs = [], []
+            if mesh is None:
+                stacked = [to_device(a, t, device) for a, t in zip(arrays, _BATCH_DTYPES)]
+                for k in range(len(chunk)):
+                    losses.append(train_step(*(a[k] for a in stacked), generator))
+                    lrs.append(learning_rate(optimizer.param_groups[-1]))
+            else:
+                shard = stacked_batch_sharding(mesh)
+                weights = np.stack([w for _, w in chunk])
+                local = [to_device(shard(a), t, device) for a, t in zip(arrays, _BATCH_DTYPES)]
+                local_w = shard(weights)
+                for k in range(len(chunk)):
+                    losses.append(train_step.rows_step(tuple(a[k] for a in local), local_w[k],
+                                                       float(weights[k].sum()), weights.shape[1], generator))
+                    lrs.append(learning_rate(optimizer.param_groups[-1]))
+            return torch.stack(losses), lrs
+
+        for epoch in range(self.max_epochs):
+            batches = (_host_batch(module, *b, mesh) for b in train_loader)
+            for chunk in chunk_batches(itertools.islice(batches, 1) if self.fast_dev_run else batches, exec_k):
+                if exec_k > 1 and len(chunk) == exec_k:
+                    log_steps(*run_chunk(chunk), epoch)
+                else:
+                    for batch, weights in chunk:
+                        loss = run_step(batch, weights)
+                        log_steps(loss.reshape(1), [learning_rate(optimizer.param_groups[-1])], epoch)
             metrics: Dict[str, float] = {}
             if val_loader is not None:
                 metrics = self.validate(module, val_loader, epoch=epoch)
@@ -420,6 +705,15 @@ class Trainer:
             if self.fast_dev_run:
                 break
         return finished()
+
+    def train_state(self) -> dict:
+        """The train state of the latest ``fit`` as a checkpoint holds it, on the host
+        (:func:`~thunder_tpu_torch.training.checkpointing.train_state`): the weights and running statistics, the
+        optimizer's state, the step counts and the training generator's state. On a mesh every rank calls it."""
+        state = getattr(self, "_state", None)
+        if state is None:
+            raise RuntimeError("train_state() reads the latest fit: call fit first")
+        return state()
 
     def _eval_rows(self, module: CTCModule, mesh, audio, audio_lengths, texts):
         """``(loss, logits, preds, out_lengths, targets)`` of one validation batch: the whole batch, or on a
