@@ -371,9 +371,10 @@ Phases, each of which fails the run:
     scatter-adds sum in no fixed order); ``InferenceEngine(mesh=...)`` on
     phase 4's module and batch (64 x 15 s), greedy and with the device beam
     (W = 16), must give the meshless engine's transcripts and logits (SHA-256)
-    with the same launches (1 + 77, + 1 scan + 1 backtrace); the train step
-    and the forward are timed against the meshless ones (CUDA events, mean of
-    5, in turns: meshless, mesh, mesh, meshless) (``mesh_launches``);
+    with the same launches (1 + 77, + 1 scan + 1 backtrace); the forward is
+    timed against the meshless one (CUDA events, mean of 5, in turns:
+    meshless, mesh, mesh, meshless; phase 41 times the train steps)
+    (``mesh_launches``);
 30. ``row_offsets``: the training kernels at the wav2vec2 step's shape (8 x
     749, 12 heads, D 768, rate 0.1) on 2 and 4 slices of the batch, each with
     its rows' offset, against the whole batch's launches: the keep mask, the
@@ -411,7 +412,7 @@ Phases, each of which fails the run:
     a layer-norm extractor), SEW (``SEWConfig()``: squeeze 2, its 13-conv
     extractor), the conv adapter on wav2vec2-base's width (3 GLU convs of
     stride 2) and MMS-1b-all's width (1,280 hidden, 16 heads of 80, FFN
-    5,120, stable LN, a layer-norm extractor, attention adapters of 16; 24
+    5,120, stable LN, a layer-norm extractor, attention adapters of 16; 12
     of its 48 layers, ``MMS_LAYERS``). One forward must launch the add + LayerNorm and attention
     kernels the code predicts (``variant_launches``: 2 a post-LN layer + 1,
     SEW's plain encoder LayerNorm aside; one attention a layer where dh is 64
@@ -463,8 +464,9 @@ Phases, each of which fails the run:
     gradient and move past the weight decay at the optimizer step; MFU with
     ``frozen_extractor=False``;
 39. ``aot_export``: ``export.aot_export`` on the card of phase 4's
-    QuartzNet15x5 module (float32) and of a wav2vec2-base module with a
-    bf16 encoder, at ``AOT_BATCH`` x ``AOT_SECONDS``, both loaded in one
+    QuartzNet module cut to QuartzNet5x5 (``AOT_QN``: the export and the
+    load grow with the graph's nodes; float32) and of a wav2vec2-base module
+    with a bf16 encoder, at ``AOT_BATCH`` x ``AOT_SECONDS``, both loaded in one
     fresh ``python3`` by ``aot_load`` alone (``AOT_RUNNER``, float32 in full
     as this process runs it) to serve the phase's audio: ``preds`` and lengths bit-equal (SHA-256) to the live module's
     ``infer``, with its launches per call (1 log-mel; 12 + 25); export
@@ -475,7 +477,7 @@ Phases, each of which fails the run:
 40. ``train_scan``: ``Trainer(steps_per_execution=4).fit`` against
     ``Trainer(steps_per_execution=1).fit`` from the same weights and
     generator seed, under ``deterministic_algorithms()``, at full width
-    (AdamW lr 1e-4): QuartzNet15x5 at 16 x 15 s (8 batches of 15 s and one
+    (AdamW lr 1e-4): QuartzNet15x5 at 16 x 15 s (4 batches of 15 s and one
     of 12 s), the same with ``remat``, accumulation 2, the norm clip and
     ``onecycle`` (4 batches), Citrinet-256 (4) and wav2vec2-base at 8 x 15 s
     (frozen extractor, dropout 0.1; 4). Each graphed run must equal its K = 1
@@ -483,12 +485,31 @@ Phases, each of which fails the run:
     optimizer state, generator state), replay every step past its kind's
     first, and make the fixed launches a step (1 log-mel and 1 + 1 CTC; 12 +
     24 ``mha_train``, 25 + 50 add + dropout + LayerNorm, 1 + 1 CTC), counted
-    through capture and replay (``train_scan_launches``). Then, with the
-    default algorithms, one chunk of 4 steps at K = 1 and K = 4 in turns
-    (1, 4, 4, 1) for QuartzNet15x5, Citrinet-256 and wav2vec2-base: step ms
-    (CUDA events over the chunk, over 4), host ms a step, peak memory
-    allocated and reserved, and one more chunk's idle share under the
-    profiler (``train_scan_timing``).
+    through capture and replay (``train_scan_launches``); phase 41 times
+    the steps;
+41. ``mesh_scan``: ``Trainer(mesh=..., steps_per_execution=4).fit`` on a
+    one-rank NCCL mesh (phase 29's ``FileStore`` group, ``one_rank_group``),
+    its steps CUDA graph replays with the collectives captured, against the
+    eager mesh fit (K = 1) and the meshless graphed fit (K = 4), under
+    ``deterministic_algorithms()``: QuartzNet15x5 at 16 x 15 s (5 batches:
+    a chunk and a leftover that replays), the same with ``remat``,
+    accumulation 2, the norm clip and ``onecycle`` (4 batches: micro steps
+    without the gradients' sum, updates with it), Citrinet-256 (4) and
+    wav2vec2-base at 8 x 15 s (frozen extractor, dropout 0.1; 4), the three
+    fits bit-equal in per-step losses, parameters, running statistics,
+    optimizer and generator state; every mesh step past its kind's first a
+    replay; the fixed launches a step, counted through capture and replay
+    (``mesh_scan_launches``).
+    Then ``rows_step`` as rank 0 of a data axis of twice the rows
+    (``mesh_scan_emulated_rank0``): 3 padding rows of weight 0, another
+    total weight each call, the weighted and the unweighted kind replayed
+    bit-equal to the eager steps. Then, with the default algorithms, one
+    chunk of 4 steps of QuartzNet15x5, Citrinet-256 and wav2vec2-base in
+    turns (meshless K = 1, mesh K = 1, mesh K = 4, meshless K = 4, and
+    back): step ms (CUDA
+    events over the chunk, over 4), host ms a step, peak memory allocated,
+    each graph's pool, and one more chunk's idle share under the profiler
+    (``mesh_scan_timing``).
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -1285,8 +1306,10 @@ def run() -> int:
         if entry["name"] in cell_shapes:
             entry["large_shapes"] = cell_shapes[entry["name"]]
 
-    # ---- Trainer(steps_per_execution=4): K train steps a dispatch as CUDA graph replays, against K = 1
+    # ---- Trainer(steps_per_execution=4): K train steps a dispatch as CUDA graph replays, against K = 1; then on
+    # a one-rank NCCL mesh, the collectives captured, against the eager mesh and the meshless graphs
     add_launches(kernels, "train_scan_launches", train_scan_phase(card))
+    add_launches(kernels, "mesh_scan_launches", mesh_scan_phase(card))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -4187,9 +4210,10 @@ STEP_TIMER_FORWARDS, STEP_TIMER_RTF_TOL = 10, 0.10
 TRACE_TAKES = 6  # takes of the profiling phase's trace, of which one must hold every kernel record
 
 
-def served_quartznet(device, batch_invariant: bool = False):
-    """Phase 4's QuartzNet15x5 (seed 0; BN by ``fit_bn`` on the first 8 rows of phase 4's batch), its engine (with
-    ``batch_invariant``), and phase 4's batch (``BATCH`` rows of ``SECONDS``)."""
+def served_quartznet(device, batch_invariant: bool = False, encoder: dict = QN15X5):
+    """Phase 4's QuartzNet15x5 (seed 0; BN by ``fit_bn`` on the first 8 rows of phase 4's batch; ``encoder`` the
+    encoder's arguments), its engine (with ``batch_invariant``), and phase 4's batch (``BATCH`` rows of
+    ``SECONDS``)."""
     import torch
 
     from thunder_tpu_torch.audio import FilterbankFeatures
@@ -4202,7 +4226,7 @@ def served_quartznet(device, batch_invariant: bool = False):
     samples = int(SECONDS * SAMPLE_RATE)
     base = speech_like(samples, rng)
     rows = np.stack([base * (0.7 + 0.6 * rng.random()) for _ in range(BATCH)])
-    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(**QN15X5),
+    module = CTCModule.create(torch.Generator().manual_seed(0), FilterbankFeatures(), QuartznetEncoder(**encoder),
                               Conv1dDecoder(len(VOCAB) + 1), BatchTextTransformer(VOCAB), device=device)
     fit_bn(module, rows[:8], np.full((len(rows[:8]),), samples, np.int32))
     return module, InferenceEngine(module, batch_invariant=batch_invariant), rows
@@ -4900,7 +4924,7 @@ def cli_phase(card: str, device="cuda") -> dict:
 # ---- phases 29-32: the device mesh, the training kernels' row offsets, Citrinet's batch invariance
 
 MESH_STEPS = 3  # Trainer.fit steps of the mesh and the meshless trainer
-MESH_TIMED = 5
+MESH_TIMED = 5  # forwards a turn
 MESH_STORE = "smoke_out/mesh"  # under the checkout: the FileStore of the one-rank process group
 CITRINET_POOL_GRID = (2.0, 0.5)
 
@@ -4922,25 +4946,17 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
 
 
-def mesh_phase(card: str, device="cuda") -> dict:
-    """Phase 29 of the module docstring: a one-rank mesh against the meshless path, training and serving. Returns
-    the launches of its runs, by run."""
-    import hashlib
+@contextlib.contextmanager
+def one_rank_group(device="cuda"):
+    """A one-rank process group over a ``FileStore`` under MESH_STORE (NCCL on the card, gloo on the CPU) and its
+    mesh; the group is destroyed after the block."""
     import shutil
     from pathlib import Path
 
     import torch
     import torch.distributed as dist
 
-    from thunder_tpu_torch.audio import FilterbankFeatures
-    from thunder_tpu_torch.engine import InferenceEngine
-    from thunder_tpu_torch.kernels import reset_launch_counts
-    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
-    from thunder_tpu_torch.module import CTCModule
     from thunder_tpu_torch.parallel import make_mesh
-    from thunder_tpu_torch.text import BatchTextTransformer
-    from thunder_tpu_torch.training.optim import adamw
-    from thunder_tpu_torch.training.trainer import Trainer, TrainStep, _device_batch
 
     store = Path(MESH_STORE)
     shutil.rmtree(store, ignore_errors=True)
@@ -4948,7 +4964,28 @@ def mesh_phase(card: str, device="cuda") -> dict:
     backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.FileStore(str(store / "store"), 1), rank=0, world_size=1)
     try:
-        mesh = make_mesh(device=device)
+        yield make_mesh(device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(card: str, device="cuda") -> dict:
+    """Phase 29 of the module docstring: a one-rank mesh against the meshless path, training and serving. Returns
+    the launches of its runs, by run."""
+    import hashlib
+
+    import torch
+
+    from thunder_tpu_torch.audio import FilterbankFeatures
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.models import Conv1dDecoder, QuartznetEncoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    with one_rank_group(device) as mesh:
         runs = {}
         dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
         tt = BatchTextTransformer(VOCAB)
@@ -4978,22 +5015,6 @@ def mesh_phase(card: str, device="cuda") -> dict:
         parting = sorted(k for k in states["meshless"] if not torch.equal(states["meshless"][k], states["mesh"][k]))
         expect_train = expected_counts(fused_log_mel=MESH_STEPS, ctc_alpha=MESH_STEPS, ctc_beta=MESH_STEPS)
 
-        # one train step timed: meshless, mesh, mesh, meshless (CUDA events, mean of MESH_TIMED)
-        step_ms = {"meshless": [], "mesh": []}
-        steppers = {}
-        for name, m in (("meshless", None), ("mesh", mesh)):
-            module = create()
-            step = TrainStep(module.model, adamw(module.model.parameters(), learning_rate=1e-4), module.blank_idx,
-                             mesh=m)
-            batch = _device_batch(module, *loader[0], m)
-            args, weights = (batch, None) if m is None else batch
-            generator = torch.Generator(device=device).manual_seed(0)
-            step(*args, generator, sample_weights=weights)  # warm
-            steppers[name] = lambda step=step, args=args, g=generator, w=weights: step(*args, g, sample_weights=w)
-        for name in ("meshless", "mesh", "mesh", "meshless"):
-            step_ms[name].append(cuda_ms(steppers[name], MESH_TIMED))
-        del steppers
-
         # serving: phase 4's module and batch, the meshless and the mesh engine
         module, engine, rows = served_quartznet(device)
         engines = {"meshless": engine, "mesh": InferenceEngine(module, mesh=mesh)}
@@ -5021,7 +5042,7 @@ def mesh_phase(card: str, device="cuda") -> dict:
         emit({"phase": "mesh", "backend": backend, "mesh": mesh.shape, "train_batch": TRAIN_BATCH,
               "train_seconds": TRAIN_SECONDS, "steps": MESH_STEPS, "losses": losses,
               "losses_equal": losses["mesh"] == losses["meshless"], "state_entries": len(states["mesh"]),
-              "state_entries_differing": parting, "step_ms": step_ms, "serve_batch": len(rows),
+              "state_entries_differing": parting, "serve_batch": len(rows),
               "serve_seconds": SECONDS, "transcripts_equal": served["mesh"][0] == served["meshless"][0],
               "beam_transcripts_equal": served["mesh"][1] == served["meshless"][1],
               "logits_sha256": {n: s[2] for n, s in served.items()}, "forward_ms": forward_ms,
@@ -5038,8 +5059,6 @@ def mesh_phase(card: str, device="cuda") -> dict:
               f"the mesh engine's device beam launched {runs['serve_beam_mesh']}, expected {expect_beam}")
         check(served["mesh"] == served["meshless"], "the mesh engine's transcripts or logits differ from the meshless")
         return runs
-    finally:
-        dist.destroy_process_group()
 
 
 def row_offset_phase(card: str, device="cuda") -> None:
@@ -5203,7 +5222,7 @@ def lengths_valid(logits, out_lengths):
 SEW_EXTRACTOR = dict(conv_dim=(64, 128, 128, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512),
                      conv_kernel=(10, 3, 1, 3, 1, 3, 1, 3, 1, 2, 1, 2, 1),
                      conv_stride=(5, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1))  # transformers.SEWConfig()'s
-MMS_LAYERS = 24  # MMS-1b-all's 48 layers cut to 24: the whole run's time, which phases 35-39 grow
+MMS_LAYERS = 12  # MMS-1b-all's 48 layers cut to 12: the whole run's time, which phases 35-41 grow
 W2V_VARIANTS = {  # each published config's widths, written out: the card's machine reads no transformers config
     "wavlm": dict(**WAVLM),
     "data2vec_audio": dict(feat_extract_norm="layer", pos_conv_stack=True, num_conv_pos_embeddings=5,
@@ -5391,6 +5410,9 @@ W2V_CELL_SEED = 23
 # ended its 8th step at 0.373 and 0.375 of the first (0.397 and 0.396 with the extractor frozen)
 W2V_NO_FREEZE_LOSS_FALL = W2V_LOSS_FALL
 AOT_BATCH, AOT_SECONDS = 8, 15.0
+#: the exported QuartzNet's depth: QuartzNet5x5, phase 4's five blocks once each (export and load grow with the
+#: graph's nodes, 4,821 at 15x5: the whole run's time)
+AOT_QN = dict(repeat_blocks=1)
 # runs in a fresh ``python3``, float32 in full as this process runs it (``exact_float32``: cuDNN's float32
 # convolutions would take TF32 by default): for each exported predict graph, ``aot_load``, one call on the saved
 # batch (its launches), then the median of W2V_CELL_TIMED synchronized calls on the host clock (``host_ms``'s way);
@@ -5903,19 +5925,59 @@ def raw_profile(fn) -> dict:
             "own_kernel_events": own, "records_complete": own == launched}
 
 
-def scan_chunk_timing(card: str, name: str, module, kw: dict, loader: list, device="cuda") -> dict:
-    """One chunk of SCAN_K steps of ``module`` (a ``name`` of :func:`scan_create`) at K = 1 and K = SCAN_K in turns
-    (1, K, K, 1), PyTorch's default algorithms; each K's train step (on its own copy of the module) is built and
-    warmed up by one step once (at K = SCAN_K that step captures the graph: ``graph_pool_gb`` is what the capture
-    reserved). Each turn: the chunk's device ms by CUDA events over SCAN_K, its host ms (to a synchronize) over
-    SCAN_K and its peak allocated memory; then one more chunk of each K under the profiler (:func:`raw_profile`:
-    its idle share)."""
+def scan_launches_per_step(name: str) -> dict:
+    """The launches one train step of a :func:`scan_create` model makes: 1 log-mel and 1 + 1 CTC for the conv
+    models; 12 + 24 ``mha_train``, 25 + 50 add + dropout + LayerNorm and 1 + 1 CTC for wav2vec2-base."""
+    if name != "wav2vec2_base":
+        return dict(fused_log_mel=1, ctc_alpha=1, ctc_beta=1)
+    layers = 12
+    return dict(mha_train_forward=layers, mha_train_backward=2 * layers, add_ln_train_forward=2 * layers + 1,
+                add_ln_train_backward=2 * (2 * layers + 1), ctc_alpha=1, ctc_beta=1)
+
+
+def scan_fit(base, loader: list, k: int, device, mesh=None, **kw) -> tuple:
+    """``Trainer(steps_per_execution=k, mesh=mesh).fit`` of a copy of ``base`` over ``loader`` (one epoch, AdamW at
+    SCAN_LR, generator seed 0) under ``deterministic_algorithms()``: ``(per-step losses, train state, launches,
+    (eager steps, replayed steps))``."""
+    import copy
+
+    import torch
+
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(seed=0, log_every=1, device=device, steps_per_execution=k, mesh=mesh,
+                      optimizer_kwargs={"learning_rate": SCAN_LR}, **kw)
+    module = copy.deepcopy(base)
+    with deterministic_algorithms():
+        reset_launch_counts()
+        trainer.fit(module, loader)
+        sync(device)
+        counts = launch_counts()
+    losses = [e["loss/train_loss"] for e in trainer.logs if "loss/train_loss" in e]
+    result = (losses, trainer.train_state(), counts, (trainer.eager_steps, trainer.replayed_steps))
+    del trainer, module
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return result
+
+
+def scan_chunk_timing(card: str, name: str, module, loader: list, mesh, device="cuda") -> dict:
+    """One chunk of SCAN_K steps of ``module`` (a ``name`` of :func:`scan_create`) at K = 1 and K = SCAN_K, each off
+    and on the one-rank ``mesh``, in turns, forward then back (meshless K = 1, mesh K = 1, mesh K = SCAN_K, meshless
+    K = SCAN_K, and back), PyTorch's default algorithms; each configuration's train step (on its own copy of the
+    module) is built and warmed up by one step once (at K = SCAN_K that step captures the graph:
+    ``graph_pool_gb`` is what the capture reserved). Each turn: the chunk's device ms by CUDA events over SCAN_K,
+    its host ms (to a synchronize) over SCAN_K and its peak allocated memory; then one more chunk of each
+    configuration under the profiler (:func:`raw_profile`: its idle share). Emits ``mesh_scan_timing``."""
     import copy
 
     import torch
 
     from thunder_tpu_torch.training.trainer import Trainer, _BATCH_DTYPES, _host_batch
 
+    configs = {"k1": (1, None), "mesh_k1": (1, mesh), f"mesh_k{SCAN_K}": (SCAN_K, mesh), f"k{SCAN_K}": (SCAN_K, None)}
     chunk = [_host_batch(module, *b) for b in loader[:SCAN_K]]
     stacked = [torch.as_tensor(np.stack([np.asarray(b[i]) for b, _ in chunk]), dtype=t, device=device)
                for i, t in enumerate(_BATCH_DTYPES)]
@@ -5924,32 +5986,32 @@ def scan_chunk_timing(card: str, name: str, module, kw: dict, loader: list, devi
         return [step(*(a[k] for a in stacked), generator) for k in range(SCAN_K)]
 
     steps, out = {}, {}
-    for k, copied in ((1, module), (SCAN_K, copy.deepcopy(module))):
-        steps[k] = Trainer(device=device, seed=0, steps_per_execution=k, optimizer_kwargs={
-            "learning_rate": SCAN_LR}, **kw).train_step_for(copied, loader)[:2]
+    for label, (k, m) in configs.items():
+        steps[label] = Trainer(device=device, seed=0, steps_per_execution=k, mesh=m, optimizer_kwargs={
+            "learning_rate": SCAN_LR}).train_step_for(copy.deepcopy(module), loader, m)[:2]
         torch.cuda.synchronize()
         reserved = torch.cuda.memory_reserved()
-        steps[k][0](*(a[0] for a in stacked), steps[k][1])  # the warm-up; at K > 1 the capture of the chunk's kind
+        steps[label][0](*(a[0] for a in stacked), steps[label][1])  # the warm-up; at K > 1 the chunk kind's capture
         torch.cuda.synchronize()
-        out[f"k{k}"] = {"step_ms": [], "host_ms_per_step": [], "peak_mem_gb": [],
-                        "graph_pool_gb": (torch.cuda.memory_reserved() - reserved) / 1e9 if k > 1 else 0.0}
-    for k in (1, SCAN_K, SCAN_K, 1):
+        out[label] = {"k": k, "mesh": m is not None, "step_ms": [], "host_ms_per_step": [], "peak_mem_gb": [],
+                      "graph_pool_gb": (torch.cuda.memory_reserved() - reserved) / 1e9 if k > 1 else 0.0}
+    for label in [*configs, *reversed(configs)]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         begin.record()
-        run(*steps[k])
+        run(*steps[label])
         end.record()
         torch.cuda.synchronize()
-        line = out[f"k{k}"]
+        line = out[label]
         line["step_ms"].append(begin.elapsed_time(end) / SCAN_K)
         line["host_ms_per_step"].append((time.perf_counter() - t0) * 1e3 / SCAN_K)
         line["peak_mem_gb"].append(torch.cuda.max_memory_allocated() / 1e9)  # a replay allocates nothing
-    for k, (step, generator) in steps.items():
-        out[f"k{k}"]["profile"] = raw_profile(lambda: run(step, generator))
-        out[f"k{k}"]["replayed_steps"] = getattr(step, "replayed_steps", 0)
-    emit({"phase": "train_scan_timing", "model": name, "k": SCAN_K, "batch": len(loader[0][1]),
+    for label, (step, generator) in steps.items():
+        out[label]["profile"] = raw_profile(lambda: run(step, generator))
+        out[label]["replayed_steps"] = getattr(step, "replayed_steps", 0)
+    emit({"phase": "mesh_scan_timing", "model": name, "k": SCAN_K, "batch": len(loader[0][1]),
           "seconds": float(loader[0][0].shape[1] / SAMPLE_RATE), **out, "card": card})
     del steps
     gc.collect()
@@ -5957,62 +6019,42 @@ def scan_chunk_timing(card: str, name: str, module, kw: dict, loader: list, devi
     return out
 
 
+def scan_remat_kw() -> dict:
+    """The Trainer arguments of the ``quartznet15x5_remat`` runs: accumulation 2, the norm clip and ``onecycle``
+    through ``total_steps_arg``."""
+    from thunder_tpu_torch.training.optim import onecycle
+
+    return dict(accumulate_grad_batches=2, gradient_clip_norm=1.0, lr_scheduler_builder=onecycle,
+                lr_scheduler_kwargs={"max_lr": SCAN_LR, "total_steps_arg": "total_steps"})
+
+
 def train_scan_phase(card: str, device="cuda") -> dict:
     """Phase 40 of the module docstring: ``Trainer(steps_per_execution=SCAN_K).fit`` against
     ``Trainer(steps_per_execution=1).fit`` from the same weights and generator seed, under
-    ``deterministic_algorithms()``, at full width: (a) QuartzNet15x5 at TRAIN_BATCH x TRAIN_SECONDS, 8 batches
-    of 15 s and one of 12 s (two full chunks, and a leftover that the epoch's end flushes); (b) the same with
+    ``deterministic_algorithms()``, at full width: (a) QuartzNet15x5 at TRAIN_BATCH x TRAIN_SECONDS, 4 batches
+    of 15 s and one of 12 s (a full chunk, and a leftover of another kind that the epoch's end flushes); (b) the same with
     ``remat``, ``accumulate_grad_batches=2``, ``gradient_clip_norm=1.0`` and ``onecycle`` through
     ``total_steps_arg``, 4 batches (a micro step and an update step twice); (c) Citrinet-256, 4 batches; (d)
     wav2vec2-base at W2V_TRAIN_BATCH x 15 s, extractor frozen, dropout 0.1, 4 batches. Each graphed run must
     equal its K = 1 run bit for bit in the per-step losses, every parameter, the running statistics, the
     optimizer's state and the generator's state (``Trainer.train_state``); every step past its kind's first must
-    come from a CUDA graph replay; each run's launches must be the fixed ones a step times its steps (QuartzNet and
-    Citrinet 1 log-mel and 1 + 1 CTC; wav2vec2-base 12 + 24 ``mha_train``, 25 + 50 add + dropout + LayerNorm and
-    1 + 1 CTC), counted through capture and replay. After the runs of (a), (c) and (d),
-    :func:`scan_chunk_timing` from the model's initial weights. Returns the launches of the graphed runs, by
-    model."""
-    import copy
-
+    come from a CUDA graph replay; each run's launches must be the fixed ones a step times its steps
+    (:func:`scan_launches_per_step`), counted through capture and replay (phase 41 times the steps, beside the
+    mesh's). Returns the launches of the graphed runs, by model."""
     import torch
 
-    from thunder_tpu_torch.kernels import reset_launch_counts
-    from thunder_tpu_torch.training.optim import onecycle
-    from thunder_tpu_torch.training.trainer import Trainer
-
-    layers = 12
-    conv = dict(fused_log_mel=1, ctc_alpha=1, ctc_beta=1)
-    w2v2 = dict(mha_train_forward=layers, mha_train_backward=2 * layers, add_ln_train_forward=2 * layers + 1,
-                add_ln_train_backward=2 * (2 * layers + 1), ctc_alpha=1, ctc_beta=1)
-    remat_kw = dict(accumulate_grad_batches=2, gradient_clip_norm=1.0, lr_scheduler_builder=onecycle,
-                    lr_scheduler_kwargs={"max_lr": SCAN_LR, "total_steps_arg": "total_steps"})
-    runs = {"quartznet15x5": (TRAIN_BATCH, [TRAIN_SECONDS] * 8 + [0.8 * TRAIN_SECONDS], {}, conv),
-            "quartznet15x5_remat": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, remat_kw, conv),
-            "citrinet256": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, {}, conv),
-            "wav2vec2_base": (W2V_TRAIN_BATCH, [W2V_SECONDS] * 4, {}, w2v2)}
+    runs = {"quartznet15x5": (TRAIN_BATCH, [TRAIN_SECONDS] * SCAN_K + [0.8 * TRAIN_SECONDS], {}),
+            "quartznet15x5_remat": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, scan_remat_kw()),
+            "citrinet256": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, {}),
+            "wav2vec2_base": (W2V_TRAIN_BATCH, [W2V_SECONDS] * 4, {})}
     launches = {}
-    for name, (rows, seconds, kw, per_step) in runs.items():
+    for name, (rows, seconds, kw) in runs.items():
         t0 = time.perf_counter()
         loader = scan_loader(rows, seconds, seed=40)
-        want = expected_counts(**{w: n * len(loader) for w, n in per_step.items()})
+        want = expected_counts(**{w: n * len(loader) for w, n in scan_launches_per_step(name).items()})
         base = scan_create(name, device)
-        results = {}
-        for k in (1, SCAN_K):
-            trainer = Trainer(seed=0, log_every=1, device=device, steps_per_execution=k,
-                              optimizer_kwargs={"learning_rate": SCAN_LR}, **kw)
-            module = copy.deepcopy(base)
-            with deterministic_algorithms():
-                reset_launch_counts()
-                trainer.fit(module, loader)
-                sync(device)
-                counts = launch_counts()
-            losses = [e["loss/train_loss"] for e in trainer.logs if "loss/train_loss" in e]
-            results[k] = (losses, trainer.train_state(), counts, (trainer.eager_steps, trainer.replayed_steps))
-            del trainer, module
-            gc.collect()
-            if torch.device(device).type == "cuda":
-                torch.cuda.empty_cache()
-        (losses1, state1, counts1, _), (losses_k, state_k, counts_k, dispatch) = results[1], results[SCAN_K]
+        (losses1, state1, counts1, _), (losses_k, state_k, counts_k, dispatch) = (
+            scan_fit(base, loader, k, device, **kw) for k in (1, SCAN_K))
         kinds = scan_kinds(loader, kw.get("accumulate_grad_batches", 1))
         line = {"phase": "train_scan", "model": name, "batch": rows, "seconds": seconds, "k": SCAN_K,
                 "losses_k1": losses1, f"losses_k{SCAN_K}": losses_k, "losses_bit_equal": losses_k == losses1,
@@ -6030,16 +6072,142 @@ def train_scan_phase(card: str, device="cuda") -> dict:
             check(counts1 == want and counts_k == want,
                   f"{name}: launches K = 1 {counts1}, K = {SCAN_K} {counts_k}, expected {want}")
         launches[name] = counts_k
-        del results, state1, state_k
-        if name != "quartznet15x5_remat" and torch.device(device).type == "cuda":
-            scan_chunk_timing(card, name, base, {}, scan_loader(rows, seconds[:SCAN_K], seed=41), device)
+        del state1, state_k
         del base
     return launches
 
 
+# ---- phase 41: the mesh's train steps as CUDA graphs
+
+#: (local weights, total weight) of the emulated rank-0 steps: the last MESH_SCAN_PADDING rows padded (weight 0),
+#: or none; the global batch holds twice the rank's rows and more weight than they do, another sum each call
+MESH_SCAN_PADDING = 3
+MESH_SCAN_TOTALS = ((True, 29.0), (True, 31.0), (False, 32.0), (True, 30.0), (False, 24.0), (True, 27.5))
+
+
+def emulated_rank0_replays(card: str, mesh, device="cuda") -> dict:
+    """QuartzNet15x5's ``rows_step`` as rank 0 of a data axis larger than the one-rank mesh: TRAIN_BATCH local rows
+    of TRAIN_SECONDS, the last MESH_SCAN_PADDING a padding row each (weight 0, zero audio and target length), of a
+    global batch of 2 x TRAIN_BATCH rows, with the weights and total weight of each of MESH_SCAN_TOTALS in turn
+    (the weighted and the unweighted kind). The graphed step (``steps_per_execution=SCAN_K``) against the eager
+    one (K = 1), under deterministic algorithms: losses and train state bit-equal, each kind eager once and then
+    replayed, the fixed launches a step. Returns the graphed step's launches."""
+    import copy
+
+    import torch
+
+    from thunder_tpu_torch.kernels import reset_launch_counts
+    from thunder_tpu_torch.training.checkpointing import train_state
+    from thunder_tpu_torch.training.trainer import Trainer, _BATCH_DTYPES, _host_batch
+
+    base = scan_create("quartznet15x5", device)
+    (audio, lengths, texts), = scan_loader(TRAIN_BATCH, [TRAIN_SECONDS], seed=43)
+    (audio, lengths, targets, target_lengths), _ = _host_batch(base, audio, lengths, texts)
+    lengths, target_lengths = lengths.copy(), target_lengths.copy()
+    lengths[-MESH_SCAN_PADDING:] = 0
+    target_lengths[-MESH_SCAN_PADDING:] = 0
+    batch = tuple(torch.as_tensor(np.asarray(a), dtype=t, device=device)
+                  for a, t in zip((audio, lengths, targets, target_lengths), _BATCH_DTYPES))
+    padded = np.ones(TRAIN_BATCH, np.float32)
+    padded[-MESH_SCAN_PADDING:] = 0
+    calls = [(padded if weighted else np.ones(TRAIN_BATCH, np.float32), total) for weighted, total in MESH_SCAN_TOTALS]
+    results = {}
+    for k in (1, SCAN_K):
+        step, generator, _ = Trainer(device=device, seed=0, steps_per_execution=k, mesh=mesh, optimizer_kwargs={
+            "learning_rate": SCAN_LR}).train_step_for(copy.deepcopy(base), [None], mesh)
+        with deterministic_algorithms():
+            reset_launch_counts()
+            losses = [step.rows_step(batch, w, total, 2 * TRAIN_BATCH, generator) for w, total in calls]
+            sync(device)
+            counts = launch_counts()
+        results[k] = ([loss.item() for loss in losses], train_state(step, generator), counts,
+                      (step.eager_steps, getattr(step, "replayed_steps", 0)))
+        del step, generator
+    (losses1, state1, counts1, _), (losses_k, state_k, counts_k, dispatch) = results[1], results[SCAN_K]
+    want = expected_counts(**{w: n * len(calls) for w, n in scan_launches_per_step("quartznet15x5").items()})
+    line = {"phase": "mesh_scan_emulated_rank0", "model": "quartznet15x5", "local_rows": TRAIN_BATCH,
+            "total_rows": 2 * TRAIN_BATCH, "padding_rows": MESH_SCAN_PADDING, "calls": MESH_SCAN_TOTALS,
+            "losses_k1": losses1, f"losses_k{SCAN_K}": losses_k, "losses_bit_equal": losses_k == losses1,
+            "state_bit_equal": same_tree(state_k, state1), "eager_steps": dispatch[0], "replayed_steps": dispatch[1],
+            f"launches_k{SCAN_K}": {w: n for w, n in counts_k.items() if n}, "card": card}
+    emit(line)
+    check(all(np.isfinite(losses1)), f"emulated rank 0: K = 1 losses {losses1}")
+    check(line["losses_bit_equal"] and line["state_bit_equal"],
+          f"emulated rank 0: the replays with other weights differ from the eager steps ({losses_k} != {losses1})")
+    if torch.device(device).type == "cuda":
+        check(dispatch == (2, len(calls) - 2), f"emulated rank 0: {dispatch} (eager, replayed) steps, expected 2 eager")
+        check(counts1 == want and counts_k == want, f"emulated rank 0: launches {counts1}, {counts_k}, expected {want}")
+    del base, results
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return counts_k
+
+
+def mesh_scan_phase(card: str, device="cuda") -> dict:
+    """Phase 41 of the module docstring: ``Trainer(mesh=..., steps_per_execution=SCAN_K).fit`` on a one-rank mesh
+    (:func:`one_rank_group`: NCCL on the card), its steps CUDA graph replays with the collectives captured, against
+    the eager mesh fit (K = 1) and the meshless graphed fit (K = SCAN_K), from the same weights and generator seed
+    under ``deterministic_algorithms()``, at full width: QuartzNet15x5 at TRAIN_BATCH x TRAIN_SECONDS, 5 batches
+    (a chunk and a leftover that replays its kind), the same with ``remat``, accumulation 2, the norm clip and
+    ``onecycle`` (4: a micro step and an update step twice), Citrinet-256 (4) and wav2vec2-base at W2V_TRAIN_BATCH
+    x 15 s (extractor frozen, dropout 0.1; 4). The three must agree bit for bit (per-step losses, parameters,
+    running statistics, optimizer and generator state); every mesh step past its kind's first must be a replay;
+    each run's launches the fixed ones a step, counted through capture and replay. Then
+    :func:`emulated_rank0_replays`; then, with the default algorithms, :func:`scan_chunk_timing` of QuartzNet15x5,
+    Citrinet-256 and wav2vec2-base. Returns the launches of the graphed mesh runs, by model."""
+    import torch
+
+    runs = {"quartznet15x5": (TRAIN_BATCH, [TRAIN_SECONDS] * 5, {}),
+            "quartznet15x5_remat": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, scan_remat_kw()),
+            "citrinet256": (TRAIN_BATCH, [TRAIN_SECONDS] * 4, {}),
+            "wav2vec2_base": (W2V_TRAIN_BATCH, [W2V_SECONDS] * 4, {})}
+    cuda = torch.device(device).type == "cuda"
+    launches = {}
+    with one_rank_group(device) as mesh:
+        for name, (rows, seconds, kw) in runs.items():
+            t0 = time.perf_counter()
+            loader = scan_loader(rows, seconds, seed=41)
+            want = expected_counts(**{w: n * len(loader) for w, n in scan_launches_per_step(name).items()})
+            base = scan_create(name, device)
+            fits = {label: scan_fit(base, loader, k, device, m, **kw)
+                    for label, k, m in (("mesh_k4", SCAN_K, mesh), ("mesh_k1", 1, mesh), ("k4", SCAN_K, None))}
+            losses = {label: fit[0] for label, fit in fits.items()}
+            states = {label: fit[1] for label, fit in fits.items()}
+            counts = {label: fit[2] for label, fit in fits.items()}
+            dispatch = {label: fit[3] for label, fit in fits.items()}
+            kinds = scan_kinds(loader, kw.get("accumulate_grad_batches", 1))
+            line = {"phase": "mesh_scan", "model": name, "batch": rows, "seconds": seconds, "k": SCAN_K,
+                    "mesh": mesh.shape, "losses": losses,
+                    "losses_bit_equal": losses["mesh_k4"] == losses["mesh_k1"] == losses["k4"],
+                    "state_bit_equal": same_tree(states["mesh_k4"], states["mesh_k1"])
+                    and same_tree(states["mesh_k4"], states["k4"]),
+                    "dispatch": dispatch, "kinds": kinds,
+                    "launches": {label: {w: n for w, n in c.items() if n} for label, c in counts.items()},
+                    "seconds_taken": time.perf_counter() - t0, "card": card}
+            emit(line)
+            check(all(np.isfinite(losses["mesh_k1"])) and len(losses["mesh_k1"]) == len(loader),
+                  f"{name}: mesh K = 1 losses {losses['mesh_k1']}")
+            check(line["losses_bit_equal"], f"{name}: the mesh K = {SCAN_K}, mesh K = 1 and meshless K = {SCAN_K} "
+                                            f"losses differ: {losses}")
+            check(line["state_bit_equal"], f"{name}: the train states of the mesh K = {SCAN_K}, mesh K = 1 and "
+                                           f"meshless K = {SCAN_K} differ")
+            if cuda:
+                check(dispatch["mesh_k4"] == (kinds, len(loader) - kinds),
+                      f"{name}: {dispatch['mesh_k4']} (eager, replayed) mesh steps, expected {kinds} eager")
+                check(all(c == want for c in counts.values()), f"{name}: launches {counts}, expected {want}")
+            launches[name] = counts["mesh_k4"]
+            del fits, states
+            if cuda and name != "quartznet15x5_remat":
+                scan_chunk_timing(card, name, base, scan_loader(rows, seconds[:SCAN_K], seed=42), mesh, device)
+            del base
+        launches["emulated_rank0"] = emulated_rank0_replays(card, mesh, device)
+    return launches
+
+
 def aot_export_phase(card: str, device="cuda") -> dict:
-    """Phase 39 of the module docstring: ``aot_export`` on the card of phase 4's QuartzNet15x5 module (float32)
-    and of a wav2vec2-base module with a bf16 encoder, each at ``AOT_BATCH`` x ``AOT_SECONDS``, written to a
+    """Phase 39 of the module docstring: ``aot_export`` on the card of phase 4's QuartzNet module cut to
+    QuartzNet5x5 (``AOT_QN``, float32) and of a wav2vec2-base module with a bf16 encoder, each at ``AOT_BATCH`` x ``AOT_SECONDS``, written to a
     temporary folder; both artifacts are loaded in one fresh ``python3`` by ``aot_load`` alone (``AOT_RUNNER``) and
     serve the phase's audio there: its ``preds`` and lengths must be bit-equal (SHA-256) to the live module's
     ``infer``, with the live forward's launches per call (1 log-mel; 12 + 25). Export seconds, artifact bytes, load
@@ -6057,9 +6225,9 @@ def aot_export_phase(card: str, device="cuda") -> dict:
     from thunder_tpu_torch.models import Wav2Vec2Config
 
     sha = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()  # noqa: E731
-    quartznet, _, _ = served_quartznet(device)
+    quartznet, _, _ = served_quartznet(device, encoder=AOT_QN)
     w2v = w2v2_create(Wav2Vec2Config(), device, dtype=torch.bfloat16)
-    models = {"quartznet15x5": (quartznet, expected_counts(fused_log_mel=1)),
+    models = {"quartznet5x5": (quartznet, expected_counts(fused_log_mel=1)),
               "wav2vec2_base_bf16": (w2v, expected_counts(mha_from_qkv=12, add_layer_norm=25))}
     audio, lengths = speech_batch(AOT_BATCH, AOT_SECONDS, seed=39)
     audio_d, lengths_d = torch.as_tensor(audio, device=device), torch.as_tensor(lengths, device=device)

@@ -51,7 +51,11 @@ live module's predictions and launches. ``Trainer(steps_per_execution=4)`` (the 
 ``steps_per_execution=1`` bit for bit under deterministic algorithms on a small QuartzNet (with remat,
 accumulation, the clip and a schedule) and a small wav2vec2 (with remat and the fine-tuning freeze), with their
 launches and every step past a kind's first replayed; past the graph bound, on another stream, with cleared
-gradients and a reloaded optimizer state too.
+gradients and a reloaded optimizer state too. On a one-rank NCCL mesh (a ``FileStore`` group) the graphed mesh
+fit, its collectives captured, equals the eager mesh fit and the meshless graphed fit bit for bit in the same
+cases (remat, accumulation, the clip, the schedule and the freeze included); a replay as rank
+0 of a larger data axis, with another total weight each time, equals the eager ``rows_step``; and a mesh step whose
+capture fails raises.
 
 On a machine with an NVIDIA Hopper card and nvcc, from the repository root:
 
@@ -1545,31 +1549,35 @@ SCAN_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(SCAN_CASES))
-def test_graphed_train_steps_on_card_are_bit_equal_to_eager_steps(cuda, case):
-    """``steps_per_execution=4`` against 1 from the same weights and seed: per-step losses, every parameter and
-    running statistic, the optimizer's state and the generator's state bit-equal; the same launches (the
-    replays add their capture's); every step past its kind's first replays a graph."""
+def _scan_case(case: str, loader) -> tuple:
+    """A SCAN_CASES entry over ``loader``: ``(make, Trainer arguments, epochs, the step kinds a graphed fit
+    meets)``; the fine-tuning case runs two epochs, the first with the encoder frozen."""
     from thunder_tpu_torch.training.optim import onecycle
     from thunder_tpu_torch.training.trainer import FinetuneEncoderDecoder
 
     make, kw = SCAN_CASES[case]
     kw = dict(kw)
-    frozen_steps = 0
     if kw.pop("finetune", False):
         kw["callbacks"] = [FinetuneEncoderDecoder(unfreeze_encoder_at_epoch=1)]
     if "lr_scheduler_kwargs" in kw:
         kw["lr_scheduler_builder"] = onecycle
-    loader = _scan_loader([16000] * 5 + [12000] + [16000] * 2)
     epochs = 2 if "callbacks" in kw else 1
-    if epochs == 2:
-        frozen_steps = len(loader)
+    frozen_steps = len(loader) if epochs == 2 else 0
+    return make, kw, epochs, _kinds(loader * epochs, kw.get("accumulate_grad_batches", 1), frozen_steps)
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_graphed_train_steps_on_card_are_bit_equal_to_eager_steps(cuda, case):
+    """``steps_per_execution=4`` against 1 from the same weights and seed: per-step losses, every parameter and
+    running statistic, the optimizer's state and the generator's state bit-equal; the same launches (the
+    replays add their capture's); every step past its kind's first replays a graph."""
+    loader = _scan_loader([16000] * 5 + [12000] + [16000] * 2)
+    make, kw, epochs, kinds = _scan_case(case, loader)
     _, losses1, state1, counts1 = _scan_fit(make, loader, 1, epochs, **kw)
     trainer, losses4, state4, counts4 = _scan_fit(make, loader, 4, epochs, **kw)
     assert losses4 == losses1 and all(np.isfinite(losses1))
     _assert_same_state(state4, state1)
     assert counts4 == counts1 and counts1
-    kinds = _kinds(loader * epochs, kw.get("accumulate_grad_batches", 1), frozen_steps)
     assert (trainer.eager_steps, trainer.replayed_steps) == (kinds, len(loader) * epochs - kinds)
 
 
@@ -1647,3 +1655,99 @@ def test_graphed_train_step_survives_cleared_gradients_and_a_loaded_optimizer_st
     assert losses2 == losses1 and torch.equal(gen2, gen1)
     assert all(torch.equal(weights2[name], value) for name, value in weights1.items())
     assert dispatch == (4, 4)  # micro and update kinds eager at steps 0-1 and again at 6-7, after the load
+
+
+# ---- the graphed train step on a one-rank NCCL mesh
+
+
+@pytest.fixture()
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL process group over a ``FileStore`` and its mesh; destroyed after the test."""
+    import torch.distributed as dist
+
+    from thunder_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_graphed_mesh_fit_on_card_is_bit_equal_to_the_eager_mesh_and_the_meshless_fit(nccl_mesh, case):
+    """``Trainer(mesh=..., steps_per_execution=4)`` against the eager mesh fit (K = 1) and the meshless graphed fit
+    (K = 4), in each of the meshless cases (remat, accumulation 2 with the norm clip and ``onecycle``, the
+    fine-tuning freeze): per-step losses, the train state (parameters, running statistics, optimizer and generator
+    state) and the launches bit-equal; every step past a kind's first (a micro step's without the gradients' sum,
+    an update's with it) replays a graph with its collectives in it."""
+    loader = _scan_loader([16000] * 5 + [12000] + [16000] * 2, seed=3)
+    make, kw, epochs, kinds = _scan_case(case, loader)
+    _, losses1, state1, counts1 = _scan_fit(make, loader, 1, epochs, mesh=nccl_mesh, **kw)
+    trainer, losses4, state4, counts4 = _scan_fit(make, loader, 4, epochs, mesh=nccl_mesh, **kw)
+    meshless, losses_plain, state_plain, counts_plain = _scan_fit(make, loader, 4, epochs, **kw)
+    assert losses4 == losses1 == losses_plain and all(np.isfinite(losses1))
+    _assert_same_state(state4, state1)
+    _assert_same_state(state4, state_plain)
+    assert counts4 == counts1 == counts_plain and counts1
+    steps = len(loader) * epochs
+    assert (trainer.eager_steps, trainer.replayed_steps) == (kinds, steps - kinds)
+    assert (meshless.eager_steps, meshless.replayed_steps) == (kinds, steps - kinds)
+
+
+def test_graphed_rows_step_of_a_larger_data_axis_replays_other_weights_bit_equal_on_card(nccl_mesh):
+    """Rank 0 of a data axis larger than the one-rank mesh (the all-reduce over one rank returns the share): 4 local
+    rows of a global batch of 8, the last a padding row (weight 0, zero lengths), with another total weight on each
+    call and the weighted and the unweighted kind in turns. The graphed ``rows_step`` replays each kind past its
+    first step and equals the eager one bit for bit: the factor and the weights are graph inputs, not constants."""
+    from chip_smoke import deterministic_algorithms
+    from thunder_tpu_torch.training.checkpointing import train_state
+    from thunder_tpu_torch.training.trainer import GraphedTrainStep, Trainer, _BATCH_DTYPES
+
+    rng = np.random.default_rng(7)
+    audio = (rng.standard_normal((4, 16000)) * 0.2).astype(np.float32)
+    lengths = np.array([16000, 15000, 12000, 0], np.int32)
+    padded = np.array([1, 1, 1, 0], np.float32)
+    calls = [(padded, 6.0), (padded, 7.0), (np.ones(4, np.float32), 8.0), (padded, 5.0), (np.ones(4, np.float32),
+                                                                                           9.0), (padded, 6.5)]
+    runs = []
+    for k in (1, 2):
+        module = _small_quartznet_module()
+        targets, target_lengths = module.text_transform.encode(["hello world", "the cat", "a dog", ""], pad_to=32)
+        batch = tuple(torch.as_tensor(np.asarray(a), dtype=t, device="cuda")
+                      for a, t in zip((audio, lengths, targets, target_lengths), _BATCH_DTYPES))
+        step, generator, _ = Trainer(device="cuda", steps_per_execution=k, mesh=nccl_mesh).train_step_for(
+            module, [None], nccl_mesh)
+        with deterministic_algorithms():
+            losses = [step.rows_step(batch, weights, total, 8, generator) for weights, total in calls]
+            torch.cuda.synchronize()
+        runs.append(([loss.item() for loss in losses], train_state(step, generator), step))
+    (losses1, state1, _), (losses2, state2, step) = runs
+    assert isinstance(step, GraphedTrainStep)
+    assert losses2 == losses1 and all(np.isfinite(losses1))
+    _assert_same_state(state2, state1)
+    assert (step.eager_steps, step.replayed_steps) == (2, len(calls) - 2)
+
+
+def test_a_mesh_step_whose_capture_fails_raises_on_card(nccl_mesh, monkeypatch):
+    """A host read in the forward fails the capture of the kind's graph: the step raises (no eager step takes its
+    place), after the kind's one eager step, and no graph is kept."""
+    from thunder_tpu_torch.training.trainer import Trainer, _device_batch
+
+    module = _small_quartznet_module()
+    forward = module.model.forward
+
+    def reads_the_host(audio, *args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            float(audio.sum())
+        return forward(audio, *args, **kwargs)
+
+    monkeypatch.setattr(module.model, "forward", reads_the_host)
+    loader = _scan_loader([16000] * 2)
+    step, generator, _ = Trainer(device="cuda", steps_per_execution=2, mesh=nccl_mesh).train_step_for(
+        module, loader, nccl_mesh)
+    batch, weights = _device_batch(module, *loader[0], nccl_mesh)
+    with pytest.raises(RuntimeError):
+        step(*batch, generator, sample_weights=weights)
+    torch.cuda.synchronize()
+    assert (step.eager_steps, step.replayed_steps, len(step._graphs)) == (1, 0, 0)

@@ -14,10 +14,13 @@ On the CPU the chunked path runs its steps eagerly (a CUDA graph needs the card;
   both clips, ``onecycle`` and ``FinetuneEncoderDecoder``, and SGD with the plateau;
 - (iii) a gloo mesh of 2 ranks with K = 2 (``tests/torch_parallel_worker.py``): ``batch_size=3`` over 4
   items (the JAX package's ``tests/test_train_scan.py`` layout: a padded batch and a 1-row leftover, flushed
-  on the shape change) and over 7 items (a chunk of two padded batches stacked and sharded on axis 1 with
-  ``stacked_batch_sharding``, and a leftover), against the meshless port (losses rtol 1e-5, parameters atol
+  on the shape change), over 7 items (a chunk of two padded batches stacked and sharded on axis 1 with
+  ``stacked_batch_sharding``, and a leftover), and a 4-row batch then a 3-row one (one chunk of the same shapes
+  and other weights: unpadded, then padded to 4), against the meshless port (losses rtol 1e-5, parameters atol
   1e-5: the data group sums in another order) and the JAX mesh run's losses on 2 devices (rtol 1e-5), with
-  SGD at lr 1e-4 and momentum 0.9;
+  SGD at lr 1e-4 and momentum 0.9; and the mesh step's host part: the loss share's factor as a float32
+  tensor against the host number, bit for bit, and ``GraphedTrainStep.rows_step`` as rank 0 of a larger data
+  axis (padding rows of weight 0 and zero length) against ``TrainStep.rows_step`` on a one-rank gloo mesh;
 - (iv) a K = 2 run checkpointed after epoch 1 and resumed with K = 1 against the uninterrupted run, bit for bit;
 - (v) the grouping (``chunk_batches``) against the JAX ``fit``'s dispatches on a sequence of shapes over two
   epochs: the same batches in the same chunks, in the same order;
@@ -37,6 +40,7 @@ import torch_parallel_worker as W
 from thunder_tpu.audio import FilterbankFeatures as JaxFilterbank
 from thunder_tpu.models import Conv1dDecoder as JaxDecoder
 from thunder_tpu.models import QuartznetEncoder as JaxQuartznet
+from thunder_tpu.ops import calculate_ctc as jax_calculate_ctc
 from thunder_tpu.module import CTCModule as JaxModule
 from thunder_tpu.parallel import make_mesh as jax_make_mesh
 from thunder_tpu.text import BatchTextTransformer as JaxText
@@ -233,19 +237,22 @@ def test_steps_per_execution_matches_jax(pair, case):
 # ---- (iii) a gloo mesh of 2 ranks with K = 2
 
 
-MESH_LAYOUTS = {"jax_layout_4_items": 4, "a_stacked_chunk_7_items": 7}
+#: each layout's batch sizes, over consecutive clips
+MESH_LAYOUTS = {"jax_layout_4_items": (3, 1), "a_stacked_chunk_7_items": (3, 3, 1),
+                "a_chunk_of_an_unpadded_and_a_padded_batch": (4, 3)}
 #: lr 1e-4: the 1-row batches' steps amplify float32 differences; at lr 1e-3 the JAX package's own K = 1 and K = 2
 #: runs end 3e-4 of the loss apart, and the port's mesh and meshless runs 1e-4
 MESH_SGD = {"learning_rate": 1e-4, "momentum": 0.9}
 
 
-def _mesh_loader(items: int):
-    """``batch_size=3`` over ``items`` clips of 8,000 samples."""
+def _mesh_loader(sizes: tuple):
+    """Batches of ``sizes`` rows over consecutive clips of 8,000 samples."""
+    items = sum(sizes)
     rng = np.random.default_rng(5)
     audio = (rng.standard_normal((items, 8000)) * 0.3).astype(np.float32)
     texts = ["hello world", "testing speech", "the cat sat", "quick brown fox"] * 2
-    return [(audio[i:i + 3], np.full(len(audio[i:i + 3]), 8000, np.int32), texts[i:min(i + 3, items)])
-            for i in range(0, items, 3)]
+    starts = np.cumsum((0,) + sizes[:-1])
+    return [(audio[i:i + n], np.full(n, 8000, np.int32), texts[i:i + n]) for i, n in zip(starts, sizes)]
 
 
 @pytest.fixture(scope="module")
@@ -254,14 +261,14 @@ def mesh_runs(tmp_path_factory):
     trainer = dict(max_epochs=2, log_every=1, seed=0, steps_per_execution=2, optimizer_builder=optim.sgd,
                    optimizer_kwargs=MESH_SGD)
     cases = [{"name": name, "kind": "fit", "model": "qn256", "state": ref["state"], "trainer": trainer,
-              "loader": _mesh_loader(items)} for name, items in MESH_LAYOUTS.items()]
+              "loader": _mesh_loader(sizes)} for name, sizes in MESH_LAYOUTS.items()]
     wait = P._spawn(tmp_path_factory.mktemp("train_scan_dp2"), 2, cases)
     jax_losses = {}
-    for name, items in MESH_LAYOUTS.items():
+    for name, sizes in MESH_LAYOUTS.items():
         jt = JaxTrainer(max_epochs=2, log_every=1, seed=0, steps_per_execution=2, optimizer_builder=jax_optim.sgd,
                         optimizer_kwargs=MESH_SGD,
                         mesh=jax_make_mesh(devices=jax.devices()[:2]))
-        jt.fit(ref["module"], train_loader=_mesh_loader(items))
+        jt.fit(ref["module"], train_loader=_mesh_loader(sizes))
         jax_losses[name] = [e["loss/train_loss"] for e in jt.logs if "loss/train_loss" in e]
     return ref, trainer, wait(), jax_losses
 
@@ -277,7 +284,7 @@ def test_steps_per_execution_on_a_gloo_mesh_matches_meshless_and_jax(mesh_runs, 
         np.testing.assert_allclose(rank["losses"], _losses(meshless), rtol=LOSS_RTOL)
         for name, value in want.items():
             torch.testing.assert_close(rank["state"][name], value, rtol=0, atol=WEIGHT_TOL, msg=name)
-        # on a mesh every step runs eagerly: no collective is captured
+        # on the CPU every step runs eagerly
         assert rank["steps"] == (2 * len(loader), 0)
     np.testing.assert_allclose(runs[layout][0]["losses"], jax_losses[layout], rtol=LOSS_RTOL)
 
@@ -303,10 +310,89 @@ def test_a_mesh_chunk_is_stacked_and_sharded_on_its_batch_axis(monkeypatch):
     try:
         trainer = Trainer(device="cpu", steps_per_execution=2, mesh=make_mesh(device="cpu"), max_epochs=1,
                           optimizer_builder=optim.sgd, optimizer_kwargs={"learning_rate": 0.01})
-        trainer.fit(_port_module(dropout=0.0), _mesh_loader(7))
+        trainer.fit(_port_module(dropout=0.0), _mesh_loader(MESH_LAYOUTS["a_stacked_chunk_7_items"]))
     finally:
         dist.destroy_process_group()
     assert seen == [(2, 3, 8000), (2, 3), (2, 3, 32), (2, 3), (2, 3)]  # audio, lengths, targets, lengths, weights
+
+
+#: (local weight, total weight) pairs of a rank's rows: padded rows of weight 0, the whole batch, a lone row, no
+#: weight at all (the total then counts as 1)
+SHARE_WEIGHTS = [(3.0, 7.0), (1.0, 3.0), (2.0, 3.0), (5.0, 5.0), (1.0, 1.0), (0.0, 4.0), (0.0, 0.0), (7.0, 13.0)]
+
+
+def test_share_factor_on_the_device_is_bit_equal_to_the_host_factor():
+    """The loss share's factor as a float32 scalar tensor (what a captured step multiplies by) against the host
+    number (what the eager evaluation multiplies by), forward and backward, over seeded losses; a factor of 1 leaves
+    the loss as it is."""
+    from thunder_tpu_torch.parallel import spmd
+
+    losses = np.random.default_rng(11).uniform(0.1, 400.0, 64).astype(np.float32)
+    for local_weight, total_weight in SHARE_WEIGHTS:
+        factor = spmd.share_factor(local_weight, total_weight)
+        assert factor == local_weight / max(total_weight, 1.0)  # float64 on the host
+        on_device = torch.full((), factor, dtype=torch.float32)
+        assert on_device.item() == np.float32(factor)  # rounded once
+        grads = []
+        for f in (factor, on_device):
+            x = torch.tensor(losses, requires_grad=True)
+            share = x * f
+            share.sum().backward()
+            grads.append((share.detach(), x.grad))
+        assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+    x = torch.tensor(losses)
+    assert spmd.share_factor(5.0, 5.0) == 1.0 and torch.equal(x * torch.ones(()), x)
+
+
+def test_graphed_rows_step_of_a_larger_data_axis_runs_eagerly_on_the_cpu(one_thread):
+    """Rank 0 of a data axis larger than the one-rank gloo mesh: 4 local rows, the last a padding row (weight 0,
+    zero audio and target length), of a global batch of 8 rows and more weight than this rank holds, with another
+    total weight and other local weights on each call. ``GraphedTrainStep.rows_step`` runs every step eagerly on
+    the CPU and equals ``TrainStep.rows_step`` bit for bit: losses, weights, running statistics, optimizer and
+    generator state; each loss is the rank's share that the JAX ``calculate_ctc`` gives on the step's logits."""
+    import torch.distributed as dist
+
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.training.checkpointing import train_state
+    from thunder_tpu_torch.training.trainer import TrainStep
+
+    (audio, lengths, texts), = _batches([8000], seed=9, rows=4)
+    lengths = lengths.copy()
+    lengths[-1] = 0
+    calls = [(np.array([1, 1, 1, 0], np.float32), 6.0), (np.array([1, 1, 1, 0], np.float32), 7.0),
+             (np.ones(4, np.float32), 8.0), (np.array([1, 1, 1, 0], np.float32), 5.0)]
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cpu")
+        runs = []
+        for k in (1, 2):
+            module = _port_module()
+            targets, target_lengths = module.text_transform.encode(texts, pad_to=32)
+            target_lengths = target_lengths.copy()
+            target_lengths[-1] = 0
+            batch = tuple(torch.as_tensor(a) for a in (audio, lengths, targets, target_lengths))
+            step, generator, _ = Trainer(device="cpu", steps_per_execution=k, mesh=mesh).train_step_for(
+                module, [None], mesh)
+            assert type(step) is (GraphedTrainStep if k == 2 else TrainStep)
+            outputs = []
+            hook = module.model.register_forward_hook(lambda _m, _args, out: outputs.append(out))
+            losses = [step.rows_step(batch, weights, total, 8, generator).item() for weights, total in calls]
+            hook.remove()
+            runs.append((losses, train_state(step, generator), step.eager_steps, getattr(step, "replayed_steps", 0)))
+    finally:
+        dist.destroy_process_group()
+    (losses1, state1, *_), (losses2, state2, eager, replayed) = runs
+    assert losses2 == losses1 and all(np.isfinite(losses1)) and len(set(losses1)) == len(calls)
+    _assert_same_tree(state2, state1)
+    assert (eager, replayed) == (len(calls), 0)
+    # the rank's share from the same logits by the JAX package's calculate_ctc: the local weighted mean times the
+    # fraction of the global weight the rank's rows hold
+    for (logits, out_lengths), (weights, total), loss in zip(outputs, calls, losses2):
+        local = jax_calculate_ctc(jnp.asarray(logits.detach().numpy()), jnp.asarray(batch[2].numpy()),
+                                  jnp.asarray(out_lengths.numpy()), jnp.asarray(batch[3].numpy()), module.blank_idx,
+                                  sample_weights=jnp.asarray(weights))
+        want = float(local) * float(weights.sum()) / total
+        np.testing.assert_allclose(loss, want, rtol=LOSS_RTOL)
 
 
 # ---- (iv) checkpointed with K = 2 after epoch 1, resumed with K = 1

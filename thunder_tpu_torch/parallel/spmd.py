@@ -10,7 +10,7 @@ the single-device program on the global batch.
 The loss these collectives are written for:
 
 - over the ``data`` axis each rank holds a *share* of the loss (its rows'
-  weighted sum over the global weight sum, :func:`loss_share`), and the
+  weighted sum over the global weight sum, :func:`share_factor`), and the
   total is the sum of the shares. A sum over the data group in the forward
   (:func:`data_sum`, BatchNorm's statistics) therefore sums the cotangents
   in its backward, and the trainer sums the gradients over the data group;
@@ -62,7 +62,7 @@ __all__ = [
     "current_rows",
     "row_offset",
     "draw_rows",
-    "loss_share",
+    "share_factor",
 ]
 
 SHARD_ATTR = "_thunder_shard"
@@ -226,8 +226,12 @@ def draw_rows(draw: Callable[[tuple], torch.Tensor], shape) -> torch.Tensor:
     return draw((r.total, *shape[1:]))[r.offset: r.offset + shape[0]]
 
 
-def loss_share(local_loss: torch.Tensor, local_weight: float, total_weight: float) -> torch.Tensor:
-    """A rank's share of the global weighted mean: its rows' weighted mean ``local_loss`` times the fraction of the
-    global weight its rows hold. The shares sum to the global mean; on a mesh of one the factor is exactly 1 and
-    the loss is the meshless one, bit for bit."""
-    return local_loss * (local_weight / max(total_weight, 1.0))
+def share_factor(local_weight: float, total_weight: float) -> float:
+    """A rank's share of the loss is its rows' weighted mean times this factor, the fraction of the global weight
+    its rows hold (float64 on the host); the shares sum to the global mean. It is exactly 1 on a mesh of one, where
+    the loss is the meshless one.
+
+    A captured step multiplies by it as a float32 scalar tensor on the loss's device, written anew before each
+    replay; a float32 product rounds a host number to float32 once, as the tensor holds it, so both give the same
+    bits."""
+    return local_weight / max(total_weight, 1.0)

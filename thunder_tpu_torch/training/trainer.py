@@ -6,7 +6,8 @@ Port of the single-device path of ``thunder_tpu/training/trainer.py``:
   model's train-mode forward, ``calculate_ctc`` (with ``sample_weights``),
   the backward, and once every ``accumulate_grad_batches`` calls (optax's
   ``MultiSteps``: the mean of the micro-batch gradients) the optimizer update
-  of :func:`~thunder_tpu_torch.training.optim.optimizer_step`: optax's
+  of :func:`~thunder_tpu_torch.training.optim.optimizer_step` (its learning
+  rates set on the host, then its device part ``apply_update``): optax's
   wrappers in the JAX trainer's order (the schedule, the value clip then the
   norm clip, the fine-tuning freeze, the accumulation, the plateau scale
   outermost); schedules count optimizer steps;
@@ -50,9 +51,15 @@ single-device step on the global batch, as the JAX trainer's SPMD step is:
   returns the module with whole tensors.
 
 With ``steps_per_execution`` K > 1 on a mesh, a chunk of K batches is stacked
-and sharded on its batch axis (``stacked_batch_sharding``), and its steps run
-one after another eagerly, with the losses read once a chunk: no collective is
-captured in a graph (``ROADMAP.md``).
+and sharded on its batch axis (``stacked_batch_sharding``), and on the card each
+step replays the CUDA graph of its kind (:class:`GraphedTrainStep`) with its
+NCCL collectives captured: the statistics' and the loss's sums over the data
+group, the model group's gathers, the gradients' sum and the clip's norm. The
+loss share's factor and the local weights reach the graph as device inputs,
+written before each replay; the losses are read once a chunk. Only groups of
+one rank have run under capture: on several cards, the model axis's gathers
+(``model_parallel > 1``), the clip's model-group norm and the data group's
+sums across ranks are captured as they run eagerly but unverified.
 
 ``prng_impl`` has no counterpart: it picks a TPU random-bit generator.
 """
@@ -93,7 +100,6 @@ from thunder_tpu_torch.training.optim import (
     finetune_schedule_transform,
     get_plateau_state,
     learning_rate,
-    optimizer_step,
     plateau_schedule_transform,
     plateau_update,
     replace_plateau_state,
@@ -206,14 +212,35 @@ def _sum_gradients(params, mesh) -> None:
         g.copy_(part.view_as(g))
 
 
+@dataclass(frozen=True)
+class _Share:
+    """The host part of a mesh step, fixed for its graph: whether some local row's weight is not 1 (the weights
+    then go to the device; rows of weight 1 take the meshless unweighted mean), the global batch's row count (the
+    shape of :func:`~thunder_tpu_torch.parallel.spmd.draw_rows`' draws) and this rank's first row (an argument of
+    the training kernels' launches)."""
+
+    weighted: bool
+    total_rows: int
+    offset: int
+
+
+def _host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` without waiting for the device: through pinned memory on the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class TrainStep:
     """``step(audio, audio_lengths, targets, target_lengths, generator, sample_weights=None) -> loss``.
 
     Every call runs forward and backward; every ``accumulate_grad_batches``-th
-    call also applies the optimizer (:func:`optimizer_step`, as update number
-    ``steps``). Only the optimizer's parameters are clipped and stepped. The
-    batch-norm running statistics move in place on every call. Returns the
-    loss, detached, on the device. ``eager_steps`` counts the calls.
+    call also applies the optimizer (:func:`set_learning_rates` and
+    :func:`apply_update`, as update number ``steps``). Only the optimizer's
+    parameters are clipped and stepped. The batch-norm running statistics move
+    in place on every call. Returns the loss, detached, on the device.
+    ``eager_steps`` counts the calls.
 
     With a ``mesh`` the arguments are the global batch (padded to divide the
     data axis, with its ``sample_weights`` on the host, see
@@ -245,8 +272,10 @@ class TrainStep:
     def __call__(self, audio, audio_lengths, targets, target_lengths, generator: torch.Generator,
                  sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.mesh is None:
-            loss = self._loss(audio, audio_lengths, targets, target_lengths, generator, sample_weights)
-            return self._apply(loss, loss.detach())
+            inputs = (audio, audio_lengths, targets, target_lengths)
+            if sample_weights is not None:
+                inputs += (torch.as_tensor(sample_weights, dtype=torch.float32, device=audio.device),)
+            return self._step(inputs, generator, None)
         total = audio.shape[0]
         weights = (np.ones(total, np.float32) if sample_weights is None
                    else torch.as_tensor(sample_weights).float().cpu().numpy())
@@ -258,28 +287,60 @@ class TrainStep:
                   generator: torch.Generator) -> torch.Tensor:
         """One step on a mesh from this rank's rows of a global batch of ``total_rows`` rows: ``batch`` (audio,
         lengths, targets, target lengths) and their ``local_weights`` on the host, whose sum over the global batch
-        is ``total_weight``. Returns the global loss."""
-        audio, audio_lengths, targets, target_lengths = batch
-        rows = spmd.Rows(self.mesh.data_rank * audio.shape[0], total_rows, self.mesh.data_group)
-        with spmd.rows(rows):
-            logits, out_lengths = self.model(audio, audio_lengths, train=True, generator=generator)
-        # rows of weight 1 take the unweighted mean, the meshless step's
-        w = None if np.all(local_weights == 1.0) else torch.as_tensor(local_weights, device=logits.device)
-        local = calculate_ctc(logits, targets, out_lengths, target_lengths, self.blank_idx, sample_weights=w)
-        share = spmd.loss_share(local, float(local_weights.sum()), total_weight)
-        return self._apply(share, _data_sum_(share.detach().clone(), self.mesh))
+        is ``total_weight``. Returns the global loss.
 
-    def _apply(self, loss: torch.Tensor, reported: torch.Tensor) -> torch.Tensor:
-        """Backpropagate ``loss`` and, at the end of an accumulation, update; returns ``reported``."""
-        (loss / self.accumulate).backward()
+        The host part is read here: whether every local weight is 1, and the loss share's factor
+        (:func:`~thunder_tpu_torch.parallel.spmd.share_factor`), which goes to the device as a float32 scalar with
+        the weights; the step itself reads only device tensors."""
+        audio = batch[0]
+        # rows of weight 1 take the unweighted mean, the meshless step's
+        share = _Share(not np.all(local_weights == 1.0), int(total_rows), self.mesh.data_rank * audio.shape[0])
+        inputs = tuple(batch)
+        if share.weighted:
+            inputs += (_host_to_device(np.asarray(local_weights, np.float32), audio.device),)
+        factor = spmd.share_factor(float(local_weights.sum()), total_weight)
+        inputs += (torch.full((), factor, dtype=torch.float32, device=audio.device),)
+        return self._step(inputs, generator, share)
+
+    def _step(self, inputs: tuple, generator: torch.Generator, share: Optional[_Share]) -> torch.Tensor:
+        """One step of device ``inputs`` (the batch; then, off a mesh, the sample weights if given; on a mesh the
+        local weights if ``share.weighted`` and the loss share's factor)."""
+        update = (self.calls + 1) % self.accumulate == 0
+        frozen = update and encoder_frozen(self.optimizer, self.steps)
+        loss = self._run(inputs, generator, share, update, frozen)
         self.calls += 1
-        if self.calls % self.accumulate == 0:
+        self.steps += int(update)
+        return loss
+
+    def _run(self, inputs: tuple, generator: torch.Generator, share: Optional[_Share], update: bool,
+             frozen: bool) -> torch.Tensor:
+        """The step, eagerly."""
+        if update:
+            set_learning_rates(self.optimizer, self.steps)
+        self.eager_steps += 1
+        return self._body(inputs, generator, share, update, frozen, set_to_none=True)
+
+    def _body(self, inputs: tuple, generator: torch.Generator, share: Optional[_Share], update: bool, frozen: bool,
+              set_to_none: bool) -> torch.Tensor:
+        """The step as a graph holds it, with the learning rates already set: no host read, and nothing that
+        outlives it allocated but, with ``set_to_none``, the gradients. Returns the reported loss."""
+        if share is None:
+            loss = self._loss(*inputs[:4], generator, inputs[4] if len(inputs) > 4 else None)
+            reported = loss.detach()
+        else:
+            audio, audio_lengths, targets, target_lengths = inputs[:4]
+            with spmd.rows(spmd.Rows(share.offset, share.total_rows, self.mesh.data_group)):
+                logits, out_lengths = self.model(audio, audio_lengths, train=True, generator=generator)
+            local = calculate_ctc(logits, targets, out_lengths, target_lengths, self.blank_idx,
+                                  sample_weights=inputs[4] if share.weighted else None)
+            loss = local * inputs[-1]  # the rank's share (spmd.share_factor)
+            reported = _data_sum_(loss.detach().clone(), self.mesh)
+        (loss / self.accumulate).backward()
+        if update:
             if self.mesh is not None:
                 _sum_gradients([p for group in self.optimizer.param_groups for p in group["params"]], self.mesh)
-            optimizer_step(self.optimizer, self.steps, self.gradient_clip_value, self.gradient_clip_norm)
-            self.optimizer.zero_grad(set_to_none=True)
-            self.steps += 1
-        self.eager_steps += 1
+            apply_update(self.optimizer, frozen, self.gradient_clip_value, self.gradient_clip_norm)
+            self.optimizer.zero_grad(set_to_none=set_to_none)
         return reported
 
 
@@ -302,15 +363,20 @@ class GraphedTrainStep(TrainStep):
     ``make_train_scan_step``, which ``Trainer(steps_per_execution=K)`` drives. It computes what the eager step
     computes, bit for bit where the algorithms are deterministic.
 
-    A step's kind is its batch's shapes and dtypes, whether it ends in an optimizer update, and whether the
-    fine-tuning freeze holds at that update. The first step of a kind runs eagerly on the step's side stream (it
-    is that batch's real step); then the whole step is captured there as one CUDA graph, which runs nothing: the
-    train-mode forward with its random draws (dither, masks, dropout, the training kernels' seeds), the loss, the
-    backward and :func:`~thunder_tpu_torch.training.optim.apply_update` (the freeze, the clips, the optimizer),
-    and the gradients zeroed in place after an update. A later step of the kind copies its batch into the graph's
-    input buffers, writes the learning rates (:func:`~thunder_tpu_torch.training.optim.set_learning_rates`) and
-    the generator states of the checkpointed blocks (:class:`~thunder_tpu_torch.models.layers.RematStates`), and
-    replays the graph on the current stream: no Python and no kernel launches on the host.
+    A step's kind is its device inputs' shapes and dtypes, whether it ends in an optimizer update, whether the
+    fine-tuning freeze holds at that update, and on a mesh the step's host part (whether it is weighted, the global
+    row count and the rank's first row). The first step of a kind runs eagerly on the step's side stream (it is
+    that batch's real step, and on a mesh it runs each collective of the kind once, which creates each group's
+    NCCL communicator outside any capture); then the whole step is captured there as one CUDA graph, which runs
+    nothing: the train-mode forward with its random draws (dither, masks, dropout, the training kernels' seeds)
+    and its collectives, the loss (on a mesh the rank's share and the reported global loss), the backward, the
+    gradients summed over the data group and :func:`~thunder_tpu_torch.training.optim.apply_update` (the freeze,
+    the clips, the optimizer), and the gradients zeroed in place after an update. A later step of the kind copies
+    its inputs into the graph's input buffers (the batch; on a mesh the local weights and the loss share's factor,
+    which change from step to step), writes the learning rates
+    (:func:`~thunder_tpu_torch.training.optim.set_learning_rates`) and the generator states of the checkpointed
+    blocks (:class:`~thunder_tpu_torch.models.layers.RematStates`), and replays the graph on the current stream:
+    no Python and no kernel launches on the host.
 
     - Everything that outlives a step lies outside the graphs' memory pool: parameters, gradients (zeroed in
       place, never freed), optimizer state, running statistics, the learning-rate tensors and the input buffers.
@@ -318,8 +384,9 @@ class GraphedTrainStep(TrainStep):
     - The training generator is registered with every graph: a replay moves its offset as an eager step does.
     - A replay adds the launches its capture saw to each kernel wrapper's ``launches`` (the capture's own are
       taken back: it launched nothing on the card), and counts in ``replayed_steps``.
-    - A step runs eagerly, counted in ``eager_steps``, on the CPU, on a mesh (no collective is captured), with
-      an optimizer that is not capturable (``SGD``), and for a kind past :data:`TRAIN_GRAPHS`.
+    - A step runs eagerly, counted in ``eager_steps``, on the CPU (a gloo mesh too), with an optimizer that is not
+      capturable (``SGD``), and for a kind past :data:`TRAIN_GRAPHS`. A capture that fails raises: no step of
+      the card runs eagerly in its place.
     - A step on another stream than the last one first waits for that stream.
     - A gradient cleared (``zero_grad(set_to_none=True)``) or replaced between steps goes back into the tensor
       the graphs accumulate into; an optimizer state replaced (``load_state_dict``) drops the graphs, and each
@@ -336,30 +403,15 @@ class GraphedTrainStep(TrainStep):
         self._optimizer_state = self.optimizer.state
 
     def _graphable(self, audio: torch.Tensor) -> bool:
-        return (audio.device.type == "cuda" and self.mesh is None
-                and all(group.get("capturable") for group in self.optimizer.param_groups))
+        # a mesh of CUDA tensors is an NCCL one (make_mesh), whose collectives a graph captures
+        return audio.device.type == "cuda" and all(group.get("capturable") for group in self.optimizer.param_groups)
 
-    def _body(self, batch: tuple, generator: torch.Generator, update: bool, frozen: bool) -> torch.Tensor:
-        """The step as a graph holds it: no host read, no tensor that outlives it allocated."""
-        sample_weights = batch[4] if len(batch) > 4 else None
-        loss = self._loss(*batch[:4], generator, sample_weights)
-        (loss / self.accumulate).backward()
-        if update:
-            apply_update(self.optimizer, frozen, self.gradient_clip_value, self.gradient_clip_norm)
-            self.optimizer.zero_grad(set_to_none=False)
-        return loss.detach()
-
-    def __call__(self, audio, audio_lengths, targets, target_lengths, generator: torch.Generator,
-                 sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if not self._graphable(audio):
-            return super().__call__(audio, audio_lengths, targets, target_lengths, generator, sample_weights)
-        batch = (audio, audio_lengths, targets, target_lengths)
-        if sample_weights is not None:
-            batch += (torch.as_tensor(sample_weights, dtype=torch.float32, device=audio.device),)
-        update = (self.calls + 1) % self.accumulate == 0
-        frozen = update and encoder_frozen(self.optimizer, self.steps)
-        key = (tuple((tuple(t.shape), t.dtype) for t in batch), update, frozen)
-        current = torch.cuda.current_stream(audio.device)
+    def _run(self, inputs: tuple, generator: torch.Generator, share: Optional[_Share], update: bool,
+             frozen: bool) -> torch.Tensor:
+        if not self._graphable(inputs[0]):
+            return super()._run(inputs, generator, share, update, frozen)
+        key = (tuple((tuple(t.shape), t.dtype) for t in inputs), update, frozen, share)
+        current = torch.cuda.current_stream(inputs[0].device)
         if self._stream is not None and self._stream != current:
             current.wait_stream(self._stream)
         self._stream = current
@@ -371,16 +423,13 @@ class GraphedTrainStep(TrainStep):
         if update:
             set_learning_rates(self.optimizer, self.steps)
         if entry is None:
-            loss = self._first(key, batch, generator, update, frozen)
-        else:
-            loss = self._replay(entry, batch, generator)
-        self.calls += 1
-        self.steps += int(update)
-        return loss
+            return self._first(key, inputs, generator, share, update, frozen)
+        return self._replay(entry, inputs, generator)
 
-    def _first(self, key: tuple, batch: tuple, generator: torch.Generator, update: bool, frozen: bool):
+    def _first(self, key: tuple, inputs: tuple, generator: torch.Generator, share: Optional[_Share], update: bool,
+               frozen: bool):
         """The eager step of a new kind on the side stream, then its capture there (up to TRAIN_GRAPHS kinds)."""
-        device = batch[0].device
+        device = inputs[0].device
         if self._side is None:
             self._side = torch.cuda.Stream(device)
         current, side = torch.cuda.current_stream(device), self._side
@@ -389,18 +438,18 @@ class GraphedTrainStep(TrainStep):
         states = RematStates()
         with torch.cuda.stream(side):
             with remat_states(states):
-                loss = self._body(batch, generator, update, frozen)
+                loss = self._body(inputs, generator, share, update, frozen, set_to_none=False)
             self.eager_steps += 1
             if len(self._graphs) < TRAIN_GRAPHS:
                 offsets = [offset - start for offset in states.offsets]
-                self._graphs[key] = self._capture(batch, generator, update, frozen, offsets)
+                self._graphs[key] = self._capture(inputs, generator, share, update, frozen, offsets)
         current.wait_stream(side)
         loss.record_stream(current)  # made on the side stream, read on the current one
         return loss
 
-    def _capture(self, batch: tuple, generator: torch.Generator, update: bool, frozen: bool,
-                 offsets: list) -> _StepGraph:
-        inputs = tuple(t.clone() for t in batch)
+    def _capture(self, inputs: tuple, generator: torch.Generator, share: Optional[_Share], update: bool,
+                 frozen: bool, offsets: list) -> _StepGraph:
+        static = tuple(t.clone() for t in inputs)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -411,9 +460,10 @@ class GraphedTrainStep(TrainStep):
         before = {w: w.launches for w in KERNEL_WRAPPERS}
         try:
             with remat_states(RematStates(remat)):
+                # thread_local: the process group's watchdog thread may query its earlier work meanwhile
                 graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
                 try:
-                    loss = self._body(inputs, generator, update, frozen)
+                    loss = self._body(static, generator, share, update, frozen, set_to_none=False)
                 finally:
                     graph.capture_end()
         finally:
@@ -421,14 +471,14 @@ class GraphedTrainStep(TrainStep):
             for w, n in before.items():
                 w.launches = n
         grads = [(p, p.grad) for p in self.model.parameters() if p.grad is not None]
-        return _StepGraph(graph, inputs, loss, launched, list(zip(remat, offsets)), grads)
+        return _StepGraph(graph, static, loss, launched, list(zip(remat, offsets)), grads)
 
-    def _replay(self, entry: _StepGraph, batch: tuple, generator: torch.Generator) -> torch.Tensor:
+    def _replay(self, entry: _StepGraph, inputs: tuple, generator: torch.Generator) -> torch.Tensor:
         for p, g in entry.grads:  # a gradient cleared or replaced since the capture goes back into the graph's
             if p.grad is not g:
                 g.zero_() if p.grad is None else g.copy_(p.grad)
                 p.grad = g
-        for static, t in zip(entry.inputs, batch):
+        for static, t in zip(entry.inputs, inputs):
             static.copy_(t)
         if entry.remat:
             seed, start = generator.initial_seed(), generator.get_offset()
@@ -729,7 +779,8 @@ class Trainer:
             logits, out_lengths = module.model(audio, audio_lengths, train=False)
             w = None if np.all(local_w == 1.0) else torch.as_tensor(local_w, device=logits.device)
             local = calculate_ctc(logits, targets, out_lengths, target_lengths, module.blank_idx, sample_weights=w)
-            loss = _data_sum_(spmd.loss_share(local, float(local_w.sum()), float(weights.sum())), mesh)
+            factor = spmd.share_factor(float(local_w.sum()), float(weights.sum()))
+            loss = _data_sum_(local * factor, mesh)
         keep = torch.as_tensor(local_w > 0, device=logits.device)
         logits, out_lengths, targets = logits[keep], out_lengths[keep], targets[keep]
         return loss, logits, greedy_decode(logits), out_lengths, targets
