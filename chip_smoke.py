@@ -416,7 +416,7 @@ Phases, each of which fails the run:
     of its 48 layers, ``MMS_LAYERS``). One forward must launch the add + LayerNorm and attention
     kernels the code predicts (``variant_launches``: 2 a post-LN layer + 1,
     SEW's plain encoder LayerNorm aside; one attention a layer where dh is 64
-    and no position bias); the logits must be finite, of the expected shape
+    or 80 and no position bias: 12 for MMS-1b, at dh 80); the logits must be finite, of the expected shape
     (the adapter's frames ``(L - 1) // 2 + 1`` three times), within
     ``LOGIT_BOUND`` of the same engine under ``plain_wav2vec2`` and, on rows
     0-1, of the module's float32 forward on the card; the forward's ms (CUDA
@@ -424,7 +424,9 @@ Phases, each of which fails the run:
     printed (``variants_launches``);
 34. ``w2v2_variant_kernel_shape``: the attention and add + LayerNorm kernels
     on the inputs SEW's and the conv-adapter model's forwards give layer 0
-    (SEW's at the squeezed length), against their plain versions (4 and 2
+    (SEW's at the squeezed length), and the dh-80 attention on MMS-1b's
+    (``mha_from_qkv_dh80``, 16 x 749 x 16 heads; its stable LN has no add +
+    LayerNorm kernel), against their plain versions (4 and 2
     bf16 ULP) and timed with them in turns (host-paced), beside their PyTorch
     calls (SDPA with the key mask; ``F.layer_norm``), timed only;
 35. ``w2v2_large_serving``: wav2vec2-large-960h (``W2V_LARGE``: 24 post-LN
@@ -504,12 +506,26 @@ Phases, each of which fails the run:
     (``mesh_scan_emulated_rank0``): 3 padding rows of weight 0, another
     total weight each call, the weighted and the unweighted kind replayed
     bit-equal to the eager steps. Then, with the default algorithms, one
-    chunk of 4 steps of QuartzNet15x5, Citrinet-256 and wav2vec2-base in
-    turns (meshless K = 1, mesh K = 1, mesh K = 4, meshless K = 4, and
+    chunk of 4 steps of QuartzNet15x5 (the host-bound model; Citrinet-256's
+    and wav2vec2-base's chunks are no longer timed, for the whole run's
+    time) in turns (meshless K = 1, mesh K = 1, mesh K = 4, meshless K = 4, and
     back): step ms (CUDA
     events over the chunk, over 4), host ms a step, peak memory allocated,
     each graph's pool, and one more chunk's idle share under the profiler
-    (``mesh_scan_timing``).
+    (``mesh_scan_timing``);
+42. ``mms_training``: MMS-1b-all's widths (phase 33's ``mms_1b``, 12 of its
+    48 layers) in CTC training at 8 x 15 s through phase 37's checks with
+    ``attention_dropout`` 0 (hidden and feature-projection dropout 0.1, the
+    extractor frozen): the rate at which the JAX module trains on its flash
+    kernel, and at which heads of 80 train on the port's kernels. One
+    ``Trainer.fit`` step must launch 12 + 24 ``mha_train`` (dh 80), 1
+    ``ctc_alpha`` and 1 ``ctc_beta`` (stable LN: no add + LayerNorm kernel);
+    the 8th loss below ``1 - W2V_LOSS_FALL`` times the first; the train-mode
+    loss with every dropout rate 0 within ``W2V_TRAIN_LOSS_BOUND`` of float32
+    on the CPU (rows 0-1); step ms, peak memory, MFU; the dh-80 training
+    kernels on layer 0's inputs of a step (8 x 749, 16 heads of 80, rate 0)
+    against their plain versions (8 bf16 ULP), timed beside them and SDPA
+    forward + backward (the kernels line's ``mha_train_dh80``).
 
 Every profile (``device_profile``) must hold each launch of the port's
 kernels that the launch counters saw during the profiled call; a trace that
@@ -521,7 +537,7 @@ TB/s and its operations of each type over the published peak for that type
 (989 TFLOP/s bf16 tensor, 67 TFLOP/s float32), for an H100 SXM at 700 W.
 The log-mel's operations are an FFT-based STFT's, the least the function
 needs; its bytes are the audio in, the log-mel out and the kernel's tables. The training attention's
-are 4 T^2 64 forward and 10 T^2 64 backward a head and row (five products, the
+are 4 T^2 dh forward and 10 T^2 dh backward a head and row (five products, the
 least the function needs, whatever the kernels recompute).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
@@ -676,7 +692,7 @@ def spread_ms(fns: dict, iters: int, repeats: int = SPREAD_REPEATS) -> dict:
 #: device-time categories of a profile, by the first pattern a kernel's name contains
 PROFILE_CATEGORIES = (
     ("ctc_recursion", ("ctc_alpha_kernel", "ctc_beta_kernel")),
-    ("attention_train", ("mha_forward_kernel<true>", "mha_forward_kernel<(bool)1>", "mha_train_dq_kernel",
+    ("attention_train", ("mha_forward_kernel<true", "mha_forward_kernel<(bool)1", "mha_train_dq_kernel",
                          "mha_train_dkv_kernel")),
     ("attention", ("mha_forward_kernel",)),
     ("add_layer_norm_train", ("add_ln_train_",)),
@@ -852,10 +868,10 @@ def ctc_chain_floor(t: int, steps: int = 100000) -> dict:
     return {"chain_floor_ms": 2 * t * step, "lse3_step_ns": step * 1e6}
 
 
-def attention_bound(batch: int, t: int, heads: int) -> dict:
+def attention_bound(batch: int, t: int, heads: int, dh: int = 64) -> dict:
     """qkv in and the output out (bf16, plus the int32 lengths); q k^T and P V on the bf16 tensor cores."""
-    h = heads * 64
-    return bound(2 * batch * t * 4 * h + 4 * batch, bf16_flop=4.0 * batch * heads * t * t * 64)
+    h = heads * dh
+    return bound(2 * batch * t * 4 * h + 4 * batch, bf16_flop=4.0 * batch * heads * t * t * dh)
 
 
 def add_ln_bound(rows: int, d: int) -> dict:
@@ -863,11 +879,11 @@ def add_ln_bound(rows: int, d: int) -> dict:
     return bound(3 * 2 * rows * d + 2 * 4 * d, f32_flop=8.0 * rows * d)
 
 
-def attention_train_bounds(batch: int, t: int, heads: int) -> tuple[dict, dict]:
+def attention_train_bounds(batch: int, t: int, heads: int, dh: int = 64) -> tuple[dict, dict]:
     """Forward: qkv in, the output out, two products. Backward: qkv, o and do in, dqkv out, five products
     (dP, dS K, dS^T q, Pd^T dO' and the scores), whatever the kernels recompute."""
-    h = heads * 64
-    pairs = batch * heads * float(t) * t * 64
+    h = heads * dh
+    pairs = batch * heads * float(t) * t * dh
     return (bound(2 * batch * t * 4 * h + 4 * batch, bf16_flop=4.0 * pairs),
             bound(2 * batch * t * 8 * h + 4 * batch, bf16_flop=10.0 * pairs))
 
@@ -1310,6 +1326,12 @@ def run() -> int:
     # a one-rank NCCL mesh, the collectives captured, against the eager mesh and the meshless graphs
     add_launches(kernels, "train_scan_launches", train_scan_phase(card))
     add_launches(kernels, "mesh_scan_launches", mesh_scan_phase(card))
+
+    # ---- MMS-1b's widths trained at attention dropout 0; the dh-80 kernels' entries, from phases 33-34 and 42
+    mms_runs, mms_line = mms_training_phase(card)
+    add_launches(kernels, "mms_training_launches", {"mms_training": mms_runs})
+    kernels.extend(dh80_kernel_entries(variant_runs["mms_1b"], variant_shapes["mha_from_qkv_dh80"][0], mms_runs,
+                                       mms_line, checks))
 
     print(gpu_line(), flush=True)
     emit({"kernels": kernels})
@@ -4078,8 +4100,8 @@ def lm_native_phase(card: str, device="cuda") -> dict:
             one_thread = lambda: native.native_ctc_beam_search_batch(  # noqa: E731
                 lp, [lp.shape[1]] * NUMPY_ROWS, blank, LM_WIDTH, -12.0, max_tokens_per_step=50, lm=native_lm,
                 lm_weight=LM_WEIGHT if native_lm is not None else 0.0, n_threads=1)
-            timings[name] = {"native_ms_64_rows_threaded": host_ms(decode),
-                             f"native_ms_{NUMPY_ROWS}_rows_one_thread": host_ms(one_thread),
+            timings[name] = {"native_ms_64_rows_threaded": host_ms(decode, repeats=1),
+                             f"native_ms_{NUMPY_ROWS}_rows_one_thread": host_ms(one_thread, repeats=1),
                              f"numpy_ms_{NUMPY_ROWS}_rows_one_core_each_summed": numpy_s * 1e3,
                              "numpy_pool_wall_s": pool_s,
                              "rows_equal": [a.tolist() == b for a, b in zip(ids, numpy_ids)],
@@ -5232,17 +5254,19 @@ W2V_VARIANTS = {  # each published config's widths, written out: the card's mach
     "mms_1b": dict(hidden_size=1280, num_hidden_layers=MMS_LAYERS, num_attention_heads=16, intermediate_size=5120,
                    feat_extract_norm="layer", do_stable_layer_norm=True, conv_bias=True, adapter_attn_dim=16),
 }
-VARIANT_SHAPES = ("sew", "conv_adapter")  # the kernels against their plain versions at these forwards' inputs
+VARIANT_SHAPES = ("sew", "conv_adapter", "mms_1b")  # the kernels against their plain versions at these forwards' inputs
 
 
 def variant_launches(config) -> dict:
     """The add + LayerNorm and attention kernel launches one serving forward of ``config`` makes, from the code:
     two add + LayerNorms a post-LN layer and one after the positional embedding (SEW's encoder LayerNorm is
-    plain), none for stable LN; one attention a layer where the heads are 64 wide and no position bias is
+    plain), none for stable LN; one attention a layer where the heads are 64 or 80 wide and no position bias is
     added."""
+    from thunder_tpu_torch.kernels.attention import HEAD_DIMS
+
     post_ln = not config.do_stable_layer_norm
     add_ln = (2 * config.num_hidden_layers + (0 if config.sew_style else 1)) if post_ln else 0
-    fused = config.hidden_size // config.num_attention_heads == 64 and not config.rel_pos_buckets
+    fused = config.hidden_size // config.num_attention_heads in HEAD_DIMS and not config.rel_pos_buckets
     return {"add_layer_norm": add_ln, "mha_from_qkv": config.num_hidden_layers if fused else 0}
 
 
@@ -5259,7 +5283,8 @@ def variant_kernel_shapes(name: str, engine, audio_d, lengths_d) -> dict:
     """Phase 34 for one variant (and phases 35-36 for a served shape): the attention and add + LayerNorm kernels
     on layer 0's inputs of one forward, against their plain versions, timed in turns with them, and beside their
     PyTorch calls (the split into heads + ``F.scaled_dot_product_attention`` with the key mask; ``F.layer_norm``
-    of the float32 sum), timed only. Returns each kernel's shape line."""
+    of the float32 sum), timed only. Returns each kernel's shape line: the attention's as ``mha_from_qkv`` at
+    heads of 64 and ``mha_from_qkv_dh80`` at 80; no add + LayerNorm line for a stable-LN model, which has none."""
     import torch
     import torch.nn.functional as F
 
@@ -5283,6 +5308,7 @@ def variant_kernel_shapes(name: str, engine, audio_d, lengths_d) -> dict:
             hook.remove()
     cfg = engine._encoder.config
     qkv, lens, heads = captured["qkv"], captured["lengths"].to(torch.int32), cfg.num_attention_heads
+    dh = cfg.hidden_size // heads
     b, t = qkv.shape[:2]
     got, want = mha_from_qkv(qkv, lens, heads), mha_from_qkv_reference(qkv, lens, heads)
     a_err, a_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
@@ -5296,27 +5322,30 @@ def variant_kernel_shapes(name: str, engine, audio_d, lengths_d) -> dict:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask).transpose(1, 2).reshape(b, t, h)
 
     _, a_lib = paired_ms(lambda: mha_from_qkv(qkv, lens, heads), attention_library, 10)
-    x, y = (v.contiguous() for v in captured["add_ln"][:2])
-    ln = layer0.layer_norm
-    rows, d = x.numel() // x.shape[-1], x.shape[-1]
-    got, want = add_layer_norm(x, y, ln.scale, ln.bias), add_layer_norm_reference(x, y, ln.scale, ln.bias)
-    n_err, n_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
-    n_ms, n_plain = paired_ms(lambda: add_layer_norm(x, y, ln.scale, ln.bias),
-                              lambda: add_layer_norm_reference(x, y, ln.scale, ln.bias), 50)
-    n_lib = cuda_ms(lambda: F.layer_norm(x.float() + y.float(), (d,), ln.scale, ln.bias, ln.epsilon).to(x.dtype), 50)
     lines = {
-        "mha_from_qkv": {"variant": name, "B": b, "T": t, "heads": heads, "ms": a_ms, "plain_ms": a_plain,
-                         "library_ms": a_lib, "max_abs_err": a_err, "ulp": a_ulp, **attention_bound(b, t, heads),
-                         "ms_is": "one launch on layer 0's qkv, host-paced, in turns with the plain version"},
-        "add_layer_norm": {"variant": name, "rows": rows, "D": d, "ms": n_ms, "plain_ms": n_plain,
-                           "library_ms": n_lib, "max_abs_err": n_err, "ulp": n_ulp, **add_ln_bound(rows, d),
-                           "ms_is": "one launch on layer 0's first add + LayerNorm, host-paced, in turns with the "
-                                    "plain version"},
+        "mha_from_qkv" if dh == 64 else f"mha_from_qkv_dh{dh}": {
+            "variant": name, "B": b, "T": t, "heads": heads, "dh": dh, "ms": a_ms, "plain_ms": a_plain,
+            "library_ms": a_lib, "max_abs_err": a_err, "ulp": a_ulp, **attention_bound(b, t, heads, dh),
+            "ms_is": "one launch on layer 0's qkv, host-paced, in turns with the plain version"},
     }
+    check(a_ulp <= KERNEL_CHECKS["attn_onepanel"][1], f"{name}: attention off by {a_ulp} bf16 ULP")
+    if not cfg.do_stable_layer_norm:
+        x, y = (v.contiguous() for v in captured["add_ln"][:2])
+        ln = layer0.layer_norm
+        rows, d = x.numel() // x.shape[-1], x.shape[-1]
+        got, want = add_layer_norm(x, y, ln.scale, ln.bias), add_layer_norm_reference(x, y, ln.scale, ln.bias)
+        n_err, n_ulp = (got.float() - want.float()).abs().max().item(), ulp_bf16_error(got, want)
+        n_ms, n_plain = paired_ms(lambda: add_layer_norm(x, y, ln.scale, ln.bias),
+                                  lambda: add_layer_norm_reference(x, y, ln.scale, ln.bias), 50)
+        n_lib = cuda_ms(lambda: F.layer_norm(x.float() + y.float(), (d,), ln.scale, ln.bias, ln.epsilon).to(x.dtype),
+                        50)
+        lines["add_layer_norm"] = {"variant": name, "rows": rows, "D": d, "ms": n_ms, "plain_ms": n_plain,
+                                   "library_ms": n_lib, "max_abs_err": n_err, "ulp": n_ulp, **add_ln_bound(rows, d),
+                                   "ms_is": "one launch on layer 0's first add + LayerNorm, host-paced, in turns "
+                                            "with the plain version"}
+        check(n_ulp <= KERNEL_CHECKS["add_ln"][1], f"{name}: add + LayerNorm off by {n_ulp} bf16 ULP")
     for kernel, line in lines.items():
         emit({"phase": "w2v2_variant_kernel_shape", "kernel": kernel, **line})
-    check(a_ulp <= KERNEL_CHECKS["attn_onepanel"][1], f"{name}: attention off by {a_ulp} bf16 ULP")
-    check(n_ulp <= KERNEL_CHECKS["add_ln"][1], f"{name}: add + LayerNorm off by {n_ulp} bf16 ULP")
     return lines
 
 
@@ -5386,7 +5415,7 @@ def variants_phase(card: str, device="cuda") -> tuple:
         check(f32_rel < LOGIT_BOUND, f"{name}: bf16 engine vs float32 on the card deviate by {f32_rel}")
         if name in VARIANT_SHAPES:
             for kernel, line in variant_kernel_shapes(name, engine, audio_d, lengths_d).items():
-                shapes[kernel].append(line)
+                shapes.setdefault(kernel, []).append(line)
         del engine, module, logits
         gc.collect()
         torch.cuda.empty_cache()
@@ -5551,7 +5580,7 @@ def w2v2_serving_cells_phase(card: str, phase: str, config, shapes, profile: boo
 def w2v2_train_create(overrides: dict, device, dtype, dropout: float, freeze: bool):
     """wav2vec2 for CTC training (``bench_train.py --model wav2vec2``'s: ``Wav2Vec2Preprocess(mask_input=False)``,
     attention, hidden and feature-projection dropout at ``dropout``, the 29-token ``VOCAB``): the same weights
-    (generator seed 0) whatever the device, dtype and rates."""
+    (generator seed 0) whatever the device, dtype and rates. ``overrides`` may set ``attention_dropout`` apart."""
     import torch
 
     from thunder_tpu_torch.audio import Wav2Vec2Preprocess
@@ -5560,7 +5589,8 @@ def w2v2_train_create(overrides: dict, device, dtype, dropout: float, freeze: bo
     from thunder_tpu_torch.text import BatchTextTransformer
 
     tt = BatchTextTransformer(VOCAB)
-    cfg = Wav2Vec2Config(**overrides, hidden_dropout=dropout, attention_dropout=dropout, feat_proj_dropout=dropout)
+    cfg = Wav2Vec2Config(**{"hidden_dropout": dropout, "attention_dropout": dropout, "feat_proj_dropout": dropout,
+                            **overrides})
     encoder = Wav2Vec2Encoder(cfg, dtype=dtype, freeze_feature_extractor=freeze)
     return CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=False), encoder,
                             LinearDecoder(tt.num_tokens, dtype=dtype), tt, device=device)
@@ -5643,6 +5673,7 @@ def train_kernel_shapes(phase: str, model, step, batch: tuple, generator, rate: 
     layer0 = model.encoder.layer0
     cfg = model.encoder.config
     heads, h = cfg.num_attention_heads, cfg.hidden_size
+    dh = h // heads
     qkv, dout = captured["qkv"].contiguous(), to_unit_scale(captured["attn_dout"].contiguous())
     b, frames = qkv.shape[:2]
     lens = torch.full((b,), frames, dtype=torch.int32, device=qkv.device)
@@ -5669,6 +5700,19 @@ def train_kernel_shapes(phase: str, model, step, batch: tuple, generator, rate: 
 
     a_lib = cuda_ms(attention_library, 5)
     check(max(a_ulp.values()) <= TRAIN_KERNEL_ULP, f"{phase}: training attention off by {a_ulp} bf16 ULP")
+    a_fwd_bound, a_bwd_bound = attention_train_bounds(b, frames, heads, dh)
+    lines = {
+        "mha_train": {"shape_of": phase, "B": b, "T": frames, "heads": heads, "dh": dh, "rate": rate,
+                      "ms": af_ms + ab_ms, "fwd_ms": af_ms, "bwd_ms": ab_ms, "plain_ms": af_plain + ab_plain,
+                      "plain_fwd_ms": af_plain, "plain_bwd_ms": ab_plain, "library_ms": a_lib, "max_abs_err": a_err,
+                      "ulp": a_ulp, **sum_bounds(a_fwd_bound, a_bwd_bound), "bound_fwd_ms": a_fwd_bound["bound_ms"],
+                      "bound_bwd_ms": a_bwd_bound["bound_ms"],
+                      "ms_is": "forward + backward on layer 0's qkv and cotangent, host-paced, in turns with the "
+                               "plain versions"},
+    }
+    if cfg.do_stable_layer_norm:  # plain LayerNorms: no add + LayerNorm kernel to hold
+        emit({"phase": "w2v2_train_kernel_shape", "kernel": "mha_train", **lines["mha_train"]})
+        return lines
 
     (x, y), n_dout = captured["add_ln"], to_unit_scale(captured["add_ln_dout"].contiguous())
     ln = layer0.layer_norm
@@ -5695,21 +5739,15 @@ def train_kernel_shapes(phase: str, model, step, batch: tuple, generator, rate: 
     n_lib = cuda_ms(add_ln_library, 20)
     check(max(n_ulp.values()) <= TRAIN_KERNEL_ULP and max(n_rel.values()) <= 0.01,
           f"{phase}: add + dropout + LayerNorm off by {n_ulp} bf16 ULP, {n_rel} relative")
-    a_fwd_bound, a_bwd_bound = attention_train_bounds(b, frames, heads)
     n_fwd_bound, n_bwd_bound = add_ln_train_bounds(rows, h)
-    lines = {
-        "mha_train": {"shape_of": phase, "B": b, "T": frames, "heads": heads, "rate": rate, "ms": af_ms + ab_ms,
-                      "fwd_ms": af_ms, "bwd_ms": ab_ms, "plain_ms": af_plain + ab_plain, "library_ms": a_lib,
-                      "max_abs_err": a_err, "ulp": a_ulp, **sum_bounds(a_fwd_bound, a_bwd_bound),
-                      "ms_is": "forward + backward on layer 0's qkv and cotangent, host-paced, in turns with the "
-                               "plain versions"},
+    lines.update({
         "add_ln_dropout_train": {"shape_of": phase, "rows": rows, "D": h, "rate": rate, "ms": nf_ms + nb_ms,
                                  "fwd_ms": nf_ms, "bwd_ms": nb_ms, "plain_ms": nf_plain + nb_plain,
                                  "library_ms": n_lib, "max_abs_err": n_err, "ulp": n_ulp, "rel": n_rel,
                                  **sum_bounds(n_fwd_bound, n_bwd_bound),
                                  "ms_is": "forward + backward (with its partial sum) on layer 0's first add + "
                                           "LayerNorm, host-paced, in turns with the plain versions"},
-    }
+    })
     for kernel, line in lines.items():
         emit({"phase": "w2v2_train_kernel_shape", "kernel": kernel, **line})
     return lines
@@ -5725,8 +5763,9 @@ def w2v2_training_cell(card: str, phase: str, overrides: dict, freeze: bool, los
     first; one profiled step; the frozen extractor decays by lr x wd a step, or every extractor parameter gets a
     nonzero gradient and moves past the decay at the optimizer step; the train-mode loss with every dropout rate 0,
     bf16 on the card, within ``W2V_TRAIN_LOSS_BOUND`` of float32 on the CPU on rows 0-1; with ``kernel_shapes``
-    the training kernels at the step's shapes (``train_kernel_shapes``). Returns one step's launches and the
-    kernels' lines."""
+    the training kernels at the step's shapes (``train_kernel_shapes``, at the attention's rate). ``overrides``
+    may set ``attention_dropout`` apart from the other rates; a stable-LN model launches no add + LayerNorm
+    kernel. Returns one step's launches and the kernels' lines."""
     import torch
 
     from thunder_tpu_torch.flops import mfu, wav2vec2_train_flops
@@ -5743,15 +5782,15 @@ def w2v2_training_cell(card: str, phase: str, overrides: dict, freeze: bool, los
     module = w2v2_train_create(overrides, device, bf16, rate, freeze)
     cfg = module.model.encoder.config
     layers = cfg.num_hidden_layers
+    add_ln = 0 if cfg.do_stable_layer_norm else 2 * layers + 1
     Trainer(seed=0, device=device).fit(module, [(audio, lengths, texts)])  # warms up
     reset_launch_counts()
     trainer = Trainer(seed=0, log_every=1, device=device)
     trainer.fit(module, [(audio, lengths, texts)])
     sync(device)
     counts = launch_counts()
-    want = expected_counts(mha_train_forward=layers, mha_train_backward=2 * layers,
-                           add_ln_train_forward=2 * layers + 1, add_ln_train_backward=2 * (2 * layers + 1),
-                           ctc_alpha=1, ctc_beta=1)
+    want = expected_counts(mha_train_forward=layers, mha_train_backward=2 * layers, add_ln_train_forward=add_ln,
+                           add_ln_train_backward=2 * add_ln, ctc_alpha=1, ctc_beta=1)
     check(counts == want, f"{phase}: one train step must launch {want}, got {counts}")
     check(np.isfinite(trainer.logs[0]["loss/train_loss"]), f"{phase}: Trainer.fit loss {trainer.logs[0]}")
 
@@ -5799,8 +5838,8 @@ def w2v2_training_cell(card: str, phase: str, overrides: dict, freeze: bool, los
         cpu_s = time.perf_counter() - t0
     rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
     line = {"phase": phase, "batch": b, "seconds": W2V_SECONDS, "frames": variant_frames(cfg, samples),
-            "hidden": cfg.hidden_size,
-            "layers": layers, "heads": cfg.num_attention_heads, "freeze_feature_extractor": freeze,
+            "hidden": cfg.hidden_size, "layers": layers, "heads": cfg.num_attention_heads,
+            "attention_dropout": cfg.attention_dropout, "freeze_feature_extractor": freeze,
             "launches": {k: v for k, v in counts.items() if v}, "step_ms": step_ms,
             "step_ms_is": f"CUDA events, mean of {W2V_TRAIN_TIMED} steps back to back",
             "audio_s_per_s": b * W2V_SECONDS / (step_ms / 1e3), "peak_mem_gb": peak_gb, "losses": losses,
@@ -5827,7 +5866,7 @@ def w2v2_training_cell(card: str, phase: str, overrides: dict, freeze: bool, los
         check(not no_grad and not line["extractor_parameters_not_moved"],
               f"{phase}: extractor parameters without a gradient {no_grad}, not moved past the decay "
               f"{line['extractor_parameters_not_moved']}")
-    lines = train_kernel_shapes(phase, model, step, batch, generator, rate) if kernel_shapes else {}
+    lines = train_kernel_shapes(phase, model, step, batch, generator, cfg.attention_dropout) if kernel_shapes else {}
     del module, model, step, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -5854,6 +5893,56 @@ def w2v2_cells(card: str, device="cuda") -> tuple:
                                                             W2V_NO_FREEZE_LOSS_FALL, device=device)
     runs.update({f"aot_{name}": counts for name, counts in aot_export_phase(card, device).items()})
     return runs, lines
+
+
+# ---- phase 42: MMS-1b's widths trained at attention dropout 0, on the dh-80 training kernels
+
+def mms_training_phase(card: str, device="cuda") -> tuple:
+    """Phase 42 of the module docstring: ``w2v2_training_cell`` on ``W2V_VARIANTS["mms_1b"]`` at attention dropout
+    0. Returns one step's launches and the dh-80 training kernels' line at the step's shape."""
+    t0 = time.perf_counter()
+    counts, lines = w2v2_training_cell(card, "mms_training", {**W2V_VARIANTS["mms_1b"], "attention_dropout": 0.0},
+                                       True, W2V_LOSS_FALL, kernel_shapes=True, device=device)
+    emit({"phase": "mms_training_seconds", "seconds": time.perf_counter() - t0})
+    return counts, lines["mha_train"]
+
+
+def dh80_kernel_entries(serving_runs: dict, serving_line: dict, training_runs: dict, training_line: dict,
+                        checks: list) -> list:
+    """The kernels line's entries of the dh-80 instantiations: the serving attention from MMS-1b's forward (phase
+    33's launches, phase 34's shape line) and the training attention from MMS-1b's train step (phase 42), each
+    with its phase-3 checks (``attn_*_dh80``: error, tolerance in bf16 ULP, ok)."""
+    flash = "thunder_tpu/models/wav2vec2.py:662"
+    served, trained = serving_line, training_line
+
+    def checks_of(prefix: str) -> dict:
+        return {r["name"]: {"max_err": r["max_err"], "tol": r["tol"], "ok": r["ok"]} for r in checks
+                if r["name"].startswith(prefix) and r["name"].endswith(("_dh80", "_dh80_grad", "_dh80_749"))}
+
+    return [
+        {"name": "mha_from_qkv_dh80", "route": "cuda", "source": "thunder_tpu_torch/csrc/mha_from_qkv.cu",
+         "replaces": flash, "launches": serving_runs["mha_from_qkv"],
+         "launches_is": "one MMS-1b forward (12 layers) at 16 x 15 s (phase 33)", "max_abs_err": served["max_abs_err"],
+         "max_ulp": served["ulp"], "ms": served["ms"], "plain_ms": served["plain_ms"],
+         "ms_is": f"one launch at B={served['B']}, T={served['T']}, {served['heads']} heads of 80 (layer 0's qkv of "
+                  "that forward), host-paced, in turns with the plain version",
+         "bound_ms": served["bound_ms"], "bound_by": served["bound_by"], "library_ms": served["library_ms"],
+         "library": "split into (B, heads, T, 80) + F.scaled_dot_product_attention with the key mask",
+         "checks": checks_of("attn_onepanel")},
+        {"name": "mha_train_dh80", "route": "cuda", "source": "thunder_tpu_torch/csrc/mha_train.cu",
+         "replaces": flash, "launches": training_runs["mha_train_forward"] + training_runs["mha_train_backward"],
+         "launches_is": "12 forward + 24 backward (dq, then dk/dv) in one MMS-1b train step at 8 x 15 s, attention "
+                        "dropout 0 (phase 42)",
+         "max_abs_err": trained["max_abs_err"], "max_ulp": max(trained["ulp"].values()), "ms": trained["ms"],
+         "fwd_ms": trained["fwd_ms"], "bwd_ms": trained["bwd_ms"], "plain_ms": trained["plain_ms"],
+         "plain_fwd_ms": trained["plain_fwd_ms"], "plain_bwd_ms": trained["plain_bwd_ms"],
+         "ms_is": f"forward + backward at B={trained['B']}, T={trained['T']}, {trained['heads']} heads of 80, rate 0 "
+                  "(layer 0's qkv and cotangent of a step), host-paced, in turns with the plain versions",
+         "bound_ms": trained["bound_ms"], "bound_by": trained["bound_by"], "bound_fwd_ms": trained["bound_fwd_ms"],
+         "bound_bwd_ms": trained["bound_bwd_ms"], "library_ms": trained["library_ms"],
+         "library": "split into (B, heads, T, 80) + F.scaled_dot_product_attention with the key mask, forward + "
+                    "backward", "checks": checks_of("attn_train")},
+    ]
 
 
 # ---- phase 40: Trainer(steps_per_execution=K), the whole train step as CUDA graph replays
@@ -6154,8 +6243,8 @@ def mesh_scan_phase(card: str, device="cuda") -> dict:
     x 15 s (extractor frozen, dropout 0.1; 4). The three must agree bit for bit (per-step losses, parameters,
     running statistics, optimizer and generator state); every mesh step past its kind's first must be a replay;
     each run's launches the fixed ones a step, counted through capture and replay. Then
-    :func:`emulated_rank0_replays`; then, with the default algorithms, :func:`scan_chunk_timing` of QuartzNet15x5,
-    Citrinet-256 and wav2vec2-base. Returns the launches of the graphed mesh runs, by model."""
+    :func:`emulated_rank0_replays`; then, with the default algorithms, :func:`scan_chunk_timing` of QuartzNet15x5.
+    Returns the launches of the graphed mesh runs, by model."""
     import torch
 
     runs = {"quartznet15x5": (TRAIN_BATCH, [TRAIN_SECONDS] * 5, {}),
@@ -6198,7 +6287,7 @@ def mesh_scan_phase(card: str, device="cuda") -> dict:
                 check(all(c == want for c in counts.values()), f"{name}: launches {counts}, expected {want}")
             launches[name] = counts["mesh_k4"]
             del fits, states
-            if cuda and name != "quartznet15x5_remat":
+            if cuda and name == "quartznet15x5":
                 scan_chunk_timing(card, name, base, scan_loader(rows, seconds[:SCAN_K], seed=42), mesh, device)
             del base
         launches["emulated_rank0"] = emulated_rank0_replays(card, mesh, device)

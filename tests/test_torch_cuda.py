@@ -903,6 +903,62 @@ def test_training_attention_kernels_edge_shapes(cuda, b, t, heads, lengths, rate
     assert ulp_bf16_error(dqkv, mha_train_backward_reference(qkv, out, stats, ct, lens, seed, heads, rate)) <= 8.0
 
 
+@pytest.mark.parametrize("b,t,heads,lengths", [(1, 1, 1, [1]), (3, 33, 3, [33, 26, 0]), (2, 65, 5, [65, 64]),
+                                               (2, 129, 1, [129, 37]), (2, 300, 1, [300, 97]), (1, 1665, 2, [1665])])
+def test_attention_kernels_at_heads_of_80_edge_shapes(cuda, b, t, heads, lengths):
+    """Heads of 80 (two TMA boxes a tile): the serving kernel within 4 bf16 ULP of its plain version and the
+    training kernels at rate 0 within 8, on T of 1, T off the 64-row tiles and the 192-row backward blocks, odd
+    head counts and a row of length 0; the training kernels give the same bits from two runs."""
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv, mha_from_qkv_reference
+    from thunder_tpu_torch.kernels.attention_train import (
+        mha_train_backward,
+        mha_train_backward_reference,
+        mha_train_forward,
+        mha_train_forward_reference,
+    )
+    from thunder_tpu_torch.kernels.selftest import attention_train_case, ulp_bf16_error
+
+    qkv, lens, ct = attention_train_case(45, b, t, heads, lengths, "cuda", zero_padded_cotangent=False, dh=80)
+    seed = torch.tensor([SEED], dtype=torch.int32, device="cuda")
+    served = mha_from_qkv(qkv, lens, heads)
+    out, stats = mha_train_forward(qkv, lens, seed, heads)
+    dqkv = mha_train_backward(qkv, out, stats, ct, lens, seed, heads)
+    again = mha_train_backward(qkv, *mha_train_forward(qkv, lens, seed, heads), ct, lens, seed, heads)
+    torch.cuda.synchronize()
+    assert served.shape == out.shape == (b, t, heads * 80) and dqkv.shape == qkv.shape
+    assert all(bool(torch.isfinite(x).all()) for x in (served, out, dqkv)) and torch.equal(dqkv, again)
+    assert ulp_bf16_error(served, mha_from_qkv_reference(qkv, lens, heads)) <= 4.0
+    out_p, stats_p = mha_train_forward_reference(qkv, lens, seed, heads)
+    assert ulp_bf16_error(out, out_p) <= 8.0
+    torch.testing.assert_close(stats, stats_p, rtol=1e-4, atol=1e-4)
+    assert ulp_bf16_error(dqkv, mha_train_backward_reference(qkv, out, stats, ct, lens, seed, heads)) <= 8.0
+
+
+def test_attention_kernels_refuse_dropout_at_heads_of_80_and_other_widths(cuda):
+    """Heads of 80 train only at rate 0: the wrappers raise above it, before any launch; widths other than 64 and
+    80 raise in every wrapper."""
+    from thunder_tpu_torch.kernels.attention import mha_from_qkv
+    from thunder_tpu_torch.kernels.attention_train import mha_train, mha_train_backward, mha_train_forward
+    from thunder_tpu_torch.kernels.selftest import attention_train_case
+
+    qkv, lens, ct = attention_train_case(46, 2, 70, 2, [70, 40], "cuda", dh=80)
+    seed = torch.tensor([SEED], dtype=torch.int32, device="cuda")
+    out, stats = mha_train_forward(qkv, lens, seed, 2)
+    launched = (mha_train_forward.launches, mha_train_backward.launches)
+    with pytest.raises(ValueError, match="dropout only at dh = 64"):
+        mha_train_forward(qkv, lens, seed, 2, 0.1)
+    with pytest.raises(ValueError, match="dropout only at dh = 64"):
+        mha_train_backward(qkv, out, stats, ct, lens, seed, 2, 0.1)
+    with pytest.raises(ValueError, match="dropout only at dh = 64"):
+        mha_train(qkv.clone().requires_grad_(True), lens, seed, 2, 0.1)
+    assert (mha_train_forward.launches, mha_train_backward.launches) == launched
+    wide, _, _ = attention_train_case(47, 1, 64, 2, [64], "cuda", dh=96)
+    with pytest.raises(ValueError, match="dh = 64 or 80"):
+        mha_from_qkv(wide, lens[:1], 2)
+    with pytest.raises(ValueError, match="dh = 64 or 80"):
+        mha_train_forward(wide, lens[:1], seed, 2)
+
+
 @pytest.mark.parametrize("rows,d,rate", [((7,), 128, 0.1), ((1001,), 768, 0.1), ((3, 67), 1024, 0.3), ((9,), 2048, 0.1),
                                          ((130,), 1032, 0.0), ((1,), 8, 0.5), ((5,), 36, 0.1), ((3, 5), 2056, 0.2),
                                          ((17,), 1, 0.0), ((9,), 4100, 0.1), ((8, 749), 768, 0.1), ((3,), 768, 0.1),

@@ -9,10 +9,11 @@
 //   the tensor map is encoded on the host by cuTensorMapEncodeTiled, looked up
 //   through the CUDA runtime (encode_tiled), since the library links no libcuda;
 //   and a bulk copy of contiguous bytes (no tensor map), completing the same way;
-// - wgmma: the shared-memory matrix descriptor of a tile in TMA's 128-byte
-//   swizzle, the fence, commit and wait, and m64n64k16 bf16 products with f32
-//   accumulators: both operands from shared memory (B K-major or MN-major), or
-//   A from registers and B MN-major; m64n32k16 with both operands K-major;
+// - wgmma: the shared-memory matrix descriptor of a tile in TMA's 128-byte or
+//   32-byte swizzle, the fence, commit and wait, and m64n64k16 bf16 products
+//   with f32 accumulators: both operands from shared memory (B K-major or
+//   MN-major), or A from registers and B MN-major; m64n32k16 with both operands
+//   K-major; m64n16k16 with A from registers and B MN-major;
 // - setmaxnreg (a warpgroup hands registers to the others), pin (keeps the
 //   compiler from moving an accumulator across an asynchronous wgmma) and
 //   pack_bf16.
@@ -87,6 +88,11 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// the same for a tile in TMA's 32-byte swizzle (rows of 32 bytes, 16 bf16 columns): layout type 3
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
@@ -142,6 +148,16 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
                  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
                : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 16 f32) += A (64 x 16 bf16 in registers) . B (16 x 16, MN-major in shared memory: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                             uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+               "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+               : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
 #undef HOPPER_D32

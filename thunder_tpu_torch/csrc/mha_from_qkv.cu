@@ -1,17 +1,19 @@
 // Serving multi-head attention straight from the packed QKV projection, for
 // Hopper (sm_90a): bf16 in and out, float32 scores, row sums and accumulation.
 //
-// Replaces: thunder_tpu/kernels/attn_onepanel.py::mha_from_qkv (the Pallas TPU kernel).
-// For a packed qkv (B, T, 3H), head h, query t and key j (dh = 64, H = heads * 64):
-//   q      = bf16( qkv[b, t, h*64 : h*64+64] * bf16(0.125) )           (0.125 = dh^-0.5, exact)
-//   s[j]   = sum_d q[d] * qkv[b, j, H + h*64 + d]  (f32)  + (j < len[b] ? 0 : -FLT_MAX)
+// Replaces: thunder_tpu/kernels/attn_onepanel.py::mha_from_qkv (the Pallas TPU kernel, dh 64),
+// and at dh 80 the forward of thunder_tpu/models/wav2vec2.py::_flash_mha (jax's Pallas TPU
+// flash_attention).
+// For a packed qkv (B, T, 3H), head h, query t and key j (dh = 64 or 80, H = heads * dh):
+//   q      = bf16( qkv[b, t, h*dh : h*dh+dh] * bf16(dh^-0.5) )         (0.125 at dh 64, exact)
+//   s[j]   = sum_d q[d] * qkv[b, j, H + h*dh + d]  (f32)  + (j < len[b] ? 0 : -FLT_MAX)
 //   p[j]   = exp(s[j] - max_j s[j])                       (f32), z = sum_j p[j]
-//   out[b, t, h*64 + d] = bf16( sum_j bf16(p[j]) * qkv[b, j, 2H + h*64 + d] / z )
+//   out[b, t, h*dh + d] = bf16( sum_j bf16(p[j]) * qkv[b, j, 2H + h*dh + d] / z )
 // The mask is added, never -inf: a row of length 0 averages every key and stays
 // finite, and padded query rows attend the valid keys like any other row.
 //
-// What bounds it on this card: operations. 4 * T^2 * 64 bf16 FLOP per (row,
-// head) against 2 * T * 3 * 64 bytes of qkv in and T * 64 * 2 out: at T = 749
+// What bounds it on this card: operations. 4 * T^2 * dh bf16 FLOP per (row,
+// head) against 2 * T * 3 * dh bytes of qkv in and T * dh * 2 out: at T = 749
 // about 250 operations a byte, so the tensor cores bound it, not memory.
 //
 // The kernel is mha_forward_kernel<false> of mha_forward.cuh, which the training
@@ -23,9 +25,9 @@
 
 #include "mha_forward.cuh"
 
-// qkv: (batch, t, 3 * heads * 64) bf16, 16-byte aligned; lengths: (batch,) int32;
-// out: (batch, t, heads * 64) bf16. Returns cudaGetLastError().
+// qkv: (batch, t, 3 * heads * dh) bf16, 16-byte aligned, dh = 64 or 80; lengths: (batch,) int32;
+// out: (batch, t, heads * dh) bf16. Returns cudaGetLastError().
 extern "C" int thunder_mha_from_qkv(const void* qkv, const int* lengths, void* out, int batch, int t, int heads,
-                                    void* stream) {
-  return mha_fwd::launch<false>(qkv, lengths, out, nullptr, nullptr, 0.f, batch, t, heads, 0u, stream);
+                                    int dh, void* stream) {
+  return mha_fwd::launch_dh<false>(dh, qkv, lengths, out, nullptr, nullptr, 0.f, batch, t, heads, 0u, stream);
 }

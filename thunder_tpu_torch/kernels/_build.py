@@ -47,14 +47,14 @@ SIGNATURES = {
     "thunder_ctc_beta": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "thunder_ctc_log_1_3_check": [_P, _P],
     "thunder_ctc_lse3_chain": [_P, _I, _F, _F, _P],
-    "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _P],
+    "thunder_mha_from_qkv": [_P, _P, _P, _I, _I, _I, _I, _P],
     "thunder_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     "thunder_add_ln_train_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _U, _P],
     "thunder_add_ln_train_plan": [_I, _I, _P],
     "thunder_add_ln_train_bwd": [*[_P] * 11, _I, _I, _F, _F, _U, _P],
     "thunder_dropout_keep_mask": [_P, _P, _I, _I, _F, _U, _P],
-    "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _P],
-    "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _F, _U, _P],
+    "thunder_mha_train_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _U, _P],
+    "thunder_mha_train_bwd": [*[_P] * 8, _I, _I, _I, _I, _F, _U, _P],
     "thunder_beam_scan_plan": [_I, _I, _P],
     "thunder_beam_scan": [_P, _P, _P, _P, _F, *[_P] * 13, _I, _I, _I, _I, _I, _I, _P, _P],
     "thunder_beam_backtrace_plan": [_I, _I, _I, _P],

@@ -1,13 +1,17 @@
 """Serving multi-head attention from the packed QKV projection: a CUDA kernel and its plain version.
 
-Port of ``thunder_tpu/kernels/attn_onepanel.py::mha_from_qkv``; the kernel is
-``csrc/mha_from_qkv.cu``. It reads q, k and v straight out of the ``(B, T,
+Port of ``thunder_tpu/kernels/attn_onepanel.py::mha_from_qkv`` (heads of 64)
+and, at heads of 80, of the forward of ``thunder_tpu/models/wav2vec2.py::
+_flash_mha`` (jax's Pallas TPU flash attention, which the JAX module runs at
+any head width); the kernel is ``csrc/mha_from_qkv.cu``, one source for both
+widths (:data:`HEAD_DIMS`). It reads q, k and v straight out of the ``(B, T,
 3H)`` output of the fused ``qkv_proj`` GEMM (q of head ``h`` at columns
-``h*64``, k at ``H + h*64``, v at ``2H + h*64``) and writes ``(B, T, H)``,
+``h*dh``, k at ``H + h*dh``, v at ``2H + h*dh``) and writes ``(B, T, H)``,
 with no split, pad or transpose. Semantics, kept from the TPU kernel:
 
-- q is multiplied by ``bf16(dh**-0.5)`` in the activation dtype (exact for
-  dh = 64);
+- q is multiplied by ``bf16(dh**-0.5)`` in the activation dtype and rounded
+  once (exact for dh = 64; at dh = 80 the JAX module's ``q * dh**-0.5`` before
+  ``_flash_mha``);
 - scores are q·kᵀ with float32 accumulation; the key-length mask ADDS
   ``finfo(float32).min`` (not −inf), so a row of length 0 averages every key
   uniformly and stays finite, and padded query rows attend the valid keys
@@ -18,6 +22,11 @@ with no split, pad or transpose. Semantics, kept from the TPU kernel:
   output. The kernel streams the keys in tiles with a running max, so each
   probability is rounded against the max so far and rescaled in float32
   (within the checks' bf16 ULPs of this plain version).
+
+``_flash_mha`` masks by segment ids instead: its padded query rows attend only
+the padded keys, where here they attend the valid keys. Valid rows agree, and
+both packages mask the padded frames downstream, so compare valid rows only.
+Head widths other than 64 and 80 have no kernel yet.
 
 The TPU kernel's head-pair lane packing and its ``T % 128`` requirement were
 Mosaic's 128-lane blocks; here the head count is free and T is any length:
@@ -39,9 +48,10 @@ import torch
 
 from thunder_tpu_torch.kernels import _build
 
-__all__ = ["mha_from_qkv", "mha_from_qkv_reference", "HEAD_DIM", "check_launch_shape"]
+__all__ = ["mha_from_qkv", "mha_from_qkv_reference", "HEAD_DIMS", "check_launch_shape"]
 
-HEAD_DIM = 64
+#: the head widths the attention kernels take
+HEAD_DIMS = (64, 80)
 
 
 def mha_from_qkv_reference(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.Tensor:
@@ -83,8 +93,8 @@ def mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch.
 
     Args:
         qkv: ``(B, T, 3H)``, the fused projection's output; on the card
-            bfloat16, contiguous, with ``dh = H / heads = 64``; any ``T`` the
-            launch takes (:func:`check_launch_shape`).
+            bfloat16, contiguous, with ``dh = H / heads`` in :data:`HEAD_DIMS`;
+            any ``T`` the launch takes (:func:`check_launch_shape`).
         lengths: ``(B,)`` valid keys of each row (a prefix); int32 on the card.
         heads: number of heads.
 
@@ -105,8 +115,9 @@ def _mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch
     batch, t, h3 = qkv.shape
     if qkv.dtype != torch.bfloat16 or lengths.dtype != torch.int32:
         raise ValueError("the attention kernel takes a bfloat16 qkv and int32 lengths")
-    if h3 // 3 // heads != HEAD_DIM:
-        raise ValueError(f"the attention kernel takes dh = {HEAD_DIM}, got {h3 // 3 // heads}")
+    dh = h3 // 3 // heads
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes dh = 64 or 80, got {dh}")
     check_launch_shape("the attention kernel", batch, t, heads)
     for name, x in (("qkv", qkv), ("lengths", lengths)):
         if x.device != qkv.device or not x.is_contiguous():
@@ -115,7 +126,7 @@ def _mha_from_qkv(qkv: torch.Tensor, lengths: torch.Tensor, heads: int) -> torch
         raise ValueError("qkv must be 16-byte aligned")
     out = torch.empty((batch, t, h3 // 3), dtype=qkv.dtype, device=qkv.device)
     status = _build.load().thunder_mha_from_qkv(
-        qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), batch, t, heads,
+        qkv.data_ptr(), lengths.data_ptr(), out.data_ptr(), batch, t, heads, dh,
         _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_from_qkv")

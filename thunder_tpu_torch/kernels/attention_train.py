@@ -1,9 +1,17 @@
 """Training multi-head attention from the packed QKV projection, with dropout on the
 probabilities inside the kernels: CUDA kernels (forward, backward) and their plain versions.
 
-Port of ``thunder_tpu/kernels/attn_train.py::mha_train``; the kernels are
+Port of ``thunder_tpu/kernels/attn_train.py::mha_train`` (heads of 64) and,
+at heads of 80 without dropout, of ``thunder_tpu/models/wav2vec2.py::_flash_mha``
+(jax's Pallas TPU flash attention, forward and ``custom_vjp`` backward, which
+the JAX module trains on only at ``attention_dropout == 0``); the kernels are
 ``csrc/mha_train.cu`` (the forward shares ``csrc/mha_forward.cuh`` with the
-serving kernel). Semantics kept from the TPU kernels, per head of ``dh = 64``:
+serving kernel). At ``dh = 80`` the wrapper raises on the card for a rate
+above 0: there is no dropout kernel at that width, and the JAX module's gate
+sends that case to the unfused path. ``_flash_mha``'s padded query rows attend
+only the padded keys, here they attend the valid keys: valid rows and their
+gradients agree, and the padded frames are masked downstream. Semantics kept
+from the TPU kernels, per head of ``dh`` (64 or 80):
 
 - forward: the serving kernel's math (``kernels/attention.py``: q scaled by
   ``bf16(dh**-0.5)``, float32 scores, the additive ``finfo(float32).min`` key
@@ -19,9 +27,9 @@ serving kernel). Semantics kept from the TPU kernels, per head of ``dh = 64``:
   ``dv = P_dᵀ·dO′`` with ``P_d`` the kept unnormalised ``bf16(e)`` and ``dO′ =
   bf16(f32(dO) / (z * (1 - rate)))``. The result is one packed ``(B, T, 3H)``
   tensor ``[dq | dk | dv]``, which the qkv GEMM's backward consumes as it is.
-  The kernels feed q to the products unscaled and multiply ``q·kᵀ`` and
-  ``dSᵀ·q`` by ``dh**-0.5 = 0.125`` in float32: a power of two, so the same
-  numbers as from ``q̂``.
+  At dh 64 the kernels feed q to the products unscaled and multiply ``q·kᵀ``
+  and ``dSᵀ·q`` by ``dh**-0.5 = 0.125`` in float32: a power of two, so the
+  same numbers as from ``q̂``. At dh 80 they form ``q̂`` in shared memory.
 
 The mask is the stateless hash of ``kernels/dropout_hash.py`` (stream ``b *
 heads + head``, row = query, column = key) under an int32 ``seed`` tensor of
@@ -49,7 +57,7 @@ from __future__ import annotations
 import torch
 
 from thunder_tpu_torch.kernels import _build, dropout_hash
-from thunder_tpu_torch.kernels.attention import HEAD_DIM, check_launch_shape
+from thunder_tpu_torch.kernels.attention import HEAD_DIMS, check_launch_shape
 
 __all__ = [
     "mha_train",
@@ -154,13 +162,17 @@ def _check(qkv, lengths, seed, heads, rate, row_offset=0):
         raise ValueError(f"row_offset must be >= 0, got {row_offset}")
 
 
-def _device_args(qkv, heads, bf16_tensors, other_tensors):
-    """Check a CUDA launch's tensors: shapes the kernels take, all contiguous, aligned, on one device."""
+def _device_args(qkv, heads, rate, bf16_tensors, other_tensors) -> int:
+    """Check a CUDA launch's tensors: shapes the kernels take, all contiguous, aligned, on one device. Returns
+    the head width."""
     if qkv.device.type != "cuda":
         raise ValueError(f"mha_train runs on cuda or cpu tensors, got {qkv.device}")
     batch, t, h3 = qkv.shape
-    if h3 // 3 // heads != HEAD_DIM:
-        raise ValueError(f"the training attention kernels take dh = {HEAD_DIM}, got {h3 // 3 // heads}")
+    dh = h3 // 3 // heads
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the training attention kernels take dh = 64 or 80, got {dh}")
+    if dh != 64 and rate > 0.0:
+        raise ValueError(f"the training attention kernels take dropout only at dh = 64, got dh = {dh} at rate {rate}")
     check_launch_shape("the training attention kernels", batch, t, heads)
     if other_tensors["lengths"].dtype != torch.int32:
         raise ValueError("the training attention kernels take int32 lengths")
@@ -170,6 +182,7 @@ def _device_args(qkv, heads, bf16_tensors, other_tensors):
     for name, x in {**bf16_tensors, **other_tensors}.items():
         if x.device != qkv.device or not x.is_contiguous() or x.data_ptr() % (16 if name in bf16_tensors else 4):
             raise ValueError(f"{name} must be a contiguous, aligned tensor on {qkv.device}")
+    return dh
 
 
 def mha_train_forward(qkv, lengths, seed, heads: int, rate: float = 0.0, row_offset: int = 0):
@@ -178,12 +191,12 @@ def mha_train_forward(qkv, lengths, seed, heads: int, rate: float = 0.0, row_off
     _check(qkv, lengths, seed, heads, rate, row_offset)
     if qkv.device.type == "cpu":
         return mha_train_forward_reference(qkv, lengths, seed, heads, rate, row_offset)
-    _device_args(qkv, heads, {"qkv": qkv}, {"lengths": lengths, "seed": seed})
+    dh = _device_args(qkv, heads, rate, {"qkv": qkv}, {"lengths": lengths, "seed": seed})
     batch, t, h3 = qkv.shape
     out = torch.empty((batch, t, h3 // 3), dtype=qkv.dtype, device=qkv.device)
     stats = torch.empty((2, batch, heads, t), dtype=torch.float32, device=qkv.device)
     status = _build.load().thunder_mha_train_fwd(
-        qkv.data_ptr(), lengths.data_ptr(), seed.data_ptr(), out.data_ptr(), stats.data_ptr(), batch, t, heads,
+        qkv.data_ptr(), lengths.data_ptr(), seed.data_ptr(), out.data_ptr(), stats.data_ptr(), batch, t, heads, dh,
         float(rate), (row_offset * heads) & 0xFFFFFFFF, _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_train_fwd")
@@ -204,12 +217,13 @@ def mha_train_backward(qkv, out, stats, dout, lengths, seed, heads: int, rate: f
         return mha_train_backward_reference(qkv, out, stats, dout, lengths, seed, heads, rate, row_offset)
     if stats.dtype != torch.float32:
         raise ValueError(f"stats must be float32, got {stats.dtype}")
-    _device_args(qkv, heads, {"qkv": qkv, "out": out, "dout": dout}, {"lengths": lengths, "seed": seed, "stats": stats})
+    dh = _device_args(qkv, heads, rate, {"qkv": qkv, "out": out, "dout": dout},
+                      {"lengths": lengths, "seed": seed, "stats": stats})
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((batch, heads, t), dtype=torch.float32, device=qkv.device)
     status = _build.load().thunder_mha_train_bwd(
         qkv.data_ptr(), lengths.data_ptr(), seed.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), batch, t, heads, float(rate), (row_offset * heads) & 0xFFFFFFFF,
+        delta.data_ptr(), dqkv.data_ptr(), batch, t, heads, dh, float(rate), (row_offset * heads) & 0xFFFFFFFF,
         _build.stream(qkv),
     )
     _build.check(status, "thunder_mha_train_bwd")
@@ -246,7 +260,8 @@ def mha_train(qkv: torch.Tensor, lengths: torch.Tensor, seed: torch.Tensor, head
 
     Args:
         qkv: ``(B, T, 3H)``, the fused projection's output; on the card
-            bfloat16 with ``dh = H / heads = 64``; any ``T`` the launch takes.
+            bfloat16 with ``dh = H / heads`` of 64, or of 80 at ``dropout_rate == 0``;
+            any ``T`` the launch takes.
         lengths: ``(B,)`` valid keys of each row (a prefix); int32 on the card.
         seed: int32 ``(1,)`` on ``qkv``'s device, fresh for each layer and step;
             not read at ``dropout_rate == 0``.

@@ -13,6 +13,10 @@ falls on both. Each process times, with CUDA events:
   (rate 0.1) and its backward alone at 8 × 15 s and 8 × 30 s (T = 1499), at
   rate 0.1 and at rate 0 (at 8 × 15 s, rate 0.1, also each kernel's device
   time by torch.profiler), on random bf16 inputs from one seed;
+- MMS-1b-all's widths at 12 of its 48 layers (``MMS_1B``: 1,280 hidden, 16
+  heads of 80, stable LN, attention adapters of 16; random weights from
+  generator seed 0): one greedy forward at 16 × 15 s (its launches and
+  logits' SHA-256 too);
 - the CTC kernels (``ctc_alpha``, ``ctc_beta`` and the pair) at the shapes of
   ``CTC_SHAPES``: QuartzNet's training step (B = 16, T = 751, V = 29) and
   wav2vec2-base's (B = 8, T = 749, V = 32), targets of 64 labels (S = 129),
@@ -83,7 +87,7 @@ substring of its mangled name on this side and, after ``=``, on the other;
 one name where both sides share it): the instructions each has and how many
 differ, addresses and encodings left out. ``--parts`` limits each process to some of the groups
 (``attention``, ``ctc``, ``separable``, ``log_mel``, ``beam``, ``add_ln``,
-``wav2vec2``, ``quartznet``, ``citrinet``, ``sync_step``).
+``wav2vec2``, ``quartznet``, ``citrinet``, ``sync_step``, ``mms``).
 """
 
 from __future__ import annotations
@@ -100,7 +104,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 PARTS = ("attention", "ctc", "separable", "log_mel", "beam", "add_ln", "wav2vec2", "quartznet", "citrinet",
-         "sync_step")
+         "sync_step", "mms")
+#: MMS-1b-all's published widths at 12 of its 48 layers (chip_smoke.py's ``mms_1b``)
+MMS_1B = dict(hidden_size=1280, num_hidden_layers=12, num_attention_heads=16, intermediate_size=5120,
+              feat_extract_norm="layer", do_stable_layer_norm=True, conv_bias=True, adapter_attn_dim=16)
 #: rounds of the synchronized-step timing (``sync_step``)
 SYNC_STEP_ROUNDS = 3
 #: QuartzNet15x5's separable repeats in one forward at 64 x 15 s (T = 1501 log-mel frames, 751 after the stem):
@@ -470,6 +477,8 @@ def measure(parts=PARTS) -> dict:
         _measure_citrinet(out)
     if "sync_step" in parts:
         _measure_sync_step(out)
+    if "mms" in parts:
+        _measure_mms(out, vocab, audio, audio_lens)
     return out
 
 
@@ -576,6 +585,23 @@ def _measure_wav2vec2(out: dict, vocab, audio, audio_lens, step_gen) -> None:
     # the step's add + dropout + LayerNorm kernels (forward, backward, partial sum) by torch.profiler
     by_kernel = device_ms_by_kernel(lambda: step(*batch, step_gen), 2)
     out["w2v2_train_step_add_ln_ms"] = sum(ms for name, ms in by_kernel.items() if "add_ln_train_" in name)
+
+
+def _measure_mms(out: dict, vocab, audio, audio_lens) -> None:
+    import torch
+
+    from thunder_tpu_torch.audio import Wav2Vec2Preprocess
+    from thunder_tpu_torch.engine import InferenceEngine
+    from thunder_tpu_torch.models import LinearDecoder, Wav2Vec2Config, Wav2Vec2Encoder
+    from thunder_tpu_torch.module import CTCModule
+    from thunder_tpu_torch.text import BatchTextTransformer
+
+    module = CTCModule.create(torch.Generator().manual_seed(0), Wav2Vec2Preprocess(mask_input=True),
+                              Wav2Vec2Encoder(Wav2Vec2Config(**MMS_1B)), LinearDecoder(len(vocab) + 1),
+                              BatchTextTransformer(vocab), device="cuda")
+    engine = InferenceEngine(module)
+    out.update(_forward_fingerprint("mms", engine, audio, audio_lens))
+    out["mms_forward_ms"] = _cuda_ms(lambda: engine.infer(audio, audio_lens), 5)
 
 
 def _forward_fingerprint(prefix: str, engine, audio, lengths) -> dict:

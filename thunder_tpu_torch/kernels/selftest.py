@@ -94,6 +94,10 @@ fails unless dx, dy, dscale and dbias are equal bit for bit. ``attn_train_749`` 
 with ragged lengths, a row of length 0 and rate 0.1: the uniform row must stay
 finite forward and backward; ``attn_train_long_2048`` a batch of about 41 s
 (B = 2, T = 2048, 12 heads, lengths ``[2048, 1900]``, rate 0.1).
+``attn_onepanel_dh80`` (4 bf16 ULP), ``attn_train_dh80_grad`` and
+``attn_train_dh80_749`` (8) hold the kernels at heads of 80 (the training
+ones at rate 0): B = 4 with lengths ``[T, partial, 37, 0]``, T = 749 with 16
+heads (MMS-1b's) and T = 330 with 4, neither a multiple of 64.
 
 Both sides run on the same device and the same inputs; the float32 reference
 runs without TF32 (:func:`exact_float32` is set first).
@@ -332,17 +336,17 @@ def _check_ctc_log_1_3(device) -> dict:
     return {"max_err": n, "max_abs_err": n, "floats": 0x40400000 - 0x3F800000 + 1}
 
 
-def attention_case(seed, b, t, heads, lengths, device):
-    """A random bf16 packed qkv ``(b, t, 3 * heads * 64)`` and int32 ``lengths``."""
+def attention_case(seed, b, t, heads, lengths, device, dh=64):
+    """A random bf16 packed qkv ``(b, t, 3 * heads * dh)`` and int32 ``lengths``."""
     rng = np.random.default_rng(seed)
-    qkv = rng.standard_normal((b, t, 3 * heads * 64)).astype(np.float32)
+    qkv = rng.standard_normal((b, t, 3 * heads * dh)).astype(np.float32)
     return (torch.as_tensor(qkv, device=device).to(torch.bfloat16),
             torch.as_tensor(np.asarray(lengths, np.int32), device=device))
 
 
-def _attention_check(seed, b, t, heads, lengths):
+def _attention_check(seed, b, t, heads, lengths, dh=64):
     def check(device) -> dict:
-        qkv, lens = attention_case(seed, b, t, heads, lengths, device)
+        qkv, lens = attention_case(seed, b, t, heads, lengths, device, dh)
         got = mha_from_qkv(qkv, lens, heads)
         want = mha_from_qkv_reference(qkv, lens, heads)
         result = {"max_err": ulp_bf16_error(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
@@ -394,10 +398,10 @@ def _kept_fraction_off(keep: torch.Tensor, rate: float) -> bool:
     return abs(keep.float().mean().item() - (1.0 - rate)) > 5.0 * ((1.0 - rate) * rate / n) ** 0.5
 
 
-def attention_train_case(seed, b, t, heads, lengths, device, zero_padded_cotangent=True):
+def attention_train_case(seed, b, t, heads, lengths, device, zero_padded_cotangent=True, dh=64):
     """The JAX selftests' training inputs: a bf16 packed qkv of std 0.3, int32 lengths and a bf16 cotangent."""
     rng = np.random.default_rng(seed)
-    h = heads * 64
+    h = heads * dh
     qkv = rng.standard_normal((b, t, 3 * h)).astype(np.float32) * 0.3
     lengths = np.asarray(lengths, np.int32)
     ct = rng.standard_normal((b, t, h)).astype(np.float32)
@@ -407,9 +411,9 @@ def attention_train_case(seed, b, t, heads, lengths, device, zero_padded_cotange
     return bf(qkv), torch.as_tensor(lengths, device=device), bf(ct)
 
 
-def _attention_train_check(seed, b, t, heads, lengths, rate, zero_padded_cotangent=True):
+def _attention_train_check(seed, b, t, heads, lengths, rate, zero_padded_cotangent=True, dh=64):
     def check(device) -> dict:
-        qkv, lens, ct = attention_train_case(seed, b, t, heads, lengths, device, zero_padded_cotangent)
+        qkv, lens, ct = attention_train_case(seed, b, t, heads, lengths, device, zero_padded_cotangent, dh)
         sd = torch.tensor([20260821], dtype=torch.int32, device=device)
         out, stats = mha_train_forward(qkv, lens, sd, heads, rate)
         dqkv = mha_train_backward(qkv, out, stats, ct, lens, sd, heads, rate)
@@ -752,6 +756,8 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_onepanel_1536": (_attention_check(6, 2, 1536, 12, [1536, 1479]), 4.0),
     "attn_onepanel_749": (_attention_check(7, 4, 749, 12, [749, 512, 37, 0]), 4.0),
     "attn_long_3001": (_attention_check(16, 1, 3001, 12, [3001]), 4.0),
+    # heads of 80 (MMS-1b's 16 x 80): T no multiple of 64, a full row, a partial row, a row of 37 and one of 0
+    "attn_onepanel_dh80": (_attention_check(18, 4, 749, 16, [749, 512, 37, 0], dh=80), 4.0),
     "add_ln": (_add_ln_check(5, (8, 768), 768), 2.0),
     **{f"add_ln_{name}": (_add_ln_check(*args), 2.0) for name, args in ADD_LN_WIDTHS.items()},
     # the training kernels: bf16 ULPs against the plain version and against the float32 reference with the
@@ -761,6 +767,9 @@ KERNEL_CHECKS: Dict[str, tuple[Callable[[str], dict], float]] = {
     "attn_train_dropout_1536": (_attention_train_check(9, 2, 1536, 2, [1536, 1536], 0.3, zero_padded_cotangent=False), 8.0),
     "attn_train_749": (_attention_train_check(10, 4, 749, 12, [749, 512, 37, 0], 0.1), 8.0),
     "attn_train_long_2048": (_attention_train_check(17, 2, 2048, 12, [2048, 1900], 0.1), 8.0),
+    # heads of 80 at rate 0 (the only rate the kernels take there), with the same ragged rows
+    "attn_train_dh80_grad": (_attention_train_check(19, 4, 330, 4, [330, 201, 37, 0], 0.0, dh=80), 8.0),
+    "attn_train_dh80_749": (_attention_train_check(20, 4, 749, 16, [749, 512, 37, 0], 0.0, dh=80), 8.0),
     "add_ln_train": (_check_add_ln_train, 8.0),
     **{f"add_ln_train_{name}": (_add_ln_train_check(*args), 8.0) for name, args in ADD_LN_WIDTHS.items()},
     # wav2vec2-base's train step (8 x 749 rows: two blocks an SM), fewer rows than the backward has warps in a

@@ -22,9 +22,13 @@ mode their training counterparts take the same places:
 ``kernels.add_ln_train.add_ln_dropout_train`` (the hidden dropout of the
 residual branch inside the kernel) and ``kernels.attention_train.mha_train``
 (the attention dropout inside the kernel), each differentiable through its
-own backward kernels and seeded afresh from the call's generator. float32
-keeps the JAX module's own unfused math, with dropout masks drawn from the
-generator. The TPU-only gates of the JAX module (the 640-frame flash
+own backward kernels and seeded afresh from the call's generator. The
+attention kernels take heads of 64 (the JAX module's ``mha_from_qkv`` and
+``mha_train`` routes) and of 80 (MMS-1b's widths: the JAX module's flash
+route, ``_flash_mha``, which trains only at ``attention_dropout == 0``; so
+here heads of 80 train on the kernels at that rate and unfused above it).
+float32 keeps the JAX module's own unfused math, with dropout masks drawn
+from the generator. The TPU-only gates of the JAX module (the 640-frame flash
 threshold, ``T % 128``, the 128-frame pad around the layer stack and the
 kill-switch environment variables) change no valid frame and are not ported.
 
@@ -76,7 +80,7 @@ from torch import nn
 
 from thunder_tpu_torch.kernels.add_ln import add_layer_norm
 from thunder_tpu_torch.kernels.add_ln_train import add_ln_dropout_train
-from thunder_tpu_torch.kernels.attention import HEAD_DIM, mha_from_qkv
+from thunder_tpu_torch.kernels.attention import HEAD_DIMS, mha_from_qkv
 from thunder_tpu_torch.kernels.attention_train import mha_train
 from thunder_tpu_torch.kernels.dropout_hash import new_seed
 from thunder_tpu_torch.models.layers import Dense, dense, dropout, run_block
@@ -428,11 +432,13 @@ class _FeatureExtractor(nn.Module):
 class _Attention(nn.Module):
     """Self-attention with a fused ``qkv_proj`` (one ``(h, 3h)`` GEMM) and ``out_proj``.
 
-    bfloat16 with dh = 64 and no position bias runs the attention kernels on
-    the packed GEMM output at every length: ``kernels.attention.mha_from_qkv``
-    in eval mode, ``kernels.attention_train.mha_train`` in train mode, with
-    ``attention_dropout`` inside the kernel under a fresh seed from
-    ``generator``. Every other case runs the JAX module's unfused path: the
+    bfloat16 with no position bias runs the attention kernels on the packed
+    GEMM output at every length: ``kernels.attention.mha_from_qkv`` in eval
+    mode at dh 64 or 80; ``kernels.attention_train.mha_train`` in train mode
+    at dh 64, with ``attention_dropout`` inside the kernel under a fresh seed
+    from ``generator``, and at dh 80 when ``attention_dropout == 0`` (the
+    JAX module's flash route trains only there). Every other case, dh 80 in
+    train mode with dropout among them, runs the JAX module's unfused path: the
     scores in the compute dtype (float32 in train mode), WavLM's gated bias
     added in that type, the key mask at its minimum, the softmax in float32,
     and in train mode dropout on the probabilities.
@@ -471,7 +477,8 @@ class _Attention(nn.Module):
         heads = cfg.num_attention_heads
         dh = h // heads
         qkv = self.qkv_proj(x)
-        if self.dtype == torch.bfloat16 and dh == HEAD_DIM and position_bias is None:
+        fused = self.dtype == torch.bfloat16 and dh in HEAD_DIMS and position_bias is None
+        if fused and (dh == 64 or not train or cfg.attention_dropout == 0.0):
             if not train:
                 return self.out_proj(mha_from_qkv(qkv, lengths.to(torch.int32), heads))
             rate = cfg.attention_dropout
